@@ -1,0 +1,79 @@
+"""Core enums and scalar types of the PyTorch port.
+
+Counterpart of flexflow_tpu/fftype.py: the same enum names and values,
+so a graph described in one package reads the same in the other.
+`DataType` maps onto torch dtypes instead of jnp dtypes.  Only the
+enums the serving slice reaches are carried.
+"""
+from __future__ import annotations
+
+import enum
+
+import numpy as np
+import torch
+
+
+class DataType(enum.Enum):
+    BOOL = "bool"
+    INT32 = "int32"
+    INT64 = "int64"
+    HALF = "float16"
+    BF16 = "bfloat16"
+    FLOAT = "float32"
+    DOUBLE = "float64"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.value)
+
+    @property
+    def size_bytes(self) -> int:
+        return self.torch_dtype.itemsize
+
+    @classmethod
+    def from_any(cls, value) -> "DataType":
+        if isinstance(value, cls):
+            return value
+        if isinstance(value, torch.dtype):
+            name = str(value).removeprefix("torch.")
+        elif isinstance(value, str) and value == "bfloat16":
+            name = value  # numpy has no bfloat16
+        else:
+            name = np.dtype(value).name
+        for member in cls:
+            if member.value == name:
+                return member
+        raise ValueError(f"unsupported dtype: {value!r}")
+
+
+class ActiMode(enum.Enum):
+    NONE = "none"
+    RELU = "relu"
+    SIGMOID = "sigmoid"
+    TANH = "tanh"
+    GELU = "gelu"
+
+
+class AggrMode(enum.Enum):
+    NONE = "none"
+    SUM = "sum"
+    AVG = "avg"
+
+
+class CompMode(enum.Enum):
+    TRAINING = "training"
+    INFERENCE = "inference"
+
+
+class OperatorType(enum.Enum):
+    INPUT = "input"
+    LINEAR = "linear"
+    EMBEDDING = "embedding"
+    MULTIHEAD_ATTENTION = "multihead_attention"
+    ELEMENT_BINARY = "element_binary"
+    LAYER_NORM = "layer_norm"
+    NOOP = "noop"
+
+
+class OpBinary(enum.Enum):
+    ADD = "add"

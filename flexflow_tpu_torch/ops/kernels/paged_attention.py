@@ -1,0 +1,228 @@
+"""Paged attention over the serving tier's paged KV pool: the read side
+of every paged decode step, in every layer.
+
+Replaces the TPU kernel `_paged_kernel` (launched by `paged_attention`,
+flexflow_tpu/ops/pallas/paged_attention.py).  On the card it is a CUDA
+C++ kernel written by hand for sm_90a, `csrc/paged_attention.cu`,
+built with nvcc at first use into `flexflow_tpu_torch/_build/` and
+loaded through ctypes.  The kernel is bound by bytes: it reads each
+row's live KV pages once, in place through the block table, with two
+flops per element read; one block per (head, row) streams only that
+row's live pages, so per-step reads follow live tokens instead of
+`decode_max_seq` (see the source's note for the rest of the design).
+
+`paged_attention` keeps the reference's signature and layout.  A CPU
+tensor runs `paged_attention_plain`, the gather formulation of
+`MultiHeadAttention._attend_decode_paged` (the reference oracle):
+gather the row's pages into a dense view, mask `key_pos <= pos + j`,
+softmax, then the context product.  A CUDA tensor launches the kernel
+or raises; nothing falls back.  `paged_attention.launches` counts the
+kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+SOURCE = _PKG / "csrc" / "paged_attention.cu"
+BUILD_DIR = _PKG / "_build"
+# where the CUDA toolkit installs nvcc when it is not on PATH
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+MAX_CHUNK = 16  # the kernel's kMaxChunk
+HEAD_DIMS = (64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def blocks_read(seq_lens: np.ndarray, live_mask: np.ndarray, chunk: int,
+                page: int, table_width: int) -> int:
+    """Host-side twin of the kernel's traffic: physical KV blocks one
+    launch reads for the rows `live_mask` marks live (idle rows count
+    0).  The dense-gather equivalent is ``len(seq_lens) *
+    table_width``."""
+    pos = np.asarray(seq_lens, np.int64)
+    last = np.minimum(pos + chunk - 1, table_width * page - 1)
+    per_row = np.where(np.asarray(live_mask, bool), last // page + 1, 0)
+    return int(per_row.sum())
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's default
+    install location."""
+    cuda_home = os.environ.get("CUDA_HOME")
+    candidates = [str(Path(cuda_home) / "bin" / "nvcc")] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append(DEFAULT_NVCC)
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "cannot build the paged-attention kernel: nvcc was not found "
+        "($CUDA_HOME/bin, $PATH or " + DEFAULT_NVCC + ")")
+
+
+def build() -> Path:
+    """Compile the kernel's shared library (once per source content)
+    and return its path.  The name carries a hash of the source and the
+    flags, so an edited source builds anew."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"libff_paged_attention_{tag[:16]}.so"
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.ff_paged_attention.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            lib.ff_paged_attention.restype = ctypes.c_int
+            lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.ff_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def paged_attention_plain(qh, k_pool, v_pool, block_table, seq_lens,
+                          scale: float) -> torch.Tensor:
+    """The gather formulation of the read side, on any device: per chunk
+    position j, a dense [b, table_width * page] view of the row's
+    pages, the mask key_pos <= pos + j (filled with the dtype's finfo
+    min, as the reference oracle does), softmax and the context
+    product, all in qh's dtype."""
+    b, s, h, _ = qh.shape
+    page = k_pool.shape[1]
+    n = block_table.shape[1] * page
+    btab = block_table.long()
+    pos = seq_lens.reshape(b).long()
+    kv_k = k_pool[btab].reshape(b, n, h, -1).to(qh.dtype)
+    kv_v = v_pool[btab].reshape(b, n, h, -1).to(qh.dtype)
+    key_pos = torch.arange(n, device=qh.device)
+    ctxs = []
+    for j in range(s):
+        scores = torch.einsum("bqhd,bkhd->bhqk", qh[:, j:j + 1],
+                              kv_k) * scale
+        mask = key_pos[None, :] <= (pos + j)[:, None]  # [b, n]
+        scores = scores.masked_fill(~mask[:, None, None, :],
+                                    torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores, dim=-1)
+        ctxs.append(torch.einsum("bhqk,bkhd->bqhd", probs, kv_v))
+    return ctxs[0] if s == 1 else torch.cat(ctxs, dim=1)
+
+
+def _check(qh, k_pool, v_pool, block_table, seq_lens):
+    b, s, h, dk = qh.shape
+    dev = qh.device
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_table", block_table), ("seq_lens", seq_lens)):
+        if t.device != dev:
+            raise ValueError(
+                f"paged_attention: {name} is on {t.device}, qh on {dev}")
+    if qh.dtype not in _DTYPE_CODES:
+        raise TypeError(
+            f"paged_attention kernel takes float32 or bfloat16, got "
+            f"{qh.dtype}")
+    if k_pool.dtype != qh.dtype or v_pool.dtype != qh.dtype:
+        raise TypeError(
+            f"paged_attention kernel needs one dtype for q and the pools, "
+            f"got {qh.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if block_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("paged_attention: block_table and seq_lens must "
+                        "be int32")
+    if not 1 <= s <= MAX_CHUNK:
+        raise ValueError(
+            f"paged_attention kernel takes 1..{MAX_CHUNK} queries per "
+            f"row, got {s}")
+    if k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
+            or k_pool.shape[2] != h or k_pool.shape[3] != dk:
+        raise ValueError(
+            f"paged_attention: pools {tuple(k_pool.shape)} / "
+            f"{tuple(v_pool.shape)} do not match qh {tuple(qh.shape)}")
+    if dk not in HEAD_DIMS:
+        raise ValueError(
+            f"paged_attention kernel takes head dims {HEAD_DIMS}, got {dk}")
+    if block_table.dim() != 2 or block_table.shape[0] != b \
+            or tuple(seq_lens.shape) != (b,):
+        raise ValueError(
+            f"paged_attention: block_table {tuple(block_table.shape)} / "
+            f"seq_lens {tuple(seq_lens.shape)} do not match {b} rows")
+    for name, t in (("qh", qh), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_table", block_table), ("seq_lens", seq_lens)):
+        if not t.is_contiguous():
+            raise ValueError(f"paged_attention: {name} is not contiguous")
+
+
+def paged_attention(qh, k_pool, v_pool, block_table, seq_lens,
+                    scale: float) -> torch.Tensor:
+    """Paged attention over the pool.
+
+    qh:          [b, s, h, dk]  this step's queries (s = 1 or chunk C)
+    k_pool:      [num_blocks, page, h, dk]  the physical K pool
+    v_pool:      [num_blocks, page, h, dv]
+    block_table: [b, table_width] int32 (host-owned, scratch-padded)
+    seq_lens:    [b] int32, row i's incoming position (its chunk
+                 occupies positions seq_lens[i] .. seq_lens[i]+s-1,
+                 already scattered into the pool by the caller)
+    ->           [b, s, h, dv] context, qh's dtype
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    on the current stream or raise."""
+    if qh.device.type == "cpu":
+        return paged_attention_plain(qh, k_pool, v_pool, block_table,
+                                     seq_lens, scale)
+    if qh.device.type != "cuda":
+        raise ValueError(
+            f"paged_attention runs on cuda or cpu tensors, got {qh.device}")
+    _check(qh, k_pool, v_pool, block_table, seq_lens)
+    b, s, h, dk = qh.shape
+    lib = load_library()
+    out = torch.empty((b, s, h, v_pool.shape[-1]), dtype=qh.dtype,
+                      device=qh.device)
+    with torch.cuda.device(qh.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ff_paged_attention(
+            qh.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            b, s, h, dk, k_pool.shape[1], block_table.shape[1],
+            float(scale), _DTYPE_CODES[qh.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged_attention kernel launch failed: CUDA error {rc} "
+            f"({lib.ff_cuda_error_string(rc).decode()})")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

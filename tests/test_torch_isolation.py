@@ -1,0 +1,104 @@
+"""The PyTorch port stands alone: no module of flexflow_tpu_torch (nor
+chip_smoke.py) imports jax or flexflow_tpu, importing the package
+leaves jax unloaded, a default-device build refuses to run without
+CUDA, and the kernel build names nvcc when it cannot find it."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "flexflow_tpu_torch"
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [(str(f.relative_to(ROOT)), m) for f in files
+                 for m in _imported_roots(f)
+                 if m in ("jax", "jaxlib", "flexflow_tpu")]
+    assert offenders == []
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.serving, "
+            "flexflow_tpu_torch.decoding, flexflow_tpu_torch.convert; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'flexflow_tpu' or "
+            "m.startswith('flexflow_tpu.')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_default_device_build_raises_without_cuda(monkeypatch):
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert FFConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        FFModel(FFConfig())
+    FFModel(FFConfig(device="cpu"))  # the host on request
+
+
+def test_kernel_build_names_nvcc_when_missing(monkeypatch, tmp_path):
+    from flexflow_tpu_torch.ops.kernels import paged_attention as pk
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(pk, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(pk, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pk.build()
+
+
+def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
+    """The wrapper picks the plain version only for CPU tensors: a
+    non-CPU tensor goes to the kernel's checks and launch (here the
+    first check raises), never to the gather formulation."""
+    from flexflow_tpu_torch.ops.kernels import paged_attention as pk
+
+    calls = []
+    monkeypatch.setattr(pk, "paged_attention_plain",
+                        lambda *a: calls.append(a))
+    q = torch.zeros(1, 1, 1, 64, device="meta")
+    with pytest.raises(ValueError):
+        pk.paged_attention(q, q, q, q, q, 0.125)
+    assert calls == [] and pk.paged_attention.launches == 0
+
+
+def test_config_flags_match_the_reference():
+    from flexflow_tpu.config import FFConfig as JaxConfig
+
+    from flexflow_tpu_torch import FFConfig
+
+    argv = ["-b", "3", "--seed", "5", "--kv-page-size", "4",
+            "--kv-pool-blocks", "33", "--serving-slots", "2",
+            "--prefill-chunk", "0", "--no-prefix-cache"]
+    mine, ref = FFConfig.from_args(argv), JaxConfig.from_args(argv)
+    for f in ("batch_size", "seed", "kv_page_size", "kv_pool_blocks",
+              "serving_slots", "prefill_chunk", "prefix_cache",
+              "compute_dtype"):
+        assert getattr(mine, f) == getattr(ref, f), f
+    assert FFConfig.from_args(["--device", "cpu"]).device == "cpu"
+    with pytest.raises(ValueError, match="kv_page_size"):
+        FFConfig(kv_page_size=0)
+    with pytest.raises(ValueError, match="device"):
+        FFConfig(device="tpu")
+    assert os.path.isfile(PORT / "csrc" / "paged_attention.cu")
