@@ -2,13 +2,19 @@
 """Drive the PyTorch port (flexflow_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --phases train    # the training path alone
 
 Phases, each a failure of which exits non-zero:
 
-1. kernels: build every kernel of the serving path from the sources in
-   this checkout (nvcc, sm_90a) and hold each against its plain PyTorch
-   version on the card; time kernel, plain version, a PyTorch library
-   yardstick and the card's bound at the main path's decode shape.
+1. kernels: build every kernel from the sources in this checkout (one
+   nvcc per source, started together; sm_90a) and hold each against its
+   plain PyTorch version on the card: paged attention (K4) at decode
+   shapes, and the flash-attention forward, dq and dkv kernels (K1-K3)
+   in float32 and bfloat16, d 64 and 128, causal and not, at seq 2048,
+   a ragged seq 200 and sq != sk.  Time kernel, plain version, a
+   PyTorch library yardstick and the card's bound at the main paths'
+   shapes: the 8-slot decode step for K4, [96, 2048, 64] float32
+   (BERT-base at batch 8, seq 2048) for K1-K3.
 2. serve: full-width GPT-2-small (hidden 768, 12 layers, 12 heads, FFN
    3072, vocab 50257, 1024 positions, float32, weights from
    np.random.RandomState(0)) behind ContinuousScheduler and serve_http;
@@ -21,6 +27,18 @@ Phases, each a failure of which exits non-zero:
    card's.
 4. profile: torch.profiler over 20 full-width decode steps; device time
    by kernel and the device's idle share.
+5. train: full-width BERT-base (hidden 768, 12 layers, 12 heads, FFN
+   3072, 2 classes) at batch 8, seq 2048, float32, inputs and labels
+   from np.random.RandomState(0): compile with the default SGD, one
+   warm-up train_step, fit over 4 batches, one eval_step.  The flash
+   kernels' launch counters are set to 0 just before fit and read just
+   after: K1, K2 and K3 must each have launched 12 times per step.
+6. train_parity: the same BERT cut to 2 layers at batch 2, seq 2048 (the
+   flash branch on both devices), two SGD steps on the card against the
+   port on device="cpu" with the same weights and batches: losses and
+   every weight after the steps.
+7. train_profile: torch.profiler over 3 full-width train steps; device
+   busy and idle time per step and K1, K2 and K3's shares.
 
 `--phases` runs a subset (e.g. `--phases kernels` after editing a
 kernel).  Every line but the last is one JSON object; the last is
@@ -55,6 +73,28 @@ TOL_REASON = {
                 "float32); 2e-2 covers the bfloat16 rounding of the "
                 "output, 2^-9 of |out| <= ~4",
 }
+# BERT-base, build_bert's own defaults, at entry()'s batch and the
+# reference's flash crossover
+BERT = dict(hidden_size=768, num_layers=12, num_heads=12,
+            intermediate_size=3072, num_classes=2)
+TRAIN_BATCH, TRAIN_SEQ, FIT_BATCHES = 8, 2048, 4
+FLASH_SHAPE = (TRAIN_BATCH * BERT["num_heads"], TRAIN_SEQ,
+               BERT["hidden_size"] // BERT["num_heads"])
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+FLASH_TOL_REASON = {
+    "float32": "error over the output's scale max(1, max|plain|): kernel "
+               "and plain version accumulate in float32 in other orders "
+               "over up to 2048 keys",
+    "bfloat16": "error over the output's scale, against the plain "
+                "version run in float32 on the same bfloat16 values: the "
+                "kernels round P and dS to bfloat16 before their products "
+                "(as the TPU kernels do) and their outputs to bfloat16, "
+                "2^-9 each",
+}
+# parity of the card's train steps with the port's CPU steps, TF32 off:
+# float32 on both, sums in other orders (cuBLAS and the flash kernels
+# against MKL and the plain versions)
+PARITY_TOL = {"loss": 1e-4, "weights": 2e-5}
 
 
 def emit(obj) -> None:
@@ -113,10 +153,7 @@ def paged_case(torch, rng, *, b, s, h, d, page, width, dtype, dev):
             torch.tensor(btab, **to), torch.tensor(slen, **to))
 
 
-def phase_kernels(torch, pk, card: str, dev) -> dict:
-    t0 = time.perf_counter()
-    lib_path = pk.build()
-    build_s = time.perf_counter() - t0
+def phase_kernels(torch, pk, card: str, dev, lib_path, build_s) -> dict:
     pk.load_library()
     rng = np.random.RandomState(0)
     cases, worst = [], {}
@@ -230,12 +267,12 @@ def random_weights(ff) -> dict:
 
 
 def build_model(device: str, weights=None):
-    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch import CompMode, FFConfig, FFModel
     from flexflow_tpu_torch.models.transformer import build_gpt
 
     ff = FFModel(FFConfig(batch_size=SLOTS, device=device))
     build_gpt(ff, batch_size=SLOTS, **WIDTH)
-    ff.compile()
+    ff.compile(comp_mode=CompMode.INFERENCE)
     weights = weights if weights is not None else random_weights(ff)
     ff.set_weights(weights)
     return ff, weights
@@ -466,13 +503,422 @@ def phase_profile(torch, card: str, ff, steps: int = 20) -> dict:
     emit(rec)
     return rec
 
+def _scaled_err(got, ref) -> tuple:
+    """(max |got - ref|, that over the output's scale max(1, max|ref|))"""
+    diff = float((got.float() - ref.float()).abs().max())
+    return diff, diff / max(1.0, float(ref.float().abs().max()))
+
+
+def flash_case(torch, fa, gen, *, bh, sq, sk, d, causal, dtype, dev):
+    """K1, K2 and K3 on one case against the plain versions run in
+    float32 on the same values; {kernel: (abs err, scaled err)}."""
+    q, k, v = (torch.randn(bh, n, d, generator=gen, device=dev).to(dtype)
+               for n in (sq, sk, sk))
+    dout = torch.randn(bh, sq, d, generator=gen, device=dev).to(dtype)
+    scale = 1.0 / np.sqrt(d)
+    out, lse = fa.flash_fwd(q, k, v, scale, causal)
+    delta = fa.flash_delta(out, dout)
+    dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal)
+    f = [t.float() for t in (q, k, v, dout)]
+    r_out, r_lse = fa.flash_fwd_plain(f[0], f[1], f[2], scale, causal)
+    r_dq, r_dk, r_dv = fa.flash_bwd_plain(f[0], f[1], f[2], r_out, r_lse,
+                                          f[3], scale, causal)
+    torch.cuda.synchronize()
+    got = {"K1": [(out, r_out), (lse, r_lse)], "K2": [(dq, r_dq)],
+           "K3": [(dk, r_dk), (dv, r_dv)]}
+    res = {}
+    for kern, pairs in got.items():
+        for g, _ in pairs:
+            if not torch.isfinite(g).all():
+                raise RuntimeError(f"{kern} output not finite: {dtype} "
+                                   f"bh={bh} sq={sq} sk={sk} d={d} "
+                                   f"causal={causal}")
+        errs = [_scaled_err(g, r) for g, r in pairs]
+        res[kern] = (max(e[0] for e in errs), max(e[1] for e in errs))
+    return res
+
+
+def flash_bounds(bh, sq, sk, d, itemsize=4) -> dict:
+    """Least time of each kernel on the card at one shape (non-causal):
+    the larger of its operations over the float32 SIMT peak and its
+    bytes (each input read once, each output written once) over HBM."""
+    pairs = bh * sq * sk * d
+    qb, kb = bh * sq * d * itemsize, bh * sk * d * itemsize
+    rows = bh * sq * 4
+    work = {
+        # QK^T and PV
+        "K1": (4 * pairs, 2 * qb + 2 * kb + rows),
+        # QK^T, dO V^T and dS K; reads q, k, v, dO, lse, delta; writes dq
+        "K2": (6 * pairs, 3 * qb + 2 * kb + 2 * rows),
+        # QK^T, dO V^T, P^T dO and dS^T Q; writes dk and dv
+        "K3": (8 * pairs, 2 * qb + 4 * kb + 2 * rows),
+    }
+    out = {}
+    for kern, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+        out[kern] = {"flops": flops, "bytes": nbytes,
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"}
+    return out
+
+
+def phase_flash_kernels(torch, fa, card: str, dev, lib_path) -> dict:
+    fa.load_library()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = [dict(bh=4, sq=2048, sk=2048), dict(bh=4, sq=200, sk=200)]
+    cases, worst = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        runs = [dict(sh, d=d, causal=c) for sh in shapes for d in (64, 128)
+                for c in (False, True)]
+        runs.append(dict(bh=4, sq=300, sk=1000, d=64, causal=False))
+        for r in runs:
+            res = flash_case(torch, fa, gen, dtype=dtype, dev=dev, **r)
+            cases.append(dict(r, dtype=dname, **{
+                f"{kern}_max_abs_err": e[0] for kern, e in res.items()},
+                **{f"{kern}_err_over_scale": e[1]
+                   for kern, e in res.items()}))
+            for kern, (abs_err, scaled) in res.items():
+                w = worst.setdefault(kern, {}).setdefault(dname, [0.0, 0.0])
+                w[0], w[1] = max(w[0], abs_err), max(w[1], scaled)
+                if scaled > FLASH_TOL[dname]:
+                    raise RuntimeError(
+                        f"{kern} disagrees with its plain version: {dname} "
+                        f"{r}: error {scaled} of the output's scale > "
+                        f"{FLASH_TOL[dname]}")
+
+    # the main path's shape: BERT-base at batch 8, seq 2048, float32,
+    # non-causal
+    bh, s, d = FLASH_SHAPE
+    q, k, v, dout = (torch.randn(bh, s, d, generator=gen, device=dev)
+                     for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = fa.flash_fwd(q, k, v, scale, False)
+    delta = fa.flash_delta(out, dout)
+    r_out, r_lse = fa.flash_fwd_plain(q, k, v, scale, False)
+    main_err = {"K1": max(_scaled_err(out, r_out)[1],
+                          _scaled_err(lse, r_lse)[1])}
+    r_dq, r_dk, r_dv = fa.flash_bwd_plain(q, k, v, out, lse, dout, scale,
+                                          False)
+    main_err["K2"] = _scaled_err(
+        fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, False), r_dq)[1]
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, False)
+    main_err["K3"] = max(_scaled_err(dk, r_dk)[1], _scaled_err(dv, r_dv)[1])
+    del r_out, r_lse, r_dq, r_dk, r_dv
+    for kern, e in main_err.items():
+        if e > FLASH_TOL["float32"]:
+            raise RuntimeError(f"main shape: {kern} vs plain {e}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    b, h = TRAIN_BATCH, BERT["num_heads"]
+    q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(q4, k4, v4, scale=scale)
+    dout4 = dout.view(b, h, s, d)
+    ms = {
+        "K1": time_ms(torch, lambda: fa.flash_fwd(q, k, v, scale, False),
+                      flush),
+        "K2": time_ms(torch, lambda: fa.flash_bwd_dq(
+            q, k, v, dout, lse, delta, scale, False), flush),
+        "K3": time_ms(torch, lambda: fa.flash_bwd_dkv(
+            q, k, v, dout, lse, delta, scale, False), flush),
+    }
+    plain_fwd = time_ms(torch, lambda: fa.flash_fwd_plain(
+        q, k, v, scale, False), flush, iters=10, warmup=2)
+    plain_bwd = time_ms(torch, lambda: fa.flash_bwd_plain(
+        q, k, v, out, lse, dout, scale, False), flush, iters=10, warmup=2)
+    lib_fwd = time_ms(torch, lambda: sdpa(q4, k4, v4, scale=scale), flush)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (q4, k4, v4), dout4, retain_graph=True), flush)
+    bounds = flash_bounds(bh, s, s, d)
+    rec = {
+        "phase": "kernels", "kernels": "K1-K3", "card": card,
+        "library": lib_path.name, "cases": cases,
+        "tolerance": FLASH_TOL, "tolerance_reason": FLASH_TOL_REASON,
+        "main_shape": {"bh": bh, "sq": s, "sk": s, "d": d,
+                       "dtype": "float32", "causal": False},
+        "main_shape_err_over_scale": main_err,
+        "kernel_ms": ms,
+        "plain_ms": {"K1": plain_fwd, "K2": plain_bwd, "K3": plain_bwd},
+        "plain_note": "K2 and K3 share one plain backward (dq, dk, dv)",
+        "library_ms": {"K1": lib_fwd, "K2": lib_bwd, "K3": lib_bwd},
+        "library_note": "scaled_dot_product_attention forward; its "
+                        "autograd backward (dq, dk, dv) for K2 and K3",
+        "bounds": bounds,
+        "tflops": {kern: bounds[kern]["flops"] / ms[kern] / 1e9
+                   for kern in ms},
+    }
+    emit(rec)
+    rec["worst"] = worst
+    return rec
+
+
+def build_bert_model(device: str, num_layers: int, batch: int, seed: int = 0,
+                     metrics=("accuracy", "sparse_categorical_crossentropy")):
+    """Full-width BERT at seq 2048, compiled for training with the
+    default SGD; weights drawn by compile from `seed`."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+
+    ff = FFModel(FFConfig(batch_size=batch, device=device, seed=seed))
+    build_bert(ff, batch_size=batch, seq_length=TRAIN_SEQ,
+               **dict(BERT, num_layers=num_layers))
+    ff.compile(metrics=metrics, seed=seed)
+    return ff
+
+
+def bert_data(n: int, seed: int):
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((n, TRAIN_SEQ, BERT["hidden_size"])).astype(
+        np.float32)
+    y = rng.randint(0, BERT["num_classes"], (n, 1)).astype(np.int32)
+    return x, y
+
+
+def flash_launches(fa) -> dict:
+    return {"K1": fa.flash_fwd.launches, "K2": fa.flash_bwd_dq.launches,
+            "K3": fa.flash_bwd_dkv.launches}
+
+
+def reset_flash_launches(fa) -> None:
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+
+
+def phase_train(torch, fa, card: str):
+    """Full-width BERT-base at batch 8, seq 2048 through compile,
+    train_step, fit and eval_step on the card."""
+    t0 = time.perf_counter()
+    ff = build_bert_model("cuda", BERT["num_layers"], TRAIN_BATCH)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    n = TRAIN_BATCH * (1 + FIT_BATCHES)
+    x, y = bert_data(n, seed=0)
+    t0 = time.perf_counter()
+    warm = ff.train_step({"input": x[:TRAIN_BATCH]}, y[:TRAIN_BATCH])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    losses = []
+    step = ff.train_step
+
+    def recording(inputs, labels):
+        m = step(inputs, labels)
+        losses.append(m["loss"])
+        return m
+
+    ff.train_step = recording
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_flash_launches(fa)
+    t0 = time.perf_counter()
+    hist = ff.fit(x[TRAIN_BATCH:], y[TRAIN_BATCH:], batch_size=TRAIN_BATCH,
+                  epochs=1, verbose=False)
+    wall = time.perf_counter() - t0  # fit synchronizes at the epoch's end
+    launches = flash_launches(fa)
+    del ff.train_step
+    peak = torch.cuda.max_memory_allocated()
+    reset_flash_launches(fa)
+    ev = ff.eval_step({"input": x[:TRAIN_BATCH]}, y[:TRAIN_BATCH])
+    logits = ff.forward({"input": x[:TRAIN_BATCH]})
+    eval_launches = flash_launches(fa)
+    want = BERT["num_layers"] * FIT_BATCHES
+    if launches != {"K1": want, "K2": want, "K3": want}:
+        raise RuntimeError(
+            f"train: flash launches {launches} over {FIT_BATCHES} steps, "
+            f"expected {BERT['num_layers']} per step each ({want})")
+    if eval_launches != {"K1": 2 * BERT["num_layers"], "K2": 0, "K3": 0}:
+        raise RuntimeError(f"train: eval_step + forward launched "
+                           f"{eval_launches}")
+    loss_vals = [float(warm["loss"])] + [float(v) for v in losses]
+    pm = hist[0]
+    if not (np.isfinite(loss_vals).all() and np.isfinite(float(ev["loss"]))
+            and tuple(logits.shape) == (TRAIN_BATCH, BERT["num_classes"])
+            and torch.isfinite(logits).all()):
+        raise RuntimeError(f"train: non-finite or misshapen results: "
+                           f"losses {loss_vals}, eval {ev}, logits "
+                           f"{tuple(logits.shape)}")
+    if pm.train_all != TRAIN_BATCH * FIT_BATCHES:
+        raise RuntimeError(f"train: fit scored {pm.train_all} samples")
+    rec = {
+        "phase": "train", "card": card,
+        "model": dict(BERT, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      dtype="float32", optimizer="SGD(lr=0.01, wd=1e-4)"),
+        "compile_s": compile_s, "warmup_step_s": warm_s,
+        "fit_steps": FIT_BATCHES, "fit_wall_s": wall,
+        "step_ms": wall / FIT_BATCHES * 1e3,
+        "samples_per_s": TRAIN_BATCH * FIT_BATCHES / wall,
+        "losses": loss_vals, "eval_loss": float(ev["loss"]),
+        "fit_accuracy": pm.accuracy,
+        "fit_mean_loss": pm.sparse_cce_loss / pm.train_all,
+        "flash_launches": launches,
+        "flash_launches_per_step": {k: v / FIT_BATCHES
+                                    for k, v in launches.items()},
+        "peak_memory_gb": peak / 1e9,
+    }
+    emit(rec)
+    return ff, x[:TRAIN_BATCH], y[:TRAIN_BATCH], rec
+
+
+def phase_train_parity(torch, fa, card: str) -> dict:
+    """Two SGD steps of full-width BERT, 2 layers, batch 2, seq 2048 on
+    the card and on the CPU from the same weights and batches."""
+    layers, batch, steps = 2, 2, 2
+    ff_g = build_bert_model("cuda", layers, batch, seed=1)
+    ff_c = build_bert_model("cpu", layers, batch, seed=1)
+    ff_c.set_weights(ff_g.get_weights())
+    x, y = bert_data(batch * steps, seed=1)
+    reset_flash_launches(fa)
+    losses = {"cuda": [], "cpu": []}
+    for i in range(steps):
+        sl = slice(batch * i, batch * (i + 1))
+        for dev, ff in (("cuda", ff_g), ("cpu", ff_c)):
+            losses[dev].append(float(ff.train_step({"input": x[sl]},
+                                                   y[sl])["loss"]))
+    launches = flash_launches(fa)
+    if launches != {"K1": layers * steps, "K2": layers * steps,
+                    "K3": layers * steps}:
+        raise RuntimeError(f"train_parity: card launches {launches}")
+    loss_diff = max(abs(a - b) for a, b in zip(losses["cuda"],
+                                               losses["cpu"]))
+    wg, wc = ff_g.get_weights(), ff_c.get_weights()
+    weight_diff, worst_w = 0.0, None
+    for op, entries in wc.items():
+        for k, v in entries.items():
+            dlt = float(np.abs(wg[op][k] - v).max())
+            if dlt > weight_diff:
+                weight_diff, worst_w = dlt, f"{op}.{k}"
+    if not all(np.isfinite(losses["cuda"] + losses["cpu"])):
+        raise RuntimeError(f"train_parity: non-finite losses {losses}")
+    if loss_diff > PARITY_TOL["loss"] or weight_diff > PARITY_TOL["weights"]:
+        raise RuntimeError(
+            f"train_parity: card vs CPU loss diff {loss_diff}, weight diff "
+            f"{weight_diff} ({worst_w}) over {PARITY_TOL}")
+    rec = {"phase": "train_parity", "card": card, "layers": layers,
+           "batch": batch, "seq": TRAIN_SEQ, "steps": steps,
+           "losses": losses, "max_loss_diff": loss_diff,
+           "max_weight_diff": weight_diff, "worst_weight": worst_w,
+           "tolerance": PARITY_TOL, "allow_tf32": False,
+           "flash_launches_on_card": launches}
+    emit(rec)
+    return rec
+
+
+def phase_train_profile(torch, fa, card: str, ff, x, y,
+                        steps: int = 3) -> dict:
+    """torch.profiler over `steps` full-width train steps: device time by
+    kernel, K1-K3's shares, busy and idle time per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ff.train_step({"input": x}, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ff.train_step({"input": x}, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, count = {}, {}
+    for evt in prof.events():
+        if "cuda" not in str(evt.device_type).lower():
+            continue
+        us = evt.time_range.elapsed_us()
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + us
+        count[evt.name] = count.get(evt.name, 0) + 1
+    busy_us = sum(by_name.values())
+    if not by_name:
+        raise RuntimeError("train_profile: the profiler saw no device time")
+    flash = {}
+    for kern, tag in (("K1", "flash_fwd_kernel"),
+                      ("K2", "flash_bwd_dq_kernel"),
+                      ("K3", "flash_bwd_dkv_kernel")):
+        us = sum(v for n, v in by_name.items() if tag in n)
+        n = sum(c for nm, c in count.items() if tag in nm)
+        flash[kern] = {"ms_per_step": us / 1e3 / steps,
+                       "share_of_busy": us / busy_us,
+                       "launches_per_step": n / steps}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    rec = {
+        "phase": "train_profile", "card": card, "steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_ms_per_step": (wall_ms - busy_us / 1e3) / steps,
+        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "device_events_per_step": sum(count.values()) / steps,
+        "flash": flash,
+        "top_kernels": [{"name": n[:80], "ms_per_step": us / 1e3 / steps,
+                         "launches_per_step": count[n] / steps}
+                        for n, us in top],
+    }
+    emit(rec)
+    return rec
+
+
+ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
+              "train_profile")
+
+
+def kernel_line(kern: dict, flash: dict, serve, train, card: str) -> dict:
+    """The JSON line of every kernel: launches on the main paths,
+    agreement with the plain versions and the times of this run."""
+    rows = [{
+        "name": "paged_attention",
+        "id": "K4",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "flexflow_tpu/ops/pallas/paged_attention.py:99",
+        "launches": serve["paged_attention_launches"] if serve else 0,
+        "launches_per_decode_step": (serve["launches_per_forward"]
+                                     if serve else None),
+        "max_abs_err": max(kern["worst"].values()),
+        "max_abs_err_by_dtype": kern["worst"],
+        "tolerance": TOL,
+        "ms": kern["kernel_ms"],
+        "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        "library_ms": kern["library_ms"],
+        "card": card,
+    }]
+    names = {"K1": ("flash_fwd", 78), "K2": ("flash_bwd_dq", 217),
+             "K3": ("flash_bwd_dkv", 265)}
+    for kid, (name, line) in names.items():
+        worst = flash["worst"][kid]
+        rows.append({
+            "name": name,
+            "id": kid,
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"flexflow_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": train["flash_launches"][kid] if train else 0,
+            "launches_per_train_step": (
+                train["flash_launches_per_step"][kid] if train else None),
+            "max_abs_err": max(w[0] for w in worst.values()),
+            "max_err_over_scale_by_dtype": {
+                dt: w[1] for dt, w in worst.items()},
+            "tolerance": FLASH_TOL,
+            "ms": flash["kernel_ms"][kid],
+            "plain_ms": flash["plain_ms"][kid],
+            "bound_ms": flash["bounds"][kid]["bound_ms"],
+            "bound_by": flash["bounds"][kid]["bound_by"],
+            "library_ms": flash["library_ms"][kid],
+            "card": card,
+        })
+    return {"kernels": rows}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,serve,parity,profile",
+    ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma-separated subset of the phases")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    unknown = phases - set(ALL_PHASES.split(","))
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
 
     import torch
 
@@ -482,15 +928,23 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from flexflow_tpu_torch.ops.kernels import _build
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
     from flexflow_tpu_torch.ops.kernels import paged_attention as pk
 
     card = card_line()
     emit({"card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    t0 = time.perf_counter()
+    paged_lib, flash_lib = _build.build(pk.SOURCE, fa.SOURCE)
+    build_s = time.perf_counter() - t0
+    emit({"build": [paged_lib.name, flash_lib.name], "build_s": build_s,
+          "note": "one nvcc per source, started together"})
     dev = torch.device("cuda")
-    kern = phase_kernels(torch, pk, card, dev) \
-        if "kernels" in phases else None
-    serve = None
+    kern = flash = serve = train = None
+    if "kernels" in phases:
+        kern = phase_kernels(torch, pk, card, dev, paged_lib, build_s)
+        flash = phase_flash_kernels(torch, fa, card, dev, flash_lib)
     if phases & {"serve", "parity", "profile"}:
         ff, weights = build_model("cuda")
         if "serve" in phases:
@@ -500,25 +954,17 @@ def main(argv=None) -> int:
             phase_parity(torch, card, ff, weights, prompts)
         if "profile" in phases:
             phase_profile(torch, card, ff)
+        del ff
+    if phases & {"train", "train_profile"}:
+        ff, xb, yb, train = phase_train(torch, fa, card)
+        if "train_profile" in phases:
+            phase_train_profile(torch, fa, card, ff, xb, yb)
+        del ff
+        torch.cuda.empty_cache()
+    if "train_parity" in phases:
+        phase_train_parity(torch, fa, card)
     if kern is not None:
-        emit({"kernels": [{
-            "name": "paged_attention",
-            "route": "cuda",
-            "source": "flexflow_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "flexflow_tpu/ops/pallas/paged_attention.py:99",
-            "launches": serve["paged_attention_launches"] if serve else 0,
-            "launches_per_decode_step": (serve["launches_per_forward"]
-                                         if serve else None),
-            "max_abs_err": max(kern["worst"].values()),
-            "max_abs_err_by_dtype": kern["worst"],
-            "tolerance": TOL,
-            "ms": kern["kernel_ms"],
-            "plain_ms": kern["plain_ms"],
-            "bound_ms": kern["bound_ms"],
-            "bound_by": kern["bound_by"],
-            "library_ms": kern["library_ms"],
-            "card": card,
-        }]})
+        emit(kernel_line(kern, flash, serve, train, card))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,11 @@
 """Runtime configuration of the PyTorch port.
 
 Counterpart of flexflow_tpu/config.py, cut to the FFConfig fields and
-`from_args` flags the serving slice reads: the batch size, the compute
-dtype, the seed of the weight init, the paged KV-pool geometry of the
-continuous engine, and `device`, which the reference does not have.
-The flag names are the reference's own.
+`from_args` flags the serving and training slices read: the batch size,
+epochs, learning rate and weight decay, the compute dtype, the seed of
+the weight init, attention's flash crossover, the paged KV-pool
+geometry of the continuous engine, and `device`, which the reference
+does not have.  The flag names are the reference's own.
 """
 from __future__ import annotations
 
@@ -14,9 +15,7 @@ from typing import List, Optional
 
 import torch
 
-# attention takes the flash branch at KV length >= this (the reference's
-# DEFAULT_FLASH_MIN_SEQ); the port raises there until the flash kernels
-# land in the training slice
+# default of FFConfig.flash_min_seq (the reference's DEFAULT_FLASH_MIN_SEQ)
 DEFAULT_FLASH_MIN_SEQ = 2048
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -27,6 +26,15 @@ class FFConfig:
     batch_size: int = 64
     seed: int = 0
     compute_dtype: str = "float32"
+
+    # -- training (the reference's -e, -b, --lr, --wd)
+    epochs: int = 1
+    learning_rate: float = 0.01
+    weight_decay: float = 1e-4
+    # attention takes the flash kernels at KV length >= this (or when the
+    # score tensor would pass 2 GiB); 0 forces flash everywhere.  Compile
+    # stamps it on every op.
+    flash_min_seq: int = DEFAULT_FLASH_MIN_SEQ
     # "cuda" (the default) or "cuda:N" runs on the card and raises when
     # there is none; "cpu" runs the ops and the kernels' plain versions
     # on the host
@@ -52,6 +60,10 @@ class FFConfig:
             raise ValueError(
                 f"device must be 'cuda', 'cuda:N' or 'cpu', got "
                 f"{self.device!r}")
+        if self.flash_min_seq < 0:
+            raise ValueError(
+                f"flash_min_seq must be >= 0 (0 = always flash), got "
+                f"{self.flash_min_seq}")
         if self.kv_page_size < 1:
             raise ValueError(
                 f"kv_page_size must be >= 1, got {self.kv_page_size}")
@@ -69,9 +81,16 @@ class FFConfig:
 
     @classmethod
     def from_args(cls, argv: Optional[List[str]] = None) -> "FFConfig":
-        """Parse the flags of this slice (the reference's names)."""
+        """Parse the flags of the ported slices (the reference's names)."""
         p = argparse.ArgumentParser(add_help=False)
+        p.add_argument("-e", "--epochs", type=int, default=1)
         p.add_argument("-b", "--batch-size", type=int, default=64)
+        p.add_argument("--lr", "--learning-rate", dest="lr", type=float,
+                       default=0.01)
+        p.add_argument("--wd", "--weight-decay", dest="wd", type=float,
+                       default=1e-4)
+        p.add_argument("--flash-min-seq", dest="flash_min_seq", type=int,
+                       default=DEFAULT_FLASH_MIN_SEQ)
         p.add_argument("--seed", type=int, default=0)
         p.add_argument("--device", type=str, default="cuda")
         p.add_argument("--kv-page-size", dest="kv_page_size", type=int,
@@ -86,7 +105,11 @@ class FFConfig:
                        action="store_false")
         args, _ = p.parse_known_args(argv)
         return cls(
+            epochs=args.epochs,
             batch_size=args.batch_size,
+            learning_rate=args.lr,
+            weight_decay=args.wd,
+            flash_min_seq=args.flash_min_seq,
             seed=args.seed,
             device=args.device,
             kv_page_size=args.kv_page_size,

@@ -17,7 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .fftype import OperatorType
+from .fftype import CompMode, OperatorType
 from .model import FFModel
 
 
@@ -70,7 +70,7 @@ def make_gpt_decoder(ff_train: FFModel, batch_size: Optional[int] = None,
         max_positions=dims["max_seq"], decode_max_seq=dims["max_seq"],
         kv_page_size=kv_page_size, kv_num_blocks=kv_num_blocks,
     )
-    ffd.compile()
+    ffd.compile(comp_mode=CompMode.INFERENCE)
     # every weight is seq-independent, so the trained tensors drop
     # straight in, shared, by (op, weight) name
     shared = {}

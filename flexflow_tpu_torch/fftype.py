@@ -3,7 +3,7 @@
 Counterpart of flexflow_tpu/fftype.py: the same enum names and values,
 so a graph described in one package reads the same in the other.
 `DataType` maps onto torch dtypes instead of jnp dtypes.  Only the
-enums the serving slice reaches are carried.
+enums the serving and training slices reach are carried.
 """
 from __future__ import annotations
 
@@ -60,6 +60,23 @@ class AggrMode(enum.Enum):
     AVG = "avg"
 
 
+class LossType(enum.Enum):
+    CATEGORICAL_CROSSENTROPY = "categorical_crossentropy"
+    SPARSE_CATEGORICAL_CROSSENTROPY = "sparse_categorical_crossentropy"
+    MEAN_SQUARED_ERROR_AVG_REDUCE = "mean_squared_error_avg"
+    MEAN_SQUARED_ERROR_SUM_REDUCE = "mean_squared_error_sum"
+    IDENTITY = "identity"
+
+
+class MetricsType(enum.Enum):
+    ACCURACY = "accuracy"
+    CATEGORICAL_CROSSENTROPY = "categorical_crossentropy"
+    SPARSE_CATEGORICAL_CROSSENTROPY = "sparse_categorical_crossentropy"
+    MEAN_SQUARED_ERROR = "mean_squared_error"
+    ROOT_MEAN_SQUARED_ERROR = "root_mean_squared_error"
+    MEAN_ABSOLUTE_ERROR = "mean_absolute_error"
+
+
 class CompMode(enum.Enum):
     TRAINING = "training"
     INFERENCE = "inference"
@@ -72,6 +89,9 @@ class OperatorType(enum.Enum):
     MULTIHEAD_ATTENTION = "multihead_attention"
     ELEMENT_BINARY = "element_binary"
     LAYER_NORM = "layer_norm"
+    SOFTMAX = "softmax"  # no op of the port yet: compile's from_logits test
+    REDUCE_SUM = "reduce_sum"
+    MEAN = "mean"
     NOOP = "noop"
 
 

@@ -1,29 +1,40 @@
 """FFModel of the PyTorch port (flexflow_tpu/model.py).
 
-The layer API that `models.transformer.build_gpt` calls, `compile` in
-inference mode on one device, `forward`, and weight access in the
-reference's {op: {name: array}} layout.  The device comes from
-FFConfig.device: "cuda" by default, which raises on a machine without
-CUDA; "cpu" runs on the host.  Training (optimizers, train_step, fit)
-comes with the training slice.
+The layer API that `models.transformer.build_gpt` and `build_bert`
+call, `compile` on one device under the trivial strategy (training or
+inference), `train_step`, `eval_step`, `fit`, `forward`, and weight
+access in the reference's {op: {name: array}} layout.  The device comes
+from FFConfig.device: "cuda" by default, which raises on a machine
+without CUDA; "cpu" runs on the host.
+
+A train step updates the weight tensors in place (the optimizer runs
+under torch.no_grad()), where the reference's jitted step donated them
+and returned new ones; `get_weights` copies them out.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Union
+import time
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .config import FFConfig, resolve_device
+from .dataloader import SingleDataLoader, to_device
 from .executor import GraphExecutor
-from .fftype import ActiMode, AggrMode, CompMode, DataType, OpBinary
+from .fftype import (ActiMode, AggrMode, CompMode, DataType, LossType,
+                     MetricsType, OpBinary, OperatorType)
 from .initializer import Initializer
+from .loss import Loss
+from .metrics import Metrics, PerfMetrics
 from .ops.attention import MultiHeadAttention, MultiHeadAttentionParams
 from .ops.dense import Embedding, EmbeddingParams, Linear, LinearParams
 from .ops.element import ElementBinary, ElementBinaryParams
 from .ops.norm import LayerNorm, LayerNormParams
 from .ops.op import Op
+from .ops.shape import Mean, ReduceParams
 from .ops.sources import InputOp, SourceParams
+from .optimizer import Optimizer, SGDOptimizer
 from .pcg.graph import Graph
 from .tensor import ParallelTensor, ParallelTensorShape
 
@@ -37,6 +48,15 @@ class FFModel:
         self.executor: Optional[GraphExecutor] = None
         self._weights = None
         self._state = None
+        self.comp_mode: Optional[CompMode] = None
+        self.optimizer: Optional[Optimizer] = None
+        self.loss: Optional[Loss] = None
+        self.metrics: Optional[Metrics] = None
+        self._opt_state = None
+        self._step_fn = None
+        self._eval_fn = None
+        self._generator: Optional[torch.Generator] = None
+        self._stop_training = False  # set by early-stopping callbacks
         self._used_names: set = set()
         self._name_counts: Dict[str, int] = {}
 
@@ -128,28 +148,145 @@ class FFModel:
         return self._add(LayerNorm(p, [input],
                                    name=self._name("layer_norm", name)))
 
+    def mean(self, input, axes: Sequence[int], keepdims: bool = False,
+             name=None):
+        p = ReduceParams(tuple(axes), keepdims, "mean")
+        return self._add(Mean(p, [input], name=self._name("mean", name)))
+
     # -- compile / run -----------------------------------------------------
-    def compile(self, comp_mode: CompMode = CompMode.INFERENCE,
+    def compile(self, optimizer: Optional[Optimizer] = None,
+                loss_type: Union[LossType, str] =
+                LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                metrics: Sequence[Union[MetricsType, str]] =
+                (MetricsType.ACCURACY,),
+                comp_mode: CompMode = CompMode.TRAINING,
                 seed: Optional[int] = None):
         """Build the executor on the config's device under the trivial
-        strategy and draw the weights.  Only inference is in this
-        slice of the port."""
-        if comp_mode != CompMode.INFERENCE:
-            raise NotImplementedError(
-                "compile(comp_mode=TRAINING): training comes with the "
-                "training slice of the port")
-        cd = self.config.compute_dtype
+        strategy, stamp FFConfig.flash_min_seq on every op, draw the
+        weights and the optimizer's state.  The default optimizer is
+        SGD at the config's learning rate and weight decay.  In
+        TRAINING mode the trainable weights require grad, for
+        train_step's autograd; INFERENCE leaves them plain."""
+        cfg = self.config
+        self.comp_mode = comp_mode
+        self.optimizer = optimizer or SGDOptimizer(
+            lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
+        # the reference's convention: a model ending in Softmax feeds
+        # probabilities to the loss, not logits
+        sink_is_softmax = self.layers.sink_op().op_type == \
+            OperatorType.SOFTMAX
+        self.loss = Loss(loss_type, from_logits=not sink_is_softmax)
+        self.metrics = Metrics(self.loss.loss_type, metrics)
+        cd = cfg.compute_dtype
         self.operators = self.layers
         self.executor = GraphExecutor(
             self.operators, self.device,
-            compute_dtype=None if cd == "float32" else getattr(torch, cd))
+            compute_dtype=None if cd == "float32" else getattr(torch, cd),
+            loss=self.loss, metrics=self.metrics, optimizer=self.optimizer)
+        for op in self.operators.topo_order():
+            op._flash_min_seq = cfg.flash_min_seq
+        seed = seed if seed is not None else cfg.seed
         with torch.no_grad():
-            self._weights, self._state = self.executor.init_weights(
-                seed if seed is not None else self.config.seed)
+            self._weights, self._state = self.executor.init_weights(seed)
+            self._opt_state = self.optimizer.init_state(self._weights)
+        if comp_mode == CompMode.TRAINING:
+            for entries in self._weights.values():
+                for w in entries.values():
+                    w.requires_grad_(True)
+        self._step_fn = self.executor.build_step()
+        self._eval_fn = self.executor.build_eval_step()
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(int(cfg.seed))
+        return self
 
     def _is_decode_graph(self) -> bool:
         return any(getattr(op, "_decode_max_seq", 0)
                    for op in self.operators.ops)
+
+    def _check_not_decode_graph(self, what: str):
+        if self._is_decode_graph():
+            raise RuntimeError(
+                f"{what} on a decode-mode graph (decode_max_seq > 0) is "
+                "not supported: the decode twin only serves")
+
+    def put_batch(self, inputs, labels):
+        """(inputs, labels) on the model's device, each input in its
+        input tensor's dtype."""
+        dtypes = {op.name: op.outputs[0].dtype.torch_dtype
+                  for op in self.layers.source_ops()}
+        return ({k: to_device(v, self.device, dtypes.get(k))
+                 for k, v in inputs.items()},
+                to_device(labels, self.device))
+
+    def train_step(self, inputs: Dict[str, np.ndarray],
+                   labels: np.ndarray) -> Dict[str, torch.Tensor]:
+        """One iteration: forward, loss, backward, the in-place update
+        and the metrics.  Returns the metric sums and "loss" as tensors
+        on the model's device (no host sync)."""
+        self._check_not_decode_graph("train_step()")
+        if self.comp_mode != CompMode.TRAINING:
+            raise RuntimeError("train_step() needs compile(comp_mode="
+                               f"TRAINING), the model has {self.comp_mode}")
+        feed, lab = self.put_batch(inputs, labels)
+        return self._step_fn(self._weights, self._opt_state, self._state,
+                             feed, lab, self._generator)
+
+    def eval_step(self, inputs: Dict[str, np.ndarray],
+                  labels: np.ndarray) -> Dict[str, torch.Tensor]:
+        self._check_not_decode_graph("eval_step()")
+        feed, lab = self.put_batch(inputs, labels)
+        return self._eval_fn(self._weights, self._state, feed, lab)
+
+    def fit(self, x: Union[np.ndarray, Sequence[np.ndarray],
+                           Dict[str, np.ndarray]],
+            y: np.ndarray, batch_size: Optional[int] = None,
+            epochs: Optional[int] = None, callbacks: Sequence = (),
+            verbose: bool = True, shuffle: bool = False
+            ) -> List[PerfMetrics]:
+        """Train over numpy data, batched through SingleDataLoader (the
+        reference's fit loop): one PerfMetrics per epoch, accumulated on
+        the device and brought to the host once per epoch.  Callbacks
+        get on_train_begin(model), on_epoch_end(model, epoch, metrics)
+        and on_train_end(model); one may set model._stop_training."""
+        if self._step_fn is None:
+            raise RuntimeError("call compile() first")
+        batch_size = batch_size or self.config.batch_size
+        epochs = epochs or self.config.epochs
+        input_ops = self.layers.source_ops()
+        if isinstance(x, dict):
+            x_map = x
+        elif isinstance(x, (list, tuple)):
+            x_map = {op.name: arr for op, arr in zip(input_ops, x)}
+        else:
+            x_map = {input_ops[0].name: x}
+        loader = SingleDataLoader(self, x_map, y, batch_size=batch_size,
+                                  shuffle=shuffle, seed=self.config.seed)
+        history: List[PerfMetrics] = []
+        for cb in callbacks:
+            cb.on_train_begin(self)
+        for epoch in range(epochs):
+            pm = PerfMetrics()
+            t0 = time.perf_counter()
+            for batch, labels in loader:
+                pm.accumulate(self.train_step(batch, labels))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t0
+            pm.finalize()  # the epoch's one metrics transfer
+            throughput = loader.num_batches * batch_size / dt
+            if verbose:
+                print(f"epoch {epoch}: {pm.summary()} "
+                      f"ELAPSED TIME = {dt:.4f}s, THROUGHPUT = "
+                      f"{throughput:.2f} samples/s")
+            history.append(pm)
+            for cb in callbacks:
+                cb.on_epoch_end(self, epoch, pm)
+            if self._stop_training:
+                self._stop_training = False
+                break
+        for cb in callbacks:
+            cb.on_train_end(self)
+        return history
 
     def forward(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:
         """One forward pass of a compiled (non-decode) graph on numpy or

@@ -1,4 +1,4 @@
-"""The GPT model definition and host sampling
+"""The GPT and BERT model definitions and host sampling
 (flexflow_tpu/models/transformer.py).
 
 `build_gpt` is the reference's pre-LN GPT-2 graph with the same layer
@@ -6,6 +6,11 @@ names (tok_embed, pos_embed, ln1_i, attn_i, ln2_i, ffn1_i, ffn2_i,
 final_ln, lm_head), so weights cross between the packages by name.
 Its defaults are GPT-2-small: hidden 768, 12 layers, 12 heads, FFN
 3072, vocab 50257, 1024 positions.
+
+`build_bert` is the reference's post-LN BERT encoder with a
+mean-pooled classifier (attn_i, attn_res_i, attn_ln_i, ffn1_i, ffn2_i,
+ffn_res_i, ffn_ln_i, pool, classifier).  Its defaults are BERT-base:
+hidden 768, 12 layers, 12 heads, FFN 3072.
 """
 from __future__ import annotations
 
@@ -49,6 +54,36 @@ def build_gpt(ff, batch_size: int = 8, seq_length: int = 1024,
         t = ff.add(t, h, name=f"ffn_res_{i}")
     t = ff.layer_norm(t, axes=[-1], name="final_ln")
     return ff.dense(t, vocab_size, use_bias=False, name="lm_head")
+
+
+def build_bert(ff, batch_size: int = 32, seq_length: int = 128,
+               hidden_size: int = 768, num_layers: int = 12,
+               num_heads: int = 12, intermediate_size: int = 3072,
+               vocab_size: int = 30522, num_classes: int = 2,
+               dropout: float = 0.0, from_token_ids: bool = False):
+    """BERT-base encoder stack with a classification head: features
+    [b, s, hidden] (or token ids through tok_embed) -> N x [attention ->
+    residual -> LN; GELU FFN -> residual -> LN] -> mean over the
+    sequence -> classifier logits."""
+    if from_token_ids:
+        ids = ff.create_tensor([batch_size, seq_length], dtype="int32",
+                               name="input")
+        t = ff.embedding(ids, vocab_size, hidden_size, name="tok_embed")
+    else:
+        t = ff.create_tensor([batch_size, seq_length, hidden_size],
+                             name="input")
+    for i in range(num_layers):
+        a = ff.multihead_attention(t, t, t, hidden_size, num_heads,
+                                   dropout=dropout, name=f"attn_{i}")
+        t = ff.add(t, a, name=f"attn_res_{i}")
+        t = ff.layer_norm(t, axes=[-1], name=f"attn_ln_{i}")
+        h = ff.dense(t, intermediate_size, activation=ActiMode.GELU,
+                     name=f"ffn1_{i}")
+        h = ff.dense(h, hidden_size, name=f"ffn2_{i}")
+        t = ff.add(t, h, name=f"ffn_res_{i}")
+        t = ff.layer_norm(t, axes=[-1], name=f"ffn_ln_{i}")
+    pooled = ff.mean(t, axes=[1], name="pool")
+    return ff.dense(pooled, num_classes, name="classifier")
 
 
 def validate_sampling(top_k: int, top_p: float):

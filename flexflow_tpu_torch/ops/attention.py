@@ -2,13 +2,17 @@
 
 Per-projection weights in the reference's layout: wq/wk/wv are
 [embed, heads, head_dim] and wo is [heads, head_dim, embed].  Two
-modes run in this slice:
+modes run in the port:
 
-  * the train-graph forward, through the non-flash causal `_attend`
-    branch (the dense score matrix).  Where the reference would take
-    the flash kernels (KV length >= flash_min_seq, or a score tensor
-    past 2 GiB) this raises NotImplementedError: those kernels come
-    with the training slice;
+  * the train-graph forward `_attend`, in training and inference.  At
+    a KV length >= flash_min_seq (FFConfig.flash_min_seq, stamped on the
+    op by compile), or when the score tensor would pass 2 GiB, it takes
+    the flash kernels K1-K3 through `mha_flash` (the CUDA kernels on the
+    card, their plain versions on the CPU); below that, with attention
+    dropout, or for causal attention with appended keys, the dense
+    score matrix, whose dropout draws from the executor's
+    torch.Generator.  A sharded sequence (ring attention) raises until
+    the multi-GPU slice;
   * the PAGED decode mode (decode_max_seq > 0 and kv_page_size > 0),
     the serving tier's step: scatter this step's k/v into the block
     pool at each row's own position, in plain torch indexing and IN
@@ -19,6 +23,7 @@ modes run in this slice:
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -27,6 +32,7 @@ from ..config import DEFAULT_FLASH_MIN_SEQ
 from ..fftype import DataType, OperatorType
 from ..initializer import GlorotUniform, ZeroInitializer
 from ..tensor import ParallelDim, ParallelTensorShape
+from .kernels.flash_attention import mha_flash
 from .kernels.paged_attention import paged_attention
 from .op import Op, ShapeError, ShardConfig, WeightSpec
 
@@ -66,6 +72,8 @@ class MultiHeadAttention(Op):
         self._decode_max_seq = int(decode_max_seq)
         self._kv_page_size = int(kv_page_size)
         self._kv_num_blocks = int(kv_num_blocks)
+        # FFConfig.flash_min_seq; compile stamps the model's value
+        self._flash_min_seq = DEFAULT_FLASH_MIN_SEQ
         super().__init__(params, inputs, name=name,
                          shard=shard or ShardConfig())
 
@@ -235,7 +243,8 @@ class MultiHeadAttention(Op):
             WeightSpec("seq_lens", ints(qd[0].size), zero),
         ]
 
-    def forward(self, inputs, weights, *, training=False):
+    def forward(self, inputs, weights, *, training=False,
+                generator=None):
         q, k, v = inputs
         p: MultiHeadAttentionParams = self.params
         wq, wk, wv, wo = weights[:4]
@@ -274,7 +283,8 @@ class MultiHeadAttention(Op):
                 f"{self.name}: the dense-cache decode mode "
                 "(_attend_decode) is not in the serving slice of the "
                 "port; build the paged twin (kv_page_size > 0)")
-        ctx = self._attend(qh, kh, vh, scale, training=training)
+        ctx = self._attend(qh, kh, vh, scale, training=training,
+                           generator=generator)
         out = torch.einsum("bqhd,hde->bqe", ctx, wo)
         if bo is not None:
             out = out + bo[None, None]
@@ -312,29 +322,35 @@ class MultiHeadAttention(Op):
         return paged_attention(qh.contiguous(), k_cache, v_cache, btab,
                                pos.to(torch.int32).contiguous(), scale)
 
-    def _attend(self, qh, kh, vh, scale, *, training):
+    def _attend(self, qh, kh, vh, scale, *, training, generator=None):
         p: MultiHeadAttentionParams = self.params
         if self.inputs[0].shape.degrees[1] > 1:
             raise NotImplementedError(
                 f"{self.name}: ring attention (a sharded sequence) comes "
                 "with the multi-GPU slice of the port")
-        if training:
-            raise NotImplementedError(
-                f"{self.name}: the training forward comes with the "
-                "training slice of the port")
         kv_appended = kh.shape[1] - self.inputs[1].shape.logical_shape[1]
+        use_dropout = training and p.dropout > 0.0 and generator is not None
+        # the per-device [b, h, q, k] score tensor (one device: no
+        # partition degrees to divide by)
         scores_bytes = (qh.shape[0] * qh.shape[2] * qh.shape[1]
                         * kh.shape[1] * qh.element_size())
         force_flash = scores_bytes > _FLASH_FORCE_SCORE_BYTES
-        if not (p.causal and kv_appended) and (
-                kh.shape[1] >= DEFAULT_FLASH_MIN_SEQ or force_flash):
-            raise NotImplementedError(
-                f"{self.name}: KV length {kh.shape[1]} takes the flash "
-                "attention branch (flash kernels K1-K3), which comes with "
-                "the training slice of the port")
+        if force_flash and (use_dropout or (p.causal and kv_appended)):
+            warnings.warn(
+                f"{self.name}: ~{scores_bytes >> 30} GiB of attention "
+                "scores will materialize per device — the flash path "
+                "cannot take over because of "
+                + ("attention dropout" if use_dropout
+                   else "causal attention with appended kv "
+                        "(add_bias_kv/add_zero_attn)"))
+        if (not use_dropout and not (p.causal and kv_appended)
+                and (kh.shape[1] >= self._flash_min_seq or force_flash)):
+            return mha_flash(qh, kh, vh, scale, p.causal)
         scores = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
         if p.causal:
             qlen, klen = scores.shape[-2], scores.shape[-1]
+            # appended bias_kv/zero_attn keys are always attendable;
+            # real keys follow absolute-position causality
             mask = torch.ones(qlen, klen, dtype=torch.bool,
                               device=scores.device).tril()
             if kv_appended:
@@ -342,4 +358,9 @@ class MultiHeadAttention(Op):
             scores = scores.masked_fill(~mask,
                                         torch.finfo(scores.dtype).min)
         probs = torch.softmax(scores, dim=-1)
+        if use_dropout:
+            keep = 1.0 - p.dropout
+            kept = torch.rand(probs.shape, generator=generator,
+                              device=probs.device) < keep
+            probs = probs * kept / keep
         return torch.einsum("bhqk,bkhd->bqhd", probs, vh)

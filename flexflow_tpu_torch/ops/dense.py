@@ -88,7 +88,8 @@ class Linear(Op):
             specs.append(WeightSpec("bias", bias, DEFAULT_BIAS_INIT))
         return specs
 
-    def forward(self, inputs, weights, *, training=False):
+    def forward(self, inputs, weights, *, training=False,
+                generator=None):
         (x,) = inputs
         p: LinearParams = self.params
         y = torch.matmul(x, weights[0])
@@ -137,7 +138,8 @@ class Embedding(Op):
         )
         return [WeightSpec("weight", weight, DEFAULT_WEIGHT_INIT)]
 
-    def forward(self, inputs, weights, *, training=False):
+    def forward(self, inputs, weights, *, training=False,
+                generator=None):
         (ids,) = inputs
         p: EmbeddingParams = self.params
         emb = weights[0][ids.long()]

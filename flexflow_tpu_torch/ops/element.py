@@ -55,6 +55,7 @@ class ElementBinary(Op):
         dims = tuple(out) + (ParallelDim(1, replica, is_replica_dim=True),)
         return [ParallelTensorShape(dims, a.dtype)]
 
-    def forward(self, inputs, weights, *, training=False):
+    def forward(self, inputs, weights, *, training=False,
+                generator=None):
         a, b = inputs
         return [_BINARY_FNS[self.params.op](a, b)]

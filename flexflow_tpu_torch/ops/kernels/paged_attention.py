@@ -5,11 +5,12 @@ Replaces the TPU kernel `_paged_kernel` (launched by `paged_attention`,
 flexflow_tpu/ops/pallas/paged_attention.py).  On the card it is a CUDA
 C++ kernel written by hand for sm_90a, `csrc/paged_attention.cu`,
 built with nvcc at first use into `flexflow_tpu_torch/_build/` and
-loaded through ctypes.  The kernel is bound by bytes: it reads each
-row's live KV pages once, in place through the block table, with two
-flops per element read; one block per (head, row) streams only that
-row's live pages, so per-step reads follow live tokens instead of
-`decode_max_seq` (see the source's note for the rest of the design).
+loaded through ctypes (`_build.py`).  The kernel is bound by bytes: it
+reads each row's live KV pages once, in place through the block table,
+with two flops per element read; one block per (head, row) streams
+only that row's live pages, so per-step reads follow live tokens
+instead of `decode_max_seq` (see the source's note for the rest of the
+design).
 
 `paged_attention` keeps the reference's signature and layout.  A CPU
 tensor runs `paged_attention_plain`, the gather formulation of
@@ -22,30 +23,17 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "paged_attention.cu"
-BUILD_DIR = _PKG / "_build"
-# where the CUDA toolkit installs nvcc when it is not on PATH
-DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from . import _build
+
+SOURCE = _build.CSRC / "paged_attention.cu"
 
 MAX_CHUNK = 16  # the kernel's kMaxChunk
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def blocks_read(seq_lens: np.ndarray, live_mask: np.ndarray, chunk: int,
@@ -60,59 +48,16 @@ def blocks_read(seq_lens: np.ndarray, live_mask: np.ndarray, chunk: int,
     return int(per_row.sum())
 
 
-def find_nvcc() -> str:
-    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's default
-    install location."""
-    cuda_home = os.environ.get("CUDA_HOME")
-    candidates = [str(Path(cuda_home) / "bin" / "nvcc")] if cuda_home else []
-    on_path = shutil.which("nvcc")
-    if on_path:
-        candidates.append(on_path)
-    candidates.append(DEFAULT_NVCC)
-    for c in candidates:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError(
-        "cannot build the paged-attention kernel: nvcc was not found "
-        "($CUDA_HOME/bin, $PATH or " + DEFAULT_NVCC + ")")
-
-
-def build() -> Path:
-    """Compile the kernel's shared library (once per source content)
-    and return its path.  The name carries a hash of the source and the
-    flags, so an edited source builds anew."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"libff_paged_attention_{tag[:16]}.so"
-    if out.exists():
-        return out
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.ff_paged_attention.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.ff_paged_attention.restype = ctypes.c_int
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.ff_paged_attention.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            lib.ff_paged_attention.restype = ctypes.c_int
-            lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.ff_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    return _build.load(SOURCE, _bind)
 
 
 def paged_attention_plain(qh, k_pool, v_pool, block_table, seq_lens,
@@ -217,10 +162,7 @@ def paged_attention(qh, k_pool, v_pool, block_table, seq_lens,
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             b, s, h, dk, k_pool.shape[1], block_table.shape[1],
             float(scale), _DTYPE_CODES[qh.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"paged_attention kernel launch failed: CUDA error {rc} "
-            f"({lib.ff_cuda_error_string(rc).decode()})")
+    _build.check_launch(lib, rc, "paged_attention")
     paged_attention.launches += 1
     return out
 

@@ -51,7 +51,8 @@ class LayerNorm(Op):
             WeightSpec("beta", wshape, ZeroInitializer()),
         ]
 
-    def forward(self, inputs, weights, *, training=False):
+    def forward(self, inputs, weights, *, training=False,
+                generator=None):
         (x,) = inputs
         p: LayerNormParams = self.params
         axes = tuple(sorted(a % x.ndim for a in p.axes))

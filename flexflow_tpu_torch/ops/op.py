@@ -80,7 +80,12 @@ class Op:
 
     def forward(self, inputs: Sequence[torch.Tensor],
                 weights: Sequence[torch.Tensor], *,
-                training: bool = False) -> List[torch.Tensor]:
+                training: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        """The op's outputs (then its updated state entries).  A random
+        op draws from `generator`, which the executor passes down in
+        place of the reference's per-op rng key."""
         raise NotImplementedError
 
     def __repr__(self) -> str:

@@ -20,5 +20,6 @@ class InputOp(Op):
     def infer_output_shapes(self, input_shapes):
         return [self.params.shape]
 
-    def forward(self, inputs, weights, *, training=False):
+    def forward(self, inputs, weights, *, training=False,
+                generator=None):
         raise RuntimeError("source ops are fed by the executor, not executed")

@@ -46,6 +46,9 @@ class Graph:
             raise RuntimeError("PCG has a cycle")
         return order
 
+    def source_ops(self) -> List[Op]:
+        return [op for op in self.ops if op.op_type == OperatorType.INPUT]
+
     def sink_op(self) -> Op:
         consumed: Set[int] = set()
         for op in self.ops:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each held against its plain
-PyTorch version, and the paged decode step run through the kernel.
+PyTorch version, the flash kernels through their autograd Function, and
+the paged decode step run through the paged-attention kernel.
 These need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
 (that machine has no jax, which tests/conftest.py imports).  This file
@@ -55,6 +56,106 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, tol, s, d):
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == qh.shape
     assert float((got.float() - ref).abs().max()) <= tol
+
+
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _flash_err(got, ref):
+    """max |got - ref| over the output's scale, max(1, max |ref|)."""
+    return float((got.float() - ref.float()).abs().max()
+                 / max(1.0, float(ref.float().abs().max())))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,sq,sk", [(3, 200, 200), (2, 130, 300),
+                                      (2, 300, 130), (1, 1, 1)])
+def test_flash_kernels_match_plain(cuda, dtype, d, causal, bh, sq, sk):
+    """K1, K2 and K3 against their plain versions, run in float32 on the
+    same values: both accumulate in float32 in other orders (float32:
+    1e-4 of the output's scale); in bfloat16 the kernels round P and dS
+    to bfloat16 before their products and their outputs to bfloat16,
+    2^-9 each (3e-2)."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(bh * sq + sk + d)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(bh, n, d, generator=gen, device=cuda).to(dt)
+               for n in (sq, sk, sk))
+    dout = torch.randn(bh, sq, d, generator=gen, device=cuda).to(dt)
+    scale = d ** -0.5
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, scale, causal)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, dout, scale, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(b + 1 for b in before)
+    f = [t.float() for t in (q, k, v, dout)]
+    r_out, r_lse = fa.flash_fwd_plain(f[0], f[1], f[2], scale, causal)
+    r_dq, r_dk, r_dv = fa.flash_bwd_plain(f[0], f[1], f[2], r_out, r_lse,
+                                          f[3], scale, causal)
+    tol = FLASH_TOL[dtype]
+    for name, got, ref in (("out", out, r_out), ("lse", lse, r_lse),
+                           ("dq", dq, r_dq), ("dk", dk, r_dk),
+                           ("dv", dv, r_dv)):
+        assert got.shape == ref.shape, name
+        assert torch.isfinite(got).all(), name
+        assert _flash_err(got, ref) <= tol, (name, _flash_err(got, ref))
+
+
+def test_flash_attention_grads_through_autograd(cuda):
+    """The autograd Function on the card: one K1 forward, one K2 and one
+    K3 launch for the backward, and the grads of the plain version."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qh, kh, vh = (torch.randn(2, 192, 3, 64, generator=gen, device=cuda,
+                              requires_grad=True) for _ in range(3))
+    before = fa.flash_bwd_dkv.launches
+    fa.mha_flash(qh, kh, vh, 0.125, True).square().sum().backward()
+    assert fa.flash_bwd_dkv.launches == before + 1
+    got = [t.grad.clone() for t in (qh, kh, vh)]
+    cpu = [t.detach().cpu().requires_grad_() for t in (qh, kh, vh)]
+    fa.mha_flash(*cpu, 0.125, True).square().sum().backward()
+    for g, c in zip(got, cpu):
+        assert _flash_err(g.cpu(), c.grad) <= FLASH_TOL["float32"]
+
+
+def test_bert_train_steps_in_bfloat16_run_the_flash_kernels(cuda):
+    """compute_dtype bfloat16 sends bfloat16 q, k, v through K1-K3
+    (flash_min_seq=0) while the float32 master weights take the update.
+    Two steps track the float32 run from the same weights to 5e-2 in the
+    loss: every op of the 2-layer model rounds to bfloat16 (2^-9)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    bert = dict(batch_size=2, seq_length=256, hidden_size=128,
+                num_layers=2, num_heads=2, intermediate_size=256)
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 256, 128).astype(np.float32)
+    y = rng.randint(0, 2, (2, 1)).astype(np.int32)
+    losses, weights = {}, None
+    for cd in ("float32", "bfloat16"):
+        ff = FFModel(FFConfig(batch_size=2, device="cuda", compute_dtype=cd,
+                              flash_min_seq=0))
+        build_bert(ff, **bert)
+        ff.compile(seed=0)
+        if weights is None:
+            weights = ff.get_weights()
+        ff.set_weights(weights)
+        before = fa.flash_bwd_dkv.launches
+        losses[cd] = [float(ff.train_step({"input": x}, y)["loss"])
+                      for _ in range(2)]
+        assert fa.flash_bwd_dkv.launches == before + 2 * 2
+        assert all(w.dtype == torch.float32 and torch.isfinite(w).all()
+                   for e in ff._weights.values() for w in e.values())
+    assert np.isfinite(losses["bfloat16"]).all()
+    np.testing.assert_allclose(losses["bfloat16"], losses["float32"],
+                               rtol=0, atol=5e-2)
 
 
 def test_paged_decode_step_runs_the_kernel(cuda):

@@ -28,7 +28,10 @@ def _imported_roots(path: Path):
 
 def test_no_jax_or_reference_imports():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    assert len(files) > 30
+    names = {f.name for f in files}
+    assert {"flash_attention.py", "_build.py", "loss.py", "metrics.py",
+            "optimizer.py", "dataloader.py", "shape.py"} <= names
     offenders = [(str(f.relative_to(ROOT)), m) for f in files
                  for m in _imported_roots(f)
                  if m in ("jax", "jaxlib", "flexflow_tpu")]
@@ -37,7 +40,9 @@ def test_no_jax_or_reference_imports():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.serving, "
-            "flexflow_tpu_torch.decoding, flexflow_tpu_torch.convert; "
+            "flexflow_tpu_torch.decoding, flexflow_tpu_torch.convert, "
+            "flexflow_tpu_torch.models.transformer, "
+            "flexflow_tpu_torch.ops.kernels.flash_attention; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flexflow_tpu' or "
             "m.startswith('flexflow_tpu.')]; print(bad)")
@@ -57,15 +62,26 @@ def test_default_device_build_raises_without_cuda(monkeypatch):
     FFModel(FFConfig(device="cpu"))  # the host on request
 
 
-def test_kernel_build_names_nvcc_when_missing(monkeypatch, tmp_path):
-    from flexflow_tpu_torch.ops.kernels import paged_attention as pk
+@pytest.mark.parametrize("kernel", ["paged_attention", "flash_attention"])
+def test_kernel_build_names_nvcc_when_missing(monkeypatch, tmp_path, kernel):
+    """Both kernel modules build through the one helper, which names
+    nvcc when it cannot find it."""
+    import importlib
 
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    mod = importlib.import_module(f"flexflow_tpu_torch.ops.kernels.{kernel}")
+    assert mod.SOURCE.is_file() and mod.SOURCE.parent == _build.CSRC
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
-    monkeypatch.setattr(pk, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
-    monkeypatch.setattr(pk, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
-        pk.build()
+        _build.build(mod.SOURCE)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        mod.load_library()
+    # the library name follows the source's content and the flags
+    assert _build.library_path(mod.SOURCE).name.startswith(f"libff_{kernel}_")
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
@@ -90,15 +106,29 @@ def test_config_flags_match_the_reference():
 
     argv = ["-b", "3", "--seed", "5", "--kv-page-size", "4",
             "--kv-pool-blocks", "33", "--serving-slots", "2",
-            "--prefill-chunk", "0", "--no-prefix-cache"]
+            "--prefill-chunk", "0", "--no-prefix-cache", "-e", "4",
+            "--lr", "0.5", "--wd", "0.25", "--flash-min-seq", "512"]
     mine, ref = FFConfig.from_args(argv), JaxConfig.from_args(argv)
-    for f in ("batch_size", "seed", "kv_page_size", "kv_pool_blocks",
+    fields = ("batch_size", "seed", "kv_page_size", "kv_pool_blocks",
               "serving_slots", "prefill_chunk", "prefix_cache",
-              "compute_dtype"):
+              "compute_dtype", "epochs", "learning_rate", "weight_decay",
+              "flash_min_seq")
+    for f in fields:
         assert getattr(mine, f) == getattr(ref, f), f
+    long_names = ["--epochs", "7", "--learning-rate", "0.125",
+                  "--weight-decay", "0.0", "--flash-min-seq", "0"]
+    mine, ref = FFConfig.from_args(long_names), JaxConfig.from_args(long_names)
+    for f in fields:
+        assert getattr(mine, f) == getattr(ref, f), f
+    defaults = FFConfig.from_args([]), JaxConfig.from_args([])
+    for f in fields:
+        assert getattr(defaults[0], f) == getattr(defaults[1], f), f
     assert FFConfig.from_args(["--device", "cpu"]).device == "cpu"
     with pytest.raises(ValueError, match="kv_page_size"):
         FFConfig(kv_page_size=0)
+    with pytest.raises(ValueError, match="flash_min_seq"):
+        FFConfig(flash_min_seq=-1)
     with pytest.raises(ValueError, match="device"):
         FFConfig(device="tpu")
     assert os.path.isfile(PORT / "csrc" / "paged_attention.cu")
+    assert os.path.isfile(PORT / "csrc" / "flash_attention.cu")

@@ -120,13 +120,29 @@ def test_attention_paged_decode_step():
     np.testing.assert_array_equal(t[4], slen)
 
 
-def test_flash_branch_raises_instead_of_falling_back():
+def test_flash_branch_raises_instead_of_falling_back(monkeypatch):
+    """A KV length of flash_min_seq (2048) takes the flash branch: on CPU
+    tensors its plain version, which matches the reference op's flash
+    branch; on any other device the kernel wrapper, which raises there
+    rather than falling back to the plain version."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
     rng = np.random.RandomState(3)
-    _, tf = _models()
-    x = tf.create_tensor([1, 2048, 8], name="x")
-    a = tf.multihead_attention(x, x, x, 8, 2, causal=True, name="attn")
-    xs = torch.from_numpy(rng.randn(1, 2048, 8).astype(np.float32))
-    ws = [torch.zeros(s.shape.logical_shape) for s in
-          _op(a).weight_specs]
-    with pytest.raises(NotImplementedError, match="flash"):
-        _op(a).forward([xs, xs, xs], ws)
+    jf, tf = _models()
+    ts = []
+    for ff in (jf, tf):
+        x = ff.create_tensor([1, 2048, 8], name="x")
+        ts.append(ff.multihead_attention(x, x, x, 8, 2, causal=True,
+                                         name="attn"))
+    x = rng.randn(1, 2048, 8).astype(np.float32)
+    calls = []
+    real = fa.flash_fwd_plain
+    monkeypatch.setattr(fa, "flash_fwd_plain",
+                        lambda *a: calls.append(1) or real(*a))
+    j, t, tws = _run_both(ts[0], ts[1], [x, x, x], rng)
+    assert calls == [1]
+    np.testing.assert_allclose(t[0], j[0], rtol=0, atol=ATOL)
+    meta = torch.zeros(1, 2048, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        _op(ts[1]).forward([meta] * 3, [w.to("meta") for w in tws])
+    assert calls == [1]
