@@ -13,8 +13,14 @@ Phases, each a failure of which exits non-zero:
    in float32 and bfloat16, d 64 and 128, causal and not, at seq 2048,
    a ragged seq 200 and sq != sk.  Time kernel, plain version, a
    PyTorch library yardstick and the card's bound at the main paths'
-   shapes: the 8-slot decode step for K4, [96, 2048, 64] float32
-   (BERT-base at batch 8, seq 2048) for K1-K3.
+   shapes: the 8-slot decode step for K4, [96, 2048, 64] (BERT-base at
+   batch 8, seq 2048) for K1-K3 in float32 and bfloat16, where K2 and K3
+   must also give the same bits over two launches.  Bounds are those of
+   each kernel's route (K1 float32 SIMT, K2 and K3 tensor cores); K2+K3
+   is also given over the library's backward.  Every K2/K3 instance must
+   hold HMMA instructions (cuobjdump's SASS of the built library, whose
+   instruction counts are reported) and use no local memory (no
+   spills); its registers, shared memory and blocks per SM are reported.
 2. serve: full-width GPT-2-small (hidden 768, 12 layers, 12 heads, FFN
    3072, vocab 50257, 1024 positions, float32, weights from
    np.random.RandomState(0)) behind ContinuousScheduler and serve_http;
@@ -38,7 +44,7 @@ Phases, each a failure of which exits non-zero:
    port on device="cpu" with the same weights and batches: losses and
    every weight after the steps.
 7. train_profile: torch.profiler over 3 full-width train steps; device
-   busy and idle time per step and K1, K2 and K3's shares.
+   busy and idle time per step and K1, K2, K3 and K2+K3's shares.
 
 `--phases` runs a subset (e.g. `--phases kernels` after editing a
 kernel).  Every line but the last is one JSON object; the last is
@@ -49,11 +55,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
@@ -64,6 +72,12 @@ SLOTS, PAGE, CHUNK = 8, 16, 8
 N_REQUESTS, MAX_NEW = 16, 32
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12       # tensor cores, dense
+H100_BF16_FLOPS = 989e12       # tensor cores, dense
+# the route each flash kernel's products take: K1 float32 FMA on the SIMT
+# path, K2 and K3 mma.sync on the tensor cores (float32 as three TF32
+# passes, bfloat16 in one)
+FLASH_ROUTE = {"K1": "simt", "K2": "tensor_cores", "K3": "tensor_cores"}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_REASON = {
     "float32": "kernel and plain version both accumulate in float32; "
@@ -84,7 +98,9 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 FLASH_TOL_REASON = {
     "float32": "error over the output's scale max(1, max|plain|): kernel "
                "and plain version accumulate in float32 in other orders "
-               "over up to 2048 keys",
+               "over up to 2048 keys; K2 and K3 form each product in "
+               "three TF32 passes on the tensor cores (lo*lo, 2^-22 of "
+               "it, dropped) and sum there",
     "bfloat16": "error over the output's scale, against the plain "
                 "version run in float32 on the same bfloat16 values: the "
                 "kernels round P and dS to bfloat16 before their products "
@@ -539,10 +555,16 @@ def flash_case(torch, fa, gen, *, bh, sq, sk, d, causal, dtype, dev):
     return res
 
 
-def flash_bounds(bh, sq, sk, d, itemsize=4) -> dict:
+def flash_bounds(bh, sq, sk, d, dtype="float32") -> dict:
     """Least time of each kernel on the card at one shape (non-causal):
-    the larger of its operations over the float32 SIMT peak and its
-    bytes (each input read once, each output written once) over HBM."""
+    the larger of its bytes (each input read once, each output written
+    once) over HBM and its operations over the peak of its route.  On
+    the float32 SIMT route that is 67 TFLOP/s (bfloat16 is widened to
+    float32 there); on the tensor cores a float32 product takes three
+    TF32 passes (3 x flops at 495 TFLOP/s) and a bfloat16 product one
+    (989 TFLOP/s).  Both operation bounds are reported; `bound_ms` and
+    `bound_by` are those of the kernel's route (FLASH_ROUTE)."""
+    itemsize = 4 if dtype == "float32" else 2
     pairs = bh * sq * sk * d
     qb, kb = bh * sq * d * itemsize, bh * sk * d * itemsize
     rows = bh * sq * 4
@@ -554,14 +576,136 @@ def flash_bounds(bh, sq, sk, d, itemsize=4) -> dict:
         # QK^T, dO V^T, P^T dO and dS^T Q; writes dk and dv
         "K3": (8 * pairs, 2 * qb + 4 * kb + 2 * rows),
     }
+    tc_name, tc_s_per_flop = (
+        ("3xTF32 tensor cores", 3 / H100_TF32_FLOPS) if dtype == "float32"
+        else ("bfloat16 tensor cores", 1 / H100_BF16_FLOPS))
     out = {}
     for kern, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-        out[kern] = {"flops": flops, "bytes": nbytes,
-                     "bound_ms": max(t_ops, t_bytes) * 1e3,
-                     "bound_by": "operations" if t_ops >= t_bytes
-                     else "bytes"}
+        t_bytes = nbytes / H100_BYTES_PER_S
+        t_ops = {"simt": flops / H100_F32_FLOPS,
+                 "tensor_cores": flops * tc_s_per_flop}
+        route = FLASH_ROUTE[kern]
+        ops_name = {"simt": "float32 SIMT",
+                    "tensor_cores": tc_name}[route]
+        out[kern] = {"flops": flops, "bytes": nbytes, "route": route,
+                     "simt_bound_ms": max(t_ops["simt"], t_bytes) * 1e3,
+                     "tc_bound_ms": max(t_ops["tensor_cores"],
+                                        t_bytes) * 1e3,
+                     "bound_ms": max(t_ops[route], t_bytes) * 1e3,
+                     "bound_by": f"operations, {ops_name}"
+                     if t_ops[route] >= t_bytes else "bytes"}
     return out
+
+
+def sass_counts(lib_path) -> dict:
+    """Instructions in each flash kernel instance of the built library,
+    from cuobjdump's SASS (see count_sass)."""
+    from flexflow_tpu_torch.ops.kernels import _build
+
+    tool = str(Path(_build.find_nvcc()).with_name("cuobjdump"))
+    return count_sass(subprocess.run(
+        [tool, "--dump-sass", str(lib_path)], capture_output=True,
+        text=True, timeout=300, check=True).stdout)
+
+
+def count_sass(sass: str) -> dict:
+    """{"K2 float32 d64": {"hmma": tensor-core instructions,
+    "instructions": all instructions}, ...} per flash kernel instance in
+    a SASS listing."""
+    names = {"flash_fwd_kernel": "K1", "flash_bwd_dq_kernel": "K2",
+             "flash_bwd_dkv_kernel": "K3"}
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_fwd_kernel|flash_bwd_dq_kernel|"
+                          r"flash_bwd_dkv_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                          line)
+            current = None if m is None else (
+                f"{names[m.group(1)]} "
+                f"{'float32' if m.group(2) == 'f' else 'bfloat16'} "
+                f"d{m.group(3)}")
+            if current:
+                counts[current] = {"hmma": 0, "instructions": 0}
+        elif current and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[current]["instructions"] += 1
+            counts[current]["hmma"] += "HMMA" in line
+    return counts
+
+
+def flash_main_shape(torch, fa, gen, dtype, dev, flush) -> dict:
+    """K1-K3 at the main path's shape (BERT-base at batch 8, seq 2048,
+    non-causal) in `dtype`: agreement with the plain versions run in
+    float32 on the same values, K2 and K3 bit-identical over two
+    launches, and the times of the kernels, the plain versions (float32
+    only) and the library."""
+    bh, s, d = FLASH_SHAPE
+    dname = str(dtype).removeprefix("torch.")
+    q, k, v, dout = (torch.randn(bh, s, d, generator=gen, device=dev).to(
+        dtype) for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = fa.flash_fwd(q, k, v, scale, False)
+    delta = fa.flash_delta(out, dout)
+    dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, False)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, False)
+    dq2 = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, False)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, False)
+    deterministic = {"K2": torch.equal(dq, dq2),
+                     "K3": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+    if not all(deterministic.values()):
+        raise RuntimeError(f"main shape {dname}: two launches on the same "
+                           f"inputs differ: {deterministic}")
+    del dq2, dk2, dv2
+    f = [t.float() for t in (q, k, v, dout)]
+    r_out, r_lse = fa.flash_fwd_plain(f[0], f[1], f[2], scale, False)
+    r_dq, r_dk, r_dv = fa.flash_bwd_plain(f[0], f[1], f[2], r_out, r_lse,
+                                          f[3], scale, False)
+    err = {"K1": max(_scaled_err(out, r_out)[1], _scaled_err(lse, r_lse)[1]),
+           "K2": _scaled_err(dq, r_dq)[1],
+           "K3": max(_scaled_err(dk, r_dk)[1], _scaled_err(dv, r_dv)[1])}
+    del f, r_out, r_lse, r_dq, r_dk, r_dv, dq, dk, dv
+    for kern, e in err.items():
+        if e > FLASH_TOL[dname]:
+            raise RuntimeError(f"main shape {dname}: {kern} vs plain {e}")
+    b, h = TRAIN_BATCH, BERT["num_heads"]
+    q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(q4, k4, v4, scale=scale)
+    dout4 = dout.view(b, h, s, d)
+    ms = {
+        "K1": time_ms(torch, lambda: fa.flash_fwd(q, k, v, scale, False),
+                      flush),
+        "K2": time_ms(torch, lambda: fa.flash_bwd_dq(
+            q, k, v, dout, lse, delta, scale, False), flush),
+        "K3": time_ms(torch, lambda: fa.flash_bwd_dkv(
+            q, k, v, dout, lse, delta, scale, False), flush),
+    }
+    plain_ms = None
+    if dtype == torch.float32:
+        plain_fwd = time_ms(torch, lambda: fa.flash_fwd_plain(
+            q, k, v, scale, False), flush, iters=10, warmup=2)
+        plain_bwd = time_ms(torch, lambda: fa.flash_bwd_plain(
+            q, k, v, out, lse, dout, scale, False), flush, iters=10,
+            warmup=2)
+        plain_ms = {"K1": plain_fwd, "K2": plain_bwd, "K3": plain_bwd}
+    lib_fwd = time_ms(torch, lambda: sdpa(q4, k4, v4, scale=scale), flush)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (q4, k4, v4), dout4, retain_graph=True), flush)
+    bounds = flash_bounds(bh, s, s, d, dname)
+    return {
+        "err_over_scale": err, "deterministic": deterministic,
+        "kernel_ms": ms, "plain_ms": plain_ms,
+        "library_ms": {"K1": lib_fwd, "K2": lib_bwd, "K3": lib_bwd},
+        "bounds": bounds,
+        "tflops": {kern: bounds[kern]["flops"] / ms[kern] / 1e9
+                   for kern in ms},
+        "share_of_bound": {kern: bounds[kern]["bound_ms"] / ms[kern]
+                           for kern in ms},
+        "share_of_tc_bound": {kern: bounds[kern]["tc_bound_ms"] / ms[kern]
+                              for kern in ms},
+        "K2+K3_ms": ms["K2"] + ms["K3"],
+        "K2+K3_over_library_bwd": (ms["K2"] + ms["K3"]) / lib_bwd,
+    }
 
 
 def phase_flash_kernels(torch, fa, card: str, dev, lib_path) -> dict:
@@ -589,68 +733,39 @@ def phase_flash_kernels(torch, fa, card: str, dev, lib_path) -> dict:
                         f"{r}: error {scaled} of the output's scale > "
                         f"{FLASH_TOL[dname]}")
 
-    # the main path's shape: BERT-base at batch 8, seq 2048, float32,
-    # non-causal
     bh, s, d = FLASH_SHAPE
-    q, k, v, dout = (torch.randn(bh, s, d, generator=gen, device=dev)
-                     for _ in range(4))
-    scale = 1.0 / np.sqrt(d)
-    out, lse = fa.flash_fwd(q, k, v, scale, False)
-    delta = fa.flash_delta(out, dout)
-    r_out, r_lse = fa.flash_fwd_plain(q, k, v, scale, False)
-    main_err = {"K1": max(_scaled_err(out, r_out)[1],
-                          _scaled_err(lse, r_lse)[1])}
-    r_dq, r_dk, r_dv = fa.flash_bwd_plain(q, k, v, out, lse, dout, scale,
-                                          False)
-    main_err["K2"] = _scaled_err(
-        fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, False), r_dq)[1]
-    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, False)
-    main_err["K3"] = max(_scaled_err(dk, r_dk)[1], _scaled_err(dv, r_dv)[1])
-    del r_out, r_lse, r_dq, r_dk, r_dv
-    for kern, e in main_err.items():
-        if e > FLASH_TOL["float32"]:
-            raise RuntimeError(f"main shape: {kern} vs plain {e}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    b, h = TRAIN_BATCH, BERT["num_heads"]
-    q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_()
-                  for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_out = sdpa(q4, k4, v4, scale=scale)
-    dout4 = dout.view(b, h, s, d)
-    ms = {
-        "K1": time_ms(torch, lambda: fa.flash_fwd(q, k, v, scale, False),
-                      flush),
-        "K2": time_ms(torch, lambda: fa.flash_bwd_dq(
-            q, k, v, dout, lse, delta, scale, False), flush),
-        "K3": time_ms(torch, lambda: fa.flash_bwd_dkv(
-            q, k, v, dout, lse, delta, scale, False), flush),
-    }
-    plain_fwd = time_ms(torch, lambda: fa.flash_fwd_plain(
-        q, k, v, scale, False), flush, iters=10, warmup=2)
-    plain_bwd = time_ms(torch, lambda: fa.flash_bwd_plain(
-        q, k, v, out, lse, dout, scale, False), flush, iters=10, warmup=2)
-    lib_fwd = time_ms(torch, lambda: sdpa(q4, k4, v4, scale=scale), flush)
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        lib_out, (q4, k4, v4), dout4, retain_graph=True), flush)
-    bounds = flash_bounds(bh, s, s, d)
+    main = {str(dt).removeprefix("torch."): flash_main_shape(
+        torch, fa, gen, dt, dev, flush)
+        for dt in (torch.float32, torch.bfloat16)}
+    # what the card gives each K2/K3 instance, and proof that its products
+    # run on the tensor cores
+    resources = {
+        f"{kid} {str(dt).removeprefix('torch.')} d{d}":
+            fa.bwd_resources(kern, d, dt)
+        for kid, kern in (("K2", "dq"), ("K3", "dkv"))
+        for dt in (torch.float32, torch.bfloat16) for d in (64, 128)}
+    sass = sass_counts(lib_path)
+    faults = [f"{n} uses {r['local_bytes']} bytes of local memory (spills)"
+              for n, r in resources.items() if r["local_bytes"]]
+    faults += [f"{n} has no HMMA instruction" for n in resources
+               if not sass.get(n, {}).get("hmma")]
+
     rec = {
         "phase": "kernels", "kernels": "K1-K3", "card": card,
         "library": lib_path.name, "cases": cases,
         "tolerance": FLASH_TOL, "tolerance_reason": FLASH_TOL_REASON,
+        "k2_k3_resources": resources, "sass": sass,
         "main_shape": {"bh": bh, "sq": s, "sk": s, "d": d,
-                       "dtype": "float32", "causal": False},
-        "main_shape_err_over_scale": main_err,
-        "kernel_ms": ms,
-        "plain_ms": {"K1": plain_fwd, "K2": plain_bwd, "K3": plain_bwd},
+                       "causal": False},
+        "main": main,
         "plain_note": "K2 and K3 share one plain backward (dq, dk, dv)",
-        "library_ms": {"K1": lib_fwd, "K2": lib_bwd, "K3": lib_bwd},
         "library_note": "scaled_dot_product_attention forward; its "
                         "autograd backward (dq, dk, dv) for K2 and K3",
-        "bounds": bounds,
-        "tflops": {kern: bounds[kern]["flops"] / ms[kern] / 1e9
-                   for kern in ms},
     }
     emit(rec)
+    if faults:
+        raise RuntimeError("K2/K3: " + "; ".join(faults))
     rec["worst"] = worst
     return rec
 
@@ -840,6 +955,9 @@ def phase_train_profile(torch, fa, card: str, ff, x, y,
         flash[kern] = {"ms_per_step": us / 1e3 / steps,
                        "share_of_busy": us / busy_us,
                        "launches_per_step": n / steps}
+    flash["K2+K3"] = {
+        key: flash["K2"][key] + flash["K3"][key]
+        for key in ("ms_per_step", "share_of_busy")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     rec = {
         "phase": "train_profile", "card": card, "steps": steps,
@@ -885,8 +1003,10 @@ def kernel_line(kern: dict, flash: dict, serve, train, card: str) -> dict:
     }]
     names = {"K1": ("flash_fwd", 78), "K2": ("flash_bwd_dq", 217),
              "K3": ("flash_bwd_dkv", 265)}
+    f32, bf16 = flash["main"]["float32"], flash["main"]["bfloat16"]
     for kid, (name, line) in names.items():
         worst = flash["worst"][kid]
+        bound = f32["bounds"][kid]
         rows.append({
             "name": name,
             "id": kid,
@@ -900,11 +1020,19 @@ def kernel_line(kern: dict, flash: dict, serve, train, card: str) -> dict:
             "max_err_over_scale_by_dtype": {
                 dt: w[1] for dt, w in worst.items()},
             "tolerance": FLASH_TOL,
-            "ms": flash["kernel_ms"][kid],
-            "plain_ms": flash["plain_ms"][kid],
-            "bound_ms": flash["bounds"][kid]["bound_ms"],
-            "bound_by": flash["bounds"][kid]["bound_by"],
-            "library_ms": flash["library_ms"][kid],
+            "ms": f32["kernel_ms"][kid],
+            "plain_ms": f32["plain_ms"][kid],
+            "bound_ms": bound["bound_ms"],
+            # "operations" or "bytes"; the route beside it
+            "bound_by": bound["bound_by"].split(",")[0],
+            "bound_by_route": bound["bound_by"],
+            "share_of_bound": f32["share_of_bound"][kid],
+            "simt_bound_ms": bound["simt_bound_ms"],
+            "tc_bound_ms": bound["tc_bound_ms"],
+            "library_ms": f32["library_ms"][kid],
+            "bfloat16_ms": bf16["kernel_ms"][kid],
+            "bfloat16_bound_ms": bf16["bounds"][kid]["bound_ms"],
+            "bfloat16_library_ms": bf16["library_ms"][kid],
             "card": card,
         })
     return {"kernels": rows}

@@ -7,9 +7,12 @@ and K3 `_bwd_dkv_kernel` (both launched by `_flash_bwd_pallas`).  On the
 card they are CUDA C++ kernels written by hand for sm_90a,
 `csrc/flash_attention.cu`, built with nvcc at first use into
 `flexflow_tpu_torch/_build/` and loaded through ctypes (`_build.py`).
-Each kernel computes its products itself, tile by tile in shared memory,
-so the [s, s] scores never reach device memory; at the training shape
-they are bound by operations (see the source's note).
+Each kernel computes its products itself, tile by tile, so the [s, s]
+scores never reach device memory; at the training shape they are bound
+by operations (see the source's note): K1 on the float32 SIMT path, K2
+and K3 on the tensor cores (float32 as three TF32 passes, bfloat16 in
+one).  `bwd_resources` reports what the card gives K2 and K3 (registers,
+spills, shared memory, blocks per SM).
 
 Layout [batch*heads, seq, head_dim], contiguous.  `flash_fwd` returns
 (out, lse) and `flash_bwd` (dq, dk, dv), the entry points ring attention
@@ -43,13 +46,29 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ff_flash_fwd.argtypes = [P] * 5 + [I] * 4 + [F, I, I, P]
     lib.ff_flash_bwd_dq.argtypes = [P] * 7 + [I] * 4 + [F, I, I, P]
     lib.ff_flash_bwd_dkv.argtypes = [P] * 8 + [I] * 4 + [F, I, I, P]
-    for fn in (lib.ff_flash_fwd, lib.ff_flash_bwd_dq, lib.ff_flash_bwd_dkv):
+    lib.ff_flash_bwd_resources.argtypes = [I, I, I, P]
+    for fn in (lib.ff_flash_fwd, lib.ff_flash_bwd_dq, lib.ff_flash_bwd_dkv,
+               lib.ff_flash_bwd_resources):
         fn.restype = ctypes.c_int
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     return _build.load(SOURCE, _bind)
+
+
+def bwd_resources(kernel: str, head_dim: int, dtype: torch.dtype) -> dict:
+    """What the card gives one block of K2 ("dq") or K3 ("dkv") at
+    (head_dim, dtype): registers per thread, local memory per thread
+    (spills; 0 means none), dynamic shared memory and resident blocks
+    per SM."""
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    rc = lib.ff_flash_bwd_resources({"dq": 2, "dkv": 3}[kernel], head_dim,
+                                    _DTYPE_CODES[dtype], out)
+    _build.check_launch(lib, rc, f"flash_bwd_{kernel} resources")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), out))
 
 
 # -- plain versions ------------------------------------------------------

@@ -3,8 +3,9 @@ flash_attention.py) against flexflow_tpu's: the plain forward and
 backward against the Pallas kernels K1-K3 run in interpret mode and
 against their off-TPU branches, on the same numpy inputs, as
 tests/test_flash_kernels.py runs them (seq 256, d 64); a float64
-gradcheck of the autograd Function; `mha_flash`'s layout; and a CUDA
-tensor never reaching the plain versions.  The CUDA kernels themselves
+gradcheck of the autograd Function; `mha_flash`'s layout; the three-pass
+TF32 products of the card's K2 and K3, emulated, against the float32
+tolerance; and a CUDA tensor never reaching the plain versions.  The CUDA kernels themselves
 are held against these plain versions on the card
 (tests/test_torch_gpu.py, chip_smoke.py)."""
 import numpy as np
@@ -111,6 +112,66 @@ def test_mha_flash_layout_matches_reference(causal):
                                 SCALE, causal)
     np.testing.assert_allclose(got[:, :, 1].numpy(), one.numpy(), rtol=0,
                                atol=TOL_SAME)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest even, on the
+    float32 bits."""
+    b = x.contiguous().view(torch.int32)
+    b = b + 0xFFF + ((b >> 13) & 1)
+    return (b & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the card's K2 and K3 form a float32 product on the tensor
+    cores: x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and
+    lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), each product exact in
+    float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _bwd_from_products(mm, q, k, v, dout, lse, delta, scale, causal):
+    """dq, dk, dv from the five products of K2 and K3 (S, dP, P^T dO,
+    dS K, dS^T Q), each formed by `mm`."""
+    p = torch.exp(mm(q, k.transpose(1, 2)) * scale - lse[..., None])
+    if causal:
+        p = p * torch.ones(p.shape[-2:], dtype=torch.bool).tril()
+    dp = mm(dout, v.transpose(1, 2))
+    ds = p * (dp - delta[..., None]) * scale
+    return (mm(ds, k), mm(ds.transpose(1, 2), q),
+            mm(p.transpose(1, 2), dout))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_three_pass_tf32_products_keep_float32_tolerance(d, causal):
+    """The precision argument of K2 and K3's float32 path, emulated here:
+    forming each of the five products in three TF32 passes keeps dq, dk
+    and dv within the card tests' float32 tolerance, 1e-4 of the
+    output's scale max(1, max|plain|), of the plain backward at seq
+    2048; one TF32 pass does not."""
+    rng = np.random.RandomState(d + causal)
+    q, k, v, dout = _t(*(rng.standard_normal((2, 2048, d)).astype(
+        np.float32) for _ in range(4)))
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    ref = fa.flash_bwd_plain(q, k, v, out, lse, dout, scale, causal)
+    delta = fa.flash_delta(out, dout)
+
+    def err(mm):
+        got = _bwd_from_products(mm, q, k, v, dout, lse, delta, scale,
+                                 causal)
+        return max(float((g - r).abs().max()) / max(1.0, float(
+            r.abs().max())) for g, r in zip(got, ref))
+
+    assert err(_mm_3xtf32) <= 1e-4
+    assert err(_mm_1xtf32) > 1e-4
 
 
 def test_cuda_tensor_never_takes_the_plain_versions(monkeypatch):

@@ -106,6 +106,62 @@ def test_flash_kernels_match_plain(cuda, dtype, d, causal, bh, sq, sk):
         assert _flash_err(got, ref) <= tol, (name, _flash_err(got, ref))
 
 
+def _backward_inputs(cuda, dtype, d, causal, seed, bh=4, s=2048):
+    """q, k, v, dout in `dtype` and their float32 copies, with LSE and
+    delta from the plain forward in float32 on the same values."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = [torch.randn(bh, s, d, generator=gen, device=cuda).to(dt)
+         for _ in range(4)]
+    f = [t.float() for t in x]
+    out, lse = fa.flash_fwd_plain(f[0], f[1], f[2], d ** -0.5, causal)
+    return x, f, out, lse, fa.flash_delta(out, f[3])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_at_seq_2048(cuda, dtype, d, causal):
+    """K2 and K3 alone at the training sequence length, given the plain
+    forward's LSE and delta: against the plain backward run in float32 on
+    the same values, at FLASH_TOL (float32: the three TF32 passes and the
+    tensor cores' float32 sums in another order; bfloat16: P and dS
+    rounded to bfloat16 before their products, and the outputs)."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    (q, k, v, dout), f, out, lse, delta = _backward_inputs(
+        cuda, dtype, d, causal, seed=d + causal)
+    scale = d ** -0.5
+    dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal)
+    ref = fa.flash_bwd_plain(f[0], f[1], f[2], out, lse, f[3], scale,
+                             causal)
+    torch.cuda.synchronize()
+    for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.dtype == q.dtype and got.shape == r.shape, name
+        assert torch.isfinite(got).all(), name
+        assert _flash_err(got, r) <= FLASH_TOL[dtype], (name,
+                                                        _flash_err(got, r))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype):
+    """Every output tile of K2 and K3 has one owner and sums in one
+    order: two launches on the same inputs give the same bits."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    (q, k, v, dout), _, _, lse, delta = _backward_inputs(
+        cuda, dtype, 64, False, seed=11)
+    runs = [(fa.flash_bwd_dq(q, k, v, dout, lse, delta, 0.125, False),
+             *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, 0.125, False))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_flash_attention_grads_through_autograd(cuda):
     """The autograd Function on the card: one K1 forward, one K2 and one
     K3 launch for the backward, and the grads of the plain version."""
