@@ -45,11 +45,37 @@ Phases, each a failure of which exits non-zero:
    every weight after the steps.
 7. train_profile: torch.profiler over 3 full-width train steps; device
    busy and idle time per step and K1, K2, K3 and K2+K3's shares.
+8. bn_kernels: P1, the BatchNorm apply (csrc/bn_apply.cu), against its
+   plain version at the four ResNet-50 stage-output shapes of
+   scripts/resnet_bn_probe.py ([M, C] = (802816, 256), (200704, 512),
+   (50176, 1024), (12544, 2048)) in bfloat16 and float32, with the
+   residual and the ReLU, the ReLU only, and neither; plus ragged and
+   misaligned cases on the scalar path.  Each case's error and
+   tolerance, kernel time, plain time, bytes bound, and for the variant
+   with neither the library yardstick F.batch_norm in eval mode.
+9. resnet: the torch.fx-imported ResNet-50 of
+   examples/python/pytorch/resnet50_search.py (224 px, 1000 classes,
+   batch 256, bfloat16 compute, weights from torch.manual_seed(0)
+   through copy_weights) compiled with SGD(lr=0.1), one warm-up
+   train_step, fit over 4 batches, one eval_step.  P1's launch counter
+   is set to 0 just before fit and read just after: 53 launches per
+   step, 16 of them with the residual by the executor's plan.
+10. resnet_parity: a small ResNet (stem 3->8, a downsampling and an
+   identity Bottleneck, 32 px, batch 4, 10 classes) in float32, TF32
+   off, on the card against the port on device="cpu" from the same
+   module: logits, losses, weights and running statistics after 2 SGD
+   steps.
+11. resnet_profile: torch.profiler over 3 full-width ResNet-50 steps:
+   device busy and idle, cuDNN convolution time, P1 time and launches
+   by variant, BatchNorm statistics reductions, and every layout copy
+   or transpose, with those next to a P1 launch counted.
 
 `--phases` runs a subset (e.g. `--phases kernels` after editing a
-kernel).  Every line but the last is one JSON object; the last is
-{"ok": true, "device": {...}}.  Exits 2, printing no result, when
-torch.cuda.is_available() is false.
+kernel, `--phases bn_kernels,resnet,resnet_parity,resnet_profile` for
+the ResNet path).  Every line but the last two is one JSON object; the
+one before the last is the card's name and power limit as nvidia-smi
+prints them, and the last is {"ok": true, "device": {...}}.  Exits 2,
+printing no result, when torch.cuda.is_available() is false.
 """
 from __future__ import annotations
 
@@ -111,6 +137,28 @@ FLASH_TOL_REASON = {
 # float32 on both, sums in other orders (cuBLAS and the flash kernels
 # against MKL and the plain versions)
 PARITY_TOL = {"loss": 1e-4, "weights": 2e-5}
+
+
+# P1 (csrc/bn_apply.cu) at the ResNet-50 stage outputs, b256 at 224 px
+BN_SHAPES = ((802816, 256), (200704, 512), (50176, 1024), (12544, 2048))
+BN_VARIANTS = {"res_relu": (True, True), "relu": (False, True),
+               "none": (False, False)}
+BN_TOL = {"float32": 1e-6, "bfloat16": 8e-3}
+BN_TOL_REASON = (
+    "error over the output's scale max(1, max|plain|): kernel and plain "
+    "version do the same float32 multiply and adds in the same order "
+    "without contraction and round once, so they should agree exactly; "
+    "the tolerance allows one float32 ulp, or one bfloat16 ulp (at most 2^-7 of "
+    "the scale), should the two round differently")
+RESNET_BATCH, RESNET_PX, RESNET_CLASSES, RESNET_FIT = 256, 224, 1000, 4
+# ResNet-50's BatchNorms and the P1 launches of one forward, by the
+# executor's plan: 16 bn3 with the block's residual and ReLU, 33 with the
+# ReLU only (stem, bn1, bn2), 4 downsample with neither
+RESNET_BN = {"res_relu": 16, "relu": 33, "none": 4}
+# card against CPU, float32, TF32 off: cuDNN's and oneDNN's convolutions
+# sum in other orders, ~1e-6 relative, through 2 SGD steps at lr 0.1
+RESNET_PARITY_TOL = {"output": 1e-4, "loss": 1e-4, "weights": 1e-4,
+                     "running_stats": 1e-4}
 
 
 def emit(obj) -> None:
@@ -975,14 +1023,558 @@ def phase_train_profile(torch, fa, card: str, ff, x, y,
     return rec
 
 
+def resnet_modules():
+    """The example's Bottleneck and ResNet50
+    (examples/python/pytorch/resnet50_search.py, copied because that file
+    imports flexflow_tpu) and the small ResNet of resnet_parity."""
+    import torch
+    import torch.nn as nn
+
+    class Bottleneck(nn.Module):
+        expansion = 4
+
+        def __init__(self, cin, width, stride=1):
+            super().__init__()
+            cout = width * self.expansion
+            self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
+            self.bn1 = nn.BatchNorm2d(width)
+            self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+            self.bn2 = nn.BatchNorm2d(width)
+            self.conv3 = nn.Conv2d(width, cout, 1, bias=False)
+            self.bn3 = nn.BatchNorm2d(cout)
+            self.relu = nn.ReLU()
+            self.down = (
+                nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False),
+                              nn.BatchNorm2d(cout))
+                if stride != 1 or cin != cout else None)
+
+        def forward(self, x):
+            idt = x if self.down is None else self.down(x)
+            y = self.relu(self.bn1(self.conv1(x)))
+            y = self.relu(self.bn2(self.conv2(y)))
+            y = self.bn3(self.conv3(y))
+            return self.relu(y + idt)
+
+    class ResNet50(nn.Module):
+        def __init__(self, classes=1000):
+            super().__init__()
+            self.stem = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+            self.bn = nn.BatchNorm2d(64)
+            self.pool = nn.MaxPool2d(3, 2, 1)
+            self.relu = nn.ReLU()
+            layers = []
+            cin = 64
+            for width, blocks, stride in [(64, 3, 1), (128, 4, 2),
+                                          (256, 6, 2), (512, 3, 2)]:
+                for i in range(blocks):
+                    layers.append(Bottleneck(cin, width,
+                                             stride if i == 0 else 1))
+                    cin = width * Bottleneck.expansion
+            self.layers = nn.Sequential(*layers)
+            self.avg = nn.AdaptiveAvgPool2d(1)
+            self.fc = nn.Linear(cin, classes)
+
+        def forward(self, x):
+            x = self.pool(self.relu(self.bn(self.stem(x))))
+            x = self.layers(x)
+            x = self.avg(x)
+            x = torch.flatten(x, 1)
+            return self.fc(x)
+
+    class SmallResNet(ResNet50):
+        """ResNet50's stem and head around two Bottlenecks: stem 3 -> 8,
+        one downsampling block (8 -> 16, stride 2), one identity block."""
+
+        def __init__(self, classes=10):
+            nn.Module.__init__(self)
+            self.stem = nn.Conv2d(3, 8, 7, 2, 3, bias=False)
+            self.bn = nn.BatchNorm2d(8)
+            self.pool = nn.MaxPool2d(3, 2, 1)
+            self.relu = nn.ReLU()
+            self.layers = nn.Sequential(Bottleneck(8, 4, 2),
+                                        Bottleneck(16, 4, 1))
+            self.avg = nn.AdaptiveAvgPool2d(1)
+            self.fc = nn.Linear(16, classes)
+
+    return Bottleneck, ResNet50, SmallResNet
+
+
+def bn_bytes(m: int, c: int, itemsize: int, res: bool) -> int:
+    """Bytes P1 must move: x (and res) read once, y written once, scale
+    and shift read once."""
+    return (3 if res else 2) * m * c * itemsize + 2 * c * itemsize
+
+
+def bn_bound_ms(m: int, c: int, itemsize: int, res: bool,
+                relu: bool) -> tuple:
+    """(bound ms, "bytes" or "operations"): the bytes over HBM against
+    the float32 multiply and adds (and the ReLU's compare) at the SIMT
+    peak."""
+    t_bytes = bn_bytes(m, c, itemsize, res) / H100_BYTES_PER_S
+    t_ops = m * c * (2 + res + relu) / H100_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_bn_kernels(torch, bk, card: str, dev) -> dict:
+    """P1 against its plain version at the probe's shapes, both dtypes,
+    every variant; ragged and misaligned cases on the scalar path."""
+    import torch.nn.functional as F
+
+    bk.load_library()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    cases, worst = [], {}
+
+    def check(what, dname, got, ref):
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"bn_apply output not finite: {what}")
+        err = _scaled_err(got, ref)
+        worst[dname] = max(worst.get(dname, 0.0), err[1])
+        if err[1] > BN_TOL[dname]:
+            raise RuntimeError(f"bn_apply disagrees with its plain version: "
+                               f"{what}: {err[1]} > {BN_TOL[dname]}")
+        return err
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        isz = dtype.itemsize
+        for m, c in BN_SHAPES:
+            x = torch.randn(m, c, generator=gen, device=dev).to(dtype)
+            res = torch.randn(m, c, generator=gen, device=dev).to(dtype)
+            scale = (torch.rand(c, generator=gen, device=dev) + 0.5).to(dtype)
+            shift = (torch.randn(c, generator=gen, device=dev) * 0.1).to(dtype)
+            for variant, (has_res, relu) in BN_VARIANTS.items():
+                r = res if has_res else None
+                got = bk.bn_apply(x, scale, shift, r, relu)
+                ref = bk.bn_apply_plain(x, scale, shift, r, relu)
+                err = check(f"{dname} {m}x{c} {variant}", dname, got, ref)
+                exact = bool(torch.equal(got, ref))
+                del got, ref
+                ms = time_ms(torch, lambda: bk.bn_apply(x, scale, shift, r,
+                                                        relu), flush)
+                plain_ms = time_ms(torch, lambda: bk.bn_apply_plain(
+                    x, scale, shift, r, relu), flush)
+                library_ms, lib_err = None, None
+                if variant == "none":
+                    # x * scale + shift in one library call
+                    zeros = torch.zeros(c, device=dev)
+                    ones = torch.ones(c, device=dev) - 1e-5
+
+                    def library():
+                        return F.batch_norm(x, zeros, ones, scale.float(),
+                                            shift.float(), training=False,
+                                            eps=1e-5)
+
+                    lib_err = _scaled_err(library(), bk.bn_apply_plain(
+                        x, scale, shift, None, False))[1]
+                    library_ms = time_ms(torch, library, flush)
+                bound, bound_by = bn_bound_ms(m, c, isz, has_res, relu)
+                cases.append({
+                    "dtype": dname, "m": m, "c": c, "variant": variant,
+                    "vectorized": bk.vectorized(x, r),
+                    "max_abs_err": err[0], "err_over_scale": err[1],
+                    "bit_exact": exact, "tol": BN_TOL[dname],
+                    "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms,
+                    "library_err_over_scale": lib_err,
+                    "bytes": bn_bytes(m, c, isz, has_res),
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "share_of_bound": bound / ms,
+                    "gb_per_s": bn_bytes(m, c, isz, has_res) / ms / 1e6})
+            del x, res
+    # ragged C and M, and a misaligned x: the scalar path
+    ragged = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        # C 37: scalar path; offset 1: misaligned, scalar path; C 4100:
+        # a grid of whole rows; C 2053 (prime): the general loop
+        for m, c, offset in ((1001, 37, 0), (333, 64, 1), (7, 4100, 0),
+                             (5, 2053, 0)):
+            base = torch.randn(m * c + offset, generator=gen,
+                               device=dev).to(dtype)
+            x = base[offset:].view(m, c)
+            res = torch.randn(m, c, generator=gen, device=dev).to(dtype)
+            scale = torch.randn(c, generator=gen, device=dev).to(dtype)
+            shift = torch.randn(c, generator=gen, device=dev).to(dtype)
+            for variant, (has_res, relu) in BN_VARIANTS.items():
+                r = res if has_res else None
+                err = check(f"{dname} {m}x{c}+{offset} {variant}", dname,
+                            bk.bn_apply(x, scale, shift, r, relu),
+                            bk.bn_apply_plain(x, scale, shift, r, relu))
+                ragged.append({"dtype": dname, "m": m, "c": c,
+                               "offset": offset, "variant": variant,
+                               "vectorized": bk.vectorized(x, r),
+                               "err_over_scale": err[1]})
+    if any(r["vectorized"] for r in ragged if r["c"] == 37 or r["offset"]):
+        raise RuntimeError("bn_apply took the vector path on a ragged or "
+                           "misaligned case")
+    main = next(cs for cs in cases if cs["dtype"] == "bfloat16"
+                and (cs["m"], cs["c"]) == BN_SHAPES[0]
+                and cs["variant"] == "res_relu")
+    rec = {"phase": "bn_kernels", "card": card, "cases": cases,
+           "ragged": ragged, "tolerance": BN_TOL,
+           "tolerance_reason": BN_TOL_REASON,
+           "library_note": "F.batch_norm(x, 0, 1 - eps, scale, shift, "
+                           "training=False) computes x * scale + shift, "
+                           "the variant with neither; no single PyTorch "
+                           "call computes the fused variants",
+           "main": main}
+    emit(rec)
+    rec["worst"] = worst
+    return rec
+
+
+def build_resnet(torch, module, batch: int, px: int, device: str,
+                 compute_dtype: str):
+    """The entry points a user calls: PyTorchModel(module).torch_to_ff,
+    softmax, compile with SGD(lr=0.1) and the sparse cross-entropy,
+    copy_weights."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType,
+                                    MetricsType, SGDOptimizer)
+    from flexflow_tpu_torch.torch_frontend import PyTorchModel
+
+    ff = FFModel(FFConfig(batch_size=batch, device=device,
+                          compute_dtype=compute_dtype))
+    x = ff.create_tensor([batch, 3, px, px], name="input")
+    pt = PyTorchModel(module)
+    (out,) = pt.torch_to_ff(ff, [x])
+    ff.softmax(out)
+    ff.compile(optimizer=SGDOptimizer(lr=0.1),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.ACCURACY,
+                        MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    pt.copy_weights(ff)
+    return ff
+
+
+def bn_plan_counts(ff) -> dict:
+    """P1 applies of one forward by variant, from the executor's plan."""
+    counts = {"res_relu": 0, "relu": 0, "none": 0}
+    for plan in ff.executor.bn_plans.values():
+        counts["res_relu" if plan.residual is not None
+               else "relu" if plan.relu else "none"] += 1
+    return counts
+
+
+def phase_resnet(torch, bk, card: str):
+    """Full-width ResNet-50 (torch.fx import), batch 256, 224 px, 1000
+    classes, bfloat16 compute, through compile, train_step, fit and
+    eval_step on the card."""
+    _, ResNet50, _ = resnet_modules()
+    torch.manual_seed(0)
+    module = ResNet50(classes=RESNET_CLASSES)
+    t0 = time.perf_counter()
+    ff = build_resnet(torch, module, RESNET_BATCH, RESNET_PX, "cuda",
+                      "bfloat16")
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    plan = bn_plan_counts(ff)
+    if plan != RESNET_BN:
+        raise RuntimeError(f"resnet: BatchNorm plan {plan}, expected "
+                           f"{RESNET_BN}")
+    n = RESNET_BATCH * (1 + RESNET_FIT)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((n, 3, RESNET_PX, RESNET_PX), dtype=np.float32)
+    y = rng.integers(0, RESNET_CLASSES, n).astype(np.int32)
+    b = RESNET_BATCH
+    t0 = time.perf_counter()
+    warm = ff.train_step({"input": x[:b]}, y[:b])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    losses = []
+    step = ff.train_step
+
+    def recording(inputs, labels):
+        m = step(inputs, labels)
+        losses.append(m["loss"])
+        return m
+
+    ff.train_step = recording
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    bk.bn_apply.launches = 0
+    t0 = time.perf_counter()
+    hist = ff.fit(x[b:], y[b:], batch_size=b, epochs=1, verbose=False)
+    wall = time.perf_counter() - t0  # fit synchronizes at the epoch's end
+    launches = bk.bn_apply.launches
+    del ff.train_step
+    peak = torch.cuda.max_memory_allocated()
+    bk.bn_apply.launches = 0
+    ev = ff.eval_step({"input": x[:b]}, y[:b])
+    probs = ff.forward({"input": x[:b]})
+    eval_launches = bk.bn_apply.launches
+    per_forward = sum(RESNET_BN.values())
+    if launches != per_forward * RESNET_FIT:
+        raise RuntimeError(f"resnet: P1 launched {launches} times over "
+                           f"{RESNET_FIT} steps, expected {per_forward} "
+                           "per step")
+    if eval_launches != 2 * per_forward:
+        raise RuntimeError(f"resnet: eval_step + forward launched P1 "
+                           f"{eval_launches} times")
+    loss_vals = [float(warm["loss"])] + [float(v) for v in losses]
+    if not (np.isfinite(loss_vals).all() and np.isfinite(float(ev["loss"]))
+            and tuple(probs.shape) == (b, RESNET_CLASSES)
+            and torch.isfinite(probs).all()):
+        raise RuntimeError(f"resnet: non-finite or misshapen results: "
+                           f"losses {loss_vals}, eval {ev}, output "
+                           f"{tuple(probs.shape)}")
+    pm = hist[0]
+    if pm.train_all != b * RESNET_FIT:
+        raise RuntimeError(f"resnet: fit scored {pm.train_all} samples")
+    rec = {
+        "phase": "resnet", "card": card,
+        "model": {"source": "examples/python/pytorch/resnet50_search.py "
+                            "ResNet50 via torch.fx",
+                  "batch": b, "px": RESNET_PX, "classes": RESNET_CLASSES,
+                  "compute_dtype": "bfloat16",
+                  "optimizer": "SGD(lr=0.1)",
+                  "weights": "torch.manual_seed(0) module init, "
+                             "copy_weights"},
+        "compile_s": compile_s, "warmup_step_s": warm_s,
+        "fit_steps": RESNET_FIT, "fit_wall_s": wall,
+        "step_ms": wall / RESNET_FIT * 1e3,
+        "images_per_s": b * RESNET_FIT / wall,
+        "losses": loss_vals, "eval_loss": float(ev["loss"]),
+        "bn_apply_launches": launches,
+        "bn_apply_launches_per_step": launches / RESNET_FIT,
+        "bn_plan_per_forward": plan,
+        "peak_memory_gb": peak / 1e9,
+    }
+    emit(rec)
+    return ff, x[:b], y[:b], rec
+
+
+def phase_resnet_parity(torch, bk, card: str) -> dict:
+    """Two SGD steps of the small ResNet, float32, on the card and on
+    the CPU from the same module and batches."""
+    _, _, SmallResNet = resnet_modules()
+    torch.manual_seed(1)
+    module = SmallResNet()
+    batch, steps = 4, 2
+    ff_g = build_resnet(torch, module, batch, 32, "cuda", "float32")
+    ff_c = build_resnet(torch, module, batch, 32, "cpu", "float32")
+    rng = np.random.RandomState(1)
+    x = rng.randn(batch * (steps + 1), 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, batch * (steps + 1)).astype(np.int32)
+    bk.bn_apply.launches = 0
+    probs = {dev: ff.forward({"input": x[:batch]}).cpu().numpy()
+             for dev, ff in (("cuda", ff_g), ("cpu", ff_c))}
+    losses = {"cuda": [], "cpu": []}
+    for i in range(steps):
+        sl = slice(batch * (i + 1), batch * (i + 2))
+        for dev, ff in (("cuda", ff_g), ("cpu", ff_c)):
+            losses[dev].append(float(ff.train_step({"input": x[sl]},
+                                                   y[sl])["loss"]))
+    launches = bk.bn_apply.launches
+    per_forward = len(ff_g.executor.bn_plans)
+    if launches != per_forward * (1 + steps):
+        raise RuntimeError(f"resnet_parity: card launched P1 {launches} "
+                           f"times, expected {per_forward} per forward")
+    diff = {"output": float(np.abs(probs["cuda"] - probs["cpu"]).max()),
+            "loss": max(abs(a - b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"]))}
+    worst = {}
+    for key, (g, c) in {"weights": (ff_g.get_weights(), ff_c.get_weights()),
+                        "running_stats": (ff_g.get_state(),
+                                          ff_c.get_state())}.items():
+        diff[key], worst[key] = 0.0, None
+        for op, entries in c.items():
+            for k, v in entries.items():
+                d = float(np.abs(g[op][k] - v).max())
+                if d > diff[key]:
+                    diff[key], worst[key] = d, f"{op}.{k}"
+    if not all(np.isfinite(losses["cuda"] + losses["cpu"])):
+        raise RuntimeError(f"resnet_parity: non-finite losses {losses}")
+    over = {k: v for k, v in diff.items() if v > RESNET_PARITY_TOL[k]}
+    if over:
+        raise RuntimeError(f"resnet_parity: card vs CPU {over} over "
+                           f"{RESNET_PARITY_TOL} (worst {worst})")
+    rec = {"phase": "resnet_parity", "card": card, "batch": batch,
+           "px": 32, "steps": steps, "dtype": "float32",
+           "allow_tf32": False, "losses": losses, "max_diff": diff,
+           "worst": worst, "tolerance": RESNET_PARITY_TOL,
+           "bn_apply_launches_on_card": launches,
+           "compared": "softmax output of an eval-mode forward, losses, "
+                       "every weight and running statistic after the "
+                       "steps"}
+    emit(rec)
+    return rec
+
+
+# device kernels by kind, from their names: cuDNN's convolutions, P1,
+# same-dtype copies over strided iterators (layout permutations),
+# dtype casts, host/device copies, torch reductions, the rest
+_KINDS = (
+    ("p1", ("bn_apply_kernel",)),
+    ("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit_gemm", "cudnn",
+              "xmma")),
+    ("layout", ("nchwtonhwc", "nhwctonchw", "transpose", "permute")),
+    ("cast", ("bfloat16_copy", "unrolled_elementwise_kernel<at::native::"
+              "direct_copy")),
+    ("memcpy", ("memcpy",)),
+    ("reduction", ("reduce_kernel",)),
+    ("gemm", ("gemm", "nvjet", "cutlass")),
+)
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    # a same-dtype copy that is not contiguous on both sides
+    if "direct_copy" in low and low.startswith("void at::native::"
+                                               "elementwise_kernel<"):
+        return "layout"
+    for kind, tags in _KINDS:
+        if any(t in low for t in tags):
+            return kind
+    return "elementwise" if "elementwise" in low else "other"
+
+
+def _self_device_us(avg) -> float:
+    t = getattr(avg, "self_device_time_total", None)
+    return float(t if t is not None else avg.self_cuda_time_total)
+
+
+def phase_resnet_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
+    """torch.profiler over `steps` full-width ResNet-50 train steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ff.train_step({"input": x}, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ff.train_step({"input": x}, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.events()
+                     if "cuda" in str(e.device_type).lower()),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        raise RuntimeError("resnet_profile: the profiler saw no device time")
+    by_name, count, by_kind, kind_n = {}, {}, {}, {}
+    p1_variant = {}
+    for e in events:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        count[e.name] = count.get(e.name, 0) + 1
+        k = _kind(e.name)
+        by_kind[k] = by_kind.get(k, 0.0) + us
+        kind_n[k] = kind_n.get(k, 0) + 1
+        if k == "p1":
+            m = re.search(r"bn_apply_kernel<([^,]+),\s*(\d+),\s*(\w+),\s*"
+                          r"(\w+)>", e.name)
+            v = ("unparsed" if m is None else
+                 "res_relu" if m.group(3) == "true"
+                 else "relu" if m.group(4) == "true" else "none")
+            p1_variant[v] = p1_variant.get(v, 0) + 1
+    # layout copies (and, apart, dtype casts) right before or after a P1
+    # launch
+    beside = {"layout": {}, "cast": {}}
+    for i, e in enumerate(events):
+        if _kind(e.name) != "p1":
+            continue
+        for j in (i - 1, i + 1):
+            k = _kind(events[j].name) if 0 <= j < len(events) else None
+            if k in beside:
+                n = events[j].name[:80]
+                beside[k][n] = beside[k].get(n, 0) + 1
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:30]
+    # the aten ops that launched the device time, and the copies by shape
+    ops = [a for a in prof.key_averages() if _self_device_us(a) > 0]
+    top_ops = sorted(ops, key=lambda a: -_self_device_us(a))[:25]
+    copies = [a for a in prof.key_averages(group_by_input_shape=True)
+              if a.key in ("aten::copy_", "aten::contiguous", "aten::clone",
+                           "aten::_to_copy") and _self_device_us(a) > 0]
+    copies = sorted(copies, key=lambda a: -_self_device_us(a))[:15]
+    rec = {
+        "phase": "resnet_profile", "card": card, "steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_ms_per_step": (wall_ms - busy_us / 1e3) / steps,
+        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "device_events_per_step": len(events) / steps,
+        "by_kind": {k: {"ms_per_step": us / 1e3 / steps,
+                        "share_of_busy": us / busy_us,
+                        "launches_per_step": kind_n[k] / steps}
+                    for k, us in sorted(by_kind.items())},
+        "kind_note": "by kernel name: conv, cuDNN's convolutions; p1, "
+                     "bn_apply_kernel; layout, same-dtype copies over "
+                     "strided iterators and transposes; cast, dtype "
+                     "conversions; memcpy, host/device copies; "
+                     "reduction, torch reductions (BatchNorm statistics, "
+                     "P1's backward sums, the loss); gemm, the head",
+        "p1_launches_per_step_by_variant": {
+            k: v / steps for k, v in sorted(p1_variant.items())},
+        "events_beside_p1": beside,
+        "layout_kernels": {n[:80]: {"ms_per_step": by_name[n] / 1e3 / steps,
+                                    "launches_per_step": count[n] / steps}
+                           for n in by_name if _kind(n) == "layout"},
+        "top_kernels": [{"name": n[:100], "kind": _kind(n),
+                         "ms_per_step": us / 1e3 / steps,
+                         "launches_per_step": count[n] / steps}
+                        for n, us in top],
+        "top_ops": [{"op": a.key, "calls_per_step": a.count / steps,
+                     "self_device_ms_per_step":
+                         _self_device_us(a) / 1e3 / steps}
+                    for a in top_ops],
+        "copy_ops_by_shape": [
+            {"op": a.key, "input_shapes": str(a.input_shapes)[:160],
+             "calls_per_step": a.count / steps,
+             "self_device_ms_per_step": _self_device_us(a) / 1e3 / steps}
+            for a in copies],
+    }
+    emit(rec)
+    return rec
+
+
 ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
-              "train_profile")
+              "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile")
 
 
-def kernel_line(kern: dict, flash: dict, serve, train, card: str) -> dict:
-    """The JSON line of every kernel: launches on the main paths,
-    agreement with the plain versions and the times of this run."""
-    rows = [{
+def kernel_line(kern, flash, bn, serve, train, resnet, card: str) -> dict:
+    """The JSON line of every kernel whose phase ran: launches on the
+    main paths, agreement with the plain versions and the times of this
+    run."""
+    rows = []
+    if bn is not None:
+        main = bn["main"]
+        rows.append({
+            "name": "bn_apply",
+            "id": "P1",
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/csrc/bn_apply.cu",
+            "replaces": "scripts/resnet_bn_probe.py:28",
+            "launches": resnet["bn_apply_launches"] if resnet else 0,
+            "launches_per_train_step": (
+                resnet["bn_apply_launches_per_step"] if resnet else None),
+            "max_abs_err": max(c["max_abs_err"] for c in bn["cases"]),
+            "max_err_over_scale_by_dtype": bn["worst"],
+            "tolerance": BN_TOL,
+            "shape": [main["m"], main["c"]], "dtype": main["dtype"],
+            "variant": main["variant"],
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "share_of_bound": main["share_of_bound"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the fused "
+                            "apply; F.batch_norm (eval) times the variant "
+                            "with neither residual nor ReLU: "
+                            "library_ms_no_res_no_relu",
+            "library_ms_no_res_no_relu": next(
+                c["library_ms"] for c in bn["cases"]
+                if c["dtype"] == main["dtype"] and c["variant"] == "none"
+                and (c["m"], c["c"]) == (main["m"], main["c"])),
+            "card": card,
+        })
+    if kern is None:
+        return {"kernels": rows}
+    rows.append({
         "name": "paged_attention",
         "id": "K4",
         "route": "cuda",
@@ -1000,7 +1592,7 @@ def kernel_line(kern: dict, flash: dict, serve, train, card: str) -> dict:
         "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],
         "card": card,
-    }]
+    })
     names = {"K1": ("flash_fwd", 78), "K2": ("flash_bwd_dq", 217),
              "K3": ("flash_bwd_dkv", 265)}
     f32, bf16 = flash["main"]["float32"], flash["main"]["bfloat16"]
@@ -1057,6 +1649,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from flexflow_tpu_torch.ops.kernels import _build
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
     from flexflow_tpu_torch.ops.kernels import paged_attention as pk
 
@@ -1064,12 +1657,14 @@ def main(argv=None) -> int:
     emit({"card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda})
     t0 = time.perf_counter()
-    paged_lib, flash_lib = _build.build(pk.SOURCE, fa.SOURCE)
+    paged_lib, flash_lib, bn_lib = _build.build(pk.SOURCE, fa.SOURCE,
+                                                bk.SOURCE)
     build_s = time.perf_counter() - t0
-    emit({"build": [paged_lib.name, flash_lib.name], "build_s": build_s,
+    emit({"build": [paged_lib.name, flash_lib.name, bn_lib.name],
+          "build_s": build_s,
           "note": "one nvcc per source, started together"})
     dev = torch.device("cuda")
-    kern = flash = serve = train = None
+    kern = flash = serve = train = bn = resnet = None
     if "kernels" in phases:
         kern = phase_kernels(torch, pk, card, dev, paged_lib, build_s)
         flash = phase_flash_kernels(torch, fa, card, dev, flash_lib)
@@ -1091,8 +1686,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "train_parity" in phases:
         phase_train_parity(torch, fa, card)
-    if kern is not None:
-        emit(kernel_line(kern, flash, serve, train, card))
+    if "bn_kernels" in phases:
+        bn = phase_bn_kernels(torch, bk, card, dev)
+        torch.cuda.empty_cache()
+    if phases & {"resnet", "resnet_profile"}:
+        ff, xb, yb, resnet = phase_resnet(torch, bk, card)
+        if "resnet_profile" in phases:
+            phase_resnet_profile(torch, card, ff, xb, yb)
+        del ff
+        torch.cuda.empty_cache()
+    if "resnet_parity" in phases:
+        phase_resnet_parity(torch, bk, card)
+    if kern is not None or bn is not None:
+        emit(kernel_line(kern, flash, bn, serve, train, resnet, card))
+    print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,8 +6,20 @@ tensor}}), and `run_forward` interprets the graph op by op, eagerly.
 The reference's flat path is kept: floating inputs and weights are cast
 to the compute dtype (`to_compute`), decode caches live in the compute
 dtype, and the sink output is cast to float32.  State entries (the
-paged KV pools) are updated in place, so the returned state holds the
-same tensors it was given.
+paged KV pools, BatchNorm's running statistics) are updated in place
+and outside autograd, so the returned state holds the same tensors it
+was given and no step's graph stays alive through them.
+
+Two plans are made once, at construction.  The layout pass
+(pcg/layout.py) picks the 4-D edges that are channels_last, and the
+executor converts each op's inputs to what the op wants.  The
+BatchNorm plan (`plan_bn_applies`) is how the port gets the fusion that
+XLA gives the reference: a BatchNorm whose only consumer is an add
+(as its first operand) whose only consumer is a ReLU runs as one P1
+launch with the add's other operand as residual; a BatchNorm whose
+only consumer is a ReLU runs as one with the ReLU; every other
+BatchNorm applies through P1 with its own `relu`.  No tensor that is
+the sink or has a second consumer is fused away.
 
 `build_step` and `build_eval_step` are the training surface.  Autograd
 takes the place of `jax.value_and_grad`: the forward runs with
@@ -18,14 +30,79 @@ Sharding, ZeRO, remat, pipelines and cache taps come with later slices.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import collections
+import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .fftype import OperatorType
+from .fftype import OpBinary, OperatorType, OpUnary
 from .pcg.graph import Graph
+from .pcg.layout import NHWC, PASS, assign_layouts
 
 Weights = Dict[str, Dict[str, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class BNApplyPlan:
+    """How one BatchNorm's apply runs: P1 adds the tensor `residual`
+    (a guid, or None) and applies the ReLU when `relu`; its output
+    stands for tensor `out`; the ops in `absorbed` (the add, the ReLU)
+    do not run on their own; it runs at op `at`'s place in the
+    topological order (the last op of the chain, after both operands
+    of the add)."""
+
+    residual: Optional[int]
+    relu: bool
+    out: int
+    absorbed: Tuple[int, ...]
+    at: int
+
+
+def _is_relu(op) -> bool:
+    return (op.op_type == OperatorType.ELEMENT_UNARY
+            and op.params.op == OpUnary.RELU)
+
+
+def plan_bn_applies(graph: Graph,
+                    t_layout: Dict[int, str]) -> Dict[int, BNApplyPlan]:
+    """{BatchNorm op guid: its BNApplyPlan} (see the module's note)."""
+    consumers = collections.defaultdict(list)
+    for op in graph.ops:
+        for t in op.inputs:
+            consumers[t.guid].append(op)
+    sink_outs = {t.guid for t in graph.sink_op().outputs}
+
+    def only_consumer(t):
+        ops = consumers[t.guid]
+        if t.guid in sink_outs or len(ops) != 1:
+            return None
+        return ops[0]
+
+    plans = {}
+    for op in graph.topo_order():
+        if op.op_type != OperatorType.BATCH_NORM:
+            continue
+        out = op.outputs[0]
+        plan = BNApplyPlan(None, op.params.relu, out.guid, (), op.guid)
+        nxt = only_consumer(out)
+        if nxt is not None and not op.params.relu:
+            if _is_relu(nxt):
+                plan = BNApplyPlan(None, True, nxt.outputs[0].guid,
+                                   (nxt.guid,), nxt.guid)
+            elif (nxt.op_type == OperatorType.ELEMENT_BINARY
+                  and nxt.params.op == OpBinary.ADD
+                  and nxt.inputs[0] is out and nxt.inputs[1] is not out
+                  and nxt.inputs[1].shape.logical_shape
+                  == out.shape.logical_shape
+                  and t_layout.get(nxt.inputs[1].guid) == NHWC):
+                relu = only_consumer(nxt.outputs[0])
+                if relu is not None and _is_relu(relu):
+                    plan = BNApplyPlan(nxt.inputs[1].guid, True,
+                                       relu.outputs[0].guid,
+                                       (nxt.guid, relu.guid), relu.guid)
+        plans[op.guid] = plan
+    return plans
 
 
 class GraphExecutor:
@@ -40,6 +117,37 @@ class GraphExecutor:
         self.optimizer = optimizer
         self.order = graph.topo_order()
         self.sink = graph.sink_op()
+        self.t_layout, self.op_layout = assign_layouts(graph)
+        self.bn_plans = plan_bn_applies(graph, self.t_layout)
+        self.schedule = self._schedule()
+
+    def _schedule(self) -> List[Tuple[object, Optional[BNApplyPlan]]]:
+        """(op, its BatchNorm plan or None) in execution order: the
+        topological order with each fused chain run at its last op."""
+        by_guid = {op.guid: op for op in self.order}
+        runs_at = {p.at: g for g, p in self.bn_plans.items() if p.at != g}
+        skip = set(runs_at.values()) | {
+            g for p in self.bn_plans.values() for g in p.absorbed}
+        out = []
+        for op in self.order:
+            if op.guid in runs_at:
+                bn = by_guid[runs_at[op.guid]]
+                out.append((bn, self.bn_plans[bn.guid]))
+            elif op.guid not in skip:
+                out.append((op, self.bn_plans.get(op.guid)))
+        return out
+
+    def _layout_in(self, op, t, v: torch.Tensor) -> torch.Tensor:
+        """v as op wants it: channels_last for an NHWC op, as stored for
+        a pass-through op, NCHW-contiguous for any other consumer."""
+        if v.dim() != 4:
+            return v
+        want = self.op_layout.get(op.guid)
+        if want == NHWC:
+            return v.contiguous(memory_format=torch.channels_last)
+        if want != PASS and self.t_layout.get(t.guid) == NHWC:
+            return v.contiguous()
+        return v
 
     def init_weights(self, seed: int = 0) -> Tuple[Weights, Weights]:
         """Weight and state dictionaries, drawn from one generator on
@@ -77,28 +185,43 @@ class GraphExecutor:
         dropout) draw from `generator`."""
         env: Dict[int, torch.Tensor] = {}
         new_state = {k: dict(v) for k, v in state.items()}
-        for op in self.order:
+        for op, plan in self.schedule:
             if op.op_type == OperatorType.INPUT:
                 env[op.outputs[0].guid] = self._to_compute(inputs[op.name])
                 continue
-            ins = [env[t.guid] for t in op.inputs]
+            ins = [self._layout_in(op, t, env[t.guid]) for t in op.inputs]
             nt = op.num_trainable_weights()
             ws = []
             for i, spec in enumerate(op.weight_specs):
                 src = weights if i < nt else state
                 ws.append(self._to_compute(src[op.name][spec.name]))
-            results = op.forward(ins, ws, training=training,
-                                 generator=generator)
+            if plan is None:
+                results = op.forward(ins, ws, training=training,
+                                     generator=generator)
+            else:
+                res = None if plan.residual is None else env[plan.residual]
+                results = op.forward(ins, ws, training=training,
+                                     generator=generator, residual=res,
+                                     relu=plan.relu)
             outs = results[:len(op.outputs)]
-            for spec, val in zip(op.weight_specs[nt:],
-                                 results[len(op.outputs):]):
+            for spec, given, val in zip(op.weight_specs[nt:], ws[nt:],
+                                        results[len(op.outputs):]):
                 dst = state[op.name][spec.name]
-                if val is not dst:
-                    dst.copy_(val)
+                # an entry handed back as given is unchanged (eval-mode
+                # BatchNorm): copying its compute-dtype cast back would
+                # round the state
+                if val is not dst and val is not given:
+                    with torch.no_grad():
+                        dst.copy_(val)
                 new_state[op.name][spec.name] = dst
-            for pt, val in zip(op.outputs, outs):
-                env[pt.guid] = val
+            if plan is not None:
+                env[plan.out] = outs[0]
+            else:
+                for pt, val in zip(op.outputs, outs):
+                    env[pt.guid] = val
         out = env[self.sink.outputs[0].guid]
+        if self.t_layout.get(self.sink.outputs[0].guid) == NHWC:
+            out = out.contiguous()
         if self.compute_dtype is not None and out.is_floating_point():
             out = out.float()  # loss/metrics in full precision
         return out, new_state

@@ -3,7 +3,7 @@
 Counterpart of flexflow_tpu/fftype.py: the same enum names and values,
 so a graph described in one package reads the same in the other.
 `DataType` maps onto torch dtypes instead of jnp dtypes.  Only the
-enums the serving and training slices reach are carried.
+enums the serving, training and ResNet slices reach are carried.
 """
 from __future__ import annotations
 
@@ -84,16 +84,50 @@ class CompMode(enum.Enum):
 
 class OperatorType(enum.Enum):
     INPUT = "input"
+    NOOP = "noop"
+    CONV2D = "conv2d"
     LINEAR = "linear"
     EMBEDDING = "embedding"
     MULTIHEAD_ATTENTION = "multihead_attention"
     ELEMENT_BINARY = "element_binary"
+    ELEMENT_UNARY = "element_unary"
+    POOL2D = "pool2d"
+    BATCH_NORM = "batch_norm"
     LAYER_NORM = "layer_norm"
-    SOFTMAX = "softmax"  # no op of the port yet: compile's from_logits test
+    SOFTMAX = "softmax"
+    FLAT = "flat"
     REDUCE_SUM = "reduce_sum"
     MEAN = "mean"
-    NOOP = "noop"
+
+
+class OpUnary(enum.Enum):
+    EXP = "exp"
+    LOG = "log"
+    SIN = "sin"
+    COS = "cos"
+    RELU = "relu"
+    GELU = "gelu"
+    SIGMOID = "sigmoid"
+    TANH = "tanh"
+    ELU = "elu"
+    IDENTITY = "identity"
+    RSQRT = "rsqrt"
+    SQRT = "sqrt"
+    ERF = "erf"
+    FLOOR = "floor"
+    POW = "pow"
+    SCALAR_MULTIPLY = "scalar_multiply"
+    SCALAR_ADD = "scalar_add"
+    SCALAR_SUB = "scalar_sub"
+    SCALAR_TRUE_DIV = "scalar_true_div"
+    NEGATIVE = "negative"
 
 
 class OpBinary(enum.Enum):
     ADD = "add"
+    SUB = "sub"
+    MUL = "mul"
+    DIV = "div"
+    MAX = "max"
+    MIN = "min"
+    POW = "pow"

@@ -1,9 +1,12 @@
 """FFModel of the PyTorch port (flexflow_tpu/model.py).
 
-The layer API that `models.transformer.build_gpt` and `build_bert`
-call, `compile` on one device under the trivial strategy (training or
-inference), `train_step`, `eval_step`, `fit`, `forward`, and weight
-access in the reference's {op: {name: array}} layout.  The device comes
+The layer API that `models.transformer.build_gpt` and `build_bert` and
+the torch.fx frontend call (dense, conv2d, pool2d, embedding,
+attention, batch_norm, layer_norm, softmax, flat, mean, the binary and
+unary elementwise ops and the scalar ones), `compile` on one device
+under the trivial strategy (training or inference), `train_step`,
+`eval_step`, `fit`, `forward`, and weight and op-state access in the
+reference's {op: {name: array}} layout.  The device comes
 from FFConfig.device: "cuda" by default, which raises on a machine
 without CUDA; "cpu" runs on the host.
 
@@ -23,16 +26,19 @@ from .config import FFConfig, resolve_device
 from .dataloader import SingleDataLoader, to_device
 from .executor import GraphExecutor
 from .fftype import (ActiMode, AggrMode, CompMode, DataType, LossType,
-                     MetricsType, OpBinary, OperatorType)
+                     MetricsType, OpBinary, OperatorType, OpUnary)
 from .initializer import Initializer
 from .loss import Loss
 from .metrics import Metrics, PerfMetrics
 from .ops.attention import MultiHeadAttention, MultiHeadAttentionParams
-from .ops.dense import Embedding, EmbeddingParams, Linear, LinearParams
-from .ops.element import ElementBinary, ElementBinaryParams
-from .ops.norm import LayerNorm, LayerNormParams
+from .ops.dense import (Conv2D, Conv2DParams, Embedding, EmbeddingParams,
+                        Linear, LinearParams, Pool2D, Pool2DParams)
+from .ops.element import (ElementBinary, ElementBinaryParams, ElementUnary,
+                          ElementUnaryParams)
+from .ops.norm import (BatchNorm, BatchNormParams, LayerNorm,
+                       LayerNormParams, Softmax, SoftmaxParams)
 from .ops.op import Op
-from .ops.shape import Mean, ReduceParams
+from .ops.shape import Flat, Mean, Reduce, ReduceParams
 from .ops.sources import InputOp, SourceParams
 from .optimizer import Optimizer, SGDOptimizer
 from .pcg.graph import Graph
@@ -136,10 +142,135 @@ class FFModel:
             decode_max_seq=decode_max_seq, kv_page_size=kv_page_size,
             kv_num_blocks=kv_num_blocks))
 
-    def add(self, x, y, inplace_a=False, name=None):
-        p = ElementBinaryParams(OpBinary.ADD, inplace_a)
+    def conv2d(self, input: ParallelTensor, out_channels: int,
+               kernel_h: int, kernel_w: int, stride_h: int = 1,
+               stride_w: int = 1, padding_h: int = 0, padding_w: int = 0,
+               activation: ActiMode = ActiMode.NONE, groups: int = 1,
+               use_bias: bool = True,
+               name: Optional[str] = None) -> ParallelTensor:
+        p = Conv2DParams(out_channels, (kernel_h, kernel_w),
+                         (stride_h, stride_w), (padding_h, padding_w),
+                         groups, use_bias, activation)
+        return self._add(Conv2D(p, [input], name=self._name("conv2d", name)))
+
+    def pool2d(self, input: ParallelTensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int = 0,
+               padding_w: int = 0, pool_type: str = "max",
+               activation: ActiMode = ActiMode.NONE,
+               name: Optional[str] = None) -> ParallelTensor:
+        p = Pool2DParams((kernel_h, kernel_w), (stride_h, stride_w),
+                         (padding_h, padding_w), pool_type, activation)
+        return self._add(Pool2D(p, [input], name=self._name("pool2d", name)))
+
+    # -- elementwise binary ---------------------------------------------
+    def _binary(self, kind: OpBinary, x, y, inplace_a=False, name=None):
+        p = ElementBinaryParams(kind, inplace_a)
         return self._add(ElementBinary(p, [x, y],
-                                       name=self._name("add", name)))
+                                       name=self._name(kind.value, name)))
+
+    def add(self, x, y, inplace_a=False, name=None):
+        return self._binary(OpBinary.ADD, x, y, inplace_a, name)
+
+    def subtract(self, x, y, inplace_a=False, name=None):
+        return self._binary(OpBinary.SUB, x, y, inplace_a, name)
+
+    def multiply(self, x, y, inplace_a=False, name=None):
+        return self._binary(OpBinary.MUL, x, y, inplace_a, name)
+
+    def divide(self, x, y, inplace_a=False, name=None):
+        return self._binary(OpBinary.DIV, x, y, inplace_a, name)
+
+    def max(self, x, y, name=None):
+        return self._binary(OpBinary.MAX, x, y, False, name)
+
+    def min(self, x, y, name=None):
+        return self._binary(OpBinary.MIN, x, y, False, name)
+
+    # -- elementwise unary ----------------------------------------------
+    def _unary(self, kind: OpUnary, x, scalar=0.0, inplace=False,
+               name=None):
+        p = ElementUnaryParams(kind, inplace, scalar)
+        return self._add(ElementUnary(p, [x],
+                                      name=self._name(kind.value, name)))
+
+    def exp(self, x, name=None):
+        return self._unary(OpUnary.EXP, x, name=name)
+
+    def log(self, x, name=None):
+        return self._unary(OpUnary.LOG, x, name=name)
+
+    def sin(self, x, name=None):
+        return self._unary(OpUnary.SIN, x, name=name)
+
+    def cos(self, x, name=None):
+        return self._unary(OpUnary.COS, x, name=name)
+
+    def relu(self, x, inplace=True, name=None):
+        return self._unary(OpUnary.RELU, x, inplace=inplace, name=name)
+
+    def gelu(self, x, name=None):
+        return self._unary(OpUnary.GELU, x, name=name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary(OpUnary.SIGMOID, x, name=name)
+
+    def tanh(self, x, name=None):
+        return self._unary(OpUnary.TANH, x, name=name)
+
+    def elu(self, x, inplace=True, name=None):
+        return self._unary(OpUnary.ELU, x, inplace=inplace, name=name)
+
+    def identity(self, x, name=None):
+        return self._unary(OpUnary.IDENTITY, x, name=name)
+
+    def rsqrt(self, x, name=None):
+        return self._unary(OpUnary.RSQRT, x, name=name)
+
+    def sqrt(self, x, name=None):
+        return self._unary(OpUnary.SQRT, x, name=name)
+
+    def erf(self, x, name=None):
+        return self._unary(OpUnary.ERF, x, name=name)
+
+    def floor(self, x, name=None):
+        return self._unary(OpUnary.FLOOR, x, name=name)
+
+    def pow(self, x, exponent: float, name=None):
+        return self._unary(OpUnary.POW, x, scalar=exponent, name=name)
+
+    def scalar_multiply(self, x, scalar: float, inplace=True, name=None):
+        return self._unary(OpUnary.SCALAR_MULTIPLY, x, scalar=scalar,
+                           name=name)
+
+    def scalar_add(self, x, scalar: float, inplace=True, name=None):
+        return self._unary(OpUnary.SCALAR_ADD, x, scalar=scalar, name=name)
+
+    def scalar_sub(self, x, scalar: float, inplace=True, name=None):
+        return self._unary(OpUnary.SCALAR_SUB, x, scalar=scalar, name=name)
+
+    def scalar_true_divide(self, x, scalar: float, inplace=True, name=None):
+        return self._unary(OpUnary.SCALAR_TRUE_DIV, x, scalar=scalar,
+                           name=name)
+
+    # -- norm / softmax / shape ------------------------------------------
+    def softmax(self, input, axis: int = -1, name=None):
+        return self._add(Softmax(SoftmaxParams(axis), [input],
+                                 name=self._name("softmax", name)))
+
+    def batch_norm(self, input, relu: bool = True, eps: float = 1e-5,
+                   momentum: float = 0.9, name=None):
+        p = BatchNormParams(relu, float(eps), float(momentum))
+        return self._add(BatchNorm(p, [input],
+                                   name=self._name("batch_norm", name)))
+
+    def flat(self, input, name=None):
+        return self._add(Flat(None, [input], name=self._name("flat", name)))
+
+    def reduce_sum(self, input, axes: Sequence[int], keepdims: bool = False,
+                   name=None):
+        p = ReduceParams(tuple(axes), keepdims, "sum")
+        return self._add(Reduce(p, [input],
+                                name=self._name("reduce_sum", name)))
 
     def layer_norm(self, input, axes: Sequence[int],
                    elementwise_affine: bool = True, eps: float = 1e-5,
@@ -306,7 +437,10 @@ class FFModel:
 
     # -- weight access -----------------------------------------------------
     def get_weights(self) -> Dict[str, Dict[str, np.ndarray]]:
-        return {op: {k: v.detach().cpu().numpy() for k, v in entries.items()}
+        """The weights as numpy copies (on the CPU too, where .numpy()
+        alone would alias the tensors the next step updates in place)."""
+        return {op: {k: v.detach().to("cpu", copy=True).numpy()
+                     for k, v in entries.items()}
                 for op, entries in self._weights.items()}
 
     def set_weights(self, weights: Dict[str, Dict[str, np.ndarray]]):
@@ -321,3 +455,21 @@ class FFModel:
             for op, entries in new.items():
                 for k, v in entries.items():
                     self._weights[op][k].copy_(v)
+
+    def get_state(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """The op state (BatchNorm's running statistics, decode caches)
+        as numpy, in the layout of the reference's FFModel._state."""
+        return {op: {k: v.detach().to("cpu", copy=True).numpy()
+                     for k, v in entries.items()}
+                for op, entries in self._state.items()}
+
+    def set_state(self, state: Dict[str, Dict[str, np.ndarray]]):
+        """Load op state in the reference's _state layout, checked name
+        by name and shape by shape, into the existing tensors."""
+        from .convert import from_jax_state
+
+        new = from_jax_state(state, self)
+        with torch.no_grad():
+            for op, entries in new.items():
+                for k, v in entries.items():
+                    self._state[op][k].copy_(v)

@@ -1,13 +1,65 @@
-"""Elementwise binary op (flexflow_tpu/ops/element.py ElementBinary)."""
+"""Elementwise ops (flexflow_tpu/ops/element.py): ElementUnary, with the
+reference's table of functions and its scalar ops, and ElementBinary."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
-from ..fftype import OpBinary, OperatorType
+from ..fftype import OpBinary, OperatorType, OpUnary
 from ..tensor import ParallelDim, ParallelTensorShape
 from .op import Op, ShapeError
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementUnaryParams:
+    op: OpUnary
+    inplace: bool = False
+    scalar: float = 0.0
+
+
+_UNARY_FNS = {
+    OpUnary.EXP: torch.exp,
+    OpUnary.LOG: torch.log,
+    OpUnary.SIN: torch.sin,
+    OpUnary.COS: torch.cos,
+    OpUnary.RELU: torch.relu,
+    # jax.nn.gelu defaults to the tanh approximation
+    OpUnary.GELU: lambda x: F.gelu(x, approximate="tanh"),
+    OpUnary.SIGMOID: torch.sigmoid,
+    OpUnary.TANH: torch.tanh,
+    OpUnary.ELU: F.elu,
+    OpUnary.IDENTITY: lambda x: x,
+    OpUnary.RSQRT: torch.rsqrt,
+    OpUnary.SQRT: torch.sqrt,
+    OpUnary.ERF: torch.erf,
+    OpUnary.FLOOR: torch.floor,
+    OpUnary.NEGATIVE: torch.neg,
+}
+
+_SCALAR_FNS = {
+    OpUnary.POW: torch.pow,
+    OpUnary.SCALAR_MULTIPLY: torch.mul,
+    OpUnary.SCALAR_ADD: torch.add,
+    OpUnary.SCALAR_SUB: torch.sub,
+    OpUnary.SCALAR_TRUE_DIV: torch.div,
+}
+
+
+class ElementUnary(Op):
+    op_type = OperatorType.ELEMENT_UNARY
+
+    def infer_output_shapes(self, input_shapes):
+        (ishape,) = input_shapes
+        return [ishape]
+
+    def forward(self, inputs, weights, *, training=False, generator=None):
+        (x,) = inputs
+        p: ElementUnaryParams = self.params
+        if p.op in _UNARY_FNS:
+            return [_UNARY_FNS[p.op](x)]
+        return [_SCALAR_FNS[p.op](x, p.scalar)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,7 +68,15 @@ class ElementBinaryParams:
     inplace_a: bool = False
 
 
-_BINARY_FNS = {OpBinary.ADD: torch.add}
+_BINARY_FNS = {
+    OpBinary.ADD: torch.add,
+    OpBinary.SUB: torch.sub,
+    OpBinary.MUL: torch.mul,
+    OpBinary.DIV: torch.div,
+    OpBinary.MAX: torch.maximum,
+    OpBinary.MIN: torch.minimum,
+    OpBinary.POW: torch.pow,
+}
 
 
 class ElementBinary(Op):

@@ -1,6 +1,7 @@
-"""Reductions of flexflow_tpu/ops/shape.py: `Reduce` (sum or mean over
-axes) and `Mean`, which BERT's mean-pooled classifier calls.  The other
-shape ops of that module come with later slices."""
+"""Shape ops of flexflow_tpu/ops/shape.py: `Reduce` (sum or mean over
+axes), `Mean`, which BERT's mean-pooled classifier calls, and `Flat`,
+which ResNet's head calls.  The other shape ops of that module come
+with later slices."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,7 @@ import torch
 
 from ..fftype import OperatorType
 from ..tensor import ParallelDim, ParallelTensorShape
-from .op import Op
+from .op import Op, ShapeError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +51,26 @@ class Reduce(Op):
 
 class Mean(Reduce):
     op_type = OperatorType.MEAN
+
+
+class Flat(Op):
+    """Flatten all but the sample dim (reference src/ops/flat.cc)."""
+
+    op_type = OperatorType.FLAT
+
+    def infer_output_shapes(self, input_shapes):
+        (ishape,) = input_shapes
+        ddims = [d for d in ishape.dims if not d.is_replica_dim]
+        if any(d.degree > 1 for d in ddims[1:]):
+            raise ShapeError(f"{self.name}: flattened dims are partitioned")
+        rest = 1
+        for d in ddims[1:]:
+            rest *= d.size
+        dims = (ParallelDim(ddims[0].size, ddims[0].degree),
+                ParallelDim(rest),
+                ParallelDim(1, ishape.replica_degree, is_replica_dim=True))
+        return [ParallelTensorShape(dims, ishape.dtype)]
+
+    def forward(self, inputs, weights, *, training=False, generator=None):
+        x = inputs[0]
+        return [x.reshape(x.shape[0], -1)]

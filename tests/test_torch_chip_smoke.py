@@ -66,3 +66,21 @@ def test_count_sass_per_kernel_instance():
         "K2 float32 d64": {"hmma": 2, "instructions": 3},
         "K3 bfloat16 d128": {"hmma": 1, "instructions": 1},
         "K1 float32 d64": {"hmma": 0, "instructions": 1}}
+
+
+@pytest.mark.parametrize("m,c,itemsize,res,relu,ms", [
+    (802816, 256, 2, True, True, 0.368),
+    (802816, 256, 2, False, True, 0.245),
+    (802816, 256, 2, False, False, 0.245),
+    (200704, 512, 2, True, True, 0.184),
+    (12544, 2048, 2, True, True, 0.046),
+    (802816, 256, 4, True, True, 0.736),
+])
+def test_bn_apply_bound_is_its_bytes(m, c, itemsize, res, relu, ms):
+    """P1 reads x (and res) and writes y once: bytes over 3.35 TB/s,
+    far above its 2-4 float32 operations per element at 67 TFLOP/s."""
+    bound, by = chip_smoke.bn_bound_ms(m, c, itemsize, res, relu)
+    assert by == "bytes"
+    assert chip_smoke.bn_bytes(m, c, itemsize, res) == \
+        (3 if res else 2) * m * c * itemsize + 2 * c * itemsize
+    assert bound == pytest.approx(ms, abs=5e-4)

@@ -244,3 +244,116 @@ def test_paged_decode_step_runs_the_kernel(cuda):
         forwards = stats["steps"] + 4 * stats["prefill_steps"]
         assert launched == (2 * forwards if dev == "cuda" else 0)
     assert outs["cuda"] == outs["cpu"]
+
+
+BN_TOL = {"float32": 1e-6, "bfloat16": 8e-3}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["res_relu", "relu", "res", "none"])
+@pytest.mark.parametrize("m,c,offset", [(4096, 256, 0), (1001, 37, 0),
+                                        (333, 64, 1), (7, 4100, 0),
+                                        (5, 2053, 0), (1, 8, 0)])
+def test_bn_apply_kernel_matches_plain(cuda, dtype, variant, m, c, offset):
+    """P1 against its plain version on the same inputs: the same float32
+    multiply and adds in the same order, rounded once, so the bits agree
+    (held to one ulp of the output's scale, BN_TOL).  Odd C and M, a
+    misaligned x (offset 1: the scalar path) and a prime C of 2053 (no
+    grid of whole rows: the general loop)."""
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
+
+    gen = torch.Generator(device=cuda).manual_seed(m * c + offset)
+    dt = getattr(torch, dtype)
+    base = torch.randn(m * c + offset, generator=gen, device=cuda).to(dt)
+    x = base[offset:].view(m, c)
+    res = (torch.randn(m, c, generator=gen, device=cuda).to(dt)
+           if variant.startswith("res") else None)
+    scale = torch.randn(c, generator=gen, device=cuda).to(dt)
+    shift = torch.randn(c, generator=gen, device=cuda).to(dt)
+    relu = variant.endswith("relu")
+    before = bk.bn_apply.launches
+    got = bk.bn_apply(x, scale, shift, res, relu)
+    assert bk.bn_apply.launches == before + 1
+    ref = bk.bn_apply_plain(x, scale, shift, res, relu)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (m, c)
+    assert bk.vectorized(x, res) == (offset == 0 and c % (16 // dt.itemsize)
+                                     == 0)
+    assert _flash_err(got, ref) <= BN_TOL[dtype]
+
+
+def test_bn_apply_reads_channels_last_and_refuses_nchw(cuda):
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
+
+    x = torch.randn(4, 32, 7, 5, device=cuda)
+    s, b = torch.rand(32, device=cuda) + 0.5, torch.randn(32, device=cuda)
+    before = bk.bn_apply.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        bk.bn_apply(x, s, b, None, True)
+    assert bk.bn_apply.launches == before
+    xc = x.contiguous(memory_format=torch.channels_last)
+    y = bk.bn_apply(xc, s, b, xc, True)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    want = torch.relu(x * s.view(1, -1, 1, 1) + b.view(1, -1, 1, 1) + x)
+    assert float((y - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_bn_apply_grads_on_card_match_cpu(cuda):
+    """The autograd Function (P1 forward, plain backward) on the card
+    against the same on the CPU: float32 sums in other orders, 1e-5."""
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
+
+    gen = torch.Generator().manual_seed(5)
+    x, r, g = (torch.randn(6, 16, 9, 7, generator=gen).contiguous(
+        memory_format=torch.channels_last) for _ in range(3))
+    s, b = torch.rand(16, generator=gen) + 0.5, torch.randn(16, generator=gen)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        ins = [t.to(dev).requires_grad_() for t in (x, s, b, r)]
+        y = bk.BNApply.apply(ins[0], ins[1], ins[2], ins[3], True)
+        grads.append(torch.autograd.grad(y, ins, g.to(dev)))
+    for a, c in zip(*grads):
+        assert float((a.cpu() - c).abs().max()) <= 1e-5
+
+
+def test_small_resnet_train_steps_on_card_match_cpu(cuda):
+    """The fx-imported small ResNet (stem 3->8, a downsampling and an
+    identity Bottleneck) through compile, copy_weights and two SGD
+    steps, float32 with TF32 off, on the card against the port's CPU
+    run: every BatchNorm through P1 (8 launches per forward), losses,
+    weights and running statistics within 1e-4 (cuDNN's and oneDNN's
+    convolutions sum in other orders)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
+
+    _, _, SmallResNet = chip_smoke.resnet_modules()
+    torch.manual_seed(2)
+    module = SmallResNet()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ffs = {dev: chip_smoke.build_resnet(torch, module, 4, 32, dev,
+                                            "float32")
+               for dev in ("cuda", "cpu")}
+        rng = np.random.RandomState(2)
+        x = rng.randn(8, 3, 32, 32).astype(np.float32)
+        y = rng.randint(0, 10, 8).astype(np.int32)
+        before = bk.bn_apply.launches
+        losses = {dev: [float(ff.train_step({"input": x[4 * i:4 * i + 4]},
+                                            y[4 * i:4 * i + 4])["loss"])
+                        for i in range(2)] for dev, ff in ffs.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert bk.bn_apply.launches == before + 2 * 8
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
+                               atol=1e-4)
+    for get in ("get_weights", "get_state"):
+        g, c = getattr(ffs["cuda"], get)(), getattr(ffs["cpu"], get)()
+        for op, entries in c.items():
+            for k, v in entries.items():
+                np.testing.assert_allclose(g[op][k], v, rtol=0, atol=1e-4,
+                                           err_msg=f"{op}.{k}")

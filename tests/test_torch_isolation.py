@@ -31,7 +31,8 @@ def test_no_jax_or_reference_imports():
     assert len(files) > 30
     names = {f.name for f in files}
     assert {"flash_attention.py", "_build.py", "loss.py", "metrics.py",
-            "optimizer.py", "dataloader.py", "shape.py"} <= names
+            "optimizer.py", "dataloader.py", "shape.py", "bn_apply.py",
+            "layout.py"} <= names
     offenders = [(str(f.relative_to(ROOT)), m) for f in files
                  for m in _imported_roots(f)
                  if m in ("jax", "jaxlib", "flexflow_tpu")]
@@ -42,7 +43,10 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.serving, "
             "flexflow_tpu_torch.decoding, flexflow_tpu_torch.convert, "
             "flexflow_tpu_torch.models.transformer, "
-            "flexflow_tpu_torch.ops.kernels.flash_attention; "
+            "flexflow_tpu_torch.ops.kernels.flash_attention, "
+            "flexflow_tpu_torch.ops.kernels.bn_apply, "
+            "flexflow_tpu_torch.pcg.layout, "
+            "flexflow_tpu_torch.torch_frontend; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flexflow_tpu' or "
             "m.startswith('flexflow_tpu.')]; print(bad)")
@@ -62,9 +66,10 @@ def test_default_device_build_raises_without_cuda(monkeypatch):
     FFModel(FFConfig(device="cpu"))  # the host on request
 
 
-@pytest.mark.parametrize("kernel", ["paged_attention", "flash_attention"])
+@pytest.mark.parametrize("kernel", ["paged_attention", "flash_attention",
+                                    "bn_apply"])
 def test_kernel_build_names_nvcc_when_missing(monkeypatch, tmp_path, kernel):
-    """Both kernel modules build through the one helper, which names
+    """Every kernel module builds through the one helper, which names
     nvcc when it cannot find it."""
     import importlib
 
@@ -132,3 +137,4 @@ def test_config_flags_match_the_reference():
         FFConfig(device="tpu")
     assert os.path.isfile(PORT / "csrc" / "paged_attention.cu")
     assert os.path.isfile(PORT / "csrc" / "flash_attention.cu")
+    assert os.path.isfile(PORT / "csrc" / "bn_apply.cu")
