@@ -8,19 +8,24 @@ Phases, each a failure of which exits non-zero:
 
 1. kernels: build every kernel from the sources in this checkout (one
    nvcc per source, started together; sm_90a) and hold each against its
-   plain PyTorch version on the card: paged attention (K4) at decode
-   shapes, and the flash-attention forward, dq and dkv kernels (K1-K3)
-   in float32 and bfloat16, d 64 and 128, causal and not, at seq 2048,
-   a ragged seq 200 and sq != sk.  Time kernel, plain version, a
-   PyTorch library yardstick and the card's bound at the main paths'
-   shapes: the 8-slot decode step for K4, [96, 2048, 64] (BERT-base at
-   batch 8, seq 2048) for K1-K3 in float32 and bfloat16, where K2 and K3
-   must also give the same bits over two launches.  Bounds are those of
-   each kernel's route (K1 float32 SIMT, K2 and K3 tensor cores); K2+K3
-   is also given over the library's backward.  Every K2/K3 instance must
-   hold HMMA instructions (cuobjdump's SASS of the built library, whose
-   instruction counts are reported) and use no local memory (no
-   spills); its registers, shared memory and blocks per SM are reported.
+   plain PyTorch version on the card: paged attention (K4) at table
+   widths 8 and 64, chunks 1 and 8, and four decode shapes (8 rows at
+   mixed positions up to 1023, all 8 at 1023, one at 1023 with 7 idle,
+   8 at the serve phase's lengths),
+   and the flash-attention forward, dq and dkv kernels (K1-K3) in
+   float32 and bfloat16, d 64 and 128, causal and not, at seq 2048, a
+   ragged seq 200 and sq != sk.  Time kernel, plain version, a PyTorch
+   library yardstick and the card's bound at the main paths' shapes: the
+   8-slot decode step for K4 (its device time from torch.profiler, with
+   CUDA events beside it, its split grid and a sweep of the split
+   length), [96, 2048, 64] (BERT-base at batch 8, seq 2048) for K1-K3 in
+   float32 and bfloat16.  Every kernel must give the same bits over two
+   launches.  Bounds are those of the tensor cores for K1-K3 and of the
+   bytes for K4; K2+K3 is also given over the library's backward.  Every
+   K1-K3 instance must hold HMMA instructions (cuobjdump's SASS of the
+   built library, whose instruction counts are reported) and use no
+   local memory (no spills); its registers, shared memory and blocks per
+   SM are reported.
 2. serve: full-width GPT-2-small (hidden 768, 12 layers, 12 heads, FFN
    3072, vocab 50257, 1024 positions, float32, weights from
    np.random.RandomState(0)) behind ContinuousScheduler and serve_http;
@@ -100,10 +105,10 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12       # tensor cores, dense
 H100_BF16_FLOPS = 989e12       # tensor cores, dense
-# the route each flash kernel's products take: K1 float32 FMA on the SIMT
-# path, K2 and K3 mma.sync on the tensor cores (float32 as three TF32
-# passes, bfloat16 in one)
-FLASH_ROUTE = {"K1": "simt", "K2": "tensor_cores", "K3": "tensor_cores"}
+# the route each flash kernel's products take: mma.sync on the tensor
+# cores (float32 as three TF32 passes, bfloat16 in one)
+FLASH_ROUTE = {"K1": "tensor_cores", "K2": "tensor_cores",
+               "K3": "tensor_cores"}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_REASON = {
     "float32": "kernel and plain version both accumulate in float32; "
@@ -124,7 +129,7 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 FLASH_TOL_REASON = {
     "float32": "error over the output's scale max(1, max|plain|): kernel "
                "and plain version accumulate in float32 in other orders "
-               "over up to 2048 keys; K2 and K3 form each product in "
+               "over up to 2048 keys; K1, K2 and K3 form each product in "
                "three TF32 passes on the tensor cores (lo*lo, 2^-22 of "
                "it, dropped) and sum there",
     "bfloat16": "error over the output's scale, against the plain "
@@ -217,16 +222,61 @@ def paged_case(torch, rng, *, b, s, h, d, page, width, dtype, dev):
             torch.tensor(btab, **to), torch.tensor(slen, **to))
 
 
-def phase_kernels(torch, pk, card: str, dev, lib_path, build_s) -> dict:
-    pk.load_library()
-    rng = np.random.RandomState(0)
-    cases, worst = [], {}
+def profiled_ms(torch, fn, flush, tag: str, iters: int = 30,
+                warmup: int = 5) -> float:
+    """Median device time of the kernel whose name holds `tag`, as
+    torch.profiler reports it over `iters` calls of fn, each after a
+    write of `flush` that evicts the 50 MB L2: the kernel's own duration,
+    whatever the host's enqueue takes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if "cuda" in str(e.device_type).lower() and tag in e.name]
+    if len(us) != iters:
+        raise RuntimeError(f"profiler saw {len(us)} launches of {tag}, "
+                           f"expected {iters}")
+    return float(np.median(us)) / 1e3
+
+
+def paged_bound(pos, page: int, width: int, h: int, d: int, itemsize: int,
+                chunk: int = 1) -> dict:
+    """K4's least time at one decode shape: the live KV rows (each read
+    once), q, the output, the tables and seq_lens over HBM, against two
+    flops per KV element at the float32 SIMT peak."""
+    pos = np.asarray(pos, np.int64)
+    live_tokens = int((np.minimum(pos + chunk - 1, width * page - 1)
+                       + 1).sum())
+    b = len(pos)
+    kv_bytes = 2 * live_tokens * h * d * itemsize
+    io_bytes = (kv_bytes + 2 * b * chunk * h * d * itemsize + b * width * 4
+                + b * 4)
+    flops = 4 * live_tokens * h * d * chunk
+    t_bytes, t_ops = io_bytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return {"live_tokens": live_tokens, "kv_bytes": kv_bytes,
+            "bytes": io_bytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def paged_cases(torch, pk, rng, dev, width: int, cases: list,
+                worst: dict) -> None:
+    """K4 against its plain version run in float32 on the same values at
+    one table width: both dtypes, chunks 1 and 8, d 64 and 128."""
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         for s in (1, 8):
             for d in (64, 128):
                 qh, kp, vp, bt, sl = paged_case(
-                    torch, rng, b=6, s=s, h=12, d=d, page=PAGE, width=8,
+                    torch, rng, b=6, s=s, h=12, d=d, page=PAGE, width=width,
                     dtype=dtype, dev=dev)
                 scale = 1.0 / np.sqrt(d)
                 got = pk.paged_attention(qh, kp, vp, bt, sl, scale)
@@ -236,35 +286,96 @@ def phase_kernels(torch, pk, card: str, dev, lib_path, build_s) -> dict:
                 torch.cuda.synchronize()
                 if not torch.isfinite(got).all():
                     raise RuntimeError(f"kernel output not finite: {dname} "
-                                       f"s={s} d={d}")
+                                       f"s={s} d={d} width={width}")
                 err = float((got.float() - ref).abs().max())
                 err_same = float((got.float() - same.float()).abs().max())
-                cases.append({"dtype": dname, "s": s, "d": d, "page": PAGE,
-                              "max_abs_err": err,
-                              "max_abs_err_vs_same_dtype_plain": err_same,
-                              "tol": TOL[dname]})
+                cases.append({
+                    "dtype": dname, "s": s, "d": d, "page": PAGE,
+                    "width": width, "positions": sl.tolist(),
+                    "live_splits": pk.live_splits(
+                        sl.cpu().numpy(), s, PAGE, width).tolist(),
+                    "max_abs_err": err,
+                    "max_abs_err_vs_same_dtype_plain": err_same,
+                    "tol": TOL[dname]})
                 worst[dname] = max(worst.get(dname, 0.0), err)
                 if err > TOL[dname]:
                     raise RuntimeError(
                         f"paged_attention kernel disagrees with its plain "
-                        f"version: {dname} s={s} d={d}: max abs err {err} "
-                        f"> {TOL[dname]}")
+                        f"version: {dname} s={s} d={d} width={width}: max "
+                        f"abs err {err} > {TOL[dname]}")
 
+
+def phase_kernels(torch, pk, card: str, dev, lib_path, build_s) -> dict:
+    pk.load_library()
+    rng = np.random.RandomState(0)
+    cases, worst = [], {}
+    paged_cases(torch, pk, rng, dev, 8, cases, worst)
     # the main path's decode shape: 8 slots, 12 heads, d 64, f32,
-    # page 16, rows at mixed positions up to 1024
+    # page 16, rows at mixed positions up to 1024 (the draws of earlier
+    # runs, so the shape stays theirs); beside it all 8 rows at 1023, one
+    # live row at 1023 with the other 7 idle (seq_len 0 on the scratch
+    # block), and 8 rows at the serve phase's lengths (16-256 prompt
+    # tokens, up to 32 generated)
     width = 1024 // PAGE
     nb = 1 + SLOTS * width
     h, d = 12, 64
+    btab_np = rng.permutation(np.arange(1, nb)).reshape(
+        SLOTS, width).astype(np.int32)
+    pos = rng.randint(1, 1024, SLOTS).astype(np.int32)
+    pos[0] = 1023
+    paged_cases(torch, pk, rng, dev, width, cases, worst)
     kp = torch.randn(nb, PAGE, h, d, device=dev)
     vp = torch.randn(nb, PAGE, h, d, device=dev)
     qh = torch.randn(SLOTS, 1, h, d, device=dev)
-    btab = torch.tensor(rng.permutation(np.arange(1, nb)).reshape(
-        SLOTS, width).astype(np.int32), device=dev)
-    pos = rng.randint(1, 1024, SLOTS).astype(np.int32)
-    pos[0] = 1023
-    slen = torch.tensor(pos, device=dev)
+    btab = torch.tensor(btab_np, device=dev)
+    one_tab = btab_np.copy()
+    one_tab[1:] = 0
+    shapes = {
+        "mixed": (pos, btab),
+        "all_1023": (np.full(SLOTS, 1023, np.int32), btab),
+        "one_live_1023": (np.array([1023] + [0] * (SLOTS - 1), np.int32),
+                          torch.tensor(one_tab, device=dev)),
+        "serve_lengths": (np.random.RandomState(3).randint(
+            16, 256 + MAX_NEW + 1, SLOTS).astype(np.int32), btab),
+    }
     scale = 1.0 / np.sqrt(d)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    tag = "paged_attention_kernel"
+    grid = pk.split_grid(SLOTS, h, width)
+    decode = {}
+    for name, (p, bt) in shapes.items():
+        sl = torch.tensor(p, device=dev)
+        got = pk.paged_attention(qh, kp, vp, bt, sl, scale)
+        ref = pk.paged_attention_plain(qh, kp, vp, bt, sl, scale)
+        err = float((got - ref).abs().max())
+        if err > TOL["float32"]:
+            raise RuntimeError(f"decode shape {name}: kernel vs plain {err}")
+        bound = paged_bound(p, PAGE, width, h, d, 4)
+        ms = profiled_ms(torch, lambda: pk.paged_attention(
+            qh, kp, vp, bt, sl, scale), flush, tag)
+        decode[name] = dict(
+            bound, positions=p.tolist(), max_abs_err=err, kernel_ms=ms,
+            event_ms=time_ms(torch, lambda: pk.paged_attention(
+                qh, kp, vp, bt, sl, scale), flush),
+            share_of_bound=bound["bound_ms"] / ms,
+            live_blocks=int(pk.live_splits(p, 1, PAGE, width).sum()) * h)
+        worst["float32"] = max(worst["float32"], err)
+    slen = torch.tensor(pos, device=dev)
+    main = decode["mixed"]
+    runs = [pk.paged_attention(qh, kp, vp, btab, slen, scale)
+            for _ in range(2)]
+    deterministic = bool(torch.equal(*runs))
+    if not deterministic:
+        raise RuntimeError("decode shape: two launches on the same inputs "
+                           "differ")
+    # the split length against the profiled device time, at the main
+    # shape, with every row at 1023 and at the serve phase's lengths
+    sweep = {}
+    for name in ("mixed", "all_1023", "serve_lengths"):
+        bt, sl = shapes[name][1], torch.tensor(shapes[name][0], device=dev)
+        sweep[name] = {sp: profiled_ms(torch, lambda: pk.paged_attention(
+            qh, kp, vp, bt, sl, scale, split_pages=sp), flush, tag)
+            for sp in (1, 2, 4, 8, 16)}
 
     def library():
         n = width * PAGE
@@ -275,37 +386,34 @@ def phase_kernels(torch, pk, card: str, dev, lib_path, build_s) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qh.transpose(1, 2), kv_k, kv_v, attn_mask=mask, scale=scale)
 
-    got = pk.paged_attention(qh, kp, vp, btab, slen, scale)
     ref = pk.paged_attention_plain(qh, kp, vp, btab, slen, scale)
     lib_out = library().transpose(1, 2)
-    decode_err = float((got - ref).abs().max())
-    if decode_err > TOL["float32"]:
-        raise RuntimeError(f"decode shape: kernel vs plain {decode_err}")
-    kernel_ms = time_ms(torch, lambda: pk.paged_attention(
-        qh, kp, vp, btab, slen, scale), flush)
     plain_ms = time_ms(torch, lambda: pk.paged_attention_plain(
         qh, kp, vp, btab, slen, scale), flush)
     library_ms = time_ms(torch, library, flush)
-    live_tokens = int((pos + 1).sum())
-    kv_bytes = 2 * live_tokens * h * d * 4
-    io_bytes = kv_bytes + 2 * qh.numel() * 4 + btab.numel() * 4 + SLOTS * 4
-    flops = 4 * live_tokens * h * d
-    bound_ms = max(io_bytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
     rec = {
         "phase": "kernels", "card": card, "build_s": round(build_s, 3),
         "library": lib_path.name, "cases": cases,
         "tolerance": TOL, "tolerance_reason": TOL_REASON,
         "decode_shape": {"slots": SLOTS, "heads": h, "d": d,
-                         "dtype": "float32", "page": PAGE,
+                         "dtype": "float32", "page": PAGE, "width": width,
                          "positions": pos.tolist(),
-                         "live_tokens": live_tokens,
-                         "kv_bytes": kv_bytes},
-        "decode_max_abs_err": decode_err,
+                         "live_tokens": main["live_tokens"],
+                         "kv_bytes": main["kv_bytes"]},
+        "split_pages": pk.SPLIT_PAGES, "grid": list(grid),
+        "decode": decode, "deterministic": deterministic,
+        "split_sweep_profiled_ms": sweep,
+        "decode_max_abs_err": main["max_abs_err"],
         "library_max_abs_err": float((lib_out - ref).abs().max()),
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if io_bytes / H100_BYTES_PER_S
-        >= flops / H100_F32_FLOPS else "operations",
+        "kernel_ms": main["kernel_ms"], "event_ms": main["event_ms"],
+        "timing_note": "kernel_ms: the kernel's device duration from "
+                       "torch.profiler, median of 30 calls each after a "
+                       "256 MB L2-evicting write; event_ms: CUDA events "
+                       "around the call, which also take the host's "
+                       "enqueue when it outlasts the flush",
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "share_of_bound": main["share_of_bound"],
     }
     emit(rec)
     rec["worst"] = worst
@@ -683,7 +791,7 @@ def count_sass(sass: str) -> dict:
 def flash_main_shape(torch, fa, gen, dtype, dev, flush) -> dict:
     """K1-K3 at the main path's shape (BERT-base at batch 8, seq 2048,
     non-causal) in `dtype`: agreement with the plain versions run in
-    float32 on the same values, K2 and K3 bit-identical over two
+    float32 on the same values, each kernel bit-identical over two
     launches, and the times of the kernels, the plain versions (float32
     only) and the library."""
     bh, s, d = FLASH_SHAPE
@@ -692,17 +800,19 @@ def flash_main_shape(torch, fa, gen, dtype, dev, flush) -> dict:
         dtype) for _ in range(4))
     scale = 1.0 / np.sqrt(d)
     out, lse = fa.flash_fwd(q, k, v, scale, False)
+    out2, lse2 = fa.flash_fwd(q, k, v, scale, False)
     delta = fa.flash_delta(out, dout)
     dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, False)
     dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, False)
     dq2 = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, False)
     dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, False)
-    deterministic = {"K2": torch.equal(dq, dq2),
+    deterministic = {"K1": torch.equal(out, out2) and torch.equal(lse, lse2),
+                     "K2": torch.equal(dq, dq2),
                      "K3": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
     if not all(deterministic.values()):
         raise RuntimeError(f"main shape {dname}: two launches on the same "
                            f"inputs differ: {deterministic}")
-    del dq2, dk2, dv2
+    del out2, lse2, dq2, dk2, dv2
     f = [t.float() for t in (q, k, v, dout)]
     r_out, r_lse = fa.flash_fwd_plain(f[0], f[1], f[2], scale, False)
     r_dq, r_dk, r_dv = fa.flash_bwd_plain(f[0], f[1], f[2], r_out, r_lse,
@@ -786,12 +896,12 @@ def phase_flash_kernels(torch, fa, card: str, dev, lib_path) -> dict:
     main = {str(dt).removeprefix("torch."): flash_main_shape(
         torch, fa, gen, dt, dev, flush)
         for dt in (torch.float32, torch.bfloat16)}
-    # what the card gives each K2/K3 instance, and proof that its products
+    # what the card gives each K1-K3 instance, and proof that its products
     # run on the tensor cores
     resources = {
         f"{kid} {str(dt).removeprefix('torch.')} d{d}":
             fa.bwd_resources(kern, d, dt)
-        for kid, kern in (("K2", "dq"), ("K3", "dkv"))
+        for kid, kern in (("K1", "fwd"), ("K2", "dq"), ("K3", "dkv"))
         for dt in (torch.float32, torch.bfloat16) for d in (64, 128)}
     sass = sass_counts(lib_path)
     faults = [f"{n} uses {r['local_bytes']} bytes of local memory (spills)"
@@ -803,7 +913,7 @@ def phase_flash_kernels(torch, fa, card: str, dev, lib_path) -> dict:
         "phase": "kernels", "kernels": "K1-K3", "card": card,
         "library": lib_path.name, "cases": cases,
         "tolerance": FLASH_TOL, "tolerance_reason": FLASH_TOL_REASON,
-        "k2_k3_resources": resources, "sass": sass,
+        "resources": resources, "sass": sass,
         "main_shape": {"bh": bh, "sq": s, "sk": s, "d": d,
                        "causal": False},
         "main": main,
@@ -813,7 +923,7 @@ def phase_flash_kernels(torch, fa, card: str, dev, lib_path) -> dict:
     }
     emit(rec)
     if faults:
-        raise RuntimeError("K2/K3: " + "; ".join(faults))
+        raise RuntimeError("K1-K3: " + "; ".join(faults))
     rec["worst"] = worst
     return rec
 
@@ -1587,10 +1697,15 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str) -> dict:
         "max_abs_err_by_dtype": kern["worst"],
         "tolerance": TOL,
         "ms": kern["kernel_ms"],
+        "ms_source": "torch.profiler device duration",
+        "event_ms": kern["event_ms"],
         "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
+        "share_of_bound": kern["share_of_bound"],
         "library_ms": kern["library_ms"],
+        "split_pages": kern["split_pages"],
+        "grid": kern["grid"],
         "card": card,
     })
     names = {"K1": ("flash_fwd", 78), "K2": ("flash_bwd_dq", 217),

@@ -24,59 +24,64 @@
 // take no weight (-inf before the max in K1, P = 0 in K2/K3); the TPU
 // kernels use the finite -1e30 there, which gives the same sums because
 // key 0 is live for every row and sets the running max in the first kv
-// tile.  A row that no key reaches keeps m = -1e30 and l = 0, so its LSE
-// is -1e30 and its output 0, and the backward gives it P = 0.
+// tile.  A row that no key reaches keeps l = 0, so its LSE is -1e30 and
+// its output 0, and the backward gives it P = 0.
 //
-// K1 (bound by the float32 SIMT FMA rate at the training shape, bh 96,
-// seq 2048, d 64): one block of 256 threads per (bh, 64-row q tile)
-// loops over the kv tiles; tiles are staged in shared memory as float32
-// rows padded by 4 floats; each thread owns a 4 x 4 block of the score
-// tile (rows 4*ty + i, columns tx + 16*j) and reads its operands as
-// float4 along d, and a 4-row slice of the [64 x d] accumulator.  P stays
-// in shared memory.  bfloat16 is widened to float32 on load.
-//
-// K2 and K3 are bound by operations on the tensor cores.  Per pair of
-// 64-row tiles K2 does three [64 x 64 x d] products (Q K^T, dO V^T,
-// dS K) and K3 four (K Q^T, V dO^T, P^T dO, dS^T Q), each input read once
-// per tile pair from L2.  Float32 keeps float32 accuracy through three
-// TF32 passes of mma.sync m16n8k8: x = hi + lo with hi = tf32(x), lo =
-// tf32(x - hi), both rounded as cvt.rna.tf32.f32 rounds (in two integer
-// operations; the cvt itself compiles to five on sm_90a), and acc +=
-// lo*hi + hi*lo + hi*hi with the two small terms first; the dropped
+// All three are bound by operations on the tensor cores.  Per pair of
+// 64-row tiles K1 does two [64 x 64 x d] products (Q K^T, P V), K2 three
+// (Q K^T, dO V^T, dS K) and K3 four (K Q^T, V dO^T, P^T dO, dS^T Q), each
+// input read once per tile pair from L2.  Float32 keeps float32 accuracy
+// through three TF32 passes of mma.sync m16n8k8: x = hi + lo with hi =
+// tf32(x), lo = tf32(x - hi), both rounded as cvt.rna.tf32.f32 rounds (in
+// two integer operations; the cvt itself compiles to five on sm_90a), and
+// acc += lo*hi + hi*lo + hi*hi with the two small terms first; the dropped
 // lo*lo is 2^-22 of the product.  The bound is then 3 x flops at 495
 // TFLOP/s of TF32, against flops at 67 on the SIMT path.  bfloat16 runs
 // one pass of mma.sync m16n8k16 on the reference's bfloat16 values (Q, K,
 // V, dO, and P and dS rounded to bfloat16).  The design:
-//   * a block owns 16 rows per warp of the output (K2: q rows, K3: kv
-//     rows) and loops over the other side's 64-row tiles (K3 from the
-//     first q tile causal masking leaves live).  Each warp owns its 16
-//     rows of the output, so every output element has one owner: no
-//     atomics, the same sums in the same order on every run;
+//   * a block owns 16 rows per warp of the output (K1, K2: q rows; K3: kv
+//     rows) and loops over the other side's 64-row tiles (K1 and K2 up to
+//     the diagonal under causal, where a K1 warp skips a tile wholly above
+//     its rows; K3 from the first q tile causal masking leaves live).
+//     Each warp owns its 16 rows of the output, so every output element
+//     has one owner: no atomics, the same sums in the same order on every
+//     run;
 //   * the TF32 split of the operands was most of the instructions, and a
-//     streamed tile (K2: K and V; K3: Q and dO) is the B operand of every
-//     warp.  Float32 at d 64 therefore splits each streamed tile once for
-//     the block when it lands (hi in place, lo beside it) and runs 8 warps
-//     (128 rows) over it; the resident operands (A) are split by the warp
-//     that owns their rows.  At d 128 the lo tiles do not fit beside two
-//     stages, and bfloat16 needs no split: 4 warps (64 rows), every
-//     fragment split where it is read (Bwd below);
-//   * the score tiles never leave registers: K2's warp holds its 16 x 64
-//     rows of S and dP, K3's its 16 x 64 rows of S^T and dP^T (at d 128
-//     16 x 32 per pass, and 16 x 16 for float32 K3, whose dK and dV
-//     accumulators take 128 registers), and the accumulator fragments of
-//     P and dS are reused as the A operands of the next product (dS K in
-//     K2, P^T dO and dS^T Q in K3).  For TF32 the accumulator holds
+//     streamed tile (K1, K2: K and V; K3: Q and dO) is the B operand of
+//     every warp.  Float32 at d 64 therefore splits each streamed tile once
+//     for the block when it lands (hi in place, lo beside it) and runs 8
+//     warps (128 rows) over it; K1 splits its resident Q the same way once
+//     and, at d 64, keeps the warp's Q fragments in registers from then on
+//     (K2 and K3 split their resident operands (A) where they read them).
+//     At d 128 the streamed lo tiles do not fit beside two stages, and
+//     bfloat16 needs no split: 4 warps (64 rows), every streamed fragment
+//     split where it is read (Tiles below);
+//   * the score tiles never leave registers: a K1 or K2 warp holds its 16 x
+//     64 rows of S (and K2 of dP), K3's its 16 x 64 rows of S^T and dP^T
+//     (at d 128 16 x 32 per pass, and 16 x 16 for float32 K3, whose dK and
+//     dV accumulators take 128 registers), and the accumulator fragments of
+//     P and dS are reused as the A operands of the next product (P V in K1,
+//     dS K in K2, P^T dO and dS^T Q in K3).  For TF32 the accumulator holds
 //     columns 2t and 2t + 1 where the A operand wants t and t + 4, so the
 //     contraction runs in the order 0, 2, 4, 6, 1, 3, 5, 7 within each
 //     8-step, and the B operand is read in the same order.  P and dS never
-//     reach shared or device memory.  P = 2^(S scale log2 e - LSE log2 e):
-//     one FFMA and one ex2 per element, masked by per-row key bounds;
+//     reach shared or device memory.  K2 and K3 recompute P = 2^(S scale
+//     log2 e - LSE log2 e): one FFMA and one ex2 per element, masked by
+//     per-row key bounds;
+//   * K1's online softmax runs on the S fragments: a row's max over the
+//     tile is a max over the lane's columns and then across its quad of
+//     lanes (two shuffles), m is kept in base 2, P = 2^(S scale log2 e -
+//     m) and the O accumulator (16 x d per warp, in registers) is scaled
+//     by 2^(m_old - m_new).  Only a tile that reaches past some row's
+//     last key (the diagonal under causal, the ragged end) is masked.
+//     Each lane keeps its own part of l, summed over the quad once at the
+//     end: O = acc / l_safe, LSE = m ln 2 + log l_safe;
 //   * the streamed operands are double-buffered with cp.async.cg 16-byte
-//     copies, issued one tile ahead (K2: K and V; K3: Q, dO, and LSE and
-//     delta by 4-byte copies) and waited on with commit_group / wait_group
-//     1, so the next tile loads while this one's products run.  Rows past
-//     sq or sk are zero-filled through the copy's source size and never
-//     read;
+//     copies, issued one tile ahead (K1, K2: K and V; K3: Q, dO, and LSE
+//     and delta by 4-byte copies) and waited on with commit_group /
+//     wait_group 1, so the next tile loads while this one's products run.
+//     Rows past sq or sk are zero-filled through the copy's source size and
+//     never read;
 //   * shared-memory tiles are stored in the input's type, rows padded to a
 //     stride of 4 (mod 32) words: float32 D + 4 floats, bfloat16 D + 8
 //     halves.  Every fragment read is then conflict-free: A and the B read
@@ -84,11 +89,12 @@
 //     words apart), and the float32 B reads along the contraction at
 //     2t*stride + g (the order above) hit banks 8t + g, all 32; bfloat16
 //     B operands along the contraction are read with ldmatrix.trans;
-//   * shared memory per block: the resident pair (16 rows per warp), two
-//     stages of the streamed pair (64 rows each), the split lo tiles, and
-//     for K3 1 KB of LSE and delta: 174-175 KB for float32 d 64 (one block
-//     of 8 warps on an SM), 203-204 KB at d 128 (one of 4), 55-105 KB for
-//     bfloat16 (two or three blocks of 4).
+//   * shared memory per block: the resident operands (16 rows per warp;
+//     K1's float32 Q with its lo part), two stages of the streamed pair (64
+//     rows each), the split lo tiles, and for K3 1 KB of LSE and delta:
+//     170-175 KB for float32 d 64 (one block of 8 warps on an SM), 198-204
+//     KB at d 128 (one of 4), 46-105 KB for bfloat16 (two or more blocks
+//     of 4).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,155 +104,9 @@
 namespace {
 
 constexpr int kTile = 64;          // rows of a q tile and of a kv tile
-constexpr int kThreads = 256;      // K1: 16 x 16 threads, a 4 x 4 block each
-constexpr int kPS = kTile + 4;     // K1: row stride of the [64][64] tiles
 constexpr float kNegInf = -1e30f;  // the TPU kernels' running-max start
-constexpr float kLog2e = 1.4426950408889634f;  // K2, K3: exp(x) = 2^(x log2 e)
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded through T: the reference's casts of P and dS before a product
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float component(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-// four neighbouring elements of a row, widened to float32
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(p2[0]);
-  const float2 hi = __bfloat1622float2(p2[1]);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float4 v);
-template <>
-__device__ __forceinline__ void store4<float>(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      float4 v) {
-  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
-  p2[0] = __floats2bfloat162_rn(v.x, v.y);
-  p2[1] = __floats2bfloat162_rn(v.z, v.w);
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows [row0, row0 + 64) of a row-major [n_rows, D] matrix into
-// dst[64][D + 4] as float32; rows at or past n_rows read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int n_rows) {
-  constexpr int kVecs = D / 4;
-  for (int idx = threadIdx.x; idx < kTile * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = (idx % kVecs) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) v = load4<T>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = v;
-  }
-}
-
-// acc[i][j] += A[4*ty + i] . B[tx + 16*j] over d, for A and B in [64][D + 4]
-template <int D>
-__device__ __forceinline__ void dot_tile(const float* A, const float* B,
-                                         int ty, int tx, float acc[4][4]) {
-  constexpr int DS = D + 4;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (4 * ty + i) * DS + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * DS + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        acc[i][j] = s;
-      }
-  }
-}
-
-// acc[i][u] += sum_c P[4*ty + i][c] * M[c][64*u + 4*tx .. +3], for P in
-// [64][kPS] and M in [64][D + 4]: the thread's 4 rows times its D/16
-// columns of a [64 x 64] x [64 x D] product.
-template <int D>
-__device__ __forceinline__ void pm_tile(const float* P, const float* M,
-                                        int ty, int tx,
-                                        float4 acc[4][D / 64]) {
-  constexpr int DS = D + 4, NU = D / 64;
-#pragma unroll 2
-  for (int c = 0; c < kTile; c += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (4 * ty + i) * kPS + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-      for (int u = 0; u < NU; ++u) {
-        const float4 m = *reinterpret_cast<const float4*>(
-            M + (c + cc) * DS + 64 * u + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float w = component(p[i], cc);
-          acc[i][u].x = fmaf(w, m.x, acc[i][u].x);
-          acc[i][u].y = fmaf(w, m.y, acc[i][u].y);
-          acc[i][u].z = fmaf(w, m.z, acc[i][u].z);
-          acc[i][u].w = fmaf(w, m.w, acc[i][u].w);
-        }
-      }
-    }
-  }
-}
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
+constexpr float kLn2 = 0.6931471805599453f;    // K1: LSE from a base-2 max
 
 // kv tiles that the q rows [q0, q0 + rows) read: all of them, or under
 // causal those up to their last live row
@@ -257,96 +117,7 @@ __device__ __forceinline__ int kv_tiles(int q0, int rows, int sq, int sk,
   return n;
 }
 
-// K1.  grid (q tiles, bh); o [bh, sq, D] in T, lse [bh, sq] float32.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, float scale,
-                 int causal) {
-  constexpr int DS = D + 4, NU = D / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [64][DS]
-  float* Ks = Qs + kTile * DS;                   // [64][DS]
-  float* Vs = Ks + kTile * DS;                   // [64][DS]
-  float* Ps = Vs + kTile * DS;                   // [64][kPS]
-  const int q0 = blockIdx.x * kTile;
-  const size_t bh = blockIdx.y;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
-  load_tile<T, D>(Qs, q + bh * sq * D, q0, sq);
-
-  float m[4], l[4];
-  float4 acc[4][NU];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  const int n_kt = kv_tiles(q0, kTile, sq, sk, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's readers are done with Ks, Vs, Ps
-    load_tile<T, D>(Ks, kb, k0, sk);
-    load_tile<T, D>(Vs, vb, k0, sk);
-    __syncthreads();
-    float s[4][4] = {};
-    dot_tile<D>(Qs, Ks, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * ty + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (kp >= sk || (causal && kp > qp)) x = -INFINITY;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[(4 * ty + i) * kPS + tx + 16 * j] = round_to<T>(p);
-      }
-      l[i] = l[i] * corr + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int u = 0; u < NU; ++u) {
-        acc[i][u].x *= corr;
-        acc[i][u].y *= corr;
-        acc[i][u].z *= corr;
-        acc[i][u].w *= corr;
-      }
-    }
-    __syncthreads();
-    pm_tile<D>(Ps, Vs, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    if (r >= sq) continue;
-    const float ls = l[i] > 0.f ? l[i] : 1.f;
-    T* orow = o + (bh * sq + r) * D;
-#pragma unroll
-    for (int u = 0; u < NU; ++u)
-      store4<T>(orow + 64 * u + 4 * tx,
-                make_float4(acc[i][u].x / ls, acc[i][u].y / ls,
-                            acc[i][u].z / ls, acc[i][u].w / ls));
-    if (tx == 0) lse[bh * sq + r] = m[i] + logf(ls);
-  }
-}
-
-// ---- K2 and K3: tensor cores, cp.async ----------------------------------
+// ---- tensor cores, cp.async ------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -497,6 +268,12 @@ struct Mma<float> {
     return make_a(__uint_as_float(r[0]), __uint_as_float(r[1]),
                   __uint_as_float(r[2]), __uint_as_float(r[3]));
   }
+  static __device__ __forceinline__ A load_a(SplitTile s, int ld) {
+    A a;
+    ldsm_a(a.hi, s.hi, ld);
+    ldsm_a(a.lo, s.lo, ld);
+    return a;
+  }
   // B(k, n) = s[n * ld + k] for n-tiles 0 (b[0]) and 1 (b[1])
   static __device__ __forceinline__ void load_b_nk2(B b[2], const float* s,
                                                     int ld) {
@@ -590,20 +367,41 @@ struct Mma<__nv_bfloat16> {
   }
 };
 
+// A warp's 16 x K A operand held in registers, for K <= 64 (a contraction
+// that mma_nk unrolls whole, so every fragment has a constant index)
+template <typename T, int K>
+struct RegA {
+  typename Mma<T>::A f[K / Mma<T>::kK];
+};
+
+// the A fragment of the k-step at k: from registers, or read from a tile
+// of T or a SplitTile at row stride lda
+template <typename T, int K>
+__device__ __forceinline__ const typename Mma<T>::A& a_frag(
+    const RegA<T, K>& a, int, int k) {
+  return a.f[k / Mma<T>::kK];
+}
+template <typename T, typename ASrc>
+__device__ __forceinline__ typename Mma<T>::A a_frag(const ASrc& a, int lda,
+                                                     int k) {
+  return Mma<T>::load_a(a + k, lda);
+}
+
 // acc[j] += A B[:, 8j .. 8j + 7] for j < NT over k < K: the warp's 16 x K
-// A rows at a[m * lda + k], B(k, n) = b[n * ldb + k], b a tile of T or a
-// SplitTile.  The passes run over all NT tiles in turn, so one tile's
-// three TF32 products are NT independent mma apart.
-template <typename T, int K, int NT, typename BSrc>
-__device__ __forceinline__ void mma_nk(float (*acc)[4], const T* a, int lda,
-                                       BSrc b, int ldb) {
+// A rows at a[m * lda + k] (a tile of T or a SplitTile) or in a RegA, and
+// B(k, n) = b[n * ldb + k], b a tile of T or a SplitTile.  The passes run
+// over all NT tiles in turn, so one tile's three TF32 products are NT
+// independent mma apart.
+template <typename T, int K, int NT, typename ASrc, typename BSrc>
+__device__ __forceinline__ void mma_nk(float (*acc)[4], const ASrc& a,
+                                       int lda, BSrc b, int ldb) {
   using M = Mma<T>;
   constexpr int KB = K < 64 ? K : 64;  // contraction unrolled at once
 #pragma unroll 1
   for (int kb = 0; kb < K; kb += KB)
 #pragma unroll
   for (int k = kb; k < kb + KB; k += M::kK) {
-    const typename M::A fa = M::load_a(a + k, lda);
+    const typename M::A fa = a_frag<T>(a, lda, k);
     typename M::B fb[NT];
 #pragma unroll
     for (int j = 0; j < NT; j += 2)
@@ -642,14 +440,14 @@ __device__ __forceinline__ void mma_kn(float (*acc)[4], const float (*c)[4],
   }
 }
 
-// The layout of K2 and K3 for (T, D).  Streamed float32 tiles at d 64 are
+// The layout of K1, K2 and K3 for (T, D).  Streamed float32 tiles at d 64 are
 // split into TF32 hi and lo once for the block, when they land, rather than
 // by every warp at every fragment it reads: that split was most of the
 // kernels' instructions.  8 warps (128 output rows) then share each split
 // tile.  At d 128 the lo tiles do not fit beside two stages, and bfloat16
 // needs no split: 4 warps (64 rows), each fragment split where it is read.
 template <typename T, int D>
-struct Bwd {
+struct Tiles {
   static constexpr bool kSplit = sizeof(T) == 4 && D == 64;
   static constexpr int kWarps = kSplit ? 8 : 4;
   static constexpr int kThreads = 32 * kWarps;
@@ -668,6 +466,11 @@ struct Bwd {
   __host__ __device__ static constexpr size_t dq_smem() {
     return sizeof(T) * (2 * kRows * kLd + (kSplit ? 6 : 4) * kTS);
   }
+  // K1: Q [kRows] and, in float32, its lo part; K, V [2 stages]; lo of K, V.
+  __host__ __device__ static constexpr size_t fwd_smem() {
+    return sizeof(T) *
+           ((sizeof(T) == 4 ? 2 : 1) * kRows * kLd + (kSplit ? 6 : 4) * kTS);
+  }
   // K3: K, V [kRows]; Q, dO [2 stages]; lo of Q, dO; LSE, delta [2 stages].
   __host__ __device__ static constexpr size_t dkv_smem() {
     return dq_smem() + sizeof(float) * 4 * kTile;
@@ -675,13 +478,13 @@ struct Bwd {
 };
 
 // Rows [row0, row0 + ROWS) of a row-major [n_rows, D] matrix into
-// dst[ROWS][Bwd::kLd], asynchronously, by the block's threads; rows at or
+// dst[ROWS][Tiles::kLd], asynchronously, by the block's threads; rows at or
 // past n_rows are zero-filled and not read.
 template <typename T, int D, int ROWS>
 __device__ __forceinline__ void copy_tile_async(T* dst,
                                                 const T* __restrict__ src,
                                                 int row0, int n_rows) {
-  using L = Bwd<T, D>;
+  using L = Tiles<T, D>;
   constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte copy
   constexpr int kChunks = D / kPer;     // copies per row
 #pragma unroll
@@ -752,16 +555,181 @@ __device__ __forceinline__ void store_rows(T* out, const float (*acc)[4],
   }
 }
 
-// K2.  grid (q blocks of Bwd::kRows rows, bh); dq [bh, sq, D] in T.  Warp
+// K1.  grid (q blocks of Tiles::kRows rows, bh); o [bh, sq, D] in T, lse
+// [bh, sq] float32.  Warp w owns q rows q0 + 16w .. +15.
+template <typename T, int D>
+__global__ void __launch_bounds__(Tiles<T, D>::kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk, float scale,
+                 int causal) {
+  using L = Tiles<T, D>;
+  constexpr int LD = L::kLd, TS = L::kTS, ROWS = L::kRows;
+  constexpr int CT = kTile / 8, DT = D / 8;
+  constexpr bool kSplitQ = sizeof(T) == 4;
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);         // [ROWS][LD]
+  T* Qlo = Qs + ROWS * LD;                     // float32: [ROWS][LD]
+  T* KVs = Qlo + (kSplitQ ? ROWS * LD : 0);    // [2 stages][K, V][64][LD]
+  T* KVlo = KVs + 4 * TS;                      // kSplit: [K, V][64][LD]
+  const int q0 = blockIdx.x * ROWS;
+  const size_t bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, g = lane_g(), t = lane_t();
+  const int r0 = q0 + 16 * warp;  // the warp's first row
+  const T* kb = k + bh * sk * D;
+  const T* vb = v + bh * sk * D;
+  copy_tile_async<T, D, ROWS>(Qs, q + bh * sq * D, q0, sq);
+  copy_tile_async<T, D, kTile>(KVs, kb, 0, sk);
+  copy_tile_async<T, D, kTile>(KVs + TS, vb, 0, sk);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp: the keys below lim_r that the row sees,
+  // the running max in base 2 (the same in the row's quad of lanes) and
+  // the lane's part of the row's sum
+  const float scale2 = scale * kLog2e;
+  int lim_r[2];
+  float m_r[2], l_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + g + 8 * i;
+    lim_r[i] = r >= sq ? 0 : causal ? min(r + 1, sk) : sk;
+    m_r[i] = kNegInf;
+    l_r[i] = 0.f;
+  }
+  float acc[DT][4] = {};
+
+  // one kv tile: S = Q K^T, the online softmax on S's fragments, O += P V;
+  // the warp's Q rows from QA (a RegA, or a tile of T or SplitTile at its
+  // first row), K and V read through KB and VB (tiles of T or SplitTiles)
+  auto tile = [&](int k0, const auto& QA, auto KB, auto VB) {
+    if (causal && k0 > r0 + 15) return;  // no key of the tile is live
+    float s[CT][4] = {};
+    mma_nk<T, D, CT>(s, QA, LD, KB, LD);
+    // only a tile that reaches past some row's last key is masked
+    if (!__all_sync(0xffffffffu, k0 + kTile <= min(lim_r[0], lim_r[1]))) {
+#pragma unroll
+      for (int j = 0; j < CT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t + (e & 1) >= lim_r[e >> 1])
+            s[j][e] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i] * scale2);
+      corr[i] = exp2f(m_r[i] - m_new);
+      m_r[i] = m_new;
+      l_r[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[j][e], scale2, -m_r[e >> 1]));
+        s[j][e] = p;  // P, rounded to T where it becomes the A operand
+        l_r[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+    mma_kn<T, kTile, DT>(acc, s, VB, LD);
+  };
+
+  // the warp's Q rows as the A operand: at d 64 held in registers from
+  // the first tile on (float32: 64 registers of hi and lo), at d 128 read
+  // from shared memory at every tile
+  constexpr bool kRegQ = D == 64;
+  RegA<T, D> qa;
+  const int qoff = 16 * warp * LD;
+  const int n_kt = kv_tiles(q0, ROWS, sq, sk, causal);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    T* Ks = KVs + (kt & 1) * 2 * TS;
+    T* Vs = Ks + TS;
+    if (kt + 1 < n_kt) {  // the next kv tile into the other stage
+      T* nxt = KVs + ((kt + 1) & 1) * 2 * TS;
+      copy_tile_async<T, D, kTile>(nxt, kb, (kt + 1) * kTile, sk);
+      copy_tile_async<T, D, kTile>(nxt + TS, vb, (kt + 1) * kTile, sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = kt * kTile;
+    if constexpr (kSplitQ) {
+      const SplitTile QS = SplitTile{Qs, Qlo} + qoff;
+      if (kt == 0) split_tile<L::kThreads>(Qs, Qlo, ROWS * LD);
+      if constexpr (L::kSplit) split_tile<L::kThreads>(Ks, KVlo, 2 * TS);
+      __syncthreads();
+      if constexpr (kRegQ) {
+        if (kt == 0)
+#pragma unroll
+          for (int k = 0; k < D; k += Mma<T>::kK)
+            qa.f[k / Mma<T>::kK] = Mma<T>::load_a(QS + k, LD);
+      }
+      if constexpr (L::kSplit)
+        tile(k0, qa, SplitTile{Ks, KVlo}, SplitTile{Vs, KVlo + TS});
+      else
+        tile(k0, QS, static_cast<const T*>(Ks), static_cast<const T*>(Vs));
+    } else {
+      const T* QT = Qs + qoff;
+      if constexpr (kRegQ) {
+        if (kt == 0)
+#pragma unroll
+          for (int k = 0; k < D; k += Mma<T>::kK)
+            qa.f[k / Mma<T>::kK] = Mma<T>::load_a(QT + k, LD);
+        tile(k0, qa, static_cast<const T*>(Ks), static_cast<const T*>(Vs));
+      } else {
+        tile(k0, QT, static_cast<const T*>(Ks), static_cast<const T*>(Vs));
+      }
+    }
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+
+  float lse_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float ls = l > 0.f ? l : 1.f;
+    lse_r[i] = l > 0.f ? m_r[i] * kLn2 + logf(ls) : kNegInf;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][2 * i] /= ls;
+      acc[j][2 * i + 1] /= ls;
+    }
+  }
+  store_rows<T, D>(o + bh * sq * D, acc, r0, sq);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + g + 8 * i;
+      if (r < sq) lse[bh * sq + r] = lse_r[i];
+    }
+  }
+}
+
+// K2.  grid (q blocks of Tiles::kRows rows, bh); dq [bh, sq, D] in T.  Warp
 // w owns q rows q0 + 16w .. +15.
 template <typename T, int D>
-__global__ void __launch_bounds__(Bwd<T, D>::kThreads)
+__global__ void __launch_bounds__(Tiles<T, D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int sq, int sk, float scale, int causal) {
-  using L = Bwd<T, D>;
+  using L = Tiles<T, D>;
   constexpr int LD = L::kLd, TS = L::kTS, ROWS = L::kRows;
   constexpr int NC = L::template cols<1>(), CT = NC / 8, DT = D / 8;
   extern __shared__ float4 smem4[];
@@ -841,18 +809,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dq + bh * sq * D, acc, q0 + 16 * warp, sq);
 }
 
-// K3.  grid (kv blocks of Bwd::kRows rows, bh); dk, dv [bh, sk, D] in T.
+// K3.  grid (kv blocks of Tiles::kRows rows, bh); dk, dv [bh, sk, D] in T.
 // Warp w owns kv rows k0 + 16w .. +15 and computes the transposed score
 // tiles S^T = K Q^T and dP^T = V dO^T, NC q columns per pass.
 template <typename T, int D>
-__global__ void __launch_bounds__(Bwd<T, D>::kThreads)
+__global__ void __launch_bounds__(Tiles<T, D>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int sq, int sk, float scale,
                      int causal) {
-  using L = Bwd<T, D>;
+  using L = Tiles<T, D>;
   constexpr int LD = L::kLd, TS = L::kTS, ROWS = L::kRows;
   constexpr int NC = L::template cols<2>(), CT = NC / 8, DT = D / 8;
   extern __shared__ float4 smem4[];
@@ -960,9 +928,9 @@ template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, int bh, int sq, int sk, float scale, int causal,
                 cudaStream_t s) {
-  return launch(flash_fwd_kernel<T, D>,
-                sizeof(float) * (3 * kTile * (D + 4) + kTile * kPS), kThreads,
-                (sq + kTile - 1) / kTile, bh, s, static_cast<const T*>(q),
+  using L = Tiles<T, D>;
+  return launch(flash_fwd_kernel<T, D>, L::fwd_smem(), L::kThreads,
+                (sq + L::kRows - 1) / L::kRows, bh, s, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<T*>(o), static_cast<float*>(lse), sq, sk, scale,
                 causal);
@@ -973,7 +941,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int bh, int sq, int sk, float scale, int causal,
                    cudaStream_t s) {
-  using L = Bwd<T, D>;
+  using L = Tiles<T, D>;
   return launch(flash_bwd_dq_kernel<T, D>, L::dq_smem(), L::kThreads,
                 (sq + L::kRows - 1) / L::kRows, bh, s, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
@@ -987,7 +955,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, int bh, int sq, int sk, float scale,
                     int causal, cudaStream_t s) {
-  using L = Bwd<T, D>;
+  using L = Tiles<T, D>;
   return launch(flash_bwd_dkv_kernel<T, D>, L::dkv_smem(), L::kThreads,
                 (sk + L::kRows - 1) / L::kRows, bh, s, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
@@ -997,15 +965,18 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // out = {registers per thread, local-memory bytes per thread (spills and
-// stack), dynamic shared memory per block, resident blocks per SM} of K2
-// (kernel 2) or K3 (kernel 3)
+// stack), dynamic shared memory per block, resident blocks per SM} of K1
+// (kernel 1), K2 (kernel 2) or K3 (kernel 3)
 template <typename T, int D>
 cudaError_t bwd_resources(int kernel, int* out) {
   const void* fn =
-      kernel == 2 ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<T, D>)
-                  : reinterpret_cast<const void*>(flash_bwd_dkv_kernel<T, D>);
-  using L = Bwd<T, D>;
-  const size_t smem = kernel == 2 ? L::dq_smem() : L::dkv_smem();
+      kernel == 1   ? reinterpret_cast<const void*>(flash_fwd_kernel<T, D>)
+      : kernel == 2 ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<T, D>)
+                    : reinterpret_cast<const void*>(flash_bwd_dkv_kernel<T, D>);
+  using L = Tiles<T, D>;
+  const size_t smem = kernel == 1   ? L::fwd_smem()
+                      : kernel == 2 ? L::dq_smem()
+                                    : L::dkv_smem();
   cudaFuncAttributes attr = {};
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err == cudaSuccess)
@@ -1077,11 +1048,11 @@ extern "C" int ff_flash_bwd_dkv(const void* q, const void* k, const void* v,
               causal, s);
 }
 
-// out[4] = registers, local bytes, shared bytes, blocks per SM of K2
-// (kernel 2) or K3 (kernel 3) at (head_dim, dtype).
+// out[4] = registers, local bytes, shared bytes, blocks per SM of K1
+// (kernel 1), K2 (kernel 2) or K3 (kernel 3) at (head_dim, dtype).
 extern "C" int ff_flash_bwd_resources(int kernel, int head_dim, int dtype,
                                       int* out) {
-  if (kernel != 2 && kernel != 3) return (int)cudaErrorInvalidValue;
+  if (kernel < 1 || kernel > 3) return (int)cudaErrorInvalidValue;
   FF_DISPATCH(bwd_resources, kernel, out);
 }
 

@@ -9,10 +9,10 @@ card they are CUDA C++ kernels written by hand for sm_90a,
 `flexflow_tpu_torch/_build/` and loaded through ctypes (`_build.py`).
 Each kernel computes its products itself, tile by tile, so the [s, s]
 scores never reach device memory; at the training shape they are bound
-by operations (see the source's note): K1 on the float32 SIMT path, K2
-and K3 on the tensor cores (float32 as three TF32 passes, bfloat16 in
-one).  `bwd_resources` reports what the card gives K2 and K3 (registers,
-spills, shared memory, blocks per SM).
+by operations on the tensor cores (float32 as three TF32 passes,
+bfloat16 in one; see the source's note).  `bwd_resources` reports what
+the card gives K1, K2 and K3 (registers, spills, shared memory, blocks
+per SM).
 
 Layout [batch*heads, seq, head_dim], contiguous.  `flash_fwd` returns
 (out, lse) and `flash_bwd` (dq, dk, dv), the entry points ring attention
@@ -58,15 +58,15 @@ def load_library() -> ctypes.CDLL:
 
 
 def bwd_resources(kernel: str, head_dim: int, dtype: torch.dtype) -> dict:
-    """What the card gives one block of K2 ("dq") or K3 ("dkv") at
-    (head_dim, dtype): registers per thread, local memory per thread
-    (spills; 0 means none), dynamic shared memory and resident blocks
-    per SM."""
+    """What the card gives one block of K1 ("fwd"), K2 ("dq") or K3
+    ("dkv") at (head_dim, dtype): registers per thread, local memory per
+    thread (spills; 0 means none), dynamic shared memory and resident
+    blocks per SM."""
     lib = load_library()
     out = (ctypes.c_int * 4)()
-    rc = lib.ff_flash_bwd_resources({"dq": 2, "dkv": 3}[kernel], head_dim,
-                                    _DTYPE_CODES[dtype], out)
-    _build.check_launch(lib, rc, f"flash_bwd_{kernel} resources")
+    rc = lib.ff_flash_bwd_resources({"fwd": 1, "dq": 2, "dkv": 3}[kernel],
+                                    head_dim, _DTYPE_CODES[dtype], out)
+    _build.check_launch(lib, rc, f"flash {kernel} resources")
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
 

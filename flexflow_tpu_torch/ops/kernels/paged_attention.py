@@ -7,10 +7,16 @@ C++ kernel written by hand for sm_90a, `csrc/paged_attention.cu`,
 built with nvcc at first use into `flexflow_tpu_torch/_build/` and
 loaded through ctypes (`_build.py`).  The kernel is bound by bytes: it
 reads each row's live KV pages once, in place through the block table,
-with two flops per element read; one block per (head, row) streams
-only that row's live pages, so per-step reads follow live tokens
-instead of `decode_max_seq` (see the source's note for the rest of the
-design).
+with two flops per element read.  Its grid is (head, row, split), a
+split being a run of `SPLIT_PAGES` whole pages of one row: a block stages
+its split's K and V rows with cp.async, scores them all at once and
+writes a float32 partial (m, l, acc) to a workspace, and the last block
+of a (row, head) merges the partials in split order (see the source's
+note).  Blocks past a row's live pages exit at once, so per-step reads
+follow live tokens instead of `decode_max_seq`.  The workspace comes from
+the caching allocator at each call; the merge's counters are one int32
+per (row, head), kept per device and left at 0 by every launch, so calls
+that share a device run on one stream at a time.
 
 `paged_attention` keeps the reference's signature and layout.  A CPU
 tensor runs `paged_attention_plain`, the gather formulation of
@@ -18,7 +24,7 @@ tensor runs `paged_attention_plain`, the gather formulation of
 gather the row's pages into a dense view, mask `key_pos <= pos + j`,
 softmax, then the context product.  A CUDA tensor launches the kernel
 or raises; nothing falls back.  `paged_attention.launches` counts the
-kernel launches.
+kernel launches (one per call).
 """
 from __future__ import annotations
 
@@ -33,7 +39,38 @@ SOURCE = _build.CSRC / "paged_attention.cu"
 
 MAX_CHUNK = 16  # the kernel's kMaxChunk
 HEAD_DIMS = (64, 128)
+# pages of one split: of the lengths chip_smoke.py's kernels phase sweeps
+# on the card (1-16 pages of 16 at the 8-slot decode shapes), 4 and 8 are
+# within a few percent of each other and 4 gives short rows more blocks
+SPLIT_PAGES = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_counters: dict = {}  # device -> int32 merge counters, all 0 between calls
+
+
+def split_grid(batch: int, heads: int, table_width: int,
+               split_pages: int = SPLIT_PAGES) -> tuple:
+    """The kernel's grid (heads, batch, splits): splits of `split_pages`
+    pages cover the table's width, whatever the rows' live counts."""
+    return heads, batch, -(-table_width // split_pages)
+
+
+def live_splits(seq_lens: np.ndarray, chunk: int, page: int,
+                table_width: int,
+                split_pages: int = SPLIT_PAGES) -> np.ndarray:
+    """Splits per row that hold a live key (the others exit at once):
+    ceil(live count / span), the live count min(pos + chunk - 1,
+    table_width * page - 1) + 1 as in the kernel."""
+    pos = np.asarray(seq_lens, np.int64)
+    n_tok = np.minimum(pos + chunk - 1, table_width * page - 1) + 1
+    return -(-n_tok // (split_pages * page))
+
+
+def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
+    c = _counters.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = c
+    return c
 
 
 def blocks_read(seq_lens: np.ndarray, live_mask: np.ndarray, chunk: int,
@@ -50,7 +87,7 @@ def blocks_read(seq_lens: np.ndarray, live_mask: np.ndarray, chunk: int,
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.ff_paged_attention.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.ff_paged_attention.restype = ctypes.c_int
 
@@ -130,7 +167,8 @@ def _check(qh, k_pool, v_pool, block_table, seq_lens):
 
 
 def paged_attention(qh, k_pool, v_pool, block_table, seq_lens,
-                    scale: float) -> torch.Tensor:
+                    scale: float, split_pages: int = SPLIT_PAGES
+                    ) -> torch.Tensor:
     """Paged attention over the pool.
 
     qh:          [b, s, h, dk]  this step's queries (s = 1 or chunk C)
@@ -140,6 +178,7 @@ def paged_attention(qh, k_pool, v_pool, block_table, seq_lens,
     seq_lens:    [b] int32, row i's incoming position (its chunk
                  occupies positions seq_lens[i] .. seq_lens[i]+s-1,
                  already scattered into the pool by the caller)
+    split_pages: pages of one split of the kernel's grid
     ->           [b, s, h, dv] context, qh's dtype
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
@@ -151,17 +190,25 @@ def paged_attention(qh, k_pool, v_pool, block_table, seq_lens,
         raise ValueError(
             f"paged_attention runs on cuda or cpu tensors, got {qh.device}")
     _check(qh, k_pool, v_pool, block_table, seq_lens)
+    if split_pages < 1:
+        raise ValueError(f"paged_attention: split_pages {split_pages} < 1")
     b, s, h, dk = qh.shape
+    width = block_table.shape[1]
     lib = load_library()
     out = torch.empty((b, s, h, v_pool.shape[-1]), dtype=qh.dtype,
                       device=qh.device)
+    n_splits = split_grid(b, h, width, split_pages)[2]
+    part = torch.empty(b * h * n_splits * s * (dk + 2), dtype=torch.float32,
+                       device=qh.device)
+    counters = _merge_counters(qh.device, b * h)
     with torch.cuda.device(qh.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ff_paged_attention(
             qh.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            b, s, h, dk, k_pool.shape[1], block_table.shape[1],
-            float(scale), _DTYPE_CODES[qh.dtype], stream)
+            part.data_ptr(), counters.data_ptr(), b, s, h, dk,
+            k_pool.shape[1], width, split_pages, float(scale),
+            _DTYPE_CODES[qh.dtype], stream)
     _build.check_launch(lib, rc, "paged_attention")
     paged_attention.launches += 1
     return out

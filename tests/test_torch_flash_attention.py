@@ -4,10 +4,10 @@ backward against the Pallas kernels K1-K3 run in interpret mode and
 against their off-TPU branches, on the same numpy inputs, as
 tests/test_flash_kernels.py runs them (seq 256, d 64); a float64
 gradcheck of the autograd Function; `mha_flash`'s layout; the three-pass
-TF32 products of the card's K2 and K3, emulated, against the float32
-tolerance; and a CUDA tensor never reaching the plain versions.  The CUDA kernels themselves
-are held against these plain versions on the card
-(tests/test_torch_gpu.py, chip_smoke.py)."""
+TF32 products of the card's K1, K2 and K3, emulated, against the float32
+tolerance; and a CUDA tensor never reaching the plain versions.  The
+CUDA kernels themselves are held against these plain versions on the
+card (tests/test_torch_gpu.py, chip_smoke.py)."""
 import numpy as np
 import pytest
 
@@ -167,6 +167,43 @@ def test_three_pass_tf32_products_keep_float32_tolerance(d, causal):
     def err(mm):
         got = _bwd_from_products(mm, q, k, v, dout, lse, delta, scale,
                                  causal)
+        return max(float((g - r).abs().max()) / max(1.0, float(
+            r.abs().max())) for g, r in zip(got, ref))
+
+    assert err(_mm_3xtf32) <= 1e-4
+    assert err(_mm_1xtf32) > 1e-4
+
+
+def _fwd_from_products(mm, q, k, v, scale, causal):
+    """out and LSE as K1 forms them: S = Q K^T and P V each formed by
+    `mm`, P = exp(S - m) left unnormalised (float32, so not rounded
+    before P V), out = P V / l and LSE = m + log l."""
+    s = mm(q, k.transpose(1, 2)) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(),
+                          float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    return mm(p, v) / l[..., None], m[..., 0] + torch.log(l)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_three_pass_tf32_forward_keeps_float32_tolerance(d, causal):
+    """The precision argument of K1's float32 path, emulated here:
+    forming S and P V in three TF32 passes keeps out and LSE within the
+    card tests' float32 tolerance, 1e-4 of the output's scale max(1,
+    max|plain|), of the plain forward at seq 2048 (about 5e-7 here); one
+    TF32 pass does not (1.2e-4 to 3.6e-4 here)."""
+    rng = np.random.RandomState(d + causal)
+    q, k, v = _t(*(rng.standard_normal((2, 2048, d)).astype(np.float32)
+                   for _ in range(3)))
+    scale = d ** -0.5
+    ref = fa.flash_fwd_plain(q, k, v, scale, causal)
+
+    def err(mm):
+        got = _fwd_from_products(mm, q, k, v, scale, causal)
         return max(float((g - r).abs().max()) / max(1.0, float(
             r.abs().max())) for g, r in zip(got, ref))
 

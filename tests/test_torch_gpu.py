@@ -58,6 +58,36 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, tol, s, d):
     assert float((got.float() - ref).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("s", [1, 8, 16])
+def test_paged_attention_kernel_on_long_rows(cuda, dtype, tol, s):
+    """K4 split over pages at the serving table width (64 pages of 16,
+    positions up to 1023): a scratch row (seq_len 0), a row ending
+    mid-split, a row at the table's end and CoW-shared blocks, against
+    the plain version in float32; two launches give the same bits."""
+    from flexflow_tpu_torch.ops.kernels import paged_attention as pk
+
+    torch.manual_seed(s)
+    rng = np.random.RandomState(s)
+    dt = getattr(torch, dtype)
+    page, width = 16, 64
+    qh, kp, vp, bt, sl = _case(rng, 6, s, 12, 64, page, width, dt, cuda)
+    span = pk.SPLIT_PAGES * page
+    slen = sl.cpu().numpy()
+    slen[1] = 3 * span + span // 2 + 5      # ends mid-split
+    slen[2] = width * page - s              # its chunk ends at the table
+    slen[3] = 1023 - s + 1
+    sl = torch.tensor(slen, device=cuda)
+    assert (pk.live_splits(slen, s, page, width) > 1).sum() >= 3
+    runs = [pk.paged_attention(qh, kp, vp, bt, sl, 0.125) for _ in range(2)]
+    ref = pk.paged_attention_plain(qh.float(), kp.float(), vp.float(), bt,
+                                   sl, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert float((runs[0].float() - ref).abs().max()) <= tol
+
+
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -160,6 +190,27 @@ def test_flash_backward_kernels_are_deterministic(cuda, dtype):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_kernel_resources_and_bits(cuda, dtype, d):
+    """K1 on the tensor cores: no local memory (spills), a block fits on
+    an SM, and two launches at seq 2048 give the same bits and agree
+    with the plain forward at FLASH_TOL."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    res = fa.bwd_resources("fwd", d, dt)
+    assert res["local_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
+    (q, k, v, _), f, r_out, r_lse, _ = _backward_inputs(
+        cuda, dtype, d, False, seed=20 + d)
+    runs = [fa.flash_fwd(q, k, v, d ** -0.5, False) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert _flash_err(runs[0][0], r_out) <= FLASH_TOL[dtype]
+    assert _flash_err(runs[0][1], r_lse) <= FLASH_TOL[dtype]
 
 
 def test_flash_attention_grads_through_autograd(cuda):

@@ -3,9 +3,10 @@ paged_attention.py) on the CPU, where the wrapper runs its plain gather
 version: held against the JAX package's Pallas kernel in interpret mode
 and against the reference's gather oracle on the same numpy inputs,
 across page sizes, chunk lengths, partial tail pages, scratch rows and
-CoW-shared blocks (the cases of tests/test_paged_kernel.py).  The CUDA
-kernel itself is held against the same plain version on the card by
-chip_smoke.py."""
+CoW-shared blocks (the cases of tests/test_paged_kernel.py); and the
+card kernel's split-and-merge, emulated here, against the same.  The
+CUDA kernel itself is held against the same plain version on the card
+by chip_smoke.py and tests/test_torch_gpu.py."""
 import numpy as np
 import pytest
 
@@ -128,3 +129,76 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         tpk._check(torch.zeros(2, 4, 2, 64).transpose(1, 2), pool,
                    pool, bt, sl)
+
+
+def _split_merge(qh, k_pool, v_pool, btab, slen, scale, split_pages):
+    """The card kernel's arithmetic in torch: per (row, head), the row's
+    live keys cut into splits of `split_pages` pages; per split and chunk
+    token one max m (-1e30 when no key of the split is live for the
+    token), p = exp(s - m), l = sum p, acc = p V; the partials merged by
+    their m in split order, out = acc / (l or 1).  Returns the context
+    and the number of (split, chunk token) partials with no live key."""
+    b, s, h, d = qh.shape
+    page, width = k_pool.shape[1], btab.shape[1]
+    span = split_pages * page
+    out = torch.zeros(b, s, h, d)
+    empty = 0
+    for i in range(b):
+        pos = int(slen[i])
+        n_tok = min(pos + s - 1, width * page - 1) + 1
+        keys = k_pool[btab[i].long()].reshape(width * page, h, d)
+        vals = v_pool[btab[i].long()].reshape(width * page, h, d)
+        parts = []
+        for t0 in range(0, n_tok, span):
+            t = torch.arange(t0, min(t0 + span, n_tok))
+            sc = torch.einsum("jhd,thd->hjt", qh[i], keys[t]) * scale
+            live = t[None, :] <= pos + torch.arange(s)[:, None]  # [j, t]
+            sc = sc.masked_fill(~live, float("-inf"))
+            m = sc.amax(dim=-1)
+            m = torch.where(torch.isinf(m), torch.full_like(m, -1e30), m)
+            p = torch.exp(sc - m[..., None])
+            parts.append((m, p.sum(dim=-1),
+                          torch.einsum("hjt,thd->hjd", p, vals[t])))
+            empty += int((~live.any(dim=1)).sum()) * h
+        mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        l_sum, acc = torch.zeros_like(mx), torch.zeros(h, s, d)
+        for m, l, a in parts:
+            f = torch.exp(m - mx)
+            l_sum = l_sum + l * f
+            acc = acc + a * f[..., None]
+        l_sum = torch.where(l_sum > 0, l_sum, torch.ones_like(l_sum))
+        out[i] = (acc / l_sum[..., None]).permute(1, 0, 2)
+    return out, empty
+
+
+@pytest.mark.parametrize("share", [False, True], ids=["private", "cow"])
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("split_pages", [1, 2, tpk.SPLIT_PAGES])
+def test_split_and_merge_matches_pallas_interpret_and_gather_oracle(
+        split_pages, chunk, share):
+    """The card kernel's split over pages and its merge in split order,
+    emulated, against the Pallas kernel in interpret mode and the gather
+    oracle (float32 on all sides, summation order only: ATOL).  Rows cut
+    mid-split, a row whose last split has no live key for chunk token 0
+    (its keys start at pos + 1), the scratch row (seq_len 0) and
+    CoW-shared blocks."""
+    page, width = 4, 8
+    rng = np.random.RandomState(10 * split_pages + chunk + share)
+    arrs = list(_case(rng, b=6, s=chunk, h=3, d=16, page=page, width=width,
+                      share=share))
+    span = split_pages * page
+    slen = arrs[4]
+    slen[4] = 2 * span + span // 2 + 1          # ends mid-split
+    slen[5] = span - 1 if chunk > 1 else span   # token 0 ends a split
+    scale = 1.0 / np.sqrt(16)
+    got, empty = _split_merge(*(torch.from_numpy(a) for a in arrs), scale,
+                              split_pages)
+    assert (tpk.live_splits(slen, chunk, page, width, split_pages)
+            > 1).sum() >= 2
+    if chunk > 1:
+        assert empty > 0  # a split with no live key for some token
+    jarrs = [jnp.asarray(a) for a in arrs]
+    pallas = np.asarray(jpk.paged_attention(*jarrs, scale, interpret=True))
+    oracle = np.asarray(_gather_oracle(*jarrs, scale))
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=0, atol=ATOL)
