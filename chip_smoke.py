@@ -74,10 +74,30 @@ Phases, each a failure of which exits non-zero:
    device busy and idle, cuDNN convolution time, P1 time and launches
    by variant, BatchNorm statistics reductions, and every layout copy
    or transpose, with those next to a P1 launch counted.
+12. vit: ViT-B/16 (hidden 768, 12 layers, 12 heads, MLP 3072, patch 16,
+   224 px, 1000 classes, dropout 0.1, the global-average-pool head) in
+   HF's eager attention idiom, imported through torch.fx (module init
+   from torch.manual_seed(0) through copy_weights; inputs and labels
+   from np.random.RandomState(0)), batch 128, bfloat16 compute, the
+   default SGD: one warm-up train_step, fit over 4 batches, one
+   eval_step.  The graph's op counts must be VIT_OPS; the first
+   Dropout's zero share in training within 5 sigma of 0.1, the identity
+   in eval; no hand-written kernel launches on this path (every counter
+   is set to 0 before fit and read after, and must stay 0).
+13. vit_parity: the small ViT (32 px, patch 8, hidden 64, 2 layers, 4
+   heads, 10 classes), float32, TF32 off, dropout 0, batch 4, on the
+   card against the port on device="cpu" from the same module: logits,
+   losses and every weight after 2 SGD steps.
+14. vit_profile: torch.profiler over 3 full-width ViT steps: device
+   busy and idle, and device time by PCG op type (each op's forward in
+   a record_function range, its backward matched through the autograd
+   sequence numbers) and kernel kind (GEMMs, the patch convolution,
+   softmax, Dropout's RNG, copies, casts, reductions, elementwise).
 
 `--phases` runs a subset (e.g. `--phases kernels` after editing a
 kernel, `--phases bn_kernels,resnet,resnet_parity,resnet_profile` for
-the ResNet path).  Every line but the last two is one JSON object; the
+the ResNet path, `--phases vit,vit_parity,vit_profile` for the ViT
+path).  Every line but the last two is one JSON object; the
 one before the last is the card's name and power limit as nvidia-smi
 prints them, and the last is {"ok": true, "device": {...}}.  Exits 2,
 printing no result, when torch.cuda.is_available() is false.
@@ -164,6 +184,22 @@ RESNET_BN = {"res_relu": 16, "relu": 33, "none": 4}
 # sum in other orders, ~1e-6 relative, through 2 SGD steps at lr 0.1
 RESNET_PARITY_TOL = {"output": 1e-4, "loss": 1e-4, "weights": 1e-4,
                      "running_stats": 1e-4}
+VIT_BATCH, VIT_PX, VIT_CLASSES, VIT_FIT, VIT_DROPOUT = 128, 224, 1000, 4, 0.1
+# the ops of the fx-imported ViT-B/16 graph (before compile), by type, as
+# the reference's importer builds them: per block 4 Reshape (q, k, v
+# split, context merge), 5 Transpose (q, k, v permute, k^T, context
+# permute), 2 BatchMatmul, 3 Dropout, 6 Linear, 2 LayerNorm, 2 adds, GELU
+# and the 1/sqrt(d) scale; around the blocks the patch Conv2D, its
+# flatten(2) and transpose, the position table (a WeightOp) and its add,
+# a Dropout, the final LayerNorm, the pooling Mean and the head
+VIT_OPS = {"reshape": 49, "transpose": 61, "batch_matmul": 24,
+           "dropout": 37, "linear": 73, "layer_norm": 25, "conv2d": 1,
+           "weight": 1, "mean": 1, "softmax": 12, "element_binary": 25,
+           "element_unary": 24}
+# card against CPU, float32, TF32 off, dropout 0: cuBLAS's and MKL's
+# GEMMs and the two convolutions sum in other orders (~1e-6 relative)
+# through 2 steps of the default SGD (lr 0.01, weight decay 1e-4)
+VIT_PARITY_TOL = {"logits": 1e-4, "loss": 1e-4, "weights": 1e-4}
 
 
 def emit(obj) -> None:
@@ -1209,6 +1245,111 @@ def resnet_modules():
     return Bottleneck, ResNet50, SmallResNet
 
 
+def vit_modules():
+    """ViT-B/16 (Dosovitskiy et al., ICLR 2021, Table 1: hidden 768, 12
+    layers, MLP 3072, 12 heads, patch 16 at 224 px; Table 3: dropout 0.1)
+    with the global-average-pool head, written in HF's eager attention
+    idiom (view/permute/matmul), and the small ViT of vit_parity (32 px,
+    patch 8, hidden 64, 2 layers, 4 heads, MLP 256, 10 classes)."""
+    import math
+
+    import torch
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    class Attention(nn.Module):
+        def __init__(self, h, n, p):
+            super().__init__()
+            self.n, self.d = n, h // n
+            self.query, self.key = nn.Linear(h, h), nn.Linear(h, h)
+            self.value, self.out = nn.Linear(h, h), nn.Linear(h, h)
+            self.drop, self.odrop = nn.Dropout(p), nn.Dropout(p)
+
+        def split(self, x):
+            return x.view(x.size()[:-1] + (self.n, self.d)).permute(
+                0, 2, 1, 3)
+
+        def forward(self, x):
+            q = self.split(self.query(x))
+            k = self.split(self.key(x))
+            v = self.split(self.value(x))
+            scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.d)
+            probs = self.drop(F.softmax(scores, dim=-1))
+            c = torch.matmul(probs, v).permute(0, 2, 1, 3).contiguous()
+            return self.odrop(self.out(
+                c.view(c.size()[:-2] + (self.n * self.d,))))
+
+    class Block(nn.Module):
+        """Pre-LN: x + attn(ln1(x)), then x + drop(fc2(gelu(fc1(ln2(x)))))."""
+
+        def __init__(self, h, n, mlp, p):
+            super().__init__()
+            self.ln1 = nn.LayerNorm(h, eps=1e-6)
+            self.attn = Attention(h, n, p)
+            self.ln2 = nn.LayerNorm(h, eps=1e-6)
+            self.fc1, self.fc2 = nn.Linear(h, mlp), nn.Linear(mlp, h)
+            self.act, self.drop = nn.GELU(), nn.Dropout(p)
+
+        def forward(self, x):
+            x = x + self.attn(self.ln1(x))
+            return x + self.drop(self.fc2(self.act(self.fc1(self.ln2(x)))))
+
+    class ViT(nn.Module):
+        def __init__(self, px=224, patch=16, hidden=768, layers=12,
+                     heads=12, mlp=3072, classes=1000, dropout=0.1):
+            super().__init__()
+            tokens = (px // patch) ** 2
+            self.patch = nn.Conv2d(3, hidden, patch, patch)
+            self.pos = nn.Parameter(0.02 * torch.randn(1, tokens, hidden))
+            self.drop = nn.Dropout(dropout)
+            self.blocks = nn.Sequential(*[Block(hidden, heads, mlp, dropout)
+                                          for _ in range(layers)])
+            self.ln = nn.LayerNorm(hidden, eps=1e-6)
+            self.head = nn.Linear(hidden, classes)
+
+        def forward(self, x):
+            x = self.patch(x).flatten(2).transpose(1, 2)
+            x = self.drop(x + self.pos)
+            return self.head(self.ln(self.blocks(x)).mean(dim=1))
+
+    class SmallViT(ViT):
+        def __init__(self, dropout=0.0):
+            super().__init__(px=32, patch=8, hidden=64, layers=2, heads=4,
+                             mlp=256, classes=10, dropout=dropout)
+
+    return ViT, SmallViT
+
+
+def build_vit(module, batch: int, px: int, device: str, compute_dtype: str,
+              compile_: bool = True):
+    """PyTorchModel(module).torch_to_ff, then (unless compile_ is False)
+    compile with the default SGD and the sparse cross-entropy on the
+    logits, and copy_weights."""
+    from flexflow_tpu_torch import FFConfig, FFModel, MetricsType
+    from flexflow_tpu_torch.torch_frontend import PyTorchModel
+
+    ff = FFModel(FFConfig(batch_size=batch, device=device,
+                          compute_dtype=compute_dtype))
+    x = ff.create_tensor([batch, 3, px, px], name="input")
+    pt = PyTorchModel(module)
+    pt.torch_to_ff(ff, [x])
+    if compile_:
+        ff.compile(metrics=[MetricsType.ACCURACY,
+                            MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+        pt.copy_weights(ff)
+    return ff
+
+
+def op_counts(ff) -> dict:
+    """The graph's ops by type, inputs left out."""
+    counts = {}
+    for op in ff.layers.ops:
+        kind = op.op_type.value
+        if kind != "input":
+            counts[kind] = counts.get(kind, 0) + 1
+    return counts
+
+
 def bn_bytes(m: int, c: int, itemsize: int, res: bool) -> int:
     """Bytes P1 must move: x (and res) read once, y written once, scale
     and shift read once."""
@@ -1641,8 +1782,350 @@ def phase_resnet_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
     return rec
 
 
+def kernel_launches(pk, fa, bk) -> dict:
+    """The launch counters of every hand-written kernel."""
+    return dict(flash_launches(fa), K4=pk.paged_attention.launches,
+                P1=bk.bn_apply.launches)
+
+
+def reset_kernel_launches(pk, fa, bk) -> None:
+    reset_flash_launches(fa)
+    pk.paged_attention.launches = 0
+    bk.bn_apply.launches = 0
+
+
+def watch_op(op, seen: list):
+    """Wrap op.forward (on this instance) to append (input, output) of
+    each call to `seen`."""
+    fwd = op.forward
+
+    def watched(ins, ws, **kw):
+        outs = fwd(ins, ws, **kw)
+        seen.append((ins[0], outs[0]))
+        return outs
+
+    op.forward = watched
+
+
+def phase_vit(torch, pk, fa, bk, card: str):
+    """Full-width ViT-B/16 (torch.fx import), batch 128, 224 px, 1000
+    classes, dropout 0.1, bfloat16 compute, through compile (default
+    SGD), train_step, fit and eval_step on the card."""
+    from flexflow_tpu_torch import OperatorType
+
+    ViT, _ = vit_modules()
+    torch.manual_seed(0)
+    module = ViT(classes=VIT_CLASSES, dropout=VIT_DROPOUT)
+    t0 = time.perf_counter()
+    ff = build_vit(module, VIT_BATCH, VIT_PX, "cuda", "bfloat16")
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    counts = op_counts(ff)
+    if counts != VIT_OPS:
+        raise RuntimeError(f"vit: graph ops {counts}, expected {VIT_OPS}")
+    b = VIT_BATCH
+    rng = np.random.RandomState(0)
+    x = rng.randn(b * (1 + VIT_FIT), 3, VIT_PX, VIT_PX).astype(np.float32)
+    y = rng.randint(0, VIT_CLASSES, b * (1 + VIT_FIT)).astype(np.int32)
+    # the first Dropout (after the position add) during the warm-up step
+    drop = next(op for op in ff.operators.topo_order()
+                if op.op_type == OperatorType.DROPOUT)
+    seen = []
+    watch_op(drop, seen)
+    t0 = time.perf_counter()
+    warm = ff.train_step({"input": x[:b]}, y[:b])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    inp, out = seen.pop()
+    live = inp != 0
+    zero_frac = float(((out == 0) & live).sum() / live.sum())
+    n_live = int(live.sum())
+    sigma = (VIT_DROPOUT * (1 - VIT_DROPOUT) / n_live) ** 0.5
+    del inp, out, live
+    del drop.forward
+    losses = []
+    step = ff.train_step
+
+    def recording(inputs, labels):
+        m = step(inputs, labels)
+        losses.append(m["loss"])
+        return m
+
+    ff.train_step = recording
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_kernel_launches(pk, fa, bk)
+    t0 = time.perf_counter()
+    hist = ff.fit(x[b:], y[b:], batch_size=b, epochs=1, verbose=False)
+    wall = time.perf_counter() - t0  # fit synchronizes at the epoch's end
+    launches = kernel_launches(pk, fa, bk)
+    del ff.train_step
+    peak = torch.cuda.max_memory_allocated()
+    watch_op(drop, seen)
+    ev = ff.eval_step({"input": x[:b]}, y[:b])
+    eval_identity = bool(seen) and all(i is o for i, o in seen)
+    seen.clear()
+    del drop.forward
+    logits = ff.forward({"input": x[:b]})
+    loss_vals = [float(warm["loss"])] + [float(v) for v in losses]
+    if not (np.isfinite(loss_vals).all() and np.isfinite(float(ev["loss"]))
+            and tuple(logits.shape) == (b, VIT_CLASSES)
+            and torch.isfinite(logits).all()):
+        raise RuntimeError(f"vit: non-finite or misshapen results: losses "
+                           f"{loss_vals}, eval {ev}, logits "
+                           f"{tuple(logits.shape)}")
+    if abs(zero_frac - VIT_DROPOUT) > 5 * sigma:
+        raise RuntimeError(f"vit: Dropout zeroed {zero_frac} of its output, "
+                           f"not within 5 sigma ({sigma}) of {VIT_DROPOUT}")
+    if not eval_identity:
+        raise RuntimeError("vit: Dropout in eval_step is not the identity")
+    if any(launches.values()):
+        raise RuntimeError(f"vit: the ViT path launched {launches}")
+    if hist[0].train_all != b * VIT_FIT:
+        raise RuntimeError(f"vit: fit scored {hist[0].train_all} samples")
+    rec = {
+        "phase": "vit", "card": card,
+        "model": {"source": "ViT-B/16, Dosovitskiy et al. ICLR 2021 "
+                            "(Table 1; Table 3 dropout), GAP head, via "
+                            "torch.fx",
+                  "hidden": 768, "layers": 12, "heads": 12, "mlp": 3072,
+                  "patch": 16, "px": VIT_PX, "classes": VIT_CLASSES,
+                  "dropout": VIT_DROPOUT, "batch": b,
+                  "compute_dtype": "bfloat16",
+                  "optimizer": "SGD(lr=0.01, wd=1e-4), the default",
+                  "weights": "torch.manual_seed(0) module init, "
+                             "copy_weights"},
+        "op_counts": counts,
+        "compile_s": compile_s, "warmup_step_s": warm_s,
+        "fit_steps": VIT_FIT, "fit_wall_s": wall,
+        "step_ms": wall / VIT_FIT * 1e3,
+        "images_per_s": b * VIT_FIT / wall,
+        "losses": loss_vals, "eval_loss": float(ev["loss"]),
+        "peak_memory_gb": peak / 1e9,
+        "dropout_zero_fraction": zero_frac,
+        "dropout_zero_fraction_sigma": sigma,
+        "dropout_elements": n_live,
+        "dropout_eval_identity": eval_identity,
+        "kernel_launches_in_fit": launches,
+    }
+    emit(rec)
+    return ff, x[:b], y[:b], rec
+
+
+def phase_vit_parity(torch, card: str) -> dict:
+    """Two default-SGD steps of the small ViT, float32, dropout 0, on the
+    card and on the CPU from the same module and batches."""
+    _, SmallViT = vit_modules()
+    torch.manual_seed(1)
+    module = SmallViT()
+    batch, steps = 4, 2
+    ffs = {dev: build_vit(module, batch, 32, dev, "float32")
+           for dev in ("cuda", "cpu")}
+    rng = np.random.RandomState(1)
+    x = rng.randn(batch * (steps + 1), 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, batch * (steps + 1)).astype(np.int32)
+    logits = {dev: ff.forward({"input": x[:batch]}).cpu().numpy()
+              for dev, ff in ffs.items()}
+    losses = {dev: [] for dev in ffs}
+    for i in range(steps):
+        sl = slice(batch * (i + 1), batch * (i + 2))
+        for dev, ff in ffs.items():
+            losses[dev].append(float(ff.train_step({"input": x[sl]},
+                                                   y[sl])["loss"]))
+    diff = {"logits": float(np.abs(logits["cuda"] - logits["cpu"]).max()),
+            "loss": max(abs(a - b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"])),
+            "weights": 0.0}
+    worst = None
+    wg, wc = ffs["cuda"].get_weights(), ffs["cpu"].get_weights()
+    for op, entries in wc.items():
+        for k, v in entries.items():
+            d = float(np.abs(wg[op][k] - v).max())
+            if d > diff["weights"]:
+                diff["weights"], worst = d, f"{op}.{k}"
+    if not all(np.isfinite(losses["cuda"] + losses["cpu"])):
+        raise RuntimeError(f"vit_parity: non-finite losses {losses}")
+    over = {k: v for k, v in diff.items() if v > VIT_PARITY_TOL[k]}
+    if over:
+        raise RuntimeError(f"vit_parity: card vs CPU {over} over "
+                           f"{VIT_PARITY_TOL} (worst weight {worst})")
+    rec = {"phase": "vit_parity", "card": card, "batch": batch, "px": 32,
+           "steps": steps, "dtype": "float32", "allow_tf32": False,
+           "dropout": 0.0, "losses": losses, "max_diff": diff,
+           "worst_weight": worst, "tolerance": VIT_PARITY_TOL,
+           "compared": "logits of a forward, losses, every weight after "
+                       "the steps"}
+    emit(rec)
+    return rec
+
+
+def _vit_kernel_kind(name: str) -> str:
+    """A device kernel's kind by name: the convolution, GEMMs, softmax,
+    RNG, then _kind's copy (strided same-dtype), cast, reduction and
+    elementwise."""
+    low = name.lower()
+    if any(t in low for t in ("fprop", "dgrad", "wgrad", "cudnn",
+                              "implicit", "conv")):
+        return "conv"
+    if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "gemm"
+    if "softmax" in low:
+        return "softmax"
+    if any(t in low for t in ("distribution", "uniform", "philox")):
+        return "rng"
+    kind = _kind(name)
+    return "copy" if kind == "layout" else kind
+
+
+def _chain(evt):
+    """evt and its enclosing CPU events, innermost first."""
+    while evt is not None:
+        yield evt
+        evt = evt.cpu_parent
+
+
+def _backward_node(evt):
+    """(whether evt runs in the backward, the record of the autograd node
+    it runs for or None).  The engine's own work for a node (the sums
+    that undo a broadcast) sits beside the node's record (scope 1),
+    under the engine's evaluate_function range."""
+    for p in _chain(evt):
+        if p.scope == 1:
+            return True, p
+        if p.name.startswith("autograd::engine::evaluate_function:"):
+            return True, next((c for c in p.cpu_children if c.scope == 1),
+                              None)
+    return False, None
+
+
+def _ffop_of(evt, fwd_kind: dict):
+    """The PCG op type whose forward or backward launched the CPU event
+    evt: an enclosing `ffop::<type>` range, or the autograd node made in
+    one (matched by sequence number); else None."""
+    backward, node = _backward_node(evt)
+    if backward:
+        return None if node is None else fwd_kind.get(
+            (node.sequence_nr, node.fwd_thread))
+    for p in _chain(evt):
+        if p.name.startswith("ffop::"):
+            return p.name[len("ffop::"):]
+    return None
+
+
+def phase_vit_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
+    """torch.profiler over `steps` full-width ViT-B/16 train steps:
+    device busy and idle, and device time by PCG op type (forward and
+    backward) and kernel kind."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    ff.train_step({"input": x}, y)
+    torch.cuda.synchronize()
+    for op in ff.operators.ops:
+        fwd = op.forward
+
+        def labelled(ins, ws, _fwd=fwd, _tag=f"ffop::{op.op_type.value}",
+                     **kw):
+            with record_function(_tag):
+                return _fwd(ins, ws, **kw)
+
+        op.forward = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                ff.train_step({"input": x}, y)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for op in ff.operators.ops:
+            del op.forward
+    events = prof.events()
+    # the device timeline also holds the ffop:: ranges as annotations
+    # that span their kernels: those are not device work
+    device = [e for e in events if "cuda" in str(e.device_type).lower()
+              and not e.name.startswith("ffop::")
+              and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        raise RuntimeError("vit_profile: the profiler saw no device time")
+    kernel_us = sum(e.time_range.elapsed_us() for e in device)
+    busy_us, end = 0.0, float("-inf")  # the union of the device events
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        start = max(e.time_range.start, end)
+        if e.time_range.end > start:
+            busy_us += e.time_range.end - start
+            end = e.time_range.end
+    cpu = [e for e in events if "cuda" not in str(e.device_type).lower()]
+    fwd_kind = {}
+    for e in cpu:
+        if e.sequence_nr >= 0:
+            kind = _ffop_of(e, {})
+            if kind is not None:
+                fwd_kind.setdefault((e.sequence_nr, e.thread), kind)
+    table, by_kind, names, attributed = {}, {}, {}, 0.0
+    for e in cpu:
+        if not e.kernels:
+            continue
+        op = _ffop_of(e, fwd_kind)
+        phase = "backward" if _backward_node(e)[0] else "forward"
+        for k in e.kernels:
+            kk = _vit_kernel_kind(k.name)
+            by_kind[kk] = by_kind.get(kk, 0.0) + k.duration
+            key = op or "unattributed"
+            row = table.setdefault(key, {})
+            cell = row.setdefault(kk, {"forward": 0.0, "backward": 0.0,
+                                       "launches": 0})
+            cell[phase] += k.duration
+            cell["launches"] += 1
+            attributed += k.duration
+            top = names.setdefault(key, {})
+            us, n = top.get(k.name, (0.0, 0))
+            top[k.name] = (us + k.duration, n + 1)
+
+    def per_step(us):
+        return us / 1e3 / steps
+
+    rec = {
+        "phase": "vit_profile", "card": card, "steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": per_step(busy_us),
+        "device_kernel_ms_per_step": per_step(kernel_us),
+        "device_idle_ms_per_step": (wall_ms - busy_us / 1e3) / steps,
+        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "device_events_per_step": len(device) / steps,
+        "linked_to_host_ops_share": attributed / kernel_us,
+        "by_kernel_kind_ms_per_step": {k: per_step(v) for k, v in
+                                       sorted(by_kind.items())},
+        "by_op_ms_per_step": {
+            op: {kk: {"forward": per_step(c["forward"]),
+                      "backward": per_step(c["backward"]),
+                      "launches_per_step": c["launches"] / steps}
+                 for kk, c in sorted(row.items())}
+            for op, row in sorted(table.items())},
+        "top_kernels_by_op": {
+            op: [{"name": n[:100], "ms_per_step": per_step(us),
+                  "launches_per_step": c / steps}
+                 for n, (us, c) in sorted(top.items(),
+                                          key=lambda kv: -kv[1][0])[:4]]
+            for op, top in sorted(names.items())},
+        "note": "device busy: the union of the device events' spans, "
+                "kernel ms: their sum.  by_op: the PCG op type whose forward (an ffop:: range) "
+                "or backward (the autograd node made in that range) "
+                "launched each kernel; unattributed: the loss, metrics, "
+                "optimizer and the executor's weight casts.  Kernel kinds "
+                "by name: gemm (cuBLAS), conv (cuDNN, the patch "
+                "embedding), softmax, rng (Dropout's draws), copy "
+                "(strided same-dtype copies: what Transpose and Reshape "
+                "force), cast, reduction (LayerNorm's and Mean's sums), "
+                "elementwise",
+    }
+    emit(rec)
+    return rec
+
+
 ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
-              "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile")
+              "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
+              "vit,vit_parity,vit_profile")
 
 
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str) -> dict:
@@ -1812,6 +2295,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "resnet_parity" in phases:
         phase_resnet_parity(torch, bk, card)
+    if phases & {"vit", "vit_profile"}:
+        ff, xb, yb, _ = phase_vit(torch, pk, fa, bk, card)
+        if "vit_profile" in phases:
+            phase_vit_profile(torch, card, ff, xb, yb)
+        del ff
+        torch.cuda.empty_cache()
+    if "vit_parity" in phases:
+        phase_vit_parity(torch, card)
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card))
     print(card, flush=True)

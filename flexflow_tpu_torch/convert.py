@@ -7,8 +7,9 @@ reference's own and the same in both packages: attention wq/wk/wv
 [embed, heads, head_dim] and wo [heads, head_dim, embed], Linear.kernel
 [in, out] (+ bias [out]), Embedding.weight [num_entries, out_dim],
 LayerNorm gamma and beta, Conv2D.kernel OIHW (+ bias), BatchNorm gamma
-and beta.  `from_jax_state` does the same for the op state
-(FFModel._state: BatchNorm's running_mean and running_var).  Every op
+and beta, a trainable WeightOp's value.  `from_jax_state` does the same
+for the op state (FFModel._state: BatchNorm's running_mean and
+running_var, a frozen WeightOp's value).  Every op
 name, entry name and shape is checked against `ff`'s graph; the first
 missing, extra or misshapen entry raises, naming it.
 """

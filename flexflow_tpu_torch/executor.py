@@ -181,8 +181,8 @@ class GraphExecutor:
                     training: bool = False,
                     generator: Optional[torch.Generator] = None):
         """Interpret the PCG.  Returns (sink_output, new_state); the
-        state's tensors are updated in place.  Random ops (attention
-        dropout) draw from `generator`."""
+        state's tensors are updated in place.  Random ops (Dropout,
+        attention dropout) draw from `generator`."""
         env: Dict[int, torch.Tensor] = {}
         new_state = {k: dict(v) for k, v in state.items()}
         for op, plan in self.schedule:
@@ -241,8 +241,11 @@ class GraphExecutor:
                                              training=True,
                                              generator=generator)
                 loss_val = loss_obj(logits, labels)
+                # a graph with no trainable weight (shape ops alone)
+                # still steps, as the reference's does
                 flat = torch.autograd.grad(
-                    loss_val, [weights[op][k] for op, k in names])
+                    loss_val, [weights[op][k] for op, k in names]
+                ) if names else []
             grads: Weights = {}
             for (op, k), g in zip(names, flat):
                 grads.setdefault(op, {})[k] = g

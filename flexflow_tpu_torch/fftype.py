@@ -3,7 +3,8 @@
 Counterpart of flexflow_tpu/fftype.py: the same enum names and values,
 so a graph described in one package reads the same in the other.
 `DataType` maps onto torch dtypes instead of jnp dtypes.  Only the
-enums the serving, training and ResNet slices reach are carried.
+enums the serving, training, ResNet and layer-op slices reach are
+carried.
 """
 from __future__ import annotations
 
@@ -83,21 +84,33 @@ class CompMode(enum.Enum):
 
 
 class OperatorType(enum.Enum):
+    # the reference has no EXPAND: its Expand op is of type RESHAPE
     INPUT = "input"
+    WEIGHT = "weight"
     NOOP = "noop"
     CONV2D = "conv2d"
     LINEAR = "linear"
     EMBEDDING = "embedding"
     MULTIHEAD_ATTENTION = "multihead_attention"
+    BATCH_MATMUL = "batch_matmul"
     ELEMENT_BINARY = "element_binary"
     ELEMENT_UNARY = "element_unary"
     POOL2D = "pool2d"
     BATCH_NORM = "batch_norm"
     LAYER_NORM = "layer_norm"
     SOFTMAX = "softmax"
+    CONCAT = "concat"
+    SPLIT = "split"
     FLAT = "flat"
+    RESHAPE = "reshape"
+    TRANSPOSE = "transpose"
+    REVERSE = "reverse"
+    PAD = "pad"
     REDUCE_SUM = "reduce_sum"
     MEAN = "mean"
+    CAST = "cast"
+    DROPOUT = "dropout"
+    GATHER = "gather"
 
 
 class OpUnary(enum.Enum):

@@ -11,6 +11,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -58,6 +59,20 @@ class GlorotUniform(Initializer):
             fan_in = fan_out = math.prod(shape) if shape else 1
         scale = math.sqrt(6.0 / max(1, fan_in + fan_out))
         return _uniform(gen, shape, -scale, scale, dtype, device)
+
+
+class ArrayInitializer(Initializer):
+    """A fixed host array: the values the torch frontend pins (a bare
+    parameter's WeightOp, F.linear and F.conv2d weights)."""
+
+    def __init__(self, array):
+        self.array = np.asarray(array)
+
+    def __call__(self, gen, shape, dtype, device):
+        if tuple(self.array.shape) != tuple(shape):
+            raise ValueError(f"ArrayInitializer shape {self.array.shape} != "
+                             f"weight shape {tuple(shape)}")
+        return torch.tensor(self.array, dtype=dtype, device=device)
 
 
 DEFAULT_WEIGHT_INIT = GlorotUniform()

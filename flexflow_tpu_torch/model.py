@@ -2,8 +2,9 @@
 
 The layer API that `models.transformer.build_gpt` and `build_bert` and
 the torch.fx frontend call (dense, conv2d, pool2d, embedding,
-attention, batch_norm, layer_norm, softmax, flat, mean, the binary and
-unary elementwise ops and the scalar ones), `compile` on one device
+attention, batch_matmul, batch_norm, layer_norm, softmax, dropout,
+cast, the shape ops, weight_tensor, mean, the binary and unary
+elementwise ops and the scalar ones), `compile` on one device
 under the trivial strategy (training or inference), `train_step`,
 `eval_step`, `fit`, `forward`, and weight and op-state access in the
 reference's {op: {name: array}} layout.  The device comes
@@ -27,19 +28,25 @@ from .dataloader import SingleDataLoader, to_device
 from .executor import GraphExecutor
 from .fftype import (ActiMode, AggrMode, CompMode, DataType, LossType,
                      MetricsType, OpBinary, OperatorType, OpUnary)
-from .initializer import Initializer
+from .initializer import ArrayInitializer, Initializer
 from .loss import Loss
 from .metrics import Metrics, PerfMetrics
 from .ops.attention import MultiHeadAttention, MultiHeadAttentionParams
-from .ops.dense import (Conv2D, Conv2DParams, Embedding, EmbeddingParams,
-                        Linear, LinearParams, Pool2D, Pool2DParams)
-from .ops.element import (ElementBinary, ElementBinaryParams, ElementUnary,
+from .ops.dense import (BatchMatmul, BatchMatmulParams, Conv2D,
+                        Conv2DParams, Embedding, EmbeddingParams, Linear,
+                        LinearParams, Pool2D, Pool2DParams)
+from .ops.element import (Cast, CastParams, Dropout, DropoutParams,
+                          ElementBinary, ElementBinaryParams, ElementUnary,
                           ElementUnaryParams)
 from .ops.norm import (BatchNorm, BatchNormParams, LayerNorm,
                        LayerNormParams, Softmax, SoftmaxParams)
-from .ops.op import Op
-from .ops.shape import Flat, Mean, Reduce, ReduceParams
-from .ops.sources import InputOp, SourceParams
+from .ops.op import Op, WeightSpec
+from .ops.shape import (Concat, ConcatParams, Expand, ExpandParams, Flat,
+                        Gather, GatherParams, Mean, Pad, PadParams, Reduce,
+                        ReduceParams, Reshape, ReshapeParams, Reverse,
+                        ReverseParams, Split, SplitParams, Transpose,
+                        TransposeParams)
+from .ops.sources import InputOp, SourceParams, WeightOp
 from .optimizer import Optimizer, SGDOptimizer
 from .pcg.graph import Graph
 from .tensor import ParallelTensor, ParallelTensorShape
@@ -162,6 +169,13 @@ class FFModel:
                          (padding_h, padding_w), pool_type, activation)
         return self._add(Pool2D(p, [input], name=self._name("pool2d", name)))
 
+    def batch_matmul(self, a: ParallelTensor, b: ParallelTensor,
+                     a_seq_length_dim: int = -1, b_seq_length_dim: int = -1,
+                     name: Optional[str] = None) -> ParallelTensor:
+        p = BatchMatmulParams(a_seq_length_dim, b_seq_length_dim)
+        return self._add(BatchMatmul(p, [a, b],
+                                     name=self._name("batch_matmul", name)))
+
     # -- elementwise binary ---------------------------------------------
     def _binary(self, kind: OpBinary, x, y, inplace_a=False, name=None):
         p = ElementBinaryParams(kind, inplace_a)
@@ -266,6 +280,73 @@ class FFModel:
     def flat(self, input, name=None):
         return self._add(Flat(None, [input], name=self._name("flat", name)))
 
+    def concat(self, tensors: Sequence[ParallelTensor], axis: int,
+               name=None):
+        return self._add(Concat(ConcatParams(axis), list(tensors),
+                                name=self._name("concat", name)))
+
+    def split(self, input, sizes: Union[int, Sequence[int]], axis: int,
+              name=None):
+        """Split into `sizes` along axis; an int n splits into n equal
+        parts."""
+        if isinstance(sizes, int):
+            sizes = [input.shape.logical_shape[axis] // sizes] * sizes
+        p = SplitParams(tuple(sizes), axis)
+        return self._add(Split(p, [input], name=self._name("split", name)))
+
+    def weight_tensor(self, array, trainable: bool = True, name=None):
+        """A standalone parameter as a tensor, initialized from `array`;
+        a frozen one keeps its value in the op state."""
+        arr = np.asarray(array)
+        shape = ParallelTensorShape.make(arr.shape,
+                                         DataType.from_any(str(arr.dtype)))
+        op = WeightOp(SourceParams(shape, "weight", trainable), [],
+                      name=self._name("weight", name))
+        op.weight_specs = [WeightSpec("value", shape, ArrayInitializer(arr))]
+        out = self._add(op)
+        out.create_gradients = trainable
+        return out
+
+    def expand(self, input, sizes: Sequence[int], name=None):
+        """Broadcast size-1 dims (torch Tensor.expand)."""
+        p = ExpandParams(tuple(int(s) for s in sizes))
+        return self._add(Expand(p, [input], name=self._name("expand", name)))
+
+    def reshape(self, input, shape: Sequence[int], name=None):
+        p = ReshapeParams(tuple(shape))
+        return self._add(Reshape(p, [input],
+                                 name=self._name("reshape", name)))
+
+    def transpose(self, input, perm: Sequence[int], name=None):
+        p = TransposeParams(tuple(perm))
+        return self._add(Transpose(p, [input],
+                                   name=self._name("transpose", name)))
+
+    def reverse(self, input, axis: int, name=None):
+        return self._add(Reverse(ReverseParams(axis), [input],
+                                 name=self._name("reverse", name)))
+
+    def pad(self, input, pads: Sequence[Sequence[int]], value: float = 0.0,
+            name=None):
+        """Constant padding: pads is ((before, after), ...) per logical
+        dim."""
+        p = PadParams(tuple((int(b), int(a)) for b, a in pads), float(value))
+        return self._add(Pad(p, [input], name=self._name("pad", name)))
+
+    def cast(self, input, dtype: Union[DataType, str], name=None):
+        p = CastParams(DataType.from_any(dtype))
+        return self._add(Cast(p, [input], name=self._name("cast", name)))
+
+    def dropout(self, input, rate: float, seed: int = 0, name=None):
+        p = DropoutParams(rate, seed)
+        return self._add(Dropout(p, [input],
+                                 name=self._name("dropout", name)))
+
+    def gather(self, input, index, axis: int = 0, name=None):
+        p = GatherParams(axis)
+        return self._add(Gather(p, [input, index],
+                                name=self._name("gather", name)))
+
     def reduce_sum(self, input, axes: Sequence[int], keepdims: bool = False,
                    name=None):
         p = ReduceParams(tuple(axes), keepdims, "sum")
@@ -329,6 +410,16 @@ class FFModel:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(cfg.seed))
         return self
+
+    def set_iteration_config(self, seq_length: Optional[int]):
+        """FFIterationConfig.seq_length: stamp it on every op, so that
+        BatchMatmul masks positions at or past it on its declared seq
+        dims (-1 masks nothing).  The port's steps are eager, so there is
+        no step function to rebuild or cache per length."""
+        if seq_length is None:
+            return
+        for op in self.layers.ops:
+            op._iter_seq_length = int(seq_length)
 
     def _is_decode_graph(self) -> bool:
         return any(getattr(op, "_decode_max_seq", 0)

@@ -1,4 +1,4 @@
-"""Dense compute ops: Linear, Conv2D, Pool2D and Embedding.
+"""Dense compute ops: Linear, Conv2D, Pool2D, Embedding and BatchMatmul.
 
 Counterpart of flexflow_tpu/ops/dense.py.  The weight layouts are the
 reference's: Linear.kernel is [in, out], Conv2D.kernel is OIHW and
@@ -282,3 +282,51 @@ class Embedding(Op):
         elif p.aggr == AggrMode.AVG:
             emb = emb.mean(dim=-2)
         return [emb]
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchMatmulParams:
+    a_seq_length_dim: int = -1
+    b_seq_length_dim: int = -1
+
+
+class BatchMatmul(Op):
+    """[b..., m, k] @ [b..., k, n] -> [b..., m, n], torch.matmul (cuBLAS
+    on the card).  FFModel.set_iteration_config stamps `_iter_seq_length`
+    on every op: positions at or past it on the declared seq dims
+    (`a_seq_length_dim`, `b_seq_length_dim`) are zeroed before the
+    product, as the reference masks them."""
+
+    op_type = OperatorType.BATCH_MATMUL
+
+    def infer_output_shapes(self, input_shapes):
+        # logical rules only: the degree and replica bookkeeping of the
+        # reference waits for the multi-GPU executor (ROADMAP §1.D)
+        a, b = (s.logical_shape for s in input_shapes)
+        if len(a) != len(b):
+            raise ShapeError(f"{self.name}: rank mismatch {len(a)} vs "
+                             f"{len(b)}")
+        if a[-1] != b[-2]:
+            raise ShapeError(f"{self.name}: contraction mismatch")
+        if a[:-2] != b[:-2]:
+            raise ShapeError(f"{self.name}: batch dims mismatch")
+        return [ParallelTensorShape.make(a[:-1] + b[-1:],
+                                         input_shapes[0].dtype)]
+
+    def forward(self, inputs, weights, *, training=False, generator=None):
+        a, b = inputs
+        seq_len = getattr(self, "_iter_seq_length", -1)
+        p: BatchMatmulParams = self.params
+        if seq_len > 0:
+            a = _mask_seq(a, p.a_seq_length_dim, seq_len)
+            b = _mask_seq(b, p.b_seq_length_dim, seq_len)
+        return [torch.matmul(a, b)]
+
+
+def _mask_seq(x: torch.Tensor, dim: int, seq_len: int) -> torch.Tensor:
+    if dim < 0 or dim >= x.dim():
+        return x
+    shape = [1] * x.dim()
+    shape[dim] = x.shape[dim]
+    keep = torch.arange(x.shape[dim], device=x.device) < seq_len
+    return x * keep.reshape(shape).to(x.dtype)

@@ -1,5 +1,6 @@
 """Elementwise ops (flexflow_tpu/ops/element.py): ElementUnary, with the
-reference's table of functions and its scalar ops, and ElementBinary."""
+reference's table of functions and its scalar ops, ElementBinary, Cast
+and Dropout."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,7 +8,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..fftype import OpBinary, OperatorType, OpUnary
+from ..fftype import DataType, OpBinary, OperatorType, OpUnary
 from ..tensor import ParallelDim, ParallelTensorShape
 from .op import Op, ShapeError
 
@@ -119,3 +120,57 @@ class ElementBinary(Op):
                 generator=None):
         a, b = inputs
         return [_BINARY_FNS[self.params.op](a, b)]
+
+
+@dataclasses.dataclass(frozen=True)
+class CastParams:
+    dtype: DataType
+
+
+class Cast(Op):
+    op_type = OperatorType.CAST
+
+    def infer_output_shapes(self, input_shapes):
+        (ishape,) = input_shapes
+        return [ParallelTensorShape(ishape.dims, self.params.dtype)]
+
+    def forward(self, inputs, weights, *, training=False, generator=None):
+        return [inputs[0].to(self.params.dtype.torch_dtype)]
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutParams:
+    rate: float
+    seed: int = 0
+
+
+class Dropout(Op):
+    """Inverted dropout: in training, each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else zeroed; the
+    identity in eval or at rate <= 0.  The mask is drawn on x's device
+    from `generator` (the model's, which compile seeds from
+    FFConfig.seed), or from a generator seeded with `params.seed` when
+    none is given, as the reference falls back to its op's key.  The
+    draws are not jax's: one seed gives one mask per device, and the
+    card's masks differ from the CPU's.  The gradient comes from
+    autograd: mask / (1 - rate)."""
+
+    op_type = OperatorType.DROPOUT
+
+    def infer_output_shapes(self, input_shapes):
+        return [input_shapes[0]]
+
+    def forward(self, inputs, weights, *, training=False, generator=None):
+        (x,) = inputs
+        p: DropoutParams = self.params
+        if not training or p.rate <= 0.0:
+            return [x]
+        if generator is None:
+            generator = torch.Generator(device=x.device)
+            generator.manual_seed(p.seed)
+        keep = 1.0 - p.rate
+        # float32 draws (a bfloat16 draw would quantize the probability)
+        # in logical order, so that one seed gives one mask whatever x's
+        # memory format
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        return [torch.where(u < keep, x / keep, 0.0).to(x.dtype)]

@@ -10,10 +10,11 @@ rows with no copy.  The rules are the reference's:
 
   * layout-preferring ops (Conv2D, Pool2D, BatchNorm) execute in NHWC
     and emit NHWC;
-  * layout-agnostic pointwise ops (ElementUnary) pass what arrives
-    straight through, and so does a same-shape ElementBinary (the
-    residual add) whose inputs are both NHWC;
-  * every other consumer gets logical NCHW.
+  * layout-agnostic pointwise ops (ElementUnary, Dropout, Cast) pass
+    what arrives straight through, and so does a same-shape
+    ElementBinary (the residual add) whose inputs are both NHWC;
+  * every other consumer gets logical NCHW: the shape ops among them
+    (a ViT's patch flatten(2) is a Reshape of the conv's output).
 
 For a ResNet that is one conversion to channels_last at the input and
 one back to NCHW before the head's Flat.  The executor does the
@@ -30,7 +31,8 @@ NHWC = "nhwc"
 PASS = "pass"
 
 _PREFER = {OperatorType.CONV2D, OperatorType.POOL2D, OperatorType.BATCH_NORM}
-_AGNOSTIC = {OperatorType.ELEMENT_UNARY}
+_AGNOSTIC = {OperatorType.ELEMENT_UNARY, OperatorType.DROPOUT,
+             OperatorType.CAST}
 
 
 def _is_4d(pt) -> bool:

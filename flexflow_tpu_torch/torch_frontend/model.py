@@ -10,14 +10,18 @@ carries the module's parameters into the compiled FFModel (torch Linear
 [out, in] -> kernel [in, out]; conv kernels OIHW as they are) and
 BatchNorm's running statistics into its op state.
 
-A node whose op the port does not have yet (Dropout, Cast, Reshape,
-Transpose, Concat, Split, BatchMatmul, weights pinned from functional
-calls or bare parameters) raises NotImplementedError naming the
-ROADMAP.md item it waits for.  The string-IR file route of the
-reference (`torch_to_file`, `file_to_ff`) comes with a later slice.
+Functional F.linear and F.conv2d weights arrive as arrays and are
+pinned through ArrayInitializer; a bare parameter or buffer operand of
+add, sub, mul or div becomes a WeightOp holding its array, frozen when
+the source did not require grad.  Both keep the values they had at
+trace time: copy_weights leaves them as imported.  The reference's own
+refusals stay (masked_fill; expand of a bare parameter).  The
+string-IR file route of the reference (`torch_to_file`, `file_to_ff`)
+comes with a later slice (ROADMAP.md §1.B.4).
 """
 from __future__ import annotations
 
+import math
 import operator
 from typing import Dict, List, Optional, Sequence
 
@@ -27,17 +31,10 @@ import torch.fx
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..fftype import DataType
+from ..initializer import ArrayInitializer
 from ..model import FFModel
 from ..tensor import ParallelTensor
-
-# where the ops these nodes lower to are queued
-_ROADMAP_OPS = "ROADMAP.md §1.B.2 (op forwards and grads)"
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what}: the port has no op for it yet; it waits for "
-        f"{_ROADMAP_OPS}")
 
 
 # ---------------------------------------------------------------------------
@@ -145,11 +142,9 @@ def lower_module(ff: FFModel, cfg: Dict, a: List, name: str):
     if kind == "softmax":
         return ff.softmax(a[0], axis=cfg["dim"], name=name)
     if kind == "dropout":
-        _not_ported("nn.Dropout (Dropout op)")
+        return ff.dropout(a[0], cfg["p"], name=name)
     if kind == "flatten":
-        if cfg["start"] != 1 or cfg["end"] != -1:
-            _not_ported("nn.Flatten other than (1, -1) (Reshape op)")
-        return ff.flat(a[0], name=name)
+        return _flatten(ff, a[0], cfg["start"], cfg["end"], name)
     if kind == "identity":
         return a[0]
     if kind == "mha":
@@ -211,17 +206,18 @@ _METHOD_ALIASES = {
     "masked_fill": None, "detach": "identity_m",
 }
 
-# canonical names whose op the port lacks, with the op named
-_NOT_PORTED = {
-    "cat": "Concat", "split": "Split", "chunk": "Split",
-    "matmul": "BatchMatmul", "reshape": "Reshape",
-    "transpose": "Transpose", "permute": "Transpose",
-    "unsqueeze": "Reshape", "squeeze": "Reshape", "dropout": "Dropout",
-    "f_linear": "Linear with pinned array weights",
-    "f_conv2d": "Conv2D with pinned array weights", "to": "Cast",
-    "to_float": "Cast", "type_as": "Cast", "expand": "Expand",
-    "expand_as": "Expand",
-}
+
+class TracedArray(np.ndarray):
+    """A numpy view of a get_attr tensor that remembers whether the
+    tensor required grad (a buffer imports as a frozen WeightOp)."""
+
+    trainable: bool = True
+
+
+def _traced_array(arr, trainable: bool) -> TracedArray:
+    t = np.asarray(arr).view(TracedArray)
+    t.trainable = bool(trainable)
+    return t
 
 
 def _is_tensor(x) -> bool:
@@ -234,15 +230,99 @@ def _axis_arg(a, kw, pos, key="dim", default=None):
     return a[pos] if len(a) > pos else default
 
 
+def _getitem(ff: FFModel, x, idx, name: str):
+    """getitem on a tensor: ints, slices of step 1 and tuples of them,
+    lowered through Split (and a Reshape that drops the int-indexed
+    dims)."""
+    if isinstance(x, (tuple, list)):
+        return x[idx]
+    if not _is_tensor(x):
+        raise ValueError(f"getitem on unsupported value {type(x)}")
+    items = idx if isinstance(idx, tuple) else (idx,)
+    out = x
+    squeeze_axes = []
+    for axis, it in enumerate(items):
+        size = out.shape.logical_shape[axis]
+        if isinstance(it, slice):
+            if it == slice(None):
+                continue
+            start = it.start or 0
+            if start < 0:
+                start += size
+            stop = size if it.stop is None else it.stop
+            if stop < 0:
+                stop += size
+            # torch clamps out-of-range bounds
+            start = max(0, start)
+            stop = max(start, min(stop, size))
+            if stop == start:
+                raise ValueError(f"empty slice on axis {axis} is "
+                                 "unsupported")
+            if (it.step or 1) != 1:
+                raise ValueError("strided tensor slicing is unsupported")
+            out = _slice_axis(ff, out, axis, start, stop, name)
+        elif isinstance(it, int):
+            it = it % size
+            out = _slice_axis(ff, out, axis, it, it + 1, name)
+            squeeze_axes.append(axis)
+        else:
+            raise ValueError(f"unsupported tensor index {it!r}")
+    if squeeze_axes:
+        shape = [s for ax, s in enumerate(out.shape.logical_shape)
+                 if ax not in squeeze_axes]
+        out = ff.reshape(out, shape, name=f"{name}_sq")
+    return out
+
+
+def _slice_axis(ff, x, axis, start, stop, name):
+    size = x.shape.logical_shape[axis]
+    sizes = [s for s in (start, stop - start, size - stop) if s > 0]
+    if sizes == [size]:
+        return x
+    parts = ff.split(x, sizes, axis, name=f"{name}_ax{axis}")
+    return parts[1 if start > 0 else 0]
+
+
+def _unsqueeze(ff, x, dim, name):
+    shape = list(x.shape.logical_shape)
+    shape.insert(dim % (len(shape) + 1), 1)
+    return ff.reshape(x, shape, name=name)
+
+
+def _squeeze(ff, x, dim, name):
+    shape = list(x.shape.logical_shape)
+    if dim is None:
+        shape = [s for s in shape if s != 1]
+    else:
+        dim = dim % len(shape)
+        if shape[dim] != 1:
+            return x
+        shape.pop(dim)
+    return ff.reshape(x, shape, name=name)
+
+
+def _flatten(ff, x, start, end, name):
+    """flatten(start, end): Flat for (1, -1), as the reference lowers
+    it; a Reshape otherwise."""
+    shape = list(x.shape.logical_shape)
+    start, end = start % len(shape), end % len(shape)
+    if start == 1 and end == len(shape) - 1:
+        return ff.flat(x, name=name)
+    merged = math.prod(shape[start:end + 1])
+    return ff.reshape(x, shape[:start] + [merged] + shape[end + 1:],
+                      name=name)
+
+
 def lower_function(ff: FFModel, fname: str, a: List, kw: Dict, name: str):
     """Lower one call_function node by canonical name (the reference's
     FunctionNode kinds)."""
-    if fname in _NOT_PORTED:
-        _not_ported(f"torch function {fname!r} ({_NOT_PORTED[fname]} op)")
     if fname in ("add", "sub", "mul", "div"):
-        if any(isinstance(v, np.ndarray) and v.ndim > 0 for v in a):
-            _not_ported(f"{fname} with a bare parameter or buffer operand "
-                        "(WeightOp)")
+        # a bare parameter or buffer operand becomes a WeightOp, frozen
+        # when the source did not require grad
+        a = [ff.weight_tensor(v, trainable=getattr(v, "trainable", True),
+                              name=f"{name}_w{i}")
+             if isinstance(v, np.ndarray) and v.ndim > 0 else v
+             for i, v in enumerate(a)]
         if _is_tensor(a[0]) and _is_tensor(a[1]):
             fn = {"add": ff.add, "sub": ff.subtract, "mul": ff.multiply,
                   "div": ff.divide}[fname]
@@ -290,9 +370,72 @@ def lower_function(ff: FFModel, fname: str, a: List, kw: Dict, name: str):
                           name=name)
     if fname == "flatten":
         start = kw.get("start_dim", a[1] if len(a) > 1 else 0)
-        if start == 1 and kw.get("end_dim", -1) == -1:
-            return ff.flat(a[0], name=name)
-        _not_ported("flatten other than (1, -1) (Reshape op)")
+        end = kw.get("end_dim", a[2] if len(a) > 2 else -1)
+        return _flatten(ff, a[0], start, end, name)
+    if fname == "cat":
+        return ff.concat(list(a[0]), _axis_arg(a, kw, 1, default=0),
+                         name=name)
+    if fname == "split":
+        axis = _axis_arg(a, kw, 2, default=0)
+        spec = a[1]
+        if isinstance(spec, int):  # torch: the size of each chunk
+            size = a[0].shape.logical_shape[axis]
+            sizes = [spec] * (size // spec)
+            if size % spec:
+                sizes.append(size % spec)
+        else:
+            sizes = list(spec)
+        return ff.split(a[0], sizes, axis, name=name)
+    if fname == "chunk":
+        axis = _axis_arg(a, kw, 2, default=0)
+        n = int(a[1])
+        size = a[0].shape.logical_shape[axis]
+        sizes = [size // n + (1 if i < size % n else 0) for i in range(n)]
+        return ff.split(a[0], sizes, axis, name=name)
+    if fname == "matmul":
+        if _is_tensor(a[1]):
+            return ff.batch_matmul(a[0], a[1], name=name)
+        # a constant operand: x @ W is a dense layer with pinned weights
+        return _dense_from_array(ff, a[0], np.asarray(a[1]), None, name,
+                                 transpose=False)
+    if fname in ("reshape", "permute"):
+        # the shape or perm as one sequence, or spread as a method's args
+        dims = a[1] if isinstance(a[1], (tuple, list)) else a[1:]
+        if fname == "reshape":
+            return _reshape(ff, a[0], dims, name)
+        return ff.transpose(a[0], list(dims), name=name)
+    if fname == "transpose":
+        return _transpose2(ff, a[0], a[1], a[2], name)
+    if fname == "unsqueeze":
+        return _unsqueeze(ff, a[0], _axis_arg(a, kw, 1, default=0), name)
+    if fname == "squeeze":
+        return _squeeze(ff, a[0], _axis_arg(a, kw, 1), name)
+    if fname == "dropout":
+        return ff.dropout(a[0], kw.get("p", a[1] if len(a) > 1 else 0.5),
+                          name=name)
+    if fname == "f_linear":
+        w = np.asarray(a[1])
+        b = a[2] if len(a) > 2 else kw.get("bias")
+        return _dense_from_array(ff, a[0], w,
+                                 None if b is None else np.asarray(b), name,
+                                 transpose=True)
+    if fname == "f_conv2d":
+        w = np.asarray(a[1])
+        b = a[2] if len(a) > 2 else kw.get("bias")
+        b = None if b is None else np.asarray(b)
+        stride = kw.get("stride", a[3] if len(a) > 3 else 1)
+        padding = kw.get("padding", a[4] if len(a) > 4 else 0)
+        groups = kw.get("groups", a[6] if len(a) > 6 else 1)
+        stride = stride if isinstance(stride, (tuple, list)) else (stride,) * 2
+        padding = (padding if isinstance(padding, (tuple, list))
+                   else (padding,) * 2)
+        out = ff.conv2d(a[0], w.shape[0], w.shape[2], w.shape[3], stride[0],
+                        stride[1], padding[0], padding[1], groups=int(groups),
+                        use_bias=b is not None, name=name)
+        _pin_weights(out.owner_op, kernel=w, bias=b)
+        return out
+    if fname == "to":
+        return _cast_like(ff, a, kw, name)
     if fname in ("mean", "sum"):
         axes = _axis_arg(a, kw, 1)
         if axes is None:
@@ -303,9 +446,7 @@ def lower_function(ff: FFModel, fname: str, a: List, kw: Dict, name: str):
         return fn(a[0], list(axes), keepdims=kw.get("keepdim", False),
                   name=name)
     if fname == "getitem":
-        if isinstance(a[0], (tuple, list)):
-            return a[0][a[1]]
-        _not_ported("indexing a tensor (Split and Reshape ops)")
+        return _getitem(ff, a[0], a[1], name)
     if fname == "getattr_":
         x, attr = a[0], a[1]
         if _is_tensor(x) and attr == "shape":
@@ -342,10 +483,56 @@ def lower_method(ff: FFModel, mname: str, a: List, kw: Dict, name: str):
     if canon == "size":
         return (x.shape.logical_shape[a[1]] if len(a) > 1
                 else x.shape.logical_shape)
-    if canon == "flatten":
-        return lower_function(ff, "flatten", [x, a[1] if len(a) > 1 else 0],
-                              {}, name)
+    if canon == "expand":
+        # a bare parameter (an array, not a tensor) fails here, as in the
+        # reference
+        sizes = a[1] if isinstance(a[1], (tuple, list)) else a[1:]
+        return ff.expand(x, [int(s) for s in sizes], name=name)
+    if canon == "expand_as":
+        return ff.expand(x, a[1].shape.logical_shape, name=name)
+    if canon == "to_float":
+        return ff.cast(x, DataType.FLOAT, name=name)
+    if canon == "type_as":
+        return ff.cast(x, a[1].shape.dtype, name=name)
     return lower_function(ff, canon, a, kw, name)
+
+
+def _reshape(ff, x, shape, name):
+    # Reshape's shape rule resolves a -1 (ops/shape.py)
+    return ff.reshape(x, [int(s) for s in shape], name=name)
+
+
+def _transpose2(ff, x, d0, d1, name):
+    perm = list(range(x.shape.logical_rank))
+    perm[d0], perm[d1] = perm[d1], perm[d0]
+    return ff.transpose(x, perm, name=name)
+
+
+def _cast_like(ff, a, kw, name):
+    """.to(dtype): a Cast (a torch dtype or its name); without a dtype,
+    the tensor as it is."""
+    target = kw.get("dtype", a[1] if len(a) > 1 else None)
+    if target is None:
+        return a[0]
+    return ff.cast(a[0], DataType.from_any(target), name=name)
+
+
+def _dense_from_array(ff, x, w, b, name, transpose: bool):
+    """F.linear or a product with a constant: a dense layer with pinned
+    weights.  F.linear's weight is [out, in]; a constant right operand
+    of matmul is [in, out]."""
+    kernel = w.T.copy() if transpose else np.asarray(w)
+    out = ff.dense(x, kernel.shape[1], use_bias=b is not None, name=name)
+    _pin_weights(out.owner_op, kernel=kernel, bias=b)
+    return out
+
+
+def _pin_weights(op, kernel=None, bias=None):
+    by_name = {"kernel": kernel, "bias": bias}
+    op.weight_specs = [
+        s.__class__(s.name, s.shape, ArrayInitializer(by_name[s.name]))
+        if by_name.get(s.name) is not None else s
+        for s in op.weight_specs]
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +571,8 @@ class PyTorchModel:
             elif node.op == "get_attr":
                 v = _fetch_attr(self.module, node.target)
                 if isinstance(v, torch.Tensor):
-                    v = v.detach().numpy()
+                    v = _traced_array(v.detach().cpu().numpy(),
+                                      v.requires_grad)
                 env[node.name] = v
             elif node.op == "call_module":
                 if node.kwargs:
@@ -420,7 +608,9 @@ class PyTorchModel:
     def copy_weights(self, ff: FFModel):
         """Copy the module's parameters into the compiled FFModel (torch
         Linear [out, in] -> kernel [in, out]; conv kernels OIHW as they
-        are) and BatchNorm's running statistics into its op state."""
+        are) and BatchNorm's running statistics into its op state.  The
+        arrays pinned at trace time (WeightOps, functional weights) stay
+        as imported."""
         weights = ff.get_weights()
         state = ff.get_state()
         modules = dict(self.traced.named_modules())

@@ -1,7 +1,8 @@
 """chip_smoke.py's bookkeeping that runs without a card: the flash
 kernels' bounds on the route each kernel takes, the count of tensor
-core instructions per kernel instance read from a SASS listing, and the
-paged-attention kernel's split grid and bytes bound."""
+core instructions per kernel instance read from a SASS listing, the
+paged-attention kernel's split grid and bytes bound, the phase list,
+the ViT-B/16 op-count table and the ViT profile's kernel kinds."""
 import sys
 from pathlib import Path
 
@@ -124,3 +125,48 @@ def test_paged_bound_counts_live_bytes():
     assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e9)
     idle = chip_smoke.paged_bound([1023] + [0] * 7, 16, 64, 12, 64, 4)
     assert idle["live_tokens"] == 1024 + 7
+
+
+def test_phase_list_runs_the_vit_path_after_the_earlier_ones():
+    phases = chip_smoke.ALL_PHASES.split(",")
+    assert phases[:11] == ["kernels", "serve", "parity", "profile", "train",
+                           "train_parity", "train_profile", "bn_kernels",
+                           "resnet", "resnet_parity", "resnet_profile"]
+    assert phases[11:] == ["vit", "vit_parity", "vit_profile"]
+
+
+def test_vit_op_table_adds_up_per_block():
+    """12 blocks of 4 Reshape, 5 Transpose, 2 BatchMatmul, 3 Dropout, 6
+    Linear, 2 LayerNorm, 2 adds, GELU and the scale, around a stem and
+    head of 1 Reshape, 1 Transpose, 1 Dropout, 1 Linear, 1 LayerNorm,
+    the position add, Conv2D, WeightOp and Mean."""
+    per_block = {"reshape": 4, "transpose": 5, "batch_matmul": 2,
+                 "dropout": 3, "linear": 6, "layer_norm": 2, "softmax": 1,
+                 "element_binary": 2, "element_unary": 2}
+    outside = {"reshape": 1, "transpose": 1, "dropout": 1, "linear": 1,
+               "layer_norm": 1, "element_binary": 1, "conv2d": 1,
+               "weight": 1, "mean": 1}
+    want = {k: 12 * per_block.get(k, 0) + outside.get(k, 0)
+            for k in set(per_block) | set(outside)}
+    assert chip_smoke.VIT_OPS == want
+    assert sum(want.values()) == 333
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "gemm"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN", "gemm"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nchw",
+     "conv"),
+    ("void (anonymous namespace)::softmax_warp_forward<c10::BFloat16, "
+     "c10::BFloat16, float, 8, false, false>", "softmax"),
+    ("void at::native::(anonymous namespace)::distribution_elementwise_"
+     "grid_stride_kernel<float, 4>", "rng"),
+    ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_"
+     "impl_nocast<at::native::direct_copy_kernel_cuda>>", "copy"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>",
+     "reduction"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "CUDAFunctor_add<c10::BFloat16>>", "elementwise"),
+])
+def test_vit_profile_kernel_kinds(name, kind):
+    assert chip_smoke._vit_kernel_kind(name) == kind

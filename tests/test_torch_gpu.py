@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each held against its plain
 PyTorch version, the flash kernels through their autograd Function, and
-the paged decode step run through the paged-attention kernel.
+the paged decode step run through the paged-attention kernel; the
+layer-op slice's Dropout on a CUDA generator, BatchMatmul and the small
+ViT against the CPU.
 These need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
 (that machine has no jax, which tests/conftest.py imports).  This file
@@ -408,3 +410,77 @@ def test_small_resnet_train_steps_on_card_match_cpu(cuda):
             for k, v in entries.items():
                 np.testing.assert_allclose(g[op][k], v, rtol=0, atol=1e-4,
                                            err_msg=f"{op}.{k}")
+
+
+def test_dropout_on_a_cuda_generator(cuda):
+    """One seed of a CUDA generator gives one mask; the kept share lies
+    within 5 sigma of 1 - rate over 2^20 elements; kept values are
+    scaled by 1 / (1 - rate)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=256, device="cpu"))  # builds the op
+    op = ff.dropout(ff.create_tensor([256, 4096], name="x"), 0.1).owner_op
+    x = torch.rand(256, 4096, device=cuda) + 0.5
+
+    def run(seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        return op.forward([x], [], training=True, generator=g)[0]
+
+    a, b, c = run(3), run(3), run(4)
+    assert a.device == x.device
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    kept = a != 0
+    sigma = (0.9 * 0.1 / x.numel()) ** 0.5
+    assert abs(float(kept.float().mean()) - 0.9) <= 5 * sigma
+    assert torch.equal(a[kept], (x / 0.9)[kept])
+
+
+def test_batch_matmul_on_card_matches_cpu(cuda):
+    """torch.matmul through the op, float32 with TF32 off: cuBLAS against
+    the CPU's GEMM within 1e-5 (other summation orders over k = 64)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=8, device="cpu"))  # builds the op
+    op = ff.batch_matmul(ff.create_tensor([8, 12, 196, 64], name="a"),
+                         ff.create_tensor([8, 12, 64, 196], name="b")
+                         ).owner_op
+    gen = torch.Generator().manual_seed(6)
+    a = torch.randn(8, 12, 196, 64, generator=gen)
+    b = torch.randn(8, 12, 64, 196, generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (got,) = op.forward([a.to(cuda), b.to(cuda)], [])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (want,) = op.forward([a, b], [])
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+
+
+def test_small_vit_forward_on_card_matches_cpu(cuda):
+    """chip_smoke.py's SmallViT through the fx importer, float32 with
+    TF32 off: logits on the card against the port's CPU run within 1e-4
+    (cuBLAS's and cuDNN's sums against the CPU's)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    _, SmallViT = chip_smoke.vit_modules()
+    torch.manual_seed(3)
+    module = SmallViT()
+    x = np.random.RandomState(3).randn(4, 3, 32, 32).astype(np.float32)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = {dev: chip_smoke.build_vit(module, 4, 32, dev, "float32")
+               .forward({"input": x}).cpu().numpy()
+               for dev in ("cuda", "cpu")}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=0, atol=1e-4)

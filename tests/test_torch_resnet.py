@@ -531,16 +531,53 @@ def test_resnet50_graph_matches_reference_and_plans_53_applies():
     assert _plan_counts(plans) == {"res_relu": 16, "relu": 33, "none": 4}
 
 
+class _Flatten0(nn.Module):
+    def forward(self, x):
+        return torch.flatten(x, 0)
+
+
+def _import_pair(module, ref_module=None):
+    """module through the port's importer and (ref_module or module)
+    through the reference's, each compiled for inference on a [2, 4]
+    input: (reference FFModel, port FFModel)."""
+    models = []
+    for P, Importer, m in ((J, JaxPyTorchModel, ref_module or module),
+                           (T, PyTorchModel, module)):
+        kw = {"num_devices": 1} if P is J else {"device": "cpu"}
+        ff = P.FFModel(P.FFConfig(batch_size=2, **kw))
+        x = ff.create_tensor([2, 4], name="input")
+        pt = Importer(m)
+        pt.torch_to_ff(ff, [x])
+        ck = {"devices": jax.devices("cpu")[:1]} if P is J else {}
+        ff.compile(comp_mode=P.CompMode.INFERENCE, **ck)
+        pt.copy_weights(ff)
+        models.append(ff)
+    return models
+
+
 @pytest.mark.parametrize("module,what", [
     (nn.Sequential(nn.Linear(4, 4), nn.Dropout(0.1)), "Dropout"),
     (nn.Sequential(nn.Flatten(0, -1)), "Reshape"),
 ])
 def test_frontend_names_the_roadmap_item_for_missing_ops(module, what):
-    ff = T.FFModel(T.FFConfig(batch_size=2, device="cpu"))
-    x = ff.create_tensor([2, 4], name="input")
-    with pytest.raises(NotImplementedError, match=what) as info:
-        PyTorchModel(module).torch_to_ff(ff, [x])
-    assert "ROADMAP.md §1.B.2" in str(info.value)
+    """nn.Dropout imports as a Dropout op and nn.Flatten(0, -1) as a
+    Reshape (ROADMAP.md §1.B.2's ops), with the reference's graph and
+    output.  The reference's module route takes flatten from dim 1
+    only, so its side imports the same flatten as torch.flatten(x, 0)."""
+    torch.manual_seed(0)
+    jf, tf = _import_pair(module, _Flatten0() if what == "Reshape"
+                          else None)
+    desc = [[(op.op_type.value, [o.shape.logical_shape for o in op.outputs])
+             for op in ff.layers.ops] for ff in (jf, tf)]
+    assert desc[0] == desc[1]
+    assert what.lower() in [d[0] for d in desc[1]]
+    x = np.random.RandomState(0).randn(2, 4).astype(np.float32)
+    got = tf.forward({"input": x}).numpy()
+    np.testing.assert_allclose(got, np.asarray(jf.forward({"input": x})),
+                               rtol=0, atol=1e-6)
+    with torch.no_grad():
+        want = module.eval()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 class _Cat(nn.Module):
@@ -549,7 +586,27 @@ class _Cat(nn.Module):
 
 
 def test_frontend_raises_for_functions_and_methods_it_lacks():
+    """torch.cat and Tensor.view import as Concat and Reshape, with the
+    reference's graph and output; a method neither importer has still
+    raises, naming it."""
+    jf, tf = _import_pair(_Cat())
+    assert [op.op_type.value for op in tf.layers.ops] == \
+        [op.op_type.value for op in jf.layers.ops] == \
+        ["input", "reshape", "concat"]
+    x = np.random.RandomState(1).randn(2, 4).astype(np.float32)
+    got = tf.forward({"input": x}).numpy()
+    assert got.shape == (2, 8)
+    np.testing.assert_array_equal(got, np.asarray(jf.forward({"input": x})))
+
+    class _MaskedFill(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("mask", torch.eye(2, 4, dtype=torch.bool))
+
+        def forward(self, x):
+            return x.masked_fill(self.mask, 0.0)
+
     ff = T.FFModel(T.FFConfig(batch_size=2, device="cpu"))
-    x = ff.create_tensor([2, 4], name="input")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PyTorchModel(_Cat()).torch_to_ff(ff, [x])
+    t = ff.create_tensor([2, 4], name="input")
+    with pytest.raises(ValueError, match="masked_fill"):
+        PyTorchModel(_MaskedFill()).torch_to_ff(ff, [t])
