@@ -62,7 +62,8 @@ Phases, each a failure of which exits non-zero:
    examples/python/pytorch/resnet50_search.py (224 px, 1000 classes,
    batch 256, bfloat16 compute, weights from torch.manual_seed(0)
    through copy_weights) compiled with SGD(lr=0.1), one warm-up
-   train_step, fit over 4 batches, one eval_step.  P1's launch counter
+   train_step, fit over 4 batches (from the prefetching loader: pinned
+   staging, a copy stream), one eval_step.  P1's launch counter
    is set to 0 just before fit and read just after: 53 launches per
    step, 16 of them with the residual by the executor's plan.
 10. resnet_parity: a small ResNet (stem 3->8, a downsampling and an
@@ -70,8 +71,10 @@ Phases, each a failure of which exits non-zero:
    off, on the card against the port on device="cpu" from the same
    module: logits, losses, weights and running statistics after 2 SGD
    steps.
-11. resnet_profile: torch.profiler over 3 full-width ResNet-50 steps:
-   device busy and idle, cuDNN convolution time, P1 time and launches
+11. resnet_profile: torch.profiler over a fit of 3 full-width ResNet-50
+   batches through the loader: device busy (the union over both
+   streams) and idle, time by stream, cuDNN convolution time, P1 time
+   and launches
    by variant, BatchNorm statistics reductions, and every layout copy
    or transpose, with those next to a P1 launch counted.
 12. vit: ViT-B/16 (hidden 768, 12 layers, 12 heads, MLP 3072, patch 16,
@@ -88,16 +91,39 @@ Phases, each a failure of which exits non-zero:
    heads, 10 classes), float32, TF32 off, dropout 0, batch 4, on the
    card against the port on device="cpu" from the same module: logits,
    losses and every weight after 2 SGD steps.
-14. vit_profile: torch.profiler over 3 full-width ViT steps: device
-   busy and idle, and device time by PCG op type (each op's forward in
-   a record_function range, its backward matched through the autograd
-   sequence numbers) and kernel kind (GEMMs, the patch convolution,
+14. vit_profile: torch.profiler over a fit of 3 full-width ViT
+   batches through the loader: device busy and idle, and device time
+   by PCG op type (each op's forward in a record_function range, its
+   backward matched through the autograd sequence numbers, the loader's
+   copies apart) and kernel kind (GEMMs, the patch convolution,
    softmax, Dropout's RNG, copies, casts, reductions, elementwise).
+15. zoo: Unity's evaluation models through the calls of
+   examples/python/native/*.py (FFConfig.from_args -b, the models
+   builder, compile with the example's SGD, loss and metrics), float32,
+   inputs and labels from np.random.RandomState(0): Inception-v3 (299
+   px, 10 classes), ResNeXt-50 32x4d (224 px, 1000 classes), DLRM and
+   XDL (4 tables of 100000 x 64), CANDLE-Uno (width 4192, feature depth
+   8, ~0.5 B parameters), the Transformer (12 layers, hidden 1024, 16
+   heads, seq 512, batch 8, MSE), the MoE MLP (784 -> 5 experts, k 2,
+   hidden 64), build_moe_encoder's defaults, the MLP example, AlexNet
+   and the native ResNet-50 at 64 px; batch 64 unless the example sets
+   its own.  Each: one warm-up train_step, then fit(shuffle=True) over
+   3 batches through the prefetching loader; samples/s, peak memory,
+   finite losses, for MoE the dropped-pair share and the expert load;
+   every hand-written kernel's counter is set to 0 before fit and must
+   stay 0.
+16. zoo_parity: every zoo builder at its tiny test size, float32, TF32
+   off, on the card against the port on device="cpu" with the same
+   weights: the forward, losses and every weight after 2 SGD steps.
+17. zoo_profile: torch.profiler over a fit of 3 batches of Inception-v3
+   and of ResNeXt-50 (its grouped 3x3 convolutions apart): device time
+   by PCG op type and kernel kind, the layout copies and the layout
+   pass's plan.
 
 `--phases` runs a subset (e.g. `--phases kernels` after editing a
 kernel, `--phases bn_kernels,resnet,resnet_parity,resnet_profile` for
 the ResNet path, `--phases vit,vit_parity,vit_profile` for the ViT
-path).  Every line but the last two is one JSON object; the
+path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo).  Every line but the last two is one JSON object; the
 one before the last is the card's name and power limit as nvidia-smi
 prints them, and the last is {"ok": true, "device": {...}}.  Exits 2,
 printing no result, when torch.cuda.is_available() is false.
@@ -1594,7 +1620,7 @@ def phase_resnet(torch, bk, card: str):
         "peak_memory_gb": peak / 1e9,
     }
     emit(rec)
-    return ff, x[:b], y[:b], rec
+    return ff, x[b:], y[b:], rec
 
 
 def phase_resnet_parity(torch, bk, card: str) -> dict:
@@ -1688,16 +1714,16 @@ def _self_device_us(avg) -> float:
 
 
 def phase_resnet_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
-    """torch.profiler over `steps` full-width ResNet-50 train steps."""
+    """torch.profiler over `steps` full-width ResNet-50 train steps fed
+    by the prefetching loader (fit's loop)."""
     from torch.profiler import ProfilerActivity, profile
 
-    ff.train_step({"input": x}, y)
+    run = loader_steps(ff, x, y, RESNET_BATCH, steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            ff.train_step({"input": x}, y)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = sorted((e for e in prof.events()
@@ -1732,7 +1758,8 @@ def phase_resnet_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
             if k in beside:
                 n = events[j].name[:80]
                 beside[k][n] = beside[k].get(n, 0) + 1
-    busy_us = sum(by_name.values())
+    kernel_us = sum(by_name.values())
+    busy_us = device_busy_us(events)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:30]
     # the aten ops that launched the device time, and the copies by shape
     ops = [a for a in prof.key_averages() if _self_device_us(a) > 0]
@@ -1743,13 +1770,19 @@ def phase_resnet_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
     copies = sorted(copies, key=lambda a: -_self_device_us(a))[:15]
     rec = {
         "phase": "resnet_profile", "card": card, "steps": steps,
+        "run": "train steps fed by the prefetching loader",
         "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_kernel_ms_per_step": kernel_us / 1e3 / steps,
         "device_idle_ms_per_step": (wall_ms - busy_us / 1e3) / steps,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "device_events_per_step": len(events) / steps,
+        "by_stream": by_stream(events, steps),
+        "busy_note": "device busy: the union of the device events' spans "
+                     "on every stream (the loader's copies run on a "
+                     "stream of their own); kernel ms: their sum",
         "by_kind": {k: {"ms_per_step": us / 1e3 / steps,
-                        "share_of_busy": us / busy_us,
+                        "share_of_busy": us / kernel_us,
                         "launches_per_step": kind_n[k] / steps}
                     for k, us in sorted(by_kind.items())},
         "kind_note": "by kernel name: conv, cuDNN's convolutions; p1, "
@@ -1780,6 +1813,54 @@ def phase_resnet_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
     }
     emit(rec)
     return rec
+
+
+def loader_steps(ff, x, y, b: int, steps: int):
+    """run() for a profile: `steps` train steps fed by the prefetching
+    loader, as fit's loop runs them, after one warm step from the same
+    loader (so its start stays out of the window).  x and y hold at
+    least steps + 1 batches."""
+    from flexflow_tpu_torch import SingleDataLoader
+
+    n = (steps + 1) * b
+    xs = ({k: v[:n] for k, v in x.items()} if isinstance(x, dict)
+          else x[:n])
+    loader = SingleDataLoader(ff, xs, y[:n], batch_size=b)
+    ff.train_step(*loader.next_batch())
+
+    def run():
+        for _ in range(steps):
+            ff.train_step(*loader.next_batch())
+
+    return run
+
+
+def device_busy_us(device_events) -> float:
+    """The union of the device events' spans: a copy on the loader's
+    stream that overlaps a kernel adds no busy time."""
+    busy, end = 0.0, float("-inf")
+    for e in sorted(device_events, key=lambda e: e.time_range.start):
+        start = max(e.time_range.start, end)
+        if e.time_range.end > start:
+            busy += e.time_range.end - start
+            end = e.time_range.end
+    return busy
+
+
+def by_stream(device_events, steps: int) -> dict:
+    """Device ms and events per step on each stream, with the
+    host-to-device copies apart."""
+    out = {}
+    for e in device_events:
+        row = out.setdefault(str(getattr(e, "device_resource_id", "?")),
+                             {"ms_per_step": 0.0, "events_per_step": 0.0,
+                              "h2d_ms_per_step": 0.0})
+        ms = e.time_range.elapsed_us() / 1e3 / steps
+        row["ms_per_step"] += ms
+        row["events_per_step"] += 1 / steps
+        if "htod" in e.name.lower():
+            row["h2d_ms_per_step"] += ms
+    return out
 
 
 def kernel_launches(pk, fa, bk) -> dict:
@@ -1909,7 +1990,7 @@ def phase_vit(torch, pk, fa, bk, card: str):
         "kernel_launches_in_fit": launches,
     }
     emit(rec)
-    return ff, x[:b], y[:b], rec
+    return ff, x[b:], y[b:], rec
 
 
 def phase_vit_parity(torch, card: str) -> dict:
@@ -1960,19 +2041,24 @@ def phase_vit_parity(torch, card: str) -> dict:
 
 
 def _vit_kernel_kind(name: str) -> str:
-    """A device kernel's kind by name: the convolution, GEMMs, softmax,
-    RNG, then _kind's copy (strided same-dtype), cast, reduction and
-    elementwise."""
+    """A device kernel's kind by name: convolutions (cuDNN's, FFT
+    included), pools, GEMMs, softmax, RNG, concat, then _kind's copy
+    (strided same-dtype), cast, memcpy, reduction and elementwise."""
     low = name.lower()
     if any(t in low for t in ("fprop", "dgrad", "wgrad", "cudnn",
-                              "implicit", "conv")):
+                              "implicit", "conv", "fft",
+                              "pointwise_mult_and_sum_complex")):
         return "conv"
+    if "pool" in low:
+        return "pool"
     if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma")):
         return "gemm"
     if "softmax" in low:
         return "softmax"
     if any(t in low for t in ("distribution", "uniform", "philox")):
         return "rng"
+    if "catarraybatchedcopy" in low:
+        return "concat"
     kind = _kind(name)
     return "copy" if kind == "layout" else kind
 
@@ -1999,8 +2085,8 @@ def _backward_node(evt):
 
 
 def _ffop_of(evt, fwd_kind: dict):
-    """The PCG op type whose forward or backward launched the CPU event
-    evt: an enclosing `ffop::<type>` range, or the autograd node made in
+    """The PCG op label whose forward or backward launched the CPU event
+    evt: an enclosing `ffop::<label>` range, or the autograd node made in
     one (matched by sequence number); else None."""
     backward, node = _backward_node(evt)
     if backward:
@@ -2012,19 +2098,20 @@ def _ffop_of(evt, fwd_kind: dict):
     return None
 
 
-def phase_vit_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
-    """torch.profiler over `steps` full-width ViT-B/16 train steps:
-    device busy and idle, and device time by PCG op type (forward and
-    backward) and kernel kind."""
+def profile_by_op(torch, ff, run, steps: int, label=None) -> dict:
+    """torch.profiler over run() (`steps` train steps): device busy and
+    idle, device time by PCG op (forward and backward) and kernel kind,
+    and by stream.  Each op's forward runs in an `ffop::<label(op)>`
+    range (the op type by default); its backward kernels are matched to
+    it through the autograd sequence numbers.  Work launched from
+    another thread than the ops' (the loader's copies) is "loader"."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    ff.train_step({"input": x}, y)
-    torch.cuda.synchronize()
+    label = label or (lambda op: op.op_type.value)
     for op in ff.operators.ops:
         fwd = op.forward
 
-        def labelled(ins, ws, _fwd=fwd, _tag=f"ffop::{op.op_type.value}",
-                     **kw):
+        def labelled(ins, ws, _fwd=fwd, _tag=f"ffop::{label(op)}", **kw):
             with record_function(_tag):
                 return _fwd(ins, ws, **kw)
 
@@ -2033,8 +2120,7 @@ def phase_vit_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(steps):
-                ff.train_step({"input": x}, y)
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -2047,15 +2133,11 @@ def phase_vit_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
               and not e.name.startswith("ffop::")
               and not getattr(e, "is_user_annotation", False)]
     if not device:
-        raise RuntimeError("vit_profile: the profiler saw no device time")
+        raise RuntimeError("the profiler saw no device time")
     kernel_us = sum(e.time_range.elapsed_us() for e in device)
-    busy_us, end = 0.0, float("-inf")  # the union of the device events
-    for e in sorted(device, key=lambda e: e.time_range.start):
-        start = max(e.time_range.start, end)
-        if e.time_range.end > start:
-            busy_us += e.time_range.end - start
-            end = e.time_range.end
+    busy_us = device_busy_us(device)
     cpu = [e for e in events if "cuda" not in str(e.device_type).lower()]
+    op_threads = {e.thread for e in cpu if e.name.startswith("ffop::")}
     fwd_kind = {}
     for e in cpu:
         if e.sequence_nr >= 0:
@@ -2066,33 +2148,37 @@ def phase_vit_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
     for e in cpu:
         if not e.kernels:
             continue
-        op = _ffop_of(e, fwd_kind)
-        phase = "backward" if _backward_node(e)[0] else "forward"
+        backward = _backward_node(e)[0]
+        if not backward and e.thread not in op_threads:
+            # neither the ops' thread nor the autograd engine's
+            op, phase = "loader", "forward"
+        else:
+            op = _ffop_of(e, fwd_kind) or "unattributed"
+            phase = "backward" if backward else "forward"
         for k in e.kernels:
             kk = _vit_kernel_kind(k.name)
             by_kind[kk] = by_kind.get(kk, 0.0) + k.duration
-            key = op or "unattributed"
-            row = table.setdefault(key, {})
-            cell = row.setdefault(kk, {"forward": 0.0, "backward": 0.0,
-                                       "launches": 0})
+            cell = table.setdefault(op, {}).setdefault(
+                kk, {"forward": 0.0, "backward": 0.0, "launches": 0})
             cell[phase] += k.duration
             cell["launches"] += 1
             attributed += k.duration
-            top = names.setdefault(key, {})
+            top = names.setdefault(op, {})
             us, n = top.get(k.name, (0.0, 0))
             top[k.name] = (us + k.duration, n + 1)
 
     def per_step(us):
         return us / 1e3 / steps
 
-    rec = {
-        "phase": "vit_profile", "card": card, "steps": steps,
+    return {
+        "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": per_step(busy_us),
         "device_kernel_ms_per_step": per_step(kernel_us),
         "device_idle_ms_per_step": (wall_ms - busy_us / 1e3) / steps,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "device_events_per_step": len(device) / steps,
+        "by_stream": by_stream(device, steps),
         "linked_to_host_ops_share": attributed / kernel_us,
         "by_kernel_kind_ms_per_step": {k: per_step(v) for k, v in
                                        sorted(by_kind.items())},
@@ -2108,24 +2194,461 @@ def phase_vit_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
                  for n, (us, c) in sorted(top.items(),
                                           key=lambda kv: -kv[1][0])[:4]]
             for op, top in sorted(names.items())},
-        "note": "device busy: the union of the device events' spans, "
-                "kernel ms: their sum.  by_op: the PCG op type whose forward (an ffop:: range) "
-                "or backward (the autograd node made in that range) "
-                "launched each kernel; unattributed: the loss, metrics, "
-                "optimizer and the executor's weight casts.  Kernel kinds "
-                "by name: gemm (cuBLAS), conv (cuDNN, the patch "
-                "embedding), softmax, rng (Dropout's draws), copy "
-                "(strided same-dtype copies: what Transpose and Reshape "
-                "force), cast, reduction (LayerNorm's and Mean's sums), "
-                "elementwise",
+        "note": "device busy: the union of the device events' spans on "
+                "every stream, kernel ms: their sum.  by_op: the PCG op "
+                "whose forward (an ffop:: range) or backward (the "
+                "autograd node made in that range) launched each kernel; "
+                "loader: the prefetching loader's host-to-device copies "
+                "(its own thread and stream); unattributed: the loss, "
+                "metrics, optimizer and the executor's layout "
+                "conversions and weight casts.  Kernel kinds by name: "
+                "gemm (cuBLAS), conv (cuDNN, FFT included), pool, "
+                "softmax, rng (Dropout's draws), concat, copy (strided same-dtype copies: layout "
+                "conversions and what Transpose and Reshape force), "
+                "cast, memcpy, reduction, elementwise",
     }
+
+
+def phase_vit_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
+    """torch.profiler over `steps` full-width ViT-B/16 train steps fed
+    by the prefetching loader: device busy and idle, and device time by
+    PCG op type (forward and backward) and kernel kind."""
+    rec = {"phase": "vit_profile", "card": card,
+           "run": "train steps fed by the prefetching loader"}
+    rec.update(profile_by_op(torch, ff,
+                             loader_steps(ff, x, y, VIT_BATCH, steps),
+                             steps))
     emit(rec)
     return rec
 
 
+# -- the native model zoo: Unity's evaluation models through the calls of
+# examples/python/native/*.py (FFConfig.from_args -> a models builder ->
+# compile -> fit), each at its example's configuration
+ZOO_STEPS = 3
+ZOO_EMB = (100000, 100000, 100000, 100000)  # dlrm.py's and xdl.py's tables
+SCE_METRICS = ("accuracy", "sparse_categorical_crossentropy")
+MSE_METRICS = ("mean_squared_error",)
+
+
+def _zoo_images(px, classes, name="input"):
+    def data(rng, n):
+        return ({name: rng.randn(n, 3, px, px).astype(np.float32)},
+                rng.randint(0, classes, n).astype(np.int32))
+    return data
+
+
+def _zoo_recsys(dense):
+    def data(rng, n):
+        x = {f"sparse_input_{i}": rng.randint(0, v, size=(n, 1)).astype(
+            np.int32) for i, v in enumerate(ZOO_EMB)}
+        if dense:
+            x["dense_input"] = rng.randn(n, dense).astype(np.float32)
+        return x, rng.rand(n, 2).astype(np.float32)
+    return data
+
+
+def _zoo_candle(rng, n):
+    return ({f"input_{i}": rng.randn(n, d).astype(np.float32)
+             for i, d in enumerate((942, 5270, 2048))},
+            rng.rand(n, 1).astype(np.float32))
+
+
+def _zoo_transformer(rng, n):
+    return ({"input": rng.randn(n, 512, 1024).astype(np.float32)},
+            rng.rand(n, 512, 1).astype(np.float32))
+
+
+def _zoo_mlp_data(rng, n):
+    w_true = rng.randn(64, 10)
+    x = rng.randn(n, 64).astype(np.float32)
+    y = np.argmax(x @ w_true + 0.1 * rng.randn(n, 10), axis=1)
+    return {"x": x}, y.astype(np.int32)
+
+
+def _zoo_moe_data(rng, n):
+    return ({"input": rng.randn(n, 784).astype(np.float32)},
+            rng.randint(0, 10, size=n).astype(np.int32))
+
+
+def _zoo_encoder_data(rng, n):
+    return ({"input": rng.randn(n, 128, 64).astype(np.float32)},
+            rng.randint(0, 10, size=(n, 128)).astype(np.int32))
+
+
+def _build_mlp_example(ff, b):
+    """examples/python/native/mlp.py's graph, through the layer calls."""
+    from flexflow_tpu_torch import ActiMode
+
+    x = ff.create_tensor([b, 64], name="x")
+    t = ff.dense(x, 256, activation=ActiMode.RELU)
+    t = ff.dense(t, 256, activation=ActiMode.RELU)
+    return ff.softmax(ff.dense(t, 10))
+
+
+def _zoo_builder(name, **kw):
+    def build(ff, b):
+        from flexflow_tpu_torch import models
+
+        return getattr(models, name)(ff, batch_size=b, **kw)
+    return build
+
+
+# name -> (example, batch, build(ff, batch), SGD lr, loss, metrics,
+# data(rng, n)).  Batch 64 is the examples' -b default; the Transformer
+# runs at -b 8 (the Unity AE setting its docstring names), the MLP
+# example sets 64 itself, build_moe_encoder takes its own defaults.
+ZOO = {
+    "inception_v3": ("examples/python/native/inception.py", 64,
+                     _zoo_builder("build_inception_v3", num_classes=10,
+                                  image_size=299),
+                     0.001, "sparse_categorical_crossentropy", SCE_METRICS,
+                     _zoo_images(299, 10)),
+    "resnext50": ("examples/python/native/resnext.py", 64,
+                  _zoo_builder("build_resnext50", num_classes=1000,
+                               image_size=224),
+                  0.001, "sparse_categorical_crossentropy", SCE_METRICS,
+                  _zoo_images(224, 1000)),
+    "dlrm": ("examples/python/native/dlrm.py", 64,
+             _zoo_builder("build_dlrm", embedding_size=ZOO_EMB,
+                          sparse_feature_size=64, dense_feature_dim=64,
+                          mlp_bot=[64, 64], mlp_top=[64, 64, 2]),
+             0.01, "mean_squared_error_avg", MSE_METRICS, _zoo_recsys(64)),
+    "xdl": ("examples/python/native/xdl.py", 64,
+            _zoo_builder("build_xdl", embedding_size=ZOO_EMB,
+                         sparse_feature_size=64),
+            0.01, "mean_squared_error_avg", MSE_METRICS, _zoo_recsys(0)),
+    "candle_uno": ("examples/python/native/candle_uno.py", 64,
+                   _zoo_builder("build_candle_uno",
+                                input_dims=[942, 5270, 2048],
+                                dense_layers=[4192] * 4,
+                                dense_feature_layers=[4192] * 8),
+                   0.001, "mean_squared_error_avg", MSE_METRICS,
+                   _zoo_candle),
+    "transformer": ("examples/python/native/transformer.py", 8,
+                    _zoo_builder("build_transformer", seq_length=512,
+                                 hidden_size=1024, num_layers=12,
+                                 num_heads=16),
+                    0.001, "mean_squared_error_avg", MSE_METRICS,
+                    _zoo_transformer),
+    "moe_mlp": ("examples/python/native/moe.py", 64,
+                _zoo_builder("build_moe_mlp", input_dim=784, num_classes=10,
+                             num_exp=5, num_select=2, hidden_size=64),
+                0.001, "sparse_categorical_crossentropy", SCE_METRICS,
+                _zoo_moe_data),
+    "moe_encoder": ("flexflow_tpu_torch/models/moe.py build_moe_encoder "
+                    "defaults", 8, _zoo_builder("build_moe_encoder"),
+                    0.001, "sparse_categorical_crossentropy", SCE_METRICS,
+                    _zoo_encoder_data),
+    "mlp": ("examples/python/native/mlp.py", 64, _build_mlp_example, 0.05,
+            "sparse_categorical_crossentropy", SCE_METRICS, _zoo_mlp_data),
+    "alexnet": ("examples/python/native/alexnet_cifar10.py", 64,
+                _zoo_builder("build_alexnet", num_classes=10,
+                             image_size=64),
+                0.01, "sparse_categorical_crossentropy", SCE_METRICS,
+                _zoo_images(64, 10)),
+    "resnet50": ("examples/python/native/resnet.py", 64,
+                 _zoo_builder("build_resnet50", num_classes=10,
+                              image_size=64),
+                 0.001, "sparse_categorical_crossentropy", SCE_METRICS,
+                 _zoo_images(64, 10)),
+}
+
+
+def build_zoo_model(name: str, device: str = "cuda", batch=None):
+    """The example's calls: FFConfig.from_args(-b), the builder, compile
+    with its SGD, loss and metrics."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+
+    _, b, build, lr, loss, metrics, _ = ZOO[name]
+    b = batch or b
+    cfg = FFConfig.from_args(["-b", str(b), "--device", device])
+    ff = FFModel(cfg)
+    build(ff, cfg.batch_size)
+    ff.compile(optimizer=SGDOptimizer(lr=lr), loss_type=loss,
+               metrics=list(metrics))
+    return ff
+
+
+def zoo_data(name: str, batches: int, batch=None):
+    _, b, _, _, _, _, data = ZOO[name]
+    b = batch or b
+    return b, data(np.random.RandomState(0), b * batches)
+
+
+def moe_routing(torch, records) -> dict:
+    """Dropped-pair share and expert load of the recorded (GroupBy op,
+    assignment) pairs, per GroupBy op: the dispatch's own keep rule."""
+    from flexflow_tpu_torch.ops.moe_dispatch import dispatch_indices
+
+    out = {}
+    for op, assign in records:
+        n = op.params.n
+        cap = op.outputs[0].shape.logical_shape[1]
+        _, keep = dispatch_indices(assign, cap, n)
+        row = out.setdefault(op.name, {"experts": n, "capacity": cap,
+                                       "pairs": 0, "dropped": 0,
+                                       "load": [0] * n})
+        row["pairs"] += keep.numel()
+        row["dropped"] += int((~keep).sum())
+        counts = torch.bincount(assign.reshape(-1).long(), minlength=n)
+        row["load"] = [a + int(c) for a, c in zip(row["load"],
+                                                  counts.tolist())]
+    for row in out.values():
+        row["dropped_share"] = row["dropped"] / row["pairs"]
+        row["load_share"] = [c / row["pairs"] for c in row["load"]]
+    return out
+
+
+def phase_zoo(torch, pk, fa, bk, card: str) -> dict:
+    """Each zoo model: one warm-up train_step, then fit(shuffle=True)
+    over ZOO_STEPS batches through the prefetching loader; samples/s,
+    peak memory, finite losses, MoE routing; no hand-written kernel
+    launches."""
+    from flexflow_tpu_torch import OperatorType
+
+    rows = {}
+    for name, (example, *_rest) in ZOO.items():
+        t0 = time.perf_counter()
+        ff = build_zoo_model(name)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        b, (x, y) = zoo_data(name, 1 + ZOO_STEPS)
+        t0 = time.perf_counter()
+        warm = ff.train_step({k: v[:b] for k, v in x.items()}, y[:b])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        losses, routed = [], []
+        step = ff.train_step
+
+        def recording(inputs, labels, _step=step):
+            m = _step(inputs, labels)
+            losses.append(m["loss"])
+            return m
+
+        groups = [op for op in ff.operators.ops
+                  if op.op_type == OperatorType.GROUP_BY]
+        for op in groups:
+            fwd = op.forward
+
+            def watched(ins, ws, _fwd=fwd, _op=op, **kw):
+                routed.append((_op, ins[1].detach().clone()))
+                return _fwd(ins, ws, **kw)
+
+            op.forward = watched
+        ff.train_step = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launches(pk, fa, bk)
+        t0 = time.perf_counter()
+        hist = ff.fit({k: v[b:] for k, v in x.items()}, y[b:],
+                      batch_size=b, epochs=1, shuffle=True, verbose=False)
+        wall = time.perf_counter() - t0  # fit synchronizes at its end
+        launches = kernel_launches(pk, fa, bk)
+        peak = torch.cuda.max_memory_allocated()
+        del ff.train_step
+        for op in groups:
+            del op.forward
+        loss_vals = [float(warm["loss"])] + [float(v) for v in losses]
+        if len(loss_vals) != 1 + ZOO_STEPS or not np.isfinite(
+                loss_vals).all():
+            raise RuntimeError(f"zoo {name}: losses {loss_vals}")
+        if any(launches.values()):
+            raise RuntimeError(f"zoo {name}: the zoo path launched "
+                               f"{launches}")
+        if hist[0].train_all <= 0:
+            raise RuntimeError(f"zoo {name}: fit scored no sample")
+        row = {"example": example, "batch": b,
+               "params": sum(w.numel() for e in ff._weights.values()
+                             for w in e.values()),
+               "ops": len(ff.operators.ops),
+               "compile_s": compile_s, "warmup_step_s": warm_s,
+               "fit_steps": ZOO_STEPS, "fit_wall_s": wall,
+               "step_ms": wall / ZOO_STEPS * 1e3,
+               "samples_per_s": b * ZOO_STEPS / wall,
+               "peak_memory_gb": peak / 1e9, "losses": loss_vals,
+               "kernel_launches_in_fit": launches}
+        if groups:
+            row["moe_routing"] = moe_routing(torch, routed)
+        rows[name] = row
+        emit({"phase": "zoo", "card": card, "model": name, **row})
+        del ff, x, y, routed
+        torch.cuda.empty_cache()
+    rec = {"phase": "zoo", "card": card, "models": sorted(rows),
+           "samples_per_s": {k: r["samples_per_s"] for k, r in rows.items()},
+           "launches": {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "P1": 0},
+           "note": "float32, one device, fit(shuffle=True) over "
+                   f"{ZOO_STEPS} batches after a warm-up train_step; "
+                   "samples/s over fit's wall time, the loader's start "
+                   "included"}
+    emit(rec)
+    return rec
+
+
+# tiny configurations of every zoo builder (tests/test_model_zoo.py's),
+# card against CPU
+ZOO_TINY = {
+    "build_resnet50": dict(num_classes=4, image_size=32,
+                           stage_blocks=(1, 1), base_channels=8),
+    "build_resnext50": dict(num_classes=4, image_size=32,
+                            stage_blocks=(1, 1), groups=4, base_channels=8),
+    "build_inception_v3": dict(num_classes=4, image_size=75,
+                               channel_scale=1 / 16),
+    "build_dlrm": dict(embedding_size=(50, 60, 70), sparse_feature_size=8,
+                       dense_feature_dim=8, mlp_bot=[8, 8], mlp_top=[16, 2]),
+    "build_xdl": dict(embedding_size=(40, 40), sparse_feature_size=8,
+                      mlp_dims=[16, 2]),
+    "build_candle_uno": dict(input_dims=[12, 20, 8], dense_layers=[16, 16],
+                             dense_feature_layers=[16, 16]),
+    "build_mlp_unify": dict(input_dim=16, hidden_dims=[32, 32, 4]),
+    "build_moe_mlp": dict(input_dim=16, num_classes=4, num_exp=4,
+                          num_select=2, hidden_size=16),
+    "build_moe_encoder": dict(seq_length=8, hidden_size=16, num_layers=1,
+                              num_heads=4, num_exp=4, num_select=2,
+                              num_classes=4),
+    "build_alexnet": dict(num_classes=4, image_size=64),
+    "build_transformer": dict(seq_length=8, hidden_size=16, num_layers=2,
+                              num_heads=4),
+}
+# card against CPU, float32, TF32 off: cuDNN's and cuBLAS's sums in other
+# orders than oneDNN's and MKL's (~1e-6 relative) through 2 SGD steps
+ZOO_PARITY_TOL = {"output": 1e-4, "loss": 1e-4, "weights": 1e-4}
+
+
+def _tiny_feed(ff, rng):
+    """Seeded inputs for every source op and labels for the sink."""
+    feed = {}
+    for op in ff.layers.source_ops():
+        shape = op.outputs[0].shape.logical_shape
+        if op.outputs[0].dtype.value == "int32":
+            # ids below the smallest table that reads them
+            vocab = min(c.params.num_entries for c in ff.layers.ops
+                        if op.outputs[0] in c.inputs)
+            feed[op.name] = rng.randint(0, vocab, size=shape).astype(
+                np.int32)
+        else:
+            feed[op.name] = rng.randn(*shape).astype(np.float32)
+    sink = ff.layers.sink_op().outputs[0].shape.logical_shape
+    if ff.loss.loss_type.value.startswith("sparse"):
+        labels = rng.randint(0, sink[-1], size=sink[:-1]).astype(np.int32)
+    else:
+        labels = rng.rand(*sink).astype(np.float32)
+    return feed, labels
+
+
+def phase_zoo_parity(torch, card: str) -> dict:
+    """Every zoo builder at its tiny size, float32: the forward and 2
+    SGD steps on the card against the port on the CPU with the same
+    weights and batches."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer, models
+
+    batch, steps = 8, 2
+    out, worst = {}, {}
+    for name, kw in ZOO_TINY.items():
+        regress = name in ("build_dlrm", "build_xdl", "build_candle_uno",
+                           "build_transformer")
+        loss = ("mean_squared_error_avg" if regress
+                else "sparse_categorical_crossentropy")
+        metrics = MSE_METRICS if regress else ("accuracy",)
+        ffs = {}
+        for dev in ("cuda", "cpu"):
+            ff = FFModel(FFConfig(batch_size=batch, device=dev))
+            getattr(models, name)(ff, batch_size=batch, **kw)
+            ff.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=loss,
+                       metrics=list(metrics))
+            ffs[dev] = ff
+        ffs["cpu"].set_weights(ffs["cuda"].get_weights())
+        rng = np.random.RandomState(1)
+        feeds = [_tiny_feed(ffs["cpu"], rng)
+                 for _ in range(1 + steps)]
+        outs = {dev: ff.forward(feeds[0][0]).cpu().numpy()
+                for dev, ff in ffs.items()}
+        losses = {dev: [] for dev in ffs}
+        for feed, y in feeds[1:]:
+            for dev, ff in ffs.items():
+                losses[dev].append(float(ff.train_step(feed, y)["loss"]))
+        diff = {"output": float(np.abs(outs["cuda"] - outs["cpu"]).max()),
+                "loss": max(abs(a - b) for a, b in zip(losses["cuda"],
+                                                       losses["cpu"])),
+                "weights": 0.0}
+        wg, wc = ffs["cuda"].get_weights(), ffs["cpu"].get_weights()
+        for op, entries in wc.items():
+            for k, v in entries.items():
+                d = float(np.abs(wg[op][k] - v).max())
+                if d > diff["weights"]:
+                    diff["weights"], worst[name] = d, f"{op}.{k}"
+        if not all(np.isfinite(losses["cuda"] + losses["cpu"])):
+            raise RuntimeError(f"zoo_parity {name}: losses {losses}")
+        over = {k: v for k, v in diff.items() if v > ZOO_PARITY_TOL[k]}
+        if over:
+            raise RuntimeError(f"zoo_parity {name}: card vs CPU {over} over "
+                               f"{ZOO_PARITY_TOL} (worst weight "
+                               f"{worst.get(name)})")
+        out[name] = diff
+    rec = {"phase": "zoo_parity", "card": card, "batch": batch,
+           "steps": steps, "dtype": "float32", "allow_tf32": False,
+           "max_diff": out, "worst_weight": worst,
+           "tolerance": ZOO_PARITY_TOL,
+           "compared": "the sink output of a forward, losses, every "
+                       "weight after the steps"}
+    emit(rec)
+    return rec
+
+
+def phase_zoo_profile(torch, card: str, steps: int = 3) -> dict:
+    """torch.profiler over `steps` train steps of Inception-v3 (299 px,
+    batch 64) and of ResNeXt-50 (224 px, batch 64) fed by the
+    prefetching loader: device time by PCG op type and kernel kind, the
+    layout copies, and ResNeXt's grouped convolutions apart."""
+    recs = {}
+    for name, label in (
+            ("inception_v3", None),
+            ("resnext50", lambda op: (
+                "conv2d_grouped" if op.op_type.value == "conv2d"
+                and op.params.groups > 1 else op.op_type.value))):
+        ff = build_zoo_model(name)
+        b, (x, y) = zoo_data(name, 1 + steps)
+        run = loader_steps(ff, x, y, b, steps)
+        torch.cuda.synchronize()
+        rec = {"phase": "zoo_profile", "card": card, "model": name,
+               "batch": b, "run": "train steps fed by the prefetching "
+                                  "loader"}
+        rec.update(profile_by_op(torch, ff, run, steps, label))
+        copies = {op: row["copy"] for op, row in
+                  rec["by_op_ms_per_step"].items() if "copy" in row}
+        rec["layout_copies"] = copies
+        rec["layout_plan"] = layout_conversions(ff)
+        emit(rec)
+        recs[name] = rec
+        del ff, x, y, run
+        torch.cuda.empty_cache()
+    return recs
+
+
+def layout_conversions(ff) -> dict:
+    """The executor's NCHW<->NHWC conversions of one forward, by the
+    layout pass: a 4-D input of an NHWC op stored logical (to_nhwc), an
+    NHWC-stored input of a logical op (to_nchw)."""
+    from flexflow_tpu_torch.pcg.layout import NHWC
+
+    ex = ff.executor
+    out = {"to_nhwc": 0, "to_nchw": 0}
+    for op in ex.order:
+        want = ex.op_layout.get(op.guid)
+        for t in op.inputs:
+            if t.shape.logical_rank != 4:
+                continue
+            stored = ex.t_layout.get(t.guid)
+            if want == NHWC and stored != NHWC:
+                out["to_nhwc"] += 1
+            elif want is None and stored == NHWC:
+                out["to_nchw"] += 1
+    return out
+
+
 ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
-              "vit,vit_parity,vit_profile")
+              "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile")
 
 
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str) -> dict:
@@ -2303,6 +2826,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "vit_parity" in phases:
         phase_vit_parity(torch, card)
+    if "zoo" in phases:
+        phase_zoo(torch, pk, fa, bk, card)
+    if "zoo_parity" in phases:
+        phase_zoo_parity(torch, card)
+    if "zoo_profile" in phases:
+        phase_zoo_profile(torch, card)
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card))
     print(card, flush=True)

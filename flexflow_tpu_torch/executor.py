@@ -26,6 +26,11 @@ takes the place of `jax.value_and_grad`: the forward runs with
 training=True, `torch.autograd.grad` differentiates the loss over the
 trainable weights, and the optimizer writes weights and slots in place
 under torch.no_grad(), where the reference's jitted step donated them.
+Two rules of the reference's step serve MoE: every op's auxiliary loss
+(`_last_aux`, Aggregate's load balance) is collected by `run_forward`
+and added to the training loss, and under AggregateSpec, whose output
+holds k predictions per sample, each label is repeated k times,
+sample-major (`label_replication`), in training and in eval.
 Sharding, ZeRO, remat, pipelines and cache taps come with later slices.
 """
 from __future__ import annotations
@@ -108,8 +113,10 @@ def plan_bn_applies(graph: Graph,
 class GraphExecutor:
     def __init__(self, graph: Graph, device: torch.device,
                  compute_dtype: Optional[torch.dtype] = None,
-                 loss=None, metrics=None, optimizer=None):
+                 loss=None, metrics=None, optimizer=None,
+                 label_replication: int = 1):
         self.graph = graph
+        self.label_replication = label_replication
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.loss = loss
@@ -179,10 +186,12 @@ class GraphExecutor:
     def run_forward(self, weights: Weights, state: Weights,
                     inputs: Dict[str, torch.Tensor],
                     training: bool = False,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    aux_losses: Optional[List[torch.Tensor]] = None):
         """Interpret the PCG.  Returns (sink_output, new_state); the
         state's tensors are updated in place.  Random ops (Dropout,
-        attention dropout) draw from `generator`."""
+        attention dropout) draw from `generator`.  The ops' auxiliary
+        losses are appended to `aux_losses` when it is given."""
         env: Dict[int, torch.Tensor] = {}
         new_state = {k: dict(v) for k, v in state.items()}
         for op, plan in self.schedule:
@@ -204,6 +213,11 @@ class GraphExecutor:
                                      generator=generator, residual=res,
                                      relu=plan.relu)
             outs = results[:len(op.outputs)]
+            aux = getattr(op, "_last_aux", None)
+            if aux is not None:
+                if aux_losses is not None:
+                    aux_losses.append(aux)
+                op._last_aux = None
             for spec, given, val in zip(op.weight_specs[nt:], ws[nt:],
                                         results[len(op.outputs):]):
                 dst = state[op.name][spec.name]
@@ -228,19 +242,27 @@ class GraphExecutor:
 
     def build_step(self):
         """step(weights, opt_state, state, inputs, labels, generator) ->
-        metrics: forward, loss, grads of the trainable weights, the
-        optimizer's in-place update, then the metrics of the float32
-        logits (the loss under "loss")."""
+        metrics: forward, loss (plus the ops' auxiliary losses), grads
+        of the trainable weights, the optimizer's in-place update, then
+        the metrics of the float32 logits (the loss under "loss")."""
         loss_obj, metrics, opt = self.loss, self.metrics, self.optimizer
+        lrep = self.label_replication
 
         def step(weights, opt_state, state, inputs, labels, generator=None):
+            if lrep > 1:
+                # AggregateSpec emits sample-major [s0k0, s0k1, s1k0, ...]
+                labels = torch.repeat_interleave(labels, lrep, dim=0)
             names = [(op, k) for op, entries in weights.items()
                      for k in entries]
             with torch.enable_grad():
+                aux = []
                 logits, _ = self.run_forward(weights, state, inputs,
                                              training=True,
-                                             generator=generator)
+                                             generator=generator,
+                                             aux_losses=aux)
                 loss_val = loss_obj(logits, labels)
+                for a in aux:
+                    loss_val = loss_val + a
                 # a graph with no trainable weight (shape ops alone)
                 # still steps, as the reference's does
                 flat = torch.autograd.grad(
@@ -261,8 +283,11 @@ class GraphExecutor:
         """eval_step(weights, state, inputs, labels) -> metrics, with the
         loss under "loss"."""
         loss_obj, metrics = self.loss, self.metrics
+        lrep = self.label_replication
 
         def eval_step(weights, state, inputs, labels):
+            if lrep > 1:
+                labels = torch.repeat_interleave(labels, lrep, dim=0)
             with torch.no_grad():
                 logits, _ = self.run_forward(weights, state, inputs,
                                              training=False)

@@ -3,8 +3,8 @@
 Counterpart of flexflow_tpu/fftype.py: the same enum names and values,
 so a graph described in one package reads the same in the other.
 `DataType` maps onto torch dtypes instead of jnp dtypes.  Only the
-enums the serving, training, ResNet and layer-op slices reach are
-carried.
+enums the serving, training, ResNet, layer-op and model-zoo slices
+reach are carried.
 """
 from __future__ import annotations
 
@@ -111,6 +111,10 @@ class OperatorType(enum.Enum):
     CAST = "cast"
     DROPOUT = "dropout"
     GATHER = "gather"
+    TOPK = "topk"
+    GROUP_BY = "group_by"
+    AGGREGATE = "aggregate"
+    AGGREGATE_SPEC = "aggregate_spec"
 
 
 class OpUnary(enum.Enum):

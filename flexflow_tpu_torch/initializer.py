@@ -61,6 +61,15 @@ class GlorotUniform(Initializer):
         return _uniform(gen, shape, -scale, scale, dtype, device)
 
 
+@dataclasses.dataclass(frozen=True)
+class UniformInitializer(Initializer):
+    minv: float = -0.05
+    maxv: float = 0.05
+
+    def __call__(self, gen, shape, dtype, device):
+        return _uniform(gen, shape, self.minv, self.maxv, dtype, device)
+
+
 class ArrayInitializer(Initializer):
     """A fixed host array: the values the torch frontend pins (a bare
     parameter's WeightOp, F.linear and F.conv2d weights)."""

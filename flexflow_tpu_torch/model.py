@@ -1,15 +1,18 @@
 """FFModel of the PyTorch port (flexflow_tpu/model.py).
 
-The layer API that `models.transformer.build_gpt` and `build_bert` and
-the torch.fx frontend call (dense, conv2d, pool2d, embedding,
-attention, batch_matmul, batch_norm, layer_norm, softmax, dropout,
-cast, the shape ops, weight_tensor, mean, the binary and unary
-elementwise ops and the scalar ones), `compile` on one device
-under the trivial strategy (training or inference), `train_step`,
-`eval_step`, `fit`, `forward`, and weight and op-state access in the
-reference's {op: {name: array}} layout.  The device comes
-from FFConfig.device: "cuda" by default, which raises on a machine
-without CUDA; "cpu" runs on the host.
+The layer API that the `models` builders and the torch.fx frontend
+call (dense, conv2d, pool2d, embedding, attention, batch_matmul,
+batch_norm, layer_norm, softmax, dropout, cast, the shape ops,
+weight_tensor, mean, the binary and unary elementwise ops and the
+scalar ones, and the MoE calls top_k, group_by, aggregate,
+aggregate_spec, experts_dense and moe), `compile` on one device under
+the trivial strategy (training or inference), `train_step`,
+`eval_step`, `fit`, `forward`, the reference's step surface
+(`set_learning_rate`, `zero_gradients`, `backward`, `update`,
+`init_operators`), and weight and op-state access in the reference's
+{op: {name: array}} layout.  The device comes from FFConfig.device:
+"cuda" by default, which raises on a machine without CUDA; "cpu" runs
+on the host.
 
 A train step updates the weight tensors in place (the optimizer runs
 under torch.no_grad()), where the reference's jitted step donated them
@@ -38,6 +41,9 @@ from .ops.dense import (BatchMatmul, BatchMatmulParams, Conv2D,
 from .ops.element import (Cast, CastParams, Dropout, DropoutParams,
                           ElementBinary, ElementBinaryParams, ElementUnary,
                           ElementUnaryParams)
+from .ops.experts import ExpertsDense, ExpertsDenseParams
+from .ops.moe import (Aggregate, AggregateParams, AggregateSpec, GroupBy,
+                      GroupByParams, TopK, TopKParams)
 from .ops.norm import (BatchNorm, BatchNormParams, LayerNorm,
                        LayerNormParams, Softmax, SoftmaxParams)
 from .ops.op import Op, WeightSpec
@@ -70,6 +76,7 @@ class FFModel:
         self._eval_fn = None
         self._generator: Optional[torch.Generator] = None
         self._stop_training = False  # set by early-stopping callbacks
+        self._label_replication = 1  # k under AggregateSpec
         self._used_names: set = set()
         self._name_counts: Dict[str, int] = {}
 
@@ -365,6 +372,64 @@ class FFModel:
         p = ReduceParams(tuple(axes), keepdims, "mean")
         return self._add(Mean(p, [input], name=self._name("mean", name)))
 
+    # -- MoE ---------------------------------------------------------------
+    def top_k(self, input, k: int, sorted: bool = False, name=None):
+        return self._add(TopK(TopKParams(k, sorted), [input],
+                              name=self._name("topk", name)))
+
+    def group_by(self, data, assign, n: int, alpha: float, name=None):
+        return self._add(GroupBy(GroupByParams(n, alpha), [data, assign],
+                                 name=self._name("group_by", name)))
+
+    def aggregate(self, gate_scores, assign, gate_full, expert_out, n: int,
+                  lambda_bal: float = 0.0, name=None):
+        p = AggregateParams(n, lambda_bal)
+        return self._add(Aggregate(
+            p, [gate_scores, assign, gate_full, expert_out],
+            name=self._name("aggregate", name)))
+
+    def aggregate_spec(self, gate_scores, assign, gate_full, expert_out,
+                       n: int, lambda_bal: float = 0.0, name=None):
+        """Aggregate keeping each of the k predictions per sample as a
+        sample of its own; the step repeats each label k times."""
+        p = AggregateParams(n, lambda_bal)
+        op = AggregateSpec(p, [gate_scores, assign, gate_full, expert_out],
+                           name=self._name("aggregate_spec", name))
+        out = self._add(op)
+        self._label_replication = op.inputs[1].shape.logical_shape[-1]
+        return out
+
+    def experts_dense(self, grouped, out_dim: int,
+                      activation: ActiMode = ActiMode.NONE,
+                      use_bias: bool = True, name=None):
+        """Batched per-expert dense over stacked [n, cap, d] inputs."""
+        p = ExpertsDenseParams(out_dim, use_bias, activation)
+        return self._add(ExpertsDense(
+            p, [grouped], name=self._name("experts_dense", name)))
+
+    def moe(self, input: ParallelTensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 2.0,
+            lambda_bal: float = 0.0, name=None) -> ParallelTensor:
+        """gate -> softmax -> top_k -> group_by -> per-expert FFN (ReLU)
+        -> aggregate.  A rank-3 input [b, s, h] is flattened to [b·s, h]
+        tokens around the dispatch and restored after it."""
+        orig_shape = input.shape.logical_shape
+        if len(orig_shape) == 3:
+            b, s, h = orig_shape
+            input = self.reshape(input, [b * s, h])
+        gate = self.dense(input, num_exp, ActiMode.NONE)
+        gate_sm = self.softmax(gate)
+        values, assign = self.top_k(gate_sm, num_select)
+        grouped = self.group_by(input, assign, num_exp, alpha)
+        hidden = self.experts_dense(grouped, expert_hidden_size,
+                                    activation=ActiMode.RELU)
+        out = self.aggregate(values, assign, gate_sm, hidden, num_exp,
+                             lambda_bal, name=name)
+        if len(orig_shape) == 3:
+            out = self.reshape(out, [orig_shape[0], orig_shape[1],
+                                     expert_hidden_size])
+        return out
+
     # -- compile / run -----------------------------------------------------
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type: Union[LossType, str] =
@@ -394,7 +459,8 @@ class FFModel:
         self.executor = GraphExecutor(
             self.operators, self.device,
             compute_dtype=None if cd == "float32" else getattr(torch, cd),
-            loss=self.loss, metrics=self.metrics, optimizer=self.optimizer)
+            loss=self.loss, metrics=self.metrics, optimizer=self.optimizer,
+            label_replication=self._label_replication)
         for op in self.operators.topo_order():
             op._flash_min_seq = cfg.flash_min_seq
         seed = seed if seed is not None else cfg.seed
@@ -489,8 +555,11 @@ class FFModel:
         for epoch in range(epochs):
             pm = PerfMetrics()
             t0 = time.perf_counter()
-            for batch, labels in loader:
-                pm.accumulate(self.train_step(batch, labels))
+            try:
+                for batch, labels in loader:
+                    pm.accumulate(self.train_step(batch, labels))
+            finally:
+                loader._stop_worker()  # a step that raised leaves it on
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
@@ -526,6 +595,26 @@ class FFModel:
                                                feed)
         return out
 
+    # -- the reference's step pieces (each folded into train_step) ---------
+    def init_operators(self):
+        return None
+
+    def zero_gradients(self):
+        return None  # grads are made fresh by each step: nothing to zero
+
+    def backward(self):
+        raise RuntimeError(
+            "backward is part of train_step (torch.autograd.grad over the "
+            "step's loss); call train_step")
+
+    def update(self):
+        return None
+
+    def set_learning_rate(self, lr: float):
+        """Change the optimizer's learning rate.  The port's steps are
+        eager and read it at every update, so no step is rebuilt."""
+        self.optimizer.set_lr(lr)
+
     # -- weight access -----------------------------------------------------
     def get_weights(self) -> Dict[str, Dict[str, np.ndarray]]:
         """The weights as numpy copies (on the CPU too, where .numpy()
@@ -533,6 +622,11 @@ class FFModel:
         return {op: {k: v.detach().to("cpu", copy=True).numpy()
                      for k, v in entries.items()}
                 for op, entries in self._weights.items()}
+
+    def get_parameter(self, op_name: str, weight_name: str) -> np.ndarray:
+        """One weight as a numpy copy."""
+        return self._weights[op_name][weight_name].detach().to(
+            "cpu", copy=True).numpy()
 
     def set_weights(self, weights: Dict[str, Dict[str, np.ndarray]]):
         """Load weights in the reference's layout (FFModel.get_weights of

@@ -7,6 +7,11 @@ final_ln, lm_head), so weights cross between the packages by name.
 Its defaults are GPT-2-small: hidden 768, 12 layers, 12 heads, FFN
 3072, vocab 50257, 1024 positions.
 
+`build_transformer` is the reference's Transformer example (Unity's
+evaluation model): N x (attention -> dense (ReLU) -> dense), no norm
+and no residual, and a per-token scalar head; its defaults are 12
+layers, hidden 1024, 16 heads, seq 512, batch 8.
+
 `build_bert` is the reference's post-LN BERT encoder with a
 mean-pooled classifier (attn_i, attn_res_i, attn_ln_i, ffn1_i, ffn2_i,
 ffn_res_i, ffn_ln_i, pool, classifier).  Its defaults are BERT-base:
@@ -54,6 +59,20 @@ def build_gpt(ff, batch_size: int = 8, seq_length: int = 1024,
         t = ff.add(t, h, name=f"ffn_res_{i}")
     t = ff.layer_norm(t, axes=[-1], name="final_ln")
     return ff.dense(t, vocab_size, use_bias=False, name="lm_head")
+
+
+def build_transformer(ff, batch_size: int = 8, seq_length: int = 512,
+                      hidden_size: int = 1024, num_layers: int = 12,
+                      num_heads: int = 16):
+    t = ff.create_tensor([batch_size, seq_length, hidden_size],
+                         name="input")
+    for i in range(num_layers):
+        a = ff.multihead_attention(t, t, t, hidden_size, num_heads,
+                                   name=f"attn_{i}")
+        h = ff.dense(a, hidden_size, activation=ActiMode.RELU,
+                     name=f"ffn1_{i}")
+        t = ff.dense(h, hidden_size, name=f"ffn2_{i}")
+    return ff.dense(t, 1, name="lm_head")
 
 
 def build_bert(ff, batch_size: int = 32, seq_length: int = 128,

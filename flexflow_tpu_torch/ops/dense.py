@@ -194,7 +194,11 @@ class Pool2DParams:
 
 class Pool2D(Op):
     """Max pool over -inf padding; avg pool dividing by the whole
-    window, padding included (count_include_pad)."""
+    window, padding included (count_include_pad).  An avg pool pads
+    with explicit zeros and pools unpadded: on the card, torch 2.11's
+    avg_pool2d backward over a channels_last input with padding returns
+    wrong input grads (the forward is right), and zero padding then an
+    unpadded pool is the same average."""
 
     op_type = OperatorType.POOL2D
 
@@ -217,9 +221,11 @@ class Pool2D(Op):
         (x,) = inputs
         p: Pool2DParams = self.params
         padding = p.padding
-        if any(pd > k // 2 for pd, k in zip(p.padding, p.kernel)):
-            # torch pads at most half a window itself: pad explicitly
-            # with what the reference pads with
+        if any(padding) and (p.pool_type != "max" or any(
+                pd > k // 2 for pd, k in zip(p.padding, p.kernel))):
+            # torch pads at most half a window itself, and its padded
+            # avg pool back-propagates wrongly on the card: pad
+            # explicitly with what the reference pads with
             value = float("-inf") if p.pool_type == "max" else 0.0
             x = F.pad(x, (p.padding[1], p.padding[1], p.padding[0],
                           p.padding[0]), value=value)

@@ -3,7 +3,8 @@ axes), `Mean`, `Flat`, `Reshape`, `Expand`, `Transpose`, `Reverse`,
 `Pad`, `Concat`, `Split` and `Gather`.  Each forward is the torch call
 of the reference's jnp call; the backward comes from autograd.  None is
 layout-agnostic (pcg/layout.py): the executor hands each a logical
-NCHW tensor."""
+NCHW tensor, except a Concat or Split between channels_last edges,
+which runs on those along the same logical axis."""
 from __future__ import annotations
 
 import dataclasses
@@ -268,8 +269,15 @@ class Split(Op):
         return outs
 
     def forward(self, inputs, weights, *, training=False, generator=None):
-        return list(torch.split(inputs[0], list(self.params.sizes),
-                                dim=self.params.axis))
+        parts = torch.split(inputs[0], list(self.params.sizes),
+                            dim=self.params.axis)
+        if inputs[0].dim() == 4 and inputs[0].is_contiguous(
+                memory_format=torch.channels_last):
+            # a channel slice of a channels_last tensor is contiguous in
+            # neither format: materialize it, as jnp.split's parts are
+            return [p.contiguous(memory_format=torch.channels_last)
+                    for p in parts]
+        return list(parts)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,8 +35,24 @@ class Optimizer:
     def init_state(self, weights: Weights) -> Dict[str, Any]:
         raise NotImplementedError
 
+    def next_step(self, state):
+        """Host-side per-iteration bookkeeping (the reference's
+        Optimizer::next): none."""
+        return state
+
     def update(self, weights: Weights, grads: Weights, state):
         raise NotImplementedError
+
+    # one way to reach the learning rate: SGD stores `lr`, Adam `alpha`
+    def get_lr(self) -> float:
+        lr = getattr(self, "lr", None)
+        return self.alpha if lr is None else lr
+
+    def set_lr(self, lr: float):
+        if hasattr(self, "alpha"):
+            self.alpha = lr
+        else:
+            self.lr = lr
 
 
 @dataclasses.dataclass

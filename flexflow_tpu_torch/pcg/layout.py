@@ -13,12 +13,19 @@ rows with no copy.  The rules are the reference's:
   * layout-agnostic pointwise ops (ElementUnary, Dropout, Cast) pass
     what arrives straight through, and so does a same-shape
     ElementBinary (the residual add) whose inputs are both NHWC;
-  * every other consumer gets logical NCHW: the shape ops among them
-    (a ViT's patch flatten(2) is a Reshape of the conv's output).
+  * a Concat or Split whose 4-D inputs and outputs are all NHWC (the
+    Inception branch joins) executes on the channels_last tensors and
+    emits NHWC.  The reference remaps its axis; here the logical axis
+    stays, since a channels_last tensor keeps its NCHW shape, and
+    torch.cat of channels_last inputs returns a channels_last tensor.
+    A channel slice of a channels_last tensor is contiguous in neither
+    format, so Split materializes each part in channels_last;
+  * every other consumer gets logical NCHW: the other shape ops among
+    them (a ViT's patch flatten(2) is a Reshape of the conv's output).
 
-For a ResNet that is one conversion to channels_last at the input and
-one back to NCHW before the head's Flat.  The executor does the
-conversions.
+For a ResNet or an Inception that is one conversion to channels_last at
+the input and one back to NCHW before the head's Flat.  The executor
+does the conversions.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ PASS = "pass"
 _PREFER = {OperatorType.CONV2D, OperatorType.POOL2D, OperatorType.BATCH_NORM}
 _AGNOSTIC = {OperatorType.ELEMENT_UNARY, OperatorType.DROPOUT,
              OperatorType.CAST}
+_REMAP = {OperatorType.CONCAT, OperatorType.SPLIT}
 
 
 def _is_4d(pt) -> bool:
@@ -64,6 +72,11 @@ def assign_layouts(graph) -> Tuple[Dict[int, str], Dict[int, str]]:
             # same-shape add (the residual join): no broadcasting, so the
             # physical permutation is transparent
             op_layout[op.guid] = PASS
+        elif (ot in _REMAP and op.inputs
+              and all(_is_4d(t) for t in op.inputs)
+              and all(_is_4d(t) for t in op.outputs)
+              and all(lay == NHWC for lay in in_lay)):
+            op_layout[op.guid] = NHWC
         else:
             continue
         for out in op.outputs:

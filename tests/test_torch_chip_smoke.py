@@ -2,14 +2,17 @@
 kernels' bounds on the route each kernel takes, the count of tensor
 core instructions per kernel instance read from a SASS listing, the
 paged-attention kernel's split grid and bytes bound, the phase list,
-the ViT-B/16 op-count table and the ViT profile's kernel kinds."""
+the ViT-B/16 op-count table, the profiles' kernel kinds and busy time
+over two streams, and the zoo phases' table, graphs, layout plan, MoE
+routing record and tiny feeds."""
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 # BERT-base at batch 8, seq 2048: [96, 2048, 64]
@@ -132,7 +135,7 @@ def test_phase_list_runs_the_vit_path_after_the_earlier_ones():
     assert phases[:11] == ["kernels", "serve", "parity", "profile", "train",
                            "train_parity", "train_profile", "bn_kernels",
                            "resnet", "resnet_parity", "resnet_profile"]
-    assert phases[11:] == ["vit", "vit_parity", "vit_profile"]
+    assert phases[11:14] == ["vit", "vit_parity", "vit_profile"]
 
 
 def test_vit_op_table_adds_up_per_block():
@@ -170,3 +173,173 @@ def test_vit_op_table_adds_up_per_block():
 ])
 def test_vit_profile_kernel_kinds(name, kind):
     assert chip_smoke._vit_kernel_kind(name) == kind
+
+
+def test_phase_list_ends_with_the_zoo_path():
+    assert chip_smoke.ALL_PHASES.split(",")[14:] == ["zoo", "zoo_parity",
+                                                     "zoo_profile"]
+
+
+def test_zoo_table_is_the_examples_configuration():
+    """Every native example's model, at its example's batch: -b 64 but
+    the Transformer's -b 8 and build_moe_encoder's own 8."""
+    assert sorted(chip_smoke.ZOO) == [
+        "alexnet", "candle_uno", "dlrm", "inception_v3", "mlp",
+        "moe_encoder", "moe_mlp", "resnet50", "resnext50", "transformer",
+        "xdl"]
+    batches = {k: v[1] for k, v in chip_smoke.ZOO.items()}
+    assert batches.pop("transformer") == 8
+    assert batches.pop("moe_encoder") == 8
+    assert set(batches.values()) == {64}
+    for name, (example, *_rest) in chip_smoke.ZOO.items():
+        if example.startswith("examples/"):
+            assert (ROOT / example).is_file(), name
+
+
+@pytest.mark.parametrize("name,ops,params", [
+    ("inception_v3", 123, 21_788_842),
+    ("candle_uno", 33, None),
+    ("transformer", 38, None),
+])
+def test_zoo_graphs_at_full_width(name, ops, params):
+    """The full-width graphs the zoo phase builds (on the CPU here,
+    without compile's weights): Inception-v3's 123 ops, CANDLE-Uno's
+    ~0.5 B parameters, the Transformer's 12 layers at seq 512."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    _, b, build, *_ = chip_smoke.ZOO[name]
+    ff = FFModel(FFConfig(batch_size=b, device="cpu"))
+    build(ff, b)
+    assert len(ff.layers.ops) == ops
+    n = sum(int(np.prod(s.shape.logical_shape)) for op in ff.layers.ops
+            for s in op.weight_specs)
+    if params is not None:
+        assert n == params
+    if name == "candle_uno":
+        assert 0.45e9 < n < 0.55e9
+    if name == "transformer":
+        shape = ff.layers.source_ops()[0].outputs[0].shape.logical_shape
+        assert shape == (8, 512, 1024)
+
+
+def test_zoo_data_shapes_follow_the_graph():
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    for name in ("dlrm", "xdl", "mlp", "moe_encoder"):
+        _, b, build, *_ = chip_smoke.ZOO[name]
+        ff = FFModel(FFConfig(batch_size=b, device="cpu"))
+        build(ff, b)
+        bb, (x, y) = chip_smoke.zoo_data(name, 2)
+        assert bb == b and len(y) == 2 * b
+        for op in ff.layers.source_ops():
+            shape = op.outputs[0].shape.logical_shape
+            assert x[op.name].shape == (2 * b,) + tuple(shape[1:])
+
+
+def test_layout_plan_of_the_zoo_cnns():
+    """One conversion to channels_last at the input and one back before
+    the head, for every CNN of the zoo."""
+    import torch
+
+    import flexflow_tpu_torch.model as M
+
+    real = M.resolve_device
+    M.resolve_device = lambda name: torch.device("cpu")
+    try:
+        for name in ("inception_v3", "resnext50", "resnet50", "alexnet"):
+            ff = chip_smoke.build_zoo_model(name, batch=2)
+            assert chip_smoke.layout_conversions(ff) == {"to_nhwc": 1,
+                                                         "to_nchw": 1}
+    finally:
+        M.resolve_device = real
+
+
+def test_moe_routing_counts_drops_and_load():
+    import torch
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=4, device="cpu"))
+    x = ff.create_tensor([4, 3], name="x")
+    assign = ff.create_tensor([4, 2], dtype="int32", name="a")
+    op = ff.group_by(x, assign, 2, 0.75).owner_op  # capacity 3
+    a = torch.tensor([[0, 1]] * 4, dtype=torch.int32)
+    rec = chip_smoke.moe_routing(torch, [(op, a), (op, a)])[op.name]
+    assert rec["capacity"] == 3 and rec["pairs"] == 16
+    assert rec["dropped"] == 4 and rec["dropped_share"] == 0.25
+    assert rec["load"] == [8, 8] and rec["load_share"] == [0.5, 0.5]
+
+
+def test_tiny_feed_keeps_ids_inside_their_tables():
+    from flexflow_tpu_torch import FFConfig, FFModel, models
+
+    ff = FFModel(FFConfig(batch_size=8, device="cpu"))
+    models.build_dlrm(ff, batch_size=8,
+                      **chip_smoke.ZOO_TINY["build_dlrm"])
+    ff.compile(loss_type="mean_squared_error_avg",
+               metrics=["mean_squared_error"])
+    feed, y = chip_smoke._tiny_feed(ff, np.random.RandomState(0))
+    assert feed["sparse_input_0"].max() < 50 and y.shape == (8, 2)
+    assert feed["dense_input"].dtype == np.float32
+
+
+class _Span:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+    def elapsed_us(self):
+        return self.end - self.start
+
+
+class _Evt:
+    def __init__(self, start, end, name="k", stream=7):
+        self.time_range = _Span(start, end)
+        self.name = name
+        self.device_resource_id = stream
+
+
+def test_device_busy_is_the_union_over_streams():
+    """A loader copy on its own stream that overlaps a kernel adds no
+    busy time; by_stream keeps each stream's sum and its copies."""
+    events = [_Evt(0, 10), _Evt(5, 12, "Memcpy HtoD (Pinned -> Device)",
+                                stream=20), _Evt(20, 25)]
+    assert chip_smoke.device_busy_us(events) == 17
+    rows = chip_smoke.by_stream(events, steps=1)
+    assert rows["7"]["ms_per_step"] == pytest.approx(0.015)
+    assert rows["20"]["h2d_ms_per_step"] == pytest.approx(0.007)
+    assert rows["7"]["h2d_ms_per_step"] == 0
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<"
+     "at::native::(anonymous namespace)::OpaqueType<4u>, unsigned int, 4, "
+     "64, 64>", "concat"),
+    ("void at::native::(anonymous namespace)::avg_pool2d_backward_out_cuda"
+     "_frame_nhwc<float, float, int>(int, float const*)", "pool"),
+    ("void at::native::(anonymous namespace)::max_pool_forward_nhwc<float,"
+     " int>(float const*, int)", "pool"),
+    ("void pointwise_mult_and_sum_complex<float2, 8, 4>(float2*, float2*)",
+     "conv"),
+    ("void fft2d_r2c_32x32<float, false, 0u, false>(float2*)", "conv"),
+])
+def test_zoo_kernel_kinds(name, kind):
+    assert chip_smoke._vit_kernel_kind(name) == kind
+
+
+def test_loader_steps_run_after_a_warm_step():
+    """The profiles' window: `steps` train steps fed by one loader, its
+    first batch spent on a warm step before the window."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=4, device="cpu"))
+    ff.softmax(ff.dense(ff.create_tensor([4, 3], name="input"), 2))
+    ff.compile()
+    calls = []
+    step = ff.train_step
+    ff.train_step = lambda x, y: calls.append(y.tolist()) or step(x, y)
+    x = np.arange(60, dtype=np.float32).reshape(20, 3)
+    y = np.arange(20, dtype=np.int32) % 2
+    run = chip_smoke.loader_steps(ff, x, y, 4, 3)
+    assert len(calls) == 1
+    run()
+    assert calls == [list(y[i:i + 4]) for i in range(0, 16, 4)]

@@ -2,7 +2,9 @@
 PyTorch version, the flash kernels through their autograd Function, and
 the paged decode step run through the paged-attention kernel; the
 layer-op slice's Dropout on a CUDA generator, BatchMatmul and the small
-ViT against the CPU.
+ViT against the CPU; the zoo slice's prefetching loader (the card's
+batches against the CPU's, a long shuffled epoch with no staging buffer
+reused early), the MoE ops and a channels_last Concat against the CPU.
 These need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
 (that machine has no jax, which tests/conftest.py imports).  This file
@@ -484,3 +486,153 @@ def test_small_vit_forward_on_card_matches_cpu(cuda):
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=0, atol=1e-4)
+
+
+def _loader_model(device, batch):
+    from flexflow_tpu_torch import AggrMode, FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=batch, device=device))
+    x = ff.create_tensor([batch, 3, 8, 8], name="x")
+    ids = ff.create_tensor([batch, 2], dtype="int32", name="ids")
+    e = ff.embedding(ids, 10, 4, aggr=AggrMode.SUM, name="emb")
+    t = ff.concat([ff.flat(ff.conv2d(x, 2, 3, 3, 1, 1, 1, 1)), e], axis=-1)
+    ff.softmax(ff.dense(t, 3))
+    ff.compile()
+    return ff
+
+
+def test_loader_batches_on_card_equal_cpu_batches(cuda):
+    """Two shuffled epochs at prefetch 2, float64 and int64 narrowed on
+    the host: every card batch equals the CPU loader's, in dtype too."""
+    from flexflow_tpu_torch import SingleDataLoader
+
+    rng = np.random.RandomState(0)
+    x = {"x": rng.randn(40, 3, 8, 8), "ids": rng.randint(0, 10, (40, 2))}
+    y = rng.randint(0, 3, 40)
+    loaders = {dev: SingleDataLoader(_loader_model(dev, 8), x, y,
+                                     batch_size=8, shuffle=True, seed=2)
+               for dev in ("cuda", "cpu")}
+    for _ in range(2):
+        for (gx, gy), (cx, cy) in zip(*(list(ld) for ld in
+                                        loaders.values())):
+            assert gy.is_cuda and gy.dtype == cy.dtype == torch.int32
+            assert torch.equal(gy.cpu(), cy)
+            for k in cx:
+                assert gx[k].is_cuda and gx[k].dtype == cx[k].dtype
+                assert torch.equal(gx[k].cpu(), cx[k])
+
+
+def test_loader_reuses_no_staging_buffer_early(cuda):
+    """A long shuffled epoch at prefetch 3 (a ring of 5 pinned buffers)
+    while the card is kept busy between batches: each batch holds the
+    rows its indices name, so no buffer was gathered into before its
+    copy had landed."""
+    from flexflow_tpu_torch import SingleDataLoader
+
+    n, b = 4096, 16
+    x = {"x": np.arange(n * 192, dtype=np.float32).reshape(n, 3, 8, 8),
+         "ids": np.zeros((n, 2), np.int32)}
+    y = np.arange(n, dtype=np.int32)
+    ff = _loader_model("cuda", b)
+    loader = SingleDataLoader(ff, x, y, batch_size=b, shuffle=True, seed=5,
+                              prefetch=3)
+    busy = torch.randn(2048, 2048, device=cuda)
+    for i, (bx, by) in enumerate(loader):
+        busy = busy @ busy * 1e-3  # keep the compute stream behind
+        rows = loader._order[i * b:(i + 1) * b]
+        assert torch.equal(by.cpu(), torch.from_numpy(y[rows]))
+        assert torch.equal(bx["x"].cpu(), torch.from_numpy(x["x"][rows]))
+    assert i + 1 == n // b and len(loader._ring) == 5
+
+
+def test_moe_ops_on_card_match_cpu(cuda):
+    """TopK, GroupBy (with drops), ExpertsDense and Aggregate with the
+    balance loss, forward and grads: the card against the CPU within
+    1e-5 (the dispatch moves rows exactly; index_add's order on the card
+    adds only zero rows to a shared slot)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=64, device="cpu"))
+    x = ff.create_tensor([64, 32], name="x")
+    gate = ff.softmax(ff.dense(x, 5))
+    values, assign = ff.top_k(gate, 2)
+    grouped = ff.group_by(x, assign, 5, 0.5)
+    hidden = ff.experts_dense(grouped, 16)
+    ff.aggregate(values, assign, gate, hidden, 5, 0.04)
+    ops = [t.owner_op for t in (values, grouped, hidden)]
+    agg = ff.layers.sink_op()
+    gen = torch.Generator().manual_seed(0)
+    xin = torch.randn(64, 32, generator=gen)
+    logits = torch.randn(64, 5, generator=gen)
+    w = torch.randn(5, 32, 16, generator=gen)
+    bias = torch.randn(5, 16, generator=gen)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        xs = xin.to(dev).requires_grad_()
+        g = torch.softmax(logits.to(dev).requires_grad_(), -1)
+        ws = [w.to(dev).requires_grad_(), bias.to(dev).requires_grad_()]
+        v, a = ops[0].forward([g], [])
+        grp = ops[1].forward([xs, a], [])[0]
+        hid = ops[2].forward([grp], ws)[0]
+        (y,) = agg.forward([v, a, g, hid], [])
+        total = (y * y).sum() + agg._last_aux
+        grads = torch.autograd.grad(total, [xs] + ws)
+        out[dev.type] = [a, y, agg._last_aux] + list(grads)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        got = got.detach().cpu()
+        if not want.is_floating_point():
+            assert torch.equal(got, want)
+            continue
+        want = want.detach()
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def test_channels_last_concat_on_card(cuda):
+    """A Concat between channels_last edges runs NHWC on the card: its
+    output is channels_last and equals the CPU's."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=2, device="cpu"))
+    a = ff.create_tensor([2, 3, 5, 5], name="a")
+    b = ff.create_tensor([2, 4, 5, 5], name="b")
+    op = ff.concat([a, b], axis=1).owner_op
+    gen = torch.Generator().manual_seed(1)
+    ins = [torch.randn(2, 3, 5, 5, generator=gen),
+           torch.randn(2, 4, 5, 5, generator=gen)]
+    cl = [t.to(cuda).contiguous(memory_format=torch.channels_last)
+          for t in ins]
+    (got,) = op.forward(cl, [])
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    (want,) = op.forward(ins, [])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("pool,k,stride,pad", [("avg", 3, 1, 1),
+                                               ("avg", 3, 2, 1),
+                                               ("max", 3, 2, 1)])
+def test_padded_pool_grads_on_card_match_cpu(cuda, pool, k, stride, pad):
+    """Pool2D on a channels_last input with padding (Inception's 3x3 avg
+    pools): output and input grads on the card against the CPU within
+    1e-6.  torch's own padded avg_pool2d back-propagates wrongly over a
+    channels_last input on the card; Pool2D pads explicitly instead."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=8, device="cpu"))
+    op = ff.pool2d(ff.create_tensor([8, 64, 17, 17], name="x"), k, k,
+                   stride, stride, pad, pad, pool_type=pool).owner_op
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(8, 64, 17, 17, generator=gen)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        xi = x.to(dev)
+        if dev.type == "cuda":
+            xi = xi.contiguous(memory_format=torch.channels_last)
+        xi.requires_grad_()
+        (y,) = op.forward([xi], [])
+        gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(3))
+        (dx,) = torch.autograd.grad(y, xi, gy.to(dev))
+        out[dev.type] = (y.detach().cpu(), dx.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-6 * max(
+            1.0, float(want.abs().max()))
