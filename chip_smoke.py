@@ -120,10 +120,45 @@ Phases, each a failure of which exits non-zero:
    by PCG op type and kernel kind, the layout copies and the layout
    pass's plan.
 
+18. nmt: build_nmt at Luong, Pham & Manning's widths (EMNLP 2015, §4.1:
+   4 LSTM layers a side, 1000 cells, 1000-dim embeddings, 50 000-word
+   vocabularies, 50 tokens; batch 128, its dot-product attention),
+   float32, a copy task from np.random.RandomState(0): compile with
+   SGD(lr=0.1) and the sparse cross-entropy, one warm-up train_step
+   whose gradients must match the same step's on the CPU (within
+   NMT_GRAD_TOL of each weight's largest gradient), fit over 3 batches
+   through the loader (every weight must move; no hand-written kernel
+   may launch), a profile of 3 loader-fed steps by op and kernel kind,
+   then greedy_decode of 8 sources.
+19. generate: the serve phase's GPT-2-small and weights, batch 8,
+   64-token prompts, 32 new tokens: gpt_generate (the re-forward loop
+   at seq 1024), the dense decode twin's gpt_generate_cached and
+   gpt_generate_scan (greedy tokens equal to gpt_generate's),
+   gpt_beam_search against gpt_beam_search_cached
+   (beam 4: the same tokens, scores within 1e-4); tokens/s of each, the
+   caches' bytes, and a profile of the dense decode step beside the
+   profile phase's paged one.
+20. keras: each model of examples/python/keras/*.py at its example's
+   configuration and the Embedding -> LSTM -> Dense classifier at the
+   Reuters loader's shapes (Keras's imdb_lstm.py widths, batch 32),
+   rebuilt through flexflow_tpu_torch.keras: a warm-up train_step and
+   fit over 4 batches (CIFAR-10 on the vendored sample shard); samples/s,
+   losses and each dataset's synthetic flag.
+21. onnx: the resnet phase's ResNet-50 (224 px, 1000 classes) as ONNX
+   wire bytes (onnx_frontend.module_to_onnx: torch's export node
+   sequence through the port's protowire), imported by ONNXModel and
+   copy_weights at batch 64, float32: the eval forward against the
+   torch module (1e-4 of the scale), a warm-up train_step and fit over
+   3 batches; P1 53 launches per forward, as the fx import's plan.
+22. seq_parity: the tiny NMT, GPT generation forms and Keras LSTM, card
+   against CPU, float32, TF32 off, within SEQ_PARITY_TOL.
+
 `--phases` runs a subset (e.g. `--phases kernels` after editing a
 kernel, `--phases bn_kernels,resnet,resnet_parity,resnet_profile` for
 the ResNet path, `--phases vit,vit_parity,vit_profile` for the ViT
-path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo).  Every line but the last two is one JSON object; the
+path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
+`--phases nmt,generate,keras,onnx,seq_parity` for the sequence-model
+and frontend slice).  Every line but the last two is one JSON object; the
 one before the last is the card's name and power limit as nvidia-smi
 prints them, and the last is {"ok": true, "device": {...}}.  Exits 2,
 printing no result, when torch.cuda.is_available() is false.
@@ -284,29 +319,42 @@ def paged_case(torch, rng, *, b, s, h, d, page, width, dtype, dev):
             torch.tensor(btab, **to), torch.tensor(slen, **to))
 
 
+# profiles whose records missed launches of the kernel they time, each
+# retried (a CUPTI record lost on the card, not a launch the kernel
+# skipped: the launches themselves are counted by the wrappers)
+PROFILER_DROPS: list = []
+PROFILE_ATTEMPTS = 3
+
+
 def profiled_ms(torch, fn, flush, tag: str, iters: int = 30,
-                warmup: int = 5) -> float:
+                warmup: int = 5, attempts: int = PROFILE_ATTEMPTS) -> float:
     """Median device time of the kernel whose name holds `tag`, as
     torch.profiler reports it over `iters` calls of fn, each after a
     write of `flush` that evicts the 50 MB L2: the kernel's own duration,
-    whatever the host's enqueue takes."""
+    whatever the host's enqueue takes.  A profile that holds other than
+    `iters` records of the kernel is logged in PROFILER_DROPS and taken
+    again, up to `attempts` profiles in all; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if "cuda" in str(e.device_type).lower() and tag in e.name]
-    if len(us) != iters:
-        raise RuntimeError(f"profiler saw {len(us)} launches of {tag}, "
-                           f"expected {iters}")
-    return float(np.median(us)) / 1e3
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if "cuda" in str(e.device_type).lower() and tag in e.name]
+        if len(us) == iters:
+            return float(np.median(us)) / 1e3
+        PROFILER_DROPS.append({"tag": tag, "attempt": attempt + 1,
+                               "records": len(us), "launches": iters})
+    raise RuntimeError(f"profiler saw {len(us)} launches of {tag}, "
+                       f"expected {iters}, in each of {attempts} profiles")
 
 
 def paged_bound(pos, page: int, width: int, h: int, d: int, itemsize: int,
@@ -465,6 +513,7 @@ def phase_kernels(torch, pk, card: str, dev, lib_path, build_s) -> dict:
         "split_pages": pk.SPLIT_PAGES, "grid": list(grid),
         "decode": decode, "deterministic": deterministic,
         "split_sweep_profiled_ms": sweep,
+        "profiler_drops": list(PROFILER_DROPS),
         "decode_max_abs_err": main["max_abs_err"],
         "library_max_abs_err": float((lib_out - ref).abs().max()),
         "kernel_ms": main["kernel_ms"], "event_ms": main["event_ms"],
@@ -2400,6 +2449,20 @@ def moe_routing(torch, records) -> dict:
     return out
 
 
+def record_losses(ff) -> list:
+    """Wrap ff.train_step (on the instance) to append each step's loss
+    tensor to the list returned; `del ff.train_step` unwraps it."""
+    losses, step = [], ff.train_step
+
+    def recording(inputs, labels):
+        m = step(inputs, labels)
+        losses.append(m["loss"])
+        return m
+
+    ff.train_step = recording
+    return losses
+
+
 def phase_zoo(torch, pk, fa, bk, card: str) -> dict:
     """Each zoo model: one warm-up train_step, then fit(shuffle=True)
     over ZOO_STEPS batches through the prefetching loader; samples/s,
@@ -2418,14 +2481,7 @@ def phase_zoo(torch, pk, fa, bk, card: str) -> dict:
         warm = ff.train_step({k: v[:b] for k, v in x.items()}, y[:b])
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        losses, routed = [], []
-        step = ff.train_step
-
-        def recording(inputs, labels, _step=step):
-            m = _step(inputs, labels)
-            losses.append(m["loss"])
-            return m
-
+        routed = []
         groups = [op for op in ff.operators.ops
                   if op.op_type == OperatorType.GROUP_BY]
         for op in groups:
@@ -2436,7 +2492,7 @@ def phase_zoo(torch, pk, fa, bk, card: str) -> dict:
                 return _fwd(ins, ws, **kw)
 
             op.forward = watched
-        ff.train_step = recording
+        losses = record_losses(ff)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_kernel_launches(pk, fa, bk)
@@ -2646,12 +2702,798 @@ def layout_conversions(ff) -> dict:
     return out
 
 
+# -- the sequence-model and frontend slice: the NMT at Luong et al.'s
+# widths, GPT generation on the dense KV cache, the Keras examples, the
+# ONNX-imported ResNet-50, each card against the CPU at a tiny size
+# Luong, Pham & Manning (EMNLP 2015) §4.1: 4 LSTM layers a side, 1000
+# cells, 1000-dim embeddings, 50 000-word vocabularies, sentences of up
+# to 50 tokens, batch 128
+NMT_WIDTH = dict(src_len=50, tgt_len=50, src_vocab=50000, tgt_vocab=50000,
+                 embed_dim=1000, hidden_size=1000, num_layers=4)
+NMT_BATCH, NMT_FIT, NMT_LR, NMT_DECODE = 128, 3, 0.1, 8
+# the full-width step's gradients, card against CPU from the same
+# weights and batch, float32, TF32 off: per weight, the largest
+# difference over the largest gradient (cuBLAS's and MKL's sums in
+# other orders, through 50 steps of BPTT over 4 layers a side)
+NMT_GRAD_TOL = 1e-4
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_BEAM = 8, 64, 32, 4
+GEN_BEAM_TOL = 1e-4
+KERAS_BATCHES = 4
+ONNX_BATCH, ONNX_FIT = 64, 3
+# the ONNX-imported ResNet-50 against the torch module in eval mode on
+# the card, float32, TF32 off: the same cuDNN convolutions in
+# channels_last with BatchNorm applied by P1 (x * scale + shift against
+# torch's folded form), relative to the logits' scale
+ONNX_TOL = 1e-4
+# card against CPU, float32, TF32 off: the zoo_parity tolerance (cuBLAS's
+# and MKL's sums in other orders, through 2 SGD steps); greedy tokens and
+# beams must be equal
+SEQ_PARITY_TOL = {"output": 1e-4, "loss": 1e-4, "weights": 1e-4}
+NMT_TINY = dict(src_len=6, tgt_len=5, src_vocab=17, tgt_vocab=13,
+                embed_dim=8, hidden_size=12, num_layers=2)
+GPT_TINY = dict(seq_length=16, hidden_size=32, num_layers=2, num_heads=4,
+                intermediate_size=64, vocab_size=97)
+
+
+def nmt_flops(batch, src_len, tgt_len, src_vocab, tgt_vocab, embed_dim,
+              hidden_size, num_layers) -> dict:
+    """Forward multiply-adds x 2 of build_nmt: the LSTMs' gate products,
+    the attention's two batch matmuls, its combine and the vocabulary
+    projection; a train step is ~3x the forward."""
+    h, d = hidden_size, embed_dim
+    lstm = sum(2 * batch * s * ((d if i == 0 else h) + h) * 4 * h
+               for s in (src_len, tgt_len) for i in range(num_layers))
+    attn = 2 * 2 * batch * tgt_len * src_len * h
+    comb = 2 * batch * tgt_len * 2 * h * h
+    vocab = 2 * batch * tgt_len * h * tgt_vocab
+    fwd = lstm + attn + comb + vocab
+    return {"lstm": lstm, "attention": attn + comb, "vocab_proj": vocab,
+            "forward": fwd, "train_step": 3 * fwd}
+
+
+def nmt_data(rng, n, src_len, tgt_len, src_vocab, tgt_vocab, **_):
+    """A copy task: labels are the source's first tgt_len tokens, the
+    decoder reads them shifted right behind BOS (id 1)."""
+    src = rng.randint(2, src_vocab, (n, src_len)).astype(np.int32)
+    labels = src[:, :tgt_len] % tgt_vocab
+    tgt = np.concatenate([np.ones((n, 1), np.int32), labels[:, :-1]], 1)
+    return {"src": src, "tgt": tgt.astype(np.int32)}, labels.astype(
+        np.int32)
+
+
+def build_nmt_model(device: str, batch: int, width=None):
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType,
+                                    MetricsType, SGDOptimizer)
+    from flexflow_tpu_torch.models import build_nmt
+
+    ff = FFModel(FFConfig(batch_size=batch, device=device))
+    build_nmt(ff, batch_size=batch, **(width or NMT_WIDTH))
+    ff.compile(optimizer=SGDOptimizer(lr=NMT_LR),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.ACCURACY,
+                        MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    return ff
+
+
+def record_grads(ff) -> dict:
+    """Wrap ff's optimizer update (on the instance) to copy each step's
+    gradients to the host into the {op: {name: array}} returned (the
+    last step's); `del ff.executor.optimizer.update` unwraps it."""
+    opt, grads = ff.executor.optimizer, {}
+    update = opt.update
+
+    def recording(weights, g, opt_state):
+        grads.clear()
+        grads.update({op: {k: v.detach().cpu().numpy()
+                           for k, v in e.items()} for op, e in g.items()})
+        return update(weights, g, opt_state)
+
+    opt.update = recording
+    return grads
+
+
+def grad_rel_diff(a: dict, b: dict) -> dict:
+    """{op.name: max|a - b| / max|b|} over the weights of b."""
+    return {f"{op}.{k}": float(np.abs(a[op][k] - v).max()
+                               / max(float(np.abs(v).max()), 1e-30))
+            for op, e in b.items() for k, v in e.items()}
+
+
+def nmt_cpu_grads(init, batch, labels, width=None) -> dict:
+    """One train_step's gradients and loss on the CPU (at full width by
+    default) from the weights `init`."""
+    ff = build_nmt_model("cpu", len(labels), width)
+    ff.set_weights(init)
+    grads = record_grads(ff)
+    loss = float(ff.train_step(batch, labels)["loss"])
+    return {"loss": loss, "grads": grads}
+
+
+def phase_nmt(torch, pk, fa, bk, card: str) -> dict:
+    """build_nmt at Luong et al.'s widths through compile (SGD, the
+    sparse cross-entropy on the softmax), one warm-up train_step whose
+    gradients are held against the same step on the CPU (within
+    NMT_GRAD_TOL of each weight's largest gradient), fit over NMT_FIT
+    batches through the prefetching loader, a profile of
+    NMT_FIT loader-fed steps, then greedy_decode of NMT_DECODE
+    sources."""
+    from flexflow_tpu_torch.models import greedy_decode
+
+    b = NMT_BATCH
+    t0 = time.perf_counter()
+    ff = build_nmt_model("cuda", b)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    params = sum(w.numel() for e in ff._weights.values() for w in e.values())
+    init = ff.get_weights()
+    x, y = nmt_data(np.random.RandomState(0), (2 + NMT_FIT) * b,
+                    **NMT_WIDTH)
+    grads = record_grads(ff)
+    t0 = time.perf_counter()
+    warm = ff.train_step({k: v[:b] for k, v in x.items()}, y[:b])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del ff.executor.optimizer.update
+    t0 = time.perf_counter()
+    cpu = nmt_cpu_grads(init, {k: v[:b] for k, v in x.items()}, y[:b])
+    cpu_step_s = time.perf_counter() - t0
+    grad_diff = grad_rel_diff(grads, cpu["grads"])
+    worst = max(grad_diff, key=grad_diff.get)
+    if set(grads) != set(cpu["grads"]) or grad_diff[worst] > NMT_GRAD_TOL \
+            or abs(float(warm["loss"]) - cpu["loss"]) > NMT_GRAD_TOL:
+        raise RuntimeError(
+            f"nmt: the card's step is not the CPU's: {worst} gradients "
+            f"differ by {grad_diff[worst]} of their scale, losses "
+            f"{float(warm['loss'])} and {cpu['loss']}")
+    del grads, cpu
+    losses = record_losses(ff)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches(pk, fa, bk)
+    t0 = time.perf_counter()
+    hist = ff.fit({k: v[b:(1 + NMT_FIT) * b] for k, v in x.items()},
+                  y[b:(1 + NMT_FIT) * b], batch_size=b, epochs=1,
+                  verbose=False)
+    wall = time.perf_counter() - t0  # fit synchronizes at its end
+    launches = kernel_launches(pk, fa, bk)
+    peak = torch.cuda.max_memory_allocated()
+    del ff.train_step
+    loss_vals = [float(warm["loss"])] + [float(v) for v in losses]
+    if len(loss_vals) != 1 + NMT_FIT or not np.isfinite(loss_vals).all():
+        raise RuntimeError(f"nmt: losses {loss_vals}")
+    if any(launches.values()):
+        raise RuntimeError(f"nmt: the NMT path launched {launches}")
+    if hist[0].train_all != NMT_FIT * b * NMT_WIDTH["tgt_len"]:
+        raise RuntimeError(f"nmt: fit scored {hist[0].train_all} tokens")
+    # at init the model's outputs are near uniform (the loss sits at
+    # ln(tgt_vocab)), so the steps show in the weights
+    moved = {op: max(float(np.abs(v - init[op][k]).max())
+                     for k, v in e.items())
+             for op, e in ff.get_weights().items()}
+    if not all(v > 0 for v in moved.values()):
+        raise RuntimeError(f"nmt: weights that did not move: {moved}")
+    flops = nmt_flops(b, **NMT_WIDTH)
+    prof = profile_by_op(torch, ff, loader_steps(ff, x, y, b, NMT_FIT),
+                         NMT_FIT)
+    src = x["src"][:NMT_DECODE]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = greedy_decode(ff, src, bos_id=1)
+    decode_s = time.perf_counter() - t0
+    if out.shape != (NMT_DECODE, NMT_WIDTH["tgt_len"]) or not (
+            (out[:, 0] == 1).all() and (out >= 0).all()
+            and (out < NMT_WIDTH["tgt_vocab"]).all()):
+        raise RuntimeError(f"nmt: greedy_decode gave {out}")
+    # the decode's first token is the argmax of one forward's first row
+    first = ff.forward({"src": src, "tgt": np.pad(
+        out[:, :1], ((0, 0), (0, NMT_WIDTH["tgt_len"] - 1)))})
+    if not np.array_equal(first[:, 0].argmax(-1).cpu().numpy(), out[:, 1]):
+        raise RuntimeError("nmt: greedy_decode's first step is not the "
+                           "forward's argmax")
+    rec = {"phase": "nmt", "card": card, "config": NMT_WIDTH, "batch": b,
+           "lr": NMT_LR, "params": params, "flops": flops,
+           "compile_s": compile_s, "warmup_step_s": warm_s,
+           "grad_check": {"tolerance": NMT_GRAD_TOL,
+                          "worst": worst, "worst_rel_diff": grad_diff[worst],
+                          "rel_diff": grad_diff,
+                          "cpu_step_s": cpu_step_s},
+           "fit_steps": NMT_FIT, "fit_wall_s": wall,
+           "step_ms": wall / NMT_FIT * 1e3,
+           "samples_per_s": b * NMT_FIT / wall,
+           "target_tokens_per_s": b * NMT_WIDTH["tgt_len"] * NMT_FIT / wall,
+           "achieved_tflops": flops["train_step"] * NMT_FIT / wall / 1e12,
+           "peak_memory_gb": peak / 1e9, "losses": loss_vals,
+           "ln_tgt_vocab": float(np.log(NMT_WIDTH["tgt_vocab"])),
+           "max_weight_change": moved,
+           "kernel_launches_in_fit": launches,
+           "greedy_decode": {"sources": NMT_DECODE, "wall_s": decode_s,
+                             "tokens_per_s": NMT_DECODE * (
+                                 NMT_WIDTH["tgt_len"] - 1) / decode_s,
+                             "forwards": NMT_WIDTH["tgt_len"] - 1},
+           "profile": {k: prof[k] for k in (
+               "wall_ms_per_step", "device_busy_ms_per_step",
+               "device_kernel_ms_per_step", "device_idle_share",
+               "device_events_per_step", "by_kernel_kind_ms_per_step")},
+           "profile_by_op_ms_per_step": prof["by_op_ms_per_step"],
+           "note": "float32, TF32 off; step_ms over fit's wall time with "
+                   "the loader's start; device events per step (kernels "
+                   "and copies) from the profile"}
+    emit(rec)
+    del ff
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cache_bytes(ffd) -> int:
+    return sum(v.numel() * v.element_size() for e in ffd._state.values()
+               for k, v in e.items() if k in ("k_cache", "v_cache"))
+
+
+def first_divergence(a: np.ndarray, b: np.ndarray, start: int):
+    """(row, position) of the first token where a and b differ, or
+    None."""
+    diff = np.argwhere(a[:, start:] != b[:, start:])
+    if not len(diff):
+        return None
+    row = int(diff[np.argmin(diff[:, 1] * len(a) + diff[:, 0])][0])
+    return row, start + int(np.argmax(a[row, start:] != b[row, start:]))
+
+
+def greedy_equal(name: str, want: np.ndarray, got: np.ndarray,
+                 plen: int):
+    """Greedy tokens of two forms of one model must be equal: raise at
+    the first generated position where they differ."""
+    at = first_divergence(want, got, plen)
+    if at is not None:
+        r, p = at
+        raise RuntimeError(
+            f"generate: {name} differs from gpt_generate at row {r}, "
+            f"position {p}: {got[r, p]} against {want[r, p]}")
+
+
+def phase_generate(torch, pk, fa, bk, card: str, paged=None) -> dict:
+    """Full-width GPT-2-small (the serve phase's model and weights),
+    batch GEN_BATCH, GEN_PROMPT-token prompts, GEN_NEW new tokens:
+    gpt_generate (the re-forward loop at seq 1024), then the dense
+    decode twin with gpt_generate_cached and gpt_generate_scan; greedy
+    tokens equal across the three; gpt_beam_search and
+    gpt_beam_search_cached (beam GEN_BEAM) on one prompt agree in tokens
+    and score; a profile of the dense decode step beside the paged
+    one's (`paged`, the profile phase's record)."""
+    from flexflow_tpu_torch import decoding as D
+    from flexflow_tpu_torch.models import gpt_beam_search, gpt_generate
+
+    ff, _ = build_model("cuda")
+    rng = np.random.RandomState(3)
+    prompts = rng.randint(0, WIDTH["vocab_size"],
+                          (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    total = GEN_PROMPT + GEN_NEW
+    reset_kernel_launches(pk, fa, bk)
+    runs, toks = {}, {}
+
+    def run(name, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        runs[name] = {"wall_s": time.perf_counter() - t0}
+        return out
+
+    toks["gpt_generate"] = run("gpt_generate", gpt_generate, ff, prompts,
+                               GEN_NEW)
+    ffd = D.make_gpt_decoder(ff)
+    toks["gpt_generate_cached"] = run("gpt_generate_cached",
+                                      D.gpt_generate_cached, ffd, prompts,
+                                      GEN_NEW)
+    toks["gpt_generate_scan"] = run("gpt_generate_scan",
+                                    D.gpt_generate_scan, ffd, prompts,
+                                    GEN_NEW)
+    for name, t in toks.items():
+        if t.shape != (GEN_BATCH, total) or not np.array_equal(
+                t[:, :GEN_PROMPT], prompts):
+            raise RuntimeError(f"generate: {name} gave shape {t.shape}")
+        runs[name]["tokens_per_s"] = GEN_BATCH * GEN_NEW / runs[name][
+            "wall_s"]
+    for name in ("gpt_generate_cached", "gpt_generate_scan"):
+        greedy_equal(name, toks["gpt_generate"], toks[name], GEN_PROMPT)
+    kv_bytes = cache_bytes(ffd)
+    want_bytes = (2 * WIDTH["num_layers"] * GEN_BATCH * WIDTH["seq_length"]
+                  * WIDTH["hidden_size"] * 4)
+    if kv_bytes != want_bytes:
+        raise RuntimeError(f"generate: caches hold {kv_bytes} bytes")
+    # beam search on one prompt, both forms
+    prompt = prompts[:1]
+    btoks, bscore = run("gpt_beam_search", gpt_beam_search, ff, prompt,
+                        GEN_NEW, beam_size=GEN_BEAM)
+    ffd4 = D.make_gpt_decoder(ff, batch_size=GEN_BEAM)
+    ctoks, cscores = run("gpt_beam_search_cached", D.gpt_beam_search_cached,
+                         ffd4, prompt, GEN_NEW, beam_size=GEN_BEAM)
+    if not np.array_equal(ctoks[0], btoks) or abs(
+            cscores[0] - bscore) > GEN_BEAM_TOL:
+        raise RuntimeError(
+            f"generate: beam search forms disagree: {btoks.tolist()} "
+            f"{bscore} against {ctoks[0].tolist()} {cscores[0]}")
+    for name in ("gpt_beam_search", "gpt_beam_search_cached"):
+        runs[name]["tokens_per_s"] = GEN_NEW / runs[name]["wall_s"]
+    launches = kernel_launches(pk, fa, bk)
+    if any(launches.values()):
+        raise RuntimeError(f"generate: the dense path launched {launches}")
+    # the dense decode step at positions 64.., as the cached loop runs it
+    ffd.reset_decode_state()
+    tok = prompts[:, :1]
+
+    def step(k):
+        ffd.decode_step({"input": tok, "positions": np.full(
+            (GEN_BATCH, 1), k, np.int32)})
+
+    for k in range(GEN_PROMPT):
+        step(k)
+    torch.cuda.synchronize()
+
+    def twenty_steps():
+        for k in range(20):
+            step(GEN_PROMPT + k)
+
+    dense = profile_by_op(torch, ffd, twenty_steps, 20)
+    rec = {"phase": "generate", "card": card, "batch": GEN_BATCH,
+           "prompt": GEN_PROMPT, "new_tokens": GEN_NEW, "beam": GEN_BEAM,
+           "runs": runs, "greedy_equal": True,
+           "beam_score": bscore, "beam_cached_score": float(cscores[0]),
+           "kv_cache_bytes": kv_bytes, "kernel_launches": launches,
+           "dense_decode_step": {k: dense[k] for k in (
+               "wall_ms_per_step", "device_busy_ms_per_step",
+               "device_idle_share", "device_events_per_step",
+               "by_kernel_kind_ms_per_step")},
+           "dense_decode_step_by_op_ms": dense["by_op_ms_per_step"],
+           "paged_decode_step": None if paged is None else {
+               k: paged[k] for k in ("wall_ms_per_step",
+                                     "device_busy_ms_per_step",
+                                     "device_idle_share")},
+           "note": "float32, TF32 off; tokens/s = new tokens over the "
+                   "call's wall time (the prompt's pass included); the "
+                   "dense step profiled at positions 64-83 with all 8 "
+                   "rows live, the paged one (profile phase) at mixed "
+                   "positions up to 1023"}
+    emit(rec)
+    del ff, ffd, ffd4
+    torch.cuda.empty_cache()
+    return rec
+
+
+def keras_models(K):
+    """{name: (build(config) -> uncompiled model, optimizer, loss,
+    metrics, dataset)}: each model of examples/python/keras/*.py (their
+    layers, batch 64, optimizer, loss and metrics; callback_demo's
+    callbacks but VerifyMetrics, whose floor a few batches need not
+    reach), and the Embedding -> LSTM -> Dense classifier of
+    tests/test_keras_frontend.py at the Reuters loader's default shapes
+    and the widths of Keras's examples/imdb_lstm.py (batch 32)."""
+    sce, acc = "sparse_categorical_crossentropy", ["accuracy"]
+
+    def seq(layers, shape):
+        return lambda cfg: K.Sequential(layers(), input_shape=shape,
+                                        config=cfg)
+
+    def functional(body, shape):
+        def build(cfg):
+            inp = K.Input(shape=shape)
+            return K.Model(inp, body(inp), config=cfg)
+        return build
+
+    def alexnet(inp):
+        t = K.Conv2D(64, (5, 5), strides=(1, 1), padding="same",
+                     activation="relu")(inp)
+        t = K.MaxPooling2D((3, 3), strides=(2, 2))(t)
+        t = K.Conv2D(192, (5, 5), strides=(1, 1), padding="same",
+                     activation="relu")(t)
+        t = K.MaxPooling2D((3, 3), strides=(2, 2))(t)
+        t = K.Conv2D(384, (3, 3), padding="same", activation="relu")(t)
+        t = K.Conv2D(256, (3, 3), padding="same", activation="relu")(t)
+        t = K.Conv2D(256, (3, 3), padding="same", activation="relu")(t)
+        t = K.MaxPooling2D((3, 3), strides=(2, 2))(t)
+        t = K.Flatten()(t)
+        t = K.Dense(1024, activation="relu")(t)
+        t = K.Dropout(0.5)(t)
+        t = K.Dense(1024, activation="relu")(t)
+        return K.Dense(10, activation="softmax")(t)
+
+    def cifar_cnn(inp):
+        t = K.Conv2D(32, (3, 3), padding="same", activation="relu")(inp)
+        t = K.Conv2D(32, (3, 3), padding="same", activation="relu")(t)
+        t = K.MaxPooling2D((2, 2), strides=(2, 2))(t)
+        t = K.Conv2D(64, (3, 3), padding="same", activation="relu")(t)
+        t = K.Conv2D(64, (3, 3), padding="same", activation="relu")(t)
+        t = K.MaxPooling2D((2, 2), strides=(2, 2))(t)
+        t = K.Flatten()(t)
+        t = K.Dense(256, activation="relu")(t)
+        return K.Dense(10, activation="softmax")(t)
+
+    def cifar_concat(inp):
+        a = K.Conv2D(32, (3, 3), padding="same", activation="relu")(inp)
+        b = K.Conv2D(32, (5, 5), padding="same", activation="relu")(inp)
+        t = K.Concatenate(axis=1)([a, b])
+        t = K.MaxPooling2D((2, 2), strides=(2, 2))(t)
+        t = K.Conv2D(64, (3, 3), padding="same", activation="relu")(t)
+        t = K.MaxPooling2D((2, 2), strides=(2, 2))(t)
+        t = K.Flatten()(t)
+        t = K.Dense(128, activation="relu")(t)
+        return K.Dense(10, activation="softmax")(t)
+
+    def mnist_concat(inp):
+        a = K.Dense(128, activation="relu")(inp)
+        b = K.Dense(128, activation="sigmoid")(inp)
+        t = K.Concatenate(axis=1)([a, b])
+        t = K.Dense(64, activation="relu")(t)
+        return K.Dense(10, activation="softmax")(t)
+
+    def elementwise(inp):
+        a = K.Dense(64, activation="relu")(inp)
+        b = K.Dense(64, activation="tanh")(inp)
+        merged = K.Concatenate(axis=1)([
+            K.Add()([a, b]), K.Subtract()([a, b]), K.Multiply()([a, b])])
+        t = K.Dense(32, activation="relu")(merged)
+        return K.Dense(1)(t)
+
+    return {
+        "callback_demo": (seq(lambda: [
+            K.Dense(256, activation="relu"),
+            K.Dense(10, activation="softmax")], (784,)),
+            "sgd", sce, acc, "mnist_flat", 64),
+        "elementwise": (functional(elementwise, (32,)), "adam",
+                        "mean_squared_error", ["mean_squared_error"],
+                        "regression", 64),
+        "func_cifar10_alexnet": (functional(alexnet, (3, 32, 32)), "sgd",
+                                 sce, acc, "cifar10", 64),
+        "func_cifar10_cnn": (functional(cifar_cnn, (3, 32, 32)), "sgd",
+                             sce, acc, "cifar10", 64),
+        "func_cifar10_cnn_concat": (functional(cifar_concat, (3, 32, 32)),
+                                    "sgd", sce, acc, "cifar10", 64),
+        "func_mnist_mlp_concat": (functional(mnist_concat, (784,)), "adam",
+                                  sce, acc, "mnist_flat", 64),
+        "seq_mnist_cnn": (seq(lambda: [
+            K.Conv2D(32, (3, 3), strides=(1, 1), padding="same",
+                     activation="relu"),
+            K.Conv2D(64, (3, 3), strides=(1, 1), padding="same",
+                     activation="relu"),
+            K.MaxPooling2D((2, 2), strides=(2, 2)), K.Flatten(),
+            K.Dense(128, activation="relu"), K.Dropout(0.25),
+            K.Dense(10, activation="softmax")], (1, 28, 28)),
+            "adam", sce, acc, "mnist_image", 64),
+        "seq_mnist_mlp": (seq(lambda: [
+            K.Dense(256, activation="relu"), K.Dropout(0.2),
+            K.Dense(128, activation="relu"),
+            K.Dense(10, activation="softmax")], (784,)),
+            "adam", sce, acc, "mnist_flat", 64),
+        "seq_reuters_mlp": (seq(lambda: [
+            K.Dense(512, activation="relu"), K.Dropout(0.5),
+            K.Dense(46, activation="softmax")], (2000,)),
+            "adam", sce, acc, "reuters_bow", 64),
+        "lstm_reuters": (lambda cfg: K.Sequential([
+            K.Embedding(10000, 128, input_length=200),
+            K.LSTM(128, return_sequences=False),
+            K.Dense(46, activation="softmax")], config=cfg),
+            "sgd", sce, acc, "reuters_ids", 32),
+    }
+
+
+def keras_data(ds, kind: str, n: int):
+    """(x, y, synthetic flag) as each example prepares its dataset."""
+    if kind == "cifar10":
+        (x, y), _ = ds.cifar10.load_data(n)
+        return (x.astype(np.float32) / 255.0, y.ravel().astype(np.int32),
+                ds.cifar10.synthetic)
+    if kind.startswith("mnist"):
+        (x, y), _ = ds.mnist.load_data(n)
+        shape = (len(x), 784) if kind == "mnist_flat" else (len(x), 1, 28,
+                                                             28)
+        return (x.reshape(shape).astype(np.float32) / 255.0,
+                y.astype(np.int32), ds.mnist.synthetic)
+    if kind == "reuters_bow":  # seq_reuters_mlp's binary term matrix
+        (x, y), _ = ds.reuters.load_data(num_words=2000, maxlen=200,
+                                         num_samples=n)
+        m = np.zeros((len(x), 2000), np.float32)
+        for i, row in enumerate(x):
+            m[i, row[row > 0]] = 1.0
+        return m, y.astype(np.int32), ds.reuters.synthetic
+    if kind == "reuters_ids":  # the loader's defaults
+        (x, y), _ = ds.reuters.load_data(num_samples=n)
+        return x.astype(np.int32), y.astype(np.int32), ds.reuters.synthetic
+    rng = np.random.RandomState(0)  # elementwise.py's regression
+    x = rng.randn(n, 32).astype(np.float32)
+    return (x, (np.sin(x[:, :1]) + x[:, 1:2] * x[:, 2:3]).astype(
+        np.float32), None)
+
+
+def phase_keras(torch, pk, fa, bk, card: str) -> dict:
+    """Each keras_models() entry through flexflow_tpu_torch.keras on the
+    card: compile, fit over KERAS_BATCHES batches (the CIFAR-10 models
+    on the vendored sample shard, 64 images: fit over KERAS_BATCHES
+    epochs of its one batch); samples/s, the losses, the dataset's
+    synthetic flag; no hand-written kernel launches."""
+    import shutil
+    import tempfile
+
+    import flexflow_tpu_torch.keras as K
+
+    ds = K.datasets
+    home_cache = ds._CACHE
+    with tempfile.TemporaryDirectory(dir=Path(__file__).parent) as cache:
+        shutil.copy(Path(__file__).parent / "examples" / "data"
+                    / "cifar10_sample.tar.gz",
+                    Path(cache) / "cifar-10-python.tar.gz")
+        ds._CACHE = cache  # the loaders look here first
+        try:
+            rows = {name: keras_fit(torch, pk, fa, bk, card, K, name, *row)
+                    for name, row in keras_models(K).items()}
+        finally:
+            ds._CACHE = home_cache
+    rec = {"phase": "keras", "card": card, "models": sorted(rows),
+           "samples_per_s": {k: r["samples_per_s"] for k, r in rows.items()},
+           "synthetic": {k: r["synthetic"] for k, r in rows.items()},
+           "launches": {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "P1": 0},
+           "note": "float32; samples/s over fit's wall time with the "
+                   "loader's start; CIFAR-10 from the vendored sample "
+                   "shard (64 images), MNIST and Reuters synthetic (no "
+                   "cached file)"}
+    emit(rec)
+    return rec
+
+
+def keras_fit(torch, pk, fa, bk, card, K, name, build, opt, loss, metrics,
+              kind, b) -> dict:
+    """One keras model of phase_keras: compile, a warm-up train_step,
+    fit, its record."""
+    from flexflow_tpu_torch import FFConfig
+
+    x, y, synthetic = keras_data(K.datasets, kind, KERAS_BATCHES * b)
+    epochs = KERAS_BATCHES if len(y) < 2 * b else 1
+    model = build(FFConfig(batch_size=b, device="cuda"))
+    t0 = time.perf_counter()
+    model.compile(optimizer=opt, loss=loss, metrics=metrics)
+    compile_s = time.perf_counter() - t0
+    callbacks = []
+    if name == "callback_demo":
+        callbacks = [K.LearningRateScheduler(lambda e, lr: lr * 0.9),
+                     K.EarlyStopping(monitor="accuracy", patience=3)]
+    # one warm-up step, as the other phases take, keeps cuDNN's and
+    # cuBLAS's first-call set-up out of fit's time
+    model.ffmodel.train_step({model.ffmodel.layers.source_ops()[0].name:
+                              x[:b]}, y[:b])
+    losses = record_losses(model.ffmodel)
+    reset_kernel_launches(pk, fa, bk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = model.fit(x, y, epochs=epochs, callbacks=callbacks,
+                     verbose=False)
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(pk, fa, bk)
+    if any(launches.values()):
+        raise RuntimeError(f"keras {name}: launched {launches}")
+    loss_vals = [float(v) for v in losses]
+    if not loss_vals or not np.isfinite(loss_vals).all():
+        raise RuntimeError(f"keras {name}: losses {loss_vals}")
+    row = {"batch": b, "steps": len(loss_vals), "epochs": len(hist),
+           "compile_s": compile_s, "fit_wall_s": wall,
+           "samples_per_s": len(loss_vals) * b / wall, "losses": loss_vals,
+           "accuracy": "accuracy" in metrics and hist[-1].accuracy,
+           "synthetic": synthetic, "dataset": kind}
+    emit({"phase": "keras", "card": card, "model": name, **row})
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_onnx(torch, pk, fa, bk, card: str) -> dict:
+    """The resnet phase's torch ResNet-50 (224 px, 1000 classes; its
+    running statistics moved off their init by two train-mode forwards)
+    as ONNX wire bytes (module_to_onnx), imported with ONNXModel and
+    copy_weights at batch ONNX_BATCH, float32: the eval-mode forward
+    against the torch module on the card, then one warm-up train_step
+    and fit over ONNX_FIT batches through the loader; P1 launches per
+    step (53 by the executor's plan)."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType,
+                                    MetricsType, SGDOptimizer)
+    from flexflow_tpu_torch.onnx_frontend import ONNXModel, module_to_onnx
+
+    b = ONNX_BATCH
+    _, ResNet50, _ = resnet_modules()
+    torch.manual_seed(0)
+    module = ResNet50(RESNET_CLASSES).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        module.train()
+        for _ in range(2):
+            module(torch.randn(16, 3, RESNET_PX, RESNET_PX, device="cuda",
+                               generator=gen))
+    module.eval()
+    t0 = time.perf_counter()
+    wire = module_to_onnx(module, (b, 3, RESNET_PX, RESNET_PX))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ff = FFModel(FFConfig(batch_size=b, device="cuda"))
+    m = ONNXModel(wire)
+    (out,) = m.apply(ff, [ff.create_tensor([b, 3, RESNET_PX, RESNET_PX],
+                                           name="input")])
+    ff.compile(optimizer=SGDOptimizer(lr=0.1),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.ACCURACY,
+                        MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    m.copy_weights(ff)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    plan = bn_plan_counts(ff)
+    if plan != RESNET_BN:
+        raise RuntimeError(f"onnx: BatchNorm plan {plan} != {RESNET_BN}")
+    rng = np.random.RandomState(0)
+    x = rng.randn((2 + ONNX_FIT) * b, 3, RESNET_PX, RESNET_PX).astype(
+        np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (2 + ONNX_FIT) * b).astype(np.int32)
+    reset_kernel_launches(pk, fa, bk)
+    got = ff.forward({"input": x[:b]})
+    fwd_p1 = bk.bn_apply.launches
+    with torch.no_grad():
+        want = module(torch.from_numpy(x[:b]).to("cuda"))
+    err = float((got - want).abs().max() / max(1.0, float(
+        want.abs().max())))
+    if not err <= ONNX_TOL:
+        raise RuntimeError(f"onnx: eval forward {err} over {ONNX_TOL}")
+    del module, want
+    t0 = time.perf_counter()
+    warm = ff.train_step({"input": x[b:2 * b]}, y[b:2 * b])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    losses = record_losses(ff)
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches(pk, fa, bk)
+    t0 = time.perf_counter()
+    ff.fit(x[2 * b:], y[2 * b:], batch_size=b, epochs=1, verbose=False)
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(pk, fa, bk)
+    peak = torch.cuda.max_memory_allocated()
+    del ff.train_step
+    per_step = sum(RESNET_BN.values())
+    if launches["P1"] != ONNX_FIT * per_step or any(
+            v for k, v in launches.items() if k != "P1"):
+        raise RuntimeError(f"onnx: fit launched {launches}")
+    if fwd_p1 != per_step:
+        raise RuntimeError(f"onnx: the forward launched P1 {fwd_p1} times")
+    loss_vals = [float(warm["loss"])] + [float(v) for v in losses]
+    if len(loss_vals) != 1 + ONNX_FIT or not np.isfinite(loss_vals).all():
+        raise RuntimeError(f"onnx: losses {loss_vals}")
+    rec = {"phase": "onnx", "card": card, "batch": b, "px": RESNET_PX,
+           "classes": RESNET_CLASSES, "dtype": "float32",
+           "wire_bytes": len(wire), "nodes": len(m.graph.node),
+           "export_s": export_s, "import_compile_s": import_s,
+           "eval_forward_err_over_scale": err, "tolerance": ONNX_TOL,
+           "bn_plan": plan, "p1_launches_forward": fwd_p1,
+           "warmup_step_s": warm_s, "fit_steps": ONNX_FIT,
+           "fit_wall_s": wall, "step_ms": wall / ONNX_FIT * 1e3,
+           "images_per_s": b * ONNX_FIT / wall,
+           "p1_launches": launches["P1"],
+           "p1_launches_per_step": launches["P1"] / ONNX_FIT,
+           "peak_memory_gb": peak / 1e9, "losses": loss_vals,
+           "note": "TF32 off; step ms over fit's wall time with the "
+                   "loader's start"}
+    emit(rec)
+    del ff
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _max_weight_diff(a, b) -> float:
+    return max((float(np.abs(a[op][k] - v).max()) for op, e in b.items()
+                for k, v in e.items()), default=0.0)
+
+
+def phase_seq_parity(torch, card: str) -> dict:
+    """Card against CPU at tiny sizes, float32, TF32 off: the NMT
+    (forward, 2 SGD steps, greedy_decode), the GPT's generation forms
+    (greedy tokens of gpt_generate, the cached twin and the scan; the
+    cached beam search; the decode step's logits) and the Keras LSTM
+    classifier (fit's metrics and weights)."""
+    from flexflow_tpu_torch import CompMode, FFConfig, FFModel
+    from flexflow_tpu_torch import decoding as D
+    from flexflow_tpu_torch import keras as K
+    from flexflow_tpu_torch.models import build_gpt, greedy_decode
+
+    diff = {}
+    # NMT
+    ffs = {dev: build_nmt_model(dev, 4, NMT_TINY) for dev in ("cuda", "cpu")}
+    ffs["cpu"].set_weights(ffs["cuda"].get_weights())
+    rng = np.random.RandomState(4)
+    x, y = nmt_data(rng, 12, **NMT_TINY)
+    outs = {d: ff.forward({k: v[:4] for k, v in x.items()}).cpu().numpy()
+            for d, ff in ffs.items()}
+    losses = {d: [float(ff.train_step({k: v[4 * i:4 * i + 4]
+                                       for k, v in x.items()},
+                                      y[4 * i:4 * i + 4])["loss"])
+                  for i in (1, 2)] for d, ff in ffs.items()}
+    toks = {d: greedy_decode(ff, x["src"][:4]) for d, ff in ffs.items()}
+    diff["nmt"] = {
+        "output": float(np.abs(outs["cuda"] - outs["cpu"]).max()),
+        "loss": max(abs(a - c) for a, c in zip(losses["cuda"],
+                                               losses["cpu"])),
+        "weights": _max_weight_diff(ffs["cuda"].get_weights(),
+                                    ffs["cpu"].get_weights()),
+        "greedy_equal": bool(np.array_equal(toks["cuda"], toks["cpu"]))}
+    # GPT generation
+    gffs = {}
+    for dev in ("cuda", "cpu"):
+        ff = FFModel(FFConfig(batch_size=4, device=dev))
+        build_gpt(ff, batch_size=4, **GPT_TINY)
+        ff.compile(comp_mode=CompMode.INFERENCE)
+        gffs[dev] = ff
+    gffs["cpu"].set_weights(gffs["cuda"].get_weights())
+    ids = np.random.RandomState(5).randint(
+        0, GPT_TINY["vocab_size"], (4, 6)).astype(np.int32)
+    gen = {}
+    for dev, ff in gffs.items():
+        ffd = D.make_gpt_decoder(ff)
+        ffd4 = D.make_gpt_decoder(ff, batch_size=2)
+        ffd.reset_decode_state()
+        logits = [ffd.decode_step({"input": ids[:, t:t + 1],
+                                   "positions": np.full((4, 1), t, np.int32)}
+                                  ).cpu().numpy() for t in range(6)]
+        gen[dev] = {"logits": np.stack(logits),
+                    "tokens": [D.gpt_generate_cached(ffd, ids[:, :3], 10),
+                               D.gpt_generate_scan(ffd, ids[:, :3], 10)],
+                    "beam": D.gpt_beam_search_cached(ffd4, ids[:1, :3], 8,
+                                                     beam_size=2)}
+    g, c = gen["cuda"], gen["cpu"]
+    forms = g["tokens"] + c["tokens"]  # cached and scan, on each device
+    diff["generate"] = {
+        "output": float(np.abs(g["logits"] - c["logits"]).max()),
+        "greedy_equal": all(np.array_equal(forms[0], t) for t in forms),
+        "beam_equal": bool(np.array_equal(g["beam"][0], c["beam"][0])),
+        "beam_score": float(abs(g["beam"][1][0] - c["beam"][1][0]))}
+    # the Keras LSTM classifier
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = K.Sequential([K.Embedding(50, 8, input_length=10, name="emb"),
+                          K.LSTM(12, name="lstm"),
+                          K.Dense(5, activation="softmax", name="head")],
+                         config=FFConfig(batch_size=4, device=dev))
+        m.compile(metrics=["accuracy", "sparse_categorical_crossentropy"])
+        models[dev] = m
+    models["cpu"].ffmodel.set_weights(models["cuda"].ffmodel.get_weights())
+    rng = np.random.RandomState(6)
+    kx = rng.randint(0, 50, (16, 10)).astype(np.int32)
+    ky = rng.randint(0, 5, 16).astype(np.int32)
+    hist = {d: m.fit(kx, ky, epochs=2, verbose=False)
+            for d, m in models.items()}
+    diff["keras_lstm"] = {
+        "loss": max(abs(a.sparse_cce_loss - b.sparse_cce_loss)
+                    for a, b in zip(hist["cuda"], hist["cpu"])),
+        "weights": _max_weight_diff(models["cuda"].ffmodel.get_weights(),
+                                    models["cpu"].ffmodel.get_weights())}
+    over = {f"{name}.{k}": v for name, row in diff.items()
+            for k, v in row.items()
+            if (k in SEQ_PARITY_TOL and v > SEQ_PARITY_TOL[k])
+            or (k == "beam_score" and v > SEQ_PARITY_TOL["loss"])
+            or (k.endswith("_equal") and not v)}
+    if over:
+        raise RuntimeError(f"seq_parity: card vs CPU {over} "
+                           f"(tolerance {SEQ_PARITY_TOL})")
+    rec = {"phase": "seq_parity", "card": card, "dtype": "float32",
+           "allow_tf32": False, "max_diff": diff,
+           "tolerance": SEQ_PARITY_TOL,
+           "compared": "NMT forward, losses and weights after 2 SGD steps "
+                       "and greedy tokens; GPT decode-step logits, greedy "
+                       "tokens of the cached and scan forms, the cached "
+                       "beam; the Keras LSTM's epoch losses and weights "
+                       "after fit"}
+    emit(rec)
+    return rec
+
+
 ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
-              "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile")
+              "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
+              "nmt,generate,keras,onnx,seq_parity")
 
 
-def kernel_line(kern, flash, bn, serve, train, resnet, card: str) -> dict:
+def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
+                onnx=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
     main paths, agreement with the plain versions and the times of this
     run."""
@@ -2667,6 +3509,9 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str) -> dict:
             "launches": resnet["bn_apply_launches"] if resnet else 0,
             "launches_per_train_step": (
                 resnet["bn_apply_launches_per_step"] if resnet else None),
+            "launches_onnx": onnx["p1_launches"] if onnx else None,
+            "launches_per_train_step_onnx": (
+                onnx["p1_launches_per_step"] if onnx else None),
             "max_abs_err": max(c["max_abs_err"] for c in bn["cases"]),
             "max_err_over_scale_by_dtype": bn["worst"],
             "tolerance": BN_TOL,
@@ -2785,7 +3630,7 @@ def main(argv=None) -> int:
           "build_s": build_s,
           "note": "one nvcc per source, started together"})
     dev = torch.device("cuda")
-    kern = flash = serve = train = bn = resnet = None
+    kern = flash = serve = train = bn = resnet = paged = onnx = None
     if "kernels" in phases:
         kern = phase_kernels(torch, pk, card, dev, paged_lib, build_s)
         flash = phase_flash_kernels(torch, fa, card, dev, flash_lib)
@@ -2797,7 +3642,7 @@ def main(argv=None) -> int:
             prompts = serve["prompts"] if serve else make_prompts()
             phase_parity(torch, card, ff, weights, prompts)
         if "profile" in phases:
-            phase_profile(torch, card, ff)
+            paged = phase_profile(torch, card, ff)
         del ff
     if phases & {"train", "train_profile"}:
         ff, xb, yb, train = phase_train(torch, fa, card)
@@ -2832,8 +3677,18 @@ def main(argv=None) -> int:
         phase_zoo_parity(torch, card)
     if "zoo_profile" in phases:
         phase_zoo_profile(torch, card)
+    if "nmt" in phases:
+        phase_nmt(torch, pk, fa, bk, card)
+    if "generate" in phases:
+        phase_generate(torch, pk, fa, bk, card, paged)
+    if "keras" in phases:
+        phase_keras(torch, pk, fa, bk, card)
+    if "onnx" in phases:
+        onnx = phase_onnx(torch, pk, fa, bk, card)
+    if "seq_parity" in phases:
+        phase_seq_parity(torch, card)
     if kern is not None or bn is not None:
-        emit(kernel_line(kern, flash, bn, serve, train, resnet, card))
+        emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

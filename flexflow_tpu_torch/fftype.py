@@ -3,8 +3,8 @@
 Counterpart of flexflow_tpu/fftype.py: the same enum names and values,
 so a graph described in one package reads the same in the other.
 `DataType` maps onto torch dtypes instead of jnp dtypes.  Only the
-enums the serving, training, ResNet, layer-op and model-zoo slices
-reach are carried.
+enums the serving, training, ResNet, layer-op, model-zoo and
+sequence-model slices reach are carried.
 """
 from __future__ import annotations
 
@@ -115,6 +115,7 @@ class OperatorType(enum.Enum):
     GROUP_BY = "group_by"
     AGGREGATE = "aggregate"
     AGGREGATE_SPEC = "aggregate_spec"
+    LSTM = "lstm"
 
 
 class OpUnary(enum.Enum):

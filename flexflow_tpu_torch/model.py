@@ -4,15 +4,16 @@ The layer API that the `models` builders and the torch.fx frontend
 call (dense, conv2d, pool2d, embedding, attention, batch_matmul,
 batch_norm, layer_norm, softmax, dropout, cast, the shape ops,
 weight_tensor, mean, the binary and unary elementwise ops and the
-scalar ones, and the MoE calls top_k, group_by, aggregate,
-aggregate_spec, experts_dense and moe), `compile` on one device under
-the trivial strategy (training or inference), `train_step`,
-`eval_step`, `fit`, `forward`, the reference's step surface
-(`set_learning_rate`, `zero_gradients`, `backward`, `update`,
-`init_operators`), and weight and op-state access in the reference's
-{op: {name: array}} layout.  The device comes from FFConfig.device:
-"cuda" by default, which raises on a machine without CUDA; "cpu" runs
-on the host.
+scalar ones, the MoE calls top_k, group_by, aggregate,
+aggregate_spec, experts_dense and moe, and lstm), `compile` on one
+device under the trivial strategy (training or inference),
+`train_step`, `eval_step`, `fit`, `forward`, the reference's step
+surface (`set_learning_rate`, `zero_gradients`, `backward`, `update`,
+`init_operators`), the dense-cache decode surface (`decode_step`,
+`reset_decode_state`), and weight and op-state
+access in the reference's {op: {name: array}} layout.  The device
+comes from FFConfig.device: "cuda" by default, which raises on a
+machine without CUDA; "cpu" runs on the host.
 
 A train step updates the weight tensors in place (the optimizer runs
 under torch.no_grad()), where the reference's jitted step donated them
@@ -47,6 +48,7 @@ from .ops.moe import (Aggregate, AggregateParams, AggregateSpec, GroupBy,
 from .ops.norm import (BatchNorm, BatchNormParams, LayerNorm,
                        LayerNormParams, Softmax, SoftmaxParams)
 from .ops.op import Op, WeightSpec
+from .ops.recurrent import LSTM, LSTMParams
 from .ops.shape import (Concat, ConcatParams, Expand, ExpandParams, Flat,
                         Gather, GatherParams, Mean, Pad, PadParams, Reduce,
                         ReduceParams, Reshape, ReshapeParams, Reverse,
@@ -77,6 +79,8 @@ class FFModel:
         self._generator: Optional[torch.Generator] = None
         self._stop_training = False  # set by early-stopping callbacks
         self._label_replication = 1  # k under AggregateSpec
+        self._decode_pos = 0  # host shadow of the dense caches' cache_pos
+        self._decode_limit = None
         self._used_names: set = set()
         self._name_counts: Dict[str, int] = {}
 
@@ -430,6 +434,12 @@ class FFModel:
                                      expert_hidden_size])
         return out
 
+    def lstm(self, input, hidden_size: int, return_sequences: bool = True,
+             name=None):
+        """The LSTM op (ops/recurrent.py) over [batch, seq, d]."""
+        p = LSTMParams(hidden_size, return_sequences)
+        return self._add(LSTM(p, [input], name=self._name("lstm", name)))
+
     # -- compile / run -----------------------------------------------------
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type: Union[LossType, str] =
@@ -585,8 +595,8 @@ class FFModel:
         if self._is_decode_graph():
             raise RuntimeError(
                 "forward() on a decode-mode graph (decode_max_seq > 0) "
-                "would discard the KV-cache updates; use the paged step "
-                "functions of decoding.py")
+                "would discard the KV-cache updates; use decode_step or "
+                "the paged step functions of decoding.py")
         feed = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                    else v).to(self.device)
                 for k, v in inputs.items()}
@@ -594,6 +604,63 @@ class FFModel:
             out, _ = self.executor.run_forward(self._weights, self._state,
                                                feed)
         return out
+
+    # -- dense-cache decoding -----------------------------------------------
+    def decode_step(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:
+        """One incremental-decode forward of a graph built with
+        decode-mode attention (decode_max_seq > 0, kv_page_size 0): the
+        step's k/v land in the caches at cache_pos and cache_pos
+        advances, in place.  Returns the logits on the model's device.
+        Call reset_decode_state() before each new batch of sequences."""
+        if self._decode_limit is None:
+            limits = [op._decode_max_seq for op in self.operators.ops
+                      if getattr(op, "_decode_max_seq", 0)]
+            self._decode_limit = min(limits) if limits else 0
+        dtypes = {op.name: op.outputs[0].dtype.torch_dtype
+                  for op in self.layers.source_ops()}
+        feed = {k: to_device(v if torch.is_tensor(v) else np.asarray(v),
+                             self.device, dtypes.get(k))
+                for k, v in inputs.items()}
+        step = max((int(v.shape[1]) for v in feed.values() if v.dim() >= 2),
+                   default=1)
+        # the host guard: an index_copy_ past the cache's end faults on
+        # the card (the reference's dynamic_update_slice would clamp it
+        # and overwrite the last rows)
+        if self._decode_limit and \
+                self._decode_pos + step > self._decode_limit:
+            raise ValueError(
+                f"decode_step past decode_max_seq={self._decode_limit} "
+                f"(position {self._decode_pos}); call reset_decode_state() "
+                "to start a new sequence")
+        with torch.no_grad():
+            logits, _ = self.executor.run_forward(self._weights, self._state,
+                                                  feed)
+        self._decode_pos += step
+        return logits
+
+    def _sync_decode_pos(self):
+        """Rebuild the host's position counter from the cache_pos state
+        entries; every writer of cache_pos other than decode_step calls
+        it."""
+        pos = 0
+        for entries in (self._state or {}).values():
+            cp = entries.get("cache_pos")
+            if cp is not None and cp.numel():
+                pos = max(pos, int(cp.reshape(-1)[0]))
+        self._decode_pos = pos
+
+    def reset_decode_state(self):
+        """Zero the decode caches (k_cache, v_cache, cache_pos, and the
+        paged block_table and seq_lens) in place, so that the next
+        decode_step starts a fresh sequence."""
+        names = ("k_cache", "v_cache", "cache_pos", "block_table",
+                 "seq_lens")
+        with torch.no_grad():
+            for entries in (self._state or {}).values():
+                for k, v in entries.items():
+                    if k in names:
+                        v.zero_()
+        self._decode_pos = 0
 
     # -- the reference's step pieces (each folded into train_step) ---------
     def init_operators(self):
@@ -658,3 +725,4 @@ class FFModel:
             for op, entries in new.items():
                 for k, v in entries.items():
                     self._state[op][k].copy_(v)
+        self._sync_decode_pos()

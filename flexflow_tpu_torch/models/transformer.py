@@ -1,5 +1,5 @@
-"""The GPT and BERT model definitions and host sampling
-(flexflow_tpu/models/transformer.py).
+"""The GPT and BERT model definitions, host sampling and the
+re-forward generation loops (flexflow_tpu/models/transformer.py).
 
 `build_gpt` is the reference's pre-LN GPT-2 graph with the same layer
 names (tok_embed, pos_embed, ln1_i, attn_i, ln2_i, ffn1_i, ffn2_i,
@@ -16,6 +16,11 @@ layers, hidden 1024, 16 heads, seq 512, batch 8.
 mean-pooled classifier (attn_i, attn_res_i, attn_ln_i, ffn1_i, ffn2_i,
 ffn_res_i, ffn_ln_i, pool, classifier).  Its defaults are BERT-base:
 hidden 768, 12 layers, 12 heads, FFN 3072.
+
+`gpt_generate` and `gpt_beam_search` are the reference's O(T^2)
+utility loops: each emitted token re-runs the compiled fixed-shape
+forward over the whole right-padded buffer.  decoding.py holds their
+O(T) KV-cache forms.
 """
 from __future__ import annotations
 
@@ -135,3 +140,108 @@ def sample_next(step_logits, temperature: float, rng, top_k: int = 0,
         p /= p.sum(-1, keepdims=True)
     return np.array([rng.choice(p.shape[-1], p=p[b])
                      for b in range(p.shape[0])], np.int32)
+
+
+def _seq_source(ff):
+    src = next(op for op in ff.layers.source_ops() if op.name == "input")
+    return src.outputs[0].shape.logical_shape  # (batch, seq)
+
+
+def _step_logits(ff, buf, pos, rows, t) -> np.ndarray:
+    """Logits at position t of the first `rows` rows of one full
+    forward, brought to the host alone (not the [b, s, vocab] whole)."""
+    logits = ff.forward({"input": buf, "positions": pos})
+    return logits[:rows, t].float().cpu().numpy()
+
+
+def gpt_generate(ff, prompt_ids, max_new_tokens: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 top_k: int = 0, top_p: float = 0.0):
+    """Autoregressive generation with the compiled fixed-shape GPT:
+    right-pad the prompt to the model's seq length, re-run the forward
+    per emitted token and feed back the sampled id (temperature 0 =
+    greedy; then top_k, then top_p, as in sample_next).  The causal mask
+    keeps the padding out of the next-token logits.
+
+    prompt_ids: [batch, prompt_len] ints.  Returns [batch, prompt_len +
+    max_new_tokens], cut at the model's seq length."""
+    prompt_ids = np.asarray(prompt_ids, np.int32)
+    validate_sampling(top_k, top_p)
+    seq_len = _seq_source(ff)[1]
+    prompt_ids = prompt_ids[:, :seq_len]
+    batch, plen = prompt_ids.shape
+    if plen < 1:
+        raise ValueError("gpt_generate needs a non-empty prompt")
+    total = min(seq_len, plen + max_new_tokens)
+    buf = np.zeros((batch, seq_len), np.int32)
+    buf[:, :plen] = prompt_ids
+    pos = np.tile(np.arange(seq_len, dtype=np.int32), (batch, 1))
+    rng = np.random.RandomState(seed)
+    for t in range(plen, total):
+        step = _step_logits(ff, buf, pos, batch, t - 1)
+        buf[:, t] = sample_next(step, temperature, rng, top_k, top_p)
+    return buf[:, :total]
+
+
+def gpt_beam_search(ff, prompt_ids, max_new_tokens: int,
+                    beam_size: int = 4, length_penalty: float = 0.0,
+                    eos_id: int = -1):
+    """Beam search on the compiled fixed-shape GPT, one prompt: the
+    beams ride the model's batch (which must be >= beam_size; the other
+    rows are padding) and every step re-runs the full forward.  Scores
+    are summed token log-probs; `length_penalty` applies GNMT's
+    ((5+len)/6)^lp to the final scores; `eos_id` >= 0 freezes finished
+    beams, which compete at their final score.
+
+    prompt_ids: [prompt_len] or [1, prompt_len] ints.
+    Returns (tokens [total_len], score float)."""
+    prompt_ids = np.asarray(prompt_ids, np.int32).reshape(1, -1)
+    model_batch, seq_len = _seq_source(ff)
+    if beam_size > model_batch:
+        raise ValueError(
+            f"beam_size {beam_size} exceeds compiled batch {model_batch}")
+    prompt_ids = prompt_ids[:, :seq_len]
+    plen = prompt_ids.shape[1]
+    if plen < 1:
+        raise ValueError("gpt_beam_search needs a non-empty prompt")
+    total = min(seq_len, plen + max_new_tokens)
+
+    buf = np.zeros((model_batch, seq_len), np.int32)
+    buf[:beam_size, :plen] = prompt_ids  # every beam starts from the prompt
+    pos = np.tile(np.arange(seq_len, dtype=np.int32), (model_batch, 1))
+    scores = np.full(beam_size, -np.inf, np.float64)
+    scores[0] = 0.0  # step 1: only one distinct hypothesis exists
+    alive = np.ones(beam_size, bool)
+    gen_len = np.zeros(beam_size, np.int64)  # emitted tokens per beam
+
+    for t in range(plen, total):
+        step = _step_logits(ff, buf, pos, beam_size, t - 1)
+        z = step - step.max(-1, keepdims=True)
+        lp = z - np.log(np.exp(z).sum(-1, keepdims=True))  # [beam, vocab]
+        vocab = lp.shape[-1]
+        cand = scores[:, None] + np.where(alive[:, None], lp, -np.inf)
+        if eos_id >= 0 and not alive.all():
+            # a finished beam competes as one stay-put candidate
+            cand[~alive, :] = -np.inf
+            cand[~alive, 0] = scores[~alive]
+        flat = cand.reshape(-1)
+        top = np.argsort(-flat)[:beam_size]
+        src_beam, tok = top // vocab, (top % vocab).astype(np.int32)
+        new_buf = buf[:beam_size][src_beam].copy()
+        new_alive = alive[src_beam].copy()
+        new_buf[new_alive, t] = tok[new_alive]  # frozen beams keep padding
+        gen_len = gen_len[src_beam] + new_alive
+        if eos_id >= 0:
+            new_alive &= tok != eos_id
+        buf[:beam_size] = new_buf
+        scores = flat[top]
+        alive = new_alive
+        if eos_id >= 0 and not alive.any():
+            break
+    if length_penalty > 0.0:
+        norm = ((5.0 + np.maximum(gen_len, 1).astype(np.float64)) / 6.0) \
+            ** length_penalty
+        best = int(np.argmax(scores / norm))
+    else:
+        best = int(np.argmax(scores))
+    return buf[best, :total].copy(), float(scores[best])

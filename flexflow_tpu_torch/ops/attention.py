@@ -1,7 +1,7 @@
 """Multi-head attention (flexflow_tpu/ops/attention.py).
 
 Per-projection weights in the reference's layout: wq/wk/wv are
-[embed, heads, head_dim] and wo is [heads, head_dim, embed].  Two
+[embed, heads, head_dim] and wo is [heads, head_dim, embed].  Three
 modes run in the port:
 
   * the train-graph forward `_attend`, in training and inference.  At
@@ -13,6 +13,12 @@ modes run in the port:
     score matrix, whose dropout draws from the executor's
     torch.Generator.  A sharded sequence (ring attention) raises until
     the multi-GPU slice;
+  * the DENSE decode mode (decode_max_seq > 0, kv_page_size 0), the
+    decode twin of decoding.gpt_generate_cached, _scan and the beam
+    search: [b, decode_max_seq, h, d] caches and a cache_pos counter in
+    the op state, written in place under torch.no_grad() at device-side
+    indices (`_attend_decode`), read by two einsums over the whole
+    cache with the unwritten slots masked at finfo(dtype).min;
   * the PAGED decode mode (decode_max_seq > 0 and kv_page_size > 0),
     the serving tier's step: scatter this step's k/v into the block
     pool at each row's own position, in plain torch indexing and IN
@@ -279,16 +285,48 @@ class MultiHeadAttention(Op):
                 out = out + bo[None, None]
             return [out.to(q.dtype), k_cache, v_cache, btab, slen]
         if self._decode_n() > 0:
-            raise NotImplementedError(
-                f"{self.name}: the dense-cache decode mode "
-                "(_attend_decode) is not in the serving slice of the "
-                "port; build the paged twin (kv_page_size > 0)")
+            k_cache, v_cache, pos = weights[-3:]
+            ctx = self._attend_decode(qh, kh, vh, k_cache, v_cache, pos,
+                                      scale)
+            out = torch.einsum("bqhd,hde->bqe", ctx, wo)
+            if bo is not None:
+                out = out + bo[None, None]
+            return [out.to(q.dtype), k_cache, v_cache, pos]
         ctx = self._attend(qh, kh, vh, scale, training=training,
                            generator=generator)
         out = torch.einsum("bqhd,hde->bqe", ctx, wo)
         if bo is not None:
             out = out + bo[None, None]
         return [out.to(q.dtype)]
+
+    def _attend_decode(self, qh, kh, vh, k_cache, v_cache, pos, scale):
+        """Dense-cache incremental attention: this step's k/v are written
+        IN PLACE into the [b, N, h, d] caches at positions pos..pos+s-1
+        (`pos` is the [1] int32 cache_pos entry, which then advances by
+        s, in place), and the step's queries attend over the whole cache
+        with the slots past each query masked.  Every index stays on the
+        device, so a decode loop makes no host sync.  Causal: key slot k
+        is visible to query j when k <= pos + j; otherwise every written
+        slot (k < pos + s) is."""
+        p: MultiHeadAttentionParams = self.params
+        s = qh.shape[1]
+        n = k_cache.shape[1]
+        q_pos = pos.long() + torch.arange(s, device=qh.device)
+        with torch.no_grad():
+            k_cache.index_copy_(1, q_pos, kh.to(k_cache.dtype))
+            v_cache.index_copy_(1, q_pos, vh.to(v_cache.dtype))
+            pos.add_(s)
+        key_pos = torch.arange(n, device=qh.device)
+        if p.causal:
+            mask = key_pos[None, :] <= q_pos[:, None]  # [s, n]
+        else:
+            mask = (key_pos < q_pos[-1] + 1)[None, :].expand(s, n)
+        scores = torch.einsum("bqhd,bkhd->bhqk", qh,
+                              k_cache.to(qh.dtype)) * scale
+        scores = scores.masked_fill(~mask[None, None],
+                                    torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v_cache.to(qh.dtype))
 
     def _attend_decode_paged(self, qh, kh, vh, k_cache, v_cache, btab,
                              slen, scale):

@@ -15,14 +15,21 @@ pinned through ArrayInitializer; a bare parameter or buffer operand of
 add, sub, mul or div becomes a WeightOp holding its array, frozen when
 the source did not require grad.  Both keep the values they had at
 trace time: copy_weights leaves them as imported.  The reference's own
-refusals stay (masked_fill; expand of a bare parameter).  The
-string-IR file route of the reference (`torch_to_file`, `file_to_ff`)
-comes with a later slice (ROADMAP.md §1.B.4).
+refusals stay (masked_fill; expand of a bare parameter).
+
+The file route is the reference's: `torch_to_file` writes the trace as
+JSON lines (one record per fx node: its op, name, encoded args and
+kwargs, and the module config or canonical function name) with the
+get_attr tensors in an npz sidecar (`path + ".npz"`), and `file_to_ff`
+replays such a file onto an FFModel through the same lowering calls.
+A file written by either package loads in the other.
 """
 from __future__ import annotations
 
+import json
 import math
 import operator
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -605,6 +612,68 @@ class PyTorchModel:
                     outputs.append(env[args.name])
         return outputs
 
+    def torch_to_file(self, path: str):
+        """Write the trace to `path` as JSON lines, and its get_attr
+        tensors to `path + ".npz"` (when there are any)."""
+        modules = dict(self.traced.named_modules())
+        consts: Dict[str, np.ndarray] = {}
+        lines: List[str] = []
+
+        def enc(x):
+            if isinstance(x, torch.fx.Node):
+                return {"__ref__": x.name}
+            if isinstance(x, slice):
+                return {"__slice__": [x.start, x.stop, x.step]}
+            if isinstance(x, (list, tuple)):
+                return {"__list__": [enc(v) for v in x]}
+            if isinstance(x, torch.dtype):
+                return {"__dtype__": str(x).replace("torch.", "")}
+            if x is None or isinstance(x, (bool, int, float, str)):
+                return x
+            raise ValueError(f"unserializable arg {x!r} in fx trace")
+
+        for node in self.traced.graph.nodes:
+            if node.op == "placeholder":
+                lines.append(json.dumps({"op": "input", "name": node.name}))
+            elif node.op == "get_attr":
+                v = _fetch_attr(self.module, node.target)
+                if isinstance(v, torch.Tensor):
+                    consts[node.name] = v.detach().cpu().numpy()
+                    lines.append(json.dumps(
+                        {"op": "const", "name": node.name,
+                         "trainable": bool(v.requires_grad)}))
+                else:
+                    lines.append(json.dumps(
+                        {"op": "literal", "name": node.name, "value": v}))
+            elif node.op in ("call_module", "call_function", "call_method"):
+                if node.op == "call_module" and node.kwargs:
+                    raise ValueError(
+                        f"unsupported module kwargs {list(node.kwargs)} on "
+                        f"{node.target}")
+                rec = {"op": node.op, "name": node.name,
+                       "args": [enc(x) for x in node.args],
+                       "kwargs": {k: enc(v) for k, v in node.kwargs.items()}}
+                if node.op == "call_module":
+                    rec["config"] = module_config(modules[node.target])
+                elif node.op == "call_function":
+                    fname = _FN_NAMES.get(node.target)
+                    if fname is None:
+                        raise ValueError(
+                            f"unsupported function {node.target} in trace")
+                    rec["target"] = fname
+                else:
+                    rec["target"] = node.target
+                lines.append(json.dumps(rec))
+            elif node.op == "output":
+                args = node.args[0]
+                refs = ([x.name for x in args]
+                        if isinstance(args, (tuple, list)) else [args.name])
+                lines.append(json.dumps({"op": "output", "refs": refs}))
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        if consts:
+            np.savez(path + ".npz", **consts)
+
     def copy_weights(self, ff: FFModel):
         """Copy the module's parameters into the compiled FFModel (torch
         Linear [out, in] -> kernel [in, out]; conv kernels OIHW as they
@@ -681,6 +750,68 @@ def _copy_mha(m, entry):
         # appended bias token, torch [1, 1, E] -> [1, H, C]
         entry["bias_k"] = m.bias_k.detach().numpy().reshape(1, H, C).copy()
         entry["bias_v"] = m.bias_v.detach().numpy().reshape(1, H, C).copy()
+
+
+def file_to_ff(path: str, ff: FFModel,
+               inputs: Sequence[ParallelTensor]) -> List[ParallelTensor]:
+    """Replay a trace written by torch_to_file (of either package) onto
+    `ff`, through the same lowering calls as torch_to_ff; returns the
+    output tensors."""
+    consts = {}
+    if os.path.exists(path + ".npz"):
+        with np.load(path + ".npz") as data:
+            consts = dict(data)
+    env: Dict[str, object] = {}
+    input_iter = iter(inputs)
+    outputs: List[ParallelTensor] = []
+
+    def dec(x):
+        if isinstance(x, dict):
+            if "__ref__" in x:
+                return env[x["__ref__"]]
+            if "__slice__" in x:
+                return slice(*x["__slice__"])
+            if "__list__" in x:
+                return [dec(v) for v in x["__list__"]]
+            if "__dtype__" in x:
+                return x["__dtype__"]
+        return x
+
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            rec = json.loads(line)
+            op = rec["op"]
+            if op == "input":
+                env[rec["name"]] = next(input_iter)
+            elif op == "const":
+                env[rec["name"]] = _traced_array(consts[rec["name"]],
+                                                 rec.get("trainable", True))
+            elif op == "literal":
+                env[rec["name"]] = rec["value"]
+            elif op == "output":
+                outputs.extend(env[r] for r in rec["refs"])
+            else:
+                a = [dec(x) for x in rec["args"]]
+                kw = {k: dec(v) for k, v in rec["kwargs"].items()}
+                name = rec["name"]
+                if op == "call_module":
+                    env[name] = lower_module(ff, rec["config"], a, name)
+                elif op == "call_function":
+                    # tuples serialize as __list__: getitem indices, and
+                    # the shape tuples of `x.size()[:-1] + (h, d)`
+                    if rec["target"] == "getitem" and isinstance(a[1], list):
+                        a[1] = tuple(a[1])
+                    if rec["target"] == "add" and any(
+                            isinstance(v, tuple) for v in a):
+                        a = [tuple(v) if isinstance(v, list) else v
+                             for v in a]
+                    env[name] = lower_function(ff, rec["target"], a, kw, name)
+                else:
+                    env[name] = lower_method(ff, rec["target"], a, kw, name)
+    return outputs
 
 
 def _fetch_attr(module, target: str):

@@ -3,8 +3,12 @@ kernels' bounds on the route each kernel takes, the count of tensor
 core instructions per kernel instance read from a SASS listing, the
 paged-attention kernel's split grid and bytes bound, the phase list,
 the ViT-B/16 op-count table, the profiles' kernel kinds and busy time
-over two streams, and the zoo phases' table, graphs, layout plan, MoE
-routing record and tiny feeds."""
+over two streams, the zoo phases' table, graphs, layout plan, MoE
+routing record and tiny feeds, and the sequence and frontend phases'
+NMT sizing, data and gradient check, the dense twin's cache bytes, the
+generation check's exact equality, the Keras example table and its
+data, and the profiled kernel time's retake of a profile that lost
+records."""
 import sys
 from pathlib import Path
 
@@ -176,8 +180,13 @@ def test_vit_profile_kernel_kinds(name, kind):
 
 
 def test_phase_list_ends_with_the_zoo_path():
-    assert chip_smoke.ALL_PHASES.split(",")[14:] == ["zoo", "zoo_parity",
-                                                     "zoo_profile"]
+    assert chip_smoke.ALL_PHASES.split(",")[14:17] == ["zoo", "zoo_parity",
+                                                       "zoo_profile"]
+
+
+def test_phase_list_ends_with_the_sequence_and_frontend_path():
+    assert chip_smoke.ALL_PHASES.split(",")[17:] == [
+        "nmt", "generate", "keras", "onnx", "seq_parity"]
 
 
 def test_zoo_table_is_the_examples_configuration():
@@ -310,6 +319,64 @@ def test_device_busy_is_the_union_over_streams():
     assert rows["7"]["h2d_ms_per_step"] == 0
 
 
+def _profiles(monkeypatch, records: list):
+    """torch.profiler.profile replaced by one that holds records[i]
+    kernel records (each 2 us) in its i-th profile, and a torch whose
+    synchronize does nothing."""
+    import types
+
+    import torch.profiler
+
+    class Profile:
+        def __init__(self, activities):
+            self.n = records.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            evts = [_Evt(0, 2, "paged_attention_kernel<4>")
+                    for _ in range(self.n)] + [_Evt(0, 9, "fill")]
+            for e in evts:
+                e.device_type = "DeviceType.CUDA"
+            return evts
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(chip_smoke, "PROFILER_DROPS", [])
+    return types.SimpleNamespace(
+        cuda=types.SimpleNamespace(synchronize=lambda: None))
+
+
+class _Flush:
+    def zero_(self):
+        pass
+
+
+def test_profiled_ms_retakes_a_profile_that_lost_records(monkeypatch):
+    """A profile holding 11 of 30 records of the kernel is logged and
+    taken again; the next, with all 30, gives the median."""
+    fake = _profiles(monkeypatch, [11, 30])
+    ms = chip_smoke.profiled_ms(fake, lambda: None, _Flush(),
+                                "paged_attention_kernel")
+    assert ms == pytest.approx(0.002)
+    assert chip_smoke.PROFILER_DROPS == [{
+        "tag": "paged_attention_kernel", "attempt": 1, "records": 11,
+        "launches": 30}]
+
+
+@pytest.mark.parametrize("records", [[11, 11, 11], [31, 29, 0]])
+def test_profiled_ms_raises_when_every_profile_miscounts(monkeypatch,
+                                                         records):
+    fake = _profiles(monkeypatch, list(records))
+    with pytest.raises(RuntimeError, match="expected 30, in each of 3"):
+        chip_smoke.profiled_ms(fake, lambda: None, _Flush(),
+                               "paged_attention_kernel")
+    assert [d["records"] for d in chip_smoke.PROFILER_DROPS] == records
+
+
 @pytest.mark.parametrize("name,kind", [
     ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<"
      "at::native::(anonymous namespace)::OpaqueType<4u>, unsigned int, 4, "
@@ -343,3 +410,121 @@ def test_loader_steps_run_after_a_warm_step():
     assert len(calls) == 1
     run()
     assert calls == [list(y[i:i + 4]) for i in range(0, 16, 4)]
+
+
+def test_nmt_sizing_at_luong_widths():
+    """Luong et al.'s widths: ~1.49 TFLOP forward (the gate products
+    0.82, the vocabulary projection 0.64), ~4.46 per train step."""
+    f = chip_smoke.nmt_flops(128, **chip_smoke.NMT_WIDTH)
+    assert f["lstm"] == 8 * 2 * 128 * 50 * 2000 * 4000
+    assert f["vocab_proj"] == 2 * 128 * 50 * 1000 * 50000
+    assert f["forward"] == pytest.approx(1.486e12, rel=1e-3)
+    assert f["train_step"] == 3 * f["forward"]
+    assert chip_smoke.NMT_BATCH == 128
+
+
+def test_nmt_data_is_a_shifted_copy_task():
+    x, y = chip_smoke.nmt_data(np.random.RandomState(0), 6,
+                               **chip_smoke.NMT_TINY)
+    assert x["src"].shape == (6, 6) and x["tgt"].shape == y.shape == (6, 5)
+    assert (x["tgt"][:, 0] == 1).all()
+    np.testing.assert_array_equal(x["tgt"][:, 1:], y[:, :-1])
+    assert y.max() < chip_smoke.NMT_TINY["tgt_vocab"]
+    assert x["src"].dtype == y.dtype == np.int32
+
+
+def test_dense_twin_caches_of_gpt2_small_hold_604_mb():
+    """12 layers x k and v x [8, 1024, 12, 64] float32, from the decode
+    graph's state specs (not allocated)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_gpt
+
+    ff = FFModel(FFConfig(batch_size=8, device="cpu"))
+    w = dict(chip_smoke.WIDTH, seq_length=1)
+    build_gpt(ff, batch_size=8, max_positions=1024, decode_max_seq=1024,
+              **w)
+    n = sum(int(np.prod(s.shape.logical_shape)) * 4 for op in ff.layers.ops
+            for s in op.weight_specs if s.name in ("k_cache", "v_cache"))
+    assert n == 2 * 12 * 8 * 1024 * 768 * 4
+    assert round(n / 1e6) == 604
+
+
+def test_first_divergence_is_the_earliest_position():
+    a = np.zeros((3, 6), np.int32)
+    b = a.copy()
+    assert chip_smoke.first_divergence(a, b, 2) is None
+    b[2, 3] = b[0, 5] = b[1, 1] = 1
+    assert chip_smoke.first_divergence(a, b, 2) == (2, 3)
+
+
+def test_greedy_forms_must_be_equal():
+    """Any generated token that differs fails, at its row and position;
+    the prompt is not compared."""
+    want = np.array([[3, 5, 7, 9], [1, 2, 4, 8]], np.int32)
+    chip_smoke.greedy_equal("x", want, want.copy(), 2)
+    got = want.copy()
+    got[0, 1] = 0
+    chip_smoke.greedy_equal("x", want, got, 2)
+    got[1, 3] = 7
+    with pytest.raises(RuntimeError, match="row 1, position 3: 7 against 8"):
+        chip_smoke.greedy_equal("x", want, got, 2)
+
+
+def test_record_grads_holds_the_steps_gradients():
+    """The recorded gradients are the ones the update applied (SGD moves
+    each weight by -lr x grad); unwrapping restores the class's update;
+    the CPU reference of the nmt phase, from the same weights and batch,
+    gives the same gradients and loss."""
+    ff = chip_smoke.build_nmt_model("cpu", 4, chip_smoke.NMT_TINY)
+    x, y = chip_smoke.nmt_data(np.random.RandomState(1), 4,
+                               **chip_smoke.NMT_TINY)
+    init = ff.get_weights()
+    grads = chip_smoke.record_grads(ff)
+    loss = float(ff.train_step(x, y)["loss"])
+    del ff.executor.optimizer.update
+    assert "update" not in vars(ff.executor.optimizer)
+    after = ff.get_weights()
+    assert set(grads) == set(init)
+    for op, e in init.items():
+        for k, w in e.items():
+            np.testing.assert_allclose(after[op][k] - w,
+                                       -chip_smoke.NMT_LR * grads[op][k],
+                                       rtol=0, atol=1e-7)
+    ref = chip_smoke.nmt_cpu_grads(init, x, y, chip_smoke.NMT_TINY)
+    assert ref["loss"] == loss
+    diff = chip_smoke.grad_rel_diff(grads, ref["grads"])
+    assert len(diff) == sum(len(e) for e in init.values())
+    assert max(diff.values()) == 0.0
+
+
+def test_grad_rel_diff_is_relative_to_the_largest_gradient():
+    ref = {"a": {"kernel": np.array([2.0, -4.0]), "bias": np.zeros(2)}}
+    got = {"a": {"kernel": np.array([2.0, -3.0]),
+                 "bias": np.array([0.0, 1e-3])}}
+    diff = chip_smoke.grad_rel_diff(got, ref)
+    assert diff == {"a.kernel": 0.25, "a.bias": pytest.approx(1e27)}
+    assert chip_smoke.grad_rel_diff(ref, ref) == {"a.kernel": 0.0,
+                                                  "a.bias": 0.0}
+
+
+def test_keras_table_is_the_examples():
+    """Each examples/python/keras/*.py model at batch 64, and the LSTM
+    classifier at batch 32; each builds and compiles on the CPU, and its
+    data has the model's input shape."""
+    import flexflow_tpu_torch.keras as K
+    from flexflow_tpu_torch import FFConfig
+
+    table = chip_smoke.keras_models(K)
+    examples = {p.stem for p in (ROOT / "examples" / "python"
+                                 / "keras").glob("*.py")}
+    assert set(table) == examples | {"lstm_reuters"}
+    for name, (build, opt, loss, metrics, kind, b) in table.items():
+        assert b == (32 if name == "lstm_reuters" else 64)
+        m = build(FFConfig(batch_size=b, device="cpu"))
+        m.compile(optimizer=opt, loss=loss, metrics=metrics)
+        x, y, _ = chip_smoke.keras_data(K.datasets, kind, 2 * b)
+        src = m.ffmodel.layers.source_ops()[0].outputs[0].shape
+        assert x.shape[1:] == src.logical_shape[1:], name
+        assert len(x) == len(y) == 2 * b or kind == "cifar10"
+    x, y, synthetic = chip_smoke.keras_data(K.datasets, "reuters_ids", 4)
+    assert x.shape == (4, 200) and x.max() < 10000 and y.max() < 46

@@ -4,8 +4,9 @@ the paged decode step run through the paged-attention kernel; the
 layer-op slice's Dropout on a CUDA generator, BatchMatmul and the small
 ViT against the CPU; the zoo slice's prefetching loader (the card's
 batches against the CPU's, a long shuffled epoch with no staging buffer
-reused early), the MoE ops and a channels_last Concat against the CPU.
-These need a CUDA device and skip without one; on the GPU machine run
+reused early), the MoE ops and a channels_last Concat against the CPU;
+the sequence-model slice's LSTM, the dense decode twin and an ONNX
+import on the card against the CPU.  These need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
 (that machine has no jax, which tests/conftest.py imports).  This file
 imports no jax, so it runs where only torch is installed."""
@@ -636,3 +637,135 @@ def test_padded_pool_grads_on_card_match_cpu(cuda, pool, k, stride, pad):
     for got, want in zip(out["cuda"], out["cpu"]):
         assert float((got - want).abs().max()) <= 1e-6 * max(
             1.0, float(want.abs().max()))
+
+
+def test_lstm_on_card_matches_cpu(cuda):
+    """The LSTM op's forward and its grads over input, kernel and bias on
+    the card against the CPU, float32 with TF32 off, within 1e-5 of the
+    scale (cuBLAS's and MKL's GEMMs sum in other orders over 50 steps)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=8, device="cpu"))
+    op = ff.lstm(ff.create_tensor([8, 50, 32], name="x"), 64).owner_op
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(8, 50, 32, generator=gen)
+    k = 0.2 * torch.randn(96, 256, generator=gen)
+    b = 0.1 * torch.randn(256, generator=gen)
+    gy = torch.randn(8, 50, 64, generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ins = [t.to(dev).requires_grad_() for t in (x, k, b)]
+            (y,) = op.forward(ins[:1], ins[1:])
+            grads = torch.autograd.grad(y, ins, gy.to(dev))
+            out[dev] = [y.detach().cpu()] + [g.cpu() for g in grads]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-5 * max(
+            1.0, float(want.abs().max()))
+
+
+def test_dense_decode_step_on_card_matches_cpu(cuda):
+    """A small GPT's dense decode twin: 6 decode steps on the card
+    against the CPU with the same weights (logits and caches within
+    1e-5 of the scale, TF32 off); the caches stay on the card and are
+    written in place; greedy tokens of gpt_generate_cached and
+    gpt_generate_scan equal on both devices."""
+    from flexflow_tpu_torch import CompMode, FFConfig, FFModel
+    from flexflow_tpu_torch import decoding as D
+    from flexflow_tpu_torch.models.transformer import build_gpt
+
+    kw = dict(batch_size=4, seq_length=16, hidden_size=64, num_layers=2,
+              num_heads=4, intermediate_size=128, vocab_size=97)
+    ffs = {}
+    for dev in ("cuda", "cpu"):
+        ff = FFModel(FFConfig(batch_size=4, device=dev))
+        build_gpt(ff, **kw)
+        ff.compile(comp_mode=CompMode.INFERENCE)
+        ffs[dev] = ff
+    ffs["cuda"].set_weights(ffs["cpu"].get_weights())
+    decs = {dev: D.make_gpt_decoder(ff) for dev, ff in ffs.items()}
+    ids = np.random.RandomState(5).randint(0, 97, (4, 6)).astype(np.int32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cache = decs["cuda"]._state["attn_0"]["k_cache"]
+        logits = {dev: [] for dev in decs}
+        for dev, ffd in decs.items():
+            ffd.reset_decode_state()
+            for t in range(6):
+                logits[dev].append(ffd.decode_step({
+                    "input": ids[:, t:t + 1],
+                    "positions": np.full((4, 1), t, np.int32)}).cpu())
+        assert decs["cuda"]._state["attn_0"]["k_cache"] is cache
+        assert cache.is_cuda
+        for a, c in zip(logits["cuda"], logits["cpu"]):
+            assert float((a - c).abs().max()) <= 1e-5 * max(
+                1.0, float(c.abs().max()))
+        g, c = decs["cuda"].get_state(), decs["cpu"].get_state()
+        for op, entries in c.items():
+            for k, v in entries.items():
+                np.testing.assert_allclose(g[op][k], v, rtol=0, atol=1e-5)
+        toks = {dev: (D.gpt_generate_cached(ffd, ids[:, :3], 8),
+                      D.gpt_generate_scan(ffd, ids[:, :3], 8))
+                for dev, ffd in decs.items()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, c in zip(toks["cuda"], toks["cpu"]):
+        np.testing.assert_array_equal(a, c)
+    np.testing.assert_array_equal(*toks["cuda"])
+
+
+def test_onnx_import_on_card_runs_p1(cuda):
+    """chip_smoke's small ResNet as ONNX wire bytes (the port's
+    protowire), imported with ONNXModel and copy_weights on the card:
+    eval-mode forward against the torch module (1e-4 of the scale, TF32
+    off), every BatchNorm through P1 (8 launches per forward), and two
+    SGD steps against the port's CPU run within 1e-4."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.onnx_frontend import ONNXModel, module_to_onnx
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
+
+    _, _, SmallResNet = chip_smoke.resnet_modules()
+    torch.manual_seed(3)
+    module = SmallResNet()
+    with torch.no_grad():
+        module.train()
+        module(torch.randn(8, 3, 32, 32))
+    module.eval()
+    wire = module_to_onnx(module, (4, 3, 32, 32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ffs = {}
+        for dev in ("cuda", "cpu"):
+            ff = FFModel(FFConfig(batch_size=4, device=dev))
+            m = ONNXModel(wire)
+            m.apply(ff, [ff.create_tensor([4, 3, 32, 32], name="input")])
+            ff.compile(optimizer=SGDOptimizer(lr=0.01))
+            m.copy_weights(ff)
+            ffs[dev] = ff
+        rng = np.random.RandomState(3)
+        x = rng.randn(4, 3, 32, 32).astype(np.float32)
+        before = bk.bn_apply.launches
+        got = ffs["cuda"].forward({"input": x}).cpu()
+        assert bk.bn_apply.launches == before + 8
+        with torch.no_grad():
+            want = module(torch.from_numpy(x))
+        assert float((got - want).abs().max()) <= 1e-4 * max(
+            1.0, float(want.abs().max()))
+        y = rng.randint(0, 10, 4).astype(np.int32)
+        losses = {dev: [float(ff.train_step({"input": x}, y)["loss"])
+                        for _ in range(2)] for dev, ff in ffs.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
+                               atol=1e-4)

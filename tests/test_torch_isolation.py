@@ -34,7 +34,11 @@ def test_no_jax_or_reference_imports():
             "optimizer.py", "dataloader.py", "shape.py", "bn_apply.py",
             "layout.py", "checkpoint.py", "moe.py", "moe_dispatch.py",
             "experts.py", "inception.py", "resnet.py", "dlrm.py",
-            "candle_uno.py", "alexnet.py", "mlp.py"} <= names
+            "candle_uno.py", "alexnet.py", "mlp.py", "recurrent.py",
+            "nmt.py", "protowire.py", "datasets.py", "callbacks.py",
+            "layers.py", "sequence.py", "text.py", "export.py"} <= names
+    for sub in ("keras", "keras/preprocessing", "onnx_frontend"):
+        assert (PORT / sub / "__init__.py").is_file(), sub
     offenders = [(str(f.relative_to(ROOT)), m) for f in files
                  for m in _imported_roots(f)
                  if m in ("jax", "jaxlib", "flexflow_tpu")]
@@ -49,7 +53,14 @@ def test_import_leaves_jax_unloaded():
             "flexflow_tpu_torch.ops.kernels.flash_attention, "
             "flexflow_tpu_torch.ops.kernels.bn_apply, "
             "flexflow_tpu_torch.pcg.layout, "
-            "flexflow_tpu_torch.torch_frontend; "
+            "flexflow_tpu_torch.torch_frontend, "
+            "flexflow_tpu_torch.ops.recurrent, "
+            "flexflow_tpu_torch.models.nmt, flexflow_tpu_torch.keras, "
+            "flexflow_tpu_torch.keras.datasets, "
+            "flexflow_tpu_torch.keras.preprocessing, "
+            "flexflow_tpu_torch.onnx_frontend, "
+            "flexflow_tpu_torch.onnx_frontend.protowire, "
+            "flexflow_tpu_torch.onnx_frontend.export; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flexflow_tpu' or "
             "m.startswith('flexflow_tpu.')]; print(bad)")
