@@ -152,13 +152,32 @@ Phases, each a failure of which exits non-zero:
    3 batches; P1 53 launches per forward, as the fx import's plan.
 22. seq_parity: the tiny NMT, GPT generation forms and Keras LSTM, card
    against CPU, float32, TF32 off, within SEQ_PARITY_TOL.
+23. search: the train phase's BERT-base (batch 8, seq 2048, float32)
+   with FFConfig(search_budget=20, search_calibrate=True) over the
+   committed one-node HGX H100 machine file (sim/machines/hgx_h100_8.json):
+   unity_search(ff, 8) costs its candidates with op forwards timed on
+   the card into a fresh temporary cost cache (attention at seq 2048
+   through K1; K1's launches must be > 0; a sequence-sharded attention,
+   which cannot run alone, takes the measured/analytic ratio of one
+   device's block: its query block against every key), and must return an 8-device strategy, which is written and
+   must load back equal.  The simulator's step time of that strategy
+   and of data-parallel 8 with the measured costs; then compile with
+   search_budget > 0 on the one card (a one-device strategy), and with a
+   one-card strategy whose edge chain (repartition and combine, degree
+   2) compile must cancel, against the unsearched compile: losses of 2
+   SGD steps within PARITY_TOL; then calibrate_overlap on the one-card
+   model at batches 2 and 4, whose fitted compute scale must predict
+   the measured step at batch 8 within CAL_HELD_OUT_TOL.  K1-K3
+   launches of the search, the steps and the calibration go into the
+   kernels line.
 
 `--phases` runs a subset (e.g. `--phases kernels` after editing a
 kernel, `--phases bn_kernels,resnet,resnet_parity,resnet_profile` for
 the ResNet path, `--phases vit,vit_parity,vit_profile` for the ViT
 path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
 `--phases nmt,generate,keras,onnx,seq_parity` for the sequence-model
-and frontend slice).  Every line but the last two is one JSON object; the
+and frontend slice, `--phases search` for the search and simulator).
+Every line but the last two is one JSON object; the
 one before the last is the card's name and power limit as nvidia-smi
 prints them, and the last is {"ok": true, "device": {...}}.  Exits 2,
 printing no result, when torch.cuda.is_available() is false.
@@ -3489,11 +3508,250 @@ def phase_seq_parity(torch, card: str) -> dict:
 ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
               "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
-              "nmt,generate,keras,onnx,seq_parity")
+              "nmt,generate,keras,onnx,seq_parity,search")
+
+# the search phase: the Unity search's budget, the devices it searches
+# for (one HGX H100 node), the calibration's step windows and batch
+# sizes (fitted on all but the last, which is held out and predicted
+# within CAL_HELD_OUT_TOL of its measured step)
+SEARCH_BUDGET = 20
+SEARCH_DEVICES = 8
+SEARCH_MACHINE = "hgx_h100_8"
+CAL_ITERS, CAL_WINDOWS = 4, 2
+CAL_BATCHES = (2, 4, TRAIN_BATCH)
+CAL_HELD_OUT_TOL = 0.25
+
+
+def search_config(cache_file: str, budget: int = SEARCH_BUDGET,
+                  batch: int = TRAIN_BATCH, **kw):
+    """The search phase's FFConfig: the train phase's BERT-base batch,
+    ops timed on the card into `cache_file`, the HGX node file."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.sim.machine_model import machine_file
+
+    return FFConfig(batch_size=batch, device="cuda", seed=0,
+                    search_budget=budget, search_calibrate=True,
+                    op_cost_cache_file=cache_file,
+                    machine_model_file=machine_file(SEARCH_MACHINE), **kw)
+
+
+def search_bert(cfg):
+    """The train phase's BERT-base on `cfg` (at its batch size), not
+    compiled."""
+    from flexflow_tpu_torch import FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+
+    ff = FFModel(cfg)
+    build_bert(ff, batch_size=cfg.batch_size, seq_length=TRAIN_SEQ, **BERT)
+    return ff
+
+
+def cancelling_strategy():
+    """A one-card strategy whose edge chain shards the first FFN's
+    output two ways over its sequence dim and gathers it back:
+    apply_strategy inserts the pair and compile cancels it, so the steps
+    are the plain graph's."""
+    from flexflow_tpu_torch.strategy import data_parallel_strategy
+
+    s = data_parallel_strategy(1)
+    s.edge_ops["ffn1_0.out0"] = [("repartition", {"dim": 1, "degree": 2}),
+                                 ("combine", {"dim": 1, "degree": 2})]
+    return s
+
+
+def predicted_step(cfg, ff, machine, strategy) -> float:
+    """The simulator's step seconds for `strategy` over ff's layer graph,
+    with the search's simulator settings and the card's measured op
+    costs (the cost cache the search wrote)."""
+    from flexflow_tpu_torch.pcg.evaluator import IncrementalEvaluator
+    from flexflow_tpu_torch.pcg.mcmc import make_search_simulator
+    from flexflow_tpu_torch.sim.simulator import make_cost_model
+
+    cm = make_cost_model(cfg, machine)
+    res = IncrementalEvaluator(
+        ff.layers, make_search_simulator(cfg, machine, cm)).evaluate(strategy)
+    if res is None:
+        raise RuntimeError(f"search: {strategy.to_json()} is illegal")
+    return res.total_time
+
+
+def phase_search(torch, fa, card: str) -> dict:
+    """The Unity search over one HGX H100 node, costed by op forwards
+    timed on the card, then the searched one-card model trained against
+    the unsearched one, and the overlap calibration."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.sim import calibrate as cal
+    from flexflow_tpu_torch.sim.machine_model import make_machine_model
+    from flexflow_tpu_torch.sim.simulator import make_cost_model
+    from flexflow_tpu_torch.pcg.search import unity_search
+    from flexflow_tpu_torch.strategy import (Strategy, apply_strategy,
+                                             data_parallel_strategy)
+
+    tmp = tempfile.mkdtemp(prefix="ff_search_")
+    try:
+        cache = f"{tmp}/op_costs.json"  # fresh: every op timed anew
+        cfg = search_config(cache)
+        ff = search_bert(cfg)
+        reset_flash_launches(fa)
+        t0 = time.perf_counter()
+        best = unity_search(ff, SEARCH_DEVICES)
+        search_s = time.perf_counter() - t0
+        search_launches = flash_launches(fa)
+        stats = best.search_stats
+        if search_launches["K1"] <= 0 or stats["measured_ops"] <= 0:
+            raise RuntimeError(
+                f"search: {stats['measured_ops']} ops measured, flash "
+                f"launches {search_launches}: attention at seq "
+                f"{TRAIN_SEQ} must be timed through K1")
+        if best.total_devices != SEARCH_DEVICES:
+            raise RuntimeError(f"search: a strategy for "
+                               f"{best.total_devices} devices")
+        path = f"{tmp}/strategy.json"
+        best.save(path)
+        back = Strategy.load(path)
+        if back.to_json() != best.to_json():
+            raise RuntimeError("search: the strategy file did not load "
+                               "back equal")
+        machine8 = make_machine_model(cfg, SEARCH_DEVICES)
+        dp8 = data_parallel_strategy(SEARCH_DEVICES)
+        pred_best = predicted_step(cfg, ff, machine8, best)
+        pred_dp8 = predicted_step(cfg, ff, machine8, dp8)
+        del ff
+
+        # one card: the searched compile, and a strategy whose edge
+        # chain cancels, against the unsearched one
+        x, y = bert_data(2 * TRAIN_BATCH, seed=1)
+        losses = {}
+        step_launches = {}
+        strategies = {}
+        for name, budget, strategy in (
+                ("unsearched", 0, None), ("searched", SEARCH_BUDGET, None),
+                ("cancelled", 0, cancelling_strategy())):
+            m = search_bert(search_config(cache, budget=budget))
+            reset_flash_launches(fa)
+            m.compile(seed=0, strategy=strategy)
+            if strategy is not None:
+                inserted = [op.params.degree for op in
+                            apply_strategy(m.layers, strategy).ops
+                            if op.is_parallel_op() and op.params.degree > 1]
+                left = [op.name for op in m.operators.ops
+                        if op.is_parallel_op() and op.params.degree > 1]
+                if inserted != [2, 2] or left:
+                    raise RuntimeError(
+                        f"search: the cancelling chain inserted {inserted} "
+                        f"and left {left} in the compiled graph")
+            losses[name] = [float(m.train_step(
+                {"input": x[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]},
+                y[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])["loss"])
+                for i in range(2)]
+            step_launches[name] = flash_launches(fa)
+            strategies[name] = m.strategy.to_json()
+            del m
+            torch.cuda.empty_cache()
+        diff = max(abs(a - b) / max(abs(a), 1e-12)
+                   for name in ("searched", "cancelled")
+                   for a, b in zip(losses[name], losses["unsearched"]))
+        if not (all(np.isfinite(v).all() for v in losses.values())
+                and diff <= PARITY_TOL["loss"]):
+            raise RuntimeError(f"search: one-card losses {losses} differ "
+                               f"by {diff} (tolerance {PARITY_TOL['loss']})")
+        one = Strategy.from_json(strategies["searched"])
+
+        # the overlap calibration: fitted on the one-card model at the
+        # smaller batch sizes, then the simulator's prediction for the
+        # held-out batch against its measured step
+        machine1 = make_machine_model(cfg, 1)
+        cm = make_cost_model(cfg, machine1)
+
+        def builder(batch):
+            return lambda: search_bert(search_config(cache, budget=0,
+                                                     batch=batch))
+
+        def make_inputs(_ff):
+            b = _ff.config.batch_size
+            return {"input": x[:b]}, y[:b]
+
+        reset_flash_launches(fa)
+        t0 = time.perf_counter()
+        fit_batches = CAL_BATCHES[:-1]
+        fit = cal.calibrate_overlap([builder(b) for b in fit_batches],
+                                    [one] * len(fit_batches), machine1, cm,
+                                    make_inputs, iters=CAL_ITERS,
+                                    windows=CAL_WINDOWS)
+        held = cal.calibrate_overlap([builder(CAL_BATCHES[-1])], [one],
+                                     machine1, cm, make_inputs,
+                                     iters=CAL_ITERS,
+                                     windows=CAL_WINDOWS)["records"][0]
+        cal_s = time.perf_counter() - t0
+        cal_launches = flash_launches(fa)
+        if min(cal_launches.values()) <= 0:
+            raise RuntimeError(f"search: calibration launched "
+                               f"{cal_launches}")
+        held_pred = (fit["compute_scale"] * held[1]
+                     + fit["comm_scale"] * held[2]
+                     + fit["sync_scale"] * held[3])
+        held_err = abs(held_pred - held[0]) / held[0]
+        if not held_err <= CAL_HELD_OUT_TOL:
+            raise RuntimeError(
+                f"search: the calibration fitted on batches {fit_batches} "
+                f"predicts {held_pred * 1e3} ms at batch {CAL_BATCHES[-1]}, "
+                f"measured {held[0] * 1e3} ms: {held_err} over "
+                f"{CAL_HELD_OUT_TOL}")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: search_launches[k] + sum(v[k] for v in
+                                            step_launches.values())
+                + cal_launches[k] for k in search_launches}
+    rec = {
+        "phase": "search", "card": card,
+        "model": dict(BERT, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      dtype="float32"),
+        "machine": SEARCH_MACHINE, "devices": SEARCH_DEVICES,
+        "budget": SEARCH_BUDGET,
+        "search_s": search_s,
+        "measured_ops": stats["measured_ops"],
+        "unmeasurable_ops": stats["unmeasurable_ops"],
+        "cost_calls": stats["cost_calls"],
+        "measured_calls": stats["measured_calls"],
+        "measured_share": stats["measured_share"],
+        "scaled_calls": stats["scaled_calls"],
+        "scaled_ops": stats["scaled_ops"],
+        "strategy": json.loads(best.to_json()),
+        "search_cost_s": best.search_cost,
+        "predicted_step_ms": pred_best * 1e3,
+        "predicted_dp8_step_ms": pred_dp8 * 1e3,
+        "one_card_strategy": json.loads(strategies["searched"]),
+        "cancelled_strategy": json.loads(strategies["cancelled"]),
+        "losses": losses, "loss_rel_diff": diff,
+        "loss_tolerance": PARITY_TOL["loss"],
+        "calibration": {
+            "fit_batches": list(fit_batches),
+            "fit_measured_ms": [r[0] * 1e3 for r in fit["records"]],
+            "fit_simulated_ms": [sum(r[1:]) * 1e3 for r in fit["records"]],
+            "compute_scale": fit["compute_scale"],
+            "fit_max_rel_error": fit["max_rel_error"],
+            "held_out_batch": CAL_BATCHES[-1],
+            "held_out_simulated_ms": sum(held[1:]) * 1e3,
+            "held_out_predicted_ms": held_pred * 1e3,
+            "held_out_measured_ms": held[0] * 1e3,
+            "held_out_rel_error": held_err,
+            "held_out_tolerance": CAL_HELD_OUT_TOL,
+        },
+        "calibrate_s": cal_s,
+        "flash_launches_search": search_launches,
+        "flash_launches_compile_and_steps": step_launches,
+        "flash_launches_calibrate": cal_launches,
+        "flash_launches": launches,
+    }
+    emit(rec)
+    return rec
 
 
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
-                onnx=None) -> dict:
+                onnx=None, search=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
     main paths, agreement with the plain versions and the times of this
     run."""
@@ -3574,6 +3832,8 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
             "launches": train["flash_launches"][kid] if train else 0,
             "launches_per_train_step": (
                 train["flash_launches_per_step"][kid] if train else None),
+            "launches_search": (search["flash_launches"][kid]
+                                if search else None),
             "max_abs_err": max(w[0] for w in worst.values()),
             "max_err_over_scale_by_dtype": {
                 dt: w[1] for dt, w in worst.items()},
@@ -3631,6 +3891,7 @@ def main(argv=None) -> int:
           "note": "one nvcc per source, started together"})
     dev = torch.device("cuda")
     kern = flash = serve = train = bn = resnet = paged = onnx = None
+    search = None
     if "kernels" in phases:
         kern = phase_kernels(torch, pk, card, dev, paged_lib, build_s)
         flash = phase_flash_kernels(torch, fa, card, dev, flash_lib)
@@ -3687,8 +3948,11 @@ def main(argv=None) -> int:
         onnx = phase_onnx(torch, pk, fa, bk, card)
     if "seq_parity" in phases:
         phase_seq_parity(torch, card)
+    if "search" in phases:
+        search = phase_search(torch, fa, card)
     if kern is not None or bn is not None:
-        emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx))
+        emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,
+                         search))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,16 @@
 """Runtime configuration of the PyTorch port.
 
 Counterpart of flexflow_tpu/config.py, cut to the FFConfig fields and
-`from_args` flags the serving and training slices read: the batch size,
-epochs, learning rate and weight decay, the compute dtype, the seed of
-the weight init, attention's flash crossover, the paged KV-pool
-geometry of the continuous engine, and `device`, which the reference
-does not have.  The flag names are the reference's own.
+`from_args` flags the ported slices read: the batch size, epochs,
+learning rate and weight decay, the compute dtype, the seed of the
+weight init, attention's flash crossover, the paged KV-pool geometry of
+the continuous engine, the strategy search, simulator and strategy-file
+fields, and `device`, which the reference does not have.  The field and
+flag names and defaults are the reference's own, except
+`memory_per_device`, which is one H100's 80 GB.  The reference's
+multi-slice, strategy-store and fusion fields (ROADMAP §1.D, §1.E) are
+left out: FFConfig does not take them, and `from_args` raises on their
+flags rather than ignore them.
 """
 from __future__ import annotations
 
@@ -15,10 +20,28 @@ from typing import List, Optional
 
 import torch
 
+from .fftype import ParameterSyncType
+
 # default of FFConfig.flash_min_seq (the reference's DEFAULT_FLASH_MIN_SEQ)
 DEFAULT_FLASH_MIN_SEQ = 2048
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
+
+SEARCH_ALGOS = ("unity", "mcmc")
+
+# the reference's flags of the multi-slice hierarchy, the strategy store
+# and the fusion pass, which the port does not carry yet
+_UNPORTED_FLAGS = {
+    "--slices": "ROADMAP §1.D (multi-node SliceHierarchy)",
+    "--dcn-bandwidth": "ROADMAP §1.D (multi-node SliceHierarchy)",
+    "--dcn-latency": "ROADMAP §1.D (multi-node SliceHierarchy)",
+    "--slice-topology": "ROADMAP §1.D (multi-node SliceHierarchy)",
+    "--dcn-bucket-mb": "ROADMAP §1.D (multi-node SliceHierarchy)",
+    "--strategy-store": "ROADMAP §1.E (store/ cached search)",
+    "--no-strategy-store": "ROADMAP §1.E (store/ cached search)",
+    "--compilation-cache": "ROADMAP §1.E (store/ cached search)",
+    "--fusion": "ROADMAP §1.D (the fusion pass, with the executor)",
+}
 
 
 @dataclasses.dataclass
@@ -46,6 +69,57 @@ class FFConfig:
     serving_slots: int = 8     # continuous decode batch slots
     prefill_chunk: int = 8     # prompt tokens per prefill dispatch
     prefix_cache: bool = True  # copy-on-write prompt-prefix sharing
+
+    # -- machine resources (reference: --nodes, -ll:fsize)
+    num_nodes: int = 1
+    memory_per_device: int = 80_000_000_000  # one H100's HBM, bytes
+
+    # -- strategy search (reference: --budget, --alpha, --search-algo,
+    #    --enable-*-parallel, --only-data-parallel, --memory-search)
+    search_budget: int = 0
+    search_alpha: float = 0.05
+    search_algo: str = "unity"  # "unity" (Unity DP) | "mcmc" (SysML'19)
+    # MCMC propagate move: a rewrite may spread to identical ops
+    search_propagate: bool = True
+    # memoize revisited candidates and delta-simulate single-op moves
+    # (pcg/evaluator.py); delta == full evaluation is a tested invariant
+    search_eval_cache: bool = True
+    # rewrite enumeration breadth of the Unity search
+    rewrite_depth: int = 2
+    rewrite_max_variants: int = 8
+    only_data_parallel: bool = False
+    enable_parameter_parallel: bool = False
+    enable_attribute_parallel: bool = False
+    enable_sample_parallel: bool = False
+    # credit gradient sync as mostly hidden behind backward compute
+    search_overlap_backward_update: bool = False
+    # TASO catalog path; None = the default resolution of
+    # pcg/rewrite.default_substitution_catalog, ""/"none" = off
+    substitution_json: Optional[str] = None
+    # time each op's forward on the card for the search's cost model;
+    # None = on when the config's device is CUDA (should_calibrate)
+    search_calibrate: Optional[bool] = None
+    # measured (node_key -> seconds) cache; None = the default file
+    # under the port's cache directory (sim/simulator.py)
+    op_cost_cache_file: Optional[str] = None
+    memory_search: bool = False
+    memory_lambda: float = 1.0
+    export_strategy_file: Optional[str] = None
+    import_strategy_file: Optional[str] = None
+
+    # -- simulator / machine model (reference: --machine-model-version,
+    #    --machine-model-file, --simulator-segment-size)
+    machine_model_version: int = 0
+    machine_model_file: Optional[str] = None
+    simulator_segment_size: int = 16777216
+
+    # -- execution: the ZeRO stage (0-3), the mesh axis the update
+    #    shards over, activation remat and the gradient sync the simulator costs.  The port executes stage 0 without
+    #    remat on one device; compile raises for what it cannot run
+    zero_stage: int = 0
+    wus_axis: str = "data"
+    remat: bool = False
+    parameter_sync: ParameterSyncType = ParameterSyncType.ALL_REDUCE
 
     def __post_init__(self):
         if self.compute_dtype not in COMPUTE_DTYPES:
@@ -78,6 +152,38 @@ class FFConfig:
             raise ValueError(
                 f"prefill_chunk must be >= 0 (0 = one-token prefill), "
                 f"got {self.prefill_chunk}")
+        if self.search_algo not in SEARCH_ALGOS:
+            raise ValueError(f"search_algo must be one of {SEARCH_ALGOS}, "
+                             f"got {self.search_algo!r}")
+        if self.search_budget < 0:
+            raise ValueError(
+                f"search_budget must be >= 0, got {self.search_budget}")
+        if self.zero_stage not in (0, 1, 2, 3):
+            raise ValueError(f"zero_stage must be one of (0, 1, 2, 3), "
+                             f"got {self.zero_stage!r}")
+        if not self.wus_axis:
+            raise ValueError("wus_axis must be a non-empty mesh axis name")
+        if self.num_nodes < 1:
+            raise ValueError(f"num_nodes must be >= 1, got {self.num_nodes}")
+        if self.memory_per_device <= 0:
+            raise ValueError(f"memory_per_device must be > 0 bytes, got "
+                             f"{self.memory_per_device}")
+        self.parameter_sync = ParameterSyncType(self.parameter_sync)
+
+    def should_calibrate(self) -> bool:
+        """search_calibrate's auto mode: measured op costs when the
+        config's device is a CUDA card, the analytic roofline on the
+        CPU."""
+        if self.search_calibrate is not None:
+            return self.search_calibrate
+        return torch.device(self.device).type == "cuda"
+
+    def resolve_num_devices(self) -> int:
+        """The devices a search targets by default: every visible card
+        on CUDA, one on the CPU."""
+        if torch.device(self.device).type == "cuda":
+            return torch.cuda.device_count()
+        return 1
 
     @classmethod
     def from_args(cls, argv: Optional[List[str]] = None) -> "FFConfig":
@@ -103,7 +209,57 @@ class FFConfig:
                        type=int, default=8)
         p.add_argument("--no-prefix-cache", dest="prefix_cache",
                        action="store_false")
-        args, _ = p.parse_known_args(argv)
+        p.add_argument("--nodes", type=int, default=1)
+        p.add_argument("-ll:fsize", dest="fsize_mb", type=int,
+                       default=None)
+        p.add_argument("--budget", "--search-budget", dest="budget",
+                       type=int, default=0)
+        p.add_argument("--alpha", "--search-alpha", dest="alpha",
+                       type=float, default=0.05)
+        p.add_argument("--no-propagate", dest="search_propagate",
+                       action="store_false", default=True)
+        p.add_argument("--no-search-eval-cache", dest="search_eval_cache",
+                       action="store_false", default=True)
+        p.add_argument("--search-algo", dest="search_algo", type=str,
+                       default="unity", choices=SEARCH_ALGOS)
+        p.add_argument("--only-data-parallel", action="store_true")
+        p.add_argument("--enable-parameter-parallel", action="store_true")
+        p.add_argument("--enable-attribute-parallel", action="store_true")
+        p.add_argument("--enable-sample-parallel", action="store_true")
+        p.add_argument("--search-overlap-backward-update", "--overlap",
+                       dest="overlap_backward_update", action="store_true")
+        p.add_argument("--parameter-sync", dest="parameter_sync", type=str,
+                       default="all_reduce",
+                       choices=("none", "ps", "all_reduce"))
+        p.add_argument("--substitution-json", type=str, default=None)
+        p.add_argument("--rewrite-depth", type=int, default=2)
+        p.add_argument("--rewrite-max-variants", type=int, default=8)
+        p.add_argument("--search-calibrate", dest="search_calibrate",
+                       action="store_true", default=None)
+        p.add_argument("--no-search-calibrate", dest="search_calibrate",
+                       action="store_false")
+        p.add_argument("--op-cost-cache", dest="op_cost_cache", type=str,
+                       default=None)
+        p.add_argument("--memory-search", action="store_true")
+        p.add_argument("--machine-model-version", type=int, default=0)
+        p.add_argument("--machine-model-file", type=str, default=None)
+        p.add_argument("--simulator-segment-size", type=int,
+                       default=16777216)
+        p.add_argument("--zero-stage", dest="zero_stage", type=int,
+                       default=0, choices=(0, 1, 2, 3))
+        p.add_argument("--wus-axis", dest="wus_axis", type=str,
+                       default="data")
+        p.add_argument("--remat", action="store_true")
+        p.add_argument("--export-strategy", dest="export_strategy",
+                       type=str, default=None)
+        p.add_argument("--import-strategy", dest="import_strategy",
+                       type=str, default=None)
+        args, rest = p.parse_known_args(argv)
+        for arg in rest:
+            flag = arg.split("=", 1)[0]
+            if flag in _UNPORTED_FLAGS:
+                raise NotImplementedError(
+                    f"{flag} is not ported yet: {_UNPORTED_FLAGS[flag]}")
         return cls(
             epochs=args.epochs,
             batch_size=args.batch_size,
@@ -117,6 +273,34 @@ class FFConfig:
             serving_slots=args.serving_slots,
             prefill_chunk=args.prefill_chunk,
             prefix_cache=args.prefix_cache,
+            num_nodes=args.nodes,
+            memory_per_device=(args.fsize_mb * 2**20 if args.fsize_mb
+                               else cls.memory_per_device),
+            search_budget=args.budget,
+            search_alpha=args.alpha,
+            search_algo=args.search_algo,
+            search_propagate=args.search_propagate,
+            search_eval_cache=args.search_eval_cache,
+            rewrite_depth=args.rewrite_depth,
+            rewrite_max_variants=args.rewrite_max_variants,
+            only_data_parallel=args.only_data_parallel,
+            enable_parameter_parallel=args.enable_parameter_parallel,
+            enable_attribute_parallel=args.enable_attribute_parallel,
+            enable_sample_parallel=args.enable_sample_parallel,
+            search_overlap_backward_update=args.overlap_backward_update,
+            substitution_json=args.substitution_json,
+            search_calibrate=args.search_calibrate,
+            op_cost_cache_file=args.op_cost_cache,
+            memory_search=args.memory_search,
+            export_strategy_file=args.export_strategy,
+            import_strategy_file=args.import_strategy,
+            machine_model_version=args.machine_model_version,
+            machine_model_file=args.machine_model_file,
+            simulator_segment_size=args.simulator_segment_size,
+            zero_stage=args.zero_stage,
+            wus_axis=args.wus_axis,
+            remat=args.remat,
+            parameter_sync=ParameterSyncType(args.parameter_sync),
         )
 
 

@@ -25,7 +25,8 @@ def _expected(ff, trainable: bool) -> Dict[str, Dict[str, tuple]]:
     """{op: {entry: (shape, torch dtype)}} of ff's trainable weights, or
     of its op state."""
     out: Dict[str, Dict[str, tuple]] = {}
-    for op in ff.layers.topo_order():
+    graph = ff.operators if ff.operators is not None else ff.layers
+    for op in graph.topo_order():
         nt = op.num_trainable_weights()
         specs = op.weight_specs[:nt] if trainable else op.weight_specs[nt:]
         for spec in specs:

@@ -3,8 +3,8 @@
 Counterpart of flexflow_tpu/fftype.py: the same enum names and values,
 so a graph described in one package reads the same in the other.
 `DataType` maps onto torch dtypes instead of jnp dtypes.  Only the
-enums the serving, training, ResNet, layer-op, model-zoo and
-sequence-model slices reach are carried.
+enums the serving, training, ResNet, layer-op, model-zoo,
+sequence-model and search slices reach are carried.
 """
 from __future__ import annotations
 
@@ -116,6 +116,43 @@ class OperatorType(enum.Enum):
     AGGREGATE = "aggregate"
     AGGREGATE_SPEC = "aggregate_spec"
     LSTM = "lstm"
+    # size-changing replication and reduction in the reference's own
+    # convention (d stacked copies along a dim; the fold-sum of d
+    # slices): compute ops, not in the parallel set
+    REPLICATE_STACK = "replicate_stack"
+    REDUCTION_FOLD = "reduction_fold"
+    FUSED = "fused"
+    # the parallel ops (parallel/parallel_op.py)
+    REPARTITION = "repartition"
+    COMBINE = "combine"
+    REPLICATE = "replicate"
+    REDUCTION = "reduction"
+    ALLTOALL = "all_to_all"
+    PIPELINE = "pipeline"
+    FUSED_PARALLEL = "fused_parallel"
+
+    def is_parallel_op(self) -> bool:
+        return self in _PARALLEL_OPS
+
+
+_PARALLEL_OPS = frozenset({
+    OperatorType.REPARTITION,
+    OperatorType.COMBINE,
+    OperatorType.REPLICATE,
+    OperatorType.REDUCTION,
+    OperatorType.ALLTOALL,
+    OperatorType.PIPELINE,
+    OperatorType.FUSED_PARALLEL,
+})
+
+
+class ParameterSyncType(enum.Enum):
+    """How the simulator costs gradient sync (reference config.h:55-59):
+    a ring all-reduce (NCCL) or a parameter server's flat 2·size/BW."""
+
+    NONE = "none"
+    PS = "ps"
+    ALL_REDUCE = "all_reduce"
 
 
 class OpUnary(enum.Enum):

@@ -6,7 +6,8 @@ batch_norm, layer_norm, softmax, dropout, cast, the shape ops,
 weight_tensor, mean, the binary and unary elementwise ops and the
 scalar ones, the MoE calls top_k, group_by, aggregate,
 aggregate_spec, experts_dense and moe, and lstm), `compile` on one
-device under the trivial strategy (training or inference),
+device (training or inference) under a given, imported or searched
+strategy (pcg/search.py), or the layer graph as it is,
 `train_step`, `eval_step`, `fit`, `forward`, the reference's step
 surface (`set_learning_rate`, `zero_gradients`, `backward`, `update`,
 `init_operators`), the dense-cache decode surface (`decode_step`,
@@ -57,7 +58,37 @@ from .ops.shape import (Concat, ConcatParams, Expand, ExpandParams, Flat,
 from .ops.sources import InputOp, SourceParams, WeightOp
 from .optimizer import Optimizer, SGDOptimizer
 from .pcg.graph import Graph
+from .strategy import (Strategy, apply_strategy, assign_views,
+                       data_parallel_strategy)
 from .tensor import ParallelTensor, ParallelTensorShape
+
+# what the port's one-card executor runs; the rest is ROADMAP §1.D
+_EXECUTOR_1D = "ROADMAP §1.D (multi-GPU execution)"
+
+
+def check_executable(strategy: Strategy, cfg: FFConfig) -> None:
+    """Raise NotImplementedError, naming ROADMAP §1.D, when `strategy`
+    needs what the one-card executor lacks: more than one device, a
+    pipeline, a ZeRO stage above 0, or a remat plan."""
+    zero = (strategy.zero_stage if strategy.zero_stage is not None
+            else cfg.zero_stage)
+    lacks = []
+    if strategy.total_devices > 1:
+        lacks.append(f"{strategy.total_devices} devices "
+                     f"(mesh {dict(strategy.mesh_axes)})")
+    if strategy.pipeline:
+        lacks.append(f"a pipeline {strategy.pipeline}")
+    if zero:
+        lacks.append(f"ZeRO stage {zero}")
+    if strategy.remat or cfg.remat:
+        lacks.append(f"a remat plan {strategy.remat or 'on every segment'}")
+    if lacks:
+        where = (f"; the strategy was written to {cfg.export_strategy_file}"
+                 if cfg.export_strategy_file else "")
+        raise NotImplementedError(
+            "the port's executor runs one card without pipelines, ZeRO or "
+            f"remat; this strategy needs {', '.join(lacks)}: "
+            f"{_EXECUTOR_1D}{where}")
 
 
 class FFModel:
@@ -66,6 +97,7 @@ class FFModel:
         self.device = resolve_device(self.config.device)
         self.layers = Graph()
         self.operators: Optional[Graph] = None
+        self.strategy: Optional[Strategy] = None
         self.executor: Optional[GraphExecutor] = None
         self._weights = None
         self._state = None
@@ -447,13 +479,28 @@ class FFModel:
                 metrics: Sequence[Union[MetricsType, str]] =
                 (MetricsType.ACCURACY,),
                 comp_mode: CompMode = CompMode.TRAINING,
+                strategy: Optional[Strategy] = None,
                 seed: Optional[int] = None):
-        """Build the executor on the config's device under the trivial
-        strategy, stamp FFConfig.flash_min_seq on every op, draw the
-        weights and the optimizer's state.  The default optimizer is
-        SGD at the config's learning rate and weight decay.  In
-        TRAINING mode the trainable weights require grad, for
-        train_step's autograd; INFERENCE leaves them plain."""
+        """Pick the strategy, build the executor on the config's device,
+        stamp FFConfig.flash_min_seq on every op, draw the weights and
+        the optimizer's state.
+
+        The strategy is `strategy`, else the config's
+        import_strategy_file, else, with search_budget > 0 (and not
+        only_data_parallel), the Unity or MCMC search's for
+        FFConfig.resolve_num_devices() devices (every card on CUDA, one
+        on the CPU); the strategy is written to export_strategy_file
+        when one is named.  A chosen strategy's rewrites are replayed on
+        the layer graph, the strategy applied, and inverse parallel-op
+        pairs cancelled.  A strategy that needs what the one-card
+        executor lacks (more than one device, a pipeline, a ZeRO stage,
+        a remat plan) raises NotImplementedError naming ROADMAP §1.D,
+        after the export.  With none of these, the layer graph runs as
+        it is under data_parallel_strategy(1).
+
+        The default optimizer is SGD at the config's learning rate and
+        weight decay.  In TRAINING mode the trainable weights require
+        grad, for train_step's autograd; INFERENCE leaves them plain."""
         cfg = self.config
         self.comp_mode = comp_mode
         self.optimizer = optimizer or SGDOptimizer(
@@ -465,7 +512,7 @@ class FFModel:
         self.loss = Loss(loss_type, from_logits=not sink_is_softmax)
         self.metrics = Metrics(self.loss.loss_type, metrics)
         cd = cfg.compute_dtype
-        self.operators = self.layers
+        self.operators = self._operators_for(self._pick_strategy(strategy))
         self.executor = GraphExecutor(
             self.operators, self.device,
             compute_dtype=None if cd == "float32" else getattr(torch, cd),
@@ -494,8 +541,59 @@ class FFModel:
         no step function to rebuild or cache per length."""
         if seq_length is None:
             return
-        for op in self.layers.ops:
-            op._iter_seq_length = int(seq_length)
+        for graph in (self.layers, self.operators):
+            for op in (graph.ops if graph is not None else ()):
+                op._iter_seq_length = int(seq_length)
+
+    def _pick_strategy(self, strategy: Optional[Strategy]
+                       ) -> Optional[Strategy]:
+        """The strategy compile applies (None: the layer graph as it
+        is), set on self.strategy with search_stats as the reference
+        sets them; exported when export_strategy_file names a file."""
+        cfg = self.config
+        if strategy is None and cfg.import_strategy_file:
+            strategy = Strategy.load(cfg.import_strategy_file)
+        if (strategy is None and cfg.search_budget > 0
+                and not cfg.only_data_parallel):
+            from .pcg.search import mcmc_search, unity_search
+
+            n = cfg.resolve_num_devices()
+            t0 = time.perf_counter()
+            if cfg.search_algo == "mcmc":
+                strategy = mcmc_search(self, n)
+            else:
+                strategy = unity_search(self, n)
+            strategy.search_stats["search_s"] = time.perf_counter() - t0
+        self.strategy = strategy or data_parallel_strategy(1)
+        if cfg.export_strategy_file:
+            self.strategy.save(cfg.export_strategy_file)
+        check_executable(self.strategy, cfg)
+        return strategy
+
+    def _operators_for(self, strategy: Optional[Strategy]) -> Graph:
+        """The graph the executor runs: the layer graph, or (given a
+        strategy) its rewrites replayed, the strategy applied and inverse
+        parallel-op pairs cancelled, with every tensor's MachineView
+        assigned."""
+        if strategy is None:
+            return self.layers
+        from .pcg.rewrite import (apply_rewrites,
+                                  cancel_all_inverse_parallel_ops,
+                                  rules_for_replay)
+
+        frontend = self.layers
+        if strategy.rewrites:
+            frontend = apply_rewrites(frontend, strategy.rewrites,
+                                      rules_for_replay(self.config, strategy))
+        graph = cancel_all_inverse_parallel_ops(
+            apply_strategy(frontend, strategy))
+        assign_views(graph, strategy.mesh_axes)
+        stamped = {op.name: op._iter_seq_length for op in self.layers.ops
+                   if hasattr(op, "_iter_seq_length")}
+        for op in graph.ops:
+            if op.name in stamped:
+                op._iter_seq_length = stamped[op.name]
+        return graph
 
     def _is_decode_graph(self) -> bool:
         return any(getattr(op, "_decode_max_seq", 0)

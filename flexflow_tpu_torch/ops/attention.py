@@ -125,6 +125,16 @@ class MultiHeadAttention(Op):
     def _paged(self) -> bool:
         return self._decode_n() > 0 and self._kv_page_size > 0
 
+    def ctor_kwargs(self) -> dict:
+        n = self._decode_n()
+        if not n:
+            return {}
+        kw = {"decode_max_seq": n}
+        if self._paged():
+            kw["kv_page_size"] = self._kv_page_size
+            kw["kv_num_blocks"] = self._kv_num_blocks
+        return kw
+
     def num_trainable_weights(self) -> int:
         p: MultiHeadAttentionParams = self.params
         return 4 + (4 if p.use_bias else 0) + (2 if p.add_bias_kv else 0)
@@ -402,3 +412,12 @@ class MultiHeadAttention(Op):
                               device=probs.device) < keep
             probs = probs * kept / keep
         return torch.einsum("bhqk,bkhd->bqhd", probs, vh)
+
+    def flops(self):
+        p: MultiHeadAttentionParams = self.params
+        b, s, e = self.inputs[0].shape.logical_shape
+        ks = self.inputs[1].shape.logical_shape[1]
+        proj = 2.0 * b * s * e * p.num_heads * p.k_channels * 3
+        proj += 2.0 * b * s * e * p.num_heads * p.v_channels
+        attn = 2.0 * b * p.num_heads * s * ks * (p.k_channels + p.v_channels)
+        return proj + attn

@@ -11,6 +11,7 @@ pcg/layout.py says so, and torch keeps that memory format through them.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -101,6 +102,10 @@ class Linear(Op):
             y = y + weights[1]
         return [apply_activation(y, p.activation)]
 
+    def flops(self):
+        ishape = self.inputs[0].shape
+        return 2.0 * ishape.num_elements() * self.params.out_channels
+
 
 @dataclasses.dataclass(frozen=True)
 class Conv2DParams:
@@ -181,6 +186,13 @@ class Conv2D(Op):
         y = F.conv2d(x, weights[0], weights[1] if p.use_bias else None,
                      stride=p.stride, padding=p.padding, groups=p.groups)
         return [apply_activation(y, p.activation)]
+
+    def flops(self):
+        oshape = self.outputs[0].shape
+        p: Conv2DParams = self.params
+        cin = self.inputs[0].shape.logical_shape[1]
+        return (2.0 * oshape.num_elements() * (cin // p.groups)
+                * p.kernel[0] * p.kernel[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,18 +318,28 @@ class BatchMatmul(Op):
     op_type = OperatorType.BATCH_MATMUL
 
     def infer_output_shapes(self, input_shapes):
-        # logical rules only: the degree and replica bookkeeping of the
-        # reference waits for the multi-GPU executor (ROADMAP §1.D)
-        a, b = (s.logical_shape for s in input_shapes)
-        if len(a) != len(b):
-            raise ShapeError(f"{self.name}: rank mismatch {len(a)} vs "
-                             f"{len(b)}")
-        if a[-1] != b[-2]:
+        a, b = input_shapes
+        ad = [d for d in a.dims if not d.is_replica_dim]
+        bd = [d for d in b.dims if not d.is_replica_dim]
+        if len(ad) != len(bd):
+            raise ShapeError(f"{self.name}: rank mismatch {len(ad)} vs "
+                             f"{len(bd)}")
+        if ad[-1].size != bd[-2].size:
             raise ShapeError(f"{self.name}: contraction mismatch")
-        if a[:-2] != b[:-2]:
-            raise ShapeError(f"{self.name}: batch dims mismatch")
-        return [ParallelTensorShape.make(a[:-1] + b[-1:],
-                                         input_shapes[0].dtype)]
+        for da, db in zip(ad[:-2], bd[:-2]):
+            if da.size != db.size or da.degree != db.degree:
+                raise ShapeError(f"{self.name}: batch dims mismatch")
+        if ad[-1].degree != bd[-2].degree:
+            raise ShapeError(f"{self.name}: contraction degrees differ")
+        # a partitioned contraction leaves partial sums: its degree
+        # becomes replication of the output
+        out_replica = max(a.replica_degree, b.replica_degree) * ad[-1].degree
+        dims = tuple(ParallelDim(d.size, d.degree) for d in ad[:-2]) + (
+            ParallelDim(ad[-2].size, ad[-2].degree),
+            ParallelDim(bd[-1].size, bd[-1].degree),
+            ParallelDim(1, out_replica, is_replica_dim=True),
+        )
+        return [ParallelTensorShape(dims, a.dtype)]
 
     def forward(self, inputs, weights, *, training=False, generator=None):
         a, b = inputs
@@ -327,6 +349,11 @@ class BatchMatmul(Op):
             a = _mask_seq(a, p.a_seq_length_dim, seq_len)
             b = _mask_seq(b, p.b_seq_length_dim, seq_len)
         return [torch.matmul(a, b)]
+
+    def flops(self):
+        a = self.inputs[0].shape.logical_shape
+        n = self.outputs[0].shape.logical_shape[-1]
+        return 2.0 * float(math.prod(a)) * n
 
 
 def _mask_seq(x: torch.Tensor, dim: int, seq_len: int) -> torch.Tensor:

@@ -82,3 +82,7 @@ class ExpertsDense(Op):
         if p.use_bias:
             y = y + weights[1][:, None, :]
         return [apply_activation(y, p.activation)]
+
+    def flops(self):
+        ishape = self.inputs[0].shape
+        return 2.0 * ishape.num_elements() * self.params.out_dim

@@ -99,3 +99,8 @@ class LSTM(Op):
         if self.params.return_sequences:
             return [torch.stack(outs, dim=1)]
         return [hid]
+
+    def flops(self) -> float:
+        b, s, d = self.inputs[0].shape.logical_shape
+        h = self.params.hidden_size
+        return 2.0 * b * s * (d + h) * 4 * h

@@ -4,7 +4,9 @@ axes), `Mean`, `Flat`, `Reshape`, `Expand`, `Transpose`, `Reverse`,
 of the reference's jnp call; the backward comes from autograd.  None is
 layout-agnostic (pcg/layout.py): the executor hands each a logical
 NCHW tensor, except a Concat or Split between channels_last edges,
-which runs on those along the same logical axis."""
+which runs on those along the same logical axis.  The shape rules
+propagate partition degrees as the reference's do and raise ShapeError
+on the same partitioned inputs."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,7 +33,7 @@ class Reduce(Op):
 
     def infer_output_shapes(self, input_shapes):
         (ishape,) = input_shapes
-        ddims = [d for d in ishape.dims if not d.is_replica_dim]
+        ddims = _data_dims(ishape)
         axes = {a % len(ddims) for a in self.params.axes}
         dims = []
         reduced_degree = 1
@@ -65,7 +67,7 @@ class Flat(Op):
 
     def infer_output_shapes(self, input_shapes):
         (ishape,) = input_shapes
-        ddims = [d for d in ishape.dims if not d.is_replica_dim]
+        ddims = _data_dims(ishape)
         if any(d.degree > 1 for d in ddims[1:]):
             raise ShapeError(f"{self.name}: flattened dims are partitioned")
         rest = 1
@@ -81,9 +83,32 @@ class Flat(Op):
         return [x.reshape(x.shape[0], -1)]
 
 
-# The ops below take the logical shape rules only: the port runs on one
-# device, and the reference's degree and replica bookkeeping waits for
-# the multi-GPU executor (ROADMAP §1.D).
+def _data_dims(shape: ParallelTensorShape):
+    return [d for d in shape.dims if not d.is_replica_dim]
+
+
+def _is_prefix_merge(ddims, target0: int) -> bool:
+    """True if target0 is the product of a leading run of input dims."""
+    prod = 1
+    for d in ddims:
+        prod *= d.size
+        if prod == target0:
+            return True
+        if prod > target0:
+            return False
+    return False
+
+
+def _is_prefix_split(lead_size: int, target) -> bool:
+    """True if a leading run of target dims multiplies to lead_size."""
+    prod = 1
+    for s in target:
+        prod *= s
+        if prod == lead_size:
+            return True
+        if prod > lead_size:
+            return False
+    return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +135,28 @@ class Reshape(Op):
         if math.prod(target) != numel:
             raise ShapeError(f"{self.name}: cannot reshape {ishape} to "
                              f"{target}")
-        return [ParallelTensorShape.make(target, ishape.dtype)]
+        ddims = _data_dims(ishape)
+        degrees = [1] * len(target)
+        # The leading (sample) dim's degree survives three cases in which
+        # every shard stays contiguous: the size is kept; a merge of the
+        # partitioned leading dim with following unpartitioned dims
+        # ([b(deg), s, h] -> [b*s, h]); a split of it into a prefix of
+        # the target ([b*s(deg), h] -> [b, s, h] with deg | b).
+        rest_whole = all(d.degree == 1 for d in ddims[1:])
+        lead = max(ddims[0].degree, 1) if ddims else 1
+        if ddims and target and rest_whole and (
+                ddims[0].size == target[0]
+                or (_is_prefix_merge(ddims, target[0])
+                    and target[0] % lead == 0)
+                or (_is_prefix_split(ddims[0].size, target)
+                    and target[0] % lead == 0)):
+            degrees[0] = ddims[0].degree
+        elif any(d.degree > 1 for d in ddims):
+            raise ShapeError(
+                f"{self.name}: reshape of partitioned dims unsupported")
+        dims = tuple(ParallelDim(s, g) for s, g in zip(target, degrees)) + (
+            ParallelDim(1, ishape.replica_degree, is_replica_dim=True),)
+        return [ParallelTensorShape(dims, ishape.dtype)]
 
     def forward(self, inputs, weights, *, training=False, generator=None):
         return [torch.reshape(inputs[0], self.outputs[0].shape.logical_shape)]
@@ -130,19 +176,23 @@ class Expand(Op):
 
     def infer_output_shapes(self, input_shapes):
         (ishape,) = input_shapes
-        shape = ishape.logical_shape
-        if len(self.params.sizes) != len(shape):
+        ddims = _data_dims(ishape)
+        if len(self.params.sizes) != len(ddims):
             raise ShapeError(f"{self.name}: expand rank "
                              f"{len(self.params.sizes)} != input rank "
-                             f"{len(shape)}")
-        out = []
-        for d, s in zip(shape, self.params.sizes):
-            s = d if s == -1 else s
-            if d != s and d != 1:
+                             f"{len(ddims)}")
+        dims = []
+        for d, s in zip(ddims, self.params.sizes):
+            s = d.size if s == -1 else s
+            if d.size != s and d.size != 1:
                 raise ShapeError(f"{self.name}: cannot expand dim of size "
-                                 f"{d} to {s}")
-            out.append(s)
-        return [ParallelTensorShape.make(out, ishape.dtype)]
+                                 f"{d.size} to {s}")
+            if d.size == 1 and s != 1 and d.degree != 1:
+                raise ShapeError(
+                    f"{self.name}: cannot expand partitioned dim")
+            dims.append(ParallelDim(s, d.degree))
+        dims.append(ParallelDim(1, ishape.replica_degree, is_replica_dim=True))
+        return [ParallelTensorShape(tuple(dims), ishape.dtype)]
 
     def forward(self, inputs, weights, *, training=False, generator=None):
         return [inputs[0].expand(self.outputs[0].shape.logical_shape)]
@@ -164,12 +214,14 @@ class Transpose(Op):
 
     def infer_output_shapes(self, input_shapes):
         (ishape,) = input_shapes
-        shape = ishape.logical_shape
+        ddims = _data_dims(ishape)
         perm = self.params.perm
-        if sorted(perm) != list(range(len(shape))):
+        if sorted(perm) != list(range(len(ddims))):
             raise ShapeError(f"{self.name}: bad perm {perm}")
-        return [ParallelTensorShape.make([shape[p] for p in perm],
-                                         ishape.dtype)]
+        dims = tuple(ParallelDim(ddims[p].size, ddims[p].degree)
+                     for p in perm) + (
+            ParallelDim(1, ishape.replica_degree, is_replica_dim=True),)
+        return [ParallelTensorShape(dims, ishape.dtype)]
 
     def forward(self, inputs, weights, *, training=False, generator=None):
         return [inputs[0].permute(self.params.perm).contiguous()]
@@ -184,7 +236,11 @@ class Reverse(Op):
     op_type = OperatorType.REVERSE
 
     def infer_output_shapes(self, input_shapes):
-        return [input_shapes[0]]
+        (ishape,) = input_shapes
+        ax = self.params.axis % ishape.logical_rank
+        if _data_dims(ishape)[ax].degree != 1:
+            raise ShapeError(f"{self.name}: reversed axis is partitioned")
+        return [ishape]
 
     def forward(self, inputs, weights, *, training=False, generator=None):
         return [torch.flip(inputs[0], [self.params.axis])]
@@ -203,13 +259,17 @@ class Pad(Op):
 
     def infer_output_shapes(self, input_shapes):
         (ishape,) = input_shapes
-        shape = ishape.logical_shape
         pads = self.params.pads
-        if len(pads) != len(shape):
+        if len(pads) != ishape.logical_rank:
             raise ShapeError(f"{self.name}: {len(pads)} pad pairs for rank "
-                             f"{len(shape)}")
-        return [ParallelTensorShape.make(
-            [d + b + a for d, (b, a) in zip(shape, pads)], ishape.dtype)]
+                             f"{ishape.logical_rank}")
+        dims = []
+        for d, (b, a) in zip(_data_dims(ishape), pads):
+            if (b or a) and d.degree != 1:
+                raise ShapeError(f"{self.name}: padded axis is partitioned")
+            dims.append(ParallelDim(d.size + b + a, d.degree))
+        dims.append(ParallelDim(1, ishape.replica_degree, is_replica_dim=True))
+        return [ParallelTensorShape(tuple(dims), ishape.dtype)]
 
     def forward(self, inputs, weights, *, training=False, generator=None):
         # F.pad takes (before, after) pairs from the last dim backwards
@@ -226,20 +286,25 @@ class Concat(Op):
     op_type = OperatorType.CONCAT
 
     def infer_output_shapes(self, input_shapes):
-        first = input_shapes[0].logical_shape
-        ax = self.params.axis % len(first)
+        first = input_shapes[0]
+        fd = _data_dims(first)
+        ax = self.params.axis % len(fd)
         total = 0
         for s in input_shapes:
-            shape = s.logical_shape
-            if len(shape) != len(first):
+            dd = _data_dims(s)
+            if len(dd) != len(fd):
                 raise ShapeError(f"{self.name}: rank mismatch")
-            for i in range(len(first)):
-                if i != ax and shape[i] != first[i]:
+            if dd[ax].degree != 1:
+                raise ShapeError(f"{self.name}: concat axis partitioned")
+            for i in range(len(fd)):
+                if i != ax and (dd[i].size != fd[i].size
+                                or dd[i].degree != fd[i].degree):
                     raise ShapeError(f"{self.name}: dim {i} mismatch")
-            total += shape[ax]
-        out = list(first)
-        out[ax] = total
-        return [ParallelTensorShape.make(out, input_shapes[0].dtype)]
+            total += dd[ax].size
+        dims = [ParallelDim(total, 1) if i == ax
+                else ParallelDim(d.size, d.degree) for i, d in enumerate(fd)]
+        dims.append(ParallelDim(1, first.replica_degree, is_replica_dim=True))
+        return [ParallelTensorShape(tuple(dims), first.dtype)]
 
     def forward(self, inputs, weights, *, training=False, generator=None):
         return [torch.cat(list(inputs), dim=self.params.axis)]
@@ -256,17 +321,18 @@ class Split(Op):
 
     def infer_output_shapes(self, input_shapes):
         (ishape,) = input_shapes
-        shape = ishape.logical_shape
-        ax = self.params.axis % len(shape)
-        if sum(self.params.sizes) != shape[ax]:
+        ddims = _data_dims(ishape)
+        ax = self.params.axis % len(ddims)
+        if ddims[ax].degree != 1:
+            raise ShapeError(f"{self.name}: split axis partitioned")
+        if sum(self.params.sizes) != ddims[ax].size:
             raise ShapeError(f"{self.name}: split sizes {self.params.sizes} "
-                             f"!= {shape[ax]}")
-        outs = []
-        for sz in self.params.sizes:
-            out = list(shape)
-            out[ax] = sz
-            outs.append(ParallelTensorShape.make(out, ishape.dtype))
-        return outs
+                             f"!= {ddims[ax].size}")
+        rep = ParallelDim(1, ishape.replica_degree, is_replica_dim=True)
+        return [ParallelTensorShape(
+            tuple(ParallelDim(sz if i == ax else d.size, d.degree)
+                  for i, d in enumerate(ddims)) + (rep,), ishape.dtype)
+            for sz in self.params.sizes]
 
     def forward(self, inputs, weights, *, training=False, generator=None):
         parts = torch.split(inputs[0], list(self.params.sizes),
@@ -293,7 +359,13 @@ class Gather(Op):
 
     def infer_output_shapes(self, input_shapes):
         data, index = input_shapes
-        return [ParallelTensorShape.make(index.logical_shape, data.dtype)]
+        ax = self.params.axis % data.logical_rank
+        if _data_dims(data)[ax].degree != 1:
+            raise ShapeError(f"{self.name}: gather axis partitioned")
+        dims = tuple(ParallelDim(d.size, d.degree)
+                     for d in _data_dims(index)) + (
+            ParallelDim(1, data.replica_degree, is_replica_dim=True),)
+        return [ParallelTensorShape(dims, data.dtype)]
 
     def forward(self, inputs, weights, *, training=False, generator=None):
         data, index = inputs

@@ -1,0 +1,329 @@
+"""Incremental strategy evaluator: memoization + delta simulation.
+
+Reference: the FlexFlow simulator's headline trick is *delta simulation*
+(simulate_runtime / mcmc_optimize lineage) — after an MCMC substitution
+it re-simulates only the tasks affected by the changed op, not the
+whole task graph.  The SPMD rewrite re-casts that at strategy
+granularity on top of sim/simulator.py's per-op term decomposition:
+
+  * **strategy memo** — a canonical signature of (mesh_axes,
+    shard_configs, edge_ops, rewrites, pipeline) keys a SimResult cache,
+    so revisited states (common under Metropolis rejection and propagate
+    moves) cost a dict lookup instead of a simulation;
+  * **delta apply** — when a candidate differs from the last applied
+    state only in per-op ShardConfigs, only the *dirty frontier* (the
+    changed ops plus downstream ops whose input parallel shapes changed)
+    is re-instantiated, re-propagated and re-viewed; every clean op
+    reuses its applied record — and its cached OpTerms — from the base;
+  * **exactness invariant** — delta_eval(state) == full_eval(state)
+    bit-for-bit: both paths hand the same topo-ordered op sequence to
+    Simulator.simulate_ops, which sums identical cached OpTerms in
+    identical order (tests/test_search_cache.py enforces this).
+
+Both searches (pcg/mcmc.py, pcg/unity.py) evaluate through this class;
+EvalStats carries the observability counters they log and return.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, FrozenSet, List, Optional, Tuple
+
+from ..fftype import OperatorType
+from ..ops.op import Op, ShardConfig
+from ..sim.simulator import SimResult, Simulator
+from ..strategy import (
+    Strategy,
+    assign_op_views,
+    build_edge_chain,
+    edge_chain_for,
+    reapply_op,
+)
+from .graph import Graph
+
+
+def _freeze(v):
+    """Recursively hashable form of JSON-ish strategy payloads."""
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    return v
+
+
+def _shard_key(sc: ShardConfig) -> Tuple[int, int, int, int]:
+    return (sc.channel, sc.reduction, sc.attribute, sc.expert)
+
+
+def _shard_map(strategy: Strategy) -> Dict[str, Tuple[int, int, int, int]]:
+    """Non-trivial configs only: a trivial ShardConfig entry is
+    indistinguishable from an absent one under apply_strategy."""
+    return {
+        name: _shard_key(sc)
+        for name, sc in strategy.shard_configs.items()
+        if not sc.is_trivial()
+    }
+
+
+def strategy_signature(strategy: Strategy) -> Tuple:
+    """Canonical memo key.  mesh_axes keeps its insertion ORDER (axis
+    order steers how assign_axes factors degrees onto axes of equal
+    size); shard_configs and edge_ops are order-normalized.  The ZeRO
+    stage is part of the key: the same sharding costed at different
+    rungs of the ladder is a different candidate — and so is the same
+    sharding under a different per-segment remat plan."""
+    remat = getattr(strategy, "remat", None)
+    return (
+        tuple(strategy.mesh_axes.items()),
+        tuple(sorted(_shard_map(strategy).items())),
+        _freeze(strategy.edge_ops),
+        _freeze(strategy.rewrites),
+        _freeze(strategy.pipeline),
+        getattr(strategy, "zero_stage", None),
+        tuple(remat) if remat is not None else None,
+    )
+
+
+@dataclasses.dataclass
+class EvalStats:
+    """Search-evaluation observability counters (tentpole part 3)."""
+
+    evals: int = 0          # evaluate() calls
+    memo_hits: int = 0      # answered by the strategy memo
+    full_evals: int = 0     # full apply + simulate
+    delta_evals: int = 0    # dirty-frontier apply + cached-term re-sum
+    illegal_evals: int = 0  # candidates pruned by Shape/ValueError
+    dirty_ops: int = 0      # Σ dirty-frontier sizes over delta evals
+    eval_seconds: float = 0.0
+
+    @property
+    def evals_per_sec(self) -> float:
+        return self.evals / self.eval_seconds if self.eval_seconds > 0 else 0.0
+
+    @property
+    def mean_dirty_frontier(self) -> float:
+        return self.dirty_ops / self.delta_evals if self.delta_evals else 0.0
+
+    def as_dict(self) -> Dict[str, float]:
+        d = dataclasses.asdict(self)
+        d["evals_per_sec"] = self.evals_per_sec
+        d["mean_dirty_frontier"] = self.mean_dirty_frontier
+        return d
+
+    def summary(self) -> str:
+        return (
+            f"evals={self.evals} memo_hits={self.memo_hits} "
+            f"full={self.full_evals} delta={self.delta_evals} "
+            f"illegal={self.illegal_evals} "
+            f"mean_frontier={self.mean_dirty_frontier:.1f} "
+            f"evals/s={self.evals_per_sec:.0f}"
+        )
+
+
+@dataclasses.dataclass
+class _OpRecord:
+    """One frontend op's applied unit: the re-instantiated op plus its
+    edge-chain parallel ops, in insertion order."""
+
+    applied: List[Op]
+    out_map: Dict[int, object]  # frontend out guid -> applied tensor
+    in_shapes: Tuple
+
+
+@dataclasses.dataclass
+class _AppliedState:
+    """The last successfully applied strategy — the delta base."""
+
+    mesh_items: Tuple
+    edges_key: Tuple
+    trace_key: Tuple
+    shard_map: Dict[str, Tuple[int, int, int, int]]
+    records: Dict[int, _OpRecord]  # frontend op guid -> record
+    order: List[Op]                # simulation order (applied ops)
+
+
+class IncrementalEvaluator:
+    """Memoized + delta evaluator for one frontend graph.
+
+    evaluate(strategy) returns the strategy's SimResult (with `ops`, the
+    applied topo-ordered op sequence, attached) or None when the
+    candidate is illegal (ShapeError / unfactorable view).  The applied
+    graphs it builds are cost-model shadows: weight initializers and
+    gradient flags are NOT carried over from the frontend (the simulator
+    never reads them) — use strategy.apply_strategy for execution.
+
+    Memo retention is bounded by sharing: a delta state's op sequence
+    reuses every clean op of its base, so distinct memoized states
+    retain roughly their dirty frontiers (a few ops each), not whole
+    graphs; fresh full graphs only accumulate one per distinct
+    (mesh, edge-chain) structure visited.
+    """
+
+    def __init__(self, graph: Graph, simulator: Simulator,
+                 training: bool = True, use_cache: bool = True):
+        self.graph = graph
+        self.topo = graph.topo_order()
+        self.sim = simulator
+        self.training = training
+        self.use_cache = use_cache
+        self.stats = EvalStats()
+        self._memo: Dict[Tuple, Optional[SimResult]] = {}
+        self._base: Optional[_AppliedState] = None
+
+    # -- public ----------------------------------------------------------
+    def evaluate(self, strategy: Strategy) -> Optional[SimResult]:
+        t0 = time.perf_counter()
+        self.stats.evals += 1
+        sig = strategy_signature(strategy) if self.use_cache else None
+        if sig is not None and sig in self._memo:
+            self.stats.memo_hits += 1
+            self.stats.eval_seconds += time.perf_counter() - t0
+            return self._memo[sig]
+        try:
+            res = self._evaluate_uncached(strategy)
+        except ValueError:  # ShapeError / unfactorable view -> illegal
+            self.stats.illegal_evals += 1
+            res = None
+        if sig is not None:
+            self._memo[sig] = res
+        self.stats.eval_seconds += time.perf_counter() - t0
+        return res
+
+    # -- construction ----------------------------------------------------
+    def _build_record(self, op: Op, in_pts: List, in_shapes: Tuple,
+                      strategy: Strategy, input_chain: List) -> _OpRecord:
+        applied: List[Op] = []
+        new_op = reapply_op(op, in_pts, strategy)
+        applied.append(new_op)
+        out_map: Dict[int, object] = {}
+        for old_out, new_out in zip(op.outputs, new_op.outputs):
+            chain = edge_chain_for(op, old_out, strategy, input_chain)
+            out_map[old_out.guid] = build_edge_chain(new_out, chain,
+                                                     applied.append)
+        return _OpRecord(applied=applied, out_map=out_map, in_shapes=in_shapes)
+
+    def _apply(
+        self, strategy: Strategy, base: Optional[_AppliedState],
+        dirty: FrozenSet[str],
+    ) -> Tuple[Dict[int, _OpRecord], List[Op], List[Tuple[int, _OpRecord]]]:
+        """Walk the frontend topo order building applied records; under a
+        delta (base given), reuse the base record of every op that is
+        config-clean AND sees unchanged input shapes — the rebuilt list
+        is exactly the dirty frontier."""
+        input_chain = strategy.edge_ops.get("__inputs__", [])
+        records: Dict[int, _OpRecord] = {}
+        tensor_map: Dict[int, object] = {}
+        new_ops: List[Op] = []
+        rebuilt: List[Tuple[int, _OpRecord]] = []
+        for op in self.topo:
+            if op.op_type == OperatorType.INPUT:
+                in_pts: List = []
+                in_shapes: Tuple = ()
+            else:
+                in_pts = [tensor_map[t.guid] for t in op.inputs]
+                in_shapes = tuple(pt.shape for pt in in_pts)
+            rec = None
+            if base is not None and op.name not in dirty:
+                brec = base.records.get(op.guid)
+                if brec is not None and brec.in_shapes == in_shapes:
+                    rec = brec
+            if rec is None:
+                rec = self._build_record(op, in_pts, in_shapes, strategy,
+                                         input_chain)
+                rebuilt.append((op.guid, rec))
+            records[op.guid] = rec
+            tensor_map.update(rec.out_map)
+            new_ops.extend(rec.applied)
+        return records, new_ops, rebuilt
+
+    def _dirty_set(self, strategy: Strategy,
+                   base: _AppliedState) -> Optional[FrozenSet[str]]:
+        """Op names whose ShardConfig changed vs the base, or None when
+        the candidate is not delta-eligible (different mesh / edge
+        chains / rewrite trace — or a memory model that needs
+        whole-graph structure)."""
+        if not self.training:
+            return None  # inference liveness memory needs full wiring
+        if self.sim.remat and getattr(strategy, "remat", None) is None:
+            # legacy bool remat prices memory via the whole-graph
+            # _remat_peak; a strategy-carried PLAN instead uses the
+            # order-based accounting, which delta-evaluates fine
+            return None
+        if tuple(strategy.mesh_axes.items()) != base.mesh_items:
+            return None
+        if _freeze(strategy.edge_ops) != base.edges_key:
+            return None
+        if (_freeze(strategy.rewrites), _freeze(strategy.pipeline)) != base.trace_key:
+            return None
+        new_map = _shard_map(strategy)
+        dirty = {
+            name
+            for name in set(new_map) | set(base.shard_map)
+            if new_map.get(name) != base.shard_map.get(name)
+        }
+        return frozenset(dirty)
+
+    def _evaluate_uncached(self, strategy: Strategy) -> SimResult:
+        # use_cache=False is the reference path: every evaluation is a
+        # full apply+simulate (the invariant tests diff against it)
+        base = self._base if self.use_cache else None
+        dirty = self._dirty_set(strategy, base) if base is not None else None
+        if dirty is not None:
+            records, new_ops, rebuilt = self._apply(strategy, base, dirty)
+        else:
+            records, new_ops, rebuilt = self._apply(strategy, None,
+                                                    frozenset())
+        for _, rec in rebuilt:  # clean reused ops keep their base views
+            for op_ in rec.applied:
+                assign_op_views(op_, strategy.mesh_axes)
+        if dirty is not None:
+            # positional substitution preserves the base's simulation
+            # order: the graphs are isomorphic, so a fresh topo sort
+            # would produce the same permutation anyway
+            repl = {}
+            for guid, rec in rebuilt:
+                for old_op, new_op in zip(base.records[guid].applied,
+                                          rec.applied):
+                    repl[id(old_op)] = new_op
+            order = [repl.get(id(o), o) for o in base.order]
+            graph = None
+            self.stats.delta_evals += 1
+            self.stats.dirty_ops += len(rebuilt)
+        else:
+            graph = Graph(new_ops)
+            order = graph.topo_order()
+            self.stats.full_evals += 1
+        mesh_axes = strategy.mesh_axes
+        # the strategy's search-chosen ZeRO stage overrides the
+        # simulator default per evaluation; the applied graph does not
+        # depend on it, so delta bases stay valid across stages (OpTerms
+        # are cached per stage)
+        stage = getattr(strategy, "zero_stage", None)
+        plan = getattr(strategy, "remat", None)
+        if self.training and plan is not None:
+            # searched per-segment remat: the order-based accounting
+            # works on the delta path (no Graph needed)
+            memory_fn = lambda: self.sim.remat_memory_from_terms(  # noqa: E731
+                order, mesh_axes, plan, self.training, zero_stage=stage,
+            )
+        elif self.training and not self.sim.remat:
+            memory_fn = lambda: self.sim.memory_from_terms(  # noqa: E731
+                order, mesh_axes, self.training, zero_stage=stage,
+            )
+        else:
+            memory_fn = lambda: self.sim.per_device_memory(  # noqa: E731
+                graph, self.training, mesh_axes=mesh_axes, zero_stage=stage,
+            )
+        res = self.sim.simulate_ops(order, mesh_axes, training=self.training,
+                                    memory_fn=memory_fn, zero_stage=stage,
+                                    remat_plan=plan)
+        res.ops = order  # applied op sequence, for callers needing shapes
+        self._base = _AppliedState(
+            mesh_items=tuple(mesh_axes.items()),
+            edges_key=_freeze(strategy.edge_ops),
+            trace_key=(_freeze(strategy.rewrites), _freeze(strategy.pipeline)),
+            shard_map=_shard_map(strategy),
+            records=records,
+            order=order,
+        )
+        return res

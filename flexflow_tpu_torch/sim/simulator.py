@@ -1,0 +1,1549 @@
+"""Simulator: predicts step time and memory for a strategy-applied PCG
+(flexflow_tpu/sim/simulator.py, the reference's src/runtime/simulator.cc).
+
+The execution model is SPMD: every device runs the same program on its
+shards, so the per-device timeline is one sequence of sharded compute
+ops and collectives.  The simulator costs
+
+  step = sum_ops max-shard compute (fwd [+ bwd])
+       + sum resharding collectives (the parallel ops)
+       + partial-sum reductions (contraction-dim sharding)
+       + gradient all-reduce over each weight's replica axes
+       - a compute/comm overlap credit.
+
+Compute costs come from an analytic roofline (flops / peak, bytes / HBM
+bandwidth) overridden by measurements where a `measure_fn` is given
+(profiler.make_measure_fn times each op's forward on the card, the
+reference's inner_measure_operator_cost), under one (node_key) -> cost
+cache.  Memory is accounted per device: weight, optimizer-slot and
+gradient shards plus the peak of live activations.  The per-tier comm
+fields keep the reference's names: "ici" is the tier inside a node (on
+an HGX H100, NVLink through NVSwitch) and "dcn" the tier between nodes
+(InfiniBand).  A collective goes on the second tier when its group
+holds a mesh axis that spans nodes (GpuNodeModel.node_spanning_axes,
+from the tensors' MachineViews); machines without that method put
+everything on the first.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..fftype import OperatorType
+from ..ops.op import Op
+from ..pcg.graph import Graph
+from .machine_model import MachineModel
+from ..config import resolve_device
+from ..topology.comm import CommCost, ZERO_COST, ring_bytes
+
+
+@dataclasses.dataclass
+class CostMetrics:
+    """Per-op cost record (reference CostMetrics simulator.h)."""
+
+    forward_time: float = 0.0
+    backward_time: float = 0.0
+    sync_time: float = 0.0
+    inputs_memory: int = 0
+    outputs_memory: int = 0
+    weights_memory: int = 0
+
+
+class SimResult:
+    """Simulation outcome.
+
+    `per_device_memory` is LAZY: searches only consume it when a memory
+    budget is set, but the liveness/remat scan behind it used to be paid
+    on every evaluation.  Constructing with `memory_fn` defers the scan
+    to first access (the computed value is then cached); constructing
+    with an int keeps the eager behavior.
+    """
+
+    def __init__(
+        self,
+        total_time: float,
+        compute_time: float,
+        comm_time: float,
+        sync_time: float,
+        per_device_memory: Optional[int] = None,
+        breakdown: Optional[Dict[str, float]] = None,
+        memory_fn: Optional[Callable[[], int]] = None,
+    ):
+        self.total_time = total_time
+        self.compute_time = compute_time
+        self.comm_time = comm_time
+        self.sync_time = sync_time
+        self.breakdown = breakdown if breakdown is not None else {}
+        self._memory = per_device_memory
+        self._memory_fn = memory_fn
+        # per-tier comm split (topology subsystem): simulate_ops fills
+        # it from the OpTerms ici_/dcn_ fields; zero on flat meshes
+        self.comm_tiers: Dict[str, float] = {
+            "ici_time": 0.0, "dcn_time": 0.0,
+            "ici_bytes": 0.0, "dcn_bytes": 0.0,
+        }
+        # searched-remat telemetry (mem/activation_bytes,
+        # compute/recompute_s): saved-activation bytes under the costed
+        # plan and the recompute seconds the plan charges; simulate_ops
+        # fills them (recompute_s is 0 for dense / legacy-bool runs)
+        self.activation_bytes: float = 0.0
+        self.recompute_s: float = 0.0
+
+    @property
+    def per_device_memory(self) -> int:
+        if self._memory is None:
+            self._memory = int(self._memory_fn()) if self._memory_fn else 0
+            self._memory_fn = None  # release the captured op sequence
+        return self._memory
+
+
+@dataclasses.dataclass(frozen=True)
+class OpTerms:
+    """One op's additive contribution to a simulation — the delta-sim
+    decomposition (reference delta simulation in simulate_runtime: after
+    an MCMC substitution only affected tasks re-simulate).  Every field
+    depends ONLY on the cache key — node_key (op type, params,
+    ShardConfig, input parallel shapes), mesh signature, training — so
+    terms are cached across candidate strategies and whole-graph totals
+    are re-aggregated from cache."""
+
+    compute: float = 0.0      # analytic fwd(+bwd) time, pre compute_scale
+    xfer: float = 0.0         # parallel-op resharding collective
+    partial: float = 0.0      # fwd partial-sum all-reduce (undoubled)
+    grad_sync: float = 0.0    # gradient sync over weight replica axes
+    #                           (all-reduce; reduce-scatter at stage >= 1)
+    opt_numel: float = 0.0    # master-precision elements the update touches
+    #                           (already /rep under the sharded update)
+    opt_xfer: float = 0.0     # post-update weight all-gather (stage 1/2)
+    gather_xfer: float = 0.0  # ZeRO-3 per-layer weight all-gathers
+    #                           (fwd + bwd re-gather; prefetch-credited)
+    ici_xfer: float = 0.0     # per-tier (uncredited) split of ALL the
+    dcn_xfer: float = 0.0     # op's comm seconds: inside a node vs
+    #                           across nodes (one node = all ICI);
+    #                           grad/opt legs fold in only when training
+    ici_bytes: float = 0.0    # per-device ring bytes over each tier —
+    dcn_bytes: float = 0.0    # the comm/{ici,dcn}_bytes telemetry split
+    mem_weights: int = 0      # per-device weight shard bytes (compute copy)
+    mem_master: int = 0       # per-device master-resident weight bytes
+    #                           (== mem_weights below stage 3; /group at 3)
+    mem_grad: int = 0         # per-device gradient buffer bytes
+    #                           (== mem_weights below stage 2; /group at 2+)
+    mem_gather: int = 0       # stage-3 gathered weight copy bytes for THIS
+    #                           op (double-buffer window: 2x the max rides
+    #                           the memory total)
+    mem_opt: int = 0          # per-device bytes ONE optimizer slot costs
+    #                           (== mem_weights replicated; grad weights
+    #                           /rep under the sharded update)
+    mem_residual: int = 0     # backward-residual activation bytes
+    mem_transient: int = 0    # fused transient workspace bytes (max-reduced)
+    mem_activation: int = 0   # per-device saved-activation bytes when this
+    #                           op's remat segment is OFF (== the dense
+    #                           residual term; a remat'd segment drops its
+    #                           internals from the step-long residency)
+    recompute: float = 0.0    # backward re-execution seconds when the
+    #                           op's segment is remat'd: the forward pass
+    #                           runs again inside backward (compute + fwd
+    #                           collectives; at ZeRO-3 the re-gather loses
+    #                           its double-buffered prefetch credit)
+
+
+_KERNEL_OVERHEAD = 2e-6  # per-op dispatch overhead
+
+#: semantic version of the analytic cost model + simulator formulas.
+#: Part of the strategy store's simulator-version key component
+#: (store/key.py): bump it whenever cost semantics change — OpTerms
+#: decomposition, comm estimators, overlap crediting, memory accounting
+#: — so strategies searched under the old model stop hitting and
+#: re-search under the new one instead of replaying stale rankings.
+#: (The learned cost model, arXiv:2008.01040, will ride this same
+#: constant: model retrain => version bump => fleet-wide invalidation.)
+#: v2: the ZeRO ladder — OpTerms grew mem_master/mem_grad/mem_gather/
+#: gather_xfer and the memory/update accounting became zero_stage-aware,
+#: so stage-blind v1 rankings must re-search.  A tier-1 guard test pins
+#: the OpTerms field set to this number (tests/test_zero_ladder.py):
+#: changing the decomposition without bumping here fails CI.
+#: v3: OpTerms grew the ici_xfer/dcn_xfer/ici_bytes/dcn_bytes per-tier
+#: split (a collective whose group spans nodes costs the inter-node
+#: form).
+#: v4: searched rematerialization — OpTerms grew
+#: mem_activation/recompute, and remat became a per-segment plan both
+#: searches cost under --memory-search.
+COST_MODEL_VERSION = 4
+
+#: per-candidate cap on the segments the searches treat as independent
+#: remat decisions; plans may still name higher indices (ignored past
+#: the graph's actual segment count)
+MAX_REMAT_SEGMENTS = 24
+
+#: overlap credit for the ZeRO-3 per-layer weight all-gathers: the
+#: executor double-buffers (layer k+1's gather issues before layer k's
+#: compute), but the gathers sit on the layer-boundary critical path, so
+#: they hide WORSE than generic resharding collectives.  This replaces
+#: the generic overlap_fraction credit for what used to be opt_xfer:
+#: 2 gathers/step at (1 - 0.5) exposed always costs more than stage 1's
+#: single post-update gather at the generic credit, which is what keeps
+#: unconstrained searches on stages <= 1.
+Z3_PREFETCH_OVERLAP = 0.5
+
+# backward/forward cost ratio per op class (replaces the old flat 2x:
+# conv/matmul backward really is two same-size contractions, but an
+# embedding backward is one gradient scatter with no input grad, and
+# elementwise/pool/softmax backward is a single pass like forward)
+_BWD_RATIO_DEFAULT = 2.0
+_BWD_RATIO = {
+    OperatorType.CONV2D: 2.0,
+    OperatorType.LINEAR: 2.0,
+    OperatorType.BATCH_MATMUL: 2.0,
+    # flash backward recomputes scores in both the dq and dkv kernels
+    OperatorType.MULTIHEAD_ATTENTION: 2.5,
+    OperatorType.EMBEDDING: 1.0,
+    OperatorType.BATCH_NORM: 1.5,
+    OperatorType.LAYER_NORM: 1.5,
+    OperatorType.POOL2D: 1.0,
+    OperatorType.SOFTMAX: 1.0,
+    OperatorType.DROPOUT: 1.0,
+    OperatorType.CAST: 1.0,
+    OperatorType.ELEMENT_UNARY: 1.0,
+    OperatorType.ELEMENT_BINARY: 1.0,
+    OperatorType.CONCAT: 1.0,
+    OperatorType.SPLIT: 1.0,
+    OperatorType.FLAT: 0.5,
+    OperatorType.RESHAPE: 0.5,
+    OperatorType.TRANSPOSE: 1.0,
+}
+
+
+def block_twin(op: Op) -> Optional[Op]:
+    """`op` as one device runs its share, standalone: the same params on
+    inputs of its shard shapes with no partition degrees.  An attention
+    whose sequence is sharded runs as ring attention, where a device's
+    query block meets every key, so its keys and values keep their whole
+    sequence.  None when that op cannot be built."""
+    from ..ops.op import ShapeError
+    from ..tensor import ParallelTensor, ParallelTensorShape
+
+    shapes = [list(t.shape.shard_shape) for t in op.inputs]
+    if op.op_type == OperatorType.MULTIHEAD_ATTENTION:
+        for i in (1, 2):
+            shapes[i][1] = op.inputs[i].shape.logical_shape[1]
+    try:
+        twin = type(op)(
+            op.params,
+            [ParallelTensor(ParallelTensorShape.make(s, t.shape.dtype))
+             for s, t in zip(shapes, op.inputs)],
+            name=op.name, **op.ctor_kwargs())
+    except ShapeError:
+        return None
+    for attr in ("_flash_min_seq", "_iter_seq_length"):
+        if hasattr(op, attr):
+            setattr(twin, attr, getattr(op, attr))
+    return twin
+
+
+def backward_ratio(op: Op) -> float:
+    return _BWD_RATIO.get(op.op_type, _BWD_RATIO_DEFAULT)
+
+
+class OpCostModel:
+    """(node_key)->cost cache with analytic roofline + measured override.
+
+    measure_fn, when provided, times the real op on the card and
+    its result replaces the analytic estimate (reference
+    inner_measure_operator_cost, model.cu:38-75, with the same
+    (params, view)->cost cache, simulator.cc:550-560).  Measured results
+    additionally persist to `cache_path` as JSON so later searches —
+    even in fresh processes — reuse chip timings without re-profiling.
+
+    An op the measure fn cannot run on its own (a sequence-sharded
+    attention, whose ring form only the multi-GPU executor runs) takes
+    its analytic cost scaled by the measured/analytic ratio of its
+    standalone twin: the same op on one device's block (`block_twin`),
+    so that every cost of a measured search is on the card's scale, at
+    the occupancy of the shapes one device runs; without a measure fn
+    the analytic roofline stands alone.
+    """
+
+    #: ops cheaper than this many FLOPs keep the analytic estimate —
+    #: their cost is dispatch-dominated and profiling each candidate
+    #: view would cost far more than the information is worth
+    MEASURE_MIN_FLOPS = 5e6
+
+    def __init__(
+        self,
+        machine: MachineModel,
+        measure_fn: Optional[Callable[[Op], Optional[float]]] = None,
+        compute_dtype_bytes: int = 2,  # bf16
+        cache_path: Optional[str] = None,
+        device_key: str = "",
+    ):
+        self.machine = machine
+        self.measure_fn = measure_fn
+        self.cache: Dict[Tuple, CostMetrics] = {}
+        self.dtype_bytes = compute_dtype_bytes
+        self.cache_path = cache_path
+        # measured times are chip-specific: namespace persisted keys by
+        # the device kind so a cache calibrated on one backend is never
+        # replayed on another
+        self.device_key = device_key
+        self.measured_hits = 0  # cost() calls answered by a measurement
+        self.cost_hits = 0      # cost() calls answered by the node_key cache
+        self.cost_calls = 0     # every cost() call
+        self.measured_calls = 0  # cost() calls whose cost is measured
+        self.scaled_calls = 0  # ... whose cost is scaled by its twin's
+        self._measured_keys = set()
+        self._scaled_keys = set()
+        self.scaled_ops: List[str] = []
+        self._persistent: Dict[str, float] = {}
+        self._dirty = False
+        if cache_path:
+            self.load_persistent(cache_path)
+
+    # -- measured-cost persistence --------------------------------------
+    def load_persistent(self, path: str):
+        import json
+        import os
+
+        if os.path.exists(path):
+            try:
+                with open(path) as f:
+                    data = json.load(f)
+                self._persistent.update(
+                    {k: float(v) for k, v in data.items()}
+                )
+            except (OSError, ValueError, TypeError, AttributeError):
+                pass  # absent, torn, or valid-JSON-wrong-shape
+
+    def save_persistent(self, path: Optional[str] = None):
+        """Crash-safe, concurrency-safe persistence of the measured-cost
+        cache.  Called unconditionally at the end of every Unity/MCMC
+        search (unity.py/mcmc.py), so a mid-write kill must never
+        corrupt the shared file: the write goes to a process-unique tmp
+        (mkstemp — a fixed `.tmp` name would let two searches clobber
+        each other's staging) and lands via one atomic os.replace.
+        Merge-on-save: entries measured by OTHER concurrent searches
+        since our load are re-read and kept — last writer no longer
+        erases them; our own measurements win ties."""
+        import json
+        import os
+        import tempfile
+
+        path = path or self.cache_path
+        if not path or not self._dirty:
+            return
+        path = os.path.abspath(path)
+        dirname = os.path.dirname(path)
+        os.makedirs(dirname, exist_ok=True)
+        merged: Dict[str, float] = {}
+        try:
+            with open(path) as f:
+                merged = {k: float(v) for k, v in json.load(f).items()}
+        except (OSError, ValueError, TypeError, AttributeError):
+            # absent, torn, or valid-JSON-wrong-shape (a list, null
+            # values) — our entries still publish whole either way
+            merged = {}
+        merged.update(self._persistent)
+        fd, tmp = tempfile.mkstemp(
+            dir=dirname, prefix=os.path.basename(path) + ".tmp-"
+        )
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(merged, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        self._persistent = merged
+        self._dirty = False
+
+    def cost(self, op: Op) -> CostMetrics:
+        key = op.node_key()
+        self.cost_calls += 1
+        hit = self.cache.get(key)
+        if hit is not None:
+            self.cost_hits += 1
+            self.measured_calls += key in self._measured_keys
+            self.scaled_calls += key in self._scaled_keys
+            return hit
+        cm = self._analytic(op)
+        measured = self._measured(op, key)
+        if measured is not None:
+            self.measured_hits += 1
+            self.measured_calls += 1
+            self._measured_keys.add(key)
+        elif self._measurable(op):
+            measured = self._scaled(op, cm)
+            if measured is not None:
+                self.scaled_calls += 1
+                self._scaled_keys.add(key)
+                self.scaled_ops.append(op.name)
+        if measured is not None:
+            cm.forward_time = measured
+            cm.backward_time = backward_ratio(op) * measured
+        self.cache[key] = cm
+        return cm
+
+    def _scaled(self, op: Op, analytic: CostMetrics) -> Optional[float]:
+        """The forward seconds of an op the measure fn could not run:
+        its analytic time times measured/analytic of its block twin
+        (None when the twin cannot run either, or is the op itself)."""
+        twin = block_twin(op)
+        if twin is None or twin.node_key() == op.node_key():
+            return None
+        t = self._measured(twin, twin.node_key())
+        if t is None:
+            return None
+        return analytic.forward_time * t / self._analytic(twin).forward_time
+
+    def stats(self) -> Dict[str, object]:
+        """What the search's costs rest on: cost() calls, those answered
+        by a measurement, and the measure fn's ops measured and not
+        measurable (an op that cannot run on its own)."""
+        mf = self.measure_fn
+        return {
+            "cost_calls": self.cost_calls,
+            "measured_calls": self.measured_calls,
+            "measured_share": (self.measured_calls / self.cost_calls
+                               if self.cost_calls else 0.0),
+            "scaled_calls": self.scaled_calls,
+            "scaled_ops": list(self.scaled_ops),
+            "measured_ops": getattr(mf, "measured", 0),
+            "unmeasurable_ops": list(getattr(mf, "unmeasurable", [])),
+        }
+
+    #: bump when the measurement harness changes semantics (the
+    #: reference's v2 keys stay readable by neither package: the device
+    #: key namespaces them apart)
+    MEASURE_CACHE_VERSION = 2
+
+    def _measurable(self, op: Op) -> bool:
+        """Is `op` one the measure fn is asked about?"""
+        return (self.measure_fn is not None and not op.is_parallel_op()
+                and op.flops() >= self.MEASURE_MIN_FLOPS)
+
+    def _measured(self, op: Op, key: Tuple) -> Optional[float]:
+        if not self._measurable(op):
+            return None
+        skey = f"v{self.MEASURE_CACHE_VERSION}|{self.device_key}|{key!r}"
+        if skey in self._persistent:
+            return self._persistent[skey]
+        measured = self.measure_fn(op)
+        if measured is not None:
+            self._persistent[skey] = measured
+            self._dirty = True
+        return measured
+
+    def _shard_fraction(self, op: Op) -> float:
+        """Fraction of the op's total FLOPs done by one device."""
+        deg = 1
+        for t in op.outputs:
+            deg = max(deg, int(np.prod([d.degree for d in t.shape.dims
+                                        if not d.is_replica_dim])))
+        # contraction-dim sharding also divides flops
+        red = max(
+            (t.shape.replica_degree for t in op.outputs), default=1
+        )
+        return 1.0 / max(1, deg * red)
+
+    def _analytic(self, op: Op) -> CostMetrics:
+        dev = self.machine.device()
+        flops = op.flops() * self._shard_fraction(op)
+        in_bytes = sum(t.shape.shard_bytes() for t in op.inputs)
+        out_bytes = sum(t.shape.shard_bytes() for t in op.outputs)
+        w_bytes = sum(w.shape.shard_bytes() for w in op.weights)
+        bytes_moved = in_bytes + out_bytes + w_bytes
+        t_compute = flops / dev.peak_flops
+        t_mem = bytes_moved / dev.hbm_bandwidth
+        fwd = max(t_compute, t_mem) + _KERNEL_OVERHEAD
+        return CostMetrics(
+            forward_time=fwd,
+            backward_time=(
+                backward_ratio(op) * fwd if op.weights or op.inputs else 0.0
+            ),
+            inputs_memory=in_bytes,
+            outputs_memory=out_bytes,
+            weights_memory=w_bytes,
+        )
+
+
+def cache_dir() -> str:
+    """The port's cache directory: $FLEXFLOW_TPU_TORCH_CACHE_DIR, else
+    ~/.cache/flexflow_tpu_torch (the measured op costs, the fitted
+    overlap constants)."""
+    import os
+
+    return os.environ.get(
+        "FLEXFLOW_TPU_TORCH_CACHE_DIR",
+        os.path.join(os.path.expanduser("~"), ".cache", "flexflow_tpu_torch"))
+
+
+def device_name(device) -> str:
+    """What measurements on `device` are keyed by: the card's name
+    (torch.cuda.get_device_name), or "cpu"."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
+
+
+def make_cost_model(cfg, machine: MachineModel) -> OpCostModel:
+    """Build the search's cost model from FFConfig: op forwards timed on
+    the config's device (profiler.make_measure_fn) when
+    cfg.should_calibrate(), keyed by the card's name, with the measured
+    cache persisted across runs (cfg.op_cost_cache_file, else
+    op_costs.json under cache_dir()) (reference keeps the same
+    (params, view)->cost cache for the whole search,
+    simulator.cc:550-560)."""
+    measure_fn = None
+    cache_path = cfg.op_cost_cache_file
+    device_key = ""
+    if cfg.should_calibrate():
+        from ..profiler import make_measure_fn
+
+        device = resolve_device(cfg.device)
+        measure_fn = make_measure_fn(device=device,
+                                     flash_min_seq=cfg.flash_min_seq)
+        device_key = device_name(device)
+        if cache_path is None:
+            import os
+
+            cache_path = os.path.join(cache_dir(), "op_costs.json")
+    return OpCostModel(machine, measure_fn=measure_fn, cache_path=cache_path,
+                       device_key=device_key)
+
+
+#: ops whose segments can never rematerialize (side effects / host
+#: state / routing state) — the shared impurity rule of the searched
+#: remat dimension (the executor's _build_remat_plan additionally
+#: excludes pipeline blocks and non-trainable-state ops it alone can
+#: see; an over-approximate simulator plan only mis-prices, never
+#: mis-executes, those segments)
+REMAT_IMPURE_TYPES = frozenset({
+    OperatorType.INPUT, OperatorType.GROUP_BY,
+    OperatorType.AGGREGATE, OperatorType.AGGREGATE_SPEC,
+})
+
+
+def remat_segments(ops: Sequence[Op]) -> List[Tuple[List[Op], bool]]:
+    """[(segment, pure)] over a topo-ordered op sequence — the remat
+    decision units a strategy's plan indexes: plan entry i names the
+    i-th single-tensor-boundary segment.  Impure segments (pure=False)
+    always run inline regardless of the plan."""
+    from ..pcg.segments import split_segments_ops
+
+    segments, _ = split_segments_ops(list(ops))
+    return [
+        (seg, all(op.op_type not in REMAT_IMPURE_TYPES for op in seg))
+        for seg in segments
+    ]
+
+
+def _axis_sizes_of_view(pt, mesh_axes: Dict[str, int]) -> Dict[str, int]:
+    out = {}
+    if pt.machine_view is None:
+        return out
+    for axes in pt.machine_view.axes:
+        for ax in axes:
+            out[ax] = mesh_axes[ax]
+    return out
+
+
+def replica_axes(pt) -> Optional[frozenset]:
+    """The mesh axes a tensor is replicated over, from its MachineView
+    (None without one)."""
+    view = getattr(pt, "machine_view", None)
+    if view is None:
+        return None
+    return frozenset(a for dim, axes in zip(pt.shape.dims, view.axes)
+                     if dim.is_replica_dim for a in axes)
+
+
+def partial_sum_axes(op: Op) -> Optional[frozenset]:
+    """The group of a contraction partial-sum all-reduce: the replica
+    axes the output gains over its most replicated input."""
+    if not op.outputs or not op.inputs:
+        return None
+    src = max(op.inputs, key=lambda t: t.shape.replica_degree)
+    out, inp = replica_axes(op.outputs[0]), replica_axes(src)
+    if out is None or inp is None:
+        return None
+    return out - inp
+
+
+def reshard_axes(op: Op) -> Optional[frozenset]:
+    """The group of a parallel op's collective: the axes that enter,
+    leave or move dims between its input and output views."""
+    if not op.inputs or not op.outputs:
+        return None
+    places = []
+    for t in (op.inputs[0], op.outputs[0]):
+        view = getattr(t, "machine_view", None)
+        if view is None:
+            return None
+        places.append({a: i for i, axes in enumerate(view.axes)
+                       for a in axes})
+    return frozenset(a for a in set(places[0]) | set(places[1])
+                     if places[0].get(a) != places[1].get(a))
+
+
+class Simulator:
+    """Strategy cost evaluation (replaces simulate_runtime's event loop
+    for the SPMD execution model; see module docstring)."""
+
+    def __init__(
+        self,
+        machine: MachineModel,
+        cost_model: Optional[OpCostModel] = None,
+        overlap_fraction: float = 0.3,
+        optimizer_slots: int = 2,  # adam m+v
+        sync_overlap_fraction: Optional[float] = None,
+        parameter_sync: str = "allreduce",
+        remat: bool = False,
+        compute_scale: float = 1.0,
+        weight_update_sharding: bool = False,
+        wus_axis: str = "data",
+        zero_stage: Optional[int] = None,
+    ):
+        self.machine = machine
+        self.cost_model = cost_model or OpCostModel(machine)
+        self.overlap_fraction = overlap_fraction
+        # fitted backend calibration (sim/calibrate.py): scales the
+        # analytic compute term to measured reality; 1.0 = roofline
+        self.compute_scale = compute_scale
+        self.optimizer_slots = optimizer_slots
+        # executor --remat: checkpointed segments change peak memory
+        self.remat = remat
+        # gradient-sync overlap with remaining backward compute
+        # (reference --search-overlap-backward-update, config.h:130):
+        # None -> same credit as other comm
+        self.sync_overlap_fraction = (
+            sync_overlap_fraction if sync_overlap_fraction is not None
+            else overlap_fraction
+        )
+        # "allreduce" (ring, NCCL-equivalent) | "ps" (parameter server:
+        # flat 2*size/BW, reference default_estimate_sync_cost
+        # simulator.cc:786-813 + ParameterSyncType::PS optimizer.h:47)
+        self.parameter_sync = parameter_sync
+        # ZeRO ladder stage (docs/PERF.md "The ZeRO ladder").  This is
+        # the simulator's DEFAULT stage; every stage-sensitive method
+        # also takes a per-call zero_stage override (keyed into the
+        # OpTerms cache) so one simulator can cost all four rungs of
+        # the ladder for the searches:
+        #   1: grad reduce-scatter, update numel/rep, post-update
+        #      weight all-gather, slot memory /rep;
+        #   2: + gradient-resident bytes /rep;
+        #   3: + master-weight-resident bytes /rep, per-layer weight
+        #      all-gathers (fwd + bwd) instead of the post-update one.
+        # weight_update_sharding=True is the deprecated alias for
+        # stage 1; the bool attribute mirrors `zero_stage >= 1`.
+        self.zero_stage = (
+            int(zero_stage) if zero_stage is not None
+            else (1 if weight_update_sharding else 0)
+        )
+        self.weight_update_sharding = self.zero_stage >= 1
+        # the ONE mesh axis the executor shards the update over
+        # (FFConfig.wus_axis); wus_group() resolves each weight's
+        # actual sharding group from it
+        self.wus_axis = wus_axis
+        # (node_key, mesh signature, training) -> OpTerms: per-op
+        # contribution terms for the delta/memoized evaluator (the
+        # machine and sync mode are fixed per Simulator)
+        self._term_cache: Dict[Tuple, OpTerms] = {}
+        self.term_hits = 0
+        self.term_misses = 0
+        # (params, input shape) -> reconstructed member sub-ops for
+        # FUSED_PARALLEL costing (rebuilt on every call before)
+        self._fused_members: Dict[Tuple, List[Op]] = {}
+
+    # -- comm costs ------------------------------------------------------
+    def _collective(self, kind: str, size: float, group_len: int,
+                    cross: bool = False):
+        """One collective as a topology.CommCost: on the inter-node
+        tier ("dcn") when its group spans nodes (`cross`), else on the
+        tier inside a node ("ici")."""
+        if group_len <= 1:
+            return ZERO_COST
+        t = self._collective_time(kind, size, group_len, cross)
+        nbytes = ring_bytes(kind, size, group_len)
+        if cross:
+            return CommCost(dcn_time=t, dcn_bytes=nbytes)
+        return CommCost(ici_time=t, ici_bytes=nbytes)
+
+    def _collective_time(self, kind: str, size: int, group_len: int,
+                         spans_nodes: bool = False) -> float:
+        m = self.machine
+        if hasattr(m, "axis_allreduce_time"):  # axis-aware (GpuNodeModel)
+            if kind == "allreduce":
+                return m.axis_allreduce_time(size, group_len, spans_nodes)
+            if kind in ("allgather", "reducescatter"):
+                return m.axis_allgather_time(size, group_len, spans_nodes)
+            if kind == "alltoall":
+                return m.axis_alltoall_time(size, group_len, spans_nodes)
+        group = list(range(group_len))
+        if kind == "allreduce":
+            return m.allreduce_time(size, group)
+        if kind in ("allgather", "reducescatter"):
+            return m.allgather_time(size, group)
+        return m.alltoall_time(size, group)
+
+    # -- which collectives cross nodes -----------------------------------
+    def spanning_axes(self, mesh_axes: Optional[Dict[str, int]]
+                      ) -> frozenset:
+        """The mesh axes whose device groups span nodes
+        (GpuNodeModel.node_spanning_axes); empty on machines without
+        that method, so every collective there stays on one tier."""
+        fn = getattr(self.machine, "node_spanning_axes", None)
+        if fn is None or not mesh_axes:
+            return frozenset()
+        return fn(mesh_axes)
+
+    @staticmethod
+    def xfer_crosses(op: Op, span: frozenset) -> bool:
+        """Does a parallel op's resharding collective span nodes?"""
+        axes = reshard_axes(op) if span else None
+        return bool(axes and span & axes)
+
+    @staticmethod
+    def partial_crosses(op: Op, span: frozenset) -> bool:
+        """Does a contraction partial-sum all-reduce span nodes?"""
+        axes = partial_sum_axes(op) if span else None
+        return bool(axes and span & axes)
+
+    @staticmethod
+    def weight_rep_crosses(w, span: frozenset) -> bool:
+        """Does this weight's gradient-sync replica group span nodes?  A
+        weight without a view is taken to be replicated over every
+        axis."""
+        if not span:
+            return False
+        axes = replica_axes(w)
+        return axes is None or bool(span & axes)
+
+    def xfer_cost(self, op: Op, mesh_axes: Dict[str, int]) -> float:
+        """Cost of a parallel op's resharding collective (reference
+        estimate_xfer_cost per type, simulator.cc:622-767), on the
+        inter-node tier when its views put it across nodes."""
+        return self._xfer_cc(op, mesh_axes, cross=self.xfer_crosses(
+            op, self.spanning_axes(mesh_axes))).time
+
+    def _xfer_cc(self, op: Op, mesh_axes: Dict[str, int],
+                 cross: bool = False):
+        """The resharding collective as a per-tier CommCost; `cross`
+        puts it on the inter-node tier."""
+        overhead = CommCost(ici_time=_KERNEL_OVERHEAD)
+        if not op.is_parallel_op():
+            return ZERO_COST
+        inp, out = op.inputs[0].shape, op.outputs[0].shape
+        shard_bytes = out.shard_bytes()
+        t = op.op_type
+        if t == OperatorType.REPARTITION:
+            # slicing data already on-device under SPMD: near-free when
+            # coming from replicated, all-to-all otherwise
+            degree = op.params.degree
+            if inp.total_degree == 1 or inp.replica_degree >= degree:
+                return overhead
+            return self._collective("alltoall", shard_bytes, degree, cross)
+        if t == OperatorType.COMBINE:
+            return self._collective(
+                "allgather", inp.shard_bytes() * op.params.degree,
+                op.params.degree, cross,
+            )
+        if t == OperatorType.REPLICATE:
+            return self._collective(
+                "allgather", shard_bytes, op.params.degree, cross
+            )
+        if t == OperatorType.REDUCTION:
+            return self._collective(
+                "allreduce", shard_bytes, op.params.degree, cross
+            )
+        if t == OperatorType.ALLTOALL:
+            return self._collective(
+                "alltoall", shard_bytes, op.params.degree, cross
+            )
+        if t == OperatorType.FUSED_PARALLEL:
+            # one boundary, but each fused member still moves its bytes
+            # (reference estimate_xfer_cost on FusedParallelOp walks the
+            # member ops); shape propagates member to member
+            key = (op.params, inp)
+            members = self._fused_members.get(key)
+            if members is None:
+                from ..parallel.parallel_op import PARALLEL_OP_KINDS
+                from ..tensor import ParallelTensor
+
+                members = []
+                shape = inp
+                for kind, params in op.params.ops:
+                    sub = PARALLEL_OP_KINDS[kind](params, [ParallelTensor(shape)])
+                    members.append(sub)
+                    shape = sub.outputs[0].shape
+                self._fused_members[key] = members
+            total = ZERO_COST
+            for sub in members:
+                total = total + self._xfer_cc(sub, mesh_axes, cross)
+            return total if total.time > _KERNEL_OVERHEAD else overhead
+        return overhead
+
+    def partial_sum_cost(self, op: Op, mesh_axes: Dict[str, int]) -> float:
+        """An op whose output replica degree exceeds its inputs' implies
+        a contraction-dim partial sum -> all-reduce inserted by SPMD."""
+        return self._partial_cc(op, mesh_axes, cross=self.partial_crosses(
+            op, self.spanning_axes(mesh_axes))).time
+
+    def _partial_cc(self, op: Op, mesh_axes: Dict[str, int],
+                    cross: bool = False):
+        if op.is_parallel_op() or not op.outputs:
+            return ZERO_COST
+        out_rep = op.outputs[0].shape.replica_degree
+        in_rep = max((t.shape.replica_degree for t in op.inputs), default=1)
+        if out_rep > in_rep:
+            k = out_rep // max(1, in_rep)
+            return self._collective(
+                "allreduce", op.outputs[0].shape.shard_bytes(), k, cross
+            )
+        return ZERO_COST
+
+    def sync_time(self, size: int, rep: int, cross: bool = False) -> float:
+        """One weight's gradient sync under the configured
+        ParameterSyncType: ring all-reduce (across nodes when `cross`),
+        the parameter-server estimate 2*size/BW (reference
+        simulator.cc:786-813), or free under NONE (reference config.h:55:
+        no sync)."""
+        if self.parameter_sync == "none":
+            return 0.0
+        if self.parameter_sync == "ps":
+            bw, lat = self.machine.ps_link()
+            return 2.0 * lat + 2.0 * size / bw
+        return self._collective_time("allreduce", size, rep, cross)
+
+    def _stage(self, zero_stage: Optional[int]) -> int:
+        """Effective ZeRO stage for one call: the per-call override
+        (searches costing the ladder), else the simulator default."""
+        return self.zero_stage if zero_stage is None else int(zero_stage)
+
+    def wus_group(self, w, mesh_axes: Optional[Dict[str, int]] = None,
+                  zero_stage: Optional[int] = None) -> int:
+        """The group size this weight's update actually shards over —
+        the executor-fidelity mirror of parallel/zero.py.  1 means the
+        leaf keeps the replicated update (wus off, a mesh without the
+        wus axis, a weight not replicated over it, or no free logical
+        dim evenly divisible by it), so it must keep replicated
+        cost/memory here too.
+
+        The runtime shards over the SINGLE configured wus mesh axis,
+        not the weight's whole replica group, so on a mixed mesh
+        ({data: 4, model: 2}) an 8-way-replicated weight shards 4-ways.
+        Eligibility mirrors zero.py's rule exactly: the axis must be
+        unused by the weight's spec — i.e. by its non-replica dims
+        (replication is expressed by omission, so a replica-dim entry
+        doesn't block) — and a free logical dim must divide evenly.
+        Callers without mesh context (unity's per-op DP stage) fall
+        back to the replica degree — exact on pure-dp meshes, and the
+        authoritative evaluation always re-scores with mesh_axes."""
+        if self._stage(zero_stage) < 1 or self.parameter_sync == "none":
+            return 1
+        if mesh_axes is None:
+            n = w.shape.replica_degree
+            if n <= 1:
+                return 1
+        else:
+            n = mesh_axes.get(self.wus_axis, 1)
+            if n <= 1:
+                return 1
+            view = getattr(w, "machine_view", None)
+            if view is not None and any(
+                self.wus_axis in axes
+                for dim, axes in zip(w.shape.dims, view.axes)
+                if not dim.is_replica_dim
+            ):
+                return 1  # axis already shards a logical dim
+        if not any(
+            not d.is_replica_dim and d.degree == 1
+            and d.size > 0 and d.size % n == 0
+            for d in w.shape.dims
+        ):
+            return 1
+        return n
+
+    def weight_update_comm(self, size: int, rep: int,
+                           zero_stage: Optional[int] = None,
+                           cross: bool = False
+                           ) -> Tuple[float, float, float]:
+        """One weight's (grad-sync, post-update-all-gather, per-layer
+        gather) times under the effective ZeRO stage.
+
+        Replicated update (stage 0): ring all-reduce of the grad
+        (sync_time), no gathers.  Stages 1/2: reduce-scatter the grad +
+        all-gather the updated weight — the same ring bytes as the
+        all-reduce, split around an update that now touches only
+        numel/rep elements (stage 2 differs from 1 in MEMORY only: the
+        grad buffer stays scattered).  Stage 3: the post-update gather
+        disappears — weights stay resident-scattered — and instead the
+        step pays TWO per-layer all-gathers (forward use + backward
+        re-gather), credited with the double-buffered-prefetch overlap
+        (Z3_PREFETCH_OVERLAP), not the generic one.  parameter_sync
+        "none" keeps replicas unsynced, which the sharded update cannot
+        express — it stays on the replicated path."""
+        s, x, gx = self._weight_update_comm_cc(size, rep,
+                                               zero_stage=zero_stage,
+                                               cross=cross)
+        return s.time, x.time, gx.time
+
+    def _weight_update_comm_cc(self, size: int, rep: int,
+                               zero_stage: Optional[int] = None,
+                               cross: bool = False):
+        """weight_update_comm as per-tier CommCosts: (grad leg,
+        post-update gather, stage-3 per-layer gathers).  `cross` puts
+        the group's collectives on the inter-node tier."""
+        stage = self._stage(zero_stage)
+        if stage < 1 or self.parameter_sync == "none":
+            t = self.sync_time(size, rep, cross)
+            nbytes = (2.0 * size if self.parameter_sync == "ps"
+                      else ring_bytes("allreduce", size, rep))
+            sync = ZERO_COST
+            if t and cross and self.parameter_sync == "allreduce":
+                sync = CommCost(dcn_time=t, dcn_bytes=nbytes)
+            elif t:
+                sync = CommCost(ici_time=t, ici_bytes=nbytes)
+            return sync, ZERO_COST, ZERO_COST
+        if self.parameter_sync == "ps":
+            # flat 2*size/BW grad leg rides the ps link (single-tier)
+            sync = CommCost(ici_time=self.sync_time(size, rep),
+                            ici_bytes=2.0 * size)
+        else:
+            sync = self._collective("reducescatter", size, rep, cross)
+        gather = self._collective("allgather", size, rep, cross)
+        if stage >= 3:
+            return sync, ZERO_COST, gather + gather
+        return sync, gather, ZERO_COST
+
+    def grad_sync_cost(self, graph: Graph, mesh_axes: Dict[str, int]) -> float:
+        """Gradient sync over each weight's replica axes (SPMD's psum in
+        backward == reference optimizer ncclAllReduce; PS path
+        optimizer.h:47-58)."""
+        total = 0.0
+        for op in graph.ops:
+            for w in op.weights:
+                rep = w.shape.replica_degree
+                if rep > 1 and w.create_gradients:
+                    total += self.sync_time(w.shape.shard_bytes(), rep)
+        return total
+
+    # -- per-op contribution terms (delta-sim decomposition) -------------
+    def op_terms(self, op: Op, mesh_axes: Dict[str, int],
+                 training: bool = True, skip_compute: bool = False,
+                 zero_stage: Optional[int] = None) -> OpTerms:
+        """All of `op`'s additive contributions to simulate(), cached by
+        (node_key, mesh signature, training).  node_key already encodes
+        params + ShardConfig + input parallel shapes, so a strategy move
+        that leaves an op's config and input shapes unchanged reuses its
+        terms across candidates.  skip_compute: the op's compute is
+        covered by a measured segment — don't run (or cache-measure) the
+        per-op cost model for a term the aggregation will discard.
+
+        A collective whose group holds a mesh axis spanning nodes
+        (spanning_axes) costs the inter-node form; the ici_/dcn_ tier
+        fields carry the split.  Which axes a group holds is read from
+        the tensors' MachineViews, a function of their shapes and the
+        mesh, so the cache key needs nothing more."""
+        # mesh signature preserves INSERTION order (not sorted): views —
+        # which wus_group reads — are assigned by assign_axes' axis-
+        # declaration-order heuristic, so two orderings of equal-size
+        # axes are distinct mesh configurations and must not alias one
+        # cache entry (strategy_signature keeps order for the same
+        # reason)
+        stage = self._stage(zero_stage)
+        span = self.spanning_axes(mesh_axes)
+        # stage only shapes the weight-update terms, so weightless ops
+        # are stage-invariant — key them at a single rung so a stage
+        # sweep doesn't recompute their compute/xfer terms per stage
+        key = (op.node_key(), tuple(mesh_axes.items()), training,
+               skip_compute, stage if op.weights else 0)
+        hit = self._term_cache.get(key)
+        if hit is not None:
+            self.term_hits += 1
+            return hit
+        self.term_misses += 1
+        compute = xfer = partial = grad_sync = opt_numel = 0.0
+        opt_xfer = gather_xfer = 0.0
+        fwd_time = recompute_extra = 0.0
+        tiers = ZERO_COST  # per-tier time/bytes over every comm term
+        mem_weights = mem_master = mem_grad = mem_gather = 0
+        mem_opt = mem_residual = mem_transient = 0
+        if op.op_type != OperatorType.INPUT:
+            if op.is_parallel_op():
+                cc = self._xfer_cc(op, mesh_axes,
+                                   cross=self.xfer_crosses(op, span))
+                xfer = cc.time
+                tiers = tiers + cc
+            else:
+                cc = self._partial_cc(op, mesh_axes,
+                                      cross=self.partial_crosses(op, span))
+                partial = cc.time
+                tiers = tiers + cc
+                if training:
+                    tiers = tiers + cc  # bwd mirror (simulate_ops's 2x)
+                if not skip_compute:
+                    cm = self.cost_model.cost(op)
+                    fwd_time = cm.forward_time
+                    compute = cm.forward_time + (
+                        cm.backward_time if training else 0.0
+                    )
+        for w in op.weights:
+            sb = w.shape.shard_bytes()
+            mem_weights += sb
+            opt_sb = sb
+            master_sb = grad_sb = sb
+            if w.create_gradients:
+                numel = sb / max(
+                    1, w.shape.dtype.size_bytes
+                )
+                rep = w.shape.replica_degree
+                g = self.wus_group(w, mesh_axes, zero_stage=stage)
+                if g > 1:
+                    # the scattered update's RS/AG run over the wus axis
+                    s_cc, x_cc, gx_cc = self._weight_update_comm_cc(
+                        sb, g, zero_stage=stage,
+                        cross=self.wus_axis in span,
+                    )
+                    grad_sync += s_cc.time
+                    wcc = s_cc + x_cc + gx_cc
+                    if (rep > g and rep % g == 0
+                            and self.parameter_sync == "allreduce"):
+                        # tracked replication beyond the wus group still
+                        # all-reduces on the scattered shard, over the
+                        # other replica axes
+                        rem_cc = self._collective(
+                            "allreduce", sb // g, rep // g,
+                            cross=self.weight_rep_crosses(
+                                w, span - {self.wus_axis}),
+                        )
+                        grad_sync += rem_cc.time
+                        wcc = wcc + rem_cc
+                    opt_xfer += x_cc.time
+                    gather_xfer += gx_cc.time
+                    if training and gx_cc.time:
+                        # ZeRO-3 x remat: backward recompute re-emits
+                        # the per-layer gather INSIDE the checkpointed
+                        # segment (executor keeps z3_cache=None under
+                        # remat), where the double-buffered prefetch
+                        # cannot run — one of the two gathers loses its
+                        # credit.  The lost credit rides `recompute`
+                        # (charged at full exposure only when the op's
+                        # segment is ON), so remat-off plans keep
+                        # today's gather_xfer pricing exactly.
+                        recompute_extra += (
+                            gx_cc.time / 2.0
+                        ) * Z3_PREFETCH_OVERLAP
+                    if training:
+                        tiers = tiers + wcc
+                    # the update runs on the 1/g shard; slots live
+                    # there permanently
+                    numel /= g
+                    opt_sb = sb // g
+                    if stage >= 2:
+                        # ZeRO-2: the grad buffer stays reduce-scattered
+                        # through the update — 1/g resident per device
+                        grad_sb = sb // g
+                    if stage >= 3:
+                        # ZeRO-3/FSDP: master lives scattered; the
+                        # gathered compute copy is transient (the
+                        # double-buffer window rides mem_gather)
+                        master_sb = sb // g
+                        mem_gather += sb
+                elif rep > 1:
+                    # replicated update (stage 0, or this leaf falls
+                    # back per parallel/zero.py)
+                    if self.parameter_sync == "allreduce":
+                        rcc = self._collective(
+                            "allreduce", sb, rep,
+                            cross=self.weight_rep_crosses(w, span),
+                        )
+                    else:
+                        t = self.sync_time(sb, rep)
+                        rcc = CommCost(
+                            ici_time=t, ici_bytes=2.0 * sb
+                        ) if t else ZERO_COST
+                    grad_sync += rcc.time
+                    if training:
+                        tiers = tiers + rcc
+                opt_numel += numel
+            mem_opt += opt_sb
+            mem_master += master_sb
+            mem_grad += grad_sb
+        for t in op.outputs:
+            b = t.shape.shard_bytes()
+            if op.op_type in self._FUSED_ACT_TYPES:
+                mem_transient = max(mem_transient, b)
+            else:
+                mem_residual += b
+        # searched remat (docs/PERF.md): what this op saves per device
+        # when its segment is OFF, and what re-running its forward in
+        # backward costs when it is ON.  Parallel ops re-run their
+        # resharding collective; compute ops re-run forward plus the
+        # fwd partial-sum psum; measured (skip_compute) ops contribute
+        # no recompute estimate — their fwd split is unknown.
+        recompute = 0.0
+        if training and op.op_type != OperatorType.INPUT:
+            recompute = (
+                xfer if op.is_parallel_op()
+                else fwd_time + partial
+            ) + recompute_extra
+        terms = OpTerms(
+            compute=compute, xfer=xfer, partial=partial,
+            grad_sync=grad_sync, opt_numel=opt_numel, opt_xfer=opt_xfer,
+            gather_xfer=gather_xfer,
+            ici_xfer=tiers.ici_time, dcn_xfer=tiers.dcn_time,
+            ici_bytes=tiers.ici_bytes, dcn_bytes=tiers.dcn_bytes,
+            mem_weights=mem_weights, mem_master=mem_master,
+            mem_grad=mem_grad, mem_gather=mem_gather, mem_opt=mem_opt,
+            mem_residual=mem_residual, mem_transient=mem_transient,
+            mem_activation=mem_residual, recompute=recompute,
+        )
+        self._term_cache[key] = terms
+        return terms
+
+    def memory_from_terms(self, ops: Sequence[Op], mesh_axes: Dict[str, int],
+                          training: bool = True,
+                          zero_stage: Optional[int] = None) -> int:
+        """per_device_memory re-aggregated from cached OpTerms — exact
+        for the training non-remat accounting (weights + residual sum +
+        transient max; all integer bytes, so order-independent).  The
+        remat and inference liveness models need whole-graph structure
+        and keep using per_device_memory().
+
+        Training weight accounting follows the ZeRO ladder: master
+        resident (mem_master: /g at stage 3) + gradient buffer
+        (mem_grad: /g at stage 2+) + slot bytes (mem_opt: /g at 1+) +
+        the stage-3 double-buffered gather window (2x the largest op's
+        gathered weight copies).  At stages 0/1 this is bit-identical
+        to the pre-ladder weights*2 + slots*opt formula."""
+        compute_copy = master = grads = opt = residuals = transient = 0
+        gather_peak = 0
+        for op in ops:
+            terms = self.op_terms(op, mesh_axes, training,
+                                  zero_stage=zero_stage)
+            compute_copy += terms.mem_weights
+            master += terms.mem_master
+            grads += terms.mem_grad
+            opt += terms.mem_opt
+            residuals += terms.mem_residual
+            transient = max(transient, terms.mem_transient)
+            gather_peak = max(gather_peak, terms.mem_gather)
+        if training:
+            weights = (master + grads + self.optimizer_slots * opt
+                       + 2 * gather_peak)
+        else:
+            weights = compute_copy
+        return int(weights + residuals + transient)
+
+    # -- searched rematerialization (docs/PERF.md) -----------------------
+    def remat_layout(self, ops: Sequence[Op],
+                     plan: Optional[Sequence[int]],
+                     op_scale=None) -> Tuple[set, float, float]:
+        """(on_guids, residual_bytes, worst_internal) for a per-segment
+        remat plan over a topo-ordered op sequence.
+
+          * on_guids — guids of ops inside ON (and pure) segments, whose
+            `recompute` term the aggregation charges;
+          * residual_bytes — activations that persist to backward under
+            the plan: every segment-boundary tensor (the checkpoint
+            saves — live as later segments' inputs either way) plus the
+            internals of OFF / impure segments;
+          * worst_internal — the largest ON segment's internal bytes,
+            alive only while that segment's backward recomputes.
+
+        plan=None means every pure segment is ON (the legacy --remat
+        shape); an empty plan reproduces the dense accounting exactly
+        (residual_bytes == the sum of mem_activation terms)."""
+        from ..pcg.segments import split_segments_ops
+
+        ops = list(ops)
+        segments, boundaries = split_segments_ops(ops)
+        boundary_guids = {g for g in boundaries if g is not None}
+        sel = None if plan is None else {int(i) for i in plan}
+        sc = op_scale or (lambda op: 1.0)
+        on_guids: set = set()
+        residual = 0.0
+        worst = 0.0
+        for i, seg in enumerate(segments):
+            pure = all(op.op_type not in REMAT_IMPURE_TYPES for op in seg)
+            on = pure and (sel is None or i in sel)
+            internal = 0.0
+            for op in seg:
+                if op.op_type in self._FUSED_ACT_TYPES:
+                    continue  # transient workspace, never a residual
+                for t in op.outputs:
+                    b = t.shape.shard_bytes() * sc(op)
+                    if t.guid in boundary_guids:
+                        residual += b
+                    else:
+                        internal += b
+            if on:
+                worst = max(worst, internal)
+                on_guids.update(op.guid for op in seg)
+            else:
+                residual += internal
+        return on_guids, residual, worst
+
+    def remat_memory_from_terms(
+        self, ops: Sequence[Op], mesh_axes: Dict[str, int],
+        plan: Optional[Sequence[int]], training: bool = True,
+        zero_stage: Optional[int] = None,
+    ) -> int:
+        """per_device_memory under a per-segment remat plan, aggregated
+        from cached OpTerms + one O(n) segment sweep over the op
+        sequence — usable on the evaluator's DELTA path (no Graph
+        needed), unlike the legacy whole-graph _remat_peak.  Weight /
+        optimizer residency is identical to memory_from_terms (the
+        ZeRO ladder accounting); only the activation term changes.  An
+        all-OFF plan is bit-identical to memory_from_terms."""
+        compute_copy = master = grads = opt = transient = 0
+        gather_peak = 0
+        for op in ops:
+            terms = self.op_terms(op, mesh_axes, training,
+                                  zero_stage=zero_stage)
+            compute_copy += terms.mem_weights
+            master += terms.mem_master
+            grads += terms.mem_grad
+            opt += terms.mem_opt
+            transient = max(transient, terms.mem_transient)
+            gather_peak = max(gather_peak, terms.mem_gather)
+        _, residual, worst = self.remat_layout(ops, plan)
+        if training:
+            weights = (master + grads + self.optimizer_slots * opt
+                       + 2 * gather_peak)
+        else:
+            weights = compute_copy
+        return int(weights + residual + worst + transient)
+
+    # -- memory ----------------------------------------------------------
+
+    #: outputs recomputed inside fusions rather than materialized as
+    #: backward residuals — they cost transient workspace, not
+    #: step-long liveness
+    _FUSED_ACT_TYPES = frozenset({
+        OperatorType.ELEMENT_UNARY, OperatorType.ELEMENT_BINARY,
+        OperatorType.CAST, OperatorType.DROPOUT,
+    })
+
+    def per_device_memory(self, graph: Graph, training: bool = True,
+                          op_scale=None, remat: Optional[bool] = None,
+                          mesh_axes: Optional[Dict[str, int]] = None,
+                          zero_stage: Optional[int] = None) -> int:
+        """Peak per-device bytes: weights (+grads+optimizer slots when
+        training) plus LIVE activations, not the sum of every tensor
+        ever produced (the r02 model summed all of them, so
+        memory_search optimized a systematically inflated objective).
+
+          * training, no remat: backward residuals = outputs of
+            non-fused ops persist to their backward; fused elementwise
+            outputs only cost transient workspace (max single one);
+          * training, remat: only single-tensor segment boundaries
+            persist (activation-checkpoint semantics, executor._build_remat_plan)
+            plus the largest segment's internals for recomputation;
+          * inference: a liveness scan — a tensor dies after its last
+            consumer.
+
+        op_scale(op) -> float scales an op's contribution (pipeline
+        strategies pass 1/num_stages for block ops — each device holds
+        only its stage's weights/activations)."""
+        remat = self.remat if remat is None else remat
+        stage = self._stage(zero_stage)
+        scale = (lambda op: op_scale(op)) if op_scale is not None \
+            else (lambda op: 1.0)
+        weights = sum(
+            w.shape.shard_bytes() * scale(op)
+            for op in graph.ops for w in op.weights
+        )
+        if training:
+            if stage >= 1 and self.parameter_sync != "none":
+                # ZeRO ladder: slots of grad-bearing replicated weights
+                # live on their 1/group shard (stage 1+); the gradient
+                # buffer joins them at stage 2+ and the master weights
+                # at stage 3 (plus the 2-layer gathered-copy window);
+                # unshardable leaves fall back whole at every rung
+                master = grads = opt = 0.0
+                gather_peak = 0.0
+                for op in graph.ops:
+                    op_gather = 0.0
+                    for w in op.weights:
+                        sb = w.shape.shard_bytes()
+                        sc = scale(op)
+                        g = (self.wus_group(w, mesh_axes, zero_stage=stage)
+                             if w.create_gradients else 1)
+                        opt += (sb // g) * sc
+                        grads += (sb // g if stage >= 2 else sb) * sc
+                        if g > 1 and stage >= 3:
+                            master += (sb // g) * sc
+                            op_gather += sb * sc
+                        else:
+                            master += sb * sc
+                    gather_peak = max(gather_peak, op_gather)
+                weights = (master + grads + self.optimizer_slots * opt
+                           + 2 * gather_peak)
+            else:
+                # master copy + grads + optimizer slots
+                weights *= (2 + self.optimizer_slots)
+
+        if not training:
+            acts = self._liveness_peak(graph, scale)
+        elif remat:
+            acts = self._remat_peak(graph, scale)
+        else:
+            residuals = 0.0
+            transient = 0.0
+            for op in graph.ops:
+                for t in op.outputs:
+                    b = t.shape.shard_bytes() * scale(op)
+                    if op.op_type in self._FUSED_ACT_TYPES:
+                        transient = max(transient, b)
+                    else:
+                        residuals += b
+            acts = residuals + transient
+        return int(weights + acts)
+
+    def _liveness_peak(self, graph: Graph, scale) -> float:
+        from ..pcg.segments import last_use_positions
+
+        topo = graph.topo_order()
+        last_use = last_use_positions(topo)
+        bytes_of: Dict[int, float] = {
+            t.guid: t.shape.shard_bytes() * scale(op)
+            for op in topo for t in op.outputs
+        }
+        live = peak = 0.0
+        for i, op in enumerate(topo):
+            for t in op.outputs:
+                live += bytes_of[t.guid]
+            peak = max(peak, live)
+            for t in op.inputs:
+                if last_use.get(t.guid) == i:
+                    live -= bytes_of.get(t.guid, 0.0)
+        return peak
+
+    def _remat_peak(self, graph: Graph, scale) -> float:
+        from ..pcg.segments import split_segments
+
+        impure = {OperatorType.INPUT,
+                  OperatorType.GROUP_BY, OperatorType.AGGREGATE,
+                  OperatorType.AGGREGATE_SPEC}
+        segments, boundaries = split_segments(graph)
+        boundary_guids = {g for g in boundaries if g is not None}
+        bytes_of = {
+            t.guid: t.shape.shard_bytes() * scale(op)
+            for op in graph.ops for t in op.outputs
+        }
+        acts = sum(bytes_of[g] for g in boundary_guids)
+        worst_internal = 0.0
+        for seg in segments:
+            pure = all(op.op_type not in impure for op in seg)
+            internal = sum(
+                bytes_of[t.guid]
+                for op in seg for t in op.outputs
+                if t.guid not in boundary_guids
+                and op.op_type not in self._FUSED_ACT_TYPES
+            )
+            if pure:
+                # recomputed in backward: alive only while this
+                # segment's backward runs
+                worst_internal = max(worst_internal, internal)
+            else:
+                acts += internal  # runs inline, residuals persist
+        return acts + worst_internal
+
+    def optimizer_update_cost(self, graph: Graph,
+                              mesh_axes: Optional[Dict[str, int]] = None,
+                              zero_stage: Optional[int] = None) -> float:
+        """Weight-update pass: read master weight + grad, write weight,
+        touch each optimizer slot — pure HBM traffic in f32 (master
+        precision).  At ZeRO stage >= 1 the
+        pass touches only each replicated weight's 1/group shard
+        (arXiv:2004.13336); stages 2/3 change residency, not the pass."""
+        numel = 0.0
+        for op in graph.ops:
+            for w in op.weights:
+                if w.create_gradients:
+                    sb = w.shape.shard_bytes()
+                    n = sb / max(1, w.shape.dtype.size_bytes)
+                    numel += n / self.wus_group(w, mesh_axes,
+                                                zero_stage=zero_stage)
+        bytes_moved = numel * 4.0 * (3 + self.optimizer_slots)
+        return bytes_moved / self.machine.device().hbm_bandwidth
+
+    # -- top level -------------------------------------------------------
+    def simulate(
+        self,
+        graph: Graph,
+        mesh_axes: Dict[str, int],
+        training: bool = True,
+        segment_costs: Optional[Sequence[Tuple[Sequence[int], float]]] = None,
+        zero_stage: Optional[int] = None,
+        remat_plan: Optional[Sequence[int]] = None,
+    ) -> SimResult:
+        """segment_costs: [(member op guids, fwd+bwd seconds)] from
+        profiler.measure_segment_costs — ops inside a measured region
+        take the measurement (fused-granularity calibration); everything
+        else stays analytic.
+
+        remat_plan: a strategy's per-segment remat plan (list of ON
+        segment indices; docs/PERF.md "Searched rematerialization") —
+        charges each ON segment's recompute seconds and prices memory
+        with the plan-aware accounting.  None keeps the legacy
+        behavior: the `remat` bool changes memory only (_remat_peak),
+        never time."""
+        measured_ops: Dict[int, float] = {}  # op guid -> its region's cost
+        seg_cost_total = 0.0
+        if segment_costs:
+            for guids, c in segment_costs:
+                seg_cost_total += c
+                for g in guids:
+                    measured_ops[g] = c
+        topo = graph.topo_order()
+        if training and remat_plan is not None:
+            memory_fn = lambda: self.remat_memory_from_terms(  # noqa: E731
+                topo, mesh_axes, remat_plan, training,
+                zero_stage=zero_stage,
+            )
+        elif training and not self.remat:
+            memory_fn = lambda: self.memory_from_terms(  # noqa: E731
+                topo, mesh_axes, training, zero_stage=zero_stage,
+            )
+        else:
+            memory_fn = lambda: self.per_device_memory(  # noqa: E731
+                graph, training, mesh_axes=mesh_axes, zero_stage=zero_stage,
+            )
+        return self.simulate_ops(
+            topo, mesh_axes, training=training, measured_ops=measured_ops,
+            seg_cost_total=seg_cost_total, memory_fn=memory_fn,
+            zero_stage=zero_stage, remat_plan=remat_plan,
+        )
+
+    def simulate_ops(
+        self,
+        ops: Sequence[Op],
+        mesh_axes: Dict[str, int],
+        training: bool = True,
+        measured_ops: Optional[Dict[int, float]] = None,
+        seg_cost_total: float = 0.0,
+        memory_fn: Optional[Callable[[], int]] = None,
+        zero_stage: Optional[int] = None,
+        remat_plan: Optional[Sequence[int]] = None,
+    ) -> SimResult:
+        """Aggregate cached per-op terms over `ops` (a topo-ordered op
+        sequence).  The ONE aggregation path shared by full and delta
+        evaluations: the invariant delta_eval(state) == full_eval(state)
+        holds bit-for-bit because both sum identical cached OpTerms in
+        identical order.  A remat_plan (docs/PERF.md "Searched
+        rematerialization") adds each ON segment's `recompute` terms to
+        the analytic compute — the segment sweep is a deterministic
+        function of the op sequence, so the invariant extends across
+        remat flips."""
+        measured_ops = measured_ops or {}
+        compute = seg_cost_total if training else seg_cost_total / 3.0
+        analytic_compute = 0.0  # compute_scale applies ONLY here —
+        # measured segment costs are already real backend seconds
+        comm = 0.0
+        sync = 0.0
+        opt_numel = 0.0
+        opt_xfer = 0.0
+        gather_xfer = 0.0
+        ici_time = dcn_time = ici_bytes = dcn_bytes = 0.0
+        recompute_s = 0.0
+        activation_bytes = 0.0
+        on_guids = None
+        if training and remat_plan is not None:
+            on_guids, activation_bytes, _ = self.remat_layout(
+                ops, remat_plan
+            )
+        breakdown: Dict[str, float] = {}
+        for op in ops:
+            if op.op_type == OperatorType.INPUT:
+                if training and on_guids is None:
+                    # keep the dense telemetry consistent with the
+                    # memory accounting (and the plan-aware sweep),
+                    # which both count input residuals
+                    activation_bytes += sum(
+                        t.shape.shard_bytes() for t in op.outputs
+                    )
+                continue
+            terms = self.op_terms(op, mesh_axes, training,
+                                  skip_compute=op.guid in measured_ops,
+                                  zero_stage=zero_stage)
+            if on_guids is None:
+                if training:
+                    activation_bytes += terms.mem_activation
+            elif op.guid in on_guids:
+                recompute_s += terms.recompute
+                analytic_compute += terms.recompute
+            ici_time += terms.ici_xfer
+            dcn_time += terms.dcn_xfer
+            ici_bytes += terms.ici_bytes
+            dcn_bytes += terms.dcn_bytes
+            if training:
+                sync += terms.grad_sync
+                opt_numel += terms.opt_numel
+                opt_xfer += terms.opt_xfer
+                gather_xfer += terms.gather_xfer
+            if op.is_parallel_op():
+                comm += terms.xfer
+                breakdown[op.name] = terms.xfer
+                continue
+            ps = terms.partial
+            if training and ps:
+                ps *= 2.0  # fwd psum + bwd mirrored all-gather/psum
+            comm += ps
+            if op.guid in measured_ops:
+                breakdown[op.name] = ps
+                continue
+            analytic_compute += terms.compute
+            breakdown[op.name] = terms.compute + ps
+        if training:
+            # weight-update pass (optimizer_update_cost, from cached
+            # per-op numel terms)
+            bytes_moved = opt_numel * 4.0 * (3 + self.optimizer_slots)
+            analytic_compute += bytes_moved / self.machine.device().hbm_bandwidth
+        # collectives overlap with independent compute; gradient
+        # sync gets its own credit when backward/update overlap is
+        # modeled (--search-overlap-backward-update).  The sharded
+        # update's weight all-gather (opt_xfer, stages 1/2) overlaps
+        # the NEXT step's forward the way other collectives overlap
+        # compute, so it takes the standard credit, not the
+        # backward-sync one.  The ZeRO-3 per-layer gathers
+        # (gather_xfer) take the EXPLICIT double-buffered-prefetch
+        # credit instead — they sit on layer-boundary critical paths
+        # and hide worse than generic resharding.
+        effective_comm = (
+            comm * (1.0 - self.overlap_fraction)
+            + sync * (1.0 - self.sync_overlap_fraction)
+            + opt_xfer * (1.0 - self.overlap_fraction)
+            + gather_xfer * (1.0 - Z3_PREFETCH_OVERLAP)
+        )
+        compute = compute + analytic_compute * self.compute_scale
+        total = compute + effective_comm
+        res = SimResult(
+            total_time=total,
+            compute_time=compute,
+            comm_time=comm,
+            sync_time=sync,
+            breakdown=breakdown,
+            memory_fn=memory_fn,
+        )
+        # uncredited per-tier split of every comm term this aggregation
+        # charged — the comm/{ici,dcn}_* telemetry + fidelity payload
+        res.comm_tiers = {
+            "ici_time": ici_time, "dcn_time": dcn_time,
+            "ici_bytes": ici_bytes, "dcn_bytes": dcn_bytes,
+        }
+        # searched-remat telemetry: plan-aware saved activations + the
+        # recompute seconds charged (as-scaled, matching total_time)
+        res.activation_bytes = activation_bytes
+        res.recompute_s = recompute_s * self.compute_scale
+        return res

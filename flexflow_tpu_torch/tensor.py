@@ -2,15 +2,17 @@
 
 Counterpart of flexflow_tpu/tensor.py.  Pure Python: a logical tensor
 whose dims each carry a partition degree, plus a trailing replica dim.
-The ops' shape inference and weight specs are written against it.  On
-one device every degree is 1; the replica-dim sharding is carried so
-the shapes read the same as the reference's, and is unused.
+The ops' shape inference and weight specs are written against it, and
+the strategy search and simulator read its degrees and shard sizes.  A
+ParallelTensor's `machine_view` names the mesh axes its degrees map
+onto (parallel/machine.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 from .fftype import DataType
 
@@ -32,6 +34,15 @@ class ParallelDim:
                 f"dim size {self.size} not divisible by degree {self.degree}"
             )
 
+    @property
+    def shard_size(self) -> int:
+        if self.is_replica_dim:
+            return 1
+        return self.size // self.degree
+
+    def with_degree(self, degree: int) -> "ParallelDim":
+        return dataclasses.replace(self, degree=degree)
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelTensorShape:
@@ -41,12 +52,15 @@ class ParallelTensorShape:
     dtype: DataType
 
     @classmethod
-    def make(cls, shape: Sequence[int],
-             dtype: DataType = DataType.FLOAT) -> "ParallelTensorShape":
-        """Build from a plain logical shape (every degree 1), appending
-        the replica dim."""
-        dims = tuple(ParallelDim(s) for s in shape) + (
-            ParallelDim(1, 1, is_replica_dim=True),)
+    def make(cls, shape: Sequence[int], dtype: DataType = DataType.FLOAT,
+             degrees: Optional[Sequence[int]] = None,
+             replica_degree: int = 1) -> "ParallelTensorShape":
+        """Build from a plain logical shape, appending the replica dim."""
+        degrees = list(degrees) if degrees is not None else [1] * len(shape)
+        if len(degrees) != len(shape):
+            raise ValueError("degrees must match shape rank")
+        dims = tuple(ParallelDim(s, d) for s, d in zip(shape, degrees)) + (
+            ParallelDim(1, replica_degree, is_replica_dim=True),)
         return cls(dims, DataType.from_any(dtype))
 
     @property
@@ -75,6 +89,47 @@ class ParallelTensorShape:
         for d in self.dims:
             deg *= d.degree
         return deg
+
+    @property
+    def shard_shape(self) -> Tuple[int, ...]:
+        return tuple(d.shard_size for d in self.dims if not d.is_replica_dim)
+
+    def num_elements(self) -> int:
+        return math.prod(self.logical_shape) if self.dims else 0
+
+    def shard_elements(self) -> int:
+        return math.prod(self.shard_shape) if self.dims else 0
+
+    def size_bytes(self) -> int:
+        return self.num_elements() * self.dtype.size_bytes
+
+    def shard_bytes(self) -> int:
+        return self.shard_elements() * self.dtype.size_bytes
+
+    def with_degrees(self, degrees: Sequence[int],
+                     replica_degree: Optional[int] = None
+                     ) -> "ParallelTensorShape":
+        degrees = list(degrees)
+        new_dims = []
+        di = 0
+        for d in self.dims:
+            if d.is_replica_dim:
+                new_dims.append(d if replica_degree is None
+                                else d.with_degree(replica_degree))
+            else:
+                new_dims.append(d.with_degree(degrees[di]))
+                di += 1
+        if di != len(degrees):
+            raise ValueError("degrees length mismatch")
+        return ParallelTensorShape(tuple(new_dims), self.dtype)
+
+    def data_parallel(self, degree: int) -> "ParallelTensorShape":
+        """Shard dim 0 (the sample dim) by `degree`; everything else
+        whole."""
+        degrees = [1] * self.logical_rank
+        if degrees:
+            degrees[0] = degree
+        return self.with_degrees(degrees, replica_degree=1)
 
     def __str__(self) -> str:
         parts = []
@@ -111,15 +166,20 @@ class Tensor:
 
 
 class ParallelTensor:
-    """A tensor inside the PCG: its shape and the op that produces it."""
+    """A tensor inside the PCG: its shape, the op that produces it,
+    whether it takes gradients, and the MachineView strategy assignment
+    gives it."""
 
     def __init__(self, shape: ParallelTensorShape, owner_op=None,
-                 owner_idx: int = 0, name: str = ""):
+                 owner_idx: int = 0, create_gradients: bool = True,
+                 name: str = ""):
         self.guid: int = next(_tensor_guid)
         self.shape = shape
         self.owner_op = owner_op
         self.owner_idx = owner_idx
+        self.create_gradients = create_gradients
         self.name = name or f"ptensor_{self.guid}"
+        self.machine_view = None  # set by strategy.assign_views
 
     @property
     def dims(self) -> Tuple[ParallelDim, ...]:
@@ -130,4 +190,5 @@ class ParallelTensor:
         return self.shape.dtype
 
     def __repr__(self) -> str:
-        return f"ParallelTensor({self.name}, {self.shape})"
+        return (f"ParallelTensor({self.name}, {self.shape}, "
+                f"view={self.machine_view})")

@@ -185,8 +185,56 @@ def test_phase_list_ends_with_the_zoo_path():
 
 
 def test_phase_list_ends_with_the_sequence_and_frontend_path():
-    assert chip_smoke.ALL_PHASES.split(",")[17:] == [
+    assert chip_smoke.ALL_PHASES.split(",")[17:22] == [
         "nmt", "generate", "keras", "onnx", "seq_parity"]
+
+
+def test_search_phase_runs_last_over_the_hgx_node():
+    """The search phase comes after every earlier phase, parses as a
+    --phases entry, and searches BERT-base for the 8 GPUs of the
+    committed one-node machine file, timing ops on the card."""
+    import os
+
+    from flexflow_tpu_torch.sim.machine_model import GpuNodeModel
+
+    phases = chip_smoke.ALL_PHASES.split(",")
+    assert phases[-1] == "search" and len(phases) == 23
+    assert phases.count("search") == 1
+    assert "`--phases search`" in chip_smoke.__doc__
+    cfg = chip_smoke.search_config("/tmp/costs.json")
+    assert (cfg.batch_size, cfg.device, cfg.search_budget) == (
+        chip_smoke.TRAIN_BATCH, "cuda", chip_smoke.SEARCH_BUDGET)
+    assert cfg.search_calibrate and cfg.should_calibrate()
+    assert cfg.op_cost_cache_file == "/tmp/costs.json"
+    assert os.path.isfile(cfg.machine_model_file)
+    m = GpuNodeModel.from_file(cfg.machine_model_file)
+    assert m.num_devices() == chip_smoke.SEARCH_DEVICES == 8
+    assert chip_smoke.search_config("c", budget=0).search_budget == 0
+
+
+def test_kernel_line_tallies_the_search_path():
+    """K1-K3's rows carry the search phase's launches (None when the
+    phase did not run)."""
+    flash_main = {"kernel_ms": {k: 1.0 for k in ("K1", "K2", "K3")},
+                  "plain_ms": {k: 2.0 for k in ("K1", "K2", "K3")},
+                  "library_ms": {k: 1.5 for k in ("K1", "K2", "K3")},
+                  "share_of_bound": {k: 0.3 for k in ("K1", "K2", "K3")},
+                  "bounds": chip_smoke.flash_bounds(*SHAPE)}
+    flash = {"main": {"float32": flash_main, "bfloat16": flash_main},
+             "worst": {k: {"float32": (1e-6, 1e-7)}
+                       for k in ("K1", "K2", "K3")}}
+    kern = {"worst": {"float32": 1e-6}, "kernel_ms": 0.02, "event_ms": 0.03,
+            "plain_ms": 0.3, "bound_ms": 0.01, "bound_by": "bytes",
+            "share_of_bound": 0.4, "library_ms": 0.2, "split_pages": 8,
+            "grid": [1, 1, 1]}
+    search = {"flash_launches": {"K1": 30, "K2": 12, "K3": 12}}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card", None, search)["kernels"]
+    got = {r["id"]: r.get("launches_search") for r in rows}
+    assert got == {"K4": None, "K1": 30, "K2": 12, "K3": 12}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card")["kernels"]
+    assert all(r.get("launches_search") is None for r in rows)
 
 
 def test_zoo_table_is_the_examples_configuration():

@@ -6,7 +6,9 @@ ViT against the CPU; the zoo slice's prefetching loader (the card's
 batches against the CPU's, a long shuffled epoch with no staging buffer
 reused early), the MoE ops and a channels_last Concat against the CPU;
 the sequence-model slice's LSTM, the dense decode twin and an ONNX
-import on the card against the CPU.  These need a CUDA device and skip without one; on the GPU machine run
+import on the card against the CPU; the search slice's profiler (an
+attention timed through K1, a failing launch that propagates) and a
+small search costed on the card.  These need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
 (that machine has no jax, which tests/conftest.py imports).  This file
 imports no jax, so it runs where only torch is installed."""
@@ -769,3 +771,77 @@ def test_onnx_import_on_card_runs_p1(cuda):
         torch.backends.cudnn.allow_tf32 = tf32
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
                                atol=1e-4)
+
+
+def _attention_op(seq: int, heads: int = 4, embed: int = 256):
+    from flexflow_tpu_torch.ops.attention import (MultiHeadAttention,
+                                                  MultiHeadAttentionParams)
+    from flexflow_tpu_torch.tensor import ParallelTensor, ParallelTensorShape
+
+    q = ParallelTensor(ParallelTensorShape.make([2, seq, embed]))
+    return MultiHeadAttention(MultiHeadAttentionParams(embed, heads),
+                              [q, q, q], name="attn")
+
+
+def test_profiler_times_attention_through_k1(cuda):
+    from flexflow_tpu_torch import profiler
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    op = _attention_op(2048)
+    before = fa.flash_fwd.launches
+    t = profiler.measure_op_forward(op, device=cuda, repeats=2, chain=4,
+                                    flash_min_seq=2048)
+    assert t is not None and t > 0
+    assert fa.flash_fwd.launches - before == 1 + 2 * 4  # warm-up, windows
+    assert op._flash_min_seq == 2048
+
+
+def test_profiler_propagates_a_failing_launch(cuda, monkeypatch):
+    """A kernel whose launch fails on the card raises through the
+    profiler: only an op that cannot run on its own may return None."""
+    from flexflow_tpu_torch import profiler
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    real = fa.load_library()
+
+    class FailingLaunch:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def ff_flash_fwd(self, *args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(fa, "load_library", lambda: FailingLaunch())
+    measurer = profiler.make_measure_fn(device=cuda, flash_min_seq=0)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        measurer(_attention_op(256))
+    assert measurer.measured == 0 and measurer.unmeasurable == []
+
+
+def test_small_search_is_costed_on_the_card(cuda, tmp_path):
+    """unity_search over the HGX node file with search_calibrate on: the
+    ops are timed on the card (attention through K1 at flash_min_seq
+    0), keyed by the card's name."""
+    import json
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.pcg.search import unity_search
+    from flexflow_tpu_torch.sim.machine_model import machine_file
+
+    cache = tmp_path / "costs.json"
+    ff = FFModel(FFConfig(batch_size=8, device="cuda", search_budget=10,
+                          search_calibrate=True, flash_min_seq=0,
+                          op_cost_cache_file=str(cache),
+                          machine_model_file=machine_file("hgx_h100_8")))
+    build_bert(ff, batch_size=8, seq_length=256, hidden_size=256,
+               num_layers=2, num_heads=4, intermediate_size=1024)
+    before = fa.flash_fwd.launches
+    best = unity_search(ff, 8)
+    assert best.total_devices == 8
+    assert best.search_stats["measured_ops"] > 0
+    assert fa.flash_fwd.launches > before
+    keys = list(json.loads(cache.read_text()))
+    assert keys and all(k.split("|")[1] == torch.cuda.get_device_name(0)
+                        for k in keys)

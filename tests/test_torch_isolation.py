@@ -36,9 +36,18 @@ def test_no_jax_or_reference_imports():
             "experts.py", "inception.py", "resnet.py", "dlrm.py",
             "candle_uno.py", "alexnet.py", "mlp.py", "recurrent.py",
             "nmt.py", "protowire.py", "datasets.py", "callbacks.py",
-            "layers.py", "sequence.py", "text.py", "export.py"} <= names
-    for sub in ("keras", "keras/preprocessing", "onnx_frontend"):
+            "layers.py", "sequence.py", "text.py", "export.py",
+            "unity.py", "mcmc.py", "evaluator.py", "rewrite.py",
+            "substitution.py", "segments.py", "search.py", "simulator.py",
+            "machine_model.py", "taskgraph.py", "calibrate.py",
+            "parallel_op.py", "machine.py", "pipeline_plan.py", "comm.py",
+            "strategy.py", "profiler.py", "logger.py"} <= names
+    for sub in ("keras", "keras/preprocessing", "onnx_frontend", "sim",
+                "parallel", "topology", "native", "pcg"):
         assert (PORT / sub / "__init__.py").is_file(), sub
+    for sub in ("sim", "parallel", "topology", "pcg"):
+        assert any(f.parent == PORT / sub and f.name != "__init__.py"
+                   for f in files), sub
     offenders = [(str(f.relative_to(ROOT)), m) for f in files
                  for m in _imported_roots(f)
                  if m in ("jax", "jaxlib", "flexflow_tpu")]
@@ -60,7 +69,16 @@ def test_import_leaves_jax_unloaded():
             "flexflow_tpu_torch.keras.preprocessing, "
             "flexflow_tpu_torch.onnx_frontend, "
             "flexflow_tpu_torch.onnx_frontend.protowire, "
-            "flexflow_tpu_torch.onnx_frontend.export; "
+            "flexflow_tpu_torch.onnx_frontend.export, "
+            "flexflow_tpu_torch.pcg.unity, flexflow_tpu_torch.pcg.mcmc, "
+            "flexflow_tpu_torch.pcg.search, flexflow_tpu_torch.pcg.rewrite, "
+            "flexflow_tpu_torch.sim.simulator, "
+            "flexflow_tpu_torch.sim.taskgraph, "
+            "flexflow_tpu_torch.sim.calibrate, "
+            "flexflow_tpu_torch.parallel.pipeline_plan, "
+            "flexflow_tpu_torch.topology.comm, "
+            "flexflow_tpu_torch.native, flexflow_tpu_torch.profiler, "
+            "flexflow_tpu_torch.strategy; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flexflow_tpu' or "
             "m.startswith('flexflow_tpu.')]; print(bad)")
@@ -152,3 +170,23 @@ def test_config_flags_match_the_reference():
     assert os.path.isfile(PORT / "csrc" / "paged_attention.cu")
     assert os.path.isfile(PORT / "csrc" / "flash_attention.cu")
     assert os.path.isfile(PORT / "csrc" / "bn_apply.cu")
+
+
+def test_native_library_builds_into_the_ignored_build_dir(tmp_path,
+                                                          monkeypatch):
+    """The event loop's C++ builds with the C++ compiler into
+    flexflow_tpu_torch/_build/, which .gitignore lists; nothing is built
+    at import, and a failed compile raises."""
+    from flexflow_tpu_torch import native
+
+    assert native.BUILD_DIR == PORT / "_build"
+    assert "flexflow_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
+    assert native.SOURCE == PORT / "native" / "taskgraph_sim.cc"
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "b")
+    out = native.build(os.environ.get("CXX", "g++"))
+    assert out.parent == tmp_path / "b" and out.name.startswith("libffsim_")
+    bad = tmp_path / "bad.cc"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", bad)
+    with pytest.raises(RuntimeError, match="failed"):
+        native.build(os.environ.get("CXX", "g++"))
