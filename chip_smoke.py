@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (flexflow_tpu_torch) on one NVIDIA GPU.
+"""Drive the PyTorch port (flexflow_tpu_torch) on one NVIDIA GPU (and,
+in the multigpu phase, on every card there is).
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --phases train    # the training path alone
@@ -169,14 +170,41 @@ Phases, each a failure of which exits non-zero:
    model at batches 2 and 4, whose fitted compute scale must predict
    the measured step at batch 8 within CAL_HELD_OUT_TOL.  K1-K3
    launches of the search, the steps and the calibration go into the
-   kernels line.
+   kernels line.  The searched strategy and the measured op costs are
+   left for the multigpu phase.
+24. multigpu: five legs, each over a group of spawned ranks (rank r on
+   card r % cards; the backend NCCL where every rank has a card of its
+   own, else gloo, named, with every collective staged through host
+   memory), each taking 2 train steps (the first by train_step, the
+   second by fit, each rank loading its shard of the batch) and held
+   against the same model
+   trained on one card in this process from the same weights and
+   batches (losses as error over max(1, |loss|), every weight gathered
+   after the steps; MULTIGPU_TOL): BERT-base of the train phase (batch
+   8, seq 2048, float32, weights from seed 0) under bert_tp_strategy(4,
+   tp=2) (K1-K3 on each rank's local heads, 12 per step each), under
+   bert_sp_strategy(4, sp=2) (ring attention: K1-K3 on every 1024-key
+   block, 24 per step each), data-parallel over 4 with ZeRO stage 3 and
+   Adam (also against stage 0 in the same group; optimizer-state bytes
+   per rank), and under the search phase's 8-GPU strategy loaded from
+   its file over 8 ranks (without the search phase, the same search
+   runs here first); and resnet_parity's small ResNet data-parallel
+   over 4 (P1 on every BatchNorm with the global batch's statistics;
+   running statistics held too).  The kernels are built once, before
+   the ranks start; each rank sets its launch counters to 0 and reports
+   them per step, with its step wall time and peak memory.  With NCCL
+   the simulator's step for the leg's strategy (the search's measured
+   op costs, hgx_h100_8.json at the leg's size) stands beside the
+   measured one, and rank 0 profiles a third step (device busy and idle
+   share, device ms by kind: collectives, K1-K3, GEMMs, copies).
 
 `--phases` runs a subset (e.g. `--phases kernels` after editing a
 kernel, `--phases bn_kernels,resnet,resnet_parity,resnet_profile` for
 the ResNet path, `--phases vit,vit_parity,vit_profile` for the ViT
 path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
 `--phases nmt,generate,keras,onnx,seq_parity` for the sequence-model
-and frontend slice, `--phases search` for the search and simulator).
+and frontend slice, `--phases search` for the search and simulator,
+`--phases multigpu` for multi-GPU execution).
 Every line but the last two is one JSON object; the
 one before the last is the card's name and power limit as nvidia-smi
 prints them, and the last is {"ok": true, "device": {...}}.  Exits 2,
@@ -187,8 +215,10 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -3508,7 +3538,7 @@ def phase_seq_parity(torch, card: str) -> dict:
 ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
               "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
-              "nmt,generate,keras,onnx,seq_parity,search")
+              "nmt,generate,keras,onnx,seq_parity,search,multigpu")
 
 # the search phase: the Unity search's budget, the devices it searches
 # for (one HGX H100 node), the calibration's step windows and batch
@@ -3575,7 +3605,7 @@ def predicted_step(cfg, ff, machine, strategy) -> float:
     return res.total_time
 
 
-def phase_search(torch, fa, card: str) -> dict:
+def phase_search(torch, fa, card: str, run_dir: str) -> dict:
     """The Unity search over one HGX H100 node, costed by op forwards
     timed on the card, then the searched one-card model trained against
     the unsearched one, and the overlap calibration."""
@@ -3610,6 +3640,7 @@ def phase_search(torch, fa, card: str) -> dict:
                                f"{best.total_devices} devices")
         path = f"{tmp}/strategy.json"
         best.save(path)
+        best.save(f"{run_dir}/searched_strategy.json")  # multigpu trains it
         back = Strategy.load(path)
         if back.to_json() != best.to_json():
             raise RuntimeError("search: the strategy file did not load "
@@ -3700,6 +3731,7 @@ def phase_search(torch, fa, card: str) -> dict:
                 f"measured {held[0] * 1e3} ms: {held_err} over "
                 f"{CAL_HELD_OUT_TOL}")
         torch.cuda.empty_cache()
+        shutil.copy(cache, f"{run_dir}/op_costs.json")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = {k: search_launches[k] + sum(v[k] for v in
@@ -3750,8 +3782,530 @@ def phase_search(torch, fa, card: str) -> dict:
     return rec
 
 
+# the multigpu phase: BERT-base at the train phase's width, batch and
+# sequence over groups of ranks, each leg held against the same model
+# trained on one card (in this process) from the same weights and batches
+MULTIGPU_STEPS = 2
+MULTIGPU_TIMEOUT_S = 600
+MULTIGPU_CNN = dict(batch=16, px=32)
+# each leg against its one-card run, float32, TF32 off: the sharded
+# step sums in other orders (the TP and ring partial sums, the grads'
+# all-reduce over ranks) than the one-card step, and the ring runs K1-K3
+# on 1024-key blocks merged through their LSE where one card runs them
+# over 2048 keys (their float32 products are 3xTF32, 2^-22 dropped, so
+# each block shape rounds its own way).  The losses are held as error
+# over scale max(1, |loss|): the second step's loss is 7.26, after a
+# first step that sends it from 0.69 (SGD at lr 0.01 on random
+# features), and a weight 1e-6 apart moves it by ~1e-4 there.  Under
+# Adam (alpha 1e-3) a weight whose grad is at rounding level can move
+# by up to alpha either way; on the H100 the ZeRO-3 leg's weights read
+# 1.11e-4 against one card and 4.8e-5 to 5.2e-5 against stage 0 (over
+# NCCL on four cards and over gloo on one), while a skipped or misplaced
+# update moves each weight by about alpha.  The limit sits between, and
+# the record gives the one-card run's last-step move beside it: the
+# reading a skipped second update would give, and how many weights'
+# own moves the limit would see
+MULTIGPU_TOL = {"loss": PARITY_TOL["loss"], "weights": PARITY_TOL["weights"],
+                "adam_weights": 3e-4,
+                "cnn_weights": RESNET_PARITY_TOL["weights"],
+                "cnn_running_stats": RESNET_PARITY_TOL["running_stats"]}
+MULTIGPU_LEGS = (
+    {"name": "dp_tp", "ranks": 4, "strategy": ["bert_tp", 2],
+     "optimizer": "sgd", "reference": "bert_sgd"},
+    {"name": "dp_sp", "ranks": 4, "strategy": ["bert_sp", 2],
+     "optimizer": "sgd", "reference": "bert_sgd"},
+    {"name": "dp_zero3", "ranks": 4, "strategy": ["dp"], "zero": 3,
+     "optimizer": "adam", "reference": "bert_adam"},
+    {"name": "cnn_dp", "ranks": 4, "strategy": ["dp"], "optimizer": "sgd",
+     "reference": "cnn"},
+    {"name": "searched", "ranks": SEARCH_DEVICES, "strategy": ["file"],
+     "optimizer": "sgd", "reference": "bert_sgd"},
+)
+
+
+def _multigpu_optimizer(name: str):
+    from flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+
+    if name == "adam":
+        return AdamOptimizer(alpha=1e-3)
+    return SGDOptimizer(lr=0.01, weight_decay=1e-4)
+
+
+def _multigpu_bert(device: str, optimizer: str, strategy=None, zero=0):
+    """The train phase's BERT-base, batch 8, seq 2048, weights from seed
+    0 (every rank draws the same global weights)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+
+    ff = FFModel(FFConfig(batch_size=TRAIN_BATCH, device=device, seed=0,
+                          zero_stage=zero))
+    build_bert(ff, batch_size=TRAIN_BATCH, seq_length=TRAIN_SEQ, **BERT)
+    ff.compile(optimizer=_multigpu_optimizer(optimizer), strategy=strategy,
+               seed=0)
+    return ff
+
+
+def _multigpu_cnn(torch, device: str):
+    _, _, SmallResNet = resnet_modules()
+    torch.manual_seed(1)
+    return build_resnet(torch, SmallResNet(), MULTIGPU_CNN["batch"],
+                        MULTIGPU_CNN["px"], device, "float32")
+
+
+def _multigpu_strategy(leg, job):
+    from flexflow_tpu_torch.models.transformer import (bert_sp_strategy,
+                                                       bert_tp_strategy)
+    from flexflow_tpu_torch.strategy import Strategy, data_parallel_strategy
+
+    kind = leg["strategy"][0]
+    if kind == "bert_tp":
+        return bert_tp_strategy(leg["ranks"], tp=leg["strategy"][1])
+    if kind == "bert_sp":
+        return bert_sp_strategy(leg["ranks"], sp=leg["strategy"][1])
+    if kind == "file":
+        return Strategy.load(job["strategy_file"])
+    return data_parallel_strategy(leg["ranks"])
+
+
+def _weights_diff(got: dict, want: dict):
+    worst, at = 0.0, None
+    for op, entries in want.items():
+        for k, v in entries.items():
+            d = float(np.abs(got[op][k] - v).max())
+            if d > worst:
+                worst, at = d, f"{op}.{k}"
+    return worst, at
+
+
+def _multigpu_leg(torch, dist, leg, job, rank):
+    """One leg on this rank: compile under the leg's strategy, two timed
+    train steps, launches, memory, and (rank 0) the gathered weights
+    against the one-card run."""
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    npz = np.load(job["data"][leg["reference"]])
+    data = {"x": npz["x"], "y": npz["y"]}
+    strategy = _multigpu_strategy(leg, job)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if leg["reference"] == "cnn":
+        ff = _multigpu_cnn(torch, "cuda")
+    else:
+        ff = _multigpu_bert("cuda", leg["optimizer"], strategy,
+                            leg.get("zero", 0))
+    compile_s = time.perf_counter() - t0
+    b = MULTIGPU_CNN["batch"] if leg["reference"] == "cnn" else TRAIN_BATCH
+    reset_flash_launches(fa)
+    bk.bn_apply.launches = 0
+    losses, step_s = [], []
+    for i in range(MULTIGPU_STEPS):
+        x, y = data["x"][i * b:(i + 1) * b], data["y"][i * b:(i + 1) * b]
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if i == 0:
+            losses.append(float(ff.train_step({"input": x}, y)["loss"]))
+        else:
+            losses.append(_fit_step(ff, x, y, b))
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(flash_launches(fa), P1=bk.bn_apply.launches)
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"rank": rank, "losses": losses, "step_s": step_s,
+           "compile_s": compile_s,
+           "launches_per_step": {k: v / MULTIGPU_STEPS
+                                 for k, v in launches.items()},
+           "peak_memory_gb": peak / 1e9,
+           "opt_state_bytes": ff.executor.opt_state_bytes(ff._opt_state),
+           "zero_stage": ff.executor.zero_stage,
+           "zero_fallback_leaves": ff.executor.zero_fallback_leaves(),
+           "mesh": dict(ff.strategy.mesh_axes)}
+    weights = ff.get_weights()
+    state = ff.get_state() if leg["reference"] == "cnn" else None
+    if rank == 0:
+        want = np.load(job["data"][leg["reference"] + "_after"],
+                       allow_pickle=True)["weights"].item()
+        rec["weights_diff"], rec["worst_weight"] = _weights_diff(weights,
+                                                                 want)
+        if state is not None:
+            want_s = np.load(job["data"]["cnn_after"],
+                             allow_pickle=True)["state"].item()
+            rec["running_stats_diff"], _ = _weights_diff(state, want_s)
+        if leg.get("zero") == 3:
+            rec["zero0"] = _multigpu_zero0(torch, dist, leg, job, data,
+                                           weights)
+    elif leg.get("zero") == 3:
+        _multigpu_zero0(torch, dist, leg, job, data, None)
+    if job.get("profile"):
+        prof = _rank_profile(torch, ff, data["x"][:b], data["y"][:b])
+        if rank == 0:
+            rec["profile"] = prof
+    del ff
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _kernel_kind_mg(name: str) -> str:
+    if "nccl" in name.lower():
+        return "collectives"
+    if "flash_" in name and "_kernel" in name:
+        return "K1-K3"
+    if any(t in name.lower() for t in ("gemm", "cutlass", "xmma", "sm90")):
+        return "gemm"
+    if "memcpy" in name.lower() or "memset" in name.lower():
+        return "copies"
+    return "other"
+
+
+def _rank_profile(torch, ff, x, y) -> dict:
+    """One more train step under torch.profiler on this rank (after the
+    checks): wall, device busy (the union of device events) and idle
+    share, device ms by kind and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ff.train_step({"input": x}, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the "nccl:<op>" ranges the profiler records beside each NCCL
+    # kernel would count the collective twice
+    dev = [e for e in prof.events()
+           if "cuda" in str(e.device_type).lower()
+           and not e.name.startswith("nccl:")]
+    if not dev:
+        raise RuntimeError("multigpu: the profiler saw no device time")
+    busy_ms = device_busy_us(dev) / 1e3
+    kinds, by_name = {}, {}
+    for e in dev:
+        us = e.time_range.elapsed_us()
+        kind = _kernel_kind_mg(e.name)
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_ms_by_kind": kinds, "device_events": len(dev),
+            "top_kernels": [{"name": n[:80], "ms": ms} for n, ms in top]}
+
+
+def _fit_step(ff, x, y, b) -> float:
+    """One step through fit over one batch (each rank loads its shard of
+    it through the prefetching loader); its loss."""
+    step, seen = ff.train_step, []
+
+    def recording(inputs, labels):
+        m = step(inputs, labels)
+        seen.append(m["loss"])
+        return m
+
+    ff.train_step = recording
+    try:
+        ff.fit(x, y, batch_size=b, epochs=1, verbose=False)
+    finally:
+        del ff.train_step
+    return float(seen[0])
+
+
+def _multigpu_zero0(torch, dist, leg, job, data, weights3):
+    """The ZeRO-3 leg's group at stage 0, same weights and batches: the
+    losses and the weights the ladder must reproduce."""
+    ff = _multigpu_bert("cuda", leg["optimizer"], _multigpu_strategy(leg, job))
+    losses = []
+    for i in range(MULTIGPU_STEPS):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        losses.append(float(ff.train_step({"input": data["x"][sl]},
+                                          data["y"][sl])["loss"]))
+    weights0 = ff.get_weights()
+    opt0 = ff.executor.opt_state_bytes(ff._opt_state)
+    del ff
+    torch.cuda.empty_cache()
+    if weights3 is None:
+        return None
+    diff, at = _weights_diff(weights3, weights0)
+    return {"losses": losses, "weights_diff": diff, "worst_weight": at,
+            "opt_state_bytes": opt0}
+
+
+def _multigpu_rank(rank, world, cards, backend, port, job, out_dir):
+    """A spawned rank: its card, the group, then every leg of the job."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(rank % cards)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from flexflow_tpu_torch import distributed
+
+        distributed.initialize(f"localhost:{port}", world, rank,
+                               local_device_ids=[rank % cards],
+                               backend=backend)
+        out["legs"] = [_multigpu_leg(torch, dist, leg, job, rank)
+                       for leg in job["legs"]]
+        out["ok"] = True
+    except Exception:  # reported to the parent, which fails the phase
+        out["ok"] = False
+        out["error"] = traceback.format_exc()
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    if out["ok"]:
+        dist.destroy_process_group()
+
+
+def _run_ranks(world, cards, job, out_dir):
+    """Spawn `world` ranks (rank r on card r % cards; NCCL when every
+    rank has a card of its own, else gloo, named); kill them all at
+    MULTIGPU_TIMEOUT_S."""
+    import multiprocessing as mp
+    import socket
+
+    backend = "nccl" if cards >= world else "gloo"
+    # under NCCL rank 0 profiles a third step (after the checks); over
+    # gloo a profile would time the host's staging
+    job = dict(job, profile=backend == "nccl")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_multigpu_rank,
+                         args=(r, world, cards, backend, port, job, out_dir))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MULTIGPU_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    wall = time.perf_counter() - t0
+    outs = []
+    for r in range(world):
+        path = Path(out_dir) / f"rank{r}.json"
+        outs.append(json.loads(path.read_text()) if path.exists()
+                    else {"rank": r, "ok": False,
+                          "error": f"no result (exit {procs[r].exitcode})"})
+    bad = [o for o in outs if not o["ok"]]
+    if hung or bad:
+        raise RuntimeError(
+            f"multigpu: {world} ranks ({backend}, {cards} cards): hung "
+            f"{hung}; failed {[o['rank'] for o in bad]}:\n"
+            + (bad[0]["error"][-3000:] if bad else ""))
+    return backend, wall, outs
+
+
+def _one_card_reference(torch, name, tmp):
+    """Two steps on this process's card: the losses and the weights (and
+    the CNN's running statistics) after them, saved beside the batches."""
+    if name == "cnn":
+        ff = _multigpu_cnn(torch, "cuda")
+        b = MULTIGPU_CNN["batch"]
+        rng = np.random.RandomState(1)
+        x = rng.randn(b * MULTIGPU_STEPS, 3, MULTIGPU_CNN["px"],
+                      MULTIGPU_CNN["px"]).astype(np.float32)
+        y = rng.randint(0, 10, b * MULTIGPU_STEPS).astype(np.int32)
+    else:
+        ff = _multigpu_bert("cuda", "adam" if name == "bert_adam" else "sgd")
+        b = TRAIN_BATCH
+        x, y = bert_data(b * MULTIGPU_STEPS, seed=0)
+    losses, step_s = [], []
+    for i in range(MULTIGPU_STEPS):
+        if i == MULTIGPU_STEPS - 1:
+            before = ff.get_weights()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(ff.train_step({"input": x[i * b:(i + 1) * b]},
+                                          y[i * b:(i + 1) * b])["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    weights = ff.get_weights()
+    data, after = f"{tmp}/{name}.npz", f"{tmp}/{name}_after.npz"
+    np.savez(data, x=x, y=y)
+    np.savez(after, weights=np.array(weights, dtype=object),
+             state=np.array(ff.get_state(), dtype=object))
+    del ff
+    torch.cuda.empty_cache()
+    # each weight's largest move in the last step: what a rank that
+    # skipped that update would read against this run
+    moves = {f"{op}.{k}": float(np.abs(v - before[op][k]).max())
+             for op, entries in weights.items() for k, v in entries.items()}
+    return ({"losses": losses, "step_s": step_s, "last_step_moves": moves},
+            data, after)
+
+
+def _searched_strategy_file(torch, fa, run_dir) -> str:
+    """The search phase's 8-GPU strategy file; without that phase, the
+    same Unity search over hgx_h100_8.json, run here."""
+    path = Path(run_dir) / "searched_strategy.json"
+    if not path.exists():
+        from flexflow_tpu_torch.pcg.search import unity_search
+
+        cfg = search_config(str(Path(run_dir) / "op_costs.json"))
+        unity_search(search_bert(cfg), SEARCH_DEVICES).save(str(path))
+        torch.cuda.empty_cache()
+    return str(path)
+
+
+def _multigpu_prediction(run_dir, leg, strategy) -> float:
+    """The simulator's step for `strategy` on hgx_h100_8.json, with the
+    search's measured op costs."""
+    from flexflow_tpu_torch.sim.machine_model import make_machine_model
+
+    cfg = search_config(str(Path(run_dir) / "op_costs.json"))
+    return predicted_step(cfg, search_bert(cfg),
+                          make_machine_model(cfg, strategy.total_devices),
+                          strategy)
+
+
+def phase_multigpu(torch, fa, card: str, run_dir: str) -> dict:
+    """BERT-base data x tensor parallel, data x sequence parallel (ring
+    attention through K1-K3), ZeRO-3 under Adam and the searched 8-GPU
+    strategy, and a data-parallel CNN (P1 on every BatchNorm with the
+    global batch's statistics), each over a group of ranks, each held
+    against its one-card run."""
+    cards = torch.cuda.device_count()
+    tmp = tempfile.mkdtemp(prefix="ff_multigpu_")
+    try:
+        job = {"data": {}, "strategy_file": _searched_strategy_file(
+            torch, fa, run_dir)}
+        refs = {}
+        for name in ("bert_sgd", "bert_adam", "cnn"):
+            refs[name], job["data"][name], job["data"][name + "_after"] = \
+                _one_card_reference(torch, name, tmp)
+        legs = []
+        for world in sorted({leg["ranks"] for leg in MULTIGPU_LEGS}):
+            group = [leg for leg in MULTIGPU_LEGS if leg["ranks"] == world]
+            out_dir = tempfile.mkdtemp(dir=tmp)
+            backend, wall, outs = _run_ranks(world, cards,
+                                             dict(job, legs=group), out_dir)
+            for i, leg in enumerate(group):
+                legs.append(_multigpu_record(leg, [o["legs"][i] for o in outs],
+                                             refs[leg["reference"]], backend,
+                                             cards, wall, run_dir, job))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "multigpu", "card": card, "cards": cards,
+           "steps": MULTIGPU_STEPS, "legs": legs,
+           "tolerance": MULTIGPU_TOL,
+           "model": dict(BERT, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         dtype="float32", allow_tf32=False),
+           "cnn": dict(MULTIGPU_CNN, model="resnet_parity's SmallResNet")}
+    emit(rec)
+    faults = [f for leg in legs for f in leg["faults"]]
+    if faults:
+        raise RuntimeError("multigpu: " + "; ".join(faults))
+    return rec
+
+
+def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
+    """A leg's record from its ranks' reports, with the checks."""
+    from flexflow_tpu_torch.strategy import Strategy
+
+    r0 = ranks[0]
+    name, world = leg["name"], leg["ranks"]
+    faults = []
+    loss_diff = max(abs(a - b) / max(1.0, abs(b))
+                    for a, b in zip(r0["losses"], ref["losses"]))
+    if not (np.isfinite(r0["losses"]).all()
+            and loss_diff <= MULTIGPU_TOL["loss"]):
+        faults.append(f"{name}: losses {r0['losses']} against one card "
+                      f"{ref['losses']}")
+    if any(r["losses"] != r0["losses"] for r in ranks):
+        faults.append(f"{name}: ranks report different losses")
+    wtol = (MULTIGPU_TOL["adam_weights"] if leg["optimizer"] == "adam"
+            else MULTIGPU_TOL["cnn_weights"] if leg["reference"] == "cnn"
+            else MULTIGPU_TOL["weights"])
+    if not r0["weights_diff"] <= wtol:
+        faults.append(f"{name}: weights {r0['weights_diff']} apart "
+                      f"({r0['worst_weight']}), tolerance {wtol}")
+    moves = ref["last_step_moves"]
+    skipped = max(moves.values())
+    if not skipped > wtol:
+        faults.append(f"{name}: the weight tolerance {wtol} would pass a "
+                      f"skipped last update (it moves weights by at most "
+                      f"{skipped})")
+    if leg["reference"] == "cnn":
+        if not (r0["running_stats_diff"]
+                <= MULTIGPU_TOL["cnn_running_stats"]):
+            faults.append(f"{name}: running statistics "
+                          f"{r0['running_stats_diff']} apart")
+        for r in ranks:
+            if r["launches_per_step"]["P1"] <= 0:
+                faults.append(f"{name}: rank {r['rank']} launched no P1")
+    else:
+        sp = leg["strategy"][1] if leg["strategy"][0] == "bert_sp" else 1
+        want = BERT["num_layers"] * sp
+        for r in ranks:
+            got = r["launches_per_step"]
+            if any(got[k] != want for k in ("K1", "K2", "K3")):
+                faults.append(f"{name}: rank {r['rank']} launched {got} "
+                              f"per step, expected {want} each of K1-K3")
+    if "zero0" in r0:
+        # the ladder against stage 0 in the same group: the same sums,
+        # reduce-scattered per weight instead of all-reduced by bucket
+        z = r0["zero0"]
+        dz = max(abs(a - b) / max(1.0, abs(b))
+                 for a, b in zip(z["losses"], r0["losses"]))
+        if dz > MULTIGPU_TOL["loss"] or z["weights_diff"] > wtol:
+            faults.append(f"{name}: ZeRO-3 against ZeRO-0 {z}")
+    step_s = [max(r["step_s"][i] for r in ranks)
+              for i in range(MULTIGPU_STEPS)]
+    rec = {
+        "leg": name, "ranks": world, "cards": cards, "backend": backend,
+        "strategy": leg["strategy"], "mesh": r0["mesh"],
+        "optimizer": leg["optimizer"], "zero_stage": r0["zero_stage"],
+        "losses": r0["losses"], "one_card_losses": ref["losses"],
+        "max_loss_err_over_scale": loss_diff,
+        "loss_tolerance": MULTIGPU_TOL["loss"],
+        "max_weight_diff": r0["weights_diff"],
+        "worst_weight": r0["worst_weight"], "weight_tolerance": wtol,
+        "skipped_last_update_reads": skipped,
+        "weights_whose_last_update_the_tolerance_sees": [
+            sum(m > wtol for m in moves.values()), len(moves)],
+        "launches_per_rank_per_step": [r["launches_per_step"]
+                                       for r in ranks],
+        "step_ms": [s * 1e3 for s in step_s],
+        "step_ms_per_rank": [[s * 1e3 for s in r["step_s"]] for r in ranks],
+        "one_card_step_ms": [s * 1e3 for s in ref["step_s"]],
+        "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+        "opt_state_bytes_per_rank": [r["opt_state_bytes"] for r in ranks],
+        "zero_fallback_leaves": r0["zero_fallback_leaves"],
+        "group_wall_s": wall, "faults": faults,
+    }
+    if leg["reference"] == "cnn":
+        rec["max_running_stats_diff"] = r0["running_stats_diff"]
+    if "zero0" in r0:
+        rec["zero0"] = r0["zero0"]
+    if "profile" in r0:
+        rec["profile_rank0"] = r0["profile"]
+    if backend == "nccl" and leg["reference"] != "cnn":
+        strategy = _multigpu_strategy(leg, job)
+        strategy.zero_stage = leg.get("zero", strategy.zero_stage)
+        rec["predicted_step_ms"] = _multigpu_prediction(
+            run_dir, leg, strategy) * 1e3
+    else:
+        rec["predicted_step_ms"] = None
+        rec["prediction_note"] = (
+            f"{world} ranks share {cards} card(s) over gloo: every "
+            "collective is staged through host memory, so the measured "
+            "step is no test of the simulator's NVLink prediction"
+            if backend == "gloo" else "the simulator has no CNN search")
+    if leg["strategy"][0] == "file":
+        rec["searched_strategy"] = json.loads(
+            Strategy.load(job["strategy_file"]).to_json())
+    return rec
+
+
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
-                onnx=None, search=None) -> dict:
+                onnx=None, search=None, multigpu=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
     main paths, agreement with the plain versions and the times of this
     run."""
@@ -3768,6 +4322,8 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
             "launches_per_train_step": (
                 resnet["bn_apply_launches_per_step"] if resnet else None),
             "launches_onnx": onnx["p1_launches"] if onnx else None,
+            "launches_multigpu_per_rank_per_step": _multigpu_launches(
+                multigpu, "P1"),
             "launches_per_train_step_onnx": (
                 onnx["p1_launches_per_step"] if onnx else None),
             "max_abs_err": max(c["max_abs_err"] for c in bn["cases"]),
@@ -3834,6 +4390,8 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                 train["flash_launches_per_step"][kid] if train else None),
             "launches_search": (search["flash_launches"][kid]
                                 if search else None),
+            "launches_multigpu_per_rank_per_step": _multigpu_launches(
+                multigpu, kid),
             "max_abs_err": max(w[0] for w in worst.values()),
             "max_err_over_scale_by_dtype": {
                 dt: w[1] for dt, w in worst.items()},
@@ -3854,6 +4412,14 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
             "card": card,
         })
     return {"kernels": rows}
+
+
+def _multigpu_launches(multigpu, kid):
+    """{leg: launches of kernel `kid` per step on each rank}."""
+    if multigpu is None:
+        return None
+    return {leg["leg"]: [r[kid] for r in leg["launches_per_rank_per_step"]]
+            for leg in multigpu["legs"]}
 
 
 def main(argv=None) -> int:
@@ -3891,7 +4457,10 @@ def main(argv=None) -> int:
           "note": "one nvcc per source, started together"})
     dev = torch.device("cuda")
     kern = flash = serve = train = bn = resnet = paged = onnx = None
-    search = None
+    search = multigpu = None
+    # what one phase leaves for another: the searched strategy and the
+    # op costs the search timed (the multigpu phase trains and prices it)
+    run_dir = tempfile.mkdtemp(prefix="ff_smoke_")
     if "kernels" in phases:
         kern = phase_kernels(torch, pk, card, dev, paged_lib, build_s)
         flash = phase_flash_kernels(torch, fa, card, dev, flash_lib)
@@ -3949,10 +4518,13 @@ def main(argv=None) -> int:
     if "seq_parity" in phases:
         phase_seq_parity(torch, card)
     if "search" in phases:
-        search = phase_search(torch, fa, card)
+        search = phase_search(torch, fa, card, run_dir)
+    if "multigpu" in phases:
+        multigpu = phase_multigpu(torch, fa, card, run_dir)
+    shutil.rmtree(run_dir, ignore_errors=True)
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,
-                         search))
+                         search, multigpu))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,9 @@ the continuous engine, the strategy search, simulator and strategy-file
 fields, and `device`, which the reference does not have.  The field and
 flag names and defaults are the reference's own, except
 `memory_per_device`, which is one H100's 80 GB.  The reference's
-multi-slice, strategy-store and fusion fields (ROADMAP §1.D, §1.E) are
-left out: FFConfig does not take them, and `from_args` raises on their
-flags rather than ignore them.
+multi-slice, strategy-store and fusion fields (ROADMAP §1.D's second
+half, §1.E) are left out: FFConfig does not take them, and `from_args`
+raises on their flags rather than ignore them.
 """
 from __future__ import annotations
 
@@ -31,16 +31,18 @@ SEARCH_ALGOS = ("unity", "mcmc")
 
 # the reference's flags of the multi-slice hierarchy, the strategy store
 # and the fusion pass, which the port does not carry yet
+_HIERARCHY = ("ROADMAP §1.D, second half, item 4 (the multi-node "
+              "SliceHierarchy, rendezvous and hierarchical reduction)")
 _UNPORTED_FLAGS = {
-    "--slices": "ROADMAP §1.D (multi-node SliceHierarchy)",
-    "--dcn-bandwidth": "ROADMAP §1.D (multi-node SliceHierarchy)",
-    "--dcn-latency": "ROADMAP §1.D (multi-node SliceHierarchy)",
-    "--slice-topology": "ROADMAP §1.D (multi-node SliceHierarchy)",
-    "--dcn-bucket-mb": "ROADMAP §1.D (multi-node SliceHierarchy)",
+    "--slices": _HIERARCHY,
+    "--dcn-bandwidth": _HIERARCHY,
+    "--dcn-latency": _HIERARCHY,
+    "--slice-topology": _HIERARCHY,
+    "--dcn-bucket-mb": _HIERARCHY,
     "--strategy-store": "ROADMAP §1.E (store/ cached search)",
     "--no-strategy-store": "ROADMAP §1.E (store/ cached search)",
     "--compilation-cache": "ROADMAP §1.E (store/ cached search)",
-    "--fusion": "ROADMAP §1.D (the fusion pass, with the executor)",
+    "--fusion": "ROADMAP §1.D, second half, item 5 (the fusion pass)",
 }
 
 
@@ -114,8 +116,8 @@ class FFConfig:
     simulator_segment_size: int = 16777216
 
     # -- execution: the ZeRO stage (0-3), the mesh axis the update
-    #    shards over, activation remat and the gradient sync the simulator costs.  The port executes stage 0 without
-    #    remat on one device; compile raises for what it cannot run
+    #    shards over, activation remat (every pure segment) and the
+    #    gradient sync the simulator costs
     zero_stage: int = 0
     wus_axis: str = "data"
     remat: bool = False
@@ -179,8 +181,13 @@ class FFConfig:
         return torch.device(self.device).type == "cuda"
 
     def resolve_num_devices(self) -> int:
-        """The devices a search targets by default: every visible card
-        on CUDA, one on the CPU."""
+        """The devices a search targets by default: the ranks of the
+        torch.distributed group when there is one, else every visible
+        card on CUDA, one on the CPU."""
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_world_size()
         if torch.device(self.device).type == "cuda":
             return torch.cuda.device_count()
         return 1

@@ -83,7 +83,9 @@ class SingleDataLoader:
 
     def __init__(self, ff, x: Union[np.ndarray, Dict[str, np.ndarray]],
                  y: np.ndarray, batch_size: Optional[int] = None,
-                 shuffle: bool = False, seed: int = 0, prefetch: int = 2):
+                 shuffle: bool = False, seed: int = 0, prefetch: int = 2,
+                 index: Optional[Dict[Optional[str], Tuple[slice, ...]]]
+                 = None):
         self.ff = ff
         input_ops = ff.layers.source_ops()
         if isinstance(x, dict):
@@ -119,6 +121,15 @@ class SingleDataLoader:
         self._src[None] = torch.from_numpy(self.y)
         self._dtype = {k: dtypes.get(k) or _NARROW.get(t.dtype, t.dtype)
                        for k, t in self._src.items()}
+        # on a torch.distributed group each rank loads its shard of every
+        # batch: an index into one global batch per tensor (fit passes
+        # its feed layout's; None is the labels' key)
+        self._index = {}
+        for k, t in self._src.items():
+            first, *rest = (index or {}).get(k, (slice(0, self.batch_size),))
+            if rest == [slice(0, n) for n in t.shape[1:1 + len(rest)]]:
+                rest = []  # only rows: gathered straight into staging
+            self._index[k] = (first, *rest)
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self._cuda else None)
         self._ring: Optional[list] = None  # the CUDA worker's staging
@@ -179,18 +190,33 @@ class SingleDataLoader:
 
     # -- internals ---------------------------------------------------------
     def _gather(self, idx: torch.Tensor, out: Optional[dict]) -> dict:
-        """The rows idx of every tensor, in its loader dtype: into the
-        staging buffers `out` when given, else into new tensors."""
+        """Each tensor's shard of the batch of rows idx, in its loader
+        dtype: into the staging buffers `out` when given, else into new
+        tensors."""
         rows = {}
+        batch = idx
         for k, src in self._src.items():
+            first, *rest = self._index[k]
+            idx = batch[first]
             dst = None if out is None else out[k]
-            if src.dtype == self._dtype[k]:
+            if rest:
+                got = torch.index_select(src, 0, idx)[(slice(None),)
+                                                      + tuple(rest)]
+                got = got.to(self._dtype[k])
+                rows[k] = got if dst is None else dst.copy_(got)
+            elif src.dtype == self._dtype[k]:
                 rows[k] = (torch.index_select(src, 0, idx) if dst is None
                            else torch.index_select(src, 0, idx, out=dst))
             else:
                 got = torch.index_select(src, 0, idx).to(self._dtype[k])
                 rows[k] = got if dst is None else dst.copy_(got)
         return rows
+
+    def _shard_shape(self, k, t: torch.Tensor) -> Tuple[int, ...]:
+        """The shape of tensor k's shard of one batch."""
+        full = (self.batch_size,) + tuple(t.shape[1:])
+        index = self._index[k] + (slice(None),) * len(full)
+        return tuple(len(range(n)[sl]) for n, sl in zip(full, index))
 
     def _staging(self, b: int) -> _Staging:
         """Batch b's slot of the ring, pinned at its first use (so the
@@ -200,7 +226,7 @@ class SingleDataLoader:
         i = b % len(self._ring)
         if self._ring[i] is None:
             self._ring[i] = _Staging(
-                {k: ((self.batch_size,) + tuple(t.shape[1:]), self._dtype[k])
+                {k: (self._shard_shape(k, t), self._dtype[k])
                  for k, t in self._src.items()})
         return self._ring[i]
 

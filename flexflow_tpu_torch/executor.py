@@ -31,17 +31,45 @@ Two rules of the reference's step serve MoE: every op's auxiliary loss
 and added to the training loss, and under AggregateSpec, whose output
 holds k predictions per sample, each label is repeated k times,
 sample-major (`label_replication`), in training and in eval.
-Sharding, ZeRO, remat, pipelines and cache taps come with later slices.
+Remat (`remat`, `remat_segments`: the reference's `_build_remat_plan`)
+splits the graph at single-tensor cuts (pcg/segments.py) and runs each
+selected pure segment under `torch.utils.checkpoint` (non-reentrant), so
+that its activations are recomputed in the backward; a segment with an
+input op, op state (BatchNorm's running statistics, which a recompute
+would update twice) or a random draw (Dropout: the executor's
+torch.Generator is not restored by the checkpoint) runs inline.
+
+Given a DeviceMesh (`mesh`), the executor runs the strategy's sharded
+step on this rank (the reference's SPMD step, without a partitioner):
+each op runs on its local shards as parallel/spmd.py plans it, and each
+output is redistributed to its MachineView's layout, the counterpart of
+the reference's `with_sharding_constraint`.  Every rank draws the same
+global weights and keeps its shard.  The loss is taken over the global
+batch: each rank's mean over its rows is scaled so that the ranks' sum
+is the global mean, and the backward starts from 1/world on every rank,
+which with the adjoint collectives gives each weight's exact grad once
+its partial sums are added over the axes that replicate it.  The ZeRO
+ladder (parallel/zero.py) shards the update over `wus_axis`.
+Pipelines, expert shardings and factored per-op views come with the
+next slice of ROADMAP §1.D.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .fftype import OpBinary, OperatorType, OpUnary
+from .parallel.collectives import (Layout, all_gather, all_reduce_,
+                                   gather_global, local_slice, redistribute,
+                                   reduce_scatter)
+from .parallel.spmd import layout_of, plan_op
+from .parallel.zero import shard_update_spec
 from .pcg.graph import Graph
 from .pcg.layout import NHWC, PASS, assign_layouts
 
@@ -114,7 +142,10 @@ class GraphExecutor:
     def __init__(self, graph: Graph, device: torch.device,
                  compute_dtype: Optional[torch.dtype] = None,
                  loss=None, metrics=None, optimizer=None,
-                 label_replication: int = 1):
+                 label_replication: int = 1, mesh=None,
+                 zero_stage: int = 0, wus_axis: Optional[str] = "data",
+                 remat: bool = False,
+                 remat_segments: Optional[List[int]] = None):
         self.graph = graph
         self.label_replication = label_replication
         self.device = torch.device(device)
@@ -126,8 +157,21 @@ class GraphExecutor:
         self.sink = graph.sink_op()
         self.t_layout, self.op_layout = assign_layouts(graph)
         self.bn_plans = plan_bn_applies(graph, self.t_layout)
+        self.mesh = mesh
+        # the ZeRO ladder is active only on a mesh axis of size > 1
+        self.wus_axis = (wus_axis if mesh is not None and zero_stage
+                         and mesh.axis_sizes.get(wus_axis, 1) > 1 else None)
+        self.zero_stage = int(zero_stage) if self.wus_axis else 0
+        plan = (self._build_remat_plan(remat_segments)
+                if remat or remat_segments is not None else None)
+        if plan is not None and not any(pure for *_, pure in plan):
+            plan = None  # nothing checkpoints: the flat interpreter
+        self._remat_plan = plan
         self.schedule = self._schedule()
+        if mesh is not None:
+            self._plan_sharding()
 
+    # -- plans -------------------------------------------------------------
     def _schedule(self) -> List[Tuple[object, Optional[BNApplyPlan]]]:
         """(op, its BatchNorm plan or None) in execution order: the
         topological order with each fused chain run at its last op."""
@@ -144,6 +188,103 @@ class GraphExecutor:
                 out.append((op, self.bn_plans.get(op.guid)))
         return out
 
+    def _build_remat_plan(self, selected: Optional[List[int]] = None):
+        """[(op guids, in guids, out guids, pure)] per segment of
+        the single-tensor cuts; `selected` (a strategy's plan) restricts
+        the checkpointed segments to those indices.  A fused BatchNorm
+        chain that crosses a cut runs unfused."""
+        from .pcg.segments import external_inputs, split_segments
+
+        sel = None if selected is None else {int(i) for i in selected}
+        segments, _ = split_segments(self.graph)
+        seg_of = {op.guid: i for i, seg in enumerate(segments)
+                  for op in seg}
+        for g, p in list(self.bn_plans.items()):
+            if any(seg_of[a] != seg_of[g] for a in p.absorbed):
+                op = next(o for o in self.order if o.guid == g)
+                self.bn_plans[g] = BNApplyPlan(None, op.params.relu,
+                                               op.outputs[0].guid, (), g)
+        sink_out = self.sink.outputs[0].guid
+        consumers: Dict[int, List[int]] = {}
+        for op in self.graph.ops:
+            for t in op.inputs:
+                consumers.setdefault(t.guid, []).append(seg_of[op.guid])
+        plan = []
+        for i, seg in enumerate(segments):
+            outs = [t.guid for op in seg for t in op.outputs
+                    if t.guid == sink_out
+                    or any(c > i for c in consumers.get(t.guid, ()))]
+            pure = (sel is None or i in sel) and all(
+                op.op_type != OperatorType.INPUT
+                and op.num_trainable_weights() == len(op.weight_specs)
+                and not _draws(op) for op in seg)
+            plan.append(({op.guid for op in seg}, external_inputs(seg),
+                         outs, pure))
+        return plan
+
+    def _plan_sharding(self):
+        """Layouts of every tensor's view, each op's plan, each weight's
+        stored and update layouts, the inputs' feed layouts and the
+        labels' layout."""
+        mesh = self.mesh
+        self.view = {}
+        for op in self.order:
+            for pt in list(op.outputs):
+                self.view[pt.guid] = layout_of(pt)
+        self.op_plans = {}
+        for op in self.order:
+            if op.op_type == OperatorType.INPUT or op.is_parallel_op():
+                continue
+            self.op_plans[op.guid] = plan_op(
+                op, mesh, [self.view[t.guid] for t in op.inputs])
+        # stored layout of every weight and state entry; the update
+        # layout (None: the replicated update) of each trainable one
+        self.w_store, self.w_update = {}, {}
+        for op in self.order:
+            nt = op.num_trainable_weights()
+            for i, (spec, pt) in enumerate(zip(op.weight_specs, op.weights)):
+                lay = layout_of(pt)
+                key = (op.name, spec.name)
+                upd = None
+                if i < nt and self.wus_axis is not None:
+                    z = shard_update_spec(lay.spec, pt.shape.logical_shape,
+                                          self.wus_axis,
+                                          mesh.size(self.wus_axis))
+                    upd = None if z is None else Layout(z)
+                    if upd is not None and self.zero_stage >= 3:
+                        lay = upd
+                if i < nt:
+                    self.w_update[key] = upd
+                self.w_store[key] = lay
+        # an input lands in the layout its chain of parallel ops gives
+        consumers = collections.defaultdict(list)
+        for op in self.order:
+            for t in op.inputs:
+                consumers[t.guid].append(op)
+        self.feed = {}
+        for op in self.graph.source_ops():
+            t = op.outputs[0]
+            while (len(consumers[t.guid]) == 1
+                   and consumers[t.guid][0].op_type
+                   == OperatorType.REPARTITION):
+                t = consumers[t.guid][0].outputs[0]
+            self.feed[op.name] = self.view[t.guid]
+        sink = self.view[self.sink.outputs[0].guid]
+        self.loss_layout = Layout(
+            (sink.spec[0],) + ((),) * (len(sink.spec) - 1))
+        self.label_layout = Layout((sink.spec[0],))
+        self.loss_axes = tuple(sink.spec[0])
+
+    def zero_fallback_leaves(self) -> List[str]:
+        """'op.weight' names whose update falls back to the replicated
+        path while the ZeRO ladder is on (no free logical dim the
+        wus axis divides, or the axis already shards the weight)."""
+        if self.wus_axis is None:
+            return []
+        return [f"{op}.{w}" for (op, w), upd in self.w_update.items()
+                if upd is None]
+
+    # -- inputs and weights ---------------------------------------------------
     def _layout_in(self, op, t, v: torch.Tensor) -> torch.Tensor:
         """v as op wants it: channels_last for an NHWC op, as stored for
         a pass-through op, NCHW-contiguous for any other consumer."""
@@ -158,7 +299,8 @@ class GraphExecutor:
 
     def init_weights(self, seed: int = 0) -> Tuple[Weights, Weights]:
         """Weight and state dictionaries, drawn from one generator on
-        the executor's device."""
+        the executor's device; on a mesh every rank draws the same
+        global tensors and keeps its shard of each."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         weights: Weights = {}
@@ -173,15 +315,154 @@ class GraphExecutor:
                     dtype = self.compute_dtype
                 arr = spec.initializer(gen, spec.shape.logical_shape, dtype,
                                        self.device)
+                if self.mesh is not None:
+                    arr = self.local(arr, op.name, spec.name)
                 dst = weights if i < nt else state
                 dst.setdefault(op.name, {})[spec.name] = arr
         return weights, state
+
+    def local(self, arr, op_name: str, name: str):
+        """This rank's stored shard of a global weight or state entry
+        (a tensor or a numpy array)."""
+        out = local_slice(arr, self.w_store[(op_name, name)], self.mesh)
+        return out.contiguous() if torch.is_tensor(out) else out
+
+    def gathered(self, op_name: str, name: str, v: torch.Tensor):
+        """The global tensor of a stored weight or state entry (every rank
+        must call it)."""
+        if self.mesh is None:
+            return v
+        return gather_global(v.detach(), self.w_store[(op_name, name)],
+                             self.mesh)
+
+    def update_views(self, weights: Weights) -> Weights:
+        """What the optimizer updates: the weights, or at ZeRO stages 1
+        and 2 each rank's shard (a view) of every weight with an update
+        layout."""
+        if self.zero_stage not in (1, 2):
+            return weights
+        out: Weights = {}
+        for op, entries in weights.items():
+            for k, w in entries.items():
+                upd = self.w_update.get((op, k))
+                out.setdefault(op, {})[k] = (
+                    w if upd is None
+                    else local_slice(w, self._shard_only(upd, (op, k)),
+                                     self.mesh))
+        return out
+
+    def _shard_only(self, upd, key):
+        """The update layout with only the wus axis left to slice (the
+        stored local tensor already carries the strategy's axes)."""
+        spec = tuple((self.wus_axis,) if self.wus_axis in axes else ()
+                     for axes in upd.spec)
+        return Layout(spec)
 
     def _to_compute(self, x: torch.Tensor) -> torch.Tensor:
         if (self.compute_dtype is not None and x.is_floating_point()
                 and x.dtype != self.compute_dtype):
             return x.to(self.compute_dtype)
         return x
+
+    # -- forward ---------------------------------------------------------------
+    def _feed(self, op, x: torch.Tensor):
+        """(value, layout) of an input: the global tensor or its feed
+        layout's shard (what put_batch and fit's loader cut)."""
+        x = self._to_compute(x)
+        if self.mesh is None:
+            return x, None
+        shape = op.outputs[0].shape.logical_shape
+        for lay in (self.feed[op.name], self.view[op.outputs[0].guid]):
+            if tuple(x.shape) == lay.local_shape(shape, self.mesh):
+                return x, lay
+        raise ValueError(f"input {op.name} of shape {tuple(x.shape)} is "
+                         f"neither the global {shape} nor a shard of it")
+
+    def _exec(self, op, plan, env, lay, weights, state, new_state, ctx):
+        """Run one schedule entry into env (and, on a mesh, its layout
+        into lay)."""
+        training, generator, aux_losses, inputs = ctx
+        if op.op_type == OperatorType.INPUT:
+            env[op.outputs[0].guid], layout = self._feed(op, inputs[op.name])
+            if layout is not None:
+                lay[op.outputs[0].guid] = layout
+            return
+        ins = [self._layout_in(op, t, env[t.guid]) for t in op.inputs]
+        nt = op.num_trainable_weights()
+        ws = []
+        for i, spec in enumerate(op.weight_specs):
+            src = weights if i < nt else state
+            ws.append(self._to_compute(src[op.name][spec.name]))
+        kw = {}
+        if plan is not None:
+            kw = {"residual": None if plan.residual is None
+                  else env[plan.residual], "relu": plan.relu}
+        if self.mesh is None:
+            results = op.forward(ins, ws, training=training,
+                                 generator=generator, **kw)
+        else:
+            results = self._exec_sharded(op, ins, ws, kw, lay, training,
+                                         generator)
+        outs = results[:len(op.outputs)]
+        aux = getattr(op, "_last_aux", None)
+        if aux is not None:
+            if aux_losses is not None:
+                aux_losses.append(aux)
+            op._last_aux = None
+        for spec, given, val in zip(op.weight_specs[nt:], ws[nt:],
+                                    results[len(op.outputs):]):
+            dst = state[op.name][spec.name]
+            # an entry handed back as given is unchanged (eval-mode
+            # BatchNorm): copying its compute-dtype cast back would
+            # round the state
+            if val is not dst and val is not given:
+                with torch.no_grad():
+                    dst.copy_(val)
+            new_state[op.name][spec.name] = dst
+        if plan is not None:
+            env[plan.out] = outs[0]
+        else:
+            for pt, val in zip(op.outputs, outs):
+                env[pt.guid] = val
+
+    def _exec_sharded(self, op, ins, ws, kw, lay, training, generator):
+        """One op on this rank's shards: its inputs and weights brought
+        to the plan's layouts, the op's forward, each output brought to
+        its view (parallel ops: the identity, then the view)."""
+        mesh = self.mesh
+        cur = [lay.get(t.guid, self.view[t.guid]) for t in op.inputs]
+        if op.is_parallel_op():
+            out = op.outputs[0]
+            val = redistribute(ins[0], cur[0], self.view[out.guid], mesh)
+            return [val]
+        plan = self.op_plans[op.guid]
+        ins = [redistribute(x, src, dst, mesh)
+               for x, src, dst in zip(ins, cur, plan.ins)]
+        nt = op.num_trainable_weights()
+        ws = [redistribute(w, self.w_store[(op.name, s.name)], dst, mesh)
+              if i < nt else w
+              for i, (w, s, dst) in enumerate(zip(ws, op.weight_specs,
+                                                   plan.weights))]
+        if kw.get("residual") is not None:
+            res_guid = self.bn_plans[op.guid].residual
+            kw["residual"] = redistribute(
+                kw["residual"], lay.get(res_guid, self.view[res_guid]),
+                plan.ins[0], mesh)
+        if plan.fn is not None:
+            results = plan.fn(ins, ws, training=training,
+                              generator=generator)
+        else:
+            results = op.forward(ins, ws, training=training,
+                                 generator=generator, **plan.kwargs, **kw)
+        results = list(results)
+        outs = [self.bn_plans[op.guid].out] if kw else [
+            t.guid for t in op.outputs]
+        for i, guid in enumerate(outs):
+            results[i] = redistribute(results[i], plan.outs[i],
+                                      self.view[guid], mesh)
+            if i == 0 and plan.post is not None:
+                results[i] = plan.post(results[i])
+        return results
 
     def run_forward(self, weights: Weights, state: Weights,
                     inputs: Dict[str, torch.Tensor],
@@ -191,48 +472,37 @@ class GraphExecutor:
         """Interpret the PCG.  Returns (sink_output, new_state); the
         state's tensors are updated in place.  Random ops (Dropout,
         attention dropout) draw from `generator`.  The ops' auxiliary
-        losses are appended to `aux_losses` when it is given."""
+        losses are appended to `aux_losses` when it is given.  On a mesh
+        the sink output is this rank's shard of its view."""
         env: Dict[int, torch.Tensor] = {}
+        lay: Dict[int, object] = {}
         new_state = {k: dict(v) for k, v in state.items()}
-        for op, plan in self.schedule:
-            if op.op_type == OperatorType.INPUT:
-                env[op.outputs[0].guid] = self._to_compute(inputs[op.name])
-                continue
-            ins = [self._layout_in(op, t, env[t.guid]) for t in op.inputs]
-            nt = op.num_trainable_weights()
-            ws = []
-            for i, spec in enumerate(op.weight_specs):
-                src = weights if i < nt else state
-                ws.append(self._to_compute(src[op.name][spec.name]))
-            if plan is None:
-                results = op.forward(ins, ws, training=training,
-                                     generator=generator)
-            else:
-                res = None if plan.residual is None else env[plan.residual]
-                results = op.forward(ins, ws, training=training,
-                                     generator=generator, residual=res,
-                                     relu=plan.relu)
-            outs = results[:len(op.outputs)]
-            aux = getattr(op, "_last_aux", None)
-            if aux is not None:
-                if aux_losses is not None:
-                    aux_losses.append(aux)
-                op._last_aux = None
-            for spec, given, val in zip(op.weight_specs[nt:], ws[nt:],
-                                        results[len(op.outputs):]):
-                dst = state[op.name][spec.name]
-                # an entry handed back as given is unchanged (eval-mode
-                # BatchNorm): copying its compute-dtype cast back would
-                # round the state
-                if val is not dst and val is not given:
-                    with torch.no_grad():
-                        dst.copy_(val)
-                new_state[op.name][spec.name] = dst
-            if plan is not None:
-                env[plan.out] = outs[0]
-            else:
-                for pt, val in zip(op.outputs, outs):
-                    env[pt.guid] = val
+        ctx = (training, generator, aux_losses, inputs)
+
+        def run(entries, env):
+            for op, plan in entries:
+                self._exec(op, plan, env, lay, weights, state, new_state,
+                           ctx)
+
+        if self._remat_plan is not None and training:
+            for guids, in_guids, out_guids, pure in self._remat_plan:
+                entries = [(op, p) for op, p in self.schedule
+                           if op.guid in guids
+                           or (p is not None and p.at in guids)]
+                if not pure:
+                    run(entries, env)
+                    continue
+
+                def seg_fn(*vals, _e=entries, _in=in_guids, _out=out_guids):
+                    local = dict(zip(_in, vals))
+                    run(_e, local)
+                    return tuple(local[g] for g in _out)
+
+                outs = checkpoint(seg_fn, *(env[g] for g in in_guids),
+                                  use_reentrant=False)
+                env.update(zip(out_guids, outs))
+        else:
+            run(self.schedule, env)
         out = env[self.sink.outputs[0].guid]
         if self.t_layout.get(self.sink.outputs[0].guid) == NHWC:
             out = out.contiguous()
@@ -240,15 +510,123 @@ class GraphExecutor:
             out = out.float()  # loss/metrics in full precision
         return out, new_state
 
+    # -- the sharded step's pieces ------------------------------------------
+    def _local_labels(self, labels: torch.Tensor) -> torch.Tensor:
+        """This rank's labels: the global labels sliced as the logits'
+        batch dim, or already the rank's rows."""
+        n = self.sink.outputs[0].shape.logical_shape[0] // \
+            self.label_replication
+        if labels.shape[0] != n:
+            return labels
+        return local_slice(labels, self.label_layout, self.mesh)
+
+    def feed_index(self, name: Optional[str], shape) -> Tuple[slice, ...]:
+        """This rank's index into a global input of `shape` (its feed
+        layout) or into the global labels (name None: the logits' batch
+        layout)."""
+        lay = self.label_layout if name is None else self.feed[name]
+        return lay.local_index(shape, self.mesh)
+
+    def host_shard(self, name: Optional[str], arr):
+        """This rank's shard of a global numpy input (its feed layout) or
+        of the global labels (name None: the logits' batch layout); any
+        other array or tensor as it is."""
+        if not isinstance(arr, np.ndarray):
+            return arr
+        if name is None:
+            n = self.sink.outputs[0].shape.logical_shape[0] // \
+                self.label_replication
+            if arr.ndim == 0 or arr.shape[0] != n:
+                return arr
+        else:
+            op = next((o for o in self.graph.source_ops()
+                       if o.name == name), None)
+            if op is None or arr.shape != op.outputs[0].shape.logical_shape:
+                return arr
+        return arr[self.feed_index(name, arr.shape)]
+
+    def _sum_over(self, t: torch.Tensor, axes) -> torch.Tensor:
+        for a in axes:
+            if self.mesh.size(a) > 1:
+                all_reduce_(t, self.mesh.group(a))
+        return t
+
+    def _grad_axes(self, key) -> List[str]:
+        """The axes a trainable weight's grad is partial over: those its
+        stored layout does not shard."""
+        used = set(self.w_store[key].axes())
+        return [a for a in self.mesh.names
+                if a not in used and self.mesh.size(a) > 1]
+
+    def _sync_and_update(self, weights: Weights, grads: Weights,
+                         opt_state) -> None:
+        """Sum each grad over its partial axes (by bucket), with a
+        reduce-scatter over the wus axis at ZeRO stages 1 and 2; run the
+        optimizer on what each rank owns; all-gather the updated shards
+        at stages 1 and 2."""
+        mesh = self.mesh
+        buckets = collections.defaultdict(list)
+        scatter = []
+        for op, entries in grads.items():
+            for k, g in entries.items():
+                axes = self._grad_axes((op, k))
+                upd = self.w_update.get((op, k))
+                if self.zero_stage in (1, 2) and upd is not None:
+                    axes = [a for a in axes if a != self.wus_axis]
+                    scatter.append((op, k))
+                if axes:
+                    buckets[tuple(axes)].append((op, k))
+        for axes, keys in buckets.items():
+            flat = torch.cat([grads[o][k].reshape(-1) for o, k in keys])
+            self._sum_over(flat, axes)
+            off = 0
+            for o, k in keys:
+                g = grads[o][k]
+                grads[o][k] = flat[off:off + g.numel()].view_as(g)
+                off += g.numel()
+        views = self.update_views(weights)
+        if scatter:
+            n, c = mesh.size(self.wus_axis), mesh.coord(self.wus_axis)
+            group = mesh.group(self.wus_axis)
+            for o, k in scatter:
+                grads[o][k] = reduce_scatter(grads[o][k],
+                                             self._scatter_dim((o, k)), n, c,
+                                             group)
+        self.optimizer.update(views, grads, opt_state)
+        for o, k in scatter:
+            weights[o][k].copy_(all_gather(views[o][k],
+                                           self._scatter_dim((o, k)), n,
+                                           group))
+
+    def _scatter_dim(self, key) -> int:
+        upd = self.w_update[key]
+        return next(d for d, axes in enumerate(upd.spec)
+                    if self.wus_axis in axes)
+
+    def opt_state_bytes(self, opt_state) -> int:
+        """Bytes of the optimizer's slots on this rank."""
+        total = 0
+        for sub in opt_state.values():
+            if isinstance(sub, dict):
+                for entries in sub.values():
+                    total += sum(t.numel() * t.element_size()
+                                 for t in entries.values())
+        return total
+
+    # -- steps -------------------------------------------------------------------
     def build_step(self):
         """step(weights, opt_state, state, inputs, labels, generator) ->
         metrics: forward, loss (plus the ops' auxiliary losses), grads
         of the trainable weights, the optimizer's in-place update, then
-        the metrics of the float32 logits (the loss under "loss")."""
+        the metrics of the float32 logits (the loss under "loss"); on a
+        mesh, of the global batch."""
         loss_obj, metrics, opt = self.loss, self.metrics, self.optimizer
         lrep = self.label_replication
+        mesh = self.mesh
 
         def step(weights, opt_state, state, inputs, labels, generator=None):
+            if mesh is not None:
+                labels = self._local_labels(labels)
             if lrep > 1:
                 # AggregateSpec emits sample-major [s0k0, s0k1, s1k0, ...]
                 labels = torch.repeat_interleave(labels, lrep, dim=0)
@@ -260,24 +638,50 @@ class GraphExecutor:
                                              training=True,
                                              generator=generator,
                                              aux_losses=aux)
+                logits = self._loss_logits(logits)
                 loss_val = loss_obj(logits, labels)
                 for a in aux:
                     loss_val = loss_val + a
+                seed = loss_val if mesh is None else loss_val / mesh.world
                 # a graph with no trainable weight (shape ops alone)
                 # still steps, as the reference's does
                 flat = torch.autograd.grad(
-                    loss_val, [weights[op][k] for op, k in names]
+                    seed, [weights[op][k] for op, k in names]
                 ) if names else []
             grads: Weights = {}
             for (op, k), g in zip(names, flat):
                 grads.setdefault(op, {})[k] = g
             with torch.no_grad():
-                opt.update(weights, grads, opt_state)
-                m = metrics.compute(logits.detach(), labels)
-            m["loss"] = loss_val.detach()
+                if mesh is None:
+                    opt.update(weights, grads, opt_state)
+                else:
+                    self._sync_and_update(weights, grads, opt_state)
+                m = self._global_metrics(metrics.compute(logits.detach(),
+                                                         labels))
+                m["loss"] = self._global_loss(loss_val.detach())
             return m
 
         return step
+
+    def _loss_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The logits with only their batch dim sharded (the rest
+        gathered), for a loss over this rank's rows."""
+        if self.mesh is None:
+            return logits
+        return redistribute(logits, self.view[self.sink.outputs[0].guid],
+                            self.loss_layout, self.mesh)
+
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return loss
+        n = math.prod(self.mesh.size(a) for a in self.loss_axes)
+        return self._sum_over(loss.clone(), self.loss_axes) / n
+
+    def _global_metrics(self, m: Dict[str, torch.Tensor]):
+        if self.mesh is not None:
+            for v in m.values():
+                self._sum_over(v, self.loss_axes)
+        return m
 
     def build_eval_step(self):
         """eval_step(weights, state, inputs, labels) -> metrics, with the
@@ -286,13 +690,24 @@ class GraphExecutor:
         lrep = self.label_replication
 
         def eval_step(weights, state, inputs, labels):
+            if self.mesh is not None:
+                labels = self._local_labels(labels)
             if lrep > 1:
                 labels = torch.repeat_interleave(labels, lrep, dim=0)
             with torch.no_grad():
                 logits, _ = self.run_forward(weights, state, inputs,
                                              training=False)
-                m = metrics.compute(logits, labels)
-                m["loss"] = loss_obj(logits, labels)
+                logits = self._loss_logits(logits)
+                m = self._global_metrics(metrics.compute(logits, labels))
+                m["loss"] = self._global_loss(loss_obj(logits, labels))
             return m
 
         return eval_step
+
+
+def _draws(op) -> bool:
+    """Whether op draws random numbers in training (Dropout, attention
+    dropout)."""
+    if op.op_type == OperatorType.DROPOUT:
+        return op.params.rate > 0.0
+    return getattr(op.params, "dropout", 0.0) > 0.0

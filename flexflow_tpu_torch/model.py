@@ -7,7 +7,10 @@ weight_tensor, mean, the binary and unary elementwise ops and the
 scalar ones, the MoE calls top_k, group_by, aggregate,
 aggregate_spec, experts_dense and moe, and lstm), `compile` on one
 device (training or inference) under a given, imported or searched
-strategy (pcg/search.py), or the layer graph as it is,
+strategy (pcg/search.py), or the layer graph as it is; on a
+`torch.distributed` group (distributed.initialize) the strategy runs
+sharded over its ranks (executor.py, parallel/spmd.py), with the ZeRO
+ladder and remat,
 `train_step`, `eval_step`, `fit`, `forward`, the reference's step
 surface (`set_learning_rate`, `zero_gradients`, `backward`, `update`,
 `init_operators`), the dense-cache decode surface (`decode_step`,
@@ -28,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from . import distributed
 from .config import FFConfig, resolve_device
 from .dataloader import SingleDataLoader, to_device
 from .executor import GraphExecutor
@@ -57,38 +61,50 @@ from .ops.shape import (Concat, ConcatParams, Expand, ExpandParams, Flat,
                         TransposeParams)
 from .ops.sources import InputOp, SourceParams, WeightOp
 from .optimizer import Optimizer, SGDOptimizer
+from .parallel.machine import make_mesh
 from .pcg.graph import Graph
 from .strategy import (Strategy, apply_strategy, assign_views,
                        data_parallel_strategy)
 from .tensor import ParallelTensor, ParallelTensorShape
 
-# what the port's one-card executor runs; the rest is ROADMAP §1.D
-_EXECUTOR_1D = "ROADMAP §1.D (multi-GPU execution)"
+# what the port's executor does not run yet
+_EXECUTOR_1D = ("ROADMAP §1.D, second half (pipelines, expert "
+                "parallelism, factored per-op views)")
 
 
 def check_executable(strategy: Strategy, cfg: FFConfig) -> None:
-    """Raise NotImplementedError, naming ROADMAP §1.D, when `strategy`
-    needs what the one-card executor lacks: more than one device, a
-    pipeline, a ZeRO stage above 0, or a remat plan."""
-    zero = (strategy.zero_stage if strategy.zero_stage is not None
-            else cfg.zero_stage)
+    """Raise NotImplementedError, naming ROADMAP §1.D's second half,
+    when `strategy` needs what the executor lacks: a pipeline or an
+    expert sharding."""
     lacks = []
-    if strategy.total_devices > 1:
-        lacks.append(f"{strategy.total_devices} devices "
-                     f"(mesh {dict(strategy.mesh_axes)})")
     if strategy.pipeline:
         lacks.append(f"a pipeline {strategy.pipeline}")
-    if zero:
-        lacks.append(f"ZeRO stage {zero}")
-    if strategy.remat or cfg.remat:
-        lacks.append(f"a remat plan {strategy.remat or 'on every segment'}")
+    experts = sorted(n for n, sc in strategy.shard_configs.items()
+                     if sc.expert > 1)
+    if experts:
+        lacks.append(f"expert shardings on {', '.join(experts)}")
     if lacks:
         where = (f"; the strategy was written to {cfg.export_strategy_file}"
                  if cfg.export_strategy_file else "")
         raise NotImplementedError(
-            "the port's executor runs one card without pipelines, ZeRO or "
-            f"remat; this strategy needs {', '.join(lacks)}: "
-            f"{_EXECUTOR_1D}{where}")
+            "the port's executor runs data, tensor and sequence "
+            "parallelism with the ZeRO ladder and remat; this strategy "
+            f"needs {', '.join(lacks)}: {_EXECUTOR_1D}{where}")
+
+
+def check_views(graph: Graph) -> None:
+    """Raise NotImplementedError when a tensor's view shards one dim
+    over more than one mesh axis (a factored per-op view)."""
+    for op in graph.ops:
+        for pt in list(op.outputs) + list(op.weights):
+            view = pt.machine_view
+            if view is None:
+                continue
+            for dim, axes in zip(pt.shape.dims, view.axes):
+                if not dim.is_replica_dim and len(axes) > 1:
+                    raise NotImplementedError(
+                        f"{pt.name} shards one dim over the mesh axes "
+                        f"{axes} (a factored per-op view): {_EXECUTOR_1D}")
 
 
 class FFModel:
@@ -489,14 +505,19 @@ class FFModel:
         import_strategy_file, else, with search_budget > 0 (and not
         only_data_parallel), the Unity or MCMC search's for
         FFConfig.resolve_num_devices() devices (every card on CUDA, one
-        on the CPU); the strategy is written to export_strategy_file
-        when one is named.  A chosen strategy's rewrites are replayed on
-        the layer graph, the strategy applied, and inverse parallel-op
-        pairs cancelled.  A strategy that needs what the one-card
-        executor lacks (more than one device, a pipeline, a ZeRO stage,
-        a remat plan) raises NotImplementedError naming ROADMAP §1.D,
-        after the export.  With none of these, the layer graph runs as
-        it is under data_parallel_strategy(1).
+        on the CPU, the group's size on a torch.distributed group); the
+        strategy is written to export_strategy_file when one is named.
+        A chosen strategy's rewrites are replayed on the layer graph,
+        the strategy applied, and inverse parallel-op pairs cancelled.
+        On a group of more than one rank the strategy (by default
+        data_parallel_strategy over the group) must span exactly the
+        group, else ValueError; each rank then runs its shard of the
+        step, with the strategy's (or the config's) ZeRO stage over
+        FFConfig.wus_axis and its remat plan (or FFConfig.remat).  A
+        strategy that needs a pipeline, an expert sharding or a factored
+        per-op view raises NotImplementedError naming ROADMAP §1.D,
+        after the export.  With no strategy and one rank, the layer
+        graph runs as it is under data_parallel_strategy(1).
 
         The default optimizer is SGD at the config's learning rate and
         weight decay.  In TRAINING mode the trainable weights require
@@ -512,18 +533,43 @@ class FFModel:
         self.loss = Loss(loss_type, from_logits=not sink_is_softmax)
         self.metrics = Metrics(self.loss.loss_type, metrics)
         cd = cfg.compute_dtype
-        self.operators = self._operators_for(self._pick_strategy(strategy))
+        world = distributed.world_size()
+        if strategy is None and world > 1 and not cfg.import_strategy_file \
+                and not cfg.search_budget:
+            strategy = data_parallel_strategy(world)
+        picked = self._pick_strategy(strategy)
+        if self.strategy.total_devices != world:
+            raise ValueError(
+                f"the strategy spans {self.strategy.total_devices} devices "
+                f"(mesh {dict(self.strategy.mesh_axes)}), the "
+                f"torch.distributed group has {world} "
+                f"rank{'s' if world > 1 else ''}")
+        self.operators = self._operators_for(picked)
+        mesh = None
+        if world > 1:
+            check_views(self.operators)
+            mesh = make_mesh(self.strategy.mesh_axes, self.device)
+        zero = (self.strategy.zero_stage
+                if self.strategy.zero_stage is not None else cfg.zero_stage)
         self.executor = GraphExecutor(
             self.operators, self.device,
             compute_dtype=None if cd == "float32" else getattr(torch, cd),
             loss=self.loss, metrics=self.metrics, optimizer=self.optimizer,
-            label_replication=self._label_replication)
+            label_replication=self._label_replication, mesh=mesh,
+            zero_stage=zero, wus_axis=cfg.wus_axis, remat=cfg.remat,
+            remat_segments=self.strategy.remat)
         for op in self.operators.topo_order():
             op._flash_min_seq = cfg.flash_min_seq
+        fallback = self.executor.zero_fallback_leaves()
+        if fallback and isinstance(getattr(self.strategy, "search_stats",
+                                           None), dict):
+            # the reference's count of the ladder's per-leaf fallback
+            self.strategy.search_stats["zero_fallback_leaves"] = len(fallback)
         seed = seed if seed is not None else cfg.seed
         with torch.no_grad():
             self._weights, self._state = self.executor.init_weights(seed)
-            self._opt_state = self.optimizer.init_state(self._weights)
+            self._opt_state = self.optimizer.init_state(
+                self.executor.update_views(self._weights))
         if comp_mode == CompMode.TRAINING:
             for entries in self._weights.values():
                 for w in entries.values():
@@ -607,9 +653,14 @@ class FFModel:
 
     def put_batch(self, inputs, labels):
         """(inputs, labels) on the model's device, each input in its
-        input tensor's dtype."""
+        input tensor's dtype; on a group, a global numpy batch is cut to
+        this rank's shard on the host, so only that shard is copied."""
         dtypes = {op.name: op.outputs[0].dtype.torch_dtype
                   for op in self.layers.source_ops()}
+        ex = self.executor
+        if ex is not None and ex.mesh is not None:
+            inputs = {k: ex.host_shard(k, v) for k, v in inputs.items()}
+            labels = ex.host_shard(None, labels)
         return ({k: to_device(v, self.device, dtypes.get(k))
                  for k, v in inputs.items()},
                 to_device(labels, self.device))
@@ -656,7 +707,8 @@ class FFModel:
         else:
             x_map = {input_ops[0].name: x}
         loader = SingleDataLoader(self, x_map, y, batch_size=batch_size,
-                                  shuffle=shuffle, seed=self.config.seed)
+                                  shuffle=shuffle, seed=self.config.seed,
+                                  index=self._feed_index(batch_size))
         history: List[PerfMetrics] = []
         for cb in callbacks:
             cb.on_train_begin(self)
@@ -687,9 +739,24 @@ class FFModel:
             cb.on_train_end(self)
         return history
 
+    def _feed_index(self, batch_size: int):
+        """{input name (None: the labels): this rank's index into one
+        global batch (the executor's feed_index, as put_batch cuts)};
+        None on one rank."""
+        ex = self.executor
+        if ex is None or ex.mesh is None:
+            return None
+        shapes = {op.name: (batch_size,)
+                  + tuple(op.outputs[0].shape.logical_shape[1:])
+                  for op in ex.graph.source_ops()}
+        shapes[None] = (batch_size,)
+        return {name: ex.feed_index(name, shape)
+                for name, shape in shapes.items()}
+
     def forward(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:
         """One forward pass of a compiled (non-decode) graph on numpy or
-        torch inputs; returns the sink output on the model's device."""
+        torch inputs; returns the sink output on the model's device (on
+        a group, the whole output on every rank)."""
         if self._is_decode_graph():
             raise RuntimeError(
                 "forward() on a decode-mode graph (decode_max_seq > 0) "
@@ -701,6 +768,12 @@ class FFModel:
         with torch.no_grad():
             out, _ = self.executor.run_forward(self._weights, self._state,
                                                feed)
+            ex = self.executor
+            if ex.mesh is not None:
+                from .parallel.collectives import gather_global
+
+                out = gather_global(out, ex.view[self.operators.sink_op()
+                                                 .outputs[0].guid], ex.mesh)
         return out
 
     # -- dense-cache decoding -----------------------------------------------
@@ -781,17 +854,23 @@ class FFModel:
         self.optimizer.set_lr(lr)
 
     # -- weight access -----------------------------------------------------
+    def _host(self, op: str, k: str, v: torch.Tensor) -> np.ndarray:
+        """A weight or state entry as a numpy copy of the global array
+        (gathered on a group: every rank must call)."""
+        return self.executor.gathered(op, k, v.detach()).to(
+            "cpu", copy=True).numpy()
+
     def get_weights(self) -> Dict[str, Dict[str, np.ndarray]]:
         """The weights as numpy copies (on the CPU too, where .numpy()
-        alone would alias the tensors the next step updates in place)."""
-        return {op: {k: v.detach().to("cpu", copy=True).numpy()
-                     for k, v in entries.items()}
+        alone would alias the tensors the next step updates in place);
+        on a group, the global arrays, gathered on every rank."""
+        return {op: {k: self._host(op, k, v) for k, v in entries.items()}
                 for op, entries in self._weights.items()}
 
     def get_parameter(self, op_name: str, weight_name: str) -> np.ndarray:
-        """One weight as a numpy copy."""
-        return self._weights[op_name][weight_name].detach().to(
-            "cpu", copy=True).numpy()
+        """One weight as a numpy copy (the global array)."""
+        return self._host(op_name, weight_name,
+                          self._weights[op_name][weight_name])
 
     def set_weights(self, weights: Dict[str, Dict[str, np.ndarray]]):
         """Load weights in the reference's layout (FFModel.get_weights of
@@ -804,13 +883,17 @@ class FFModel:
         with torch.no_grad():
             for op, entries in new.items():
                 for k, v in entries.items():
-                    self._weights[op][k].copy_(v)
+                    self._weights[op][k].copy_(self._shard(op, k, v))
+
+    def _shard(self, op: str, k: str, v: torch.Tensor) -> torch.Tensor:
+        """This rank's stored shard of a global weight or state entry."""
+        ex = self.executor
+        return v if ex.mesh is None else ex.local(v, op, k)
 
     def get_state(self) -> Dict[str, Dict[str, np.ndarray]]:
         """The op state (BatchNorm's running statistics, decode caches)
         as numpy, in the layout of the reference's FFModel._state."""
-        return {op: {k: v.detach().to("cpu", copy=True).numpy()
-                     for k, v in entries.items()}
+        return {op: {k: self._host(op, k, v) for k, v in entries.items()}
                 for op, entries in self._state.items()}
 
     def set_state(self, state: Dict[str, Dict[str, np.ndarray]]):
@@ -822,5 +905,5 @@ class FFModel:
         with torch.no_grad():
             for op, entries in new.items():
                 for k, v in entries.items():
-                    self._state[op][k].copy_(v)
+                    self._state[op][k].copy_(self._shard(op, k, v))
         self._sync_decode_pos()

@@ -17,6 +17,11 @@ mean-pooled classifier (attn_i, attn_res_i, attn_ln_i, ffn1_i, ffn2_i,
 ffn_res_i, ffn_ln_i, pool, classifier).  Its defaults are BERT-base:
 hidden 768, 12 layers, 12 heads, FFN 3072.
 
+`bert_tp_strategy` and `bert_sp_strategy` are the reference's hybrid
+strategies for `build_bert`: data x tensor parallel (heads and the
+first FFN's out channels on "model") and data x sequence parallel (the
+sequence on "seq", attention as ring attention).
+
 `gpt_generate` and `gpt_beam_search` are the reference's O(T^2)
 utility loops: each emitted token re-runs the compiled fixed-shape
 forward over the whole right-padded buffer.  decoding.py holds their
@@ -108,6 +113,42 @@ def build_bert(ff, batch_size: int = 32, seq_length: int = 128,
         t = ff.layer_norm(t, axes=[-1], name=f"ffn_ln_{i}")
     pooled = ff.mean(t, axes=[1], name="pool")
     return ff.dense(pooled, num_classes, name="classifier")
+
+
+def bert_tp_strategy(num_devices: int, tp: int = 2, num_layers: int = 12):
+    """Hybrid DP x TP strategy for build_bert: attention heads and the
+    first FFN's out channels column parallel on the "model" axis (the
+    second FFN runs row parallel on them), the batch on "data"."""
+    from ..ops.op import ShardConfig
+    from ..strategy import Strategy
+
+    dp = num_devices // tp
+    s = Strategy(mesh_axes={"data": dp, "model": tp})
+    s.edge_ops["__inputs__"] = [("repartition", {"dim": 0, "degree": dp})]
+    for i in range(num_layers):
+        s.shard_configs[f"attn_{i}"] = ShardConfig(channel=tp)
+        s.shard_configs[f"ffn1_{i}"] = ShardConfig(channel=tp)
+    return s
+
+
+def bert_sp_strategy(num_devices: int, sp: int = 4):
+    """Hybrid DP x SP (context parallel) strategy: the sequence dim of
+    every activation sharded over the "seq" axis, attention as ring
+    attention over it (parallel/ring_attention.py), the batch on
+    "data"."""
+    from ..strategy import Strategy
+
+    if sp < 1 or num_devices % sp != 0:
+        raise ValueError(
+            f"num_devices {num_devices} not divisible by sp degree {sp}")
+    dp = num_devices // sp
+    s = Strategy(mesh_axes={"data": dp, "seq": sp})
+    chain = []
+    if dp > 1:
+        chain.append(("repartition", {"dim": 0, "degree": dp}))
+    chain.append(("repartition", {"dim": 1, "degree": sp}))
+    s.edge_ops["__inputs__"] = chain
+    return s
 
 
 def validate_sampling(top_k: int, top_p: float):

@@ -11,8 +11,10 @@ modes run in the port:
     card, their plain versions on the CPU); below that, with attention
     dropout, or for causal attention with appended keys, the dense
     score matrix, whose dropout draws from the executor's
-    torch.Generator.  A sharded sequence (ring attention) raises until
-    the multi-GPU slice;
+    torch.Generator.  Under a strategy that shards the sequence, the
+    multi-GPU executor passes `seq_ring`, ring attention over its mesh's
+    sequence axis (parallel/ring_attention.py), which launches K1-K3 on
+    every block; in one process a sharded sequence raises;
   * the DENSE decode mode (decode_max_seq > 0, kv_page_size 0), the
     decode twin of decoding.gpt_generate_cached, _scan and the beam
     search: [b, decode_max_seq, h, d] caches and a cache_pos counter in
@@ -260,7 +262,7 @@ class MultiHeadAttention(Op):
         ]
 
     def forward(self, inputs, weights, *, training=False,
-                generator=None):
+                generator=None, seq_ring=None):
         q, k, v = inputs
         p: MultiHeadAttentionParams = self.params
         wq, wk, wv, wo = weights[:4]
@@ -303,7 +305,7 @@ class MultiHeadAttention(Op):
                 out = out + bo[None, None]
             return [out.to(q.dtype), k_cache, v_cache, pos]
         ctx = self._attend(qh, kh, vh, scale, training=training,
-                           generator=generator)
+                           generator=generator, seq_ring=seq_ring)
         out = torch.einsum("bqhd,hde->bqe", ctx, wo)
         if bo is not None:
             out = out + bo[None, None]
@@ -370,12 +372,17 @@ class MultiHeadAttention(Op):
         return paged_attention(qh.contiguous(), k_cache, v_cache, btab,
                                pos.to(torch.int32).contiguous(), scale)
 
-    def _attend(self, qh, kh, vh, scale, *, training, generator=None):
+    def _attend(self, qh, kh, vh, scale, *, training, generator=None,
+                seq_ring=None):
         p: MultiHeadAttentionParams = self.params
+        if seq_ring is not None:
+            return seq_ring(qh, kh, vh, scale, p.causal,
+                            self._flash_min_seq)
         if self.inputs[0].shape.degrees[1] > 1:
             raise NotImplementedError(
-                f"{self.name}: ring attention (a sharded sequence) comes "
-                "with the multi-GPU slice of the port")
+                f"{self.name}: a sharded sequence runs as ring attention "
+                "over the ranks of a torch.distributed group (the "
+                "multi-GPU executor); one process cannot run it alone")
         kv_appended = kh.shape[1] - self.inputs[1].shape.logical_shape[1]
         use_dropout = training and p.dropout > 0.0 and generator is not None
         # the per-device [b, h, q, k] score tensor (one device: no

@@ -148,16 +148,21 @@ class BatchNorm(Op):
 
     def forward(self, inputs, weights, *, training=False, generator=None,
                 residual: Optional[torch.Tensor] = None,
-                relu: Optional[bool] = None):
+                relu: Optional[bool] = None, stats_reduce=None):
         """[y, new running_mean, new running_var].  The executor's
         fusion plan passes `residual` (the other operand of the add this
         BatchNorm feeds) and `relu` (whether the ReLU after it is fused);
-        alone, the op applies its own `params.relu`."""
+        alone, the op applies its own `params.relu`.  On a mesh that
+        shards the batch, the executor passes `stats_reduce`, which
+        turns this rank's E[x] and E[x^2] into the global batch's
+        (differentiably), so that every rank normalizes alike."""
         (x,) = inputs
         p: BatchNormParams = self.params
         gamma, beta, rmean, rvar = weights
         if training:
             mean, meansq = BatchStats.apply(x)
+            if stats_reduce is not None:
+                mean, meansq = stats_reduce(mean, meansq)
             var = torch.clamp_min(meansq - mean.square(), 0.0)
             with torch.no_grad():
                 new_rmean = (p.momentum * rmean

@@ -3,9 +3,15 @@
 
 Repartition, Combine, Replicate, Reduction and AllToAll change a
 tensor's parallel shape (its degrees and replica dim) and are the
-identity on the global logical tensor: on one device each forward
-returns its input.  Across GPUs (ROADMAP §1.D) each becomes the
-collective its name says.  StackReplicate and FoldReduce are compute
+identity on the global logical tensor: each forward returns its input.
+On a torch.distributed group the executor then redistributes that input
+from its layout to the output's view (parallel/collectives.py), which
+is the collective each name says, with its adjoint as the backward:
+Repartition a local slice (backward: zero-padded, summed where it is
+used), Combine an all-gather (a reduce-scatter), Replicate the identity
+(an all-reduce of the partial grads), Reduction a sum (an all-reduce,
+or a reduce-scatter where the output is sharded), AllToAll an
+all_to_all_single; a FusedParallelOp chains them.  StackReplicate and FoldReduce are compute
 ops with real work (stack copies along an axis, sum equal slices).
 """
 from __future__ import annotations

@@ -14,7 +14,7 @@ count; `plan_pipeline` validates and plans it:
     the per-dp-shard batch.
 
 The Unity search calls it to cost pipeline candidates.  Running a
-pipeline is the multi-GPU executor's, ROADMAP §1.D.
+pipeline waits for ROADMAP §1.D's second half (compile refuses it).
 """
 from __future__ import annotations
 

@@ -37,7 +37,9 @@ from .ops.op import Op, ShapeError
 
 _log = logging.getLogger("flexflow_tpu_torch.calib")
 
-# what an op that cannot run on its own raises
+# what an op that cannot run on its own raises: a sequence-sharded
+# attention still cannot (ring attention needs the ranks of a
+# torch.distributed group, which one process timing an op has not)
 NOT_STANDALONE = (ShapeError, NotImplementedError)
 
 

@@ -89,7 +89,7 @@ class Strategy:
     # the reference's multi-slice placement (the mesh axis spanning the
     # boundary between slices), kept so that strategy files cross both
     # ways; the port's searches never set it and nothing reads it until
-    # the multi-node SliceHierarchy is ported (ROADMAP §1.D)
+    # the multi-node SliceHierarchy is ported (ROADMAP §1.D, second half)
     placement: Optional[str] = None
     # search-chosen per-segment remat plan (docs/PERF.md "Searched
     # rematerialization"): sorted indices of the single-tensor-boundary

@@ -190,15 +190,16 @@ def test_phase_list_ends_with_the_sequence_and_frontend_path():
 
 
 def test_search_phase_runs_last_over_the_hgx_node():
-    """The search phase comes after every earlier phase, parses as a
-    --phases entry, and searches BERT-base for the 8 GPUs of the
-    committed one-node machine file, timing ops on the card."""
+    """The search phase comes after every earlier one-card phase (only
+    the multigpu phase, which trains the strategy it writes, follows),
+    parses as a --phases entry, and searches BERT-base for the 8 GPUs of
+    the committed one-node machine file, timing ops on the card."""
     import os
 
     from flexflow_tpu_torch.sim.machine_model import GpuNodeModel
 
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[-1] == "search" and len(phases) == 23
+    assert phases[-2:] == ["search", "multigpu"] and len(phases) == 24
     assert phases.count("search") == 1
     assert "`--phases search`" in chip_smoke.__doc__
     cfg = chip_smoke.search_config("/tmp/costs.json")
@@ -576,3 +577,68 @@ def test_keras_table_is_the_examples():
         assert len(x) == len(y) == 2 * b or kind == "cifar10"
     x, y, synthetic = chip_smoke.keras_data(K.datasets, "reuters_ids", 4)
     assert x.shape == (4, 200) and x.max() < 10000 and y.max() < 46
+
+
+def test_multigpu_legs_follow_the_issue():
+    """Four legs of 4 ranks (DP x TP, DP x SP, ZeRO-3 under Adam, the
+    CNN) and the searched strategy over 8, each with its strategy."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    assert [leg["ranks"] for leg in chip_smoke.MULTIGPU_LEGS] == \
+        [4, 4, 4, 4, chip_smoke.SEARCH_DEVICES]
+    tp = chip_smoke._multigpu_strategy(legs["dp_tp"], {})
+    assert tp.mesh_axes == {"data": 2, "model": 2}
+    sp = chip_smoke._multigpu_strategy(legs["dp_sp"], {})
+    assert sp.mesh_axes == {"data": 2, "seq": 2}
+    assert legs["dp_zero3"]["zero"] == 3
+    assert legs["dp_zero3"]["optimizer"] == "adam"
+    assert "`--phases multigpu`" in chip_smoke.__doc__
+
+
+def _rank_report(rank, k=12, p1=0, losses=(0.69, 7.26), weights=1e-7):
+    return {"rank": rank, "losses": list(losses), "step_s": [3.0, 0.2],
+            "launches_per_step": {"K1": k, "K2": k, "K3": k, "P1": p1},
+            "peak_memory_gb": 4.0, "opt_state_bytes": 0, "zero_stage": 0,
+            "zero_fallback_leaves": [], "mesh": {"data": 2, "seq": 2},
+            "weights_diff": weights, "worst_weight": "w"}
+
+
+def test_multigpu_record_checks_each_leg():
+    """A leg's record holds its checks: losses as error over max(1,
+    |loss|), K1-K3 at 12 x sp per rank per step, the backend's note; the
+    Adam leg's weight limit passes the H100's 1.11e-4, fails a skipped
+    update's ~alpha (1e-3), and faults when the one-card run's last
+    update moved no weight past it."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    ref = {"losses": [0.69, 7.2601], "step_s": [1.0, 0.3],
+           "last_step_moves": {"w": 1e-3, "b": 5e-5}}
+    ok = chip_smoke._multigpu_record(
+        legs["dp_sp"], [_rank_report(r, k=24) for r in range(4)], ref,
+        "gloo", 1, 50.0, "", {})
+    assert ok["faults"] == [] and ok["predicted_step_ms"] is None
+    assert "gloo" in ok["prediction_note"]
+    assert ok["step_ms"] == [3000.0, 200.0]
+    bad = chip_smoke._multigpu_record(
+        legs["dp_sp"], [_rank_report(r, k=12) for r in range(4)], ref,
+        "gloo", 1, 50.0, "", {})
+    assert len(bad["faults"]) == 4  # every rank's launches
+    off = chip_smoke._multigpu_record(
+        legs["dp_tp"], [_rank_report(r, losses=(0.69, 7.27))
+                        for r in range(4)], ref, "gloo", 1, 50.0, "", {})
+    assert any("losses" in f for f in off["faults"])
+    zero = [_rank_report(r, weights=1.11e-4) for r in range(4)]
+    adam = chip_smoke._multigpu_record(legs["dp_zero3"], zero, ref, "gloo",
+                                       1, 50.0, "", {})
+    assert adam["faults"] == [] and adam["weight_tolerance"] == 3e-4
+    assert adam["skipped_last_update_reads"] == 1e-3
+    assert adam["weights_whose_last_update_the_tolerance_sees"] == [1, 2]
+    skipped = chip_smoke._multigpu_record(
+        legs["dp_zero3"], [_rank_report(r, weights=1e-3) for r in range(4)],
+        ref, "gloo", 1, 50.0, "", {})
+    assert any("weights" in f for f in skipped["faults"])
+    blind = chip_smoke._multigpu_record(
+        legs["dp_zero3"], zero, dict(ref, last_step_moves={"w": 2e-4}),
+        "gloo", 1, 50.0, "", {})
+    assert any("skipped last update" in f for f in blind["faults"])
+    line = chip_smoke._multigpu_launches({"legs": [ok]}, "K1")
+    assert line == {"dp_sp": [24, 24, 24, 24]}
+    assert chip_smoke._multigpu_launches(None, "K1") is None

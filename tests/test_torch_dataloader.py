@@ -116,6 +116,25 @@ def test_single_input_array_and_next_batch():
         mine.next_batch()
 
 
+@pytest.mark.parametrize("wide", [True, False])
+def test_index_cuts_each_batch_to_a_shard(wide):
+    """With an index per tensor (what fit passes on a torch.distributed
+    group: each rank's shard of a global batch in its feed layout), each
+    batch is the reference's batch cut by that index: rows only, or rows
+    and a later dim, with the same dtypes."""
+    jf, tf = _pair()
+    x, y = _data(3 * B, seed=5, wide=wide)
+    index = {"x": (slice(2, 4), slice(1, 3)), "ids": (slice(0, 2),),
+             None: (slice(2, 4),)}
+    mine = SingleDataLoader(tf, x, y, batch_size=B, shuffle=True, seed=2,
+                            index=index)
+    ref = JaxLoader(jf, x, y, batch_size=B, shuffle=True, seed=2)
+    for (gx, gy), (wx, wy) in zip(list(mine), list(ref)):
+        _same_batch((gx, gy), ({k: np.asarray(v)[index[k]]
+                                for k, v in wx.items()},
+                               np.asarray(wy)[index[None]]))
+
+
 def test_reset_mid_epoch_cancels_the_worker():
     """One batch into a shuffled epoch, reset() joins the worker and
     starts the next epoch's order; nothing stale is handed out."""

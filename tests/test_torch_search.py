@@ -2,8 +2,9 @@
 the MCMC search pick the same Strategy (mesh axes, shard configs,
 rewrites, ZeRO stage, remat, pipeline) at the same predicted cost on the
 same graphs; compile with search_budget > 0 trains what the unsearched
-compile trains, and raises (naming ROADMAP §1.D) for a strategy the
-one-card executor cannot run; the profiler times ops on the CPU and
+compile trains, runs a strategy over more devices, a ZeRO stage or a
+remat plan in a group of the right size (and raises, naming ROADMAP
+§1.D, for a pipeline); the profiler times ops on the CPU and
 returns None only for an op that cannot run on its own; calibration,
 the TASO-catalog guard and the search flags."""
 import json
@@ -234,29 +235,71 @@ def test_imported_strategy_replays_its_rewrites(tmp_path):
         assert a == b
 
 
+def _batches(n=3):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 16, 32)).astype(np.float32)
+    y = rng.integers(0, 2, (4,)).astype(np.int32)
+    return [({"input": x}, y)] * n
+
+
+@pytest.fixture(scope="module")
+def two_ranks():
+    """data_parallel_strategy(2), and the same with ZeRO stage 1, trained
+    in a 2-rank gloo group (tests/torch_dist_ranks.py)."""
+    import functools
+
+    import torch_dist_ranks as R
+    from flexflow_tpu_torch.optimizer import SGDOptimizer
+
+    build = functools.partial(build_bert, batch_size=4, seq_length=16,
+                              hidden_size=32, num_layers=2, num_heads=4,
+                              intermediate_size=64)
+    zero = data_parallel_strategy(2)
+    zero.zero_stage = 1
+    opt = functools.partial(SGDOptimizer, lr=0.01, weight_decay=1e-4)
+    cases = [(R.train_steps, (build, s, None, _batches(), opt))
+             for s in (data_parallel_strategy(2), zero)]
+    return R.run_group(R.run_cases, 2, cases, timeout=120)
+
+
 @pytest.mark.parametrize("what", ["devices", "pipeline", "zero", "remat"])
-def test_compile_raises_for_what_the_executor_lacks(what, tmp_path):
+def test_compile_raises_for_what_the_executor_lacks(what, tmp_path,
+                                                    request):
+    """Of the four strategies the one-card executor refused, only the
+    pipeline still raises (ROADMAP §1.D's second half).  More devices
+    than the group raises a size mismatch; in a group of the right size
+    the strategy trains, as ZeRO stage 1 does; a remat plan trains on
+    one process.  Each trains the one-process losses."""
+    plain = _losses(_tiny_bert().compile())
     s = data_parallel_strategy(1)
-    if what == "devices":
-        s = data_parallel_strategy(8)
-    elif what == "pipeline":
+    if what == "pipeline":
         s.pipeline = {"degree": 1, "num_microbatches": 2, "axis": "data",
                       "dp_axis": None}
-    elif what == "zero":
-        s.zero_stage = 1
-    else:
-        s.remat = [0]
-    out = tmp_path / "export.json"
-    ff = _tiny_bert(export_strategy_file=str(out))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.D"):
-        ff.compile(strategy=s)
-    # the strategy is exported before the executor refuses it
-    assert Strategy.load(str(out)).to_json() == s.to_json()
-    # the config's own ZeRO stage or remat, with no strategy at all
-    kw = {"zero": {"zero_stage": 2}, "remat": {"remat": True}}.get(what)
-    if kw:
+        out = tmp_path / "export.json"
+        ff = _tiny_bert(export_strategy_file=str(out))
         with pytest.raises(NotImplementedError, match="ROADMAP §1.D"):
-            _tiny_bert(**kw).compile()
+            ff.compile(strategy=s)
+        # the strategy is exported before the executor refuses it
+        assert Strategy.load(str(out)).to_json() == s.to_json()
+        return
+    if what == "remat":
+        s.remat = [1]  # segment 0 holds the input op, which runs inline
+        ff = _tiny_bert().compile(strategy=s)
+        assert [i for i, seg in enumerate(ff.executor._remat_plan)
+                if seg[-1]] == [1]
+        assert _losses(ff) == plain
+        assert _losses(_tiny_bert(remat=True).compile()) == plain
+        return
+    if what == "devices":
+        with pytest.raises(ValueError, match="4 devices.*group has 1 rank"):
+            _tiny_bert().compile(strategy=data_parallel_strategy(4))
+    else:
+        # the config's own stage with no group: no axis to shard over
+        ff = _tiny_bert(zero_stage=2).compile()
+        assert ff.executor.zero_stage == 0 and _losses(ff) == plain
+    got = request.getfixturevalue("two_ranks")[0][what == "zero"]
+    np.testing.assert_allclose(got["losses"], plain, rtol=2e-6, atol=2e-6)
+    assert got["zero_stage"] == (1 if what == "zero" else 0)
 
 
 def test_profiler_on_the_cpu(capsys):

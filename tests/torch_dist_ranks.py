@@ -1,0 +1,307 @@
+"""Spawned torch.distributed groups for the port's multi-rank tests.
+
+`run_group(fn, world, *args)` starts `world` processes on the CPU, joins
+them into one `gloo` group through flexflow_tpu_torch.distributed, runs
+`fn(rank, world, *args)` in each and returns what each rank returned.
+The ranks import torch and the port only (the builders below import
+flexflow_tpu only when the test process hands them the reference's
+FFModel), and run one thread each.  Every group has its own time limit: a
+rank that outlives it is killed and the call raises.
+
+The rank functions of the tests live here too, so that a spawned
+process can import them without importing a test module (which would
+import jax).
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import tempfile
+import time
+import traceback
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, fn, args, out_dir):
+    import torch
+
+    torch.set_num_threads(1)
+    from flexflow_tpu_torch import distributed
+
+    result = None
+    try:
+        distributed.initialize(f"localhost:{port}", world, rank,
+                               device="cpu")
+        result = ("ok", fn(rank, world, *args))
+    except Exception:  # reported to the parent, which raises
+        result = ("error", traceback.format_exc())
+    with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+    import torch.distributed as dist
+
+    if dist.is_initialized() and result[0] == "ok":
+        dist.destroy_process_group()
+
+
+def run_group(fn, world: int, *args, timeout: float = 150.0):
+    """[fn(rank, world, *args) for each rank], run in `world` spawned
+    processes of one gloo group; raises with the first rank's traceback
+    when a rank fails, and kills every rank when the group outlives
+    `timeout` seconds."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, world, port, fn, args, out_dir),
+                             daemon=True) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results = []
+        for r in range(world):
+            path = os.path.join(out_dir, f"{r}.pkl")
+            if not os.path.exists(path):
+                results.append(("error", f"rank {r} wrote no result "
+                                f"(exit code {procs[r].exitcode})"))
+                continue
+            with open(path, "rb") as f:
+                results.append(pickle.load(f))
+    if hung:
+        raise TimeoutError(f"ranks {hung} of {world} still ran after "
+                           f"{timeout} s and were killed")
+    for r, (status, value) in enumerate(results):
+        if status != "ok":
+            raise RuntimeError(f"rank {r} of {world} failed:\n{value}")
+    return [value for _, value in results]
+
+
+# -- rank functions --------------------------------------------------------
+
+def train_steps(rank, world, build, strategy, weights, batches, opt,
+                loss_type="sparse_categorical_crossentropy", cfg=None,
+                state=None, fit_last=False):
+    """Compile `build(ff)` under `strategy`, load `weights` (and op
+    `state`), run one train_step per (inputs, labels) in `batches` (the
+    last through fit, whose loader cuts each rank's shard, when
+    `fit_last`); return the losses, the gathered weights and state, and
+    an eval_step's loss on the first batch after them."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+
+    ff = FFModel(FFConfig(device="cpu", **(cfg or {})))
+    build(ff)
+    ff.compile(optimizer=opt(), loss_type=loss_type, strategy=strategy,
+               seed=0)
+    if weights is not None:
+        ff.set_weights(weights)
+    if state is not None:
+        ff.set_state(state)
+    losses = []
+    for i, (inputs, labels) in enumerate(batches):
+        if fit_last and i == len(batches) - 1:
+            step = ff.train_step
+
+            def recording(*a):
+                m = step(*a)
+                losses.append(float(m["loss"]))
+                return m
+
+            ff.train_step = recording
+            ff.fit(inputs, labels, batch_size=len(labels), epochs=1,
+                   verbose=False)
+            del ff.train_step
+        else:
+            losses.append(float(ff.train_step(inputs, labels)["loss"]))
+    return {"losses": losses, "weights": ff.get_weights(),
+            "state": ff.get_state(), "rank": rank,
+            "eval_loss": float(ff.eval_step(*batches[0])["loss"]),
+            "zero_stage": ff.executor.zero_stage,
+            "fallback": ff.executor.zero_fallback_leaves(),
+            "opt_bytes": ff.executor.opt_state_bytes(ff._opt_state)}
+
+
+def forward(rank, world, build, strategy, weights, inputs):
+    """Compile under `strategy`, load `weights`, one forward."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+
+    ff = FFModel(FFConfig(device="cpu"))
+    build(ff)
+    ff.compile(strategy=strategy, seed=0)
+    ff.set_weights(weights)
+    return ff.forward(inputs).numpy()
+
+
+def run_cases(rank, world, cases):
+    """Several (function, args[, kwargs]) cases in one group, in
+    order."""
+    return [c[0](rank, world, *c[1], **(c[2] if len(c) > 2 else {}))
+            for c in cases]
+
+
+def placements(rank, world, build, strategy):
+    """{tensor name: its view's spec} of the compiled graph."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.parallel.machine import view_to_spec
+
+    ff = FFModel(FFConfig(device="cpu"))
+    build(ff)
+    ff.compile(strategy=strategy, seed=0)
+    return {pt.name: view_to_spec(pt) for op in ff.operators.ops
+            for pt in list(op.outputs) + list(op.weights)}
+
+
+# -- model builders (called with either package's FFModel) --------------------
+
+def mlp_tp(ff):
+    """tests/test_parallelism.py's MLP: fc1 column parallel, fc2 row
+    parallel under tp_strategy."""
+    relu = _relu(ff)
+    x = ff.create_tensor([16, 32], name="x")
+    t = ff.dense(x, 64, activation=relu, name="fc1")
+    t = ff.dense(t, 64, activation=relu, name="fc2")
+    ff.dense(t, 4, name="fc3")
+
+
+def attention_heads(ff):
+    x = ff.create_tensor([4, 16, 32], name="x")
+    t = ff.multihead_attention(x, x, x, 32, 8, name="attn")
+    ff.dense(t, 8, name="out")
+
+
+def embedding_attribute(ff):
+    ids = ff.create_tensor([16, 8], dtype="int32", name="ids")
+    t = ff.embedding(ids, 100, 32, name="emb")
+    ff.dense(t, 4, name="head")
+
+
+def mlp_zero(ff, hidden=64):
+    """tests/test_zero_ladder.py's MLP: a 7-wide head whose bias no axis
+    of 8 divides (with hidden=0: the head alone)."""
+    x = ff.create_tensor([16, 32], name="x")
+    t = x
+    if hidden:
+        t = ff.dense(x, hidden, activation=_relu(ff), name="fc")
+    t = ff.dense(t, 7, name="head")
+    ff.softmax(t)
+
+
+def cnn_bn(ff, batch=16):
+    """Two conv + BatchNorm blocks (the second with a residual add and
+    a ReLU after it), a pool and a dense head."""
+    x = ff.create_tensor([batch, 3, 8, 8], name="x")
+    t = ff.conv2d(x, 8, 3, 3, 1, 1, 1, 1, name="conv1")
+    t = ff.batch_norm(t, relu=True, name="bn1")
+    u = ff.conv2d(t, 8, 3, 3, 1, 1, 1, 1, name="conv2")
+    u = ff.batch_norm(u, relu=False, name="bn2")
+    t = ff.relu(ff.add(u, t, name="res"), name="res_relu")
+    t = ff.pool2d(t, 2, 2, 2, 2, name="pool")
+    t = ff.flat(t, name="flat")
+    ff.dense(t, 4, name="head")
+
+
+def _relu(ff):
+    if type(ff).__module__.startswith("flexflow_tpu_torch"):
+        from flexflow_tpu_torch.fftype import ActiMode
+    else:
+        from flexflow_tpu.fftype import ActiMode
+    return ActiMode.RELU
+
+
+def ring_case(rank, world, q, k, v, impl, causal, scale):
+    """The flash or the dense ring (`impl`) over a `seq` axis of the
+    whole group on this rank's sequence shard of global q, k, v [b, s,
+    h, d]: the local output and the local grads of the sum of its
+    squares."""
+    import torch
+
+    from flexflow_tpu_torch.parallel import ring_attention as ra
+    from flexflow_tpu_torch.parallel.machine import make_mesh
+
+    mesh = make_mesh({"seq": world}, "cpu")
+    n = q.shape[1] // world
+    sl = slice(rank * n, (rank + 1) * n)
+    qt, kt, vt = (torch.tensor(a[:, sl], requires_grad=True)
+                  for a in (q, k, v))
+    ring = {"flash": ra._ring_flash, "dense": ra._ring_dense}[impl]
+    o = ring(qt, kt, vt, mesh, "seq", scale, causal)
+    (o.float() ** 2).sum().backward()
+    return (o.detach().numpy(), qt.grad.numpy(), kt.grad.numpy(),
+            vt.grad.numpy())
+
+
+def fit_run(rank, world, build, strategy, weights, x, y, opt, cfg, epochs,
+            batch):
+    """Compile under `strategy` with FFConfig(**cfg), load `weights`, fit
+    (each rank loads its shard of every batch); the per-epoch summed
+    sparse cross-entropy, the weights after and the ladder's
+    bookkeeping."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+
+    ff = FFModel(FFConfig(device="cpu", batch_size=batch, **cfg))
+    build(ff)
+    ff.compile(optimizer=opt(), strategy=strategy, seed=0,
+               metrics=["accuracy", "sparse_categorical_crossentropy"])
+    ff.set_weights(weights)
+    hist = ff.fit(x, y, epochs=epochs, verbose=False)
+    return {"losses": [pm.sparse_cce_loss for pm in hist],
+            "weights": ff.get_weights(),
+            "fallback": ff.executor.zero_fallback_leaves(),
+            "zero_stage": ff.executor.zero_stage,
+            "opt_bytes": ff.executor.opt_state_bytes(ff._opt_state)}
+
+
+def redistribute_cases(rank, world, axis_sizes, x, g, cases):
+    """For each (src, dst) pair of (spec, partial axes): this rank's
+    `src` shard of the global x (a partial one weighted by the rank's
+    coordinates on the partial axes, so that the shards sum to x),
+    redistributed to `dst`, and the grad of the input when the output's
+    grad stands for g in dst's adjoint layout (weighted the same way
+    over the axes dst replicates, whole over those it sums)."""
+    import torch
+
+    from flexflow_tpu_torch.parallel.collectives import (Layout,
+                                                         local_slice,
+                                                         redistribute)
+    from flexflow_tpu_torch.parallel.machine import make_mesh
+
+    mesh = make_mesh(axis_sizes, "cpu")
+
+    def weight(axes):
+        w = 1.0
+        for a in axes:
+            n, c = mesh.size(a), mesh.coord(a)
+            w *= (1 + c) / (n * (n + 1) / 2)
+        return w
+
+    out = []
+    for (s_spec, s_part), (d_spec, d_part) in cases:
+        src, dst = Layout(s_spec, frozenset(s_part)), Layout(d_spec,
+                                                             frozenset(d_part))
+        loc = torch.tensor(local_slice(x, src, mesh) * weight(s_part),
+                           requires_grad=True)
+        y = redistribute(loc, src, dst, mesh)
+        d_rep = [a for a in mesh.names
+                 if a not in dst.axes() and a not in d_part]
+        y.backward(torch.tensor(local_slice(g, Layout(d_spec), mesh)
+                                * weight(d_rep)))
+        out.append((y.detach().numpy(), loc.grad.numpy(),
+                    dict(mesh.coords)))
+    return out
