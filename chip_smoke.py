@@ -172,7 +172,7 @@ Phases, each a failure of which exits non-zero:
    launches of the search, the steps and the calibration go into the
    kernels line.  The searched strategy and the measured op costs are
    left for the multigpu phase.
-24. multigpu: five legs, each over a group of spawned ranks (rank r on
+24. multigpu: ten legs, each over a group of spawned ranks (rank r on
    card r % cards; the backend NCCL where every rank has a card of its
    own, else gloo, named, with every collective staged through host
    memory), each taking 2 train steps (the first by train_step, the
@@ -190,7 +190,20 @@ Phases, each a failure of which exits non-zero:
    its file over 8 ranks (without the search phase, the same search
    runs here first); and resnet_parity's small ResNet data-parallel
    over 4 (P1 on every BatchNorm with the global batch's statistics;
-   running statistics held too).  The kernels are built once, before
+   running statistics held too).  Pipelines over 4 ranks: BERT-base
+   under GPipe at data 2 x pipe 2 with 4 microbatches (pp_dp), the same
+   with remat (pp_dp_remat), pipe 4 (pp4), and the pipeline the Unity
+   search prices cheapest for 4 GPUs of hgx_h100_8.json
+   (pp_searched), each with its stacked weights unstacked through
+   `_adapt_weight_layout` for the check; and the demo encoder of
+   parallel/pipeline.py at BERT-base widths, pipe 4, 8 microbatches,
+   under 1F1B and then GPipe from the same weights (pp_1f1b), each
+   against the demo trained on this card as one stage and against each
+   other, with each schedule's peak memory.  K1-K3 per rank per step
+   must be `pipeline_launches`'s; each pipeline leg's record carries
+   the search's price of its strategy, and the phase's record K1-K3 at
+   the legs' one-row microbatch shape.  `--legs` runs some of the legs.
+   The kernels are built once, before
    the ranks start; each rank sets its launch counters to 0 and reports
    them per step, with its step wall time and peak memory.  With NCCL
    the simulator's step for the leg's strategy (the search's measured
@@ -948,13 +961,15 @@ def count_sass(sass: str) -> dict:
     return counts
 
 
-def flash_main_shape(torch, fa, gen, dtype, dev, flush) -> dict:
-    """K1-K3 at the main path's shape (BERT-base at batch 8, seq 2048,
-    non-causal) in `dtype`: agreement with the plain versions run in
-    float32 on the same values, each kernel bit-identical over two
-    launches, and the times of the kernels, the plain versions (float32
-    only) and the library."""
-    bh, s, d = FLASH_SHAPE
+def flash_main_shape(torch, fa, gen, dtype, dev, flush,
+                     shape=FLASH_SHAPE) -> dict:
+    """K1-K3 at a path's shape [batch * heads, seq, head_dim] (the main
+    path's by default: BERT-base at batch 8, seq 2048, non-causal) in
+    `dtype`: agreement with the plain versions run in float32 on the
+    same values, each kernel bit-identical over two launches, and the
+    times of the kernels, the plain versions (float32 only) and the
+    library."""
+    bh, s, d = shape
     dname = str(dtype).removeprefix("torch.")
     q, k, v, dout = (torch.randn(bh, s, d, generator=gen, device=dev).to(
         dtype) for _ in range(4))
@@ -984,7 +999,8 @@ def flash_main_shape(torch, fa, gen, dtype, dev, flush) -> dict:
     for kern, e in err.items():
         if e > FLASH_TOL[dname]:
             raise RuntimeError(f"main shape {dname}: {kern} vs plain {e}")
-    b, h = TRAIN_BATCH, BERT["num_heads"]
+    h = BERT["num_heads"]
+    b = bh // h
     q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_()
                   for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3820,7 +3836,30 @@ MULTIGPU_LEGS = (
      "reference": "cnn"},
     {"name": "searched", "ranks": SEARCH_DEVICES, "strategy": ["file"],
      "optimizer": "sgd", "reference": "bert_sgd"},
+    # pipelines, ["pipe", data, pipe, microbatches]: GPipe through the
+    # executor's region
+    {"name": "pp_dp", "ranks": 4, "strategy": ["pipe", 2, 2, 4],
+     "optimizer": "sgd", "reference": "bert_sgd"},
+    {"name": "pp4", "ranks": 4, "strategy": ["pipe", 1, 4, 4],
+     "optimizer": "sgd", "reference": "bert_sgd"},
+    {"name": "pp_dp_remat", "ranks": 4, "strategy": ["pipe", 2, 2, 4],
+     "remat": True, "optimizer": "sgd", "reference": "bert_sgd"},
+    # the demo transformer of parallel/pipeline.py under 1F1B and GPipe
+    {"name": "pp_1f1b", "ranks": 4, "strategy": ["demo", 1, 4, 8],
+     "optimizer": "sgd", "reference": "demo"},
+    # the pipeline the search prices cheapest for 4 GPUs
+    {"name": "pp_searched", "ranks": 4, "strategy": ["pipe_file"],
+     "optimizer": "sgd", "reference": "bert_sgd"},
 )
+# the pipeline legs' GPUs, and K1-K3's shape at their one-row
+# microbatches (batch 8 over data 2 and 4 microbatches)
+PIPELINE_DEVICES = 4
+PIPELINE_FLASH_SHAPE = (BERT["num_heads"], TRAIN_SEQ,
+                        BERT["hidden_size"] // BERT["num_heads"])
+# the demo at BERT-base widths, 2 classes, SGD at lr 0.01
+DEMO = dict(layers=BERT["num_layers"], hidden=BERT["hidden_size"],
+            ffn=BERT["intermediate_size"], num_heads=BERT["num_heads"],
+            num_classes=BERT["num_classes"], lr=0.01)
 
 
 def _multigpu_optimizer(name: str):
@@ -3831,17 +3870,20 @@ def _multigpu_optimizer(name: str):
     return SGDOptimizer(lr=0.01, weight_decay=1e-4)
 
 
-def _multigpu_bert(device: str, optimizer: str, strategy=None, zero=0):
+def _multigpu_bert(device: str, optimizer: str, strategy=None, zero=0,
+                   remat=False, compiled=True):
     """The train phase's BERT-base, batch 8, seq 2048, weights from seed
-    0 (every rank draws the same global weights)."""
+    0 (every rank draws the same global weights); uncompiled, its layer
+    graph alone."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models.transformer import build_bert
 
     ff = FFModel(FFConfig(batch_size=TRAIN_BATCH, device=device, seed=0,
-                          zero_stage=zero))
+                          zero_stage=zero, remat=remat))
     build_bert(ff, batch_size=TRAIN_BATCH, seq_length=TRAIN_SEQ, **BERT)
-    ff.compile(optimizer=_multigpu_optimizer(optimizer), strategy=strategy,
-               seed=0)
+    if compiled:
+        ff.compile(optimizer=_multigpu_optimizer(optimizer),
+                   strategy=strategy, seed=0)
     return ff
 
 
@@ -3852,7 +3894,23 @@ def _multigpu_cnn(torch, device: str):
                         MULTIGPU_CNN["px"], device, "float32")
 
 
+def pipeline_strategy(dp: int, pp: int, microbatches: int):
+    """GPipe over `pp` stages with `microbatches` per data shard, data
+    parallel over `dp`: the form of the Unity search's candidates."""
+    from flexflow_tpu_torch.strategy import Strategy
+
+    s = Strategy(mesh_axes={"data": dp, "pipe": pp} if dp > 1
+                 else {"pipe": pp},
+                 pipeline={"degree": pp, "num_microbatches": microbatches,
+                           "axis": "pipe",
+                           "dp_axis": "data" if dp > 1 else None})
+    if dp > 1:
+        s.edge_ops["__inputs__"] = [("repartition", {"dim": 0, "degree": dp})]
+    return s
+
+
 def _multigpu_strategy(leg, job):
+    """The leg's Strategy (None for the demo, which has no graph)."""
     from flexflow_tpu_torch.models.transformer import (bert_sp_strategy,
                                                        bert_tp_strategy)
     from flexflow_tpu_torch.strategy import Strategy, data_parallel_strategy
@@ -3864,7 +3922,45 @@ def _multigpu_strategy(leg, job):
         return bert_sp_strategy(leg["ranks"], sp=leg["strategy"][1])
     if kind == "file":
         return Strategy.load(job["strategy_file"])
+    if kind == "pipe":
+        return pipeline_strategy(*leg["strategy"][1:])
+    if kind == "pipe_file":
+        return Strategy.load(job["pipeline_file"])
+    if kind == "demo":
+        return None
     return data_parallel_strategy(leg["ranks"])
+
+
+def pipeline_launches(layers: int, stages: int, microbatches: int,
+                      schedule: str = "gpipe", remat: bool = False) -> dict:
+    """K1, K2 and K3 launches per rank per step of a pipelined stack of
+    `layers` attention blocks.  GPipe keeps the lockstep schedule: every
+    tick runs the stage's L/S blocks, the fill and drain ticks on zeros,
+    and its backward every tick again: (L/S)(M+S-1) each (L*M on one
+    stage), and K1 twice that under remat (the backward recomputes each
+    block).  1F1B runs only the valid halves: M(L/S) forwards, each
+    recomputed before its backward, so K1 2M(L/S) and K2, K3 M(L/S)."""
+    per = layers // stages
+    if schedule == "1f1b":
+        return {"K1": 2 * microbatches * per, "K2": microbatches * per,
+                "K3": microbatches * per}
+    n = per * (microbatches + stages - 1)
+    return {"K1": n * (2 if remat else 1), "K2": n, "K3": n}
+
+
+def expected_launches(leg, strategy) -> dict:
+    """K1-K3 launches per rank per step the leg must read."""
+    kind = leg["strategy"][0]
+    L = BERT["num_layers"]
+    if kind == "demo":
+        _, _, pp, m = leg["strategy"]
+        return pipeline_launches(L, pp, m, "1f1b")
+    if strategy is not None and strategy.pipeline:
+        p = strategy.pipeline
+        return pipeline_launches(L, p["degree"], p["num_microbatches"],
+                                 remat=leg.get("remat", False))
+    n = L * (leg["strategy"][1] if kind == "bert_sp" else 1)
+    return {"K1": n, "K2": n, "K3": n}
 
 
 def _weights_diff(got: dict, want: dict):
@@ -3886,6 +3982,8 @@ def _multigpu_leg(torch, dist, leg, job, rank):
 
     npz = np.load(job["data"][leg["reference"]])
     data = {"x": npz["x"], "y": npz["y"]}
+    if leg["reference"] == "demo":
+        return _multigpu_demo_leg(torch, dist, fa, leg, job, rank, data)
     strategy = _multigpu_strategy(leg, job)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3893,11 +3991,10 @@ def _multigpu_leg(torch, dist, leg, job, rank):
         ff = _multigpu_cnn(torch, "cuda")
     else:
         ff = _multigpu_bert("cuda", leg["optimizer"], strategy,
-                            leg.get("zero", 0))
+                            leg.get("zero", 0), leg.get("remat", False))
     compile_s = time.perf_counter() - t0
     b = MULTIGPU_CNN["batch"] if leg["reference"] == "cnn" else TRAIN_BATCH
-    reset_flash_launches(fa)
-    bk.bn_apply.launches = 0
+    reset_leg_launches(fa, bk)
     losses, step_s = [], []
     for i in range(MULTIGPU_STEPS):
         x, y = data["x"][i * b:(i + 1) * b], data["y"][i * b:(i + 1) * b]
@@ -3909,12 +4006,10 @@ def _multigpu_leg(torch, dist, leg, job, rank):
         else:
             losses.append(_fit_step(ff, x, y, b))
         step_s.append(time.perf_counter() - t0)
-    launches = dict(flash_launches(fa), P1=bk.bn_apply.launches)
     peak = torch.cuda.max_memory_allocated()
     rec = {"rank": rank, "losses": losses, "step_s": step_s,
            "compile_s": compile_s,
-           "launches_per_step": {k: v / MULTIGPU_STEPS
-                                 for k, v in launches.items()},
+           "launches_per_step": leg_launches(fa, bk, MULTIGPU_STEPS),
            "peak_memory_gb": peak / 1e9,
            "opt_state_bytes": ff.executor.opt_state_bytes(ff._opt_state),
            "zero_stage": ff.executor.zero_stage,
@@ -3925,6 +4020,11 @@ def _multigpu_leg(torch, dist, leg, job, rank):
     if rank == 0:
         want = np.load(job["data"][leg["reference"] + "_after"],
                        allow_pickle=True)["weights"].item()
+        if "__pipeline__" in weights:
+            # the stacked blocks unstacked onto the graph's block ops
+            weights = _multigpu_bert("cuda", leg["optimizer"],
+                                     compiled=False)._adapt_weight_layout(
+                                         weights)
         rec["weights_diff"], rec["worst_weight"] = _weights_diff(weights,
                                                                  want)
         if state is not None:
@@ -3942,6 +4042,85 @@ def _multigpu_leg(torch, dist, leg, job, rank):
             rec["profile"] = prof
     del ff
     torch.cuda.empty_cache()
+    return rec
+
+
+def reset_leg_launches(fa, bk) -> None:
+    """Every kernel count a multigpu leg reports, set to 0."""
+    reset_flash_launches(fa)
+    bk.bn_apply.launches = 0
+
+
+def leg_launches(fa, bk, steps: int) -> dict:
+    """K1-K3 and P1 launches per step since reset_leg_launches."""
+    return {k: v / steps for k, v in dict(
+        flash_launches(fa), P1=bk.bn_apply.launches).items()}
+
+
+def _demo_leg_schedule(torch, dist, fa, mesh, schedule, data, steps):
+    """`steps` steps of the demo under `schedule` from the seed-0
+    weights on this rank's part: losses, step seconds, launches per step,
+    peak memory and the global weights after them."""
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
+    from flexflow_tpu_torch.parallel.collectives import all_gather
+    from flexflow_tpu_torch.parallel.pipeline import \
+        make_pipelined_transformer_step
+
+    pp = mesh.size("pp")
+    init_fn, step = make_pipelined_transformer_step(
+        mesh, schedule=schedule, num_microbatches=data["m"], **DEMO)
+    params = init_fn(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_leg_launches(fa, bk)
+    b = TRAIN_BATCH
+    losses, step_s = [], []
+    for i in range(steps):
+        x = torch.tensor(data["x"][i * b:(i + 1) * b], device="cuda")
+        y = torch.tensor(data["y"][i * b:(i + 1) * b, 0], device="cuda")
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        params, loss = step(params, x, y)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    launches = leg_launches(fa, bk, steps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    weights = {"blocks": {k: all_gather(v, 0, pp, mesh.group("pp")).cpu()
+                          .numpy() for k, v in params["blocks"].items()},
+               "head": {"head": params["head"]["head"].cpu().numpy()}}
+    del params
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": step_s, "launches_per_step": launches,
+            "peak_memory_gb": peak}, weights
+
+
+def _multigpu_demo_leg(torch, dist, fa, leg, job, rank, data):
+    """The demo transformer of parallel/pipeline.py at BERT-base widths
+    over the group's pipe axis: 1F1B, then GPipe from the same weights
+    and batches; each held against the demo trained on one card, and
+    against each other."""
+    from flexflow_tpu_torch.parallel.machine import make_mesh
+
+    _, _, pp, m = leg["strategy"]
+    mesh = make_mesh({"pp": pp}, torch.device("cuda",
+                                              torch.cuda.current_device()))
+    data = dict(data, m=m)
+    t0 = time.perf_counter()
+    rec, w_1f1b = _demo_leg_schedule(torch, dist, fa, mesh, "1f1b", data,
+                                     MULTIGPU_STEPS)
+    gpipe, w_gpipe = _demo_leg_schedule(torch, dist, fa, mesh, "gpipe", data,
+                                        MULTIGPU_STEPS)
+    rec.update({"rank": rank, "gpipe": gpipe, "mesh": {"pp": pp},
+                "compile_s": time.perf_counter() - t0, "opt_state_bytes": 0,
+                "zero_stage": 0, "zero_fallback_leaves": []})
+    if rank == 0:
+        want = np.load(job["data"]["demo_after"],
+                       allow_pickle=True)["weights"].item()
+        rec["weights_diff"], rec["worst_weight"] = _weights_diff(w_1f1b, want)
+        gpipe["weights_diff"], gpipe["worst_weight"] = _weights_diff(w_gpipe,
+                                                                     want)
+        rec["schedules_weights_diff"], _ = _weights_diff(w_1f1b, w_gpipe)
     return rec
 
 
@@ -4103,9 +4282,53 @@ def _run_ranks(world, cards, job, out_dir):
     return backend, wall, outs
 
 
+def _one_card_demo(torch, x, y):
+    """The demo transformer on this card as one stage (8 microbatches),
+    two steps from the seed-0 weights: (losses, step seconds, weights
+    before the last step, weights after)."""
+    from flexflow_tpu_torch.parallel.pipeline import \
+        make_pipelined_transformer_step
+
+    init_fn, step = make_pipelined_transformer_step(
+        None, num_microbatches=8, device="cuda", **DEMO)
+    params = init_fn(0)
+
+    def host():
+        return {"blocks": {k: v.cpu().numpy()
+                           for k, v in params["blocks"].items()},
+                "head": {"head": params["head"]["head"].cpu().numpy()}}
+
+    b = TRAIN_BATCH
+    losses, step_s = [], []
+    for i in range(MULTIGPU_STEPS):
+        if i == MULTIGPU_STEPS - 1:
+            before = host()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = step(params,
+                            torch.tensor(x[i * b:(i + 1) * b], device="cuda"),
+                            torch.tensor(y[i * b:(i + 1) * b, 0],
+                                         device="cuda"))
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    return losses, step_s, before, host()
+
+
 def _one_card_reference(torch, name, tmp):
     """Two steps on this process's card: the losses and the weights (and
     the CNN's running statistics) after them, saved beside the batches."""
+    if name == "demo":
+        x, y = bert_data(TRAIN_BATCH * MULTIGPU_STEPS, seed=0)
+        losses, step_s, before, weights = _one_card_demo(torch, x, y)
+        data, after = f"{tmp}/{name}.npz", f"{tmp}/{name}_after.npz"
+        np.savez(data, x=x, y=y)
+        np.savez(after, weights=np.array(weights, dtype=object))
+        torch.cuda.empty_cache()
+        moves = {f"{op}.{k}": float(np.abs(v - before[op][k]).max())
+                 for op, entries in weights.items()
+                 for k, v in entries.items()}
+        return ({"losses": losses, "step_s": step_s,
+                 "last_step_moves": moves}, data, after)
     if name == "cnn":
         ff = _multigpu_cnn(torch, "cuda")
         b = MULTIGPU_CNN["batch"]
@@ -4165,24 +4388,63 @@ def _multigpu_prediction(run_dir, leg, strategy) -> float:
                           strategy)
 
 
-def phase_multigpu(torch, fa, card: str, run_dir: str) -> dict:
+def _pipeline_candidates(torch, run_dir) -> list:
+    """Every pipeline the Unity search prices for BERT-base on
+    PIPELINE_DEVICES GPUs of hgx_h100_8.json, with the search's measured
+    op costs, cheapest first: its strategy and its analytic and
+    event-simulated steps in ms.  The cheapest is written to
+    run_dir/pipeline_strategy.json for the pp_searched leg."""
+    from flexflow_tpu_torch.pcg.unity import make_unity_search
+
+    cfg = search_config(str(Path(run_dir) / "op_costs.json"))
+    search, cost_model = make_unity_search(search_bert(cfg),
+                                           PIPELINE_DEVICES)
+    cands = search.pipeline_candidates()
+    cost_model.save_persistent()
+    torch.cuda.empty_cache()
+    if not cands:
+        raise RuntimeError("multigpu: the search priced no pipeline for "
+                           f"BERT-base on {PIPELINE_DEVICES} GPUs")
+    cands[0][2].save(str(Path(run_dir) / "pipeline_strategy.json"))
+    return [{"strategy": json.loads(st.to_json()),
+             "predicted_step_ms": t * 1e3,
+             "event_predicted_step_ms": None if e is None else e * 1e3}
+            for t, e, st in cands]
+
+
+def phase_multigpu(torch, fa, card: str, run_dir: str,
+                   names=None) -> dict:
     """BERT-base data x tensor parallel, data x sequence parallel (ring
-    attention through K1-K3), ZeRO-3 under Adam and the searched 8-GPU
-    strategy, and a data-parallel CNN (P1 on every BatchNorm with the
+    attention through K1-K3), ZeRO-3 under Adam, the searched 8-GPU
+    strategy, pipelines (data x pipe GPipe with and without remat, pipe
+    4, the search's cheapest pipeline, the demo transformer under 1F1B
+    and GPipe), and a data-parallel CNN (P1 on every BatchNorm with the
     global batch's statistics), each over a group of ranks, each held
-    against its one-card run."""
+    against its one-card run; `names` picks some of the legs."""
+    chosen = [leg for leg in MULTIGPU_LEGS
+              if names is None or leg["name"] in names]
     cards = torch.cuda.device_count()
     tmp = tempfile.mkdtemp(prefix="ff_multigpu_")
     try:
         job = {"data": {}, "strategy_file": _searched_strategy_file(
             torch, fa, run_dir)}
+        job["pipelines"] = _pipeline_candidates(torch, run_dir)
+        job["pipeline_file"] = str(Path(run_dir) / "pipeline_strategy.json")
+        # K1-K3 at the microbatch shape of the data x pipe legs (one row
+        # of 2048 tokens, 12 heads)
+        dev = torch.device("cuda")
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        microbatch = flash_main_shape(
+            torch, fa, torch.Generator(device=dev).manual_seed(0),
+            torch.float32, dev, flush, shape=PIPELINE_FLASH_SHAPE)
+        del flush
         refs = {}
-        for name in ("bert_sgd", "bert_adam", "cnn"):
+        for name in sorted({leg["reference"] for leg in chosen}):
             refs[name], job["data"][name], job["data"][name + "_after"] = \
                 _one_card_reference(torch, name, tmp)
         legs = []
-        for world in sorted({leg["ranks"] for leg in MULTIGPU_LEGS}):
-            group = [leg for leg in MULTIGPU_LEGS if leg["ranks"] == world]
+        for world in sorted({leg["ranks"] for leg in chosen}):
+            group = [leg for leg in chosen if leg["ranks"] == world]
             out_dir = tempfile.mkdtemp(dir=tmp)
             backend, wall, outs = _run_ranks(world, cards,
                                              dict(job, legs=group), out_dir)
@@ -4197,12 +4459,44 @@ def phase_multigpu(torch, fa, card: str, run_dir: str) -> dict:
            "tolerance": MULTIGPU_TOL,
            "model": dict(BERT, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                          dtype="float32", allow_tf32=False),
-           "cnn": dict(MULTIGPU_CNN, model="resnet_parity's SmallResNet")}
+           "cnn": dict(MULTIGPU_CNN, model="resnet_parity's SmallResNet"),
+           "demo": DEMO, "pipeline_candidates": job["pipelines"],
+           "flash_microbatch": {
+               "shape": list(PIPELINE_FLASH_SHAPE),
+               **{k: microbatch[k] for k in (
+                   "kernel_ms", "plain_ms", "library_ms", "share_of_bound",
+                   "err_over_scale")},
+               "bound_ms": {k: b["bound_ms"]
+                            for k, b in microbatch["bounds"].items()}}}
     emit(rec)
     faults = [f for leg in legs for f in leg["faults"]]
     if faults:
         raise RuntimeError("multigpu: " + "; ".join(faults))
     return rec
+
+
+def _loss_err(got, want) -> float:
+    """Largest error of `got` against `want`, over max(1, |want|)."""
+    return max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, want))
+
+
+def _pipeline_prediction(strategy, job) -> dict:
+    """The Unity search's price of a pipeline strategy: its candidate's
+    analytic and event-simulated steps (job["pipelines"])."""
+    key = (strategy.mesh_axes, strategy.pipeline)
+    cand = next((c for c in job.get("pipelines", ())
+                 if (c["strategy"]["mesh_axes"], c["strategy"]["pipeline"])
+                 == key), None)
+    if cand is None:
+        return {"predicted_step_ms": None,
+                "prediction_note": "not among the search's candidates"}
+    return {"predicted_step_ms": cand["predicted_step_ms"],
+            "event_predicted_step_ms": cand["event_predicted_step_ms"],
+            "prediction_note": "the Unity search's GPipe terms for this "
+                               "strategy (pcg/unity.py _pp_candidates) on "
+                               f"{PIPELINE_DEVICES} GPUs of "
+                               f"{SEARCH_MACHINE}.json with the measured "
+                               "op costs; the event figure is the re-rank's"}
 
 
 def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
@@ -4212,8 +4506,7 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
     r0 = ranks[0]
     name, world = leg["name"], leg["ranks"]
     faults = []
-    loss_diff = max(abs(a - b) / max(1.0, abs(b))
-                    for a, b in zip(r0["losses"], ref["losses"]))
+    loss_diff = _loss_err(r0["losses"], ref["losses"])
     if not (np.isfinite(r0["losses"]).all()
             and loss_diff <= MULTIGPU_TOL["loss"]):
         faults.append(f"{name}: losses {r0['losses']} against one card "
@@ -4232,6 +4525,7 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
         faults.append(f"{name}: the weight tolerance {wtol} would pass a "
                       f"skipped last update (it moves weights by at most "
                       f"{skipped})")
+    strategy = want = None
     if leg["reference"] == "cnn":
         if not (r0["running_stats_diff"]
                 <= MULTIGPU_TOL["cnn_running_stats"]):
@@ -4241,19 +4535,39 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
             if r["launches_per_step"]["P1"] <= 0:
                 faults.append(f"{name}: rank {r['rank']} launched no P1")
     else:
-        sp = leg["strategy"][1] if leg["strategy"][0] == "bert_sp" else 1
-        want = BERT["num_layers"] * sp
+        strategy = _multigpu_strategy(leg, job)
+        want = expected_launches(leg, strategy)
         for r in ranks:
             got = r["launches_per_step"]
-            if any(got[k] != want for k in ("K1", "K2", "K3")):
+            if any(got[k] != want[k] for k in want):
                 faults.append(f"{name}: rank {r['rank']} launched {got} "
-                              f"per step, expected {want} each of K1-K3")
+                              f"per step, expected {want}")
+    if "gpipe" in r0:
+        # the demo's GPipe run from the same weights: against one card
+        # and against 1F1B
+        g = r0["gpipe"]
+        g_err = _loss_err(g["losses"], ref["losses"])
+        if g_err > MULTIGPU_TOL["loss"] or not g["weights_diff"] <= wtol:
+            faults.append(f"{name}: GPipe {g['losses']}, weights "
+                          f"{g['weights_diff']} apart, against one card")
+        if (_loss_err(r0["losses"], g["losses"]) > MULTIGPU_TOL["loss"]
+                or not r0["schedules_weights_diff"] <= wtol):
+            faults.append(f"{name}: 1F1B against GPipe: losses "
+                          f"{r0['losses']} / {g['losses']}, weights "
+                          f"{r0['schedules_weights_diff']} apart")
+        _, _, pp, m = leg["strategy"]
+        want_g = pipeline_launches(BERT["num_layers"], pp, m)
+        for r in ranks:
+            got = r["gpipe"]["launches_per_step"]
+            if any(got[k] != want_g[k] for k in want_g):
+                faults.append(f"{name}: rank {r['rank']}'s GPipe launched "
+                              f"{r['gpipe']['launches_per_step']}, expected "
+                              f"{want_g}")
     if "zero0" in r0:
         # the ladder against stage 0 in the same group: the same sums,
         # reduce-scattered per weight instead of all-reduced by bucket
         z = r0["zero0"]
-        dz = max(abs(a - b) / max(1.0, abs(b))
-                 for a, b in zip(z["losses"], r0["losses"]))
+        dz = _loss_err(z["losses"], r0["losses"])
         if dz > MULTIGPU_TOL["loss"] or z["weights_diff"] > wtol:
             faults.append(f"{name}: ZeRO-3 against ZeRO-0 {z}")
     step_s = [max(r["step_s"][i] for r in ranks)
@@ -4272,6 +4586,7 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
             sum(m > wtol for m in moves.values()), len(moves)],
         "launches_per_rank_per_step": [r["launches_per_step"]
                                        for r in ranks],
+        "expected_launches_per_rank_per_step": want,
         "step_ms": [s * 1e3 for s in step_s],
         "step_ms_per_rank": [[s * 1e3 for s in r["step_s"]] for r in ranks],
         "one_card_step_ms": [s * 1e3 for s in ref["step_s"]],
@@ -4280,14 +4595,39 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
         "zero_fallback_leaves": r0["zero_fallback_leaves"],
         "group_wall_s": wall, "faults": faults,
     }
+    if leg.get("remat"):
+        rec["remat"] = True
     if leg["reference"] == "cnn":
         rec["max_running_stats_diff"] = r0["running_stats_diff"]
     if "zero0" in r0:
         rec["zero0"] = r0["zero0"]
+    if "gpipe" in r0:
+        g = r0["gpipe"]
+        rec["schedule"] = "1f1b"
+        rec["schedules_max_weight_diff"] = r0["schedules_weights_diff"]
+        rec["gpipe"] = {
+            "losses": g["losses"],
+            "max_loss_err_over_scale": _loss_err(g["losses"],
+                                                 ref["losses"]),
+            "max_weight_diff": g["weights_diff"],
+            "step_ms": [max(r["gpipe"]["step_s"][i] for r in ranks) * 1e3
+                        for i in range(MULTIGPU_STEPS)],
+            "peak_memory_gb_per_rank": [r["gpipe"]["peak_memory_gb"]
+                                        for r in ranks],
+            "launches_per_rank_per_step": [r["gpipe"]["launches_per_step"]
+                                           for r in ranks]}
     if "profile" in r0:
         rec["profile_rank0"] = r0["profile"]
-    if backend == "nccl" and leg["reference"] != "cnn":
-        strategy = _multigpu_strategy(leg, job)
+    if strategy is not None and strategy.pipeline:
+        rec.update(_pipeline_prediction(strategy, job))
+        if leg.get("remat"):
+            rec["prediction_note"] += "; the search prices no remat"
+        if backend == "gloo":
+            rec["prediction_note"] += (
+                f"; {world} ranks share {cards} card(s) over gloo, so the "
+                "measured step is no test of it")
+        rec["pipeline"] = strategy.pipeline
+    elif backend == "nccl" and leg["reference"] not in ("cnn", "demo"):
         strategy.zero_stage = leg.get("zero", strategy.zero_stage)
         rec["predicted_step_ms"] = _multigpu_prediction(
             run_dir, leg, strategy) * 1e3
@@ -4297,7 +4637,9 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
             f"{world} ranks share {cards} card(s) over gloo: every "
             "collective is staged through host memory, so the measured "
             "step is no test of the simulator's NVLink prediction"
-            if backend == "gloo" else "the simulator has no CNN search")
+            if backend == "gloo" else "the simulator has no CNN search"
+            if leg["reference"] == "cnn" else
+            "the demo is no FFModel graph: no search prices it")
     if leg["strategy"][0] == "file":
         rec["searched_strategy"] = json.loads(
             Strategy.load(job["strategy_file"]).to_json())
@@ -4426,11 +4768,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma-separated subset of the phases")
+    ap.add_argument("--legs", default=None,
+                    help="comma-separated subset of the multigpu legs")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     unknown = phases - set(ALL_PHASES.split(","))
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    legs = {leg["name"] for leg in MULTIGPU_LEGS}
+    if args.legs is not None and set(args.legs.split(",")) - legs:
+        ap.error(f"unknown legs {sorted(set(args.legs.split(',')) - legs)}")
 
     import torch
 
@@ -4520,7 +4867,9 @@ def main(argv=None) -> int:
     if "search" in phases:
         search = phase_search(torch, fa, card, run_dir)
     if "multigpu" in phases:
-        multigpu = phase_multigpu(torch, fa, card, run_dir)
+        multigpu = phase_multigpu(
+            torch, fa, card, run_dir,
+            None if args.legs is None else set(args.legs.split(",")))
     shutil.rmtree(run_dir, ignore_errors=True)
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,

@@ -7,7 +7,10 @@ reference's own and the same in both packages: attention wq/wk/wv
 [embed, heads, head_dim] and wo [heads, head_dim, embed], Linear.kernel
 [in, out] (+ bias [out]), Embedding.weight [num_entries, out_dim],
 LayerNorm gamma and beta, Conv2D.kernel OIHW (+ bias), BatchNorm gamma
-and beta, a trainable WeightOp's value.  `from_jax_state` does the same
+and beta, a trainable WeightOp's value.  Under a pipeline the block ops'
+weights come as the reference's stacked group, {"__pipeline__":
+{"<j>.<name>": [L, ...]}}, template op j's weight over the L blocks.
+`from_jax_state` does the same
 for the op state (FFModel._state: BatchNorm's running_mean and
 running_var, a frozen WeightOp's value).  Every op
 name, entry name and shape is checked against `ff`'s graph; the first
@@ -20,19 +23,34 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .executor import PIPELINE
+
 
 def _expected(ff, trainable: bool) -> Dict[str, Dict[str, tuple]]:
     """{op: {entry: (shape, torch dtype)}} of ff's trainable weights, or
     of its op state."""
     out: Dict[str, Dict[str, tuple]] = {}
     graph = ff.operators if ff.operators is not None else ff.layers
+    plan = getattr(ff.executor, "pipeline_plan", None)
+    blocks = set() if plan is None else {
+        op.guid for blk in plan.blocks for op in blk}
     for op in graph.topo_order():
+        if op.guid in blocks:
+            continue
         nt = op.num_trainable_weights()
         specs = op.weight_specs[:nt] if trainable else op.weight_specs[nt:]
         for spec in specs:
             out.setdefault(op.name, {})[spec.name] = (
                 tuple(spec.shape.logical_shape),
                 spec.shape.dtype.torch_dtype)
+    if plan is not None and trainable:
+        # plan_pipeline admits no op state inside the blocks
+        out[PIPELINE] = {
+            f"{j}.{spec.name}": ((plan.num_blocks,)
+                                 + tuple(spec.shape.logical_shape),
+                                 spec.shape.dtype.torch_dtype)
+            for j, op in enumerate(plan.blocks[0])
+            for spec in op.weight_specs}
     return out
 
 

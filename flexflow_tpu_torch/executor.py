@@ -50,8 +50,17 @@ is the global mean, and the backward starts from 1/world on every rank,
 which with the adjoint collectives gives each weight's exact grad once
 its partial sums are added over the axes that replicate it.  The ZeRO
 ladder (parallel/zero.py) shards the update over `wus_axis`.
-Pipelines, expert shardings and factored per-op views come with the
-next slice of ROADMAP §1.D.
+
+Under a pipeline (`pipeline_plan`, parallel/pipeline_plan.py) the block
+ops leave the per-op schedule: their weights are stacked per template
+weight over the L blocks under "__pipeline__", keyed "<j>.<name>" and
+sharded over the pipe axis, and the region runs the template block's
+ops once per block through `pipelined_apply` (parallel/pipeline.py) on
+the region input's data shard.  The stacked leaves' grads are summed
+over every axis but the pipe axis; the prefix's and suffix's weights,
+replicated over it, over it too.  Expert shardings, factored per-op
+views, the multi-node hierarchy and the fusion pass are what is left of
+ROADMAP §1.D.
 """
 from __future__ import annotations
 
@@ -68,12 +77,24 @@ from .fftype import OpBinary, OperatorType, OpUnary
 from .parallel.collectives import (Layout, all_gather, all_reduce_,
                                    gather_global, local_slice, redistribute,
                                    reduce_scatter)
+from .parallel.pipeline import pipelined_apply, stacked_param_sharding
 from .parallel.spmd import layout_of, plan_op
 from .parallel.zero import shard_update_spec
 from .pcg.graph import Graph
 from .pcg.layout import NHWC, PASS, assign_layouts
 
 Weights = Dict[str, Dict[str, torch.Tensor]]
+
+#: the weight group of the pipeline's stacked block weights
+PIPELINE = "__pipeline__"
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineRegion:
+    """The schedule's entry for the pipelined block stack: it runs at
+    the place of its first block op (`guid`)."""
+
+    guid: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +166,8 @@ class GraphExecutor:
                  label_replication: int = 1, mesh=None,
                  zero_stage: int = 0, wus_axis: Optional[str] = "data",
                  remat: bool = False,
-                 remat_segments: Optional[List[int]] = None):
+                 remat_segments: Optional[List[int]] = None,
+                 pipeline_plan=None):
         self.graph = graph
         self.label_replication = label_replication
         self.device = torch.device(device)
@@ -158,6 +180,14 @@ class GraphExecutor:
         self.t_layout, self.op_layout = assign_layouts(graph)
         self.bn_plans = plan_bn_applies(graph, self.t_layout)
         self.mesh = mesh
+        self.remat = bool(remat)
+        # the pipelined block stack: block op guid -> (block, template
+        # op index); those ops run only through the region
+        self.pipeline_plan = pipeline_plan
+        self._block_pos = {} if pipeline_plan is None else {
+            op.guid: (l, j) for l, blk in enumerate(pipeline_plan.blocks)
+            for j, op in enumerate(blk)}
+        self._block_guids = set(self._block_pos)
         # the ZeRO ladder is active only on a mesh axis of size > 1
         self.wus_axis = (wus_axis if mesh is not None and zero_stage
                          and mesh.axis_sizes.get(wus_axis, 1) > 1 else None)
@@ -179,9 +209,15 @@ class GraphExecutor:
         runs_at = {p.at: g for g, p in self.bn_plans.items() if p.at != g}
         skip = set(runs_at.values()) | {
             g for p in self.bn_plans.values() for g in p.absorbed}
+        first = next((op.guid for op in self.order
+                      if op.guid in self._block_guids), None)
         out = []
         for op in self.order:
-            if op.guid in runs_at:
+            if op.guid == first:
+                out.append((PipelineRegion(first), None))
+            elif op.guid in self._block_guids:
+                continue
+            elif op.guid in runs_at:
                 bn = by_guid[runs_at[op.guid]]
                 out.append((bn, self.bn_plans[bn.guid]))
             elif op.guid not in skip:
@@ -216,6 +252,7 @@ class GraphExecutor:
                     or any(c > i for c in consumers.get(t.guid, ()))]
             pure = (sel is None or i in sel) and all(
                 op.op_type != OperatorType.INPUT
+                and op.guid not in self._block_guids
                 and op.num_trainable_weights() == len(op.weight_specs)
                 and not _draws(op) for op in seg)
             plan.append(({op.guid for op in seg}, external_inputs(seg),
@@ -233,29 +270,28 @@ class GraphExecutor:
                 self.view[pt.guid] = layout_of(pt)
         self.op_plans = {}
         for op in self.order:
-            if op.op_type == OperatorType.INPUT or op.is_parallel_op():
+            if (op.op_type == OperatorType.INPUT or op.is_parallel_op()
+                    or op.guid in self._block_guids):
                 continue
             self.op_plans[op.guid] = plan_op(
                 op, mesh, [self.view[t.guid] for t in op.inputs])
         # stored layout of every weight and state entry; the update
         # layout (None: the replicated update) of each trainable one
         self.w_store, self.w_update = {}, {}
-        for op in self.order:
-            nt = op.num_trainable_weights()
-            for i, (spec, pt) in enumerate(zip(op.weight_specs, op.weights)):
-                lay = layout_of(pt)
-                key = (op.name, spec.name)
-                upd = None
-                if i < nt and self.wus_axis is not None:
-                    z = shard_update_spec(lay.spec, pt.shape.logical_shape,
-                                          self.wus_axis,
-                                          mesh.size(self.wus_axis))
-                    upd = None if z is None else Layout(z)
-                    if upd is not None and self.zero_stage >= 3:
-                        lay = upd
-                if i < nt:
-                    self.w_update[key] = upd
-                self.w_store[key] = lay
+        for key, lay, shape, trainable in self._weight_layouts():
+            upd = None
+            if trainable and self.wus_axis is not None:
+                z = shard_update_spec(lay.spec, shape, self.wus_axis,
+                                      mesh.size(self.wus_axis))
+                upd = None if z is None else Layout(z)
+                # the stacked leaves stay whole at stage 3: the region
+                # reads each rank's chunk of them directly
+                if (upd is not None and self.zero_stage >= 3
+                        and key[0] != PIPELINE):
+                    lay = upd
+            if trainable:
+                self.w_update[key] = upd
+            self.w_store[key] = lay
         # an input lands in the layout its chain of parallel ops gives
         consumers = collections.defaultdict(list)
         for op in self.order:
@@ -274,6 +310,35 @@ class GraphExecutor:
             (sink.spec[0],) + ((),) * (len(sink.spec) - 1))
         self.label_layout = Layout((sink.spec[0],))
         self.loss_axes = tuple(sink.spec[0])
+
+    def _weight_layouts(self):
+        """(key, strategy layout, global shape, trainable) of every
+        weight and state entry: the ops' own, the block ops' stacked
+        under PIPELINE."""
+        for op in self.order:
+            if op.guid in self._block_guids:
+                continue
+            nt = op.num_trainable_weights()
+            for i, (spec, pt) in enumerate(zip(op.weight_specs, op.weights)):
+                yield ((op.name, spec.name), layout_of(pt),
+                       tuple(pt.shape.logical_shape), i < nt)
+        plan = self.pipeline_plan
+        if plan is not None:
+            for j, op in enumerate(plan.blocks[0]):
+                for spec, pt in zip(op.weight_specs, op.weights):
+                    shape = (plan.num_blocks,) + tuple(pt.shape.logical_shape)
+                    yield ((PIPELINE, f"{j}.{spec.name}"),
+                           stacked_param_sharding(len(shape), plan.pp_axis),
+                           shape, True)
+
+    def _sharded_update(self, key) -> bool:
+        """Whether a weight is updated on its wus shard after a
+        reduce-scatter of its grad: at ZeRO stages 1 and 2, and at stage
+        3 for the stacked leaves, which it does not keep scattered."""
+        if self.w_update.get(key) is None:
+            return False
+        return self.zero_stage in (1, 2) or (self.zero_stage == 3
+                                             and key[0] == PIPELINE)
 
     def zero_fallback_leaves(self) -> List[str]:
         """'op.weight' names whose update falls back to the replicated
@@ -299,12 +364,16 @@ class GraphExecutor:
 
     def init_weights(self, seed: int = 0) -> Tuple[Weights, Weights]:
         """Weight and state dictionaries, drawn from one generator on
-        the executor's device; on a mesh every rank draws the same
-        global tensors and keeps its shard of each."""
+        the executor's device, op by op in topological order; on a mesh
+        every rank draws the same global tensors and keeps its shard of
+        each.  Under a pipeline each block op draws its own weights as
+        it would without one, and they are stacked over the blocks: the
+        weights do not depend on the strategy."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         weights: Weights = {}
         state: Weights = {}
+        stacks: Dict[str, Dict[int, torch.Tensor]] = {}
         for op in self.order:
             nt = op.num_trainable_weights()
             for i, spec in enumerate(op.weight_specs):
@@ -315,10 +384,19 @@ class GraphExecutor:
                     dtype = self.compute_dtype
                 arr = spec.initializer(gen, spec.shape.logical_shape, dtype,
                                        self.device)
+                if op.guid in self._block_pos:
+                    blk, j = self._block_pos[op.guid]
+                    stacks.setdefault(f"{j}.{spec.name}", {})[blk] = arr
+                    continue
                 if self.mesh is not None:
                     arr = self.local(arr, op.name, spec.name)
                 dst = weights if i < nt else state
                 dst.setdefault(op.name, {})[spec.name] = arr
+        for key, layers in stacks.items():
+            arr = torch.stack([layers[b] for b in range(len(layers))])
+            if self.mesh is not None:
+                arr = self.local(arr, PIPELINE, key)
+            weights.setdefault(PIPELINE, {})[key] = arr
         return weights, state
 
     def local(self, arr, op_name: str, name: str):
@@ -336,19 +414,18 @@ class GraphExecutor:
                              self.mesh)
 
     def update_views(self, weights: Weights) -> Weights:
-        """What the optimizer updates: the weights, or at ZeRO stages 1
-        and 2 each rank's shard (a view) of every weight with an update
-        layout."""
-        if self.zero_stage not in (1, 2):
+        """What the optimizer updates: the weights, with each rank's shard
+        (a view) in place of every weight it updates sharded (ZeRO
+        stages 1 and 2; the stacked leaves at 3)."""
+        if self.zero_stage == 0:
             return weights
         out: Weights = {}
         for op, entries in weights.items():
             for k, w in entries.items():
-                upd = self.w_update.get((op, k))
                 out.setdefault(op, {})[k] = (
-                    w if upd is None
-                    else local_slice(w, self._shard_only(upd, (op, k)),
-                                     self.mesh))
+                    local_slice(w, self._shard_only(self.w_update[(op, k)],
+                                                    (op, k)), self.mesh)
+                    if self._sharded_update((op, k)) else w)
         return out
 
     def _shard_only(self, upd, key):
@@ -481,6 +558,10 @@ class GraphExecutor:
 
         def run(entries, env):
             for op, plan in entries:
+                if isinstance(op, PipelineRegion):
+                    self._run_pipeline_region(weights, env, lay, training,
+                                              generator)
+                    continue
                 self._exec(op, plan, env, lay, weights, state, new_state,
                            ctx)
 
@@ -509,6 +590,69 @@ class GraphExecutor:
         if self.compute_dtype is not None and out.is_floating_point():
             out = out.float()  # loss/metrics in full precision
         return out, new_state
+
+    # -- the pipeline region ---------------------------------------------------
+    def _region_layout(self, rank: int) -> Layout:
+        """The layout the region computes in: the batch sharded over the
+        pipeline's data axis, the rest whole (replicated over the pipe
+        axis and any other)."""
+        dp = self.pipeline_plan.dp_axis
+        return Layout(((dp,) if dp else (),) + ((),) * (rank - 1))
+
+    def _run_pipeline_region(self, weights, env, lay, training, generator):
+        """The block stack through the GPipe schedule: the region input's
+        data shard through this rank's blocks, the template block's ops
+        once per block (their weights the stacked entries' rows).  A
+        random op in a block draws from a generator seeded by one draw
+        of the step's generator, its template op and its block: every
+        microbatch of a block gets the same draws, as in the reference,
+        and a rematerialized block redraws them."""
+        plan = self.pipeline_plan
+        template = plan.blocks[0]
+        act = env[plan.region_in_guid]
+        if self.t_layout.get(plan.region_in_guid) == NHWC:
+            act = act.contiguous()
+        if self.mesh is not None:
+            g = plan.region_in_guid
+            act = redistribute(act, lay.get(g, self.view[g]),
+                               self._region_layout(act.dim()), self.mesh)
+        stacked = {k: self._to_compute(v)
+                   for k, v in weights[PIPELINE].items()}
+        # each local block's global index, on the host
+        n = plan.num_blocks // plan.num_stages
+        first = (self.mesh.coord(plan.pp_axis) * n
+                 if self.mesh is not None else 0)
+        stacked["__block__"] = torch.arange(first, first + n)
+        draws = training and generator is not None and any(
+            _draws(op) for op in template)
+        base = (int(torch.randint(0, 2 ** 31, (1,), generator=generator,
+                                  device=generator.device))
+                if draws else 0)
+
+        def block_fn(params, a):
+            local = {plan.region_in_guid: a}
+            blk = int(params["__block__"])
+            for j, op in enumerate(template):
+                ins = [self._layout_in(op, t, local[t.guid])
+                       for t in op.inputs]
+                ws = [params[f"{j}.{s.name}"] for s in op.weight_specs]
+                gen = None
+                if draws and _draws(op):
+                    gen = torch.Generator(device=a.device)
+                    gen.manual_seed(((base * 1000003 + j) * 1000003 + blk)
+                                    % 2 ** 63)
+                outs = op.forward(ins, ws, training=training, generator=gen)
+                for pt, val in zip(op.outputs, outs):
+                    local[pt.guid] = val
+            return local[plan.template_out_guid]
+
+        out = pipelined_apply(block_fn, stacked, act, mesh=self.mesh,
+                              num_microbatches=plan.num_microbatches,
+                              pp_axis=plan.pp_axis,
+                              remat=self.remat and training)
+        env[plan.region_out_guid] = out
+        if self.mesh is not None:
+            lay[plan.region_out_guid] = self._region_layout(out.dim())
 
     # -- the sharded step's pieces ------------------------------------------
     def _local_labels(self, labels: torch.Tensor) -> torch.Tensor:
@@ -570,8 +714,7 @@ class GraphExecutor:
         for op, entries in grads.items():
             for k, g in entries.items():
                 axes = self._grad_axes((op, k))
-                upd = self.w_update.get((op, k))
-                if self.zero_stage in (1, 2) and upd is not None:
+                if self._sharded_update((op, k)):
                     axes = [a for a in axes if a != self.wus_axis]
                     scatter.append((op, k))
                 if axes:

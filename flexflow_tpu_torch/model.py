@@ -9,8 +9,8 @@ aggregate_spec, experts_dense and moe, and lstm), `compile` on one
 device (training or inference) under a given, imported or searched
 strategy (pcg/search.py), or the layer graph as it is; on a
 `torch.distributed` group (distributed.initialize) the strategy runs
-sharded over its ranks (executor.py, parallel/spmd.py), with the ZeRO
-ladder and remat,
+sharded over its ranks (executor.py, parallel/spmd.py), with pipelines
+(parallel/pipeline.py), the ZeRO ladder and remat,
 `train_step`, `eval_step`, `fit`, `forward`, the reference's step
 surface (`set_learning_rate`, `zero_gradients`, `backward`, `update`,
 `init_operators`), the dense-cache decode surface (`decode_step`,
@@ -34,7 +34,7 @@ import torch
 from . import distributed
 from .config import FFConfig, resolve_device
 from .dataloader import SingleDataLoader, to_device
-from .executor import GraphExecutor
+from .executor import PIPELINE, GraphExecutor
 from .fftype import (ActiMode, AggrMode, CompMode, DataType, LossType,
                      MetricsType, OpBinary, OperatorType, OpUnary)
 from .initializer import ArrayInitializer, Initializer
@@ -68,28 +68,25 @@ from .strategy import (Strategy, apply_strategy, assign_views,
 from .tensor import ParallelTensor, ParallelTensorShape
 
 # what the port's executor does not run yet
-_EXECUTOR_1D = ("ROADMAP §1.D, second half (pipelines, expert "
-                "parallelism, factored per-op views)")
+_EXECUTOR_1D = ("ROADMAP §1.D, what is left of it (expert parallelism, "
+                "factored per-op views, the multi-node hierarchy, the "
+                "fusion pass)")
 
 
 def check_executable(strategy: Strategy, cfg: FFConfig) -> None:
-    """Raise NotImplementedError, naming ROADMAP §1.D's second half,
-    when `strategy` needs what the executor lacks: a pipeline or an
-    expert sharding."""
-    lacks = []
-    if strategy.pipeline:
-        lacks.append(f"a pipeline {strategy.pipeline}")
+    """Raise NotImplementedError, naming what is left of ROADMAP §1.D,
+    when `strategy` needs what the executor lacks: an expert
+    sharding."""
     experts = sorted(n for n, sc in strategy.shard_configs.items()
                      if sc.expert > 1)
     if experts:
-        lacks.append(f"expert shardings on {', '.join(experts)}")
-    if lacks:
         where = (f"; the strategy was written to {cfg.export_strategy_file}"
                  if cfg.export_strategy_file else "")
         raise NotImplementedError(
-            "the port's executor runs data, tensor and sequence "
+            "the port's executor runs data, tensor, sequence and pipeline "
             "parallelism with the ZeRO ladder and remat; this strategy "
-            f"needs {', '.join(lacks)}: {_EXECUTOR_1D}{where}")
+            f"needs expert shardings on {', '.join(experts)}: "
+            f"{_EXECUTOR_1D}{where}")
 
 
 def check_views(graph: Graph) -> None:
@@ -512,11 +509,13 @@ class FFModel:
         On a group of more than one rank the strategy (by default
         data_parallel_strategy over the group) must span exactly the
         group, else ValueError; each rank then runs its shard of the
-        step, with the strategy's (or the config's) ZeRO stage over
+        step, with the strategy's pipeline (planned by
+        parallel/pipeline_plan.py; a pipeline of degree 1 also runs on
+        one process), its (or the config's) ZeRO stage over
         FFConfig.wus_axis and its remat plan (or FFConfig.remat).  A
-        strategy that needs a pipeline, an expert sharding or a factored
-        per-op view raises NotImplementedError naming ROADMAP §1.D,
-        after the export.  With no strategy and one rank, the layer
+        strategy that needs an expert sharding or a factored per-op view
+        raises NotImplementedError naming ROADMAP §1.D, after the
+        export.  With no strategy and one rank, the layer
         graph runs as it is under data_parallel_strategy(1).
 
         The default optimizer is SGD at the config's learning rate and
@@ -551,13 +550,20 @@ class FFModel:
             mesh = make_mesh(self.strategy.mesh_axes, self.device)
         zero = (self.strategy.zero_stage
                 if self.strategy.zero_stage is not None else cfg.zero_stage)
+        pipeline_plan = None
+        if self.strategy.pipeline:
+            from .parallel.pipeline_plan import plan_pipeline
+
+            pipeline_plan = plan_pipeline(self.operators,
+                                          self.strategy.pipeline,
+                                          self.strategy.mesh_axes)
         self.executor = GraphExecutor(
             self.operators, self.device,
             compute_dtype=None if cd == "float32" else getattr(torch, cd),
             loss=self.loss, metrics=self.metrics, optimizer=self.optimizer,
             label_replication=self._label_replication, mesh=mesh,
             zero_stage=zero, wus_axis=cfg.wus_axis, remat=cfg.remat,
-            remat_segments=self.strategy.remat)
+            remat_segments=self.strategy.remat, pipeline_plan=pipeline_plan)
         for op in self.operators.topo_order():
             op._flash_min_seq = cfg.flash_min_seq
         fallback = self.executor.zero_fallback_leaves()
@@ -863,7 +869,9 @@ class FFModel:
     def get_weights(self) -> Dict[str, Dict[str, np.ndarray]]:
         """The weights as numpy copies (on the CPU too, where .numpy()
         alone would alias the tensors the next step updates in place);
-        on a group, the global arrays, gathered on every rank."""
+        on a group, the global arrays, gathered on every rank.  Under a
+        pipeline the block ops' weights come stacked, as the reference
+        gives them: {"__pipeline__": {"<j>.<name>": [L, ...]}}."""
         return {op: {k: self._host(op, k, v) for k, v in entries.items()}
                 for op, entries in self._weights.items()}
 
@@ -872,14 +880,57 @@ class FFModel:
         return self._host(op_name, weight_name,
                           self._weights[op_name][weight_name])
 
+    def _adapt_weight_layout(self, weights):
+        """`weights` in the layout the executor keeps: per-op weights
+        stacked into the "__pipeline__" group (each template weight over
+        the L blocks, keyed "<j>.<name>") under a pipeline, and a stacked
+        group unstacked onto the block ops of the graph without one.
+        Either way the other entries pass as they are."""
+        plan = getattr(self.executor, "pipeline_plan", None)
+        has_stacked = PIPELINE in weights
+        if (plan is not None) == has_stacked:
+            return weights
+        if plan is not None:
+            block_names = {op.name for blk in plan.blocks for op in blk}
+            out = {k: dict(v) for k, v in weights.items()
+                   if k not in block_names}
+            out[PIPELINE] = {
+                f"{j}.{spec.name}": np.stack([
+                    np.asarray(weights[blk[j].name][spec.name])
+                    for blk in plan.blocks])
+                for j, t_op in enumerate(plan.blocks[0])
+                for spec in t_op.weight_specs}
+            return out
+        from .pcg.segments import find_repeated_blocks
+
+        blocks = find_repeated_blocks(self.layers)
+        if not blocks:
+            raise ValueError(
+                "weights carry a '__pipeline__' group but the graph has no "
+                "repeated block stack to unstack it onto")
+        out = {k: dict(v) for k, v in weights.items()
+               if k != PIPELINE}
+        for key, stacked in weights[PIPELINE].items():
+            j, wname = key.split(".", 1)
+            arr = np.asarray(stacked)
+            if arr.shape[0] != len(blocks):
+                raise ValueError(
+                    f"stacked weight {key!r} has {arr.shape[0]} block "
+                    f"layers but the graph repeats {len(blocks)} blocks")
+            for blk, row in zip(blocks, arr):
+                out.setdefault(blk[int(j)].name, {})[wname] = row
+        return out
+
     def set_weights(self, weights: Dict[str, Dict[str, np.ndarray]]):
         """Load weights in the reference's layout (FFModel.get_weights of
-        either package), checked name by name and shape by shape.  The
-        values are copied into the existing tensors, so a decode twin
-        that shares them sees the new weights."""
+        either package, per op or with the block ops' weights stacked
+        under "__pipeline__": `_adapt_weight_layout` converts to the one
+        the strategy keeps), checked name by name and shape by shape.
+        The values are copied into the existing tensors, so a decode
+        twin that shares them sees the new weights."""
         from .convert import from_jax_weights
 
-        new = from_jax_weights(weights, self)
+        new = from_jax_weights(self._adapt_weight_layout(weights), self)
         with torch.no_grad():
             for op, entries in new.items():
                 for k, v in entries.items():

@@ -16,7 +16,8 @@ collective:
     to-partial     (replicated -> partial)   backward the same mask
     all-to-all     (sharded on d -> on d')   backward the reverse
 
-With these, the gradient a rank holds for a tensor of layout L has the
+and `ppermute`, the pipeline's shift of a tensor `step` ranks on along
+an axis, whose backward shifts by -step.  With the first six, the gradient a rank holds for a tensor of layout L has the
 adjoint layout: sharded stays sharded, replicated becomes partial and
 partial becomes replicated.  So the grad of a replicated weight comes
 back partial and the executor sums it over those axes before the
@@ -31,7 +32,7 @@ A reduce-scatter on gloo is an all-reduce and a slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import FrozenSet, List, Optional, Tuple
+from typing import FrozenSet, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -146,21 +147,24 @@ def all_to_all(t: torch.Tensor, split_dim: int, cat_dim: int, n: int,
 
 
 def ring_shift(tensors: List[torch.Tensor], mesh: DeviceMesh, axis: str,
-               step: int = 1) -> List[torch.Tensor]:
+               step: Union[int, Sequence[int]] = 1) -> List[torch.Tensor]:
     """Each tensor sent to the rank `step` places on along `axis`
     (coordinate + step, mod its size) and received from the rank `step`
-    places back, as one batch of point-to-point operations."""
+    places back, as one batch of point-to-point operations; `step` is
+    one shift for every tensor or one per tensor (1F1B shifts
+    activations +1 and cotangents -1 in one batch, so that no rank
+    waits on a send its peer has not posted)."""
+    steps = [step] * len(tensors) if isinstance(step, int) else list(step)
     members = mesh.members(axis)
     n, c = len(members), mesh.coord(axis)
-    nxt, prv = members[(c + step) % n], members[(c - step) % n]
     group = mesh.group(axis)
     staged = any(_staged(t, group) for t in tensors)
     out, ops = [], []
-    for t in tensors:
+    for t, s in zip(tensors, steps):
         src = t.contiguous().cpu() if staged else t.contiguous()
         buf = torch.empty_like(src)
-        ops.append(dist.P2POp(dist.isend, src, nxt, group))
-        ops.append(dist.P2POp(dist.irecv, buf, prv, group))
+        ops.append(dist.P2POp(dist.isend, src, members[(c + s) % n], group))
+        ops.append(dist.P2POp(dist.irecv, buf, members[(c - s) % n], group))
         out.append(buf)
     for req in dist.batch_isend_irecv(ops):
         req.wait()
@@ -249,9 +253,30 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, step):
+        ctx.mesh, ctx.axis, ctx.step = mesh, axis, step
+        return ring_shift([x], mesh, axis, step)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ring_shift([g], ctx.mesh, ctx.axis, -ctx.step)[0], None,
+                None, None)
+
+
 def all_reduce(x, mesh: DeviceMesh, axis: str):
     """Differentiable sum over `axis` (partial -> replicated)."""
     return _AllReduce.apply(x, mesh, axis) if mesh.size(axis) > 1 else x
+
+
+def ppermute(x, mesh: DeviceMesh, axis: str, step: int = 1):
+    """Differentiable cyclic shift along `axis` (the reference's
+    `lax.ppermute` with pairs (i, i + step)): each rank's x goes to the
+    rank `step` places on and it gets the one from `step` places back;
+    the backward shifts the grads by -step.  Every rank of the axis must
+    call it, and must reach its backward, in the same order."""
+    return _PPermute.apply(x, mesh, axis, step) if mesh.size(axis) > 1 else x
 
 
 def redistribute(x: torch.Tensor, src: Layout, dst: Layout,

@@ -13,8 +13,8 @@ count; `plan_pipeline` validates and plans it:
     non-trivial ShardConfigs, and microbatch counts that don't divide
     the per-dp-shard batch.
 
-The Unity search calls it to cost pipeline candidates.  Running a
-pipeline waits for ROADMAP §1.D's second half (compile refuses it).
+The Unity search calls it to cost pipeline candidates, and compile to
+run a strategy's pipeline (executor.py, parallel/pipeline.py).
 """
 from __future__ import annotations
 

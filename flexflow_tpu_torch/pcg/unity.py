@@ -1366,6 +1366,17 @@ class UnitySearch:
                 obj = self._objective(time, mem, lam)
                 yield mk_strategy(M), obj, f"dp={dp} pp={pp} M={M} (gpipe)"
 
+    def pipeline_candidates(self) -> List[Tuple[float, float, Strategy]]:
+        """(analytic step s, event-simulated step s, strategy) of every
+        pipeline candidate the search prices on the base graph, cheapest
+        analytic step first: the GPipe terms of `_pp_candidates`, and the
+        event simulator's makespan scaled by the bubble as the re-rank
+        scales it (None where it cannot lay the candidate out)."""
+        self._set_graph(self._base_graph)
+        out = [(obj, self._event_objective(s, self.graph, 0.0), s)
+               for s, obj, _ in self._pp_candidates(0.0)]
+        return sorted(out, key=lambda c: c[0])
+
     def optimize_with_memory(self) -> Optional[Strategy]:
         """Lambda binary search (reference try_one_lambda + binary search,
         graph.cc:2056-2131): smallest lambda whose best strategy fits the
@@ -1458,6 +1469,29 @@ def unity_optimize(model, num_devices: int,
                    enable_pipeline: bool = True) -> Strategy:
     """Entry used by FFModel.compile (reference GRAPH_OPTIMIZE_TASK_ID ->
     Graph::graph_optimize_task graph.cc:2046)."""
+    search, cost_model = make_unity_search(model, num_devices,
+                                           enable_pipeline)
+    cfg = model.config
+    best = search.optimize_with_memory() if cfg.memory_search else search.optimize()
+    cost_model.save_persistent()
+    if best is None:
+        from ..strategy import data_parallel_strategy
+
+        best = data_parallel_strategy(num_devices)
+        best.search_stats = cost_model.stats()
+        return best
+    best.search_stats.update(cost_model.stats())
+    # surface the ZeRO stage the winner was scored under (and the
+    # legacy bool it subsumes)
+    chosen = best.zero_stage if best.zero_stage is not None else cfg.zero_stage
+    best.search_stats["zero_stage"] = int(chosen)
+    best.search_stats["weight_update_sharding"] = chosen >= 1
+    return best
+
+
+def make_unity_search(model, num_devices: int, enable_pipeline: bool = True):
+    """(UnitySearch, cost model) over `model`'s layer graph with the
+    machine, costs and search settings of its FFConfig."""
     from ..sim.machine_model import make_machine_model
     from ..sim.simulator import make_cost_model
 
@@ -1513,18 +1547,4 @@ def unity_optimize(model, num_devices: int,
         enable_pipeline=enable_pipeline,
         remat_search=search_remat_enabled(cfg),
     )
-    best = search.optimize_with_memory() if cfg.memory_search else search.optimize()
-    cost_model.save_persistent()
-    if best is None:
-        from ..strategy import data_parallel_strategy
-
-        best = data_parallel_strategy(num_devices)
-        best.search_stats = cost_model.stats()
-        return best
-    best.search_stats.update(cost_model.stats())
-    # surface the ZeRO stage the winner was scored under (and the
-    # legacy bool it subsumes)
-    chosen = best.zero_stage if best.zero_stage is not None else cfg.zero_stage
-    best.search_stats["zero_stage"] = int(chosen)
-    best.search_stats["weight_update_sharding"] = chosen >= 1
-    return best
+    return search, cost_model

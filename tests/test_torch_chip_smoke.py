@@ -581,10 +581,12 @@ def test_keras_table_is_the_examples():
 
 def test_multigpu_legs_follow_the_issue():
     """Four legs of 4 ranks (DP x TP, DP x SP, ZeRO-3 under Adam, the
-    CNN) and the searched strategy over 8, each with its strategy."""
+    CNN), the searched strategy over 8, and five pipeline legs of 4
+    (data 2 x pipe 2 with and without remat, pipe 4, the demo under 1F1B,
+    the search's cheapest pipeline), each with its strategy."""
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     assert [leg["ranks"] for leg in chip_smoke.MULTIGPU_LEGS] == \
-        [4, 4, 4, 4, chip_smoke.SEARCH_DEVICES]
+        [4, 4, 4, 4, chip_smoke.SEARCH_DEVICES, 4, 4, 4, 4, 4]
     tp = chip_smoke._multigpu_strategy(legs["dp_tp"], {})
     assert tp.mesh_axes == {"data": 2, "model": 2}
     sp = chip_smoke._multigpu_strategy(legs["dp_sp"], {})
@@ -592,6 +594,42 @@ def test_multigpu_legs_follow_the_issue():
     assert legs["dp_zero3"]["zero"] == 3
     assert legs["dp_zero3"]["optimizer"] == "adam"
     assert "`--phases multigpu`" in chip_smoke.__doc__
+    pp = chip_smoke._multigpu_strategy(legs["pp_dp"], {})
+    assert pp.mesh_axes == {"data": 2, "pipe": 2}
+    assert pp.pipeline == {"degree": 2, "num_microbatches": 4,
+                           "axis": "pipe", "dp_axis": "data"}
+    assert pp.edge_ops["__inputs__"] == [("repartition",
+                                          {"dim": 0, "degree": 2})]
+    pp4 = chip_smoke._multigpu_strategy(legs["pp4"], {})
+    assert pp4.mesh_axes == {"pipe": 4} and pp4.pipeline["dp_axis"] is None
+    assert legs["pp_dp_remat"]["remat"] is True
+    assert chip_smoke._multigpu_strategy(
+        legs["pp_dp_remat"], {}).to_json() == pp.to_json()
+    assert chip_smoke._multigpu_strategy(legs["pp_1f1b"], {}) is None
+    assert legs["pp_1f1b"]["strategy"] == ["demo", 1, 4, 8]
+    assert chip_smoke.DEMO == dict(layers=12, hidden=768, ffn=3072,
+                                   num_heads=12, num_classes=2, lr=0.01)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "pp.json")
+        pp4.save(path)
+        got = chip_smoke._multigpu_strategy(legs["pp_searched"],
+                                            {"pipeline_file": path})
+    assert got.to_json() == pp4.to_json()
+
+
+@pytest.mark.parametrize("layers,stages,m,schedule,remat,want", [
+    (12, 2, 4, "gpipe", False, (30, 30, 30)),   # pp_dp: 6 blocks x 5 ticks
+    (12, 4, 4, "gpipe", False, (21, 21, 21)),   # pp4: 3 x 7
+    (12, 2, 4, "gpipe", True, (60, 30, 30)),    # remat recomputes K1
+    (12, 4, 8, "gpipe", False, (33, 33, 33)),   # the demo's GPipe: 3 x 11
+    (12, 4, 8, "1f1b", False, (48, 24, 24)),    # 8 x 3, K1 twice
+    (12, 1, 8, "gpipe", False, (96, 96, 96)),   # one stage: L x M
+])
+def test_pipeline_launch_formula(layers, stages, m, schedule, remat, want):
+    got = chip_smoke.pipeline_launches(layers, stages, m, schedule, remat)
+    assert (got["K1"], got["K2"], got["K3"]) == want
 
 
 def _rank_report(rank, k=12, p1=0, losses=(0.69, 7.26), weights=1e-7):
@@ -642,3 +680,97 @@ def test_multigpu_record_checks_each_leg():
     line = chip_smoke._multigpu_launches({"legs": [ok]}, "K1")
     assert line == {"dp_sp": [24, 24, 24, 24]}
     assert chip_smoke._multigpu_launches(None, "K1") is None
+
+
+def _pp_report(rank, k=(30, 30, 30), **kw):
+    rep = _rank_report(rank, **kw)
+    rep["launches_per_step"] = dict(zip(("K1", "K2", "K3"), k), P1=0)
+    rep["mesh"] = {"data": 2, "pipe": 2}
+    return rep
+
+
+def test_multigpu_record_checks_the_pipeline_legs():
+    """A pipeline leg's record holds its launch formula's counts and the
+    search's price of its strategy, whatever the backend; the demo's
+    record holds GPipe beside 1F1B, each against one card and against
+    each other."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    ref = {"losses": [0.69, 7.2601], "step_s": [1.0, 0.3],
+           "last_step_moves": {"w": 1e-3}}
+    pp = chip_smoke.pipeline_strategy(2, 2, 4)
+    import json
+    job = {"pipelines": [{"strategy": json.loads(pp.to_json()),
+                          "predicted_step_ms": 90.0,
+                          "event_predicted_step_ms": 95.0}]}
+    ok = chip_smoke._multigpu_record(
+        legs["pp_dp"], [_pp_report(r) for r in range(4)], ref, "gloo", 1,
+        50.0, "", job)
+    assert ok["faults"] == [] and ok["predicted_step_ms"] == 90.0
+    assert ok["event_predicted_step_ms"] == 95.0
+    assert "gloo" in ok["prediction_note"]
+    assert ok["expected_launches_per_rank_per_step"] == {
+        "K1": 30, "K2": 30, "K3": 30}
+    remat = chip_smoke._multigpu_record(
+        legs["pp_dp_remat"], [_pp_report(r) for r in range(4)], ref,
+        "nccl", 4, 50.0, "", job)
+    assert len(remat["faults"]) == 4  # K1 must run twice per block
+    assert "remat" in remat["prediction_note"]
+    off = chip_smoke._multigpu_record(
+        legs["pp4"], [_pp_report(r) for r in range(4)], ref, "nccl", 4,
+        50.0, "", job)
+    assert off["predicted_step_ms"] is None  # not a priced candidate
+    assert len(off["faults"]) == 4
+
+    from types import SimpleNamespace
+
+    def counted(k1, k2):
+        """What leg_launches reports after 2 steps of k1, k2, k2
+        launches each (P1 0)."""
+        fa = SimpleNamespace(flash_fwd=SimpleNamespace(launches=2 * k1),
+                             flash_bwd_dq=SimpleNamespace(launches=2 * k2),
+                             flash_bwd_dkv=SimpleNamespace(launches=2 * k2))
+        bk = SimpleNamespace(bn_apply=SimpleNamespace(launches=0))
+        return chip_smoke.leg_launches(fa, bk, 2)
+
+    def demo(rank, gpipe_losses=(0.69, 7.2601), k=(48, 24, 24)):
+        rep = _pp_report(rank, k=k)
+        rep["launches_per_step"] = counted(k[0], k[1])
+        rep["gpipe"] = {"losses": list(gpipe_losses), "step_s": [2.0, 0.5],
+                        "peak_memory_gb": 9.0, "weights_diff": 1e-7,
+                        "launches_per_step": counted(33, 33)}
+        rep["schedules_weights_diff"] = 1e-7
+        return rep
+
+    d = chip_smoke._multigpu_record(
+        legs["pp_1f1b"], [demo(r) for r in range(4)], ref, "nccl", 4, 50.0,
+        "", job)
+    assert d["faults"] == [] and d["predicted_step_ms"] is None
+    assert d["gpipe"]["step_ms"] == [2000.0, 500.0]
+    assert d["gpipe"]["peak_memory_gb_per_rank"] == [9.0] * 4
+    apart = chip_smoke._multigpu_record(
+        legs["pp_1f1b"], [demo(r, gpipe_losses=(0.69, 7.3))
+                          for r in range(4)], ref, "nccl", 4, 50.0, "", job)
+    assert any("GPipe" in f for f in apart["faults"])
+    assert any("1F1B against GPipe" in f for f in apart["faults"])
+    line = chip_smoke._multigpu_launches({"legs": [d]}, "P1")
+    assert line == {"pp_1f1b": [0.0] * 4}
+
+
+def test_every_leg_reports_every_kernel_count():
+    """Each leg's report holds K1-K3 and P1 per step (the kernels line
+    reads all four of every leg, the demo's too), counted from 0."""
+    from types import SimpleNamespace
+
+    fa = SimpleNamespace(flash_fwd=SimpleNamespace(launches=5),
+                         flash_bwd_dq=SimpleNamespace(launches=5),
+                         flash_bwd_dkv=SimpleNamespace(launches=5))
+    bk = SimpleNamespace(bn_apply=SimpleNamespace(launches=3))
+    chip_smoke.reset_leg_launches(fa, bk)
+    fa.flash_fwd.launches, fa.flash_bwd_dq.launches = 96, 48
+    fa.flash_bwd_dkv.launches = 48
+    got = chip_smoke.leg_launches(fa, bk, 2)
+    assert got == {"K1": 48.0, "K2": 24.0, "K3": 24.0, "P1": 0.0}
+    line = {"legs": [{"leg": "pp_1f1b", "launches_per_rank_per_step":
+                      [got] * 4}]}
+    for kid in ("K1", "K2", "K3", "P1"):
+        assert len(chip_smoke._multigpu_launches(line, kid)["pp_1f1b"]) == 4

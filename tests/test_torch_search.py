@@ -3,8 +3,7 @@ the MCMC search pick the same Strategy (mesh axes, shard configs,
 rewrites, ZeRO stage, remat, pipeline) at the same predicted cost on the
 same graphs; compile with search_budget > 0 trains what the unsearched
 compile trains, runs a strategy over more devices, a ZeRO stage or a
-remat plan in a group of the right size (and raises, naming ROADMAP
-§1.D, for a pipeline); the profiler times ops on the CPU and
+remat plan in a group of the right size, and a pipeline; the profiler times ops on the CPU and
 returns None only for an op that cannot run on its own; calibration,
 the TASO-catalog guard and the search flags."""
 import json
@@ -265,22 +264,23 @@ def two_ranks():
 @pytest.mark.parametrize("what", ["devices", "pipeline", "zero", "remat"])
 def test_compile_raises_for_what_the_executor_lacks(what, tmp_path,
                                                     request):
-    """Of the four strategies the one-card executor refused, only the
-    pipeline still raises (ROADMAP §1.D's second half).  More devices
-    than the group raises a size mismatch; in a group of the right size
-    the strategy trains, as ZeRO stage 1 does; a remat plan trains on
-    one process.  Each trains the one-process losses."""
+    """Of the four strategies the one-card executor refused, none does
+    now: more devices than the group raises a size mismatch, and in a
+    group of the right size the strategy trains, as ZeRO stage 1 does; a
+    remat plan and a pipeline of degree 1 train on one process.  Each
+    trains the one-process losses."""
     plain = _losses(_tiny_bert().compile())
     s = data_parallel_strategy(1)
     if what == "pipeline":
         s.pipeline = {"degree": 1, "num_microbatches": 2, "axis": "data",
                       "dp_axis": None}
         out = tmp_path / "export.json"
-        ff = _tiny_bert(export_strategy_file=str(out))
-        with pytest.raises(NotImplementedError, match="ROADMAP §1.D"):
-            ff.compile(strategy=s)
-        # the strategy is exported before the executor refuses it
+        ff = _tiny_bert(export_strategy_file=str(out)).compile(strategy=s)
         assert Strategy.load(str(out)).to_json() == s.to_json()
+        assert ff.executor.pipeline_plan.num_blocks == 2
+        assert set(ff.get_weights()) == {"__pipeline__", "classifier"}
+        # the blocks draw the one-process weights: the losses are its own
+        np.testing.assert_allclose(_losses(ff), plain, rtol=2e-5, atol=2e-5)
         return
     if what == "remat":
         s.remat = [1]  # segment 0 holds the input op, which runs inline

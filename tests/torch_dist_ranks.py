@@ -305,3 +305,103 @@ def redistribute_cases(rank, world, axis_sizes, x, g, cases):
         out.append((y.detach().numpy(), loc.grad.numpy(),
                     dict(mesh.coords)))
     return out
+
+
+# -- pipelines ---------------------------------------------------------------
+
+def tanh_block(p, x):
+    """tests/test_pipeline.py's block."""
+    import torch
+
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def _pipe_mesh(dp, pp):
+    from flexflow_tpu_torch.parallel.machine import make_mesh
+
+    return make_mesh({"data": dp, "pp": pp}, "cpu")
+
+
+def _data_rows(a, mesh, dp):
+    n = a.shape[0] // dp
+    c = mesh.coord("data")
+    return a[c * n:(c + 1) * n]
+
+
+def pipelined_case(rank, world, dp, pp, mb, params, x, grads=False):
+    """pipelined_apply of tanh_block over a data x pp mesh on this rank's
+    blocks and rows of the global params and x: (data coordinate, pp
+    coordinate, local output) and, with grads, the local blocks' grads of
+    the global output's sum, summed over the data axis."""
+    import torch
+
+    from flexflow_tpu_torch.parallel.collectives import all_reduce_
+    from flexflow_tpu_torch.parallel.pipeline import (local_blocks,
+                                                      pipelined_apply)
+
+    mesh = _pipe_mesh(dp, pp)
+    local = {k: v.requires_grad_(grads) for k, v in local_blocks(
+        {k: torch.tensor(v) for k, v in params.items()}, mesh).items()}
+    xl = torch.tensor(_data_rows(x, mesh, dp))
+    y = pipelined_apply(tanh_block, local, xl, mesh=mesh,
+                        num_microbatches=mb)
+    out = [mesh.coord("data"), mesh.coord("pp"), y.detach().numpy()]
+    if grads:
+        # the pp ranks hold the same rows: the seed 1/pp per rank adds up
+        # to the global sum's cotangent through the group's all-reduce
+        g = torch.autograd.grad(y.sum() / pp, list(local.values()))
+        for t in g:
+            if dp > 1:
+                all_reduce_(t, mesh.group("data"))
+        out.append({k: t.numpy() for k, t in zip(local, g)})
+    return out
+
+
+def transformer_case(rank, world, dp, pp, kw, params, x, y, steps,
+                     schedule, remat=False, count_saved=False):
+    """make_pipelined_transformer_step over a data x pp mesh from the
+    global `params` (the reference's init_fn's, as numpy), `steps` steps
+    on this rank's rows of x and y: the losses and the global params
+    after them; with count_saved, the peak bytes of the tensors autograd
+    saved at any one time during the steps."""
+    import torch
+
+    from flexflow_tpu_torch.parallel.collectives import all_gather
+    from flexflow_tpu_torch.parallel.pipeline import (
+        local_params, make_pipelined_transformer_step)
+
+    mesh = _pipe_mesh(dp, pp)
+    _, step = make_pipelined_transformer_step(mesh, schedule=schedule,
+                                              remat=remat, **kw)
+    p = local_params({"blocks": {k: torch.tensor(v) for k, v in
+                                 params["blocks"].items()},
+                      "head": {"head": torch.tensor(params["head"])}},
+                     mesh)
+    xl = torch.tensor(_data_rows(x, mesh, dp))
+    yl = torch.tensor(_data_rows(y, mesh, dp))
+    live, peak = [0], [0]
+
+    class Saved:
+        """A saved tensor, counted while autograd holds it."""
+
+        def __init__(self, t):
+            self.t, self.n = t, t.numel() * t.element_size()
+            live[0] += self.n
+            peak[0] = max(peak[0], live[0])
+
+        def __del__(self):
+            live[0] -= self.n
+
+    losses = []
+    for _ in range(steps):
+        if count_saved:
+            with torch.autograd.graph.saved_tensors_hooks(
+                    Saved, lambda s: s.t):
+                p, loss = step(p, xl, yl)
+        else:
+            p, loss = step(p, xl, yl)
+        losses.append(float(loss))
+    blocks = {k: all_gather(v, 0, pp, mesh.group("pp")).numpy()
+              if pp > 1 else v.numpy() for k, v in p["blocks"].items()}
+    return {"losses": losses, "blocks": blocks,
+            "head": p["head"]["head"].numpy(), "saved_peak": peak[0]}
