@@ -172,7 +172,7 @@ Phases, each a failure of which exits non-zero:
    launches of the search, the steps and the calibration go into the
    kernels line.  The searched strategy and the measured op costs are
    left for the multigpu phase.
-24. multigpu: ten legs, each over a group of spawned ranks (rank r on
+24. multigpu: fourteen legs, each over a group of spawned ranks (rank r on
    card r % cards; the backend NCCL where every rank has a card of its
    own, else gloo, named, with every collective staged through host
    memory), each taking 2 train steps (the first by train_step, the
@@ -202,7 +202,19 @@ Phases, each a failure of which exits non-zero:
    other, with each schedule's peak memory.  K1-K3 per rank per step
    must be `pipeline_launches`'s; each pipeline leg's record carries
    the search's price of its strategy, and the phase's record K1-K3 at
-   the legs' one-row microbatch shape.  `--legs` runs some of the legs.
+   the legs' one-row microbatch shape.  Expert parallelism over 4 ranks:
+   the MoE encoder of upstream moe.cc (MOE: BERT-base widths, 12
+   layers, batch 8, seq 2048, 8 experts, top-2, capacity factor 2,
+   balance weight 0.04) under data 4 (moe_dp4), ShardConfig(expert=4)
+   on every group_by and experts_dense (ep4), data 2 x expert 2, whose
+   expert dim lands on the data axis (dp2_ep2), and the Unity search's
+   strategy for 4 GPUs of hgx_h100_8.json (moe_searched); each holds
+   its routing against the one-card run's (every token whose experts
+   differ, with its gate gap: MOE_FLIP_GAP), its balance losses
+   (MOE_BALANCE_TOL) and its expert-weight bytes per rank (1/E of one
+   card's), and reports its dropped-pair share and the MoE ops'
+   collective bytes per step; K1-K3 launch 12 each per rank per step.
+   `--legs` runs some of the legs (and only the searches they need).
    The kernels are built once, before
    the ranks start; each rank sets its launch counters to 0 and reports
    them per step, with its step wall time and peak memory.  With NCCL
@@ -217,7 +229,8 @@ the ResNet path, `--phases vit,vit_parity,vit_profile` for the ViT
 path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
 `--phases nmt,generate,keras,onnx,seq_parity` for the sequence-model
 and frontend slice, `--phases search` for the search and simulator,
-`--phases multigpu` for multi-GPU execution).
+`--phases multigpu` for multi-GPU execution, `--phases multigpu
+--legs moe_dp4,ep4,dp2_ep2,moe_searched` for expert parallelism).
 Every line but the last two is one JSON object; the
 one before the last is the card's name and power limit as nvidia-smi
 prints them, and the last is {"ok": true, "device": {...}}.  Exits 2,
@@ -3850,6 +3863,20 @@ MULTIGPU_LEGS = (
     # the pipeline the search prices cheapest for 4 GPUs
     {"name": "pp_searched", "ranks": 4, "strategy": ["pipe_file"],
      "optimizer": "sgd", "reference": "bert_sgd"},
+    # expert parallelism on the MoE encoder, ["moe", data, expert]:
+    # whole experts under data 4; the experts split four ways with the
+    # tokens replicated; data 2 x expert 2, where the view normalizer
+    # puts the expert dim on the data axis (tokens and experts split over
+    # it: the dispatch is a true all-to-all, the expert axis replicates)
+    {"name": "moe_dp4", "ranks": 4, "strategy": ["moe", 4, 1],
+     "optimizer": "sgd", "reference": "moe"},
+    {"name": "ep4", "ranks": 4, "strategy": ["moe", 1, 4],
+     "optimizer": "sgd", "reference": "moe"},
+    {"name": "dp2_ep2", "ranks": 4, "strategy": ["moe", 2, 2],
+     "optimizer": "sgd", "reference": "moe"},
+    # what the Unity search writes for the encoder on 4 GPUs
+    {"name": "moe_searched", "ranks": 4, "strategy": ["moe_file"],
+     "optimizer": "sgd", "reference": "moe"},
 )
 # the pipeline legs' GPUs, and K1-K3's shape at their one-row
 # microbatches (batch 8 over data 2 and 4 microbatches)
@@ -3860,6 +3887,33 @@ PIPELINE_FLASH_SHAPE = (BERT["num_heads"], TRAIN_SEQ,
 DEMO = dict(layers=BERT["num_layers"], hidden=BERT["hidden_size"],
             ffn=BERT["intermediate_size"], num_heads=BERT["num_heads"],
             num_classes=BERT["num_classes"], lr=0.01)
+
+
+# the expert-parallel legs: the encoder of upstream moe.cc:100-130
+# (build_moe_encoder) at BERT-base widths, batch 8, seq 2048 (K1-K3 in
+# every layer), with Switch-Base-8's 8 experts, moe.cc's top-2, capacity
+# factor 2 and balance weight 0.04; each expert is one [768 -> 768] ReLU
+# dense.  Its labels are one class of 2 per token
+MOE = dict(hidden_size=BERT["hidden_size"], num_layers=BERT["num_layers"],
+           num_heads=BERT["num_heads"], num_exp=8, num_select=2, alpha=2.0,
+           lambda_bal=0.04, num_classes=BERT["num_classes"])
+MOE_DEVICES = 4
+# a token routed to other experts than on one card is a fault when the
+# one-card gate probabilities that decide the differing choice (the
+# first against the second, or the second against the third) lie more
+# than this apart: a sharded GEMM at another M may round the gate
+# differently, which can swap only near-ties.  A flip in a sequence that
+# flipped at an earlier layer of the same step is recorded with that
+# earlier flip and held to no gap: attention has carried the earlier
+# token's changed output into it (on the card, dp2_ep2 flipped a token's
+# second expert at layer 7 at a gap of 1.8e-6, and a token of the same
+# sequence swapped its two experts at layer 11 at 1.25e-5)
+MOE_FLIP_GAP = 1e-5
+# each step's balance losses (their sum over the layers, ~0.04 each)
+# against the one-card run's: global counts and mean probabilities agree
+# to rounding (~1e-7) unless the counts are taken per rank or the loss
+# is added once per expert-axis partial (off by a factor)
+MOE_BALANCE_TOL = 1e-5
 
 
 def _multigpu_optimizer(name: str):
@@ -3885,6 +3939,138 @@ def _multigpu_bert(device: str, optimizer: str, strategy=None, zero=0,
         ff.compile(optimizer=_multigpu_optimizer(optimizer),
                    strategy=strategy, seed=0)
     return ff
+
+
+def _multigpu_moe(device: str, strategy=None, compiled=True):
+    """The MoE legs' encoder (MOE) at batch 8, seq 2048, SGD as the BERT
+    legs, weights from seed 0; uncompiled, its layer graph alone."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.moe import build_moe_encoder
+
+    ff = FFModel(FFConfig(batch_size=TRAIN_BATCH, device=device, seed=0))
+    build_moe_encoder(ff, batch_size=TRAIN_BATCH, seq_length=TRAIN_SEQ,
+                      **MOE)
+    if compiled:
+        ff.compile(optimizer=_multigpu_optimizer("sgd"), strategy=strategy,
+                   seed=0)
+    return ff
+
+
+def moe_data(n: int, seed: int):
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((n, TRAIN_SEQ, MOE["hidden_size"])).astype(
+        np.float32)
+    y = rng.randint(0, MOE["num_classes"], (n, TRAIN_SEQ)).astype(np.int32)
+    return x, y
+
+
+def moe_strategy(dp: int, ep: int):
+    """Data dp x expert ep: the inputs split over data, ShardConfig(
+    expert=ep) on every group_by and experts_dense."""
+    from flexflow_tpu_torch.ops.op import ShardConfig
+    from flexflow_tpu_torch.strategy import Strategy
+
+    axes = {"data": dp} if dp > 1 else {}
+    if ep > 1:
+        axes["expert"] = ep
+    s = Strategy(mesh_axes=axes)
+    if dp > 1:
+        s.edge_ops["__inputs__"] = [("repartition", {"dim": 0, "degree": dp})]
+    if ep > 1:
+        for i in range(MOE["num_layers"]):
+            for kind in ("group_by", "experts_dense"):
+                s.shard_configs[f"{kind}_{i}"] = ShardConfig(expert=ep)
+    return s
+
+
+def watch_routing(torch, ff, top3: bool) -> list:
+    """Wrap every TopK and Aggregate of ff's compiled graph (on the
+    instances) to append to the list returned, per call: ("topk", op
+    name, first global row of this rank's rows, expert ids as numpy,
+    and with top3 the three largest gate probabilities), ("aux", op
+    name, the balance loss)."""
+    seen = []
+    ex = ff.executor
+    for op in ff.operators.topo_order():
+        kind = op.op_type.name
+        if kind not in ("TOPK", "AGGREGATE"):
+            continue
+        start = 0
+        if kind == "TOPK" and ex.mesh is not None:
+            shape = op.outputs[1].shape.logical_shape
+            start = ex.op_plans[op.guid].outs[1].local_index(
+                shape, ex.mesh)[0].start
+        fwd = op.forward
+
+        def watched(ins, ws, _f=fwd, _op=op, _kind=kind, _start=start,
+                    **kw):
+            outs = _f(ins, ws, **kw)
+            if _kind == "TOPK":
+                probs = (torch.topk(ins[0].detach(), 3, dim=-1).values
+                         .cpu().numpy() if top3 else None)
+                seen.append(("topk", _op.name, _start,
+                             outs[1].cpu().numpy(), probs))
+            else:
+                seen.append(("aux", _op.name,
+                             float(_op._last_aux.detach())))
+            return outs
+
+        op.forward = watched
+    return seen
+
+
+def routing_arrays(seen: list, steps: int) -> dict:
+    """The recorded routing as arrays: ids [steps, layers, rows, k],
+    first rows [steps, layers], top3 [steps, layers, rows, 3] (when
+    recorded), balance losses [steps, layers]."""
+    topk = [r for r in seen if r[0] == "topk"]
+    aux = [r[2] for r in seen if r[0] == "aux"]
+    layers = len(topk) // steps
+    out = {"ids": np.stack([r[3] for r in topk]).reshape(
+               steps, layers, *topk[0][3].shape).astype(np.int16),
+           "start": np.array([r[2] for r in topk]).reshape(steps, layers),
+           "aux": np.array(aux).reshape(steps, layers)}
+    if topk[0][4] is not None:
+        out["top3"] = np.stack([r[4] for r in topk]).reshape(
+            steps, layers, -1, 3)
+    return out
+
+
+def moe_flips(ids, want, top3, seq: int) -> list:
+    """Tokens whose expert ids differ from the one-card run's, layer by
+    layer: (layer, token, ids, one-card ids, gate gap, after), the gap
+    being the smallest one-card margin p_j - p_(j+1) over the differing
+    choices j, and `after` the first flip at an earlier layer in the
+    same sequence of `seq` tokens, if any: attention carries that
+    token's changed output to every token of its sequence, so such a
+    flip follows from it, not from the rounding of its own gate."""
+    out, first = [], {}
+    for layer in range(ids.shape[0]):
+        bad = np.nonzero((ids[layer] != want[layer]).any(axis=1))[0]
+        here = []
+        for tok in bad:
+            diff = np.nonzero(ids[layer, tok] != want[layer, tok])[0]
+            p = top3[layer, tok]
+            gap = min(float(p[j] - p[j + 1]) for j in diff)
+            here.append({"layer": layer, "token": int(tok),
+                         "ids": ids[layer, tok].tolist(),
+                         "one_card_ids": want[layer, tok].tolist(),
+                         "gate_gap": gap,
+                         "after": first.get(int(tok) // seq)})
+        for f in here:
+            first.setdefault(f["token"] // seq, [layer, f["token"]])
+        out += here
+    return out
+
+
+def dropped_share(ids) -> float:
+    """The share of (token, choice) pairs past their expert's capacity,
+    over every layer of one step's global ids [layers, tokens, k]."""
+    n, k = MOE["num_exp"], MOE["num_select"]
+    cap = int(np.ceil(MOE["alpha"] * k * ids.shape[1] / n))
+    dropped = sum(max(0, int(c) - cap) for layer in ids
+                  for c in np.bincount(layer.reshape(-1), minlength=n))
+    return dropped / ids.size
 
 
 def _multigpu_cnn(torch, device: str):
@@ -3926,6 +4112,10 @@ def _multigpu_strategy(leg, job):
         return pipeline_strategy(*leg["strategy"][1:])
     if kind == "pipe_file":
         return Strategy.load(job["pipeline_file"])
+    if kind == "moe":
+        return moe_strategy(*leg["strategy"][1:])
+    if kind == "moe_file":
+        return Strategy.load(job["moe_strategy_file"])
     if kind == "demo":
         return None
     return data_parallel_strategy(leg["ranks"])
@@ -3951,7 +4141,7 @@ def pipeline_launches(layers: int, stages: int, microbatches: int,
 def expected_launches(leg, strategy) -> dict:
     """K1-K3 launches per rank per step the leg must read."""
     kind = leg["strategy"][0]
-    L = BERT["num_layers"]
+    L = (MOE if leg["reference"] == "moe" else BERT)["num_layers"]
     if kind == "demo":
         _, _, pp, m = leg["strategy"]
         return pipeline_launches(L, pp, m, "1f1b")
@@ -3959,7 +4149,8 @@ def expected_launches(leg, strategy) -> dict:
         p = strategy.pipeline
         return pipeline_launches(L, p["degree"], p["num_microbatches"],
                                  remat=leg.get("remat", False))
-    n = L * (leg["strategy"][1] if kind == "bert_sp" else 1)
+    # one launch each per layer, per ring block under sequence parallelism
+    n = L * strategy.mesh_axes.get("seq", 1)
     return {"K1": n, "K2": n, "K3": n}
 
 
@@ -3979,6 +4170,7 @@ def _multigpu_leg(torch, dist, leg, job, rank):
     against the one-card run."""
     from flexflow_tpu_torch.ops.kernels import bn_apply as bk
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import collectives
 
     npz = np.load(job["data"][leg["reference"]])
     data = {"x": npz["x"], "y": npz["y"]}
@@ -3987,14 +4179,19 @@ def _multigpu_leg(torch, dist, leg, job, rank):
     strategy = _multigpu_strategy(leg, job)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    seen = None
     if leg["reference"] == "cnn":
         ff = _multigpu_cnn(torch, "cuda")
+    elif leg["reference"] == "moe":
+        ff = _multigpu_moe("cuda", strategy)
+        seen = watch_routing(torch, ff, top3=False)
     else:
         ff = _multigpu_bert("cuda", leg["optimizer"], strategy,
                             leg.get("zero", 0), leg.get("remat", False))
     compile_s = time.perf_counter() - t0
     b = MULTIGPU_CNN["batch"] if leg["reference"] == "cnn" else TRAIN_BATCH
     reset_leg_launches(fa, bk)
+    collectives.traffic.clear()
     losses, step_s = [], []
     for i in range(MULTIGPU_STEPS):
         x, y = data["x"][i * b:(i + 1) * b], data["y"][i * b:(i + 1) * b]
@@ -4014,7 +4211,18 @@ def _multigpu_leg(torch, dist, leg, job, rank):
            "opt_state_bytes": ff.executor.opt_state_bytes(ff._opt_state),
            "zero_stage": ff.executor.zero_stage,
            "zero_fallback_leaves": ff.executor.zero_fallback_leaves(),
-           "mesh": dict(ff.strategy.mesh_axes)}
+           "mesh": dict(ff.strategy.mesh_axes),
+           # payload bytes per step this rank handed to collectives, by
+           # the op class whose forward ran them (backward included)
+           "collective_bytes_per_step": {
+               f"{scope}.{kind}": v / MULTIGPU_STEPS
+               for (scope, kind), v in collectives.traffic.items()}}
+    if seen is not None:
+        routing = routing_arrays(seen, MULTIGPU_STEPS)
+        rec["routing_file"] = f"{job['out_dir']}/{leg['name']}_{rank}.npz"
+        np.savez(rec["routing_file"], **routing)
+        rec["expert_weight_bytes"] = expert_weight_bytes(ff)
+        rec["balance_losses"] = routing["aux"].sum(axis=1).tolist()
     weights = ff.get_weights()
     state = ff.get_state() if leg["reference"] == "cnn" else None
     if rank == 0:
@@ -4247,7 +4455,7 @@ def _run_ranks(world, cards, job, out_dir):
     backend = "nccl" if cards >= world else "gloo"
     # under NCCL rank 0 profiles a third step (after the checks); over
     # gloo a profile would time the host's staging
-    job = dict(job, profile=backend == "nccl")
+    job = dict(job, profile=backend == "nccl", out_dir=out_dir)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -4329,6 +4537,7 @@ def _one_card_reference(torch, name, tmp):
                  for k, v in entries.items()}
         return ({"losses": losses, "step_s": step_s,
                  "last_step_moves": moves}, data, after)
+    seen = None
     if name == "cnn":
         ff = _multigpu_cnn(torch, "cuda")
         b = MULTIGPU_CNN["batch"]
@@ -4336,6 +4545,11 @@ def _one_card_reference(torch, name, tmp):
         x = rng.randn(b * MULTIGPU_STEPS, 3, MULTIGPU_CNN["px"],
                       MULTIGPU_CNN["px"]).astype(np.float32)
         y = rng.randint(0, 10, b * MULTIGPU_STEPS).astype(np.int32)
+    elif name == "moe":
+        ff = _multigpu_moe("cuda")
+        b = TRAIN_BATCH
+        x, y = moe_data(b * MULTIGPU_STEPS, seed=0)
+        seen = watch_routing(torch, ff, top3=True)
     else:
         ff = _multigpu_bert("cuda", "adam" if name == "bert_adam" else "sgd")
         b = TRAIN_BATCH
@@ -4354,14 +4568,54 @@ def _one_card_reference(torch, name, tmp):
     np.savez(data, x=x, y=y)
     np.savez(after, weights=np.array(weights, dtype=object),
              state=np.array(ff.get_state(), dtype=object))
+    rec = {"losses": losses, "step_s": step_s}
+    if seen is not None:
+        routing = routing_arrays(seen, MULTIGPU_STEPS)
+        np.savez(f"{tmp}/{name}_routing.npz", **routing)
+        rec["routing_file"] = f"{tmp}/{name}_routing.npz"
+        rec.update(expert_weight_bytes=expert_weight_bytes(ff),
+                   balance_losses=routing["aux"].sum(axis=1).tolist(),
+                   dropped_pair_share=[dropped_share(i)
+                                       for i in routing["ids"]])
     del ff
     torch.cuda.empty_cache()
     # each weight's largest move in the last step: what a rank that
     # skipped that update would read against this run
-    moves = {f"{op}.{k}": float(np.abs(v - before[op][k]).max())
-             for op, entries in weights.items() for k, v in entries.items()}
-    return ({"losses": losses, "step_s": step_s, "last_step_moves": moves},
-            data, after)
+    rec["last_step_moves"] = {
+        f"{op}.{k}": float(np.abs(v - before[op][k]).max())
+        for op, entries in weights.items() for k, v in entries.items()}
+    return rec, data, after
+
+
+def expert_weight_bytes(ff) -> int:
+    """Bytes of the ExpertsDense weights this rank holds."""
+    return sum(w.numel() * w.element_size()
+               for op, entries in ff._weights.items()
+               if op.startswith("experts_dense") for w in entries.values())
+
+
+def search_moe(cfg):
+    """The MoE legs' encoder on `cfg`, not compiled."""
+    from flexflow_tpu_torch import FFModel
+    from flexflow_tpu_torch.models.moe import build_moe_encoder
+
+    ff = FFModel(cfg)
+    build_moe_encoder(ff, batch_size=cfg.batch_size, seq_length=TRAIN_SEQ,
+                      **MOE)
+    return ff
+
+
+def _moe_strategy_file(torch, run_dir) -> str:
+    """The Unity search's strategy for the MoE encoder on MOE_DEVICES
+    GPUs of hgx_h100_8.json, ops timed on the card, written to
+    run_dir/moe_strategy.json."""
+    from flexflow_tpu_torch.pcg.search import unity_search
+
+    path = Path(run_dir) / "moe_strategy.json"
+    cfg = search_config(str(Path(run_dir) / "op_costs.json"))
+    unity_search(search_moe(cfg), MOE_DEVICES).save(str(path))
+    torch.cuda.empty_cache()
+    return str(path)
 
 
 def _searched_strategy_file(torch, fa, run_dir) -> str:
@@ -4383,7 +4637,8 @@ def _multigpu_prediction(run_dir, leg, strategy) -> float:
     from flexflow_tpu_torch.sim.machine_model import make_machine_model
 
     cfg = search_config(str(Path(run_dir) / "op_costs.json"))
-    return predicted_step(cfg, search_bert(cfg),
+    build = search_moe if leg["reference"] == "moe" else search_bert
+    return predicted_step(cfg, build(cfg),
                           make_machine_model(cfg, strategy.total_devices),
                           strategy)
 
@@ -4418,26 +4673,36 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
     attention through K1-K3), ZeRO-3 under Adam, the searched 8-GPU
     strategy, pipelines (data x pipe GPipe with and without remat, pipe
     4, the search's cheapest pipeline, the demo transformer under 1F1B
-    and GPipe), and a data-parallel CNN (P1 on every BatchNorm with the
-    global batch's statistics), each over a group of ranks, each held
-    against its one-card run; `names` picks some of the legs."""
+    and GPipe), a data-parallel CNN (P1 on every BatchNorm with the
+    global batch's statistics), and the MoE encoder under data 4, expert
+    4, data 2 x expert 2 and the search's 4-GPU strategy (routing flips,
+    balance losses and expert-weight bytes checked), each over a group
+    of ranks, each held against its one-card run; `names` picks some of
+    the legs (and the searches only those legs need run)."""
     chosen = [leg for leg in MULTIGPU_LEGS
               if names is None or leg["name"] in names]
+    kinds = {leg["strategy"][0] for leg in chosen}
     cards = torch.cuda.device_count()
     tmp = tempfile.mkdtemp(prefix="ff_multigpu_")
+    microbatch = None
     try:
-        job = {"data": {}, "strategy_file": _searched_strategy_file(
-            torch, fa, run_dir)}
-        job["pipelines"] = _pipeline_candidates(torch, run_dir)
-        job["pipeline_file"] = str(Path(run_dir) / "pipeline_strategy.json")
-        # K1-K3 at the microbatch shape of the data x pipe legs (one row
-        # of 2048 tokens, 12 heads)
-        dev = torch.device("cuda")
-        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-        microbatch = flash_main_shape(
-            torch, fa, torch.Generator(device=dev).manual_seed(0),
-            torch.float32, dev, flush, shape=PIPELINE_FLASH_SHAPE)
-        del flush
+        job = {"data": {}, "pipelines": None}
+        if "file" in kinds:
+            job["strategy_file"] = _searched_strategy_file(torch, fa, run_dir)
+        if "moe_file" in kinds:
+            job["moe_strategy_file"] = _moe_strategy_file(torch, run_dir)
+        if kinds & {"pipe", "pipe_file"}:
+            job["pipelines"] = _pipeline_candidates(torch, run_dir)
+            job["pipeline_file"] = str(Path(run_dir) /
+                                       "pipeline_strategy.json")
+            # K1-K3 at the microbatch shape of the data x pipe legs (one
+            # row of 2048 tokens, 12 heads)
+            dev = torch.device("cuda")
+            flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+            microbatch = flash_main_shape(
+                torch, fa, torch.Generator(device=dev).manual_seed(0),
+                torch.float32, dev, flush, shape=PIPELINE_FLASH_SHAPE)
+            del flush
         refs = {}
         for name in sorted({leg["reference"] for leg in chosen}):
             refs[name], job["data"][name], job["data"][name + "_after"] = \
@@ -4460,8 +4725,12 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
            "model": dict(BERT, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                          dtype="float32", allow_tf32=False),
            "cnn": dict(MULTIGPU_CNN, model="resnet_parity's SmallResNet"),
+           "moe": dict(MOE, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                       dtype="float32", allow_tf32=False,
+                       flip_gap_limit=MOE_FLIP_GAP,
+                       balance_tolerance=MOE_BALANCE_TOL),
            "demo": DEMO, "pipeline_candidates": job["pipelines"],
-           "flash_microbatch": {
+           "flash_microbatch": None if microbatch is None else {
                "shape": list(PIPELINE_FLASH_SHAPE),
                **{k: microbatch[k] for k in (
                    "kernel_ms", "plain_ms", "library_ms", "share_of_bound",
@@ -4563,6 +4832,8 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
                 faults.append(f"{name}: rank {r['rank']}'s GPipe launched "
                               f"{r['gpipe']['launches_per_step']}, expected "
                               f"{want_g}")
+    moe = (_moe_checks(name, ranks, ref, strategy, faults)
+           if leg["reference"] == "moe" else None)
     if "zero0" in r0:
         # the ladder against stage 0 in the same group: the same sums,
         # reduce-scattered per weight instead of all-reduced by bucket
@@ -4597,6 +4868,10 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
     }
     if leg.get("remat"):
         rec["remat"] = True
+    if moe is not None:
+        rec["moe"] = moe
+        rec["collective_bytes_per_step_rank0"] = r0[
+            "collective_bytes_per_step"]
     if leg["reference"] == "cnn":
         rec["max_running_stats_diff"] = r0["running_stats_diff"]
     if "zero0" in r0:
@@ -4640,10 +4915,78 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
             if backend == "gloo" else "the simulator has no CNN search"
             if leg["reference"] == "cnn" else
             "the demo is no FFModel graph: no search prices it")
-    if leg["strategy"][0] == "file":
-        rec["searched_strategy"] = json.loads(
-            Strategy.load(job["strategy_file"]).to_json())
+    if leg["strategy"][0] in ("file", "moe_file"):
+        rec["searched_strategy"] = json.loads(strategy.to_json())
     return rec
+
+
+MOE_SCOPES = ("TopK", "GroupBy", "ExpertsDense", "Aggregate",
+              "AggregateSpec")
+
+
+def expert_split(strategy) -> int:
+    """How many ways the strategy splits the experts (ExpertsDense's
+    degree: its own ShardConfig or GroupBy's)."""
+    sc = strategy.shard_configs
+    return max([sc[k].expert for k in ("group_by_0", "experts_dense_0")
+                if k in sc] + [1])
+
+
+def _moe_checks(name, ranks, ref, strategy, faults) -> dict:
+    """A MoE leg's routing against the one-card run's (every token whose
+    experts differ, with its gate gap; one above MOE_FLIP_GAP is a
+    fault), its balance losses (MOE_BALANCE_TOL), its expert-weight
+    bytes per rank (1/E of one card's where E splits the experts) and
+    its dropped-pair share and MoE collective bytes."""
+    want = np.load(ref["routing_file"])
+    ids = np.zeros_like(want["ids"])
+    for r in ranks:
+        got = np.load(r["routing_file"])
+        rows = got["ids"].shape[2]
+        for st in range(ids.shape[0]):
+            for layer in range(ids.shape[1]):
+                a = int(got["start"][st, layer])
+                ids[st, layer, a:a + rows] = got["ids"][st, layer]
+    flips = [dict(f, step=st) for st in range(ids.shape[0])
+             for f in moe_flips(ids[st], want["ids"][st], want["top3"][st],
+                                TRAIN_SEQ)]
+    own = [f for f in flips if f["after"] is None]
+    big = [f for f in own if not f["gate_gap"] <= MOE_FLIP_GAP]
+    if big:
+        faults.append(f"{name}: {len(big)} routing flips at gate gaps "
+                      f"above {MOE_FLIP_GAP}, first {big[0]}")
+    bal_err = max(_loss_err(r["balance_losses"], ref["balance_losses"])
+                  for r in ranks)
+    if not bal_err <= MOE_BALANCE_TOL:
+        faults.append(f"{name}: balance losses {ranks[0]['balance_losses']}"
+                      f" against one card {ref['balance_losses']}")
+    split = expert_split(strategy)
+    per_rank = [r["expert_weight_bytes"] for r in ranks]
+    if any(b * split != ref["expert_weight_bytes"] for b in per_rank):
+        faults.append(f"{name}: expert weights {per_rank} bytes per rank, "
+                      f"expected 1/{split} of {ref['expert_weight_bytes']}")
+    moe_bytes = [{k: v for k, v in r["collective_bytes_per_step"].items()
+                  if k.split(".")[0] in MOE_SCOPES} for r in ranks]
+    return {"flips": flips[:20], "flip_count": len(flips),
+            "max_flip_gate_gap": max([f["gate_gap"] for f in flips],
+                                     default=None),
+            "own_flip_count": len(own),
+            "max_own_flip_gate_gap": max([f["gate_gap"] for f in own],
+                                         default=None),
+            "flip_gap_limit": MOE_FLIP_GAP,
+            "balance_losses": ranks[0]["balance_losses"],
+            "one_card_balance_losses": ref["balance_losses"],
+            "max_balance_err_over_scale": bal_err,
+            "balance_tolerance": MOE_BALANCE_TOL,
+            "expert_split": split,
+            "expert_weight_bytes_per_rank": per_rank,
+            "one_card_expert_weight_bytes": ref["expert_weight_bytes"],
+            "dropped_pair_share": [dropped_share(i) for i in ids],
+            "one_card_dropped_pair_share": ref["dropped_pair_share"],
+            "moe_collective_bytes_per_step": moe_bytes,
+            "moe_collective_bytes_per_step_total": [sum(m.values())
+                                                    for m in moe_bytes],
+            "expert_axis": "expert" in strategy.mesh_axes or split > 1}
 
 
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,

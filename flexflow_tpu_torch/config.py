@@ -31,7 +31,7 @@ SEARCH_ALGOS = ("unity", "mcmc")
 
 # the reference's flags of the multi-slice hierarchy, the strategy store
 # and the fusion pass, which the port does not carry yet
-_HIERARCHY = ("ROADMAP §1.D, second half, item 4 (the multi-node "
+_HIERARCHY = ("ROADMAP §1 item 4, of §1.D (the multi-node "
               "SliceHierarchy, rendezvous and hierarchical reduction)")
 _UNPORTED_FLAGS = {
     "--slices": _HIERARCHY,
@@ -42,7 +42,7 @@ _UNPORTED_FLAGS = {
     "--strategy-store": "ROADMAP §1.E (store/ cached search)",
     "--no-strategy-store": "ROADMAP §1.E (store/ cached search)",
     "--compilation-cache": "ROADMAP §1.E (store/ cached search)",
-    "--fusion": "ROADMAP §1.D, second half, item 5 (the fusion pass)",
+    "--fusion": "ROADMAP §1 item 5, of §1.D (the fusion pass)",
 }
 
 

@@ -58,7 +58,11 @@ sharded over the pipe axis, and the region runs the template block's
 ops once per block through `pipelined_apply` (parallel/pipeline.py) on
 the region input's data shard.  The stacked leaves' grads are summed
 over every axis but the pipe axis; the prefix's and suffix's weights,
-replicated over it, over it too.  Expert shardings, factored per-op
+replicated over it, over it too.  Under expert parallelism
+(parallel/expert_parallel.py) every rank computes Aggregate's balance
+loss over the global batch, so the 1/world seed counts it once.  Each
+op's collectives are counted under its class's name
+(`collectives.traffic`), the update's under "update".  Factored per-op
 views, the multi-node hierarchy and the fusion pass are what is left of
 ROADMAP §1.D.
 """
@@ -76,7 +80,7 @@ from torch.utils.checkpoint import checkpoint
 from .fftype import OpBinary, OperatorType, OpUnary
 from .parallel.collectives import (Layout, all_gather, all_reduce_,
                                    gather_global, local_slice, redistribute,
-                                   reduce_scatter)
+                                   reduce_scatter, traffic_scope)
 from .parallel.pipeline import pipelined_apply, stacked_param_sharding
 from .parallel.spmd import layout_of, plan_op
 from .parallel.zero import shard_update_spec
@@ -478,8 +482,9 @@ class GraphExecutor:
             results = op.forward(ins, ws, training=training,
                                  generator=generator, **kw)
         else:
-            results = self._exec_sharded(op, ins, ws, kw, lay, training,
-                                         generator)
+            with traffic_scope(type(op).__name__):
+                results = self._exec_sharded(op, ins, ws, kw, lay, training,
+                                             generator)
         outs = results[:len(op.outputs)]
         aux = getattr(op, "_last_aux", None)
         if aux is not None:
@@ -798,7 +803,8 @@ class GraphExecutor:
                 if mesh is None:
                     opt.update(weights, grads, opt_state)
                 else:
-                    self._sync_and_update(weights, grads, opt_state)
+                    with traffic_scope("update"):
+                        self._sync_and_update(weights, grads, opt_state)
                 m = self._global_metrics(metrics.compute(logits.detach(),
                                                          labels))
                 m["loss"] = self._global_loss(loss_val.detach())

@@ -10,7 +10,8 @@ device (training or inference) under a given, imported or searched
 strategy (pcg/search.py), or the layer graph as it is; on a
 `torch.distributed` group (distributed.initialize) the strategy runs
 sharded over its ranks (executor.py, parallel/spmd.py), with pipelines
-(parallel/pipeline.py), the ZeRO ladder and remat,
+(parallel/pipeline.py), expert parallelism
+(parallel/expert_parallel.py), the ZeRO ladder and remat,
 `train_step`, `eval_step`, `fit`, `forward`, the reference's step
 surface (`set_learning_rate`, `zero_gradients`, `backward`, `update`,
 `init_operators`), the dense-cache decode surface (`decode_step`,
@@ -68,25 +69,9 @@ from .strategy import (Strategy, apply_strategy, assign_views,
 from .tensor import ParallelTensor, ParallelTensorShape
 
 # what the port's executor does not run yet
-_EXECUTOR_1D = ("ROADMAP §1.D, what is left of it (expert parallelism, "
+_EXECUTOR_1D = ("ROADMAP §1.D, what is left of it (§1 items 1, 4 and 5: "
                 "factored per-op views, the multi-node hierarchy, the "
                 "fusion pass)")
-
-
-def check_executable(strategy: Strategy, cfg: FFConfig) -> None:
-    """Raise NotImplementedError, naming what is left of ROADMAP §1.D,
-    when `strategy` needs what the executor lacks: an expert
-    sharding."""
-    experts = sorted(n for n, sc in strategy.shard_configs.items()
-                     if sc.expert > 1)
-    if experts:
-        where = (f"; the strategy was written to {cfg.export_strategy_file}"
-                 if cfg.export_strategy_file else "")
-        raise NotImplementedError(
-            "the port's executor runs data, tensor, sequence and pipeline "
-            "parallelism with the ZeRO ladder and remat; this strategy "
-            f"needs expert shardings on {', '.join(experts)}: "
-            f"{_EXECUTOR_1D}{where}")
 
 
 def check_views(graph: Graph) -> None:
@@ -512,10 +497,10 @@ class FFModel:
         step, with the strategy's pipeline (planned by
         parallel/pipeline_plan.py; a pipeline of degree 1 also runs on
         one process), its (or the config's) ZeRO stage over
-        FFConfig.wus_axis and its remat plan (or FFConfig.remat).  A
-        strategy that needs an expert sharding or a factored per-op view
-        raises NotImplementedError naming ROADMAP §1.D, after the
-        export.  With no strategy and one rank, the layer
+        FFConfig.wus_axis and its remat plan (or FFConfig.remat); expert
+        shardings run through parallel/expert_parallel.py.  On a group, a
+        factored per-op view raises NotImplementedError naming ROADMAP
+        §1.D, after the export.  With no strategy and one rank, the layer
         graph runs as it is under data_parallel_strategy(1).
 
         The default optimizer is SGD at the config's learning rate and
@@ -619,7 +604,6 @@ class FFModel:
         self.strategy = strategy or data_parallel_strategy(1)
         if cfg.export_strategy_file:
             self.strategy.save(cfg.export_strategy_file)
-        check_executable(self.strategy, cfg)
         return strategy
 
     def _operators_for(self, strategy: Optional[Strategy]) -> Graph:

@@ -6,7 +6,10 @@ capacity, dim] tensor, capacity-bounded, and Aggregate combines the
 expert outputs weighted by the renormalized gate scores; both move rows
 through the cumsum dispatch of ops/moe_dispatch.py.  Aggregate's
 load-balance loss (lambda_bal · n · Σ_e fraction_e · prob_e) is left on
-the op as `_last_aux` for the executor to add to the step's loss.  The
+the op as `_last_aux` for the executor to add to the step's loss.  Under
+expert parallelism the plan (parallel/spmd.py) hands Aggregate its
+`combine` (the rows of this rank's pairs) and a `balance_reduce` that
+takes the loss's counts and sums over the global batch.  The
 expert-activation `Cache` waits for recompile.py (ROADMAP §1.E).
 """
 from __future__ import annotations
@@ -132,29 +135,43 @@ class Aggregate(Op):
         )
         return [ParallelTensorShape(dims, expert_out.dtype)]
 
-    def forward(self, inputs, weights, *, training=False, generator=None):
+    def forward(self, inputs, weights, *, training=False, generator=None,
+                combine=None, balance_reduce=None):
         gate_scores, assign, gate_full, expert_out = inputs
         p: AggregateParams = self.params
-        n, cap, e = expert_out.shape
+        e = expert_out.shape[-1]
         b, k = assign.shape
         denom = gate_scores.sum(dim=-1, keepdim=True) + 1e-9
         norm_scores = gate_scores / denom
-        rows, _ = sort_combine(expert_out, assign, cap)  # [bk, e]
+        rows = self._rows(expert_out, assign, combine)  # [bk, e]
         y = (rows.reshape(b, k, e) * norm_scores[:, :, None]).sum(dim=1)
-        self._last_aux = self._balance_loss(assign, gate_full, n,
-                                            p.lambda_bal)
+        self._last_aux = self._balance_loss(assign, gate_full, p.n,
+                                            p.lambda_bal, balance_reduce)
         return [y.to(expert_out.dtype)]
 
     @staticmethod
+    def _rows(expert_out, assign, combine):
+        if combine is not None:
+            return combine(expert_out, assign)
+        return sort_combine(expert_out, assign, expert_out.shape[1])[0]
+
+    @staticmethod
     def _balance_loss(assign: torch.Tensor, gate_full: torch.Tensor,
-                      n: int, lambda_bal: float) -> Optional[torch.Tensor]:
+                      n: int, lambda_bal: float,
+                      reduce=None) -> Optional[torch.Tensor]:
         """lambda_bal · n · Σ_e (share of samples whose first choice is
-        e) · (mean gate probability of e); None when lambda_bal is 0."""
+        e) · (mean gate probability of e); None when lambda_bal is 0.
+        `reduce(counts, prob_sums)` -> (counts, sums, batch) takes them
+        over the global batch when this rank holds a shard of it."""
         if lambda_bal == 0.0:
             return None
         counts = F.one_hot(assign[:, 0].long(), n).sum(dim=0).float()
-        frac = counts / assign.shape[0]
-        prob = gate_full.mean(dim=0)
+        if reduce is None:
+            frac = counts / assign.shape[0]
+            prob = gate_full.mean(dim=0)
+        else:
+            counts, sums, batch = reduce(counts, gate_full.sum(dim=0))
+            frac, prob = counts / batch, sums / batch
         return lambda_bal * n * (frac * prob).sum()
 
 
@@ -176,11 +193,11 @@ class AggregateSpec(Aggregate):
         )
         return [ParallelTensorShape(dims, expert_out.dtype)]
 
-    def forward(self, inputs, weights, *, training=False, generator=None):
+    def forward(self, inputs, weights, *, training=False, generator=None,
+                combine=None, balance_reduce=None):
         gate_scores, assign, gate_full, expert_out = inputs
         p: AggregateParams = self.params
-        n, cap, e = expert_out.shape
-        preds, _ = sort_combine(expert_out, assign, cap)  # [bk, e]
-        self._last_aux = self._balance_loss(assign, gate_full, n,
-                                            p.lambda_bal)
+        preds = self._rows(expert_out, assign, combine)  # [bk, e]
+        self._last_aux = self._balance_loss(assign, gate_full, p.n,
+                                            p.lambda_bal, balance_reduce)
         return [preds.to(expert_out.dtype)]

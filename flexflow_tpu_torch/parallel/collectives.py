@@ -16,23 +16,34 @@ collective:
     to-partial     (replicated -> partial)   backward the same mask
     all-to-all     (sharded on d -> on d')   backward the reverse
 
-and `ppermute`, the pipeline's shift of a tensor `step` ranks on along
-an axis, whose backward shifts by -step.  With the first six, the gradient a rank holds for a tensor of layout L has the
-adjoint layout: sharded stays sharded, replicated becomes partial and
-partial becomes replicated.  So the grad of a replicated weight comes
-back partial and the executor sums it over those axes before the
-update.
+and two more: `exchange` (`all_to_all_v`), rows whose counts vary by
+rank sent to the ranks that need them (expert parallelism's dispatch
+and combine), whose backward is the reverse exchange, and `ppermute`,
+the pipeline's shift of a tensor `step` ranks on along an axis, whose
+backward shifts by -step.  With the first six, the gradient a rank
+holds for a tensor of layout L has the adjoint layout: sharded stays
+sharded, replicated becomes partial and partial becomes replicated.  So
+the grad of a replicated weight comes back partial and the executor
+sums it over those axes before the update.
 
 Every collective here runs on the group's backend.  On `gloo` with CUDA
 tensors (ranks sharing one card) the tensor is staged through host
 memory: gloo takes CUDA tensors for some collectives and not others,
 depending on the torch build, and staging gives every build one path.
 A reduce-scatter on gloo is an all-reduce and a slice.
+
+`traffic` counts the payload bytes this rank hands to each collective,
+keyed by (scope, kind): the scope is the op whose forward ran it (the
+executor sets it with `traffic_scope`), and a backward counts under its
+forward's scope.  Callers read and clear it.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
-from typing import FrozenSet, List, Optional, Sequence, Tuple, Union
+from typing import (Counter, FrozenSet, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.distributed as dist
@@ -91,6 +102,26 @@ def local_slice(x, layout: Layout, mesh: DeviceMesh):
     return x[layout.local_index(x.shape, mesh)]
 
 
+# -- traffic ---------------------------------------------------------------
+
+traffic: Counter = collections.Counter()
+_scope: List[Optional[str]] = [None]
+
+
+@contextlib.contextmanager
+def traffic_scope(name: Optional[str]):
+    """Count the collectives run inside under `name`."""
+    prev, _scope[0] = _scope[0], name
+    try:
+        yield
+    finally:
+        _scope[0] = prev
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    traffic[(_scope[0], kind)] += t.numel() * t.element_size()
+
+
 # -- raw collectives (no autograd) ---------------------------------------
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -99,6 +130,7 @@ def _staged(t: torch.Tensor, group) -> bool:
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """In-place sum over `group`."""
+    _count("all_reduce", t)
     if _staged(t, group):
         host = t.cpu()
         dist.all_reduce(host, group=group)
@@ -111,6 +143,7 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
 def all_gather(t: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
     """The chunks of `group`'s ranks, by rank, joined along `dim`."""
     src = t.contiguous()
+    _count("all_gather", src)
     if _staged(src, group):
         host = src.cpu()
         parts = [torch.empty_like(host) for _ in range(n)]
@@ -129,6 +162,7 @@ def reduce_scatter(t: torch.Tensor, dim: int, n: int, idx: int,
         return full.chunk(n, dim=dim)[idx].contiguous()
     parts = [c.contiguous() for c in t.chunk(n, dim=dim)]
     out = torch.empty_like(parts[0])
+    _count("reduce_scatter", t)
     dist.reduce_scatter(out, parts, group=group)
     return out
 
@@ -140,9 +174,25 @@ def all_to_all(t: torch.Tensor, split_dim: int, cat_dim: int, n: int,
     parts = [c.contiguous() for c in t.chunk(n, dim=split_dim)]
     staged = _staged(t, group)
     send = torch.stack([p.cpu() if staged else p for p in parts])
+    _count("all_to_all", send)
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
     out = torch.cat(list(recv.unbind(0)), dim=cat_dim)
+    return out.to(t.device) if staged else out
+
+
+def all_to_all_v(t: torch.Tensor, send: Sequence[int], recv: Sequence[int],
+                 group) -> torch.Tensor:
+    """Rows of `t` to the ranks of `group`: send[j] rows, in order, to
+    rank j; recv[j] rows arrive from rank j, joined in rank order along
+    dim 0."""
+    src = t.contiguous()
+    _count("all_to_all_v", src)
+    staged = _staged(src, group)
+    if staged:
+        src = src.cpu()
+    out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+    dist.all_to_all_single(out, src, list(recv), list(send), group=group)
     return out.to(t.device) if staged else out
 
 
@@ -161,6 +211,7 @@ def ring_shift(tensors: List[torch.Tensor], mesh: DeviceMesh, axis: str,
     staged = any(_staged(t, group) for t in tensors)
     out, ops = [], []
     for t, s in zip(tensors, steps):
+        _count("ppermute", t)
         src = t.contiguous().cpu() if staged else t.contiguous()
         buf = torch.empty_like(src)
         ops.append(dist.P2POp(dist.isend, src, members[(c + s) % n], group))
@@ -172,42 +223,51 @@ def ring_shift(tensors: List[torch.Tensor], mesh: DeviceMesh, axis: str,
 
 
 # -- autograd primitives -------------------------------------------------
+# each forward keeps the traffic scope it ran under; its backward counts
+# there
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
+        ctx.mesh, ctx.axis, ctx.scope = mesh, axis, _scope[0]
         return all_reduce_(x.clone(), mesh.group(axis))
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.clone(), ctx.mesh.group(ctx.axis)), None, None
+        with traffic_scope(ctx.scope):
+            return (all_reduce_(g.clone(), ctx.mesh.group(ctx.axis)), None,
+                    None)
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.scope = _scope[0]
         return all_gather(x, dim, mesh.size(axis), mesh.group(axis))
 
     @staticmethod
     def backward(ctx, g):
         m, a = ctx.mesh, ctx.axis
-        return (reduce_scatter(g, ctx.dim, m.size(a), m.coord(a),
-                               m.group(a)), None, None, None)
+        with traffic_scope(ctx.scope):
+            return (reduce_scatter(g, ctx.dim, m.size(a), m.coord(a),
+                                   m.group(a)), None, None, None)
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.scope = _scope[0]
         return reduce_scatter(x, dim, mesh.size(axis), mesh.coord(axis),
                               mesh.group(axis))
 
     @staticmethod
     def backward(ctx, g):
         m, a = ctx.mesh, ctx.axis
-        return all_gather(g, ctx.dim, m.size(a), m.group(a)), None, None, None
+        with traffic_scope(ctx.scope):
+            return (all_gather(g, ctx.dim, m.size(a), m.group(a)), None,
+                    None, None)
 
 
 class _Slice(torch.autograd.Function):
@@ -241,7 +301,7 @@ class _ToPartial(torch.autograd.Function):
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, gather_dim, scatter_dim):
-        ctx.mesh, ctx.axis = mesh, axis
+        ctx.mesh, ctx.axis, ctx.scope = mesh, axis, _scope[0]
         ctx.gd, ctx.sd = gather_dim, scatter_dim
         return all_to_all(x, scatter_dim, gather_dim, mesh.size(axis),
                           mesh.group(axis))
@@ -249,25 +309,52 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         m, a = ctx.mesh, ctx.axis
-        return (all_to_all(g, ctx.gd, ctx.sd, m.size(a), m.group(a)),
-                None, None, None, None)
+        with traffic_scope(ctx.scope):
+            return (all_to_all(g, ctx.gd, ctx.sd, m.size(a), m.group(a)),
+                    None, None, None, None)
+
+
+class _AllToAllV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        ctx.scope = _scope[0]
+        return all_to_all_v(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        with traffic_scope(ctx.scope):
+            return (all_to_all_v(g, ctx.recv, ctx.send, ctx.group), None,
+                    None, None)
 
 
 class _PPermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, step):
         ctx.mesh, ctx.axis, ctx.step = mesh, axis, step
+        ctx.scope = _scope[0]
         return ring_shift([x], mesh, axis, step)[0]
 
     @staticmethod
     def backward(ctx, g):
-        return (ring_shift([g], ctx.mesh, ctx.axis, -ctx.step)[0], None,
-                None, None)
+        with traffic_scope(ctx.scope):
+            return (ring_shift([g], ctx.mesh, ctx.axis, -ctx.step)[0], None,
+                    None, None)
 
 
 def all_reduce(x, mesh: DeviceMesh, axis: str):
     """Differentiable sum over `axis` (partial -> replicated)."""
     return _AllReduce.apply(x, mesh, axis) if mesh.size(axis) > 1 else x
+
+
+def exchange(x, mesh: DeviceMesh, axis: str, send: Sequence[int],
+             recv: Sequence[int]):
+    """Differentiable `all_to_all_v` over `axis` (send[j] rows to the
+    rank of coordinate j, recv[j] from it); the backward sends each
+    row's grad back to where the row came from."""
+    if mesh.size(axis) == 1:
+        return x
+    return _AllToAllV.apply(x, tuple(send), tuple(recv), mesh.group(axis))
 
 
 def ppermute(x, mesh: DeviceMesh, axis: str, step: int = 1):

@@ -89,7 +89,8 @@ def plan_pipeline(
             if op.op_type in _EXCLUDED_TYPES:
                 raise ValueError(
                     f"op {op.name} ({op.op_type.value}) cannot run inside "
-                    f"a pipelined block"
+                    f"a pipelined block (MoE blocks in a pipeline: ROADMAP "
+                    f"§1 item 10)"
                 )
             if trainable_weight_count(op) != len(op.weight_specs):
                 raise ValueError(

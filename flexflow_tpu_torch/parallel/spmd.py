@@ -28,6 +28,16 @@ The rules:
   * BatchNorm's statistics are summed over the axes that shard its
     batch and spatial dims before the scale and shift, so every rank
     normalizes with the global batch's statistics;
+  * a Reshape keeps the sharding of dim 0 when the axes divide both
+    leading dims (each chunk is then the same run of the row-major
+    elements on either side);
+  * the MoE ops (parallel/expert_parallel.py): TopK shards its batch
+    dims; GroupBy fills its view's chunk of the experts with the rows of
+    every token shard, at their global slots; ExpertsDense is
+    element-wise in the expert dim (its kernel and bias sharded there,
+    its channels whole); Aggregate and AggregateSpec combine the rows of
+    this rank's tokens, a partial sum over the expert axes that do not
+    shard the tokens, and take the balance loss over the global batch;
   * a parallel op's forward is the identity: redistributing its input's
     layout to its output's view is the collective its name says
     (Repartition a slice, Combine an all-gather, Replicate the identity
@@ -43,6 +53,8 @@ import torch
 
 from ..fftype import ActiMode, OperatorType
 from ..ops.dense import apply_activation
+from ..ops.experts import ExpertsDense
+from . import expert_parallel as ep
 from .collectives import Layout, all_reduce
 from .machine import DeviceMesh, view_to_spec
 from .ring_attention import ring_attention
@@ -278,6 +290,82 @@ def _plan_batch_norm(op, mesh, out_view, in_views) -> OpPlan:
     return plan
 
 
+def _size(mesh, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= mesh.size(a)
+    return n
+
+
+def _rows(axes, rank: int, partial=frozenset()) -> Layout:
+    """Dim 0 sharded over `axes`, the rest whole."""
+    return Layout((tuple(axes),) + ((),) * (rank - 1), frozenset(partial))
+
+
+def _plan_reshape(op, mesh, out_view, in_views) -> OpPlan:
+    src = op.inputs[0].shape.logical_shape
+    dst = op.outputs[0].shape.logical_shape
+    axes = out_view.spec[0]
+    n = _size(mesh, axes)
+    if not axes or src[0] % n or dst[0] % n:
+        return _generic(op, out_view, in_views)
+    shape = (-1,) + tuple(dst[1:])
+
+    def fn(ins, wts, training=False, generator=None):
+        return [torch.reshape(ins[0], shape)]
+
+    return OpPlan(ins=[_rows(axes, len(src))], weights=[],
+                  outs=[_rows(axes, len(dst))], fn=fn)
+
+
+def _token_axis(mesh, axes) -> Optional[str]:
+    """The one axis along which a MoE op takes its tokens sharded: the
+    first of `axes` (the rest are gathered)."""
+    return next((a for a in axes[:1] if mesh.size(a) > 1), None)
+
+
+def _plan_topk(op, mesh, out_view, in_views) -> OpPlan:
+    lay = Layout(tuple(out_view.spec[:-1]) + ((),))
+    return OpPlan(ins=[lay], weights=[], outs=[lay, lay])
+
+
+def _plan_group_by(op, mesh, out_view, in_views) -> OpPlan:
+    t = _token_axis(mesh, in_views[0].spec[0])
+    experts = tuple(out_view.spec[0])
+    cap = op.outputs[0].shape.logical_shape[1]
+    tok = _rows((t,) if t else (), 2)
+
+    def fn(ins, wts, training=False, generator=None):
+        return [ep.group_by(ins[0], ins[1], op.params.n, cap, mesh, t,
+                            experts)]
+
+    return OpPlan(ins=[tok, tok], weights=[], outs=[_rows(experts, 3)],
+                  fn=fn)
+
+
+def _plan_experts_dense(op, mesh, out_view) -> OpPlan:
+    experts = out_view.spec[0]
+    ws = [_rows(experts, 3)] + ([_rows(experts, 2)]
+                                if op.params.use_bias else [])
+    return OpPlan(ins=[_rows(experts, 3)], weights=ws,
+                  outs=[_rows(experts, 3)])
+
+
+def _plan_aggregate(op, mesh, out_view, in_views) -> OpPlan:
+    t = _token_axis(mesh, out_view.spec[0])
+    experts = tuple(in_views[3].spec[0])
+    tok = _rows((t,) if t else (), 2)
+    partial = {a for a in experts if a != t and mesh.size(a) > 1}
+    batch = op.inputs[1].shape.logical_shape[0]
+    n = op.params.n
+    plan = OpPlan(ins=[tok, tok, tok, _rows(experts, 3)], weights=[],
+                  outs=[_rows((t,) if t else (), 2, partial)])
+    plan.kwargs["combine"] = lambda out, assign: ep.combine(
+        out, assign, n, mesh, t, experts)
+    plan.kwargs["balance_reduce"] = ep.balance_reduce(mesh, t, batch)
+    return plan
+
+
 def plan_op(op, mesh: DeviceMesh, in_views: List[Layout]) -> OpPlan:
     """The OpPlan of `op`, given the layouts its inputs arrive in."""
     out_view = layout_of(op.outputs[0])
@@ -286,6 +374,17 @@ def plan_op(op, mesh: DeviceMesh, in_views: List[Layout]) -> OpPlan:
     if op.is_parallel_op():
         return OpPlan(ins=list(in_views), weights=[],
                       outs=[in_views[0]])
+    # its op type is LINEAR, its kernel [n, d, out]
+    if isinstance(op, ExpertsDense):
+        return _plan_experts_dense(op, mesh, out_view)
+    if t == OT.TOPK:
+        return _plan_topk(op, mesh, out_view, in_views)
+    if t == OT.GROUP_BY:
+        return _plan_group_by(op, mesh, out_view, in_views)
+    if t in (OT.AGGREGATE, OT.AGGREGATE_SPEC):
+        return _plan_aggregate(op, mesh, out_view, in_views)
+    if t == OT.RESHAPE:
+        return _plan_reshape(op, mesh, out_view, in_views)
     if t == OT.LINEAR:
         return _plan_linear(op, mesh, out_view, in_views, w_views)
     if t == OT.MULTIHEAD_ATTENTION and not getattr(op, "_decode_max_seq", 0):

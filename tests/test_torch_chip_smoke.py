@@ -581,12 +581,32 @@ def test_keras_table_is_the_examples():
 
 def test_multigpu_legs_follow_the_issue():
     """Four legs of 4 ranks (DP x TP, DP x SP, ZeRO-3 under Adam, the
-    CNN), the searched strategy over 8, and five pipeline legs of 4
-    (data 2 x pipe 2 with and without remat, pipe 4, the demo under 1F1B,
-    the search's cheapest pipeline), each with its strategy."""
+    CNN), the searched strategy over 8, five pipeline legs of 4 (data 2
+    x pipe 2 with and without remat, pipe 4, the demo under 1F1B, the
+    search's cheapest pipeline), and four MoE legs of 4 (data 4, expert
+    4, data 2 x expert 2, the search's), each with its strategy."""
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     assert [leg["ranks"] for leg in chip_smoke.MULTIGPU_LEGS] == \
-        [4, 4, 4, 4, chip_smoke.SEARCH_DEVICES, 4, 4, 4, 4, 4]
+        [4, 4, 4, 4, chip_smoke.SEARCH_DEVICES, 4, 4, 4, 4, 4, 4, 4, 4, 4]
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-4:] == \
+        ["moe_dp4", "ep4", "dp2_ep2", "moe_searched"]
+    assert chip_smoke.MOE == dict(hidden_size=768, num_layers=12,
+                                  num_heads=12, num_exp=8, num_select=2,
+                                  alpha=2.0, lambda_bal=0.04, num_classes=2)
+    dp4 = chip_smoke._multigpu_strategy(legs["moe_dp4"], {})
+    assert dp4.mesh_axes == {"data": 4} and not dp4.shard_configs
+    ep4 = chip_smoke._multigpu_strategy(legs["ep4"], {})
+    assert ep4.mesh_axes == {"expert": 4} and not ep4.edge_ops
+    assert len(ep4.shard_configs) == 24
+    assert {sc.expert for sc in ep4.shard_configs.values()} == {4}
+    mixed = chip_smoke._multigpu_strategy(legs["dp2_ep2"], {})
+    assert mixed.mesh_axes == {"data": 2, "expert": 2}
+    assert mixed.edge_ops["__inputs__"] == [("repartition",
+                                             {"dim": 0, "degree": 2})]
+    assert chip_smoke.expert_split(mixed) == 2
+    assert chip_smoke.expert_split(dp4) == 1
+    assert all(leg["reference"] == "moe" for leg in chip_smoke.MULTIGPU_LEGS
+               if leg["strategy"][0].startswith("moe"))
     tp = chip_smoke._multigpu_strategy(legs["dp_tp"], {})
     assert tp.mesh_axes == {"data": 2, "model": 2}
     sp = chip_smoke._multigpu_strategy(legs["dp_sp"], {})
@@ -774,3 +794,117 @@ def test_every_leg_reports_every_kernel_count():
                       [got] * 4}]}
     for kid in ("K1", "K2", "K3", "P1"):
         assert len(chip_smoke._multigpu_launches(line, kid)["pp_1f1b"]) == 4
+
+
+def test_moe_launches_follow_the_formula():
+    """K1-K3 per rank per step on the MoE legs: one each per attention
+    layer (12), whatever splits the experts; per ring block where a
+    strategy shards the sequence."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    for name in ("moe_dp4", "ep4", "dp2_ep2"):
+        strat = chip_smoke._multigpu_strategy(legs[name], {})
+        assert chip_smoke.expected_launches(legs[name], strat) == {
+            "K1": 12, "K2": 12, "K3": 12}
+    from flexflow_tpu_torch.strategy import Strategy
+
+    seq = Strategy(mesh_axes={"data": 2, "seq": 2})
+    assert chip_smoke.expected_launches(legs["moe_searched"], seq)["K1"] == 24
+
+
+def _moe_reports(tmp, flip_gap=None, balance=(0.48, 0.47), split=2,
+                 earlier=None):
+    """4 rank reports of a MoE leg and its one-card record, routing in
+    npz files under tmp: 2 steps x 12 layers x 16 tokens, rank r holding
+    tokens 4r..4r+3; with flip_gap, rank 0's token 1 takes its third
+    choice for its second at layer 3 of step 1, whose one-card gap
+    between them is flip_gap; with earlier = (layer, token), that token
+    flips its second choice at that layer of step 1 too, at a gap of
+    1e-7."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 8, (2, 12, 16, 2)).astype(np.int16)
+    top3 = -np.sort(-rng.rand(2, 12, 16, 3), axis=-1)
+    got = ids.copy()
+    if flip_gap is not None:
+        third = (int(ids[1, 3, 1, 1]) + 1) % 8
+        got[1, 3, 1, 1] = third
+        top3[1, 3, 1, 2] = top3[1, 3, 1, 1] - flip_gap
+    if earlier is not None:
+        layer, tok = earlier
+        got[1, layer, tok, 1] = (int(ids[1, layer, tok, 1]) + 1) % 8
+        top3[1, layer, tok, 2] = top3[1, layer, tok, 1] - 1e-7
+    np.savez(f"{tmp}/ref.npz", ids=ids, top3=top3,
+             start=np.zeros((2, 12), int), aux=np.zeros((2, 12)))
+    ref = {"losses": [0.69, 0.68], "step_s": [1.0, 0.3],
+           "last_step_moves": {"w": 1e-3}, "routing_file": f"{tmp}/ref.npz",
+           "balance_losses": [0.48, 0.47],
+           "expert_weight_bytes": 226525184, "dropped_pair_share": [0.0] * 2}
+    reports = []
+    for r in range(4):
+        path = f"{tmp}/leg_{r}.npz"
+        np.savez(path, ids=got[:, :, 4 * r:4 * r + 4],
+                 start=np.full((2, 12), 4 * r), aux=np.zeros((2, 12)))
+        rep = _rank_report(r, losses=(0.69, 0.68))
+        rep.update(mesh={"data": 2, "expert": 2}, routing_file=path,
+                   expert_weight_bytes=226525184 // split,
+                   balance_losses=list(balance),
+                   collective_bytes_per_step={
+                       "GroupBy.all_to_all_v": 5e7, "Aggregate.all_reduce":
+                       0.0, "LayerNorm.all_gather": 1e6})
+        reports.append(rep)
+    return reports, ref
+
+
+def test_moe_record_checks_flips_balance_and_expert_bytes(tmp_path):
+    """A MoE leg passes with its routing equal to one card's, or a flip
+    at a gate gap within MOE_FLIP_GAP; it fails on a flip at a wider
+    gap, on a balance loss off the one-card run's, and on expert weights
+    that are not 1/E of one card's per rank."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+
+    def record(**kw):
+        reps, ref = _moe_reports(str(tmp_path), **kw)
+        return chip_smoke._multigpu_record(legs["dp2_ep2"], reps, ref,
+                                           "gloo", 1, 50.0, "", {})
+
+    ok = record()
+    assert ok["faults"] == [] and ok["moe"]["flip_count"] == 0
+    assert ok["moe"]["expert_split"] == 2
+    assert ok["moe"]["moe_collective_bytes_per_step_total"] == [5e7] * 4
+    assert ok["expected_launches_per_rank_per_step"] == {
+        "K1": 12, "K2": 12, "K3": 12}
+    near = record(flip_gap=5e-6)
+    assert near["faults"] == [] and near["moe"]["flip_count"] == 1
+    flip = near["moe"]["flips"][0]
+    assert (flip["step"], flip["layer"], flip["token"]) == (1, 3, 1)
+    assert flip["gate_gap"] == pytest.approx(5e-6)
+    wide = record(flip_gap=1e-3)
+    assert any("routing flips" in f for f in wide["faults"])
+    assert wide["moe"]["flips"][0]["after"] is None
+    # in sequences of 8 tokens: the same flip after a flip at an earlier
+    # layer of its own sequence follows it; after one in another
+    # sequence, or at a later layer, it still fails
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(chip_smoke, "TRAIN_SEQ", 8)
+    try:
+        same = record(flip_gap=1e-3, earlier=(1, 6))
+        cross = record(flip_gap=1e-3, earlier=(1, 9))
+        late = record(flip_gap=1e-3, earlier=(5, 6))
+    finally:
+        monkey.undo()
+    assert same["faults"] == [] and same["moe"]["own_flip_count"] == 1
+    assert same["moe"]["flips"][1]["after"] == [1, 6]
+    assert any("routing flips" in f for f in cross["faults"])
+    assert any("routing flips" in f for f in late["faults"])
+    bal = record(balance=(0.48, 0.47 * 4))
+    assert any("balance losses" in f for f in bal["faults"])
+    whole = record(split=1)
+    assert any("expert weights" in f for f in whole["faults"])
+
+
+def test_dropped_share_counts_pairs_past_capacity():
+    """Capacity ceil(2 * 2 * 16 / 8) = 8 per expert: 32 pairs all on
+    expert 0 drop 24 of them per layer."""
+    ids = np.zeros((3, 16, 2), np.int16)
+    assert chip_smoke.dropped_share(ids) == 24 / 32
+    ids[:] = np.arange(32).reshape(16, 2) % 8
+    assert chip_smoke.dropped_share(ids) == 0.0

@@ -41,7 +41,7 @@ def test_no_jax_or_reference_imports():
             "substitution.py", "segments.py", "search.py", "simulator.py",
             "machine_model.py", "taskgraph.py", "calibrate.py",
             "parallel_op.py", "machine.py", "pipeline_plan.py",
-            "pipeline.py", "comm.py",
+            "pipeline.py", "comm.py", "expert_parallel.py",
             "strategy.py", "profiler.py", "logger.py"} <= names
     for sub in ("keras", "keras/preprocessing", "onnx_frontend", "sim",
                 "parallel", "topology", "native", "pcg"):
@@ -78,6 +78,7 @@ def test_import_leaves_jax_unloaded():
             "flexflow_tpu_torch.sim.calibrate, "
             "flexflow_tpu_torch.parallel.pipeline_plan, "
             "flexflow_tpu_torch.parallel.pipeline, "
+            "flexflow_tpu_torch.parallel.expert_parallel, "
             "flexflow_tpu_torch.topology.comm, "
             "flexflow_tpu_torch.native, flexflow_tpu_torch.profiler, "
             "flexflow_tpu_torch.strategy; "

@@ -354,3 +354,79 @@ def test_moe_builders_train_like_reference(model):
                 rng.randint(0, 4, size=yshape).astype(np.int32))
                for _ in range(2)]
     _steps_match(jf, tf, batches)
+
+
+# -- the local-expert forms and the exchange of expert parallelism ----------
+
+@pytest.mark.parametrize("shards,chunks,cap", [(4, 1, 6), (1, 4, 6),
+                                               (2, 2, 3), (4, 2, 2)])
+def test_local_dispatch_forms_equal_the_global_ones(shards, chunks, cap):
+    """The tokens split into `shards` (each shard's pairs ranked from the
+    counts of the shards before it) and the experts into `chunks`: each
+    shard's sort_group_by rows, summed over shards and joined over
+    chunks, and each shard's sort_combine rows, summed over chunks and
+    joined over shards, equal the one-device forms bit for bit, under a
+    capacity that drops pairs; with the defaults the local forms are the
+    one-device functions."""
+    b, k, n, d = 24, 2, 8, 5
+    rng = np.random.RandomState(7)
+    assign = torch.tensor(rng.randint(0, n, (b, k)), dtype=torch.int32)
+    data = torch.tensor(rng.randn(b, d).astype(np.float32))
+    out = torch.tensor(rng.randn(n, cap, d).astype(np.float32))
+    want_g = TD.sort_group_by(data, assign, n, cap)
+    want_c, keep = TD.sort_combine(out, assign, cap)
+    assert not bool(keep.all())  # the capacity drops pairs
+    m, rows = n // chunks, b // shards
+    counts = torch.stack([torch.bincount(assign[s * rows:(s + 1) * rows]
+                                         .reshape(-1).long(), minlength=n)
+                          for s in range(shards)])
+    offsets = torch.cumsum(counts, 0) - counts
+    got_g = torch.cat([sum(TD.sort_group_by(
+        data[s * rows:(s + 1) * rows], assign[s * rows:(s + 1) * rows], n,
+        cap, c * m, m, offsets[s]) for s in range(shards))
+        for c in range(chunks)])
+    got_c = torch.cat([sum(TD.sort_combine(
+        out[c * m:(c + 1) * m], assign[s * rows:(s + 1) * rows], cap, n,
+        c * m, offsets[s])[0] for c in range(chunks))
+        for s in range(shards)])
+    assert torch.equal(got_g, want_g)
+    assert torch.equal(got_c, want_c)
+    slot, keep1 = TD.dispatch_indices(assign, cap, n)
+    slot0, keep0 = TD.dispatch_indices(assign, cap, n,
+                                       torch.zeros(n, dtype=torch.long))
+    assert torch.equal(slot, slot0) and torch.equal(keep1, keep0)
+    assert torch.equal(TD.sort_group_by(data, assign, n, cap, 0, n), want_g)
+    assert torch.equal(TD.sort_combine(out, assign, cap, n, 0)[0], want_c)
+
+
+def test_exchange_forward_and_backward_against_a_gather():
+    """collectives.exchange (the variable all-to-all of expert
+    parallelism) on 4 gloo ranks: what each rank receives is the rows
+    the others addressed to it, in rank order; each row's grad comes back
+    to its sender (the reverse exchange)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_dist_ranks as R
+
+    world = 4
+    rng = np.random.RandomState(3)
+    # send[r][j]: rows rank r sends rank j (zero included)
+    send = rng.randint(0, 4, (world, world))
+    send[1, 2] = 0
+    rows = [rng.randn(int(send[r].sum()), 3).astype(np.float32)
+            for r in range(world)]
+    cases = [(R.exchange_case, (rows[r], list(send[r]), list(send[:, r])))
+             for r in range(world)]
+    got = R.run_group(R.exchange_rank, world, cases, timeout=120)
+    for r, (recv, grad) in enumerate(got):
+        want = np.concatenate([
+            rows[s][send[s, :r].sum():send[s, :r + 1].sum()]
+            for s in range(world)])
+        np.testing.assert_array_equal(recv, want)
+        # receiver j's grad of each row is the row times j + 1
+        scale = np.concatenate([np.full(send[r, j], 1.0 + j)
+                                for j in range(world)])
+        np.testing.assert_allclose(grad, rows[r] * scale[:, None],
+                                   rtol=1e-6)

@@ -485,25 +485,47 @@ def test_dryrun_multichip_pipeline_legs_replay(eight, leg):
     np.testing.assert_allclose(losses[0], ref[leg], **TOL)
 
 
-def test_compile_still_refuses_expert_shardings_and_factored_views():
-    """What is left of ROADMAP §1.D raises: an expert sharding at
-    compile, a dim sharded over two mesh axes at the views' check."""
+def test_compile_still_refuses_factored_views():
+    """What is left of ROADMAP §1.D raises: a dim sharded over two mesh
+    axes, at the views' check."""
     from flexflow_tpu_torch.model import check_views
-    from flexflow_tpu_torch.ops.op import ShardConfig
     from flexflow_tpu_torch.strategy import apply_strategy, assign_views
 
-    s = data_parallel_strategy(1)
-    s.shard_configs["blk0"] = ShardConfig(expert=2)
     ff = PF.FFModel(PF.FFConfig(device="cpu", batch_size=16))
     stacked(ff)
-    with pytest.raises(NotImplementedError, match="expert.*ROADMAP §1.D"):
-        ff.compile(strategy=s)
     f = Strategy(mesh_axes={"data": 2, "model": 2})
     f.edge_ops["__inputs__"] = [("repartition", {"dim": 0, "degree": 4})]
     g = apply_strategy(ff.layers, f)
     assign_views(g, f.mesh_axes)
     with pytest.raises(NotImplementedError, match="factored.*ROADMAP §1.D"):
         check_views(g)
+
+
+def test_compile_runs_an_expert_degree_on_a_dense_op_as_the_reference(
+        devices8):
+    """ShardConfig(expert=2) on a dense op (blk0) of a one-device
+    strategy: the reference ignores the degree (a Linear has no expert
+    dim) and trains; the port, which refused every expert sharding
+    before expert parallelism, now compiles it and trains the same
+    losses and weights."""
+    from flexflow_tpu.ops.op import ShardConfig as RShard
+    from flexflow_tpu.strategy import data_parallel_strategy as r_dp
+    from flexflow_tpu_torch.ops.op import ShardConfig
+
+    rs = r_dp(1)
+    rs.shard_configs["blk0"] = RShard(expert=2)
+    ref = _ref_model(stacked, devices8[:1], rs)
+    w = ref.get_weights()
+    x, y = _xy(0)
+    want = _steps(ref, x, y, 2)
+    s = data_parallel_strategy(1)
+    s.shard_configs["blk0"] = ShardConfig(expert=2)
+    ff = _port_model(stacked, s)
+    ff.set_weights(w)
+    np.testing.assert_allclose(_steps(ff, x, y, 2), want, **TOL)
+    for op, entries in ref.get_weights().items():
+        for k, v in entries.items():
+            np.testing.assert_allclose(ff.get_weights()[op][k], v, **TOL)
 
 
 def test_pipeline_candidates_are_the_reference_searchs():

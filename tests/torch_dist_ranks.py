@@ -405,3 +405,94 @@ def transformer_case(rank, world, dp, pp, kw, params, x, y, steps,
               if pp > 1 else v.numpy() for k, v in p["blocks"].items()}
     return {"losses": losses, "blocks": blocks,
             "head": p["head"]["head"].numpy(), "saved_peak": peak[0]}
+
+
+# -- expert parallelism ------------------------------------------------------
+
+def balance_losses(rank, world, build, strategy, weights, inputs):
+    """Compile under `strategy`, load `weights`, one training forward of
+    the global `inputs`: each Aggregate's balance loss, in graph order,
+    and the MoE ops' collective bytes by (op class, kind)."""
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.parallel import collectives
+
+    ff = FFModel(FFConfig(device="cpu"))
+    build(ff)
+    ff.compile(strategy=strategy, seed=0)
+    ff.set_weights(weights)
+    collectives.traffic.clear()
+    aux = []
+    with torch.no_grad():
+        ff.executor.run_forward(ff._weights, ff._state,
+                                {k: torch.tensor(v) for k, v in
+                                 inputs.items()},
+                                training=True, aux_losses=aux)
+    return {"aux": [float(a) for a in aux],
+            "traffic": dict(collectives.traffic)}
+
+
+def exchange_rank(rank, world, cases):
+    """cases[rank]'s function on this rank."""
+    fn, args = cases[rank]
+    return fn(rank, world, *args)
+
+
+def exchange_case(rank, world, rows, send, recv):
+    """collectives.exchange over a `t` axis of the whole group: this
+    rank's `rows` (send[j] to rank j), what arrives, and the grad of the
+    rows when each received row's grad is its value times the receiver's
+    rank + 1."""
+    import torch
+
+    from flexflow_tpu_torch.parallel.collectives import exchange
+    from flexflow_tpu_torch.parallel.machine import make_mesh
+
+    mesh = make_mesh({"t": world}, "cpu")
+    x = torch.tensor(rows, requires_grad=True)
+    got = exchange(x, mesh, "t", send, recv)
+    (got * got.detach() * (rank + 1)).sum().backward()
+    return got.detach().numpy(), x.grad.numpy()
+
+
+def moe_mlp(ff, batch=16, num_exp=4, alpha=2.0, **kw):
+    """tests/test_parallelism.py-sized MoE MLP with either package's
+    FFModel (its moe builder)."""
+    mod = ("flexflow_tpu_torch.models.moe"
+           if type(ff).__module__.startswith("flexflow_tpu_torch")
+           else "flexflow_tpu.models.moe")
+    import importlib
+
+    importlib.import_module(mod).build_moe_mlp(
+        ff, batch_size=batch, input_dim=16, num_classes=4, num_exp=num_exp,
+        num_select=2, hidden_size=16, alpha=alpha, **kw)
+
+
+def moe_encoder(ff, batch=8, layers=2, num_exp=4, alpha=2.0):
+    """A tiny MoE encoder (seq 8, hidden 16) with either package's
+    FFModel."""
+    mod = ("flexflow_tpu_torch.models.moe"
+           if type(ff).__module__.startswith("flexflow_tpu_torch")
+           else "flexflow_tpu.models.moe")
+    import importlib
+
+    importlib.import_module(mod).build_moe_encoder(
+        ff, batch_size=batch, seq_length=8, hidden_size=16,
+        num_layers=layers, num_heads=2, num_exp=num_exp, alpha=alpha,
+        num_classes=4)
+
+
+def moe_spec(ff, num_exp=4):
+    """The MoE MLP through AggregateSpec (each sample's k predictions)."""
+    x = ff.create_tensor([16, 16], name="input")
+    gate = ff.dense(x, num_exp, name="gate")
+    gate_sm = ff.softmax(gate, name="gate_sm")
+    values, assign = ff.top_k(gate_sm, 2, name="topk")
+    grouped = ff.group_by(x, assign, num_exp, 2.0, name="group_by_0")
+    hidden = ff.experts_dense(grouped, 4, activation=_relu(ff),
+                              name="experts_dense_0")
+    out = ff.aggregate_spec(values, assign, gate_sm, hidden, num_exp, 0.04,
+                            name="agg")
+    ff.softmax(out, name="softmax")
