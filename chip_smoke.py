@@ -172,7 +172,7 @@ Phases, each a failure of which exits non-zero:
    launches of the search, the steps and the calibration go into the
    kernels line.  The searched strategy and the measured op costs are
    left for the multigpu phase.
-24. multigpu: fourteen legs, each over a group of spawned ranks (rank r on
+24. multigpu: eighteen legs, each over a group of spawned ranks (rank r on
    card r % cards; the backend NCCL where every rank has a card of its
    own, else gloo, named, with every collective staged through host
    memory), each taking 2 train steps (the first by train_step, the
@@ -214,6 +214,21 @@ Phases, each a failure of which exits non-zero:
    (MOE_BALANCE_TOL) and its expert-weight bytes per rank (1/E of one
    card's), and reports its dropped-pair share and the MoE ops'
    collective bytes per step; K1-K3 launch 12 each per rank per step.
+   Factored views and the slice hierarchy over 4 ranks, BERT-base as in
+   the train phase: attention at channel 4 (heads on model1 + model0)
+   and the first FFN at channel 2 (on model1) over {model0: 2, model1:
+   2} (factored_tp4); FFConfig(slices=2) with data 4, run as {slice: 2,
+   data: 2} with the hierarchical grad reduction and then flat on the
+   same mesh from the same weights (slices2_dp4: the two within
+   HIER_FLAT_TOL), with ZeRO-1 and Adam over the intra-slice remainder
+   (slices2_zero1), and the Unity search's strategy for 4 GPUs as 2
+   nodes x 2 of SLICES_MACHINE, placement included (slices2_searched);
+   each reports its execution mesh, hier_axis and wus_axis and every
+   rank's collective bytes per step by op and kind, and with NCCL the
+   task-graph simulator's price on the switched and on the routed
+   machine beside the analytic one.  The four cards of one box stand for
+   the slices: the legs show the hierarchy's correctness and its cost on
+   NVLink, not InfiniBand.  K1-K3 launch 12 each per rank per step.
    `--legs` runs some of the legs (and only the searches they need).
    The kernels are built once, before
    the ranks start; each rank sets its launch counters to 0 and reports
@@ -230,7 +245,10 @@ path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
 `--phases nmt,generate,keras,onnx,seq_parity` for the sequence-model
 and frontend slice, `--phases search` for the search and simulator,
 `--phases multigpu` for multi-GPU execution, `--phases multigpu
---legs moe_dp4,ep4,dp2_ep2,moe_searched` for expert parallelism).
+--legs moe_dp4,ep4,dp2_ep2,moe_searched` for expert parallelism,
+`--phases multigpu --legs
+factored_tp4,slices2_dp4,slices2_zero1,slices2_searched` for factored
+views and the slice hierarchy).
 Every line but the last two is one JSON object; the
 one before the last is the card's name and power limit as nvidia-smi
 prints them, and the last is {"ok": true, "device": {...}}.  Exits 2,
@@ -3582,16 +3600,18 @@ CAL_HELD_OUT_TOL = 0.25
 
 
 def search_config(cache_file: str, budget: int = SEARCH_BUDGET,
-                  batch: int = TRAIN_BATCH, **kw):
+                  batch: int = TRAIN_BATCH, machine: str = SEARCH_MACHINE,
+                  **kw):
     """The search phase's FFConfig: the train phase's BERT-base batch,
-    ops timed on the card into `cache_file`, the HGX node file."""
+    ops timed on the card into `cache_file`, the HGX node file (or
+    `machine`'s)."""
     from flexflow_tpu_torch import FFConfig
     from flexflow_tpu_torch.sim.machine_model import machine_file
 
     return FFConfig(batch_size=batch, device="cuda", seed=0,
                     search_budget=budget, search_calibrate=True,
                     op_cost_cache_file=cache_file,
-                    machine_model_file=machine_file(SEARCH_MACHINE), **kw)
+                    machine_model_file=machine_file(machine), **kw)
 
 
 def search_bert(cfg):
@@ -3877,7 +3897,38 @@ MULTIGPU_LEGS = (
     # what the Unity search writes for the encoder on 4 GPUs
     {"name": "moe_searched", "ranks": 4, "strategy": ["moe_file"],
      "optimizer": "sgd", "reference": "moe"},
+    # factored per-op views, ["factored", attention channel, ffn1
+    # channel] over {model0: 2, model1: 2}: attention heads on model1 +
+    # model0, ffn1 on model1 (the form Unity's _mesh_variants writes for
+    # tp 4)
+    {"name": "factored_tp4", "ranks": 4, "strategy": ["factored", 4, 2],
+     "optimizer": "sgd", "reference": "bert_sgd"},
+    # two slices of 2 ranks (FFConfig(slices=2)): data 4 run as {slice:
+    # 2, data: 2} with the hierarchical grad reduction (and once more
+    # flat on the same mesh), ZeRO-1 over the intra-slice remainder,
+    # and the Unity search's strategy for 2 nodes x 2 GPUs
+    {"name": "slices2_dp4", "ranks": 4, "strategy": ["dp"], "slices": 2,
+     "flat_baseline": True, "optimizer": "sgd", "reference": "bert_sgd"},
+    {"name": "slices2_zero1", "ranks": 4, "strategy": ["dp"], "slices": 2,
+     "zero": 1, "optimizer": "adam", "reference": "bert_adam"},
+    {"name": "slices2_searched", "ranks": 4, "strategy": ["slices_file"],
+     "slices": 2, "optimizer": "sgd", "reference": "bert_sgd"},
 )
+# slices2_dp4's hierarchical weights against its flat run on the same
+# mesh after the 2 steps, |hier - flat| <= atol + rtol |flat| per
+# element: tests/test_topology.py:313's bar for the two reduction
+# orders.  Stated before the first run on the card: the two forms sum
+# the same 4 grads per element in other orders (~1e-7 relative per
+# step), so a skipped or doubled sum between the slices reads ~1e-3
+HIER_FLAT_TOL = {"rtol": 2e-5, "atol": 2e-6}
+# the machine the slice legs are priced on: two HGX H100 nodes, cut to
+# 2 GPUs a node (the legs' 4 ranks as 2 slices of 2)
+SLICES_MACHINE = "hgx_h100_16"
+# the four cards of a chip run sit in one NVSwitch box
+SLICES_NOTE = ("the four cards sit in one NVSwitch box and the slices "
+               "are its halves: the hierarchy's collectives run on "
+               "NVLink, not InfiniBand, whose rates stay datasheet "
+               "figures")
 # the pipeline legs' GPUs, and K1-K3's shape at their one-row
 # microbatches (batch 8 over data 2 and 4 microbatches)
 PIPELINE_DEVICES = 4
@@ -3925,15 +3976,15 @@ def _multigpu_optimizer(name: str):
 
 
 def _multigpu_bert(device: str, optimizer: str, strategy=None, zero=0,
-                   remat=False, compiled=True):
+                   remat=False, compiled=True, slices=1):
     """The train phase's BERT-base, batch 8, seq 2048, weights from seed
-    0 (every rank draws the same global weights); uncompiled, its layer
-    graph alone."""
+    0 (every rank draws the same global weights), over `slices` slices;
+    uncompiled, its layer graph alone."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models.transformer import build_bert
 
     ff = FFModel(FFConfig(batch_size=TRAIN_BATCH, device=device, seed=0,
-                          zero_stage=zero, remat=remat))
+                          zero_stage=zero, remat=remat, slices=slices))
     build_bert(ff, batch_size=TRAIN_BATCH, seq_length=TRAIN_SEQ, **BERT)
     if compiled:
         ff.compile(optimizer=_multigpu_optimizer(optimizer),
@@ -4095,6 +4146,21 @@ def pipeline_strategy(dp: int, pp: int, microbatches: int):
     return s
 
 
+def factored_strategy(attn: int, ffn1: int):
+    """BERT-base over {model0: 2, model1: 2}: every attention at channel
+    `attn` and every first FFN at channel `ffn1`, the view normalizer
+    factoring each degree onto the axes (4: model1 + model0, 2:
+    model1)."""
+    from flexflow_tpu_torch.ops.op import ShardConfig
+    from flexflow_tpu_torch.strategy import Strategy
+
+    s = Strategy(mesh_axes={"model0": 2, "model1": 2})
+    for i in range(BERT["num_layers"]):
+        s.shard_configs[f"attn_{i}"] = ShardConfig(channel=attn)
+        s.shard_configs[f"ffn1_{i}"] = ShardConfig(channel=ffn1)
+    return s
+
+
 def _multigpu_strategy(leg, job):
     """The leg's Strategy (None for the demo, which has no graph)."""
     from flexflow_tpu_torch.models.transformer import (bert_sp_strategy,
@@ -4116,6 +4182,10 @@ def _multigpu_strategy(leg, job):
         return moe_strategy(*leg["strategy"][1:])
     if kind == "moe_file":
         return Strategy.load(job["moe_strategy_file"])
+    if kind == "factored":
+        return factored_strategy(*leg["strategy"][1:])
+    if kind == "slices_file":
+        return Strategy.load(job["slices_strategy_file"])
     if kind == "demo":
         return None
     return data_parallel_strategy(leg["ranks"])
@@ -4187,7 +4257,8 @@ def _multigpu_leg(torch, dist, leg, job, rank):
         seen = watch_routing(torch, ff, top3=False)
     else:
         ff = _multigpu_bert("cuda", leg["optimizer"], strategy,
-                            leg.get("zero", 0), leg.get("remat", False))
+                            leg.get("zero", 0), leg.get("remat", False),
+                            slices=leg.get("slices", 1))
     compile_s = time.perf_counter() - t0
     b = MULTIGPU_CNN["batch"] if leg["reference"] == "cnn" else TRAIN_BATCH
     reset_leg_launches(fa, bk)
@@ -4212,6 +4283,10 @@ def _multigpu_leg(torch, dist, leg, job, rank):
            "zero_stage": ff.executor.zero_stage,
            "zero_fallback_leaves": ff.executor.zero_fallback_leaves(),
            "mesh": dict(ff.strategy.mesh_axes),
+           # the mesh the step ran on (expanded under slices)
+           "exec_mesh": dict(ff.executor.mesh.axis_sizes),
+           "hier_axis": ff.executor.hier_axis,
+           "wus_axis": ff.executor.wus_axis,
            # payload bytes per step this rank handed to collectives, by
            # the op class whose forward ran them (backward included)
            "collective_bytes_per_step": {
@@ -4250,6 +4325,9 @@ def _multigpu_leg(torch, dist, leg, job, rank):
             rec["profile"] = prof
     del ff
     torch.cuda.empty_cache()
+    if leg.get("flat_baseline"):
+        rec["flat"] = _multigpu_flat(torch, dist, leg, job, data,
+                                     weights if rank == 0 else None, rank)
     return rec
 
 
@@ -4414,6 +4492,65 @@ def _multigpu_zero0(torch, dist, leg, job, data, weights3):
     diff, at = _weights_diff(weights3, weights0)
     return {"losses": losses, "weights_diff": diff, "worst_weight": at,
             "opt_state_bytes": opt0}
+
+
+def _multigpu_flat(torch, dist, leg, job, data, weights_hier, rank):
+    """The leg's group again on the same two-level mesh with the
+    hierarchical reduction switched off (hier_axis None: an all-reduce
+    over each axis, tests/test_topology.py:328-342's flat baseline), from
+    the same weights and batches and by the same steps (train_step, then
+    fit; a profiled third under NCCL): its losses, step seconds,
+    collective bytes per step and, on rank 0, its profile and its
+    weights against the hierarchical run's (HIER_FLAT_TOL)."""
+    from flexflow_tpu_torch.parallel import collectives
+
+    ff = _multigpu_bert("cuda", leg["optimizer"], _multigpu_strategy(leg, job),
+                        leg.get("zero", 0), slices=leg.get("slices", 1))
+    ff.executor.hier_axis = None
+    collectives.traffic.clear()
+    losses, step_s = [], []
+    b = TRAIN_BATCH
+    for i in range(MULTIGPU_STEPS):
+        x, y = data["x"][i * b:(i + 1) * b], data["y"][i * b:(i + 1) * b]
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if i == 0:
+            losses.append(float(ff.train_step({"input": x}, y)["loss"]))
+        else:
+            losses.append(_fit_step(ff, x, y, b))
+        step_s.append(time.perf_counter() - t0)
+    out = {"losses": losses, "step_s": step_s,
+           "collective_bytes_per_step": {
+               f"{scope}.{kind}": v / MULTIGPU_STEPS
+               for (scope, kind), v in collectives.traffic.items()}}
+    flat = ff.get_weights()
+    if job.get("profile"):
+        prof = _rank_profile(torch, ff, data["x"][:b], data["y"][:b])
+        if rank == 0:
+            out["profile"] = prof
+    del ff
+    torch.cuda.empty_cache()
+    if weights_hier is not None:
+        out.update(hier_flat_diff(weights_hier, flat))
+    return out
+
+
+def hier_flat_diff(hier: dict, flat: dict) -> dict:
+    """The largest |hier - flat| and the largest excess of it over
+    HIER_FLAT_TOL's rtol |flat| (within the limit when <= its atol)."""
+    rtol = HIER_FLAT_TOL["rtol"]
+    worst = excess = 0.0
+    at = None
+    for op, entries in flat.items():
+        for k, v in entries.items():
+            d = np.abs(hier[op][k] - v)
+            e = float((d - rtol * np.abs(v)).max())
+            worst = max(worst, float(d.max()))
+            if at is None or e > excess:
+                excess, at = e, f"{op}.{k}"
+    return {"weights_diff": worst, "excess_over_rtol": excess,
+            "worst_weight": at}
 
 
 def _multigpu_rank(rank, world, cards, backend, port, job, out_dir):
@@ -4631,11 +4768,73 @@ def _searched_strategy_file(torch, fa, run_dir) -> str:
     return str(path)
 
 
+def _slices_strategy_file(torch, run_dir) -> dict:
+    """The Unity search's strategy for BERT-base on 4 GPUs as 2 slices
+    of 2 (FFConfig(slices=2) over SLICES_MACHINE's H100 rates: a
+    SliceHierarchy of 2 nodes x 2 GPUs), ops timed on the card, written
+    to run_dir/slices_strategy.json: the file, its placement and whether
+    its reduction is hierarchical."""
+    from flexflow_tpu_torch.pcg.search import unity_search
+
+    path = Path(run_dir) / "slices_strategy.json"
+    cfg = search_config(str(Path(run_dir) / "op_costs.json"),
+                        machine=SLICES_MACHINE, slices=2)
+    best = unity_search(search_bert(cfg), 4)
+    best.save(str(path))
+    torch.cuda.empty_cache()
+    return {"file": str(path),
+            "placement": best.search_stats.get("placement"),
+            "hierarchical_reduction": best.search_stats.get(
+                "hierarchical_reduction"),
+            "strategy": json.loads(best.to_json())}
+
+
+def event_prices(run_dir, strategy) -> dict:
+    """The task-graph simulator's step ms for `strategy` over BERT-base
+    on SLICES_MACHINE's H100 rates cut to 2 nodes of n/2 GPUs, priced
+    on the switched GpuNodeModel and on the same nodes as a routed
+    network (sim/network.py gpu_node_network), with the search's
+    measured op costs."""
+    from flexflow_tpu_torch.pcg.rewrite import cancel_all_inverse_parallel_ops
+    from flexflow_tpu_torch.sim.machine_model import (GpuNodeModel,
+                                                      machine_file)
+    from flexflow_tpu_torch.sim.network import gpu_node_network
+    from flexflow_tpu_torch.sim.simulator import make_cost_model
+    from flexflow_tpu_torch.sim.taskgraph import TaskGraphSimulator
+    from flexflow_tpu_torch.strategy import apply_strategy, assign_views
+
+    cfg = search_config(str(Path(run_dir) / "op_costs.json"),
+                        machine=SLICES_MACHINE)
+    base = GpuNodeModel.from_file(machine_file(SLICES_MACHINE))
+    node = GpuNodeModel(num_nodes=2,
+                        gpus_per_node=strategy.total_devices // 2,
+                        device=base.device(), nvlink_bw=base.nvlink_bw,
+                        nvlink_lat=base.nvlink_lat, ib_bw=base.ib_bw,
+                        ib_lat=base.ib_lat)
+    g = cancel_all_inverse_parallel_ops(
+        apply_strategy(search_bert(cfg).layers, strategy))
+    assign_views(g, strategy.mesh_axes)
+    out = {}
+    for name, m in (("gpu_node_model", node),
+                    ("networked", gpu_node_network(node))):
+        res = TaskGraphSimulator(m, make_cost_model(cfg, m)).simulate(
+            g, strategy.mesh_axes)
+        out[name] = res.total_time * 1e3
+    return out
+
+
 def _multigpu_prediction(run_dir, leg, strategy) -> float:
-    """The simulator's step for `strategy` on hgx_h100_8.json, with the
-    search's measured op costs."""
+    """The simulator's step for `strategy` on hgx_h100_8.json (for a
+    slice leg, SLICES_MACHINE's rates as a SliceHierarchy of its
+    slices), with the search's measured op costs."""
     from flexflow_tpu_torch.sim.machine_model import make_machine_model
 
+    if leg.get("slices", 1) > 1:
+        cfg = search_config(str(Path(run_dir) / "op_costs.json"),
+                            machine=SLICES_MACHINE, slices=leg["slices"])
+        return predicted_step(cfg, search_bert(cfg),
+                              make_machine_model(cfg, strategy.total_devices),
+                              strategy)
     cfg = search_config(str(Path(run_dir) / "op_costs.json"))
     build = search_moe if leg["reference"] == "moe" else search_bert
     return predicted_step(cfg, build(cfg),
@@ -4691,6 +4890,9 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
             job["strategy_file"] = _searched_strategy_file(torch, fa, run_dir)
         if "moe_file" in kinds:
             job["moe_strategy_file"] = _moe_strategy_file(torch, run_dir)
+        if "slices_file" in kinds:
+            job["slices_search"] = _slices_strategy_file(torch, run_dir)
+            job["slices_strategy_file"] = job["slices_search"]["file"]
         if kinds & {"pipe", "pipe_file"}:
             job["pipelines"] = _pipeline_candidates(torch, run_dir)
             job["pipeline_file"] = str(Path(run_dir) /
@@ -4730,6 +4932,7 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
                        flip_gap_limit=MOE_FLIP_GAP,
                        balance_tolerance=MOE_BALANCE_TOL),
            "demo": DEMO, "pipeline_candidates": job["pipelines"],
+           "hier_flat_tolerance": HIER_FLAT_TOL,
            "flash_microbatch": None if microbatch is None else {
                "shape": list(PIPELINE_FLASH_SHAPE),
                **{k: microbatch[k] for k in (
@@ -4841,6 +5044,8 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
         dz = _loss_err(z["losses"], r0["losses"])
         if dz > MULTIGPU_TOL["loss"] or z["weights_diff"] > wtol:
             faults.append(f"{name}: ZeRO-3 against ZeRO-0 {z}")
+    if leg.get("slices", 1) > 1:
+        _slice_checks(leg, ranks, faults)
     step_s = [max(r["step_s"][i] for r in ranks)
               for i in range(MULTIGPU_STEPS)]
     rec = {
@@ -4893,6 +5098,25 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
                                            for r in ranks]}
     if "profile" in r0:
         rec["profile_rank0"] = r0["profile"]
+    if leg.get("slices", 1) > 1 or leg["strategy"][0] == "factored":
+        rec.update(exec_mesh=r0["exec_mesh"], hier_axis=r0["hier_axis"],
+                   wus_axis=r0["wus_axis"],
+                   collective_bytes_per_step_per_rank=[
+                       r["collective_bytes_per_step"] for r in ranks])
+    if leg.get("slices", 1) > 1:
+        rec["slices"] = leg["slices"]
+        rec["slices_note"] = SLICES_NOTE
+        if "flat" in r0:
+            f = r0["flat"]
+            rec["flat"] = dict(
+                f, step_ms=[max(r["flat"]["step_s"][i] for r in ranks) * 1e3
+                            for i in range(MULTIGPU_STEPS)],
+                collective_bytes_per_step_per_rank=[
+                    r["flat"]["collective_bytes_per_step"] for r in ranks],
+                hier_flat_tolerance=HIER_FLAT_TOL)
+        if leg["strategy"][0] == "slices_file":
+            rec["search"] = {k: job["slices_search"][k]
+                             for k in ("placement", "hierarchical_reduction")}
     if strategy is not None and strategy.pipeline:
         rec.update(_pipeline_prediction(strategy, job))
         if leg.get("remat"):
@@ -4906,6 +5130,8 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
         strategy.zero_stage = leg.get("zero", strategy.zero_stage)
         rec["predicted_step_ms"] = _multigpu_prediction(
             run_dir, leg, strategy) * 1e3
+        if leg.get("slices", 1) > 1:
+            rec["event_predicted_step_ms"] = event_prices(run_dir, strategy)
     else:
         rec["predicted_step_ms"] = None
         rec["prediction_note"] = (
@@ -4915,9 +5141,40 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
             if backend == "gloo" else "the simulator has no CNN search"
             if leg["reference"] == "cnn" else
             "the demo is no FFModel graph: no search prices it")
-    if leg["strategy"][0] in ("file", "moe_file"):
+    if leg["strategy"][0] in ("file", "moe_file", "slices_file"):
         rec["searched_strategy"] = json.loads(strategy.to_json())
     return rec
+
+
+def _slice_checks(leg, ranks, faults) -> None:
+    """A slice leg's two-level mesh, hier_axis and wus_axis as
+    FFConfig(slices) gives them (data 4 over 2 slices: {slice: 2, data:
+    2}, the hierarchical reduction over data, or the ZeRO update over
+    data), and slices2_dp4's flat run on the same mesh: its losses, and
+    its weights within HIER_FLAT_TOL of the hierarchical ones."""
+    name, r0 = leg["name"], ranks[0]
+    if leg["strategy"][0] == "dp":
+        zero = leg.get("zero", 0) >= 1
+        want = ({"slice": 2, "data": 2}, None if zero else "data",
+                "data" if zero else None)
+        for r in ranks:
+            got = (r["exec_mesh"], r["hier_axis"], r["wus_axis"])
+            if got != want:
+                faults.append(f"{name}: rank {r['rank']} ran mesh, "
+                              f"hier_axis, wus_axis {got}, expected {want}")
+    if not leg.get("flat_baseline"):
+        return
+    f = r0.get("flat")
+    if f is None:
+        faults.append(f"{name}: no flat run on the same mesh")
+        return
+    if _loss_err(f["losses"], r0["losses"]) > MULTIGPU_TOL["loss"]:
+        faults.append(f"{name}: flat losses {f['losses']} against the "
+                      f"hierarchical {r0['losses']}")
+    if not f["excess_over_rtol"] <= HIER_FLAT_TOL["atol"]:
+        faults.append(f"{name}: hierarchical and flat weights "
+                      f"{f['weights_diff']} apart ({f['worst_weight']}), "
+                      f"beyond {HIER_FLAT_TOL}")
 
 
 MOE_SCOPES = ("TopK", "GroupBy", "ExpertsDense", "Aggregate",

@@ -5,12 +5,16 @@ Counterpart of flexflow_tpu/config.py, cut to the FFConfig fields and
 learning rate and weight decay, the compute dtype, the seed of the
 weight init, attention's flash crossover, the paged KV-pool geometry of
 the continuous engine, the strategy search, simulator and strategy-file
-fields, and `device`, which the reference does not have.  The field and
-flag names and defaults are the reference's own, except
-`memory_per_device`, which is one H100's 80 GB.  The reference's
-multi-slice, strategy-store and fusion fields (ROADMAP §1.D's second
-half, §1.E) are left out: FFConfig does not take them, and `from_args`
-raises on their flags rather than ignore them.
+fields, the multi-slice hierarchy (`slices` and the DCN fields of
+topology/hierarchy.py), and `device`, which the reference does not
+have.  The field and flag names and defaults are the reference's own,
+except `memory_per_device`, which is one H100's 80 GB, and
+`dcn_bandwidth` and `dcn_latency`, the InfiniBand NDR figures of
+sim/machines/hgx_h100_16.json (a datasheet rate, 50e9 B/s per GPU, and
+a model latency, 5 us), where the reference's are a TPU's DCN.  The
+reference's strategy-store and fusion fields (ROADMAP §1 items 5 and 7)
+are left out: FFConfig does not take them, and `from_args` raises on
+their flags rather than ignore them.
 """
 from __future__ import annotations
 
@@ -29,20 +33,14 @@ COMPUTE_DTYPES = ("float32", "bfloat16")
 
 SEARCH_ALGOS = ("unity", "mcmc")
 
-# the reference's flags of the multi-slice hierarchy, the strategy store
-# and the fusion pass, which the port does not carry yet
-_HIERARCHY = ("ROADMAP §1 item 4, of §1.D (the multi-node "
-              "SliceHierarchy, rendezvous and hierarchical reduction)")
+# the reference's flags of the strategy store and the fusion pass, which
+# the port does not carry yet
+_STORE = "ROADMAP §1 item 7 (store/ cached search)"
 _UNPORTED_FLAGS = {
-    "--slices": _HIERARCHY,
-    "--dcn-bandwidth": _HIERARCHY,
-    "--dcn-latency": _HIERARCHY,
-    "--slice-topology": _HIERARCHY,
-    "--dcn-bucket-mb": _HIERARCHY,
-    "--strategy-store": "ROADMAP §1.E (store/ cached search)",
-    "--no-strategy-store": "ROADMAP §1.E (store/ cached search)",
-    "--compilation-cache": "ROADMAP §1.E (store/ cached search)",
-    "--fusion": "ROADMAP §1 item 5, of §1.D (the fusion pass)",
+    "--strategy-store": _STORE,
+    "--no-strategy-store": _STORE,
+    "--compilation-cache": _STORE,
+    "--fusion": "ROADMAP §1 item 5 (the fusion pass)",
 }
 
 
@@ -115,6 +113,22 @@ class FFConfig:
     machine_model_file: Optional[str] = None
     simulator_segment_size: int = 16777216
 
+    # -- multi-slice hierarchy (topology/hierarchy.py): slices > 1 is a
+    #    run over that many nodes, NVLink inside each and InfiniBand
+    #    between.  The machine model becomes a SliceHierarchy, the
+    #    placement (the mesh axis that spans the nodes) a searched
+    #    dimension, and compile runs a two-level mesh whose grads are
+    #    reduced hierarchically.  1 (the default) is the flat run.
+    slices: int = 1
+    dcn_bandwidth: float = 50e9   # bytes/s per GPU between slices
+    dcn_latency: float = 5e-6     # seconds per hop between slices
+    # the GPUs of one slice, e.g. "8" or "2x4" (only the product counts:
+    # NVSwitch is flat); None = num_devices / slices
+    slice_topology: Optional[str] = None
+    # the simulator's grad-sync bucket (MB): a leaf's InfiniBand latency
+    # term is scaled by the share of a bucket its bytes fill
+    dcn_bucket_mb: float = 25.0
+
     # -- execution: the ZeRO stage (0-3), the mesh axis the update
     #    shards over, activation remat (every pure segment) and the
     #    gradient sync the simulator costs
@@ -170,6 +184,21 @@ class FFConfig:
         if self.memory_per_device <= 0:
             raise ValueError(f"memory_per_device must be > 0 bytes, got "
                              f"{self.memory_per_device}")
+        if self.slices < 1:
+            raise ValueError(f"slices must be >= 1, got {self.slices}")
+        if self.dcn_bandwidth <= 0:
+            raise ValueError(f"dcn_bandwidth must be > 0 bytes/s, got "
+                             f"{self.dcn_bandwidth}")
+        if self.dcn_latency < 0:
+            raise ValueError(f"dcn_latency must be >= 0 seconds, got "
+                             f"{self.dcn_latency}")
+        if self.slice_topology is not None:
+            from .topology.hierarchy import parse_slice_topology
+
+            parse_slice_topology(self.slice_topology)  # raises on a bad spec
+        if self.dcn_bucket_mb <= 0:
+            raise ValueError(f"dcn_bucket_mb must be > 0 MB, got "
+                             f"{self.dcn_bucket_mb}")
         self.parameter_sync = ParameterSyncType(self.parameter_sync)
 
     def should_calibrate(self) -> bool:
@@ -252,6 +281,15 @@ class FFConfig:
         p.add_argument("--machine-model-file", type=str, default=None)
         p.add_argument("--simulator-segment-size", type=int,
                        default=16777216)
+        p.add_argument("--slices", dest="slices", type=int, default=1)
+        p.add_argument("--dcn-bandwidth", dest="dcn_bandwidth", type=float,
+                       default=cls.dcn_bandwidth)
+        p.add_argument("--dcn-latency", dest="dcn_latency", type=float,
+                       default=cls.dcn_latency)
+        p.add_argument("--slice-topology", dest="slice_topology", type=str,
+                       default=None)
+        p.add_argument("--dcn-bucket-mb", dest="dcn_bucket_mb", type=float,
+                       default=25.0)
         p.add_argument("--zero-stage", dest="zero_stage", type=int,
                        default=0, choices=(0, 1, 2, 3))
         p.add_argument("--wus-axis", dest="wus_axis", type=str,
@@ -304,6 +342,11 @@ class FFConfig:
             machine_model_version=args.machine_model_version,
             machine_model_file=args.machine_model_file,
             simulator_segment_size=args.simulator_segment_size,
+            slices=args.slices,
+            dcn_bandwidth=args.dcn_bandwidth,
+            dcn_latency=args.dcn_latency,
+            slice_topology=args.slice_topology,
+            dcn_bucket_mb=args.dcn_bucket_mb,
             zero_stage=args.zero_stage,
             wus_axis=args.wus_axis,
             remat=args.remat,

@@ -51,6 +51,16 @@ which with the adjoint collectives gives each weight's exact grad once
 its partial sums are added over the axes that replicate it.  The ZeRO
 ladder (parallel/zero.py) shards the update over `wus_axis`.
 
+On the two-level mesh of a multi-slice run (topology/hierarchy.py: a
+leading "slice" axis and `hier_axis`, the placement axis's intra-slice
+remainder), the grads of the weights replicated over both are reduced
+in the hierarchical form, as the reference's `hier_update` has XLA
+lower them: a reduce-scatter over `hier_axis` (inside each slice), an
+all-reduce of the shard over "slice" (between slices) and an all-gather
+over `hier_axis`.  With the ZeRO ladder on, `wus_axis` is that
+remainder and `hier_axis` is None: the sharded update reduce-scatters
+over it first and all-reduces only its shard between slices.
+
 Under a pipeline (`pipeline_plan`, parallel/pipeline_plan.py) the block
 ops leave the per-op schedule: their weights are stacked per template
 weight over the L blocks under "__pipeline__", keyed "<j>.<name>" and
@@ -62,9 +72,10 @@ replicated over it, over it too.  Under expert parallelism
 (parallel/expert_parallel.py) every rank computes Aggregate's balance
 loss over the global batch, so the 1/world seed counts it once.  Each
 op's collectives are counted under its class's name
-(`collectives.traffic`), the update's under "update".  Factored per-op
-views, the multi-node hierarchy and the fusion pass are what is left of
-ROADMAP §1.D.
+(`collectives.traffic`), the update's under "update".  A view may shard
+one dim over several mesh axes (a factored per-op view): the layouts
+carry a tuple of axes per dim, and each collective runs over one axis
+at a time.
 """
 from __future__ import annotations
 
@@ -86,6 +97,7 @@ from .parallel.spmd import layout_of, plan_op
 from .parallel.zero import shard_update_spec
 from .pcg.graph import Graph
 from .pcg.layout import NHWC, PASS, assign_layouts
+from .topology.hierarchy import SLICE_AXIS
 
 Weights = Dict[str, Dict[str, torch.Tensor]]
 
@@ -171,7 +183,7 @@ class GraphExecutor:
                  zero_stage: int = 0, wus_axis: Optional[str] = "data",
                  remat: bool = False,
                  remat_segments: Optional[List[int]] = None,
-                 pipeline_plan=None):
+                 pipeline_plan=None, hier_axis: Optional[str] = None):
         self.graph = graph
         self.label_replication = label_replication
         self.device = torch.device(device)
@@ -196,6 +208,18 @@ class GraphExecutor:
         self.wus_axis = (wus_axis if mesh is not None and zero_stage
                          and mesh.axis_sizes.get(wus_axis, 1) > 1 else None)
         self.zero_stage = int(zero_stage) if self.wus_axis else 0
+        # the intra-slice remainder the hierarchical grad reduction
+        # scatters over: on a mesh with a slice axis, with the ladder
+        # off (on, its reduce-scatter over the remainder already is the
+        # hierarchical form)
+        self.hier_axis = (hier_axis if mesh is not None and self.wus_axis
+                          is None and mesh.axis_sizes.get(SLICE_AXIS, 1) > 1
+                          and mesh.axis_sizes.get(hier_axis, 1) > 1
+                          else None)
+        # the ladder's reduce-scatter runs before the sum between slices
+        self._slice_after_scatter = (
+            self.wus_axis is not None and self.wus_axis != SLICE_AXIS
+            and mesh.axis_sizes.get(SLICE_AXIS, 1) > 1)
         plan = (self._build_remat_plan(remat_segments)
                 if remat or remat_segments is not None else None)
         if plan is not None and not any(pure for *_, pure in plan):
@@ -700,6 +724,24 @@ class GraphExecutor:
                 all_reduce_(t, self.mesh.group(a))
         return t
 
+    def _grad_sum(self, flat: torch.Tensor, axes) -> torch.Tensor:
+        """A flat grad bucket summed over `axes`: in the hierarchical
+        form when they hold the slice axis and hier_axis (the other
+        axes first, each by an all-reduce), else by an all-reduce per
+        axis."""
+        h = self.hier_axis
+        if h is None or h not in axes or SLICE_AXIS not in axes:
+            return self._sum_over(flat, axes)
+        self._sum_over(flat, [a for a in axes if a not in (h, SLICE_AXIS)])
+        mesh = self.mesh
+        n, numel = mesh.size(h), flat.numel()
+        pad = -numel % n
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        shard = reduce_scatter(flat, 0, n, mesh.coord(h), mesh.group(h))
+        all_reduce_(shard, mesh.group(SLICE_AXIS))
+        return all_gather(shard, 0, n, mesh.group(h))[:numel]
+
     def _grad_axes(self, key) -> List[str]:
         """The axes a trainable weight's grad is partial over: those its
         stored layout does not shard."""
@@ -709,24 +751,29 @@ class GraphExecutor:
 
     def _sync_and_update(self, weights: Weights, grads: Weights,
                          opt_state) -> None:
-        """Sum each grad over its partial axes (by bucket), with a
-        reduce-scatter over the wus axis at ZeRO stages 1 and 2; run the
+        """Sum each grad over its partial axes (by bucket; hierarchically
+        on a two-level mesh, `_grad_sum`), with a reduce-scatter over the
+        wus axis at ZeRO stages 1 and 2 (on a two-level mesh before the
+        sum between slices, which then moves the shard); run the
         optimizer on what each rank owns; all-gather the updated shards
         at stages 1 and 2."""
         mesh = self.mesh
         buckets = collections.defaultdict(list)
-        scatter = []
+        scatter, slice_after = [], []
         for op, entries in grads.items():
             for k, g in entries.items():
                 axes = self._grad_axes((op, k))
                 if self._sharded_update((op, k)):
                     axes = [a for a in axes if a != self.wus_axis]
                     scatter.append((op, k))
+                    if self._slice_after_scatter and SLICE_AXIS in axes:
+                        axes.remove(SLICE_AXIS)
+                        slice_after.append((op, k))
                 if axes:
                     buckets[tuple(axes)].append((op, k))
         for axes, keys in buckets.items():
             flat = torch.cat([grads[o][k].reshape(-1) for o, k in keys])
-            self._sum_over(flat, axes)
+            flat = self._grad_sum(flat, axes)
             off = 0
             for o, k in keys:
                 g = grads[o][k]
@@ -740,6 +787,8 @@ class GraphExecutor:
                 grads[o][k] = reduce_scatter(grads[o][k],
                                              self._scatter_dim((o, k)), n, c,
                                              group)
+            for o, k in slice_after:
+                all_reduce_(grads[o][k], mesh.group(SLICE_AXIS))
         self.optimizer.update(views, grads, opt_state)
         for o, k in scatter:
             weights[o][k].copy_(all_gather(views[o][k],

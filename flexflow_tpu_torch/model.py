@@ -9,8 +9,10 @@ aggregate_spec, experts_dense and moe, and lstm), `compile` on one
 device (training or inference) under a given, imported or searched
 strategy (pcg/search.py), or the layer graph as it is; on a
 `torch.distributed` group (distributed.initialize) the strategy runs
-sharded over its ranks (executor.py, parallel/spmd.py), with pipelines
-(parallel/pipeline.py), expert parallelism
+sharded over its ranks (executor.py, parallel/spmd.py), factored per-op
+views (a dim over several mesh axes) included, over the two-level mesh
+of a multi-slice run (FFConfig.slices, topology/hierarchy.py), with
+pipelines (parallel/pipeline.py), expert parallelism
 (parallel/expert_parallel.py), the ZeRO ladder and remat,
 `train_step`, `eval_step`, `fit`, `forward`, the reference's step
 surface (`set_learning_rate`, `zero_gradients`, `backward`, `update`,
@@ -67,26 +69,6 @@ from .pcg.graph import Graph
 from .strategy import (Strategy, apply_strategy, assign_views,
                        data_parallel_strategy)
 from .tensor import ParallelTensor, ParallelTensorShape
-
-# what the port's executor does not run yet
-_EXECUTOR_1D = ("ROADMAP §1.D, what is left of it (§1 items 1, 4 and 5: "
-                "factored per-op views, the multi-node hierarchy, the "
-                "fusion pass)")
-
-
-def check_views(graph: Graph) -> None:
-    """Raise NotImplementedError when a tensor's view shards one dim
-    over more than one mesh axis (a factored per-op view)."""
-    for op in graph.ops:
-        for pt in list(op.outputs) + list(op.weights):
-            view = pt.machine_view
-            if view is None:
-                continue
-            for dim, axes in zip(pt.shape.dims, view.axes):
-                if not dim.is_replica_dim and len(axes) > 1:
-                    raise NotImplementedError(
-                        f"{pt.name} shards one dim over the mesh axes "
-                        f"{axes} (a factored per-op view): {_EXECUTOR_1D}")
 
 
 class FFModel:
@@ -498,9 +480,14 @@ class FFModel:
         parallel/pipeline_plan.py; a pipeline of degree 1 also runs on
         one process), its (or the config's) ZeRO stage over
         FFConfig.wus_axis and its remat plan (or FFConfig.remat); expert
-        shardings run through parallel/expert_parallel.py.  On a group, a
-        factored per-op view raises NotImplementedError naming ROADMAP
-        §1.D, after the export.  With no strategy and one rank, the layer
+        shardings run through parallel/expert_parallel.py.  With
+        FFConfig.slices > 1 and no pipeline, the strategy's mesh runs
+        expanded as topology.execution_mesh gives it (the placement axis
+        split into a leading "slice" axis and its intra-slice remainder,
+        ranks 0 to n/S - 1 in slice 0) and the grads of the weights
+        replicated over both are reduced hierarchically over the
+        remainder (executor.hier_axis); strategy.mesh_axes stays as the
+        strategy gave it.  With no strategy and one rank, the layer
         graph runs as it is under data_parallel_strategy(1).
 
         The default optimizer is SGD at the config's learning rate and
@@ -528,11 +515,15 @@ class FFModel:
                 f"(mesh {dict(self.strategy.mesh_axes)}), the "
                 f"torch.distributed group has {world} "
                 f"rank{'s' if world > 1 else ''}")
-        self.operators = self._operators_for(picked)
-        mesh = None
-        if world > 1:
-            check_views(self.operators)
-            mesh = make_mesh(self.strategy.mesh_axes, self.device)
+        exec_axes, hier_axis = self.strategy.mesh_axes, None
+        if world > 1 and cfg.slices > 1:
+            from .topology.hierarchy import execution_mesh
+
+            exec_axes, hier_axis = execution_mesh(
+                self.strategy.mesh_axes, cfg.slices, world,
+                self.strategy.placement, self.strategy.pipeline)
+        self.operators = self._operators_for(picked, exec_axes)
+        mesh = make_mesh(exec_axes, self.device) if world > 1 else None
         zero = (self.strategy.zero_stage
                 if self.strategy.zero_stage is not None else cfg.zero_stage)
         pipeline_plan = None
@@ -548,7 +539,8 @@ class FFModel:
             loss=self.loss, metrics=self.metrics, optimizer=self.optimizer,
             label_replication=self._label_replication, mesh=mesh,
             zero_stage=zero, wus_axis=cfg.wus_axis, remat=cfg.remat,
-            remat_segments=self.strategy.remat, pipeline_plan=pipeline_plan)
+            remat_segments=self.strategy.remat, pipeline_plan=pipeline_plan,
+            hier_axis=hier_axis)
         for op in self.operators.topo_order():
             op._flash_min_seq = cfg.flash_min_seq
         fallback = self.executor.zero_fallback_leaves()
@@ -606,11 +598,13 @@ class FFModel:
             self.strategy.save(cfg.export_strategy_file)
         return strategy
 
-    def _operators_for(self, strategy: Optional[Strategy]) -> Graph:
+    def _operators_for(self, strategy: Optional[Strategy],
+                       mesh_axes: Optional[Dict[str, int]] = None) -> Graph:
         """The graph the executor runs: the layer graph, or (given a
         strategy) its rewrites replayed, the strategy applied and inverse
         parallel-op pairs cancelled, with every tensor's MachineView
-        assigned."""
+        assigned over `mesh_axes` (the execution mesh; by default the
+        strategy's)."""
         if strategy is None:
             return self.layers
         from .pcg.rewrite import (apply_rewrites,
@@ -623,7 +617,7 @@ class FFModel:
                                       rules_for_replay(self.config, strategy))
         graph = cancel_all_inverse_parallel_ops(
             apply_strategy(frontend, strategy))
-        assign_views(graph, strategy.mesh_axes)
+        assign_views(graph, mesh_axes or strategy.mesh_axes)
         stamped = {op.name: op._iter_seq_length for op in self.layers.ops
                    if hasattr(op, "_iter_seq_length")}
         for op in graph.ops:

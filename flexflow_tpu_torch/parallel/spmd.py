@@ -15,14 +15,17 @@ The rules:
     element-wise op, all but the normalized axes of a LayerNorm, ...)
     keeps the output view's sharding, and the inputs' matching dims take
     it too; every other dim is computed whole, and weights whole;
-  * Linear is column parallel on an axis that shards its kernel's out
+  * Linear is column parallel on the axes that shard its kernel's out
     channels in the view, and row parallel (a partial sum, then the
-    bias once and the activation after the sum) on an axis that shards
+    bias once and the activation after the sum) on the axes that shard
     its input's channels;
-  * MultiHeadAttention runs its local heads on an axis that shards the
-    heads of wq/wk/wv/wo (a partial sum over heads, the output bias
-    once), and ring attention (parallel/ring_attention.py) on an axis
-    that shards its input's sequence;
+  * MultiHeadAttention runs its local heads on the axes that shard the
+    heads of wq (wk, wv and wo are brought to them; a partial sum over
+    heads, the output bias once), and ring attention
+    (parallel/ring_attention.py) on the one axis that shards its
+    input's sequence (two raise, as in the reference);
+  * a dim may lie on several axes (a factored per-op view): a plan
+    keeps them in the view's order, major first;
   * Mean and Reduce over a sharded dim give a partial sum (the local
     mean scaled by 1/n);
   * BatchNorm's statistics are summed over the axes that shard its
@@ -202,9 +205,12 @@ def _plan_attention(op, mesh, out_view, in_views, w_views) -> OpPlan:
     q_view = in_views[0]
     seq = tuple(a for a in q_view.spec[1] if a not in heads)
     if len(seq) > 1:
+        # the reference's ring asserts one sequence axis too
+        # (flexflow_tpu/ops/attention.py:591)
         raise NotImplementedError(
             f"{op.name}: ring attention over more than one mesh axis "
-            f"({seq})")
+            f"({seq}), a factored view neither package runs: ROADMAP §1 "
+            "item 1")
     batch = tuple(a for a in out_view.spec[0]
                   if a not in heads and a not in seq)
     in_l = Layout((batch, seq, ()))

@@ -71,7 +71,8 @@ def strategy_signature(strategy: Strategy) -> Tuple:
     size); shard_configs and edge_ops are order-normalized.  The ZeRO
     stage is part of the key: the same sharding costed at different
     rungs of the ladder is a different candidate — and so is the same
-    sharding under a different per-segment remat plan."""
+    sharding under a different multi-slice placement or per-segment
+    remat plan."""
     remat = getattr(strategy, "remat", None)
     return (
         tuple(strategy.mesh_axes.items()),
@@ -80,6 +81,7 @@ def strategy_signature(strategy: Strategy) -> Tuple:
         _freeze(strategy.rewrites),
         _freeze(strategy.pipeline),
         getattr(strategy, "zero_stage", None),
+        getattr(strategy, "placement", None),
         tuple(remat) if remat is not None else None,
     )
 
@@ -294,29 +296,33 @@ class IncrementalEvaluator:
             order = graph.topo_order()
             self.stats.full_evals += 1
         mesh_axes = strategy.mesh_axes
-        # the strategy's search-chosen ZeRO stage overrides the
-        # simulator default per evaluation; the applied graph does not
-        # depend on it, so delta bases stay valid across stages (OpTerms
-        # are cached per stage)
+        # the strategy's search-chosen ZeRO stage and multi-slice
+        # placement override the simulator defaults per evaluation; the
+        # applied graph depends on neither, so delta bases stay valid
+        # across both (OpTerms are cached per stage and placement)
         stage = getattr(strategy, "zero_stage", None)
+        placement = getattr(strategy, "placement", None)
         plan = getattr(strategy, "remat", None)
         if self.training and plan is not None:
             # searched per-segment remat: the order-based accounting
             # works on the delta path (no Graph needed)
             memory_fn = lambda: self.sim.remat_memory_from_terms(  # noqa: E731
                 order, mesh_axes, plan, self.training, zero_stage=stage,
+                placement=placement,
             )
         elif self.training and not self.sim.remat:
             memory_fn = lambda: self.sim.memory_from_terms(  # noqa: E731
                 order, mesh_axes, self.training, zero_stage=stage,
+                placement=placement,
             )
         else:
             memory_fn = lambda: self.sim.per_device_memory(  # noqa: E731
                 graph, self.training, mesh_axes=mesh_axes, zero_stage=stage,
+                placement=placement,
             )
         res = self.sim.simulate_ops(order, mesh_axes, training=self.training,
                                     memory_fn=memory_fn, zero_stage=stage,
-                                    remat_plan=plan)
+                                    placement=placement, remat_plan=plan)
         res.ops = order  # applied op sequence, for callers needing shapes
         self._base = _AppliedState(
             mesh_items=tuple(mesh_axes.items()),

@@ -161,6 +161,13 @@ class MCMCSearch:
         # it); None also disables moves but leaves candidates at
         # zero_stage=None, costing under the simulator's own stage.
         self.zero_stages = tuple(zero_stages) if zero_stages else None
+        # multi-slice hierarchy (topology/hierarchy.py): on a
+        # SliceHierarchy the chain gains a placement move, re-picking
+        # the mesh axis that spans the slices; other machines keep the
+        # move distribution as it was
+        machine = self.simulator.machine
+        self.slices = max(1, int(getattr(machine, "slices", 1) or 1))
+        self._hier = self.slices > 1 and hasattr(machine, "collective_cost")
         self.candidates = find_candidates(graph)
         has_experts = any(c.kind == "expert" for c in self.candidates)
         self.factorizations = _factorizations(
@@ -202,9 +209,19 @@ class MCMCSearch:
     def _build(self, dp: int, tp: int, ep: int,
                flags: Dict[str, bool],
                zero_stage: Optional[int] = None,
+               placement: Optional[str] = None,
                remat: Optional[Tuple[int, ...]] = None) -> Strategy:
         mesh_axes = self._mesh_axes(dp, tp, ep)
+        if placement is not None:
+            # a factorization move can strand the placement on an axis
+            # the new mesh lacks (or the slices no longer divide): None
+            # is resolve_placement's default
+            from ..topology.hierarchy import legal_placements
+
+            if placement not in legal_placements(mesh_axes, self.slices):
+                placement = None
         s = Strategy(mesh_axes=mesh_axes, zero_stage=zero_stage,
+                     placement=placement,
                      remat=sorted(remat) if remat is not None else None)
         if dp > 1:
             s.edge_ops["__inputs__"] = [("repartition", {"dim": 0, "degree": dp})]
@@ -272,23 +289,35 @@ class MCMCSearch:
             if self.zero_stages and len(self.zero_stages) > 1 else None
         )
         stage = self.zero_stages[0] if self.zero_stages else None
+        placement = None  # resolve_placement's default
         remat: Optional[Tuple[int, ...]] = None  # not chosen
-        current = self._build(dp, tp, ep, flags, stage, remat)
+        current = self._build(dp, tp, ep, flags, stage, placement, remat)
         current_cost = self.evaluate(current)
         best, best_cost = current, current_cost
         self.best_iteration = -1  # evals needed to reach the winner
-        state = (dp, tp, ep, dict(flags), stage, remat)
+        state = (dp, tp, ep, dict(flags), stage, placement, remat)
         remat_moves = bool(self.remat_search and self.remat_flippable)
         for it in range(self.budget):
             ndp, ntp, nep, nflags = state[0], state[1], state[2], dict(state[3])
-            nstage, nremat = state[4], state[5]
+            nstage, nplacement, nremat = state[4], state[5], state[6]
             move = self.rng.random()
-            # the remat flip-segment move carves its window below the
-            # existing thresholds (roff shifts them), so without it the
+            # the placement move (on a hierarchy) and the remat
+            # flip-segment move carve their windows below the existing
+            # thresholds (off and roff shift them), so without them the
             # stage/factorization move probabilities are the historical
             # ones
+            off = 0.12 if self._hier else 0.0
             roff = 0.10 if remat_moves else 0.0
-            if remat_moves and move < roff:
+            if self._hier and move < off:
+                # placement move: re-pick the axis that spans the slices
+                # (the sharding is unchanged, so the evaluator re-sums
+                # cached OpTerms under the new tiers); None = default
+                from ..topology.hierarchy import legal_placements
+
+                mesh = self._mesh_axes(ndp, ntp, nep)
+                nplacement = self.rng.choice(
+                    [None] + legal_placements(mesh, self.slices))
+            elif remat_moves and move < off + roff:
                 # flip-segment move (docs/PERF.md "Searched
                 # rematerialization"): toggle one pure segment's remat
                 # bit.  The applied graph is plan-invariant, so the
@@ -298,15 +327,15 @@ class MCMCSearch:
                 seg = self.rng.choice(self.remat_flippable)
                 cur.symmetric_difference_update({seg})
                 nremat = tuple(sorted(cur))
-            elif stage_moves is not None and move < roff + 0.15:
+            elif stage_moves is not None and move < off + roff + 0.15:
                 # ZeRO-stage move: re-rung the ladder (the candidate's
                 # sharding is unchanged, so the evaluator re-sums
                 # cached OpTerms under the new stage — a cheap move)
                 nstage = self.rng.choice(stage_moves)
-            elif move < roff + 0.25 or not self.candidates:
+            elif move < off + roff + 0.25 or not self.candidates:
                 ndp, ntp, nep = self.rng.choice(self.factorizations)
             elif (self.propagate
-                  and move < roff + 0.25
+                  and move < off + roff + 0.25
                   + 0.75 * self.propagation_chance):
                 # propagate move (reference FFModel::propagate,
                 # model.cc:3180-3258): spread a randomly selected op's
@@ -331,10 +360,12 @@ class MCMCSearch:
                 c = self.rng.choice(self.candidates)
                 nflags[c.name] = not nflags.get(c.name, False)
             if ((ndp, ntp, nep) == state[:3] and nflags == state[3]
-                    and nstage == state[4] and nremat == state[5]):
+                    and nstage == state[4] and nplacement == state[5]
+                    and nremat == state[6]):
                 continue  # no-op move (e.g. propagate with no peers to
                 # change): don't burn a simulator eval on it
-            cand = self._build(ndp, ntp, nep, nflags, nstage, nremat)
+            cand = self._build(ndp, ntp, nep, nflags, nstage, nplacement,
+                               nremat)
             cost = self.evaluate(cand)
             self.history.append((it, cost))
             if cost < current_cost or (
@@ -343,7 +374,7 @@ class MCMCSearch:
                 < math.exp(-self.alpha * (cost - current_cost) / max(1e-12, current_cost))
             ):
                 current, current_cost = cand, cost
-                state = (ndp, ntp, nep, nflags, nstage, nremat)
+                state = (ndp, ntp, nep, nflags, nstage, nplacement, nremat)
                 if cost < best_cost:
                     best, best_cost = cand, cost
                     self.best_iteration = it
@@ -352,6 +383,12 @@ class MCMCSearch:
         best.search_stats = self.evaluator.stats.as_dict()
         # the winner's per-segment remat plan ("" when no plan chosen)
         best.search_stats.update(remat_stats(best))
+        # the winner's placement ("" off a hierarchy) and whether its
+        # grad reduction is hierarchical
+        from ..topology.hierarchy import placement_stats
+
+        best.search_stats.update(placement_stats(
+            best, self.slices if self._hier else 1))
         # underlying cache layers (term decomposition + op-cost cache)
         best.search_stats["term_hits"] = self.simulator.term_hits
         best.search_stats["term_misses"] = self.simulator.term_misses
@@ -363,8 +400,8 @@ class MCMCSearch:
 def make_search_simulator(cfg, machine, cost_model):
     """The ONE place an FFConfig becomes the Simulator configuration
     candidates are costed with: fitted overlap constants (when a
-    calibration is persisted), parameter-sync mode, remat, and the
-    ZeRO-1 update flags."""
+    calibration is persisted), parameter-sync mode, remat, the ZeRO-1
+    update flags and the grad-sync bucket of a multi-slice run."""
     from ..sim.calibrate import load_overlap_constants
     from ..sim.simulator import Simulator, device_name
     from .unity import _sync_mode
@@ -386,6 +423,7 @@ def make_search_simulator(cfg, machine, cost_model):
         remat=cfg.remat,
         zero_stage=cfg.zero_stage,
         wus_axis=cfg.wus_axis,
+        dcn_bucket_bytes=float(cfg.dcn_bucket_mb) * 2**20,
     )
 
 

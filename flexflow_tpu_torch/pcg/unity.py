@@ -116,6 +116,7 @@ class UnitySearch:
         zero_stages: Optional[Sequence[int]] = None,
         enable_pipeline: bool = True,
         remat_search: bool = False,
+        dcn_bucket_bytes: Optional[float] = None,
     ):
         self.event_rerank = event_rerank
         self.event_topk = event_topk
@@ -155,7 +156,7 @@ class UnitySearch:
         self._seg_cache: Dict[Tuple, List[_SegResult]] = {}
         self._segments_memo = None
         self._options_memo: Dict[Tuple, Dict[int, List[XferChoice]]] = {}
-        from ..sim.simulator import Simulator
+        from ..sim.simulator import DEFAULT_DCN_BUCKET_BYTES, Simulator
 
         self.remat = remat
         # ZeRO ladder: zero_stage is the BASE stage the DP costs every
@@ -186,7 +187,18 @@ class UnitySearch:
                               remat=remat,
                               compute_scale=compute_scale,
                               zero_stage=self.zero_stage,
-                              wus_axis=wus_axis)
+                              wus_axis=wus_axis,
+                              dcn_bucket_bytes=(
+                                  DEFAULT_DCN_BUCKET_BYTES
+                                  if dcn_bucket_bytes is None
+                                  else dcn_bucket_bytes))
+        # multi-slice hierarchy (topology/hierarchy.py): each collected
+        # candidate is also re-scored at every legal placement (the
+        # mesh axis that spans the slices) through the memoized
+        # evaluator, as the ZeRO-stage variants are; other machines skip
+        # the expansion
+        self.slices = max(1, int(getattr(machine, "slices", 1) or 1))
+        self._hier = self.slices > 1 and hasattr(machine, "collective_cost")
         # the mesh the sequence DP is costing (in its axis order, which
         # decides which axes span nodes); None outside _dp
         self._dp_mesh: Optional[Dict[str, int]] = None
@@ -910,11 +922,42 @@ class UnitySearch:
                 out.append(r)
         return out
 
+    def _placement_variants(self, strategy: Strategy, time: float,
+                            mem: int) -> List[Tuple[Strategy, float, int]]:
+        """The candidate re-scored at every legal multi-slice placement:
+        [(strategy', time', mem')].  The default placement keeps the
+        caller's (time, mem); the others correct them by the memoized
+        evaluator's placement delta (the applied graph does not depend
+        on the placement, so the delta is the re-cost of the tiers).
+        Off a hierarchy the candidate comes back alone."""
+        out = [(strategy, time, mem)]
+        if not self._hier or strategy.pipeline:
+            return out
+        from ..topology.hierarchy import legal_placements, resolve_placement
+
+        legal = legal_placements(strategy.mesh_axes, self.slices)
+        default = resolve_placement(strategy.mesh_axes, self.slices)
+        extra = [p for p in legal if p != default]
+        if not extra:
+            return out
+        base = self._evaluator().evaluate(strategy)
+        if base is None:
+            return out
+        bt, bm = base.total_time, base.per_device_memory
+        for p in extra:
+            cand = dataclasses.replace(strategy, placement=p)
+            res = self._evaluator().evaluate(cand)
+            if res is None:
+                continue
+            out.append((cand, time + res.total_time - bt,
+                        mem + res.per_device_memory - bm))
+        return out
+
     def _optimize_graph(self, lam: float, collector: List[Tuple]):
         """Append every valid (obj, strategy, graph) for the CURRENT
         self.graph to collector (mesh factorizations, sp, pp) — each
-        non-pipeline candidate expanded across the allowed ZeRO
-        stages and remat plans."""
+        non-pipeline candidate expanded across the legal placements (on
+        a hierarchy), the allowed ZeRO stages and remat plans."""
         from ..logger import search_logger as slog
 
         has_moe = any(op.op_type == OperatorType.GROUP_BY for op in self.graph.ops)
@@ -922,20 +965,24 @@ class UnitySearch:
 
         def collect(strategy, time, mem, label):
             nonlocal best_obj
-            for scand, st, sm in self._stage_variants(strategy, time, mem):
-                for cand, ct, cm in self._remat_variants(scand, st, sm,
-                                                         lam):
-                    obj = self._objective(ct, cm, lam)
-                    slog.debug(
-                        "candidate %s%s%s: obj=%.3g%s", label,
-                        (f" zero{cand.zero_stage}"
-                         if cand.zero_stage is not None else ""),
-                        (f" remat={len(cand.remat)}on"
-                         if cand.remat else ""),
-                        obj, " *best*" if obj < best_obj else "",
-                    )
-                    best_obj = min(best_obj, obj)
-                    collector.append((obj, cand, self.graph))
+            for pcand, pt, pm in self._placement_variants(strategy, time,
+                                                          mem):
+                for scand, st, sm in self._stage_variants(pcand, pt, pm):
+                    for cand, ct, cm in self._remat_variants(scand, st, sm,
+                                                             lam):
+                        obj = self._objective(ct, cm, lam)
+                        slog.debug(
+                            "candidate %s%s%s%s: obj=%.3g%s", label,
+                            (f" zero{cand.zero_stage}"
+                             if cand.zero_stage is not None else ""),
+                            (f" place={cand.placement}"
+                             if cand.placement is not None else ""),
+                            (f" remat={len(cand.remat)}on"
+                             if cand.remat else ""),
+                            obj, " *best*" if obj < best_obj else "",
+                        )
+                        best_obj = min(best_obj, obj)
+                        collector.append((obj, cand, self.graph))
 
         for dp, tp, ep in _factorizations(self.n, allow_expert=has_moe):
             for mesh_axes in self._mesh_variants(dp, tp, ep):
@@ -1024,20 +1071,23 @@ class UnitySearch:
 
             # the event simulator models none of the ladder's stage
             # terms (sharded update, opt_xfer, per-layer gather_xfer)
-            # while the memory below IS stage-aware — uncorrected, the
-            # highest stage of a mesh would always win the rerank (same
-            # event time, less memory).  Correct the makespan with the
-            # analytic stage delta from the memoized evaluator, the
-            # same delta the variant expansions priced the candidate
-            # with.
+            # nor the hierarchy's tiers, while the memory below IS
+            # stage- and placement-aware — uncorrected, the highest
+            # stage of a mesh would always win the rerank (same event
+            # time, less memory).  Correct the makespan with the
+            # analytic stage and placement delta from the memoized
+            # evaluator, the same delta the variant expansions priced
+            # the candidate with.
             if ((strategy.zero_stage is not None
                     and strategy.zero_stage != self.zero_stage)
+                    or strategy.placement is not None
                     or strategy.remat is not None):
                 prev = self.graph
                 try:
                     self._set_graph(graph)
                     rb = self._evaluator().evaluate(dataclasses.replace(
-                        strategy, zero_stage=self.zero_stage, remat=None))
+                        strategy, zero_stage=self.zero_stage,
+                        placement=None, remat=None))
                     rs = self._evaluator().evaluate(strategy)
                 finally:
                     self._set_graph(prev)
@@ -1049,12 +1099,14 @@ class UnitySearch:
                 mem = self._sim.remat_memory_from_terms(
                     g.topo_order(), strategy.mesh_axes, strategy.remat,
                     training=True, zero_stage=strategy.zero_stage,
+                    placement=strategy.placement,
                 )
             else:
                 mem = self._sim.per_device_memory(
                     g, training=True, op_scale=op_scale,
                     mesh_axes=strategy.mesh_axes,
                     zero_stage=strategy.zero_stage,
+                    placement=strategy.placement,
                 )
             return self._objective(time, mem, lam)
         except (ShapeError, ValueError) as e:
@@ -1095,16 +1147,17 @@ class UnitySearch:
             # contention-aware makespan (reference: candidates are
             # ultimately judged by simulate_runtime, not the analytic
             # estimators)
-            # distinct (mesh, zero stage, remat on-count) only — pp
-            # candidates differing solely in microbatch count (or remat
-            # prefixes differing by one segment) would otherwise crowd
-            # the top-K, while stage/remat variants of one mesh are
-            # genuinely different trade-offs
+            # distinct (mesh, zero stage, placement, remat on-count)
+            # only — pp candidates differing solely in microbatch count
+            # (or remat prefixes differing by one segment) would
+            # otherwise crowd the top-K, while stage/placement/remat
+            # variants of one mesh are genuinely different trade-offs
             seen_keys = set()
             top: List[Tuple] = []
             for c in collector:
                 key = (tuple(sorted(c[1].mesh_axes.items())),
                        c[1].pipeline is None, c[1].zero_stage,
+                       c[1].placement,
                        len(c[1].remat) if c[1].remat is not None else None)
                 if key in seen_keys:
                     continue
@@ -1136,6 +1189,12 @@ class UnitySearch:
 
         # the winner's per-segment remat plan ("" when no plan chosen)
         strategy.search_stats.update(remat_stats(strategy))
+        # the winner's placement ("" off a hierarchy) and whether its
+        # grad reduction is hierarchical
+        from ..topology.hierarchy import placement_stats
+
+        strategy.search_stats.update(placement_stats(
+            strategy, self.slices if self._hier else 1))
         emit_counters(slog, "unity eval stats", strategy.search_stats)
         return strategy
 
@@ -1448,10 +1507,11 @@ class UnitySearch:
             # ranked with, so the budget check and the ranking agree
             return sim.remat_memory_from_terms(
                 g.topo_order(), strategy.mesh_axes, strategy.remat,
-                training=True,
+                training=True, placement=strategy.placement,
             )
         return sim.per_device_memory(g, training=True, op_scale=op_scale,
-                                     mesh_axes=strategy.mesh_axes)
+                                     mesh_axes=strategy.mesh_axes,
+                                     placement=strategy.placement)
 
 
 def _sync_mode(pst) -> str:
@@ -1546,5 +1606,6 @@ def make_unity_search(model, num_devices: int, enable_pipeline: bool = True):
         wus_axis=cfg.wus_axis,
         enable_pipeline=enable_pipeline,
         remat_search=search_remat_enabled(cfg),
+        dcn_bucket_bytes=float(cfg.dcn_bucket_mb) * 2**20,
     )
     return search, cost_model

@@ -295,11 +295,24 @@ def machine_file(name: str) -> str:
 
 
 def make_machine_model(config, num_devices: int) -> MachineModel:
-    """Build from FFConfig (--machine-model-version/-file): a file is a
-    GpuNodeModel; version 0 is the reference's SimpleMachineModel over
-    `num_nodes` nodes; any other version a GpuNodeModel of that many
-    devices over `num_nodes` nodes.  The device roofline is the live
-    card's (detect_device_spec)."""
+    """Build from FFConfig (--machine-model-version/-file): with
+    slices > 1 the multi-slice SliceHierarchy (topology/hierarchy.py),
+    whatever the version, unless the devices do not fit it (then the
+    flat model, with a warning); a file is a GpuNodeModel; version 0 is
+    the reference's SimpleMachineModel over `num_nodes` nodes; any other
+    version a GpuNodeModel of that many devices over `num_nodes` nodes.
+    The device roofline is the live card's (detect_device_spec)."""
+    if getattr(config, "slices", 1) > 1:
+        import logging
+
+        from ..topology.hierarchy import hierarchy_from_config
+
+        try:
+            return hierarchy_from_config(config, num_devices)
+        except ValueError as e:
+            logging.getLogger("flexflow_tpu_torch.topology").warning(
+                "slice hierarchy unusable for %d devices (%s); falling "
+                "back to the flat machine model", num_devices, e)
     if config.machine_model_file:
         return GpuNodeModel.from_file(config.machine_model_file)
     spec = detect_device_spec()

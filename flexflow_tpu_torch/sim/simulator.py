@@ -22,7 +22,10 @@ an HGX H100, NVLink through NVSwitch) and "dcn" the tier between nodes
 (InfiniBand).  A collective goes on the second tier when its group
 holds a mesh axis that spans nodes (GpuNodeModel.node_spanning_axes,
 from the tensors' MachineViews); machines without that method put
-everything on the first.
+everything on the first.  On a SliceHierarchy (topology/hierarchy.py)
+the axis that spans the slices is the strategy's placement (a searched
+dimension, per call), and a collective over it costs the hierarchical
+form: inside each slice, then between them on the shard.
 """
 from __future__ import annotations
 
@@ -169,7 +172,9 @@ _KERNEL_OVERHEAD = 2e-6  # per-op dispatch overhead
 #: form).
 #: v4: searched rematerialization — OpTerms grew
 #: mem_activation/recompute, and remat became a per-segment plan both
-#: searches cost under --memory-search.
+#: searches cost under --memory-search; on a SliceHierarchy the
+#: placement is costed and the InfiniBand latency of a grad sync is
+#: amortized over its bucket (--dcn-bucket-mb).
 COST_MODEL_VERSION = 4
 
 #: per-candidate cap on the segments the searches treat as independent
@@ -556,6 +561,12 @@ def _axis_sizes_of_view(pt, mesh_axes: Dict[str, int]) -> Dict[str, int]:
     return out
 
 
+#: the default grad-sync bucket (bytes): runtimes coalesce grad
+#: all-reduces into ~25 MB buckets, so a leaf pays the InfiniBand
+#: latency term only for the share of a bucket it fills
+DEFAULT_DCN_BUCKET_BYTES = 25 * 2**20
+
+
 def replica_axes(pt) -> Optional[frozenset]:
     """The mesh axes a tensor is replicated over, from its MachineView
     (None without one)."""
@@ -611,6 +622,7 @@ class Simulator:
         weight_update_sharding: bool = False,
         wus_axis: str = "data",
         zero_stage: Optional[int] = None,
+        dcn_bucket_bytes: float = DEFAULT_DCN_BUCKET_BYTES,
     ):
         self.machine = machine
         self.cost_model = cost_model or OpCostModel(machine)
@@ -653,6 +665,15 @@ class Simulator:
         # (FFConfig.wus_axis); wus_group() resolves each weight's
         # actual sharding group from it
         self.wus_axis = wus_axis
+        # multi-slice hierarchy (topology/hierarchy.py): every
+        # placement-sensitive method takes the placement per call (keyed
+        # into the OpTerms cache), so one simulator costs every
+        # placement for the searches.  Other machines ignore it.
+        self._slices = max(1, int(getattr(machine, "slices", 1) or 1))
+        self._hier = self._slices > 1 and hasattr(machine, "collective_cost")
+        # the grad-sync bucket that amortizes a leaf's InfiniBand
+        # latency on a hierarchy (0: the full latency per leaf)
+        self.dcn_bucket_bytes = dcn_bucket_bytes
         # (node_key, mesh signature, training) -> OpTerms: per-op
         # contribution terms for the delta/memoized evaluator (the
         # machine and sync mode are fixed per Simulator)
@@ -665,12 +686,24 @@ class Simulator:
 
     # -- comm costs ------------------------------------------------------
     def _collective(self, kind: str, size: float, group_len: int,
-                    cross: bool = False):
+                    cross: bool = False, grad_bucket: bool = False):
         """One collective as a topology.CommCost: on the inter-node
         tier ("dcn") when its group spans nodes (`cross`), else on the
-        tier inside a node ("ici")."""
+        tier inside a node ("ici"); on a SliceHierarchy a group that
+        spans the slices costs the two-level form, and a grad-sync leg
+        (`grad_bucket`) pays the InfiniBand latency only for the share
+        of dcn_bucket_bytes its bytes there fill."""
         if group_len <= 1:
             return ZERO_COST
+        if self._hier:
+            lat_scale = 1.0
+            if grad_bucket and cross and self.dcn_bucket_bytes:
+                intra, _ = self.machine.split_group(group_len)
+                dcn_size = size / intra if intra > 1 else size
+                lat_scale = min(1.0, dcn_size / self.dcn_bucket_bytes)
+            return self.machine.collective_cost(kind, size, group_len,
+                                                cross=cross,
+                                                dcn_lat_scale=lat_scale)
         t = self._collective_time(kind, size, group_len, cross)
         nbytes = ring_bytes(kind, size, group_len)
         if cross:
@@ -695,11 +728,30 @@ class Simulator:
         return m.alltoall_time(size, group)
 
     # -- which collectives cross nodes -----------------------------------
-    def spanning_axes(self, mesh_axes: Optional[Dict[str, int]]
-                      ) -> frozenset:
-        """The mesh axes whose device groups span nodes
-        (GpuNodeModel.node_spanning_axes); empty on machines without
-        that method, so every collective there stays on one tier."""
+    def effective_placement(self, mesh_axes: Optional[Dict[str, int]],
+                            placement: Optional[str]) -> Optional[str]:
+        """The axis that spans the slices in one evaluation: `placement`,
+        else resolve_placement's default (also for an axis the slices do
+        not divide).  None off a SliceHierarchy."""
+        if not self._hier or not mesh_axes:
+            return None
+        from ..topology.hierarchy import resolve_placement
+
+        if placement is not None:
+            n = mesh_axes.get(placement, 0)
+            if n >= self._slices and n % self._slices == 0:
+                return placement
+        return resolve_placement(mesh_axes, self._slices)
+
+    def spanning_axes(self, mesh_axes: Optional[Dict[str, int]],
+                      placement: Optional[str] = None) -> frozenset:
+        """The mesh axes whose device groups span nodes: the effective
+        placement on a SliceHierarchy, GpuNodeModel.node_spanning_axes
+        on a GpuNodeModel; empty on machines without either, so every
+        collective there stays on one tier."""
+        if self._hier:
+            eff = self.effective_placement(mesh_axes, placement)
+            return frozenset((eff,)) if eff else frozenset()
         fn = getattr(self.machine, "node_spanning_axes", None)
         if fn is None or not mesh_axes:
             return frozenset()
@@ -829,7 +881,8 @@ class Simulator:
         return self.zero_stage if zero_stage is None else int(zero_stage)
 
     def wus_group(self, w, mesh_axes: Optional[Dict[str, int]] = None,
-                  zero_stage: Optional[int] = None) -> int:
+                  zero_stage: Optional[int] = None,
+                  placement: Optional[str] = None) -> int:
         """The group size this weight's update actually shards over —
         the executor-fidelity mirror of parallel/zero.py.  1 means the
         leaf keeps the replicated update (wus off, a mesh without the
@@ -846,7 +899,13 @@ class Simulator:
         doesn't block) — and a free logical dim must divide evenly.
         Callers without mesh context (unity's per-op DP stage) fall
         back to the replica degree — exact on pure-dp meshes, and the
-        authoritative evaluation always re-scores with mesh_axes."""
+        authoritative evaluation always re-scores with mesh_axes.
+
+        `placement` (the effective axis spanning the slices): when the
+        wus axis is it and keeps an intra-slice remainder, the executor
+        scatters over that remainder only (expand_mesh_axes), so the
+        group shrinks to n / slices and the leg between slices rides
+        the grad sync as an all-reduce of the shard."""
         if self._stage(zero_stage) < 1 or self.parameter_sync == "none":
             return 1
         if mesh_axes is None:
@@ -857,6 +916,9 @@ class Simulator:
             n = mesh_axes.get(self.wus_axis, 1)
             if n <= 1:
                 return 1
+            if (placement == self.wus_axis and self._slices > 1
+                    and n > self._slices and n % self._slices == 0):
+                n //= self._slices
             view = getattr(w, "machine_view", None)
             if view is not None and any(
                 self.wus_axis in axes
@@ -918,7 +980,8 @@ class Simulator:
             sync = CommCost(ici_time=self.sync_time(size, rep),
                             ici_bytes=2.0 * size)
         else:
-            sync = self._collective("reducescatter", size, rep, cross)
+            sync = self._collective("reducescatter", size, rep, cross,
+                                    grad_bucket=True)
         gather = self._collective("allgather", size, rep, cross)
         if stage >= 3:
             return sync, ZERO_COST, gather + gather
@@ -939,7 +1002,8 @@ class Simulator:
     # -- per-op contribution terms (delta-sim decomposition) -------------
     def op_terms(self, op: Op, mesh_axes: Dict[str, int],
                  training: bool = True, skip_compute: bool = False,
-                 zero_stage: Optional[int] = None) -> OpTerms:
+                 zero_stage: Optional[int] = None,
+                 placement: Optional[str] = None) -> OpTerms:
         """All of `op`'s additive contributions to simulate(), cached by
         (node_key, mesh signature, training).  node_key already encodes
         params + ShardConfig + input parallel shapes, so a strategy move
@@ -952,7 +1016,8 @@ class Simulator:
         (spanning_axes) costs the inter-node form; the ici_/dcn_ tier
         fields carry the split.  Which axes a group holds is read from
         the tensors' MachineViews, a function of their shapes and the
-        mesh, so the cache key needs nothing more."""
+        mesh, and, on a SliceHierarchy, from the effective placement
+        (`placement` overrides the simulator's), which the key holds."""
         # mesh signature preserves INSERTION order (not sorted): views —
         # which wus_group reads — are assigned by assign_axes' axis-
         # declaration-order heuristic, so two orderings of equal-size
@@ -960,12 +1025,13 @@ class Simulator:
         # cache entry (strategy_signature keeps order for the same
         # reason)
         stage = self._stage(zero_stage)
-        span = self.spanning_axes(mesh_axes)
+        eff_p = self.effective_placement(mesh_axes, placement)
+        span = self.spanning_axes(mesh_axes, eff_p)
         # stage only shapes the weight-update terms, so weightless ops
         # are stage-invariant — key them at a single rung so a stage
         # sweep doesn't recompute their compute/xfer terms per stage
         key = (op.node_key(), tuple(mesh_axes.items()), training,
-               skip_compute, stage if op.weights else 0)
+               skip_compute, stage if op.weights else 0, eff_p)
         hit = self._term_cache.get(key)
         if hit is not None:
             self.term_hits += 1
@@ -1006,12 +1072,26 @@ class Simulator:
                     1, w.shape.dtype.size_bytes
                 )
                 rep = w.shape.replica_degree
-                g = self.wus_group(w, mesh_axes, zero_stage=stage)
+                g = self.wus_group(w, mesh_axes, zero_stage=stage,
+                                   placement=eff_p)
                 if g > 1:
-                    # the scattered update's RS/AG run over the wus axis
+                    # the scattered update's RS/AG run over the wus
+                    # axis; on a SliceHierarchy they cross the slices
+                    # only when the wus axis is the slice dim itself (an
+                    # intra remainder shrank g to it, and the leg
+                    # between slices is the remainder's all-reduce)
+                    if self._hier:
+                        wus_cross = (eff_p == self.wus_axis
+                                     and mesh_axes.get(self.wus_axis, 1)
+                                     == self._slices)
+                        rem_cross = (not wus_cross
+                                     and self.weight_rep_crosses(w, span))
+                    else:
+                        wus_cross = self.wus_axis in span
+                        rem_cross = self.weight_rep_crosses(
+                            w, span - {self.wus_axis})
                     s_cc, x_cc, gx_cc = self._weight_update_comm_cc(
-                        sb, g, zero_stage=stage,
-                        cross=self.wus_axis in span,
+                        sb, g, zero_stage=stage, cross=wus_cross,
                     )
                     grad_sync += s_cc.time
                     wcc = s_cc + x_cc + gx_cc
@@ -1022,8 +1102,7 @@ class Simulator:
                         # other replica axes
                         rem_cc = self._collective(
                             "allreduce", sb // g, rep // g,
-                            cross=self.weight_rep_crosses(
-                                w, span - {self.wus_axis}),
+                            cross=rem_cross, grad_bucket=True,
                         )
                         grad_sync += rem_cc.time
                         wcc = wcc + rem_cc
@@ -1065,6 +1144,7 @@ class Simulator:
                         rcc = self._collective(
                             "allreduce", sb, rep,
                             cross=self.weight_rep_crosses(w, span),
+                            grad_bucket=True,
                         )
                     else:
                         t = self.sync_time(sb, rep)
@@ -1112,7 +1192,8 @@ class Simulator:
 
     def memory_from_terms(self, ops: Sequence[Op], mesh_axes: Dict[str, int],
                           training: bool = True,
-                          zero_stage: Optional[int] = None) -> int:
+                          zero_stage: Optional[int] = None,
+                          placement: Optional[str] = None) -> int:
         """per_device_memory re-aggregated from cached OpTerms — exact
         for the training non-remat accounting (weights + residual sum +
         transient max; all integer bytes, so order-independent).  The
@@ -1129,7 +1210,8 @@ class Simulator:
         gather_peak = 0
         for op in ops:
             terms = self.op_terms(op, mesh_axes, training,
-                                  zero_stage=zero_stage)
+                                  zero_stage=zero_stage,
+                                  placement=placement)
             compute_copy += terms.mem_weights
             master += terms.mem_master
             grads += terms.mem_grad
@@ -1197,6 +1279,7 @@ class Simulator:
         self, ops: Sequence[Op], mesh_axes: Dict[str, int],
         plan: Optional[Sequence[int]], training: bool = True,
         zero_stage: Optional[int] = None,
+        placement: Optional[str] = None,
     ) -> int:
         """per_device_memory under a per-segment remat plan, aggregated
         from cached OpTerms + one O(n) segment sweep over the op
@@ -1209,7 +1292,8 @@ class Simulator:
         gather_peak = 0
         for op in ops:
             terms = self.op_terms(op, mesh_axes, training,
-                                  zero_stage=zero_stage)
+                                  zero_stage=zero_stage,
+                                  placement=placement)
             compute_copy += terms.mem_weights
             master += terms.mem_master
             grads += terms.mem_grad
@@ -1237,7 +1321,8 @@ class Simulator:
     def per_device_memory(self, graph: Graph, training: bool = True,
                           op_scale=None, remat: Optional[bool] = None,
                           mesh_axes: Optional[Dict[str, int]] = None,
-                          zero_stage: Optional[int] = None) -> int:
+                          zero_stage: Optional[int] = None,
+                          placement: Optional[str] = None) -> int:
         """Peak per-device bytes: weights (+grads+optimizer slots when
         training) plus LIVE activations, not the sum of every tensor
         ever produced (the r02 model summed all of them, so
@@ -1257,6 +1342,7 @@ class Simulator:
         only its stage's weights/activations)."""
         remat = self.remat if remat is None else remat
         stage = self._stage(zero_stage)
+        eff_p = self.effective_placement(mesh_axes, placement)
         scale = (lambda op: op_scale(op)) if op_scale is not None \
             else (lambda op: 1.0)
         weights = sum(
@@ -1277,7 +1363,8 @@ class Simulator:
                     for w in op.weights:
                         sb = w.shape.shard_bytes()
                         sc = scale(op)
-                        g = (self.wus_group(w, mesh_axes, zero_stage=stage)
+                        g = (self.wus_group(w, mesh_axes, zero_stage=stage,
+                                            placement=eff_p)
                              if w.create_gradients else 1)
                         opt += (sb // g) * sc
                         grads += (sb // g if stage >= 2 else sb) * sc
@@ -1361,12 +1448,14 @@ class Simulator:
 
     def optimizer_update_cost(self, graph: Graph,
                               mesh_axes: Optional[Dict[str, int]] = None,
-                              zero_stage: Optional[int] = None) -> float:
+                              zero_stage: Optional[int] = None,
+                              placement: Optional[str] = None) -> float:
         """Weight-update pass: read master weight + grad, write weight,
         touch each optimizer slot — pure HBM traffic in f32 (master
         precision).  At ZeRO stage >= 1 the
         pass touches only each replicated weight's 1/group shard
         (arXiv:2004.13336); stages 2/3 change residency, not the pass."""
+        eff_p = self.effective_placement(mesh_axes, placement)
         numel = 0.0
         for op in graph.ops:
             for w in op.weights:
@@ -1374,7 +1463,8 @@ class Simulator:
                     sb = w.shape.shard_bytes()
                     n = sb / max(1, w.shape.dtype.size_bytes)
                     numel += n / self.wus_group(w, mesh_axes,
-                                                zero_stage=zero_stage)
+                                                zero_stage=zero_stage,
+                                                placement=eff_p)
         bytes_moved = numel * 4.0 * (3 + self.optimizer_slots)
         return bytes_moved / self.machine.device().hbm_bandwidth
 
@@ -1386,6 +1476,7 @@ class Simulator:
         training: bool = True,
         segment_costs: Optional[Sequence[Tuple[Sequence[int], float]]] = None,
         zero_stage: Optional[int] = None,
+        placement: Optional[str] = None,
         remat_plan: Optional[Sequence[int]] = None,
     ) -> SimResult:
         """segment_costs: [(member op guids, fwd+bwd seconds)] from
@@ -1410,20 +1501,23 @@ class Simulator:
         if training and remat_plan is not None:
             memory_fn = lambda: self.remat_memory_from_terms(  # noqa: E731
                 topo, mesh_axes, remat_plan, training,
-                zero_stage=zero_stage,
+                zero_stage=zero_stage, placement=placement,
             )
         elif training and not self.remat:
             memory_fn = lambda: self.memory_from_terms(  # noqa: E731
                 topo, mesh_axes, training, zero_stage=zero_stage,
+                placement=placement,
             )
         else:
             memory_fn = lambda: self.per_device_memory(  # noqa: E731
                 graph, training, mesh_axes=mesh_axes, zero_stage=zero_stage,
+                placement=placement,
             )
         return self.simulate_ops(
             topo, mesh_axes, training=training, measured_ops=measured_ops,
             seg_cost_total=seg_cost_total, memory_fn=memory_fn,
-            zero_stage=zero_stage, remat_plan=remat_plan,
+            zero_stage=zero_stage, placement=placement,
+            remat_plan=remat_plan,
         )
 
     def simulate_ops(
@@ -1435,6 +1529,7 @@ class Simulator:
         seg_cost_total: float = 0.0,
         memory_fn: Optional[Callable[[], int]] = None,
         zero_stage: Optional[int] = None,
+        placement: Optional[str] = None,
         remat_plan: Optional[Sequence[int]] = None,
     ) -> SimResult:
         """Aggregate cached per-op terms over `ops` (a topo-ordered op
@@ -1476,7 +1571,8 @@ class Simulator:
                 continue
             terms = self.op_terms(op, mesh_axes, training,
                                   skip_compute=op.guid in measured_ops,
-                                  zero_stage=zero_stage)
+                                  zero_stage=zero_stage,
+                                  placement=placement)
             if on_guids is None:
                 if training:
                     activation_bytes += terms.mem_activation

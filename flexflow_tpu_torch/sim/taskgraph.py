@@ -18,8 +18,10 @@ the analytic model (sim/simulator.py) does.  Collectives are expanded
 into ring phases (an all-reduce over n devices of S bytes is 2(n-1)
 phases of n neighbour transfers of S/n bytes), so contention between
 overlapping collectives is simulated, which the analytic model cannot
-see.  The topology-routed network model of the reference
-(sim/network.py, NetworkedMachineModel) is still to port, ROADMAP §1.C.
+see.  On a NetworkedMachineModel (sim/network.py) every transfer
+follows its routed path over the topology's links, each link with its
+own rate, and a collective runs over the devices of its mesh axes as
+on a switched network.
 """
 from __future__ import annotations
 
@@ -63,11 +65,22 @@ class TaskGraphBuilder:
         self._device: List[int] = []
         self._deps: List[List[int]] = []
         self._edges: List[Tuple[int, int, float, List[int]]] = []
-        # switched (GpuNodeModel): link 2*d is d's NVLink port, 2*d+1
-        # its NIC; otherwise a bidirectional ring: link 2*d = d ->
-        # (d+1)%D, 2*d+1 = d -> (d-1)%D
+        # a NetworkedMachineModel: one contention link per directed
+        # edge of its topology, routed; switched (GpuNodeModel): link
+        # 2*d is d's NVLink port, 2*d+1 its NIC; otherwise a
+        # bidirectional ring: link 2*d = d -> (d+1)%D, 2*d+1 = d ->
+        # (d-1)%D
+        from .network import NetworkedMachineModel
+
+        self.net = (machine if isinstance(machine, NetworkedMachineModel)
+                    else None)
         self.switched = isinstance(machine, GpuNodeModel)
-        if self.switched:
+        if self.net is not None:
+            links, self._link_index = machine.link_table()
+            rates = [machine.link_rate(u, v) for u, v in links]
+            self._link_bw = [bw for bw, _ in rates]
+            self._link_lat = [lat for _, lat in rates]
+        elif self.switched:
             self._link_bw = [machine.nvlink_bw, machine.ib_bw] * num_devices
             self._link_lat = ([machine.nvlink_lat, machine.ib_lat]
                               * num_devices)
@@ -90,10 +103,14 @@ class TaskGraphBuilder:
         self._deps[task].append(dep)
 
     def route(self, src: int, dst: int) -> List[int]:
-        """Link ids along src->dst: the sender's NVLink port or NIC on a
+        """Link ids along src->dst: routed over the topology's shortest
+        path on a NetworkedMachineModel (the reference's route_transfer,
+        simulator.cc:1488-1689), the sender's NVLink port or NIC on a
         switched network, else over the ring."""
         if src == dst:
             return []
+        if self.net is not None:
+            return self.net.route_links(src, dst, self._link_index)
         if self.switched:
             same = self.machine.node_of(src) == self.machine.node_of(dst)
             return [2 * src if same else 2 * src + 1]
@@ -461,7 +478,7 @@ class TaskGraphSimulator:
         views), else contiguous groups as in the reference."""
         D = len(all_devices)
         k = min(k, D)
-        if b.switched and axes is not None:
+        if (b.switched or b.net is not None) and axes is not None:
             groups = mesh_groups(self._mesh, axes)
             if len(groups[0]) != k:
                 raise RuntimeError(

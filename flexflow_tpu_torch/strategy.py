@@ -86,10 +86,11 @@ class Strategy:
     # FFConfig.zero_stage.  Rides the strategy so a store-restored or
     # imported winner replays with the stage it was costed under.
     zero_stage: Optional[int] = None
-    # the reference's multi-slice placement (the mesh axis spanning the
-    # boundary between slices), kept so that strategy files cross both
-    # ways; the port's searches never set it and nothing reads it until
-    # the multi-node SliceHierarchy is ported (ROADMAP §1.D, second half)
+    # search-chosen multi-slice placement (topology/hierarchy.py): the
+    # mesh axis that spans the boundary between slices.  None means not
+    # chosen: compile and the simulator take resolve_placement's
+    # default.  Ignored on single-slice runs, so flat strategies
+    # serialize unchanged.
     placement: Optional[str] = None
     # search-chosen per-segment remat plan (docs/PERF.md "Searched
     # rematerialization"): sorted indices of the single-tensor-boundary

@@ -583,12 +583,13 @@ def test_multigpu_legs_follow_the_issue():
     """Four legs of 4 ranks (DP x TP, DP x SP, ZeRO-3 under Adam, the
     CNN), the searched strategy over 8, five pipeline legs of 4 (data 2
     x pipe 2 with and without remat, pipe 4, the demo under 1F1B, the
-    search's cheapest pipeline), and four MoE legs of 4 (data 4, expert
-    4, data 2 x expert 2, the search's), each with its strategy."""
+    search's cheapest pipeline), four MoE legs of 4 (data 4, expert
+    4, data 2 x expert 2, the search's), and four legs of 4 of factored
+    views and two slices, each with its strategy."""
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     assert [leg["ranks"] for leg in chip_smoke.MULTIGPU_LEGS] == \
-        [4, 4, 4, 4, chip_smoke.SEARCH_DEVICES, 4, 4, 4, 4, 4, 4, 4, 4, 4]
-    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-4:] == \
+        [4, 4, 4, 4, chip_smoke.SEARCH_DEVICES] + [4] * 13
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-8:-4] == \
         ["moe_dp4", "ep4", "dp2_ep2", "moe_searched"]
     assert chip_smoke.MOE == dict(hidden_size=768, num_layers=12,
                                   num_heads=12, num_exp=8, num_select=2,
@@ -637,6 +638,102 @@ def test_multigpu_legs_follow_the_issue():
         got = chip_smoke._multigpu_strategy(legs["pp_searched"],
                                             {"pipeline_file": path})
     assert got.to_json() == pp4.to_json()
+
+
+def test_factored_and_slice_legs_follow_the_issue():
+    """factored_tp4 (attention at channel 4 on model1 + model0, ffn1 at
+    2 on model1 over {model0: 2, model1: 2}), slices2_dp4 (data 4 over 2
+    slices, with its flat run), slices2_zero1 (ZeRO-1 under Adam) and
+    slices2_searched (the Unity search's file), 4 ranks each, BERT
+    against its one-card run; each launches K1-K3 12 times per rank per
+    step: 3 local heads x 8 rows, or 12 heads x 2 rows, [24, 2048, 64]."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    names = ["factored_tp4", "slices2_dp4", "slices2_zero1",
+             "slices2_searched"]
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-4:] == names
+    assert [legs[n].get("slices", 1) for n in names] == [1, 2, 2, 2]
+    assert [legs[n]["reference"] for n in names] == [
+        "bert_sgd", "bert_sgd", "bert_adam", "bert_sgd"]
+    assert legs["slices2_dp4"]["flat_baseline"] is True
+    assert legs["slices2_zero1"]["zero"] == 1
+    assert legs["slices2_zero1"]["optimizer"] == "adam"
+    f = chip_smoke._multigpu_strategy(legs["factored_tp4"], {})
+    assert f.mesh_axes == {"model0": 2, "model1": 2} and not f.edge_ops
+    assert {k: v.channel for k, v in f.shard_configs.items()} == {
+        **{f"attn_{i}": 4 for i in range(12)},
+        **{f"ffn1_{i}": 2 for i in range(12)}}
+    dp = chip_smoke._multigpu_strategy(legs["slices2_dp4"], {})
+    assert dp.mesh_axes == {"data": 4}
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "s.json")
+        dp.save(path)
+        got = chip_smoke._multigpu_strategy(legs["slices2_searched"],
+                                            {"slices_strategy_file": path})
+    assert got.to_json() == dp.to_json()
+    for name in names:
+        want = chip_smoke.expected_launches(legs[name], dp if name !=
+                                            "factored_tp4" else f)
+        assert want == {"K1": 12, "K2": 12, "K3": 12}
+    # the local flash shape: heads per rank x rows per rank
+    heads, rows = chip_smoke.BERT["num_heads"], chip_smoke.TRAIN_BATCH
+    assert heads // 4 * rows == heads * (rows // 4) == 24
+    assert chip_smoke.HIER_FLAT_TOL == {"rtol": 2e-5, "atol": 2e-6}
+    assert chip_smoke.SLICES_MACHINE == "hgx_h100_16"
+    assert "factored_tp4,slices2_dp4,slices2_zero1,slices2_searched" in \
+        " ".join(chip_smoke.__doc__.split())
+
+
+def _slice_report(rank, flat_w=None, mesh=None, hier="data", wus=None):
+    rep = _rank_report(rank)
+    rep.update(exec_mesh=mesh or {"slice": 2, "data": 2}, hier_axis=hier,
+               wus_axis=wus, mesh={"data": 4},
+               collective_bytes_per_step={"update.all_gather": 1.0})
+    if flat_w is not None:
+        rep["flat"] = {"losses": [0.69, 7.26], "step_s": [0.3, 0.25],
+                       "collective_bytes_per_step": {"update.all_reduce": 2.0}}
+        if rank == 0:
+            rep["flat"].update(chip_smoke.hier_flat_diff(*flat_w))
+    return rep
+
+
+def test_slice_record_checks_the_mesh_and_the_flat_run():
+    """slices2_dp4's record holds its two-level mesh and its flat run:
+    hierarchical and flat weights within HIER_FLAT_TOL pass, beyond it
+    (a skipped sum between the slices moves a weight by ~1e-3) fault;
+    a rank on the flat mesh faults; ZeRO-1 must run over the remainder
+    with no hier_axis."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    ref = {"losses": [0.69, 7.2601], "step_s": [1.0, 0.3],
+           "last_step_moves": {"w": 1e-3}}
+    w = {"op": {"k": np.array([1.0, -0.5, 2e-3])}}
+    near = {"op": {"k": np.array([1.0 + 1e-5, -0.5, 2e-3 + 1e-6])}}
+    far = {"op": {"k": np.array([1.0, -0.5 + 1e-3, 2e-3])}}
+
+    def rec(name, reports):
+        return chip_smoke._multigpu_record(legs[name], reports, ref, "gloo",
+                                           1, 50.0, "", {})
+
+    ok = rec("slices2_dp4", [_slice_report(r, (near, w)) for r in range(4)])
+    assert ok["faults"] == [], ok["faults"]
+    assert ok["exec_mesh"] == {"slice": 2, "data": 2}
+    assert ok["flat"]["step_ms"] == [300.0, 250.0]
+    assert ok["slices_note"] == chip_smoke.SLICES_NOTE
+    assert len(ok["collective_bytes_per_step_per_rank"]) == 4
+    apart = rec("slices2_dp4", [_slice_report(r, (far, w)) for r in range(4)])
+    assert any("hierarchical and flat" in f for f in apart["faults"])
+    flat_mesh = rec("slices2_dp4", [_slice_report(r, (near, w),
+                                                  mesh={"data": 4},
+                                                  hier=None)
+                                    for r in range(4)])
+    assert len(flat_mesh["faults"]) == 4
+    zero = rec("slices2_zero1", [_slice_report(r, hier=None, wus="data")
+                                 for r in range(4)])
+    assert zero["faults"] == [] and zero["wus_axis"] == "data"
+    wrong = rec("slices2_zero1", [_slice_report(r) for r in range(4)])
+    assert len(wrong["faults"]) == 4
+    assert chip_smoke.hier_flat_diff(w, w)["weights_diff"] == 0.0
 
 
 @pytest.mark.parametrize("layers,stages,m,schedule,remat,want", [

@@ -42,7 +42,8 @@ def test_no_jax_or_reference_imports():
             "machine_model.py", "taskgraph.py", "calibrate.py",
             "parallel_op.py", "machine.py", "pipeline_plan.py",
             "pipeline.py", "comm.py", "expert_parallel.py",
-            "strategy.py", "profiler.py", "logger.py"} <= names
+            "strategy.py", "profiler.py", "logger.py", "hierarchy.py",
+            "network.py"} <= names
     for sub in ("keras", "keras/preprocessing", "onnx_frontend", "sim",
                 "parallel", "topology", "native", "pcg"):
         assert (PORT / sub / "__init__.py").is_file(), sub
@@ -80,6 +81,8 @@ def test_import_leaves_jax_unloaded():
             "flexflow_tpu_torch.parallel.pipeline, "
             "flexflow_tpu_torch.parallel.expert_parallel, "
             "flexflow_tpu_torch.topology.comm, "
+            "flexflow_tpu_torch.topology.hierarchy, "
+            "flexflow_tpu_torch.sim.network, "
             "flexflow_tpu_torch.native, flexflow_tpu_torch.profiler, "
             "flexflow_tpu_torch.strategy; "
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -168,10 +168,26 @@ def four(devices8):
                              dropout=0.25, **TINY_BERT)
     cases["dropout"] = (R.train_steps, (drop, _pp_strategy(Strategy, 1, 4, 2),
                                         None, [_bert_xy(3, 4)] * 2, SGD))
+    # the batch over both axes of {data: 2, model: 2} (a factored view)
+    ff = _ref_model(stacked, devices8[:4], _factored(RStrategy))
+    ref["factored_w"] = ff.get_weights()
+    ref["factored_losses"] = _steps(ff, x, y, 2)
+    ref["factored_after"] = ff.get_weights()
+    cases["factored"] = (R.train_steps, (stacked, _factored(Strategy),
+                                         ref["factored_w"],
+                                         [({"x": x}, y)] * 2, SGD))
     names = list(cases)
     got = R.run_group(R.run_cases, 4, [cases[k] for k in names],
                       timeout=240)
     return ref, {k: [rank[i] for rank in got] for i, k in enumerate(names)}
+
+
+def _factored(cls):
+    """The inputs' dim 0 at degree 4 over {data: 2, model: 2}: a view
+    over both axes."""
+    s = cls(mesh_axes={"data": 2, "model": 2})
+    s.edge_ops["__inputs__"] = [("repartition", {"dim": 0, "degree": 4})]
+    return s
 
 
 def test_pp_strategy_matches_reference_and_single_device(four):
@@ -485,20 +501,40 @@ def test_dryrun_multichip_pipeline_legs_replay(eight, leg):
     np.testing.assert_allclose(losses[0], ref[leg], **TOL)
 
 
+def test_compile_runs_factored_views_as_the_reference(four):
+    """The batch at degree 4 over {data: 2, model: 2}, a dim over two
+    mesh axes that compile refused before factored views were ported,
+    trains 2 SGD steps to the reference's losses and weights."""
+    ref, out = four
+    for rank in out["factored"]:
+        np.testing.assert_allclose(rank["losses"], ref["factored_losses"],
+                                   **TOL)
+    got = out["factored"][0]["weights"]
+    for op, entries in ref["factored_after"].items():
+        for k, v in entries.items():
+            np.testing.assert_allclose(got[op][k], v, **TOL)
+
+
 def test_compile_still_refuses_factored_views():
-    """What is left of ROADMAP §1.D raises: a dim sharded over two mesh
-    axes, at the views' check."""
-    from flexflow_tpu_torch.model import check_views
+    """The one factored view the port still refuses, as the reference
+    does (its ring asserts one sequence axis): ring attention over two
+    mesh axes raises at the op's plan, naming ROADMAP §1 item 1."""
+    from flexflow_tpu_torch.parallel.machine import DeviceMesh
+    from flexflow_tpu_torch.parallel.spmd import layout_of, plan_op
     from flexflow_tpu_torch.strategy import apply_strategy, assign_views
 
-    ff = PF.FFModel(PF.FFConfig(device="cpu", batch_size=16))
-    stacked(ff)
-    f = Strategy(mesh_axes={"data": 2, "model": 2})
-    f.edge_ops["__inputs__"] = [("repartition", {"dim": 0, "degree": 4})]
+    ff = PF.FFModel(PF.FFConfig(device="cpu", batch_size=2))
+    t_build_bert(ff, batch_size=2, num_layers=1, **TINY_BERT)
+    f = Strategy(mesh_axes={"seq0": 2, "seq1": 2})
+    f.edge_ops["__inputs__"] = [("repartition", {"dim": 1, "degree": 4})]
     g = apply_strategy(ff.layers, f)
     assign_views(g, f.mesh_axes)
-    with pytest.raises(NotImplementedError, match="factored.*ROADMAP §1.D"):
-        check_views(g)
+    attn = next(op for op in g.ops if op.name == "attn_0")
+    assert len(attn.inputs[0].machine_view.axes[1]) == 2
+    mesh = DeviceMesh(f.mesh_axes, 0, "cpu", {}, {})
+    with pytest.raises(NotImplementedError,
+                       match="more than one mesh axis.*ROADMAP §1 item 1"):
+        plan_op(attn, mesh, [layout_of(t) for t in attn.inputs])
 
 
 def test_compile_runs_an_expert_degree_on_a_dense_op_as_the_reference(

@@ -514,7 +514,9 @@ def test_search_config_flags_match_the_reference():
             "99", "--zero-stage", "2", "--wus-axis", "model", "--remat",
             "--export-strategy", "e.json", "--import-strategy", "i.json",
             "--nodes", "2", "-ll:fsize", "1024",
-            "--substitution-json", "none", "--only-data-parallel"]
+            "--substitution-json", "none", "--only-data-parallel",
+            "--slices", "2", "--dcn-bandwidth=1e9", "--dcn-latency", "2e-5",
+            "--slice-topology", "2x4", "--dcn-bucket-mb", "8"]
     mine, ref = P.FFConfig.from_args(argv), JaxConfig.from_args(argv)
     fields = ("search_budget", "search_alpha", "search_algo",
               "search_propagate", "search_eval_cache",
@@ -525,24 +527,38 @@ def test_search_config_flags_match_the_reference():
               "machine_model_file", "simulator_segment_size", "zero_stage",
               "wus_axis", "remat", "export_strategy_file",
               "import_strategy_file", "num_nodes", "memory_per_device",
-              "substitution_json", "only_data_parallel", "memory_lambda")
+              "substitution_json", "only_data_parallel", "memory_lambda",
+              "slices", "dcn_bandwidth", "dcn_latency", "slice_topology",
+              "dcn_bucket_mb")
     for f in fields:
         assert getattr(mine, f) == getattr(ref, f), f
     assert mine.parameter_sync.value == ref.parameter_sync.value
     defaults = P.FFConfig.from_args([]), JaxConfig.from_args([])
+    h100 = ("memory_per_device", "dcn_bandwidth", "dcn_latency")
     for f in fields:
-        if f != "memory_per_device":
+        if f not in h100:
             assert getattr(defaults[0], f) == getattr(defaults[1], f), f
-    # one H100's HBM, where the reference's default is a v5e's 16 GiB
+    # one H100's HBM, where the reference's default is a v5e's 16 GiB,
+    # and InfiniBand NDR between nodes (hgx_h100_16.json: 50e9 B/s per
+    # GPU, 5 us), where the reference's are a TPU's DCN (25e9, 10 us)
     assert defaults[0].memory_per_device == 80_000_000_000
+    assert (defaults[0].dcn_bandwidth, defaults[0].dcn_latency) == (50e9,
+                                                                    5e-6)
+    assert P.FFConfig(device="cpu").slices == 1
     assert not P.FFConfig(device="cpu").should_calibrate()
     assert P.FFConfig(device="cpu").resolve_num_devices() == 1
-    for flag in (["--slices", "2"], ["--dcn-bandwidth=1e9"],
-                 ["--strategy-store", "s"], ["--no-strategy-store"],
+    for flag in (["--strategy-store", "s"], ["--no-strategy-store"],
                  ["--fusion"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             P.FFConfig.from_args(flag)
-    with pytest.raises(TypeError):
-        P.FFConfig(slices=2)
+    # the multi-slice fields parse and validate as the reference's
+    assert P.FFConfig(slices=2).slices == JaxConfig(slices=2).slices == 2
+    for bad in ({"slices": 0}, {"dcn_bandwidth": 0.0},
+                {"dcn_latency": -1.0}, {"slice_topology": "axb"},
+                {"dcn_bucket_mb": 0.0}):
+        with pytest.raises(ValueError):
+            JaxConfig(**bad)
+        with pytest.raises(ValueError):
+            P.FFConfig(**bad)
     with pytest.raises(ValueError, match="search_algo"):
         P.FFConfig(search_algo="greedy")

@@ -496,3 +496,94 @@ def moe_spec(ff, num_exp=4):
     out = ff.aggregate_spec(values, assign, gate_sm, hidden, num_exp, 0.04,
                             name="agg")
     ff.softmax(out, name="softmax")
+
+
+# -- factored per-op views and the slice hierarchy ----------------------------
+
+def mixed_mlp(ff, batch=8, width=16, a=32, b=64):
+    """tests/test_per_op_views.py's MLP (batch 8, 16 -> 32 -> 64 -> 4;
+    with width 32, a 64 and b 128: __graft_entry__.py's dry-run
+    per-op-views model)."""
+    relu = _relu(ff)
+    x = ff.create_tensor([batch, width], name="x")
+    t = ff.dense(x, a, activation=relu, name="fa")
+    t = ff.dense(t, b, activation=relu, name="fb")
+    t = ff.dense(t, 4, name="head")
+    ff.softmax(t)
+
+
+def mixed_strategy(cls, shard):
+    """fa at channel 2, fb at channel 4 over {data: 2, model0: 2,
+    model1: 2}, each output combined (test_per_op_views.py:37)."""
+    s = cls(mesh_axes={"data": 2, "model0": 2, "model1": 2})
+    s.edge_ops["__inputs__"] = [("repartition", {"dim": 0, "degree": 2})]
+    s.shard_configs["fa"] = shard(channel=2)
+    s.edge_ops["fa.out0"] = [("combine", {"dim": 1, "degree": 2})]
+    s.shard_configs["fb"] = shard(channel=4)
+    s.edge_ops["fb.out0"] = [("combine", {"dim": 1, "degree": 4})]
+    return s
+
+
+def bert_factored(cls, shard, layers, attn=4, ffn1=2):
+    """A BERT strategy over {model0: 2, model1: 2}: every attention at
+    channel `attn` and every first FFN at channel `ffn1`."""
+    s = cls(mesh_axes={"model0": 2, "model1": 2})
+    for i in range(layers):
+        s.shard_configs[f"attn_{i}"] = shard(channel=attn)
+        s.shard_configs[f"ffn1_{i}"] = shard(channel=ffn1)
+    return s
+
+
+def slice_mlp(ff):
+    """tests/test_topology.py's _fit_model graph: [16, 32] -> 64 ReLU
+    -> 8 -> softmax."""
+    x = ff.create_tensor([16, 32], name="x")
+    t = ff.dense(x, 64, activation=_relu(ff))
+    t = ff.dense(t, 8)
+    ff.softmax(t)
+
+
+def slice_fit(rank, world, strategy, weights, x, y, cfg, flat=False):
+    """slice_mlp compiled under `strategy` with FFConfig(batch_size=16,
+    **cfg), SGD at lr 0.05, `weights` loaded (None: the seed's), fit
+    for 2 epochs; with `flat` the hierarchical reduction is switched
+    off on the same mesh.  The mesh, hier_axis, wus_axis, the strategy's
+    mesh axes, the weights after and the update's collective bytes."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.optimizer import SGDOptimizer
+    from flexflow_tpu_torch.parallel import collectives
+
+    ff = FFModel(FFConfig(device="cpu", batch_size=16, **cfg))
+    slice_mlp(ff)
+    ff.compile(optimizer=SGDOptimizer(lr=0.05), strategy=strategy, seed=0)
+    ex = ff.executor
+    hier = ex.hier_axis
+    if flat:
+        ex.hier_axis = None
+    if weights is not None:
+        ff.set_weights(weights)
+    collectives.traffic.clear()
+    ff.fit(x, y, epochs=2, verbose=False)
+    return {"mesh": dict(ex.mesh.axis_sizes), "hier_axis": hier,
+            "wus_axis": ex.wus_axis, "zero_stage": ex.zero_stage,
+            "strategy_mesh": dict(ff.strategy.mesh_axes),
+            "weights": ff.get_weights(),
+            "update_bytes": {k: v for (scope, k), v in
+                             collectives.traffic.items()
+                             if scope == "update"}}
+
+
+def compile_error(rank, world, build, strategy):
+    """The NotImplementedError compile raises for `strategy` (its
+    message), or None."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+
+    ff = FFModel(FFConfig(device="cpu"))
+    build(ff)
+    try:
+        ff.compile(strategy=strategy, seed=0)
+    except NotImplementedError as e:
+        return str(e)
+    return None
