@@ -153,7 +153,26 @@ Phases, each a failure of which exits non-zero:
    3 batches; P1 53 launches per forward, as the fx import's plan.
 22. seq_parity: the tiny NMT, GPT generation forms and Keras LSTM, card
    against CPU, float32, TF32 off, within SEQ_PARITY_TOL.
-23. search: the train phase's BERT-base (batch 8, seq 2048, float32)
+23. capture: the train, resnet and vit phases' models (BERT-base at
+   batch 8, seq 2048, float32; ResNet-50 at batch 256, 224 px,
+   bfloat16; ViT-B/16 at batch 128, bfloat16, dropout 0) each with its
+   step eager (build_step(capture=False)) and captured as one CUDA
+   graph (capture.py; the default on the card) from the same weights
+   and batches: losses and every weight after CAPTURE_STEPS steps
+   (PARITY_TOL), then a profile of CAPTURE_PROFILE_STEPS more on each
+   side: step ms, device busy and idle share, device events, and each
+   kernel's launches per step from the profiler, which sees the kernels
+   a replay launches (K1-K3 12 each, P1 53), against what the capture
+   counted; peak memory; capture_status.  Then the small ViT at dropout
+   0.1, captured: its replays must draw fresh masks, and
+   set_learning_rate(0) after the capture must stop its weights.
+24. fusion: FFConfig.perform_fusion (--fusion) on the BERT-base
+   flagship (its builder folds GELU into ffn1 already: no op to fold)
+   and on the vit phase's ViT-B/16 (batch 128, bfloat16, dropout 0;
+   its GELUs fold into fc1), each against its unfused compile from the
+   same weights: op counts, FUSION_STEPS steps' losses on one batch
+   (PARITY_TOL) and the step ms of FUSION_TIMED replays more.
+25. search: the train phase's BERT-base (batch 8, seq 2048, float32)
    with FFConfig(search_budget=20, search_calibrate=True) over the
    committed one-node HGX H100 machine file (sim/machines/hgx_h100_8.json):
    unity_search(ff, 8) costs its candidates with op forwards timed on
@@ -172,7 +191,7 @@ Phases, each a failure of which exits non-zero:
    launches of the search, the steps and the calibration go into the
    kernels line.  The searched strategy and the measured op costs are
    left for the multigpu phase.
-24. multigpu: eighteen legs, each over a group of spawned ranks (rank r on
+26. multigpu: nineteen legs, each over a group of spawned ranks (rank r on
    card r % cards; the backend NCCL where every rank has a card of its
    own, else gloo, named, with every collective staged through host
    memory), each taking 2 train steps (the first by train_step, the
@@ -186,11 +205,17 @@ Phases, each a failure of which exits non-zero:
    bert_sp_strategy(4, sp=2) (ring attention: K1-K3 on every 1024-key
    block, 24 per step each), data-parallel over 4 with ZeRO stage 3 and
    Adam (also against stage 0 in the same group; optimizer-state bytes
-   per rank), and under the search phase's 8-GPU strategy loaded from
-   its file over 8 ranks (without the search phase, the same search
-   runs here first); and resnet_parity's small ResNet data-parallel
-   over 4 (P1 on every BatchNorm with the global batch's statistics;
-   running statistics held too).  Pipelines over 4 ranks: BERT-base
+   per rank), the same with ZeRO stage 2 (dp_zero2: each grad
+   reduce-scattered as the backward makes it; against stage 0 too; on
+   every rank the device bytes allocated once the backward has ended,
+   read in eager steps of each stage (`grad_memory`): stage 2 holds at
+   most ZERO2_MEMORY_TOL beyond its shards, and stage 0 at least the
+   whole grads less the shards, less ZERO2_MEMORY_TOL, more), and under
+   the search phase's 8-GPU strategy loaded from its file over 8 ranks
+   (without the search phase, the same search runs here first); and
+   resnet_parity's small ResNet data-parallel over 4 (P1 on every
+   BatchNorm with the global batch's statistics; running statistics
+   held too).  Pipelines over 4 ranks: BERT-base
    under GPipe at data 2 x pipe 2 with 4 microbatches (pp_dp), the same
    with remat (pp_dp_remat), pipe 4 (pp4), and the pipeline the Unity
    search prices cheapest for 4 GPUs of hgx_h100_8.json
@@ -237,9 +262,25 @@ Phases, each a failure of which exits non-zero:
    op costs, hgx_h100_8.json at the leg's size) stands beside the
    measured one, and rank 0 profiles a third step (device busy and idle
    share, device ms by kind: collectives, K1-K3, GEMMs, copies).
+   Under NCCL a leg's step is captured unless a blocker keeps it eager
+   (each leg's record gives its capture_status), and each leg of
+   CAPTURE_LEGS runs again in its group eager and captured from the
+   same weights and batches: losses and weights after CAPTURE_STEPS
+   steps (MULTIGPU_TOL), a profile of CAPTURE_PROFILE_STEPS more on
+   each rank (K1-K3 per replayed step from the profiler), and under
+   ZeRO-3 how much of the prefetch's all-gathers ran beside compute.
+
+Every train step on the card is captured by default after one eager
+warm-up step (capture.py): the kernels' wrappers count the warm-up and
+the capturing step, not a replay, so each phase holds its counters to
+the steps the wrappers saw (`counted_steps`), and the capture phase
+counts a replayed step's launches with the profiler.
 
 `--phases` runs a subset (e.g. `--phases kernels` after editing a
-kernel, `--phases bn_kernels,resnet,resnet_parity,resnet_profile` for
+kernel, `--phases capture` for the captured steps, `--phases fusion`
+for the fusion pass, `--phases multigpu --legs
+dp_tp,dp_zero3,slices2_dp4,dp_zero2` for the captured multi-GPU legs,
+`--phases bn_kernels,resnet,resnet_parity,resnet_profile` for
 the ResNet path, `--phases vit,vit_parity,vit_profile` for the ViT
 path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
 `--phases nmt,generate,keras,onnx,seq_parity` for the sequence-model
@@ -257,6 +298,8 @@ printing no result, when torch.cuda.is_available() is false.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import re
 import shutil
@@ -1136,17 +1179,21 @@ def phase_flash_kernels(torch, fa, card: str, dev, lib_path) -> dict:
 
 
 def build_bert_model(device: str, num_layers: int, batch: int, seed: int = 0,
-                     metrics=("accuracy", "sparse_categorical_crossentropy")):
+                     metrics=("accuracy", "sparse_categorical_crossentropy"),
+                     capture: bool = True, fusion: bool = False):
     """Full-width BERT at seq 2048, compiled for training with the
-    default SGD; weights drawn by compile from `seed`."""
+    default SGD; weights drawn by compile from `seed`; the step captured
+    on the card unless `capture` is False; the fusion pass with
+    `fusion`."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models.transformer import build_bert
 
-    ff = FFModel(FFConfig(batch_size=batch, device=device, seed=seed))
+    ff = FFModel(FFConfig(batch_size=batch, device=device, seed=seed,
+                          perform_fusion=fusion))
     build_bert(ff, batch_size=batch, seq_length=TRAIN_SEQ,
                **dict(BERT, num_layers=num_layers))
     ff.compile(metrics=metrics, seed=seed)
-    return ff
+    return ff if capture else keep_eager(ff)
 
 
 def bert_data(n: int, seed: int):
@@ -1168,6 +1215,38 @@ def reset_flash_launches(fa) -> None:
     fa.flash_bwd_dkv.launches = 0
 
 
+def capture_counts(ff) -> dict:
+    """The step's capture record so far (FFModel.executor.capture_status's
+    counts), to difference over a run with `counted_steps`."""
+    st = ff.executor.capture_status
+    return {k: st.get(k, 0) for k in ("warmup_steps", "captures",
+                                      "replays")}
+
+
+def counted_steps(ff, before: dict, steps: int) -> int:
+    """Of `steps` train steps run since `before` (capture_counts), those
+    whose launches the kernels' wrappers counted: every step of an eager
+    step function; of a captured one the warm-up steps and the capturing
+    step.  A replay launches again what the capture counted, which no
+    wrapper sees: the profile phases count those from the profiler."""
+    if ff.executor.capture_status["mode"] == "eager":
+        return steps
+    now = capture_counts(ff)
+    return (now["warmup_steps"] - before["warmup_steps"]
+            + now["captures"] - before["captures"])
+
+
+def settle(ff, inputs, labels) -> list:
+    """After a phase's warm-up step, the steps that leave its step
+    function steady: the capturing step of a captured one (every later
+    step replays), none for an eager one; their metrics.  A phase times
+    its fit after them."""
+    st, out = ff.executor.capture_status, []
+    while st.get("mode") == "graph" and not st.get("captures"):
+        out.append(ff.train_step(inputs, labels))
+    return out
+
+
 def phase_train(torch, fa, card: str):
     """Full-width BERT-base at batch 8, seq 2048 through compile,
     train_step, fit and eval_step on the card."""
@@ -1177,11 +1256,20 @@ def phase_train(torch, fa, card: str):
     compile_s = time.perf_counter() - t0
     n = TRAIN_BATCH * (1 + FIT_BATCHES)
     x, y = bert_data(n, seed=0)
+    reset_flash_launches(fa)
+    before = capture_counts(ff)
+    # the peak from the warm-up on: a captured step's activations live in
+    # the graph's pool, allocated at the capture
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     warm = ff.train_step({"input": x[:TRAIN_BATCH]}, y[:TRAIN_BATCH])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    losses = []
+    t0 = time.perf_counter()
+    settled = settle(ff, {"input": x[:TRAIN_BATCH]}, y[:TRAIN_BATCH])
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    losses = [m["loss"] for m in settled]
     step = ff.train_step
 
     def recording(inputs, labels):
@@ -1190,25 +1278,24 @@ def phase_train(torch, fa, card: str):
         return m
 
     ff.train_step = recording
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    reset_flash_launches(fa)
     t0 = time.perf_counter()
     hist = ff.fit(x[TRAIN_BATCH:], y[TRAIN_BATCH:], batch_size=TRAIN_BATCH,
                   epochs=1, verbose=False)
     wall = time.perf_counter() - t0  # fit synchronizes at the epoch's end
     launches = flash_launches(fa)
+    counted = counted_steps(ff, before, 1 + len(settled) + FIT_BATCHES)
     del ff.train_step
     peak = torch.cuda.max_memory_allocated()
     reset_flash_launches(fa)
     ev = ff.eval_step({"input": x[:TRAIN_BATCH]}, y[:TRAIN_BATCH])
     logits = ff.forward({"input": x[:TRAIN_BATCH]})
     eval_launches = flash_launches(fa)
-    want = BERT["num_layers"] * FIT_BATCHES
-    if launches != {"K1": want, "K2": want, "K3": want}:
+    want = BERT["num_layers"] * counted
+    if not counted or launches != {"K1": want, "K2": want, "K3": want}:
         raise RuntimeError(
-            f"train: flash launches {launches} over {FIT_BATCHES} steps, "
-            f"expected {BERT['num_layers']} per step each ({want})")
+            f"train: flash launches {launches} over {counted} counted "
+            f"steps, expected {BERT['num_layers']} per step each ({want})")
     if eval_launches != {"K1": 2 * BERT["num_layers"], "K2": 0, "K3": 0}:
         raise RuntimeError(f"train: eval_step + forward launched "
                            f"{eval_launches}")
@@ -1227,6 +1314,7 @@ def phase_train(torch, fa, card: str):
         "model": dict(BERT, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                       dtype="float32", optimizer="SGD(lr=0.01, wd=1e-4)"),
         "compile_s": compile_s, "warmup_step_s": warm_s,
+        "capture_step_s": settle_s if settled else None,
         "fit_steps": FIT_BATCHES, "fit_wall_s": wall,
         "step_ms": wall / FIT_BATCHES * 1e3,
         "samples_per_s": TRAIN_BATCH * FIT_BATCHES / wall,
@@ -1234,8 +1322,10 @@ def phase_train(torch, fa, card: str):
         "fit_accuracy": pm.accuracy,
         "fit_mean_loss": pm.sparse_cce_loss / pm.train_all,
         "flash_launches": launches,
-        "flash_launches_per_step": {k: v / FIT_BATCHES
-                                    for k, v in launches.items()},
+        "counted_steps": counted,
+        "flash_launches_per_counted_step": {k: v / counted
+                                            for k, v in launches.items()},
+        "capture_status": ff.executor.capture_status,
         "peak_memory_gb": peak / 1e9,
     }
     emit(rec)
@@ -1492,15 +1582,17 @@ def vit_modules():
 
 
 def build_vit(module, batch: int, px: int, device: str, compute_dtype: str,
-              compile_: bool = True):
+              compile_: bool = True, capture: bool = True,
+              fusion: bool = False):
     """PyTorchModel(module).torch_to_ff, then (unless compile_ is False)
     compile with the default SGD and the sparse cross-entropy on the
-    logits, and copy_weights."""
+    logits, and copy_weights; the step captured on the card unless
+    `capture` is False; the fusion pass with `fusion`."""
     from flexflow_tpu_torch import FFConfig, FFModel, MetricsType
     from flexflow_tpu_torch.torch_frontend import PyTorchModel
 
     ff = FFModel(FFConfig(batch_size=batch, device=device,
-                          compute_dtype=compute_dtype))
+                          compute_dtype=compute_dtype, perform_fusion=fusion))
     x = ff.create_tensor([batch, 3, px, px], name="input")
     pt = PyTorchModel(module)
     pt.torch_to_ff(ff, [x])
@@ -1508,6 +1600,8 @@ def build_vit(module, batch: int, px: int, device: str, compute_dtype: str,
         ff.compile(metrics=[MetricsType.ACCURACY,
                             MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
         pt.copy_weights(ff)
+        if not capture:
+            keep_eager(ff)
     return ff
 
 
@@ -1649,10 +1743,11 @@ def phase_bn_kernels(torch, bk, card: str, dev) -> dict:
 
 
 def build_resnet(torch, module, batch: int, px: int, device: str,
-                 compute_dtype: str):
+                 compute_dtype: str, capture: bool = True):
     """The entry points a user calls: PyTorchModel(module).torch_to_ff,
     softmax, compile with SGD(lr=0.1) and the sparse cross-entropy,
-    copy_weights."""
+    copy_weights; the step captured on the card unless `capture` is
+    False."""
     from flexflow_tpu_torch import (FFConfig, FFModel, LossType,
                                     MetricsType, SGDOptimizer)
     from flexflow_tpu_torch.torch_frontend import PyTorchModel
@@ -1668,7 +1763,7 @@ def build_resnet(torch, module, batch: int, px: int, device: str,
                metrics=[MetricsType.ACCURACY,
                         MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
     pt.copy_weights(ff)
-    return ff
+    return ff if capture else keep_eager(ff)
 
 
 def bn_plan_counts(ff) -> dict:
@@ -1701,11 +1796,18 @@ def phase_resnet(torch, bk, card: str):
     x = rng.standard_normal((n, 3, RESNET_PX, RESNET_PX), dtype=np.float32)
     y = rng.integers(0, RESNET_CLASSES, n).astype(np.int32)
     b = RESNET_BATCH
+    bk.bn_apply.launches = 0
+    before = capture_counts(ff)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     warm = ff.train_step({"input": x[:b]}, y[:b])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    losses = []
+    t0 = time.perf_counter()
+    settled = settle(ff, {"input": x[:b]}, y[:b])
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    losses = [m["loss"] for m in settled]
     step = ff.train_step
 
     def recording(inputs, labels):
@@ -1714,13 +1816,12 @@ def phase_resnet(torch, bk, card: str):
         return m
 
     ff.train_step = recording
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    bk.bn_apply.launches = 0
     t0 = time.perf_counter()
     hist = ff.fit(x[b:], y[b:], batch_size=b, epochs=1, verbose=False)
     wall = time.perf_counter() - t0  # fit synchronizes at the epoch's end
     launches = bk.bn_apply.launches
+    counted = counted_steps(ff, before, 1 + len(settled) + RESNET_FIT)
     del ff.train_step
     peak = torch.cuda.max_memory_allocated()
     bk.bn_apply.launches = 0
@@ -1728,10 +1829,10 @@ def phase_resnet(torch, bk, card: str):
     probs = ff.forward({"input": x[:b]})
     eval_launches = bk.bn_apply.launches
     per_forward = sum(RESNET_BN.values())
-    if launches != per_forward * RESNET_FIT:
+    if not counted or launches != per_forward * counted:
         raise RuntimeError(f"resnet: P1 launched {launches} times over "
-                           f"{RESNET_FIT} steps, expected {per_forward} "
-                           "per step")
+                           f"{counted} counted steps, expected "
+                           f"{per_forward} per step")
     if eval_launches != 2 * per_forward:
         raise RuntimeError(f"resnet: eval_step + forward launched P1 "
                            f"{eval_launches} times")
@@ -1755,12 +1856,15 @@ def phase_resnet(torch, bk, card: str):
                   "weights": "torch.manual_seed(0) module init, "
                              "copy_weights"},
         "compile_s": compile_s, "warmup_step_s": warm_s,
+        "capture_step_s": settle_s if settled else None,
         "fit_steps": RESNET_FIT, "fit_wall_s": wall,
         "step_ms": wall / RESNET_FIT * 1e3,
         "images_per_s": b * RESNET_FIT / wall,
         "losses": loss_vals, "eval_loss": float(ev["loss"]),
         "bn_apply_launches": launches,
-        "bn_apply_launches_per_step": launches / RESNET_FIT,
+        "counted_steps": counted,
+        "bn_apply_launches_per_counted_step": launches / counted,
+        "capture_status": ff.executor.capture_status,
         "bn_plan_per_forward": plan,
         "peak_memory_gb": peak / 1e9,
     }
@@ -1963,7 +2067,8 @@ def phase_resnet_profile(torch, card: str, ff, x, y, steps: int = 3) -> dict:
 def loader_steps(ff, x, y, b: int, steps: int):
     """run() for a profile: `steps` train steps fed by the prefetching
     loader, as fit's loop runs them, after one warm step from the same
-    loader (so its start stays out of the window).  x and y hold at
+    loader (so its start stays out of the window) and, for a captured
+    step function, the capture on that batch (settle).  x and y hold at
     least steps + 1 batches."""
     from flexflow_tpu_torch import SingleDataLoader
 
@@ -1971,7 +2076,12 @@ def loader_steps(ff, x, y, b: int, steps: int):
     xs = ({k: v[:n] for k, v in x.items()} if isinstance(x, dict)
           else x[:n])
     loader = SingleDataLoader(ff, xs, y[:n], batch_size=b)
-    ff.train_step(*loader.next_batch())
+    inputs, labels = loader.next_batch()
+    # copies: the loader may refill its staging buffers meanwhile
+    inputs = {k: v.clone() for k, v in inputs.items()}
+    labels = labels.clone()
+    ff.train_step(inputs, labels)
+    settle(ff, inputs, labels)
 
     def run():
         for _ in range(steps):
@@ -2069,7 +2179,12 @@ def phase_vit(torch, pk, fa, bk, card: str):
     sigma = (VIT_DROPOUT * (1 - VIT_DROPOUT) / n_live) ** 0.5
     del inp, out, live
     del drop.forward
-    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    settled = settle(ff, {"input": x[:b]}, y[:b])
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    losses = [m["loss"] for m in settled]
     step = ff.train_step
 
     def recording(inputs, labels):
@@ -2078,7 +2193,6 @@ def phase_vit(torch, pk, fa, bk, card: str):
         return m
 
     ff.train_step = recording
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_kernel_launches(pk, fa, bk)
     t0 = time.perf_counter()
@@ -2123,6 +2237,7 @@ def phase_vit(torch, pk, fa, bk, card: str):
                              "copy_weights"},
         "op_counts": counts,
         "compile_s": compile_s, "warmup_step_s": warm_s,
+        "capture_step_s": settle_s if settled else None,
         "fit_steps": VIT_FIT, "fit_wall_s": wall,
         "step_ms": wall / VIT_FIT * 1e3,
         "images_per_s": b * VIT_FIT / wall,
@@ -2249,7 +2364,39 @@ def profile_by_op(torch, ff, run, steps: int, label=None) -> dict:
     and by stream.  Each op's forward runs in an `ffop::<label(op)>`
     range (the op type by default); its backward kernels are matched to
     it through the autograd sequence numbers.  Work launched from
-    another thread than the ops' (the loader's copies) is "loader"."""
+    another thread than the ops' (the loader's copies) is "loader".  A
+    captured train step runs eager in the window (a replay runs no
+    host range to match its kernels to): the capture phase measures the
+    captured steps."""
+    with eager_steps(ff):
+        return _profile_by_op(torch, ff, run, steps, label)
+
+
+@contextlib.contextmanager
+def eager_steps(ff):
+    """ff's train steps eager inside (a step function built with
+    capture off), its captured step function and record put back
+    after."""
+    from flexflow_tpu_torch.capture import CapturedStep
+
+    ex = ff.executor
+    step, status = ff._step_fn, ex.capture_status
+    if isinstance(step, CapturedStep):
+        keep_eager(ff)
+    try:
+        yield
+    finally:
+        ff._step_fn, ex.capture_status = step, status
+
+
+def keep_eager(ff):
+    """ff (compiled) with its train step built again with capture off:
+    the eager side of a comparison; `capture_status` names that."""
+    ff._step_fn = ff.executor.build_step(capture=False)
+    return ff
+
+
+def _profile_by_op(torch, ff, run, steps: int, label=None) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     label = label or (lambda op: op.op_type.value)
@@ -2560,10 +2707,12 @@ def record_losses(ff) -> list:
 
 
 def phase_zoo(torch, pk, fa, bk, card: str) -> dict:
-    """Each zoo model: one warm-up train_step, then fit(shuffle=True)
-    over ZOO_STEPS batches through the prefetching loader; samples/s,
-    peak memory, finite losses, MoE routing; no hand-written kernel
-    launches."""
+    """Each zoo model: one warm-up train_step and the capturing one (a
+    captured step function), then fit(shuffle=True) over ZOO_STEPS
+    batches through the prefetching loader; samples/s, peak memory,
+    finite losses, MoE routing (of the warm-up step and of the capturing
+    step, whose copy of the assignments each replay refreshes: the last
+    fit step's); no hand-written kernel launches."""
     from flexflow_tpu_torch import OperatorType
 
     rows = {}
@@ -2573,10 +2722,6 @@ def phase_zoo(torch, pk, fa, bk, card: str) -> dict:
         torch.cuda.synchronize()
         compile_s = time.perf_counter() - t0
         b, (x, y) = zoo_data(name, 1 + ZOO_STEPS)
-        t0 = time.perf_counter()
-        warm = ff.train_step({k: v[:b] for k, v in x.items()}, y[:b])
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
         routed = []
         groups = [op for op in ff.operators.ops
                   if op.op_type == OperatorType.GROUP_BY]
@@ -2588,9 +2733,14 @@ def phase_zoo(torch, pk, fa, bk, card: str) -> dict:
                 return _fwd(ins, ws, **kw)
 
             op.forward = watched
+        t0 = time.perf_counter()
+        warm = ff.train_step({k: v[:b] for k, v in x.items()}, y[:b])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        settled = settle(ff, {k: v[:b] for k, v in x.items()}, y[:b])
         losses = record_losses(ff)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_kernel_launches(pk, fa, bk)
         t0 = time.perf_counter()
         hist = ff.fit({k: v[b:] for k, v in x.items()}, y[b:],
@@ -2601,8 +2751,9 @@ def phase_zoo(torch, pk, fa, bk, card: str) -> dict:
         del ff.train_step
         for op in groups:
             del op.forward
-        loss_vals = [float(warm["loss"])] + [float(v) for v in losses]
-        if len(loss_vals) != 1 + ZOO_STEPS or not np.isfinite(
+        loss_vals = [float(m["loss"]) for m in [warm] + settled] + [
+            float(v) for v in losses]
+        if len(loss_vals) != 1 + len(settled) + ZOO_STEPS or not np.isfinite(
                 loss_vals).all():
             raise RuntimeError(f"zoo {name}: losses {loss_vals}")
         if any(launches.values()):
@@ -2942,9 +3093,10 @@ def phase_nmt(torch, pk, fa, bk, card: str) -> dict:
             f"differ by {grad_diff[worst]} of their scale, losses "
             f"{float(warm['loss'])} and {cpu['loss']}")
     del grads, cpu
+    torch.cuda.reset_peak_memory_stats()
+    settled = settle(ff, {k: v[:b] for k, v in x.items()}, y[:b])
     losses = record_losses(ff)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_kernel_launches(pk, fa, bk)
     t0 = time.perf_counter()
     hist = ff.fit({k: v[b:(1 + NMT_FIT) * b] for k, v in x.items()},
@@ -2954,8 +3106,10 @@ def phase_nmt(torch, pk, fa, bk, card: str) -> dict:
     launches = kernel_launches(pk, fa, bk)
     peak = torch.cuda.max_memory_allocated()
     del ff.train_step
-    loss_vals = [float(warm["loss"])] + [float(v) for v in losses]
-    if len(loss_vals) != 1 + NMT_FIT or not np.isfinite(loss_vals).all():
+    loss_vals = [float(m["loss"]) for m in [warm] + settled] + [
+        float(v) for v in losses]
+    if (len(loss_vals) != 1 + len(settled) + NMT_FIT
+            or not np.isfinite(loss_vals).all()):
         raise RuntimeError(f"nmt: losses {loss_vals}")
     if any(launches.values()):
         raise RuntimeError(f"nmt: the NMT path launched {launches}")
@@ -3352,9 +3506,11 @@ def keras_fit(torch, pk, fa, bk, card, K, name, build, opt, loss, metrics,
         callbacks = [K.LearningRateScheduler(lambda e, lr: lr * 0.9),
                      K.EarlyStopping(monitor="accuracy", patience=3)]
     # one warm-up step, as the other phases take, keeps cuDNN's and
-    # cuBLAS's first-call set-up out of fit's time
-    model.ffmodel.train_step({model.ffmodel.layers.source_ops()[0].name:
-                              x[:b]}, y[:b])
+    # cuBLAS's first-call set-up out of fit's time, and the capture
+    # after it (settle) keeps the capture out too
+    feed = {model.ffmodel.layers.source_ops()[0].name: x[:b]}
+    model.ffmodel.train_step(feed, y[:b])
+    settle(model.ffmodel, feed, y[:b])
     losses = record_losses(model.ffmodel)
     reset_kernel_launches(pk, fa, bk)
     torch.cuda.synchronize()
@@ -3434,27 +3590,32 @@ def phase_onnx(torch, pk, fa, bk, card: str) -> dict:
     if not err <= ONNX_TOL:
         raise RuntimeError(f"onnx: eval forward {err} over {ONNX_TOL}")
     del module, want
+    reset_kernel_launches(pk, fa, bk)
+    before = capture_counts(ff)
     t0 = time.perf_counter()
     warm = ff.train_step({"input": x[b:2 * b]}, y[b:2 * b])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    losses = record_losses(ff)
     torch.cuda.reset_peak_memory_stats()
-    reset_kernel_launches(pk, fa, bk)
+    settled = settle(ff, {"input": x[b:2 * b]}, y[b:2 * b])
+    losses = record_losses(ff)
     t0 = time.perf_counter()
     ff.fit(x[2 * b:], y[2 * b:], batch_size=b, epochs=1, verbose=False)
     wall = time.perf_counter() - t0
     launches = kernel_launches(pk, fa, bk)
+    counted = counted_steps(ff, before, 1 + len(settled) + ONNX_FIT)
     peak = torch.cuda.max_memory_allocated()
     del ff.train_step
     per_step = sum(RESNET_BN.values())
-    if launches["P1"] != ONNX_FIT * per_step or any(
+    if not counted or launches["P1"] != counted * per_step or any(
             v for k, v in launches.items() if k != "P1"):
         raise RuntimeError(f"onnx: fit launched {launches}")
     if fwd_p1 != per_step:
         raise RuntimeError(f"onnx: the forward launched P1 {fwd_p1} times")
-    loss_vals = [float(warm["loss"])] + [float(v) for v in losses]
-    if len(loss_vals) != 1 + ONNX_FIT or not np.isfinite(loss_vals).all():
+    loss_vals = [float(m["loss"]) for m in [warm] + settled] + [
+        float(v) for v in losses]
+    if (len(loss_vals) != 1 + len(settled) + ONNX_FIT
+            or not np.isfinite(loss_vals).all()):
         raise RuntimeError(f"onnx: losses {loss_vals}")
     rec = {"phase": "onnx", "card": card, "batch": b, "px": RESNET_PX,
            "classes": RESNET_CLASSES, "dtype": "float32",
@@ -3465,8 +3626,8 @@ def phase_onnx(torch, pk, fa, bk, card: str) -> dict:
            "warmup_step_s": warm_s, "fit_steps": ONNX_FIT,
            "fit_wall_s": wall, "step_ms": wall / ONNX_FIT * 1e3,
            "images_per_s": b * ONNX_FIT / wall,
-           "p1_launches": launches["P1"],
-           "p1_launches_per_step": launches["P1"] / ONNX_FIT,
+           "p1_launches": launches["P1"], "counted_steps": counted,
+           "p1_launches_per_counted_step": launches["P1"] / counted,
            "peak_memory_gb": peak / 1e9, "losses": loss_vals,
            "note": "TF32 off; step ms over fit's wall time with the "
                    "loader's start"}
@@ -3582,10 +3743,342 @@ def phase_seq_parity(torch, card: str) -> dict:
     return rec
 
 
+# -- capture: the train step as one CUDA graph -------------------------------
+
+# steps compared eager against captured from the same weights and batches
+# (the captured run: one warm-up step, the capturing step, a replay), and
+# the steps each side is then profiled over
+CAPTURE_STEPS, CAPTURE_PROFILE_STEPS = 3, 3
+# the fusion phase: steps whose losses are compared, then steps timed
+FUSION_STEPS, FUSION_TIMED = 2, 5
+# the hand-written kernels' names in a profile
+KERNEL_TAGS = {"K1": "flash_fwd_kernel", "K2": "flash_bwd_dq_kernel",
+               "K3": "flash_bwd_dkv_kernel", "K4": "paged_attention_kernel",
+               "P1": "bn_apply_kernel"}
+# the capture phase's paths: the kernels each must launch per step
+CAPTURE_KERNELS = {"bert": {"K1": BERT["num_layers"],
+                            "K2": BERT["num_layers"],
+                            "K3": BERT["num_layers"]},
+                   "resnet50": {"P1": sum(RESNET_BN.values())},
+                   "vit_b16": {}}
+
+
+def profile_steps(torch, run, steps: int, expect=None) -> dict:
+    """torch.profiler over `steps` calls of run() (one train step each),
+    after one call that the profiler traces and drops (a window's first
+    records can go missing): per step the wall ms (to a synchronize),
+    device busy ms (the union of the device events), device events and
+    each hand-written kernel's launches; the device's idle share.  With
+    `expect` ({kernel id: launches per step}) a window that counts
+    otherwise is logged in PROFILER_DROPS and taken again, up to
+    PROFILE_ATTEMPTS windows in all; the last one is returned."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(PROFILE_ATTEMPTS):
+        traces = []
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=steps,
+                                       repeat=1),
+                     on_trace_ready=lambda p: traces.append(
+                         list(p.events()))) as prof:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                run()
+                if i + 1 < steps:
+                    prof.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        # device work only: not the "nccl:<op>" ranges beside each NCCL
+        # kernel, nor the step annotations (ProfilerStep#) the schedule
+        # lays over each step's kernels on the device timeline
+        dev = [e for e in (traces[0] if traces else [])
+               if "cuda" in str(e.device_type).lower()
+               and not e.name.startswith(("nccl:", "ProfilerStep"))
+               and not getattr(e, "is_user_annotation", False)]
+        if not dev:
+            raise RuntimeError("the profiler saw no device time")
+        launches = {k: sum(tag in e.name for e in dev) / steps
+                    for k, tag in KERNEL_TAGS.items()}
+        if expect is None or all(launches[k] == expect.get(k, 0)
+                                 for k in launches):
+            break
+        PROFILER_DROPS.append({"tag": "train step", "attempt": attempt + 1,
+                               "launches_per_step": launches,
+                               "expected": expect})
+    busy_ms = device_busy_us(dev) / 1e3
+    kinds = {}
+    for e in dev:
+        kind = next((k for k, tag in KERNEL_TAGS.items() if tag in e.name),
+                    None) or _kernel_kind_mg(e.name)
+        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / (
+            1e3 * steps)
+    return {"steps": steps, "step_ms": wall_ms / steps,
+            "device_busy_ms": busy_ms / steps,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_events_per_step": len(dev) / steps,
+            "device_ms_by_kind": kinds,
+            "launches_per_step": launches, "attempts": attempt + 1,
+            "_events": dev}
+
+
+def _capture_side(torch, pk, fa, bk, build, batches, init, expect):
+    """One side of a path's comparison: build (its step captured or
+    eager), load `init` (weights and op state, or None: this side's own
+    are the comparison's start), CAPTURE_STEPS train steps, then a
+    profile of CAPTURE_PROFILE_STEPS more.  The batches are put on the
+    card first, so that the steps time the step itself, not the copy of
+    a pageable host array.  Returns (record, weights after the steps,
+    the start)."""
+    batches = [({k: torch.from_numpy(v).cuda() for k, v in inputs.items()},
+                torch.from_numpy(labels).cuda())
+               for inputs, labels in batches]
+    ff = build()
+    if init is None:
+        init = (ff.get_weights(), ff.get_state())
+    else:
+        ff.set_weights(init[0])
+        ff.set_state(init[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches(pk, fa, bk)
+    before = capture_counts(ff)
+    losses, step_s = [], []
+    for inputs, labels in batches:
+        t0 = time.perf_counter()
+        losses.append(float(ff.train_step(inputs, labels)["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    counted = counted_steps(ff, before, len(batches))
+    launches = kernel_launches(pk, fa, bk)
+    peak = torch.cuda.max_memory_allocated()
+    weights = ff.get_weights()
+    prof = profile_steps(torch, lambda: ff.train_step(*batches[-1]),
+                         CAPTURE_PROFILE_STEPS, expect)
+    prof.pop("_events")
+    rec = {"losses": losses, "step_s": step_s, "counted_steps": counted,
+           "counted_launches": launches, "peak_memory_gb": peak / 1e9,
+           "profile": prof,
+           "capture_status": dict(ff.executor.capture_status)}
+    del ff
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, weights, init
+
+
+def _capture_paths(torch):
+    """{path: (build(capture), the batches)} of the capture phase: the
+    train phase's BERT-base, the resnet phase's ResNet-50 and the vit
+    phase's ViT-B/16 at dropout 0 (the comparison needs no random
+    draw), each at its phase's batch, dtype and optimizer."""
+    ResNetMods, ViTMods = resnet_modules(), vit_modules()
+    x, y = bert_data(TRAIN_BATCH * CAPTURE_STEPS, seed=2)
+    bert = [({"input": x[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]},
+             y[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+            for i in range(CAPTURE_STEPS)]
+    rng = np.random.default_rng(2)
+
+    def images(b, px, classes):
+        return [({"input": rng.standard_normal((b, 3, px, px),
+                                               dtype=np.float32)},
+                 rng.integers(0, classes, b).astype(np.int32))
+                for _ in range(CAPTURE_STEPS)]
+
+    def resnet(capture):
+        torch.manual_seed(0)
+        module = ResNetMods[1](classes=RESNET_CLASSES)
+        return build_resnet(torch, module, RESNET_BATCH, RESNET_PX, "cuda",
+                            "bfloat16", capture=capture)
+
+    def vit(capture):
+        torch.manual_seed(0)
+        module = ViTMods[0](classes=VIT_CLASSES, dropout=0.0)
+        return build_vit(module, VIT_BATCH, VIT_PX, "cuda", "bfloat16",
+                         capture=capture)
+
+    return {
+        "bert": (lambda capture: build_bert_model(
+            "cuda", BERT["num_layers"], TRAIN_BATCH, capture=capture), bert),
+        "resnet50": (resnet, images(RESNET_BATCH, RESNET_PX,
+                                    RESNET_CLASSES)),
+        "vit_b16": (vit, images(VIT_BATCH, VIT_PX, VIT_CLASSES)),
+    }
+
+
+def phase_capture(torch, pk, fa, bk, card: str) -> dict:
+    """Each one-card path eager and captured from the same weights and
+    batches: losses and weights after CAPTURE_STEPS steps (PARITY_TOL),
+    step ms, device busy, idle share, events and the kernels' launches
+    per step (the captured side's from the profiler, which sees the
+    kernels a replay launches, against what the capture counted), peak
+    memory, capture_status; then the small ViT at dropout 0.1, captured,
+    whose replays must draw fresh masks and whose learning rate, set to 0
+    after the capture, must stop its weights."""
+    paths = []
+    faults = []
+    for name, (build, batches) in _capture_paths(torch).items():
+        want = CAPTURE_KERNELS[name]
+        expect = {k: want.get(k, 0) for k in KERNEL_TAGS}
+        eager, w_eager, init = _capture_side(
+            torch, pk, fa, bk, lambda: build(False), batches, None, expect)
+        graph, w_graph, _ = _capture_side(
+            torch, pk, fa, bk, lambda: build(True), batches, init, expect)
+        loss_err = _loss_err(graph["losses"], eager["losses"])
+        wdiff, worst = _weights_diff(w_graph, w_eager)
+        st = graph["capture_status"]
+        for side, rec in (("eager", eager), ("graph", graph)):
+            got = rec["profile"]["launches_per_step"]
+            if got != expect:
+                faults.append(f"{name} {side}: the profiler counted "
+                              f"{got} launches per step, expected {expect}")
+            counted = {k: v / max(1, rec["counted_steps"])
+                       for k, v in rec["counted_launches"].items()}
+            if counted != expect or not rec["counted_steps"]:
+                faults.append(f"{name} {side}: the wrappers counted "
+                              f"{rec['counted_launches']} over "
+                              f"{rec['counted_steps']} steps")
+        if st["mode"] != "graph" or st.get("replays", 0) < 1:
+            faults.append(f"{name}: the step was not captured: {st}")
+        elif {k: v for k, v in st["launches_at_capture"].items() if v} != {
+                k: v for k, v in expect.items() if v}:
+            faults.append(f"{name}: the capture counted "
+                          f"{st['launches_at_capture']}, expected {want}")
+        if not np.isfinite(eager["losses"] + graph["losses"]).all():
+            faults.append(f"{name}: non-finite losses")
+        if loss_err > PARITY_TOL["loss"] or wdiff > PARITY_TOL["weights"]:
+            faults.append(f"{name}: captured against eager: losses "
+                          f"{loss_err}, weights {wdiff} ({worst}) over "
+                          f"{PARITY_TOL}")
+        rec = {"phase": "capture", "path": name, "card": card,
+               "steps": CAPTURE_STEPS, "eager": eager, "graph": graph,
+               "loss_err": loss_err, "weights_diff": wdiff,
+               "worst_weight": worst, "tolerance": PARITY_TOL,
+               "kernels_per_step": want}
+        emit(rec)
+        paths.append(rec)
+    rng_rec = _capture_rng(torch)
+    emit(rng_rec)
+    faults += rng_rec["faults"]
+    if faults:
+        raise RuntimeError("capture: " + "; ".join(faults))
+    return {"phase": "capture", "paths": paths, "rng": rng_rec}
+
+
+def _capture_rng(torch) -> dict:
+    """The small ViT at dropout 0.1, captured: two calls (the warm-up and
+    the capture), set_learning_rate(0), three replays on one batch.  The
+    replays' losses must differ (each draws fresh masks from the
+    registered generator) and the weights must not move (the update
+    reads the learning rate from its device tensor)."""
+    _, SmallViT = vit_modules()
+    torch.manual_seed(3)
+    ff = build_vit(SmallViT(dropout=0.1), 4, 32, "cuda", "float32")
+    rng = np.random.RandomState(3)
+    x = rng.randn(4, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, 4).astype(np.int32)
+    first = [float(ff.train_step({"input": x}, y)["loss"]) for _ in range(2)]
+    ff.set_learning_rate(0.0)
+    before = ff.get_weights()
+    replays = [float(ff.train_step({"input": x}, y)["loss"])
+               for _ in range(3)]
+    moved, at = _weights_diff(ff.get_weights(), before)
+    st = ff.executor.capture_status
+    faults = []
+    if st["mode"] != "graph" or st["replays"] != 4:
+        faults.append(f"rng: capture status {st}")
+    if len(set(replays)) != len(replays):
+        faults.append(f"rng: replays gave the same losses {replays}")
+    if moved != 0.0:
+        faults.append(f"rng: weights moved {moved} ({at}) at lr 0")
+    return {"phase": "capture_rng", "model": "small ViT, dropout 0.1",
+            "losses_before_lr0": first, "losses_replayed_lr0": replays,
+            "weights_moved_at_lr0": moved, "replays": st.get("replays"),
+            "faults": faults}
+
+
+def phase_fusion(torch, fa, card: str) -> dict:
+    """FFConfig.perform_fusion (--fusion): the BERT-base flagship of the
+    train phase (its builder folds GELU into ffn1 already, so the pass
+    finds nothing) and the vit phase's ViT-B/16 at its batch and dtype
+    (bfloat16) from its weights, at dropout 0 (torch.fx imports each
+    block's GELU as an op of its own, which the pass folds into fc1),
+    each compiled with and without the pass from the same weights: op
+    counts of the compiled graphs, FUSION_STEPS steps' losses
+    (PARITY_TOL) and the step ms of FUSION_TIMED more (captured
+    replays).  The small ViT's fold is a CPU test
+    (tests/test_torch_fusion.py)."""
+    steps = FUSION_STEPS
+    out, faults = [], []
+    x, y = bert_data(TRAIN_BATCH, seed=4)
+    ViT, _ = vit_modules()
+    rng = np.random.RandomState(4)
+    xv = rng.randn(VIT_BATCH, 3, VIT_PX, VIT_PX).astype(np.float32)
+    yv = rng.randint(0, VIT_CLASSES, VIT_BATCH).astype(np.int32)
+
+    def vit(fusion):
+        torch.manual_seed(0)
+        return build_vit(ViT(classes=VIT_CLASSES, dropout=0.0), VIT_BATCH,
+                         VIT_PX, "cuda", "bfloat16", fusion=fusion)
+
+    cases = {
+        "bert": (lambda fusion: build_bert_model(
+            "cuda", BERT["num_layers"], TRAIN_BATCH, fusion=fusion), x, y),
+        "vit_b16": (vit, xv, yv)}
+    for name, (build, xs, ys) in cases.items():
+        rec = {"path": name}
+        init = None
+        for fusion in (False, True):
+            ff = build(fusion)
+            if init is None:
+                init = ff.get_weights()
+            else:
+                ff.set_weights(init)
+            dev = ({"input": torch.from_numpy(xs).cuda()},
+                   torch.from_numpy(ys).cuda())
+            losses = [float(ff.train_step(*dev)["loss"])
+                      for _ in range(steps)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FUSION_TIMED):
+                ff.train_step(*dev)
+            torch.cuda.synchronize()
+            key = "fused" if fusion else "unfused"
+            rec[key] = {"ops": len(ff.operators.ops), "losses": losses,
+                        "activation_ops": sum(
+                            op.op_type.value == "element_unary"
+                            for op in ff.operators.ops),
+                        "step_ms": (time.perf_counter() - t0) * 1e3
+                        / FUSION_TIMED,
+                        "capture": ff.executor.capture_status.get("mode")}
+            del ff, dev
+            torch.cuda.empty_cache()
+        rec["loss_err"] = _loss_err(rec["fused"]["losses"],
+                                    rec["unfused"]["losses"])
+        if rec["loss_err"] > PARITY_TOL["loss"]:
+            faults.append(f"{name}: fused losses {rec['fused']['losses']} "
+                          f"against {rec['unfused']['losses']}")
+        if name == "vit_b16" and not (
+                rec["fused"]["ops"] < rec["unfused"]["ops"]):
+            faults.append(f"{name}: the pass folded nothing: {rec}")
+        out.append(rec)
+    rec = {"phase": "fusion", "card": card, "steps": steps,
+           "timed_steps": FUSION_TIMED, "cases": out,
+           "tolerance": PARITY_TOL["loss"]}
+    emit(rec)
+    if faults:
+        raise RuntimeError("fusion: " + "; ".join(faults))
+    return rec
+
+
 ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
               "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
-              "nmt,generate,keras,onnx,seq_parity,search,multigpu")
+              "nmt,generate,keras,onnx,seq_parity,capture,fusion,search,"
+              "multigpu")
 
 # the search phase: the Unity search's budget, the devices it searches
 # for (one HGX H100 node), the calibration's step windows and batch
@@ -3865,6 +4358,9 @@ MULTIGPU_LEGS = (
      "optimizer": "sgd", "reference": "bert_sgd"},
     {"name": "dp_zero3", "ranks": 4, "strategy": ["dp"], "zero": 3,
      "optimizer": "adam", "reference": "bert_adam"},
+    # ZeRO-2: each grad reduce-scattered as the backward makes it
+    {"name": "dp_zero2", "ranks": 4, "strategy": ["dp"], "zero": 2,
+     "optimizer": "adam", "reference": "bert_adam"},
     {"name": "cnn_dp", "ranks": 4, "strategy": ["dp"], "optimizer": "sgd",
      "reference": "cnn"},
     {"name": "searched", "ranks": SEARCH_DEVICES, "strategy": ["file"],
@@ -3914,6 +4410,20 @@ MULTIGPU_LEGS = (
     {"name": "slices2_searched", "ranks": 4, "strategy": ["slices_file"],
      "slices": 2, "optimizer": "sgd", "reference": "bert_sgd"},
 )
+# the legs whose step must be captured under NCCL: each is run again in
+# its group eager and captured from the same weights and batches
+# (CAPTURE_STEPS steps, then CAPTURE_PROFILE_STEPS profiled); and the MoE
+# leg whose plan has no blocker, whose legs run eager for their routing
+# check: it is run so too
+CAPTURE_LEGS = ("dp_tp", "dp_zero3", "slices2_dp4", "dp_zero2")
+# ZeRO-2's device bytes once the backward has ended: beyond its grad
+# shards the step holds its batch (12.58 MB a rank at data 4), loss and
+# logits; below ZeRO-0's, stage 0 also holds ~24 MB that its backward
+# allocated outside Python (the allocator's history on an H100); one
+# bucket (parallel/zero.py BUCKET_BYTES, 25 MiB) covers either, where
+# grads kept whole would be off by three quarters of BERT-base's 340 MB
+ZERO2_MEMORY_TOL = 25 * 2 ** 20
+CAPTURE_ATTEMPTS = ("ep4",)
 # slices2_dp4's hierarchical weights against its flat run on the same
 # mesh after the 2 steps, |hier - flat| <= atol + rtol |flat| per
 # element: tests/test_topology.py:313's bar for the two reduction
@@ -3976,10 +4486,11 @@ def _multigpu_optimizer(name: str):
 
 
 def _multigpu_bert(device: str, optimizer: str, strategy=None, zero=0,
-                   remat=False, compiled=True, slices=1):
+                   remat=False, compiled=True, slices=1, capture=True):
     """The train phase's BERT-base, batch 8, seq 2048, weights from seed
-    0 (every rank draws the same global weights), over `slices` slices;
-    uncompiled, its layer graph alone."""
+    0 (every rank draws the same global weights), over `slices` slices,
+    the step captured unless `capture` is False (or a blocker keeps it
+    eager); uncompiled, its layer graph alone."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models.transformer import build_bert
 
@@ -3989,12 +4500,16 @@ def _multigpu_bert(device: str, optimizer: str, strategy=None, zero=0,
     if compiled:
         ff.compile(optimizer=_multigpu_optimizer(optimizer),
                    strategy=strategy, seed=0)
+        if not capture:
+            keep_eager(ff)
     return ff
 
 
-def _multigpu_moe(device: str, strategy=None, compiled=True):
+def _multigpu_moe(device: str, strategy=None, compiled=True, capture=False):
     """The MoE legs' encoder (MOE) at batch 8, seq 2048, SGD as the BERT
-    legs, weights from seed 0; uncompiled, its layer graph alone."""
+    legs, weights from seed 0; uncompiled, its layer graph alone.  Its
+    step is eager unless `capture`: the legs' routing check
+    (watch_routing) copies every step's expert ids to the host."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models.moe import build_moe_encoder
 
@@ -4004,6 +4519,8 @@ def _multigpu_moe(device: str, strategy=None, compiled=True):
     if compiled:
         ff.compile(optimizer=_multigpu_optimizer("sgd"), strategy=strategy,
                    seed=0)
+        if not capture:
+            keep_eager(ff)
     return ff
 
 
@@ -4300,6 +4817,9 @@ def _multigpu_leg(torch, dist, leg, job, rank):
         rec["balance_losses"] = routing["aux"].sum(axis=1).tolist()
     weights = ff.get_weights()
     state = ff.get_state() if leg["reference"] == "cnn" else None
+    if leg.get("zero") == 2:
+        rec["grad_memory"] = grad_memory(torch, ff, data["x"][:b],
+                                         data["y"][:b])
     if rank == 0:
         want = np.load(job["data"][leg["reference"] + "_after"],
                        allow_pickle=True)["weights"].item()
@@ -4314,21 +4834,112 @@ def _multigpu_leg(torch, dist, leg, job, rank):
             want_s = np.load(job["data"]["cnn_after"],
                              allow_pickle=True)["state"].item()
             rec["running_stats_diff"], _ = _weights_diff(state, want_s)
-        if leg.get("zero") == 3:
+        if leg.get("zero") in (2, 3):
             rec["zero0"] = _multigpu_zero0(torch, dist, leg, job, data,
                                            weights)
-    elif leg.get("zero") == 3:
-        _multigpu_zero0(torch, dist, leg, job, data, None)
+    elif leg.get("zero") in (2, 3):
+        rec["zero0"] = _multigpu_zero0(torch, dist, leg, job, data, None)
     if job.get("profile"):
         prof = _rank_profile(torch, ff, data["x"][:b], data["y"][:b])
         if rank == 0:
             rec["profile"] = prof
+    st = ff.executor.capture_status
+    rec["capture_status"] = {k: st[k] for k in (
+        "mode", "blockers", "warmup_steps", "captures", "replays",
+        "launches_at_capture", "traffic_at_capture") if k in st}
+    rec["grad_bytes"] = dict(ff.executor.grad_bytes,
+                             full=ff.executor.full_grad_bytes(ff._weights))
     del ff
     torch.cuda.empty_cache()
+    if job.get("profile") and leg["name"] in CAPTURE_LEGS + CAPTURE_ATTEMPTS:
+        rec["capture"] = _leg_capture_check(torch, dist, leg, job, data,
+                                            rank)
     if leg.get("flat_baseline"):
         rec["flat"] = _multigpu_flat(torch, dist, leg, job, data,
                                      weights if rank == 0 else None, rank)
     return rec
+
+
+def _leg_capture_check(torch, dist, leg, job, data, rank) -> dict:
+    """The leg's BERT in its group eager and captured (NCCL), from the
+    same weights and batches: CAPTURE_STEPS train steps (losses; the
+    weights after them on rank 0), then CAPTURE_PROFILE_STEPS profiled
+    (step ms, device busy, idle share, events and K1-K3 launches per
+    step, and under ZeRO-3 how much of the prefetch's all-gathers ran
+    beside compute)."""
+    strategy = _multigpu_strategy(leg, job)
+    b = TRAIN_BATCH
+    batches = [(data["x"][(i % MULTIGPU_STEPS) * b:][:b],
+                data["y"][(i % MULTIGPU_STEPS) * b:][:b])
+               for i in range(CAPTURE_STEPS)]
+    out, weights = {}, {}
+    for mode in ("eager", "graph"):
+        if leg["reference"] == "moe":
+            ff = _multigpu_moe("cuda", strategy, capture=mode == "graph")
+        else:
+            ff = _multigpu_bert("cuda", leg["optimizer"], strategy,
+                                leg.get("zero", 0),
+                                slices=leg.get("slices", 1),
+                                capture=mode == "graph")
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(ff.train_step({"input": x}, y)["loss"])
+                  for x, y in batches]
+        peak = torch.cuda.max_memory_allocated()
+        weights[mode] = ff.get_weights()
+        x, y = batches[-1]
+        prof = profile_steps(torch, lambda: ff.train_step({"input": x}, y),
+                             CAPTURE_PROFILE_STEPS,
+                             expected_launches(leg, strategy))
+        events = prof.pop("_events")
+        if leg.get("zero") == 3:
+            prof["all_gather"] = gather_overlap(events, CAPTURE_PROFILE_STEPS)
+        st = ff.executor.capture_status
+        out[mode] = {"losses": losses, "profile": prof,
+                     "peak_memory_gb": peak / 1e9,
+                     "capture_status": {k: st[k] for k in (
+                         "mode", "blockers", "replays",
+                         "launches_at_capture", "traffic_at_capture")
+                         if k in st}}
+        del ff
+        torch.cuda.empty_cache()
+    out["loss_err"] = _loss_err(out["graph"]["losses"],
+                                out["eager"]["losses"])
+    if rank == 0:
+        out["weights_diff"], out["worst_weight"] = _weights_diff(
+            weights["graph"], weights["eager"])
+    return out
+
+
+def gather_overlap(events, steps: int) -> dict:
+    """Per step: the device ms of NCCL's all-gather kernels, and the
+    share of it during which a compute kernel (no NCCL kernel, no copy
+    or set) ran too."""
+    def is_gather(name):
+        low = name.lower()
+        return "nccl" in low and "allgather" in low.replace("_", "")
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if "nccl" not in e.name.lower()
+                   and "memcpy" not in e.name.lower()
+                   and "memset" not in e.name.lower())
+    union = []
+    for a, b in spans:
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    total = beside = 0.0
+    for e in events:
+        if not is_gather(e.name):
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        total += b - a
+        beside += sum(max(0.0, min(b, v) - max(a, u)) for u, v in union)
+    return {"ms_per_step": total / 1e3 / steps,
+            "beside_compute_ms_per_step": beside / 1e3 / steps,
+            "beside_compute_share": beside / total if total else None}
 
 
 def reset_leg_launches(fa, bk) -> None:
@@ -4424,11 +5035,15 @@ def _kernel_kind_mg(name: str) -> str:
 
 def _rank_profile(torch, ff, x, y) -> dict:
     """One more train step under torch.profiler on this rank (after the
-    checks): wall, device busy (the union of device events) and idle
-    share, device ms by kind and the top kernels."""
+    checks, the ranks met at a barrier first: a rank that opens its
+    window early would time its peers' lateness in its first
+    collective): wall, device busy (the union of device events) and
+    idle share, device ms by kind and the top kernels."""
+    import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    dist.barrier()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4475,8 +5090,10 @@ def _fit_step(ff, x, y, b) -> float:
 
 
 def _multigpu_zero0(torch, dist, leg, job, data, weights3):
-    """The ZeRO-3 leg's group at stage 0, same weights and batches: the
-    losses and the weights the ladder must reproduce."""
+    """The ZeRO leg's group at stage 0, same weights and batches: the
+    losses and the weights the ladder must reproduce (rank 0, given
+    the leg's weights `weights3`); at a stage-2 leg, on every rank, the
+    grad memory of one more step (`grad_memory`)."""
     ff = _multigpu_bert("cuda", leg["optimizer"], _multigpu_strategy(leg, job))
     losses = []
     for i in range(MULTIGPU_STEPS):
@@ -4485,13 +5102,49 @@ def _multigpu_zero0(torch, dist, leg, job, data, weights3):
                                           data["y"][sl])["loss"]))
     weights0 = ff.get_weights()
     opt0 = ff.executor.opt_state_bytes(ff._opt_state)
+    mem = (grad_memory(torch, ff, data["x"][:TRAIN_BATCH],
+                       data["y"][:TRAIN_BATCH])
+           if leg.get("zero") == 2 else None)
     del ff
     torch.cuda.empty_cache()
     if weights3 is None:
-        return None
+        return {"grad_memory": mem}
     diff, at = _weights_diff(weights3, weights0)
     return {"losses": losses, "weights_diff": diff, "worst_weight": at,
-            "opt_state_bytes": opt0}
+            "opt_state_bytes": opt0, "grad_memory": mem}
+
+
+def grad_memory(torch, ff, x, y) -> dict:
+    """Two more train_steps of ff, eager (a replay allocates nothing),
+    the second as the allocator reads it: the device bytes allocated
+    when the backward has ended (at the update's entry: the grads the
+    step holds, its batch, loss and logits) and at the step's peak, each
+    less those allocated before the step.  The first step makes what an
+    eager step makes once and keeps (cuBLAS's 32 MiB workspace for each
+    thread and stream, here the caller's and autograd's on the current
+    stream, which a captured model's warm-up ran on a side stream)."""
+    ex = ff.executor
+    seen = []
+    sync = ex._sync_and_update
+
+    def reading(*a, **k):
+        torch.cuda.synchronize()
+        seen.append(torch.cuda.memory_allocated())
+        return sync(*a, **k)
+
+    with eager_steps(ff):
+        ff.train_step({"input": x}, y)
+        ex._sync_and_update = reading
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ff.train_step({"input": x}, y)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            del ex._sync_and_update
+    return {"after_backward": seen[0] - base, "peak": peak - base}
 
 
 def _multigpu_flat(torch, dist, leg, job, data, weights_hier, rank):
@@ -5043,9 +5696,10 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
         z = r0["zero0"]
         dz = _loss_err(z["losses"], r0["losses"])
         if dz > MULTIGPU_TOL["loss"] or z["weights_diff"] > wtol:
-            faults.append(f"{name}: ZeRO-3 against ZeRO-0 {z}")
+            faults.append(f"{name}: ZeRO-{leg['zero']} against ZeRO-0 {z}")
     if leg.get("slices", 1) > 1:
         _slice_checks(leg, ranks, faults)
+    cap = _capture_checks(leg, ranks, want, wtol, faults)
     step_s = [max(r["step_s"][i] for r in ranks)
               for i in range(MULTIGPU_STEPS)]
     rec = {
@@ -5073,6 +5727,15 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
     }
     if leg.get("remat"):
         rec["remat"] = True
+    if "capture_status" in r0:
+        rec["capture_status"] = r0["capture_status"]
+        rec["grad_bytes_per_rank"] = [r["grad_bytes"] for r in ranks]
+    if leg.get("zero") == 2:
+        rec["grad_memory_per_rank"] = [
+            {"zero0": r["zero0"]["grad_memory"], "zero2": r["grad_memory"]}
+            for r in ranks]
+    if cap is not None:
+        rec["capture"] = cap
     if moe is not None:
         rec["moe"] = moe
         rec["collective_bytes_per_step_rank0"] = r0[
@@ -5144,6 +5807,55 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
     if leg["strategy"][0] in ("file", "moe_file", "slices_file"):
         rec["searched_strategy"] = json.loads(strategy.to_json())
     return rec
+
+
+def _capture_checks(leg, ranks, want, wtol, faults):
+    """ZeRO-2's grad memory against ZeRO-0's, and a capture leg's
+    eager-against-captured run (its rank 0 record, with every rank's
+    profile), into `faults`."""
+    name, r0 = leg["name"], ranks[0]
+    if leg.get("zero") == 2:
+        # the device's reading once the backward has ended: stage 2
+        # holds its shards (and the fallback leaves whole), as
+        # ScatterBuckets counts them from their shapes, and little else;
+        # stage 0 holds every whole grad, so at least the whole grads
+        # less the shards more
+        for r in ranks:
+            g = r["grad_bytes"]
+            two = r["grad_memory"]["after_backward"]
+            beyond = two - g["after_backward"]
+            if beyond > ZERO2_MEMORY_TOL:
+                faults.append(
+                    f"{name}: rank {r['rank']} held {beyond} bytes beyond "
+                    f"its grad shards after the backward (limit "
+                    f"{ZERO2_MEMORY_TOL})")
+            freed = g["full"] - g["after_backward"]
+            got = r["zero0"]["grad_memory"]["after_backward"] - two
+            if got < freed - ZERO2_MEMORY_TOL:
+                faults.append(
+                    f"{name}: rank {r['rank']} held {got} bytes fewer than "
+                    f"ZeRO-0 after the backward, not {freed} less at most "
+                    f"{ZERO2_MEMORY_TOL}")
+    if "capture" not in r0:
+        return None
+    cap = dict(r0["capture"])
+    for r in ranks:
+        c = r["capture"]
+        if c["graph"]["capture_status"]["mode"] != "graph":
+            faults.append(f"{name}: rank {r['rank']} did not capture: "
+                          f"{c['graph']['capture_status']}")
+        got = c["graph"]["profile"]["launches_per_step"]
+        if any(got[k] != want[k] for k in want):
+            faults.append(f"{name}: rank {r['rank']}'s replays launched "
+                          f"{got} per step, expected {want}")
+    if cap["loss_err"] > MULTIGPU_TOL["loss"] or not cap[
+            "weights_diff"] <= wtol:
+        faults.append(f"{name}: captured against eager: losses "
+                      f"{cap['loss_err']}, weights {cap['weights_diff']} "
+                      f"({cap['worst_weight']}), tolerance {wtol}")
+    cap["profile_per_rank"] = [{m: r["capture"][m]["profile"]
+                                for m in ("eager", "graph")} for r in ranks]
+    return cap
 
 
 def _slice_checks(leg, ranks, faults) -> None:
@@ -5247,10 +5959,12 @@ def _moe_checks(name, ranks, ref, strategy, faults) -> dict:
 
 
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
-                onnx=None, search=None, multigpu=None) -> dict:
+                onnx=None, search=None, multigpu=None, capture=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
-    main paths, agreement with the plain versions and the times of this
-    run."""
+    main paths (what the wrappers counted: under a captured step, the
+    warm-up and the capturing step; the capture phase's profiler counts
+    a replayed step's), agreement with the plain versions and the times
+    of this run."""
     rows = []
     if bn is not None:
         main = bn["main"]
@@ -5261,13 +5975,16 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
             "source": "flexflow_tpu_torch/csrc/bn_apply.cu",
             "replaces": "scripts/resnet_bn_probe.py:28",
             "launches": resnet["bn_apply_launches"] if resnet else 0,
-            "launches_per_train_step": (
-                resnet["bn_apply_launches_per_step"] if resnet else None),
+            "launches_per_counted_train_step": (
+                resnet["bn_apply_launches_per_counted_step"]
+                if resnet else None),
+            "launches_per_replayed_train_step": _replayed_launches(
+                capture, "resnet50", "P1"),
             "launches_onnx": onnx["p1_launches"] if onnx else None,
             "launches_multigpu_per_rank_per_step": _multigpu_launches(
                 multigpu, "P1"),
-            "launches_per_train_step_onnx": (
-                onnx["p1_launches_per_step"] if onnx else None),
+            "launches_per_counted_train_step_onnx": (
+                onnx["p1_launches_per_counted_step"] if onnx else None),
             "max_abs_err": max(c["max_abs_err"] for c in bn["cases"]),
             "max_err_over_scale_by_dtype": bn["worst"],
             "tolerance": BN_TOL,
@@ -5328,8 +6045,11 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
             "source": "flexflow_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"flexflow_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": train["flash_launches"][kid] if train else 0,
-            "launches_per_train_step": (
-                train["flash_launches_per_step"][kid] if train else None),
+            "launches_per_counted_train_step": (
+                train["flash_launches_per_counted_step"][kid]
+                if train else None),
+            "launches_per_replayed_train_step": _replayed_launches(
+                capture, "bert", kid),
             "launches_search": (search["flash_launches"][kid]
                                 if search else None),
             "launches_multigpu_per_rank_per_step": _multigpu_launches(
@@ -5354,6 +6074,17 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
             "card": card,
         })
     return {"kernels": rows}
+
+
+def _replayed_launches(capture, path: str, kid: str):
+    """Launches of kernel `kid` per replayed step of the capture phase's
+    `path`, counted by the profiler."""
+    if capture is None:
+        return None
+    rec = next((r for r in capture["paths"] if r["path"] == path), None)
+    if rec is None:
+        return None
+    return rec["graph"]["profile"]["launches_per_step"].get(kid)
 
 
 def _multigpu_launches(multigpu, kid):
@@ -5404,7 +6135,7 @@ def main(argv=None) -> int:
           "note": "one nvcc per source, started together"})
     dev = torch.device("cuda")
     kern = flash = serve = train = bn = resnet = paged = onnx = None
-    search = multigpu = None
+    search = multigpu = capture = None
     # what one phase leaves for another: the searched strategy and the
     # op costs the search timed (the multigpu phase trains and prices it)
     run_dir = tempfile.mkdtemp(prefix="ff_smoke_")
@@ -5464,6 +6195,10 @@ def main(argv=None) -> int:
         onnx = phase_onnx(torch, pk, fa, bk, card)
     if "seq_parity" in phases:
         phase_seq_parity(torch, card)
+    if "capture" in phases:
+        capture = phase_capture(torch, pk, fa, bk, card)
+    if "fusion" in phases:
+        phase_fusion(torch, fa, card)
     if "search" in phases:
         search = phase_search(torch, fa, card, run_dir)
     if "multigpu" in phases:
@@ -5473,7 +6208,7 @@ def main(argv=None) -> int:
     shutil.rmtree(run_dir, ignore_errors=True)
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,
-                         search, multigpu))
+                         search, multigpu, capture))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,15 +6,16 @@ learning rate and weight decay, the compute dtype, the seed of the
 weight init, attention's flash crossover, the paged KV-pool geometry of
 the continuous engine, the strategy search, simulator and strategy-file
 fields, the multi-slice hierarchy (`slices` and the DCN fields of
-topology/hierarchy.py), and `device`, which the reference does not
-have.  The field and flag names and defaults are the reference's own,
-except `memory_per_device`, which is one H100's 80 GB, and
-`dcn_bandwidth` and `dcn_latency`, the InfiniBand NDR figures of
+topology/hierarchy.py), the fusion pass (`perform_fusion`,
+`--fusion`), and `device`, which the reference does not have.  The
+field and flag names and defaults are the reference's own, except
+`memory_per_device`, which is one H100's 80 GB, and `dcn_bandwidth`
+and `dcn_latency`, the InfiniBand NDR figures of
 sim/machines/hgx_h100_16.json (a datasheet rate, 50e9 B/s per GPU, and
 a model latency, 5 us), where the reference's are a TPU's DCN.  The
-reference's strategy-store and fusion fields (ROADMAP §1 items 5 and 7)
-are left out: FFConfig does not take them, and `from_args` raises on
-their flags rather than ignore them.
+reference's strategy-store fields (ROADMAP §1 item 7) are left out:
+FFConfig does not take them, and `from_args` raises on their flags
+rather than ignore them.
 """
 from __future__ import annotations
 
@@ -33,14 +34,13 @@ COMPUTE_DTYPES = ("float32", "bfloat16")
 
 SEARCH_ALGOS = ("unity", "mcmc")
 
-# the reference's flags of the strategy store and the fusion pass, which
-# the port does not carry yet
+# the reference's flags of the strategy store, which the port does not
+# carry yet
 _STORE = "ROADMAP §1 item 7 (store/ cached search)"
 _UNPORTED_FLAGS = {
     "--strategy-store": _STORE,
     "--no-strategy-store": _STORE,
     "--compilation-cache": _STORE,
-    "--fusion": "ROADMAP §1 item 5 (the fusion pass)",
 }
 
 
@@ -136,6 +136,9 @@ class FFConfig:
     wus_axis: str = "data"
     remat: bool = False
     parameter_sync: ParameterSyncType = ParameterSyncType.ALL_REDUCE
+    # the reference's --fusion (apply_fusion): fold trailing activations
+    # into their linear/conv2d producers at compile
+    perform_fusion: bool = False
 
     def __post_init__(self):
         if self.compute_dtype not in COMPUTE_DTYPES:
@@ -295,6 +298,7 @@ class FFConfig:
         p.add_argument("--wus-axis", dest="wus_axis", type=str,
                        default="data")
         p.add_argument("--remat", action="store_true")
+        p.add_argument("--fusion", action="store_true")
         p.add_argument("--export-strategy", dest="export_strategy",
                        type=str, default=None)
         p.add_argument("--import-strategy", dest="import_strategy",
@@ -350,6 +354,7 @@ class FFConfig:
             zero_stage=args.zero_stage,
             wus_axis=args.wus_axis,
             remat=args.remat,
+            perform_fusion=args.fusion,
             parameter_sync=ParameterSyncType(args.parameter_sync),
         )
 

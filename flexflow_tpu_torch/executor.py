@@ -49,7 +49,14 @@ batch: each rank's mean over its rows is scaled so that the ranks' sum
 is the global mean, and the backward starts from 1/world on every rank,
 which with the adjoint collectives gives each weight's exact grad once
 its partial sums are added over the axes that replicate it.  The ZeRO
-ladder (parallel/zero.py) shards the update over `wus_axis`.
+ladder (parallel/zero.py) shards the update over `wus_axis`: at stage 2
+the backward runs through `Tensor.backward`, and a hook on each leaf
+hands its grad to `ScatterBuckets`, which reduce-scatters it by bucket
+while the backward goes on; at stage 3, on the flat path (no remat
+plan), the gather of the next op's scattered weights is issued before
+each op runs (`_z3_prefetch`, the reference's), into a per-step cache
+that the use empties: at most this op's and the next one's gathers are
+held, as the reference's double buffer holds them.
 
 On the two-level mesh of a multi-slice run (topology/hierarchy.py: a
 leading "slice" axis and `hier_axis`, the placement axis's intra-slice
@@ -60,6 +67,10 @@ all-reduce of the shard over "slice" (between slices) and an all-gather
 over `hier_axis`.  With the ZeRO ladder on, `wus_axis` is that
 remainder and `hier_axis` is None: the sharded update reduce-scatters
 over it first and all-reduces only its shard between slices.
+
+On a CUDA device `build_step` returns the step captured as one CUDA
+graph (capture.py), unless `capture_blockers` names something in the
+plan that keeps it eager; `capture_status` says which, and why.
 
 Under a pipeline (`pipeline_plan`, parallel/pipeline_plan.py) the block
 ops leave the per-op schedule: their weights are stacked per template
@@ -88,13 +99,15 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .capture import CAPTURE_OFF, CapturedStep, capture_blockers
 from .fftype import OpBinary, OperatorType, OpUnary
 from .parallel.collectives import (Layout, all_gather, all_reduce_,
-                                   gather_global, local_slice, redistribute,
+                                   gather_global, local_slice,
+                                   prefetch_gather, redistribute,
                                    reduce_scatter, traffic_scope)
 from .parallel.pipeline import pipelined_apply, stacked_param_sharding
 from .parallel.spmd import layout_of, plan_op
-from .parallel.zero import shard_update_spec
+from .parallel.zero import ScatterBuckets, shard_update_spec
 from .pcg.graph import Graph
 from .pcg.layout import NHWC, PASS, assign_layouts
 from .topology.hierarchy import SLICE_AXIS
@@ -226,8 +239,17 @@ class GraphExecutor:
             plan = None  # nothing checkpoints: the flat interpreter
         self._remat_plan = plan
         self.schedule = self._schedule()
+        # stage 3's scattered weights: key -> the strategy layout the
+        # forward gathers them to
+        self._z3: Dict[Tuple[str, str], Layout] = {}
         if mesh is not None:
             self._plan_sharding()
+        self._z3_next = self._z3_order()
+        # what build_step made of the step: see capture.py
+        self.capture_status: Dict[str, object] = {}
+        # stage 2: bytes of grads the last step's ScatterBuckets held,
+        # from their shapes ("peak", "after_backward")
+        self.grad_bytes: Dict[str, int] = {}
 
     # -- plans -------------------------------------------------------------
     def _schedule(self) -> List[Tuple[object, Optional[BNApplyPlan]]]:
@@ -316,6 +338,7 @@ class GraphExecutor:
                 # reads each rank's chunk of them directly
                 if (upd is not None and self.zero_stage >= 3
                         and key[0] != PIPELINE):
+                    self._z3[key] = lay
                     lay = upd
             if trainable:
                 self.w_update[key] = upd
@@ -486,7 +509,7 @@ class GraphExecutor:
     def _exec(self, op, plan, env, lay, weights, state, new_state, ctx):
         """Run one schedule entry into env (and, on a mesh, its layout
         into lay)."""
-        training, generator, aux_losses, inputs = ctx
+        training, generator, aux_losses, inputs, z3 = ctx
         if op.op_type == OperatorType.INPUT:
             env[op.outputs[0].guid], layout = self._feed(op, inputs[op.name])
             if layout is not None:
@@ -508,7 +531,7 @@ class GraphExecutor:
         else:
             with traffic_scope(type(op).__name__):
                 results = self._exec_sharded(op, ins, ws, kw, lay, training,
-                                             generator)
+                                             generator, z3)
         outs = results[:len(op.outputs)]
         aux = getattr(op, "_last_aux", None)
         if aux is not None:
@@ -531,10 +554,12 @@ class GraphExecutor:
             for pt, val in zip(op.outputs, outs):
                 env[pt.guid] = val
 
-    def _exec_sharded(self, op, ins, ws, kw, lay, training, generator):
+    def _exec_sharded(self, op, ins, ws, kw, lay, training, generator, z3):
         """One op on this rank's shards: its inputs and weights brought
-        to the plan's layouts, the op's forward, each output brought to
-        its view (parallel ops: the identity, then the view)."""
+        to the plan's layouts (a stage-3 weight from the step's gather
+        cache `z3` when there is one), the op's forward, each output
+        brought to its view (parallel ops: the identity, then the
+        view)."""
         mesh = self.mesh
         cur = [lay.get(t.guid, self.view[t.guid]) for t in op.inputs]
         if op.is_parallel_op():
@@ -545,7 +570,7 @@ class GraphExecutor:
         ins = [redistribute(x, src, dst, mesh)
                for x, src, dst in zip(ins, cur, plan.ins)]
         nt = op.num_trainable_weights()
-        ws = [redistribute(w, self.w_store[(op.name, s.name)], dst, mesh)
+        ws = [self._weight_in((op.name, s.name), w, dst, z3)
               if i < nt else w
               for i, (w, s, dst) in enumerate(zip(ws, op.weight_specs,
                                                    plan.weights))]
@@ -570,6 +595,47 @@ class GraphExecutor:
                 results[i] = plan.post(results[i])
         return results
 
+    def _weight_in(self, key, w, dst: Layout, z3) -> torch.Tensor:
+        """A trainable weight in the plan's layout `dst`: a stage-3 one
+        taken out of the step's gather cache (the prefetch issued its
+        gather; one issued here otherwise), so that the cache holds no
+        gather past its use; any other (and every one under a remat
+        plan, whose segments gather inline) redistributed from its
+        stored layout."""
+        if z3 is not None and key in self._z3:
+            finish = z3.pop(key, None) or self._z3_gather(key, w)
+            return redistribute(finish(), self._z3[key], dst, self.mesh)
+        return redistribute(w, self.w_store[key], dst, self.mesh)
+
+    def _z3_gather(self, key, w):
+        """Issue the gather of a stage-3 weight (its compute-dtype
+        shard) to its strategy layout; returns its finisher."""
+        return prefetch_gather(w, self.mesh, self.wus_axis,
+                               self._scatter_dim(key))
+
+    def _z3_prefetch(self, op, weights: Weights, z3) -> None:
+        """Issue the gathers of `op`'s scattered weights into the cache,
+        counted under op's scope."""
+        nt = op.num_trainable_weights()
+        with traffic_scope(type(op).__name__):
+            for spec in op.weight_specs[:nt]:
+                key = (op.name, spec.name)
+                if key in self._z3 and key not in z3:
+                    z3[key] = self._z3_gather(
+                        key, self._to_compute(weights[op.name][spec.name]))
+
+    def _z3_order(self) -> Dict[int, object]:
+        """{op guid: the next schedule op with scattered weights} over
+        the ops that have them, the first under None."""
+        ops = [op for op, _ in self.schedule
+               if not isinstance(op, PipelineRegion)
+               and any((op.name, s.name) in self._z3 for s in
+                       op.weight_specs[:op.num_trainable_weights()])]
+        nxt = {a.guid: b for a, b in zip(ops, ops[1:])}
+        if ops:
+            nxt[None] = ops[0]
+        return nxt
+
     def run_forward(self, weights: Weights, state: Weights,
                     inputs: Dict[str, torch.Tensor],
                     training: bool = False,
@@ -583,7 +649,12 @@ class GraphExecutor:
         env: Dict[int, torch.Tensor] = {}
         lay: Dict[int, object] = {}
         new_state = {k: dict(v) for k, v in state.items()}
-        ctx = (training, generator, aux_losses, inputs)
+        flat = self._remat_plan is None or not training
+        # stage 3's gather cache: the flat path only (a remat segment
+        # gathers inside, so that its backward gathers again)
+        z3 = {} if self._z3 and flat else None
+        z3_next = self._z3_next if z3 is not None else {}
+        ctx = (training, generator, aux_losses, inputs, z3)
 
         def run(entries, env):
             for op, plan in entries:
@@ -591,10 +662,14 @@ class GraphExecutor:
                     self._run_pipeline_region(weights, env, lay, training,
                                               generator)
                     continue
+                if op.guid in z3_next:
+                    self._z3_prefetch(z3_next[op.guid], weights, z3)
                 self._exec(op, plan, env, lay, weights, state, new_state,
                            ctx)
 
-        if self._remat_plan is not None and training:
+        if None in z3_next:
+            self._z3_prefetch(z3_next[None], weights, z3)
+        if not flat:
             for guids, in_guids, out_guids, pure in self._remat_plan:
                 entries = [(op, p) for op, p in self.schedule
                            if op.guid in guids
@@ -608,8 +683,10 @@ class GraphExecutor:
                     run(_e, local)
                     return tuple(local[g] for g in _out)
 
+                # a pure segment draws nothing: no RNG state to keep
                 outs = checkpoint(seg_fn, *(env[g] for g in in_guids),
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
                 env.update(zip(out_guids, outs))
         else:
             run(self.schedule, env)
@@ -749,28 +826,9 @@ class GraphExecutor:
         return [a for a in self.mesh.names
                 if a not in used and self.mesh.size(a) > 1]
 
-    def _sync_and_update(self, weights: Weights, grads: Weights,
-                         opt_state) -> None:
-        """Sum each grad over its partial axes (by bucket; hierarchically
-        on a two-level mesh, `_grad_sum`), with a reduce-scatter over the
-        wus axis at ZeRO stages 1 and 2 (on a two-level mesh before the
-        sum between slices, which then moves the shard); run the
-        optimizer on what each rank owns; all-gather the updated shards
-        at stages 1 and 2."""
-        mesh = self.mesh
-        buckets = collections.defaultdict(list)
-        scatter, slice_after = [], []
-        for op, entries in grads.items():
-            for k, g in entries.items():
-                axes = self._grad_axes((op, k))
-                if self._sharded_update((op, k)):
-                    axes = [a for a in axes if a != self.wus_axis]
-                    scatter.append((op, k))
-                    if self._slice_after_scatter and SLICE_AXIS in axes:
-                        axes.remove(SLICE_AXIS)
-                        slice_after.append((op, k))
-                if axes:
-                    buckets[tuple(axes)].append((op, k))
+    def _sum_buckets(self, grads: Weights, buckets) -> None:
+        """Each bucket's grads ({axes: keys}) summed over its axes as one
+        flat tensor, written back as views of it."""
         for axes, keys in buckets.items():
             flat = torch.cat([grads[o][k].reshape(-1) for o, k in keys])
             flat = self._grad_sum(flat, axes)
@@ -779,16 +837,49 @@ class GraphExecutor:
                 g = grads[o][k]
                 grads[o][k] = flat[off:off + g.numel()].view_as(g)
                 off += g.numel()
+
+    def _sync_and_update(self, weights: Weights, grads: Weights,
+                         opt_state, scattered=frozenset()) -> None:
+        """Sum each grad over its partial axes (by bucket; hierarchically
+        on a two-level mesh, `_grad_sum`), with a reduce-scatter over the
+        wus axis at ZeRO stages 1 and 2 (on a two-level mesh before the
+        sum between slices, which then moves the shard); run the
+        optimizer on what each rank owns; all-gather the updated shards
+        at stages 1 and 2.  The grads of the keys in `scattered` are
+        their shards already (stage 2's backward reduce-scattered them):
+        they are summed over their other partial axes, the slice axis
+        included, and updated."""
+        mesh = self.mesh
+        buckets = collections.defaultdict(list)
+        shard_sums = collections.defaultdict(list)
+        scatter, slice_after = [], []
+        for op, entries in grads.items():
+            for k, g in entries.items():
+                axes = self._grad_axes((op, k))
+                if self._sharded_update((op, k)):
+                    axes = [a for a in axes if a != self.wus_axis]
+                    scatter.append((op, k))
+                    if (op, k) in scattered:
+                        if axes:
+                            shard_sums[tuple(axes)].append((op, k))
+                        continue
+                    if self._slice_after_scatter and SLICE_AXIS in axes:
+                        axes.remove(SLICE_AXIS)
+                        slice_after.append((op, k))
+                if axes:
+                    buckets[tuple(axes)].append((op, k))
+        self._sum_buckets(grads, buckets)
         views = self.update_views(weights)
         if scatter:
             n, c = mesh.size(self.wus_axis), mesh.coord(self.wus_axis)
             group = mesh.group(self.wus_axis)
             for o, k in scatter:
-                grads[o][k] = reduce_scatter(grads[o][k],
-                                             self._scatter_dim((o, k)), n, c,
-                                             group)
+                if (o, k) not in scattered:
+                    grads[o][k] = reduce_scatter(
+                        grads[o][k], self._scatter_dim((o, k)), n, c, group)
             for o, k in slice_after:
                 all_reduce_(grads[o][k], mesh.group(SLICE_AXIS))
+            self._sum_buckets(grads, shard_sums)
         self.optimizer.update(views, grads, opt_state)
         for o, k in scatter:
             weights[o][k].copy_(all_gather(views[o][k],
@@ -811,12 +902,63 @@ class GraphExecutor:
         return total
 
     # -- steps -------------------------------------------------------------------
-    def build_step(self):
+    def full_grad_bytes(self, weights: Weights) -> int:
+        """Bytes of every trainable weight's grad in its strategy layout
+        (what stages 0 and 1 hold after the backward)."""
+        total = 0
+        for op, entries in weights.items():
+            for k, w in entries.items():
+                n = w.numel()
+                if (op, k) in self._z3:  # stored scattered
+                    n *= self.mesh.size(self.wus_axis)
+                total += n * w.element_size()
+        return total
+
+    def _scattered_backward(self, seed, weights: Weights, names):
+        """Stage 2's backward: `seed.backward()` with ScatterBuckets on
+        the leaves.  Returns (grads in `names`' order, the scattered
+        ones as their shards; the keys scattered)."""
+        keys = [key for key in names if self._sharded_update(key)]
+        order = {op.name: i for i, (op, _) in enumerate(self.schedule)
+                 if not isinstance(op, PipelineRegion)}
+        # the backward makes the last op's grads first
+        keys.sort(key=lambda key: -order.get(key[0], -1))
+        mesh = self.mesh
+        others = [weights[o][k] for o, k in names if (o, k) not in keys]
+        scat = ScatterBuckets(
+            [(key, weights[key[0]][key[1]], self._scatter_dim(key))
+             for key in keys], others, mesh.size(self.wus_axis),
+            mesh.coord(self.wus_axis), mesh.group(self.wus_axis))
+        try:
+            # the grads' reduce-scatters count as the update's
+            with traffic_scope("update"):
+                seed.backward()
+        except BaseException:
+            scat.remove()
+            raise
+        shards = scat.finish()
+        flat = []
+        for o, k in names:
+            w = weights[o][k]
+            g = shards.get((o, k))
+            if g is None:
+                g, w.grad = w.grad, None
+                if g is None:
+                    g = torch.zeros_like(w)
+            flat.append(g)
+        self.grad_bytes = {"peak": scat.peak, "after_backward": scat.held}
+        return flat, set(keys)
+
+    def build_step(self, capture: bool = True):
         """step(weights, opt_state, state, inputs, labels, generator) ->
         metrics: forward, loss (plus the ops' auxiliary losses), grads
         of the trainable weights, the optimizer's in-place update, then
         the metrics of the float32 logits (the loss under "loss"); on a
-        mesh, of the global batch."""
+        mesh, of the global batch.  With `capture` (off only for an
+        eager comparison) and nothing in `capture_blockers`, the step is
+        a CapturedStep:
+        it runs as one CUDA graph after its warm-up (capture.py).
+        `capture_status` holds what became of it."""
         loss_obj, metrics, opt = self.loss, self.metrics, self.optimizer
         lrep = self.label_replication
         mesh = self.mesh
@@ -825,10 +967,13 @@ class GraphExecutor:
             if mesh is not None:
                 labels = self._local_labels(labels)
             if lrep > 1:
-                # AggregateSpec emits sample-major [s0k0, s0k1, s1k0, ...]
-                labels = torch.repeat_interleave(labels, lrep, dim=0)
+                # AggregateSpec emits sample-major [s0k0, s0k1, s1k0, ...];
+                # the output size given, the repeat reads nothing back
+                labels = torch.repeat_interleave(
+                    labels, lrep, dim=0, output_size=labels.shape[0] * lrep)
             names = [(op, k) for op, entries in weights.items()
                      for k in entries]
+            scattered = frozenset()
             with torch.enable_grad():
                 aux = []
                 logits, _ = self.run_forward(weights, state, inputs,
@@ -842,9 +987,13 @@ class GraphExecutor:
                 seed = loss_val if mesh is None else loss_val / mesh.world
                 # a graph with no trainable weight (shape ops alone)
                 # still steps, as the reference's does
-                flat = torch.autograd.grad(
-                    seed, [weights[op][k] for op, k in names]
-                ) if names else []
+                if self.zero_stage == 2 and names:
+                    flat, scattered = self._scattered_backward(seed, weights,
+                                                               names)
+                else:
+                    flat = torch.autograd.grad(
+                        seed, [weights[op][k] for op, k in names]
+                    ) if names else []
             grads: Weights = {}
             for (op, k), g in zip(names, flat):
                 grads.setdefault(op, {})[k] = g
@@ -853,13 +1002,19 @@ class GraphExecutor:
                     opt.update(weights, grads, opt_state)
                 else:
                     with traffic_scope("update"):
-                        self._sync_and_update(weights, grads, opt_state)
+                        self._sync_and_update(weights, grads, opt_state,
+                                              scattered)
                 m = self._global_metrics(metrics.compute(logits.detach(),
                                                          labels))
                 m["loss"] = self._global_loss(loss_val.detach())
             return m
 
-        return step
+        blockers = ([] if capture else [CAPTURE_OFF]) + capture_blockers(self)
+        self.capture_status = {"mode": "eager" if blockers else "graph",
+                               "blockers": blockers}
+        if blockers:
+            return step
+        return CapturedStep(step, self)
 
     def _loss_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """The logits with only their batch dim sharded (the rest
@@ -891,7 +1046,8 @@ class GraphExecutor:
             if self.mesh is not None:
                 labels = self._local_labels(labels)
             if lrep > 1:
-                labels = torch.repeat_interleave(labels, lrep, dim=0)
+                labels = torch.repeat_interleave(
+                    labels, lrep, dim=0, output_size=labels.shape[0] * lrep)
             with torch.no_grad():
                 logits, _ = self.run_forward(weights, state, inputs,
                                              training=False)

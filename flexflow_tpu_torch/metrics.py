@@ -95,8 +95,9 @@ class Metrics:
         else:
             # one-hot labels: one scored position per class-dim slice
             n_scored = int(np.prod(labels.shape[:-1]))
-        out: Dict[str, torch.Tensor] = {"train_all": torch.tensor(
-            n_scored, dtype=torch.int32, device=logits.device)}
+        # a fill, not a copy from the host: capturable (capture.py)
+        out: Dict[str, torch.Tensor] = {"train_all": torch.full(
+            (), n_scored, dtype=torch.int32, device=logits.device)}
         for m in self.metrics:
             if m == MetricsType.ACCURACY:
                 pred = logits.argmax(dim=-1)

@@ -24,7 +24,13 @@ machine without CUDA; "cpu" runs on the host.
 
 A train step updates the weight tensors in place (the optimizer runs
 under torch.no_grad()), where the reference's jitted step donated them
-and returned new ones; `get_weights` copies them out.
+and returned new ones; `get_weights` copies them out.  On a CUDA device
+the step is captured as one CUDA graph after its warm-up and replayed
+for every later `train_step` (capture.py), unless
+the plan holds something that keeps it eager
+(`executor.capture_status`).  With FFConfig.perform_fusion (`--fusion`)
+compile folds trailing activations into their linear and conv2d
+producers (pcg/rewrite.py `fuse_activations`).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from . import distributed
+from .capture import CapturedStep
 from .config import FFConfig, resolve_device
 from .dataloader import SingleDataLoader, to_device
 from .executor import PIPELINE, GraphExecutor
@@ -472,7 +479,10 @@ class FFModel:
         on the CPU, the group's size on a torch.distributed group); the
         strategy is written to export_strategy_file when one is named.
         A chosen strategy's rewrites are replayed on the layer graph,
-        the strategy applied, and inverse parallel-op pairs cancelled.
+        under FFConfig.perform_fusion trailing activations are folded into
+        their linear and conv2d producers (not where the strategy names
+        the ops or tensors), the strategy applied, and inverse
+        parallel-op pairs cancelled.
         On a group of more than one rank the strategy (by default
         data_parallel_strategy over the group) must span exactly the
         group, else ValueError; each rank then runs its shard of the
@@ -492,7 +502,9 @@ class FFModel:
 
         The default optimizer is SGD at the config's learning rate and
         weight decay.  In TRAINING mode the trainable weights require
-        grad, for train_step's autograd; INFERENCE leaves them plain."""
+        grad, for train_step's autograd; INFERENCE leaves them plain.
+        On a CUDA device the step is captured as one CUDA graph unless
+        `executor.capture_status` names a blocker."""
         cfg = self.config
         self.comp_mode = comp_mode
         self.optimizer = optimizer or SGDOptimizer(
@@ -566,13 +578,15 @@ class FFModel:
     def set_iteration_config(self, seq_length: Optional[int]):
         """FFIterationConfig.seq_length: stamp it on every op, so that
         BatchMatmul masks positions at or past it on its declared seq
-        dims (-1 masks nothing).  The port's steps are eager, so there is
-        no step function to rebuild or cache per length."""
+        dims (-1 masks nothing).  A captured step baked the old length
+        into its graph, so it is captured again at its next call."""
         if seq_length is None:
             return
         for graph in (self.layers, self.operators):
             for op in (graph.ops if graph is not None else ()):
                 op._iter_seq_length = int(seq_length)
+        if isinstance(self._step_fn, CapturedStep):
+            self._step_fn.reset()
 
     def _pick_strategy(self, strategy: Optional[Strategy]
                        ) -> Optional[Strategy]:
@@ -600,21 +614,28 @@ class FFModel:
 
     def _operators_for(self, strategy: Optional[Strategy],
                        mesh_axes: Optional[Dict[str, int]] = None) -> Graph:
-        """The graph the executor runs: the layer graph, or (given a
-        strategy) its rewrites replayed, the strategy applied and inverse
+        """The graph the executor runs: the layer graph (fused under
+        FFConfig.perform_fusion), or (given a strategy) its rewrites
+        replayed, the fusion pass, the strategy applied and inverse
         parallel-op pairs cancelled, with every tensor's MachineView
         assigned over `mesh_axes` (the execution mesh; by default the
         strategy's)."""
-        if strategy is None:
-            return self.layers
         from .pcg.rewrite import (apply_rewrites,
                                   cancel_all_inverse_parallel_ops,
-                                  rules_for_replay)
+                                  fuse_activations, rules_for_replay)
 
+        if strategy is None:
+            if self.config.perform_fusion:
+                return fuse_activations(self.layers)
+            return self.layers
         frontend = self.layers
         if strategy.rewrites:
             frontend = apply_rewrites(frontend, strategy.rewrites,
                                       rules_for_replay(self.config, strategy))
+        if self.config.perform_fusion:
+            # the reference's --fusion: nothing the strategy names
+            protected = set(strategy.edge_ops) | set(strategy.shard_configs)
+            frontend = fuse_activations(frontend, protected)
         graph = cancel_all_inverse_parallel_ops(
             apply_strategy(frontend, strategy))
         assign_views(graph, mesh_axes or strategy.mesh_axes)
@@ -833,8 +854,10 @@ class FFModel:
         return None
 
     def set_learning_rate(self, lr: float):
-        """Change the optimizer's learning rate.  The port's steps are
-        eager and read it at every update, so no step is rebuilt."""
+        """Change the optimizer's learning rate: the update reads it from
+        a device tensor, written here in place, so an eager step and a
+        captured one (its graph replayed) both take it at the next
+        update."""
         self.optimizer.set_lr(lr)
 
     # -- weight access -----------------------------------------------------

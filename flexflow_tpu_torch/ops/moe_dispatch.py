@@ -83,7 +83,9 @@ def sort_group_by(data: torch.Tensor, assign: torch.Tensor, n: int,
     slot, keep = _local_slots(*dispatch_indices(assign, capacity, n,
                                                 rank_offset),
                               capacity, expert_offset, m, n)
-    rows = data.repeat_interleave(k, dim=0)  # row i serves flat pair i
+    # row i serves flat pair i; the output size given, nothing is read
+    # back to the host
+    rows = data.repeat_interleave(k, dim=0, output_size=data.shape[0] * k)
     contrib = rows * keep[:, None].to(data.dtype)
     out = torch.zeros(m * capacity, d, dtype=data.dtype, device=data.device)
     return out.index_add(0, slot, contrib).reshape(m, capacity, d)

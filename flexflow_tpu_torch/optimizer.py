@@ -8,6 +8,13 @@ reference's update is a pure function whose inputs the jitted step
 donates; here `update` writes the weights and slots IN PLACE under
 torch.no_grad(), so no second copy of either exists, and returns the
 same dictionaries.
+
+The learning rate (SGD's `lr`, Adam's `alpha`) is read by `update` from
+a float32 0-d tensor on the weights' device, made by `init_state` (or
+by the first `update`); `set_lr` writes it, on every device, in place.
+A step captured as a CUDA graph (capture.py) reads that tensor at every
+replay, where a Python float would be frozen into the graph.  The
+float field keeps the value as the caller set it (`get_lr`).
 """
 from __future__ import annotations
 
@@ -35,6 +42,23 @@ class Optimizer:
     def init_state(self, weights: Weights) -> Dict[str, Any]:
         raise NotImplementedError
 
+    def _bind_rate(self, weights: Weights) -> None:
+        """Make the learning-rate tensor on the weights' device before
+        the first step (a capture must not make it)."""
+        if weights:
+            self._rate_on(next(_pairs(weights))[0].device)
+
+    def _rate_on(self, device: torch.device) -> torch.Tensor:
+        """The learning rate as a float32 0-d tensor on `device`, what
+        `update` reads: made at the first call for the device, written
+        in place by `set_lr` from then on."""
+        rates = self.__dict__.setdefault("_rates", {})
+        rate = rates.get(device)
+        if rate is None:
+            rate = rates[device] = torch.tensor(
+                self.get_lr(), dtype=torch.float32, device=device)
+        return rate
+
     def next_step(self, state):
         """Host-side per-iteration bookkeeping (the reference's
         Optimizer::next): none."""
@@ -53,6 +77,9 @@ class Optimizer:
             self.alpha = lr
         else:
             self.lr = lr
+        with torch.no_grad():
+            for rate in self.__dict__.get("_rates", {}).values():
+                rate.fill_(lr)
 
 
 @dataclasses.dataclass
@@ -63,6 +90,7 @@ class SGDOptimizer(Optimizer):
     weight_decay: float = 0.0
 
     def init_state(self, weights):
+        self._bind_rate(weights)
         if self.momentum == 0.0:
             return {}
         return {"v": _zeros_like(weights)}
@@ -71,7 +99,10 @@ class SGDOptimizer(Optimizer):
     def update(self, weights, grads, state):
         """w -= lr (g + wd w); with momentum v = mu v + g + wd w, then
         w -= lr v, or w -= lr (g + wd w + mu v) under nesterov."""
-        lr, wd, mu = self.lr, self.weight_decay, self.momentum
+        if not weights:
+            return weights, state
+        lr = self._rate_on(next(_pairs(weights))[0].device)
+        wd, mu = self.weight_decay, self.momentum
         if mu == 0.0:
             for w, g in _pairs(weights, grads):
                 w.sub_(lr * (g + wd * w))
@@ -94,6 +125,7 @@ class AdamOptimizer(Optimizer):
     epsilon: float = 1e-8
 
     def init_state(self, weights):
+        self._bind_rate(weights)
         dev = next(_pairs(weights))[0].device if weights else None
         return {
             "m": _zeros_like(weights),
@@ -108,7 +140,8 @@ class AdamOptimizer(Optimizer):
         tf = t.to(torch.float32)
         # bias-corrected alpha in float32, on the device (the reference's
         # Optimizer::next)
-        alpha_t = (self.alpha * torch.sqrt(1.0 - torch.pow(self.beta2, tf))
+        alpha_t = (self._rate_on(t.device)
+                   * torch.sqrt(1.0 - torch.pow(self.beta2, tf))
                    / (1.0 - torch.pow(self.beta1, tf)))
         b1, b2 = self.beta1, self.beta2
         for w, g, m, v in _pairs(weights, grads, state["m"], state["v"]):

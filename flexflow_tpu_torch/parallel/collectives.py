@@ -32,6 +32,15 @@ memory: gloo takes CUDA tensors for some collectives and not others,
 depending on the torch build, and staging gives every build one path.
 A reduce-scatter on gloo is an all-reduce and a slice.
 
+`reduce_scatter_async` and `all_gather_async` (and `prefetch_gather`,
+the differentiable gather built on the latter) return a handle with
+`wait()`: on NCCL the collective runs on the group's own stream, and
+`wait()` orders the caller's stream after it without blocking the host,
+so the caller's kernels overlap it (ZeRO-2's scatter during the
+backward, ZeRO-3's prefetch of the next op's weights).  On gloo they
+run the staged form above and return a handle that is done; those
+cannot be captured in a CUDA graph (capture.py).
+
 `traffic` counts the payload bytes this rank hands to each collective,
 keyed by (scope, kind): the scope is the op whose forward ran it (the
 executor sets it with `traffic_scope`), and a backward counts under its
@@ -159,12 +168,45 @@ def reduce_scatter(t: torch.Tensor, dim: int, n: int, idx: int,
     """Chunk `idx` along `dim` of the sum over `group`."""
     if dist.get_backend(group) == "gloo":
         full = all_reduce_(t.clone(), group)
-        return full.chunk(n, dim=dim)[idx].contiguous()
+        # a copy: a chunk that is contiguous already would be a view
+        # that keeps the whole sum alive
+        return full.chunk(n, dim=dim)[idx].clone(
+            memory_format=torch.contiguous_format)
     parts = [c.contiguous() for c in t.chunk(n, dim=dim)]
     out = torch.empty_like(parts[0])
     _count("reduce_scatter", t)
     dist.reduce_scatter(out, parts, group=group)
     return out
+
+
+class _Done:
+    """The handle of a collective that has already run (gloo)."""
+
+    def wait(self) -> None:
+        return None
+
+
+def reduce_scatter_async(flat: torch.Tensor, n: int, idx: int, group):
+    """(chunk `idx` of the sum over `group` of the 1-D `flat`, whose
+    length n divides; its handle)."""
+    if dist.get_backend(group) == "gloo":
+        return reduce_scatter(flat, 0, n, idx, group), _Done()
+    out = flat.new_empty(flat.numel() // n)
+    _count("reduce_scatter", flat)
+    work = dist.reduce_scatter_tensor(out, flat, group=group, async_op=True)
+    return out, work
+
+
+def all_gather_async(t: torch.Tensor, n: int, group):
+    """([n, *t.shape]: the tensors of `group`'s ranks stacked by rank;
+    its handle)."""
+    src = t.contiguous()
+    if dist.get_backend(group) == "gloo":
+        return all_gather(src[None], 0, n, group), _Done()
+    out = src.new_empty((n,) + tuple(src.shape))
+    _count("all_gather", src)
+    work = dist.all_gather_into_tensor(out, src, group=group, async_op=True)
+    return out, work
 
 
 def all_to_all(t: torch.Tensor, split_dim: int, cat_dim: int, n: int,
@@ -252,6 +294,26 @@ class _AllGather(torch.autograd.Function):
         with traffic_scope(ctx.scope):
             return (reduce_scatter(g, ctx.dim, m.size(a), m.coord(a),
                                    m.group(a)), None, None, None)
+
+
+class _GatherStacked(torch.autograd.Function):
+    """x -> [n, *x.shape], the shards of `axis` stacked by coordinate,
+    gathered asynchronously (the handle goes into `box`); the backward
+    reduce-scatters the stacked grad."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, box):
+        ctx.mesh, ctx.axis, ctx.scope = mesh, axis, _scope[0]
+        out, handle = all_gather_async(x, mesh.size(axis), mesh.group(axis))
+        box.append(handle)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        m, a = ctx.mesh, ctx.axis
+        with traffic_scope(ctx.scope):
+            return (reduce_scatter(g, 0, m.size(a), m.coord(a),
+                                   m.group(a))[0], None, None, None)
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -345,6 +407,24 @@ class _PPermute(torch.autograd.Function):
 def all_reduce(x, mesh: DeviceMesh, axis: str):
     """Differentiable sum over `axis` (partial -> replicated)."""
     return _AllReduce.apply(x, mesh, axis) if mesh.size(axis) > 1 else x
+
+
+def prefetch_gather(x, mesh: DeviceMesh, axis: str, dim: int):
+    """Start gathering `x`, sharded over `axis` along `dim`; returns
+    finish() -> the gathered tensor, differentiable (its backward
+    reduce-scatters), which waits for the gather at its first call and
+    returns the same tensor after."""
+    box: list = []
+    stacked = _GatherStacked.apply(x, mesh, axis, box)
+    done: list = []
+
+    def finish() -> torch.Tensor:
+        if not done:
+            box[0].wait()
+            done.append(stacked.movedim(0, dim).flatten(dim, dim + 1))
+        return done[0]
+
+    return finish
 
 
 def exchange(x, mesh: DeviceMesh, axis: str, send: Sequence[int],

@@ -70,7 +70,8 @@ def gpipe(stage_fn: Callable, stage_params: Params, x_mb: torch.Tensor, *,
         return torch.stack([stage_fn(stage_params, x) for x in x_mb])
     stage = _coord(mesh, axis)
     dev = x_mb.device
-    first = torch.tensor(stage == 0, device=dev)
+    # fills, not copies from the host: capturable (capture.py)
+    first = torch.full((), stage == 0, device=dev)
     zero = torch.zeros_like(x_mb[0])
     buf, ys = zero, []
     for t in range(M + S - 1):
@@ -80,7 +81,7 @@ def gpipe(stage_fn: Callable, stage_params: Params, x_mb: torch.Tensor, *,
         if t < M + S - 2:  # the last tick's shift would feed nothing
             buf = ppermute(y, mesh, axis, 1)
     outs = torch.stack(ys[S - 1:])
-    outs = torch.where(torch.tensor(stage == S - 1, device=dev), outs,
+    outs = torch.where(torch.full((), stage == S - 1, device=dev), outs,
                        torch.zeros_like(outs))
     return all_reduce(outs, mesh, axis)
 
@@ -192,13 +193,18 @@ def pipelined_apply(block_fn: Callable, stacked_params: Params,
 def _make_stage_fn(block_fn: Callable, remat: bool) -> Callable:
     """One stage: this rank's blocks in order (shared by both schedules
     so that their numerics cannot diverge); with remat each block runs
-    under torch.utils.checkpoint (non-reentrant)."""
+    under torch.utils.checkpoint (non-reentrant).  No block draws from a
+    global generator (the executor's seed a generator of their own per
+    block, which the recompute seeds again), so the checkpoint keeps no
+    RNG state: reading the card's generator is refused inside a CUDA
+    graph capture."""
 
     def stage_fn(local_params: Params, act: torch.Tensor) -> torch.Tensor:
         rows = {k: v.unbind(0) for k, v in local_params.items()}
         for i in range(len(next(iter(rows.values())))):
             p = {k: r[i] for k, r in rows.items()}
-            act = (checkpoint(block_fn, p, act, use_reentrant=False)
+            act = (checkpoint(block_fn, p, act, use_reentrant=False,
+                              preserve_rng_state=False)
                    if remat else block_fn(p, act))
         return act
 

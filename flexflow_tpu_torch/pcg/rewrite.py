@@ -14,7 +14,9 @@ by a different subgraph computing the same function.  Built-in rules:
     Repartition(dim, d) (either order) cancel;
   * cancel_split_concat: Concat(Split(x)) on one axis is x.
 
-`enumerate_variants` is the bounded enumeration the Unity DP ranks.
+`enumerate_variants` is the bounded enumeration the Unity DP ranks;
+`fuse_activations` is the --fusion compile pass (the fuse rules to a
+fixpoint).
 Applied rewrites are recorded on the Strategy as (rule name, match
 index) pairs, so that strategy import and export replay them.  A TASO
 RuleCollection catalog raises NotImplementedError until the TASO engine
@@ -614,6 +616,42 @@ def enumerate_variants(
                     nxt.append(entry)
         frontier = nxt
     return out
+
+
+def fuse_activations(graph: Graph, protected_names=()) -> Graph:
+    """The --fusion compile pass (flexflow_tpu/pcg/rewrite.py
+    `fuse_activations`, the reference's apply_fusion): fold trailing
+    activations into their linear/conv2d producers until none is left.
+    A match that touches an op or tensor named in `protected_names` (the
+    strategy's edge chains and shard configs) is left alone, so that the
+    strategy still resolves."""
+    rules = [FuseActivation(OperatorType.LINEAR),
+             FuseActivation(OperatorType.CONV2D)]
+    protected = set(protected_names)
+
+    def eligible(rule):
+        for m in rule.find_matches(graph):
+            prod, act = m.ops
+            if (prod.name in protected or act.name in protected
+                    or any(t.name in protected for t in prod.outputs)
+                    or any(t.name in protected for t in act.outputs)):
+                continue
+            yield m
+
+    # each fold removes one op, so the op count bounds the fixpoint
+    for _ in range(len(graph.ops)):
+        applied = False
+        for rule in rules:
+            for m in eligible(rule):
+                g2 = rule.apply(graph, m)
+                if g2 is not None:
+                    graph, applied = g2, True
+                    break
+            if applied:
+                break
+        if not applied:
+            break
+    return graph
 
 
 def cancel_all_inverse_parallel_ops(graph: Graph, max_iters: int = 32) -> Graph:

@@ -199,7 +199,7 @@ def test_search_phase_runs_last_over_the_hgx_node():
     from flexflow_tpu_torch.sim.machine_model import GpuNodeModel
 
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[-2:] == ["search", "multigpu"] and len(phases) == 24
+    assert phases[-2:] == ["search", "multigpu"] and len(phases) == 26
     assert phases.count("search") == 1
     assert "`--phases search`" in chip_smoke.__doc__
     cfg = chip_smoke.search_config("/tmp/costs.json")
@@ -580,15 +580,15 @@ def test_keras_table_is_the_examples():
 
 
 def test_multigpu_legs_follow_the_issue():
-    """Four legs of 4 ranks (DP x TP, DP x SP, ZeRO-3 under Adam, the
-    CNN), the searched strategy over 8, five pipeline legs of 4 (data 2
+    """Five legs of 4 ranks (DP x TP, DP x SP, ZeRO-3 and ZeRO-2 under
+    Adam, the CNN), the searched strategy over 8, five pipeline legs of 4 (data 2
     x pipe 2 with and without remat, pipe 4, the demo under 1F1B, the
     search's cheapest pipeline), four MoE legs of 4 (data 4, expert
     4, data 2 x expert 2, the search's), and four legs of 4 of factored
     views and two slices, each with its strategy."""
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     assert [leg["ranks"] for leg in chip_smoke.MULTIGPU_LEGS] == \
-        [4, 4, 4, 4, chip_smoke.SEARCH_DEVICES] + [4] * 13
+        [4, 4, 4, 4, 4, chip_smoke.SEARCH_DEVICES] + [4] * 13
     assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-8:-4] == \
         ["moe_dp4", "ep4", "dp2_ep2", "moe_searched"]
     assert chip_smoke.MOE == dict(hidden_size=768, num_layers=12,
@@ -614,6 +614,9 @@ def test_multigpu_legs_follow_the_issue():
     assert sp.mesh_axes == {"data": 2, "seq": 2}
     assert legs["dp_zero3"]["zero"] == 3
     assert legs["dp_zero3"]["optimizer"] == "adam"
+    assert {k: v for k, v in legs["dp_zero2"].items() if k != "name"} == {
+        k: v for k, v in legs["dp_zero3"].items() if k != "name"} | {
+        "zero": 2}
     assert "`--phases multigpu`" in chip_smoke.__doc__
     pp = chip_smoke._multigpu_strategy(legs["pp_dp"], {})
     assert pp.mesh_axes == {"data": 2, "pipe": 2}
@@ -1005,3 +1008,207 @@ def test_dropped_share_counts_pairs_past_capacity():
     assert chip_smoke.dropped_share(ids) == 24 / 32
     ids[:] = np.arange(32).reshape(16, 2) % 8
     assert chip_smoke.dropped_share(ids) == 0.0
+
+
+def test_capture_and_fusion_phases_run_before_the_search():
+    """The capture and fusion phases parse as --phases entries, follow
+    the one-card phases and precede the search; the capture phase's
+    paths and the kernels each must launch per step are the train,
+    resnet and vit phases'."""
+    phases = chip_smoke.ALL_PHASES.split(",")
+    assert phases[22:24] == ["capture", "fusion"]
+    assert "`--phases capture`" in chip_smoke.__doc__
+    assert chip_smoke.CAPTURE_KERNELS == {
+        "bert": {"K1": 12, "K2": 12, "K3": 12}, "resnet50": {"P1": 53},
+        "vit_b16": {}}
+    assert set(chip_smoke.KERNEL_TAGS) == {"K1", "K2", "K3", "K4", "P1"}
+    assert chip_smoke.CAPTURE_STEPS == 3
+    assert set(chip_smoke.CAPTURE_LEGS) == {"dp_tp", "dp_zero3",
+                                            "slices2_dp4", "dp_zero2"}
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--phases", "capture,nothing"])
+
+
+class _Ex:
+    def __init__(self, **status):
+        self.capture_status = status
+
+
+class _FF:
+    def __init__(self, **status):
+        self.executor = _Ex(**status)
+
+
+def test_counted_steps_under_capture():
+    """Every step of an eager step function counts; of a captured one
+    the warm-up steps and the capture, not the replays."""
+    eager = _FF(mode="eager", blockers=["the cpu device"])
+    assert chip_smoke.counted_steps(eager, chip_smoke.capture_counts(eager),
+                                    4) == 4
+    ff = _FF(mode="graph", blockers=[], warmup_steps=1, captures=0,
+             replays=0)
+    before = chip_smoke.capture_counts(ff)
+    ff.executor.capture_status.update(captures=1, replays=3)
+    assert chip_smoke.counted_steps(ff, before, 4) == 1
+    before = chip_smoke.capture_counts(_FF(mode="graph", blockers=[]))
+    assert before == {"warmup_steps": 0, "captures": 0, "replays": 0}
+    assert chip_smoke.counted_steps(ff, before, 5) == 2
+
+
+def test_gather_overlap_counts_the_gathers_beside_compute():
+    """Two all-gathers of 10 us, one half under a GEMM, one alone: 20 us,
+    5 beside compute; copies and other NCCL kernels are no compute."""
+    events = [_Evt(0, 10, "ncclDevKernel_AllGather_RING_LL(x)"),
+              _Evt(5, 30, "sm90_gemm"),
+              _Evt(40, 50, "ncclDevKernel_AllGather_RING_LL(x)"),
+              _Evt(40, 50, "Memcpy DtoD"),
+              _Evt(40, 50, "ncclDevKernel_ReduceScatter_Sum(x)")]
+    got = chip_smoke.gather_overlap(events, steps=1)
+    assert got["ms_per_step"] == pytest.approx(0.02)
+    assert got["beside_compute_ms_per_step"] == pytest.approx(0.005)
+    assert got["beside_compute_share"] == pytest.approx(0.25)
+
+
+def _capture_report(rank, mode="graph", k=12, loss=7.26, weights=0.0):
+    rep = _rank_report(rank)
+    rep["capture_status"] = {"mode": "graph", "blockers": []}
+    rep["grad_bytes"] = {"peak": 100, "after_backward": 90, "full": 400}
+    # the device's reading: stage 0 holds 310 bytes more than stage 2
+    rep["grad_memory"] = {"after_backward": 1000, "peak": 5000}
+    rep["zero0"] = {"losses": rep["losses"], "weights_diff": 0.0,
+                    "grad_memory": {"after_backward": 1310, "peak": 5300}}
+    prof = {"launches_per_step": {"K1": k, "K2": k, "K3": k, "K4": 0,
+                                  "P1": 0}, "step_ms": 100.0}
+    rep["capture"] = {
+        "eager": {"losses": [0.69, 7.26, 5.0], "profile": prof},
+        "graph": {"losses": [0.69, loss, 5.0], "profile": prof,
+                  "capture_status": {"mode": mode}},
+        "loss_err": abs(loss - 7.26) / 7.26, "weights_diff": weights,
+        "worst_weight": "w"}
+    return rep
+
+
+def test_multigpu_record_checks_the_captured_legs():
+    """A capture leg faults when a rank did not capture, when a replay
+    launched other than K1-K3 12 times per step, or when the captured
+    run left the eager one; ZeRO-2 faults when the device bytes a rank
+    held after the backward exceed its shards by more than
+    ZERO2_MEMORY_TOL, or fall short of ZeRO-0's by less than the whole
+    grads less the shards (less that limit), as when the whole grads
+    are kept."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    ref = {"losses": [0.69, 7.2601], "step_s": [1.0, 0.3],
+           "last_step_moves": {"w": 1e-3, "b": 5e-5}}
+
+    def record(name, reports):
+        # (the simulator's price, which needs the card, is read for
+        # NCCL records only; the capture checks read the reports alone)
+        return chip_smoke._multigpu_record(legs[name], reports, ref, "gloo",
+                                           4, 50.0, "", {})
+
+    ok = record("dp_zero2", [_capture_report(r) for r in range(4)])
+    assert ok["faults"] == [] and ok["capture"]["loss_err"] == 0
+    assert ok["capture_status"]["mode"] == "graph"
+    assert len(ok["capture"]["profile_per_rank"]) == 4
+    assert ok["grad_bytes_per_rank"][0]["peak"] == 100
+    assert ok["grad_memory_per_rank"][3] == {
+        "zero0": {"after_backward": 1310, "peak": 5300},
+        "zero2": {"after_backward": 1000, "peak": 5000}}
+    eager = record("dp_tp", [_capture_report(r, mode="eager")
+                             for r in range(4)])
+    assert sum("did not capture" in f for f in eager["faults"]) == 4
+    k = record("dp_tp", [_capture_report(r, k=11) for r in range(4)])
+    assert sum("replays launched" in f for f in k["faults"]) == 4
+    off = record("dp_tp", [_capture_report(r, loss=7.3) for r in range(4)])
+    assert any("captured against eager" in f for f in off["faults"])
+    fat = [_capture_report(r) for r in range(4)]
+    from flexflow_tpu_torch.parallel.zero import BUCKET_BYTES
+
+    # rank 2 kept its whole grads: no fewer bytes than ZeRO-0
+    fat[2]["grad_bytes"] = {"peak": 4 * BUCKET_BYTES,
+                            "after_backward": 100,
+                            "full": 100 + 8 * BUCKET_BYTES}
+    fat[2]["grad_memory"] = {"after_backward": 9 * BUCKET_BYTES}
+    fat[2]["zero0"]["grad_memory"] = {"after_backward": 9 * BUCKET_BYTES}
+    got = record("dp_zero2", fat)["faults"]
+    assert len(got) == 2 and all("rank 2 held" in f for f in got)
+    assert "beyond its grad shards" in got[0]
+    assert "held 0 bytes fewer than ZeRO-0" in got[1]
+
+
+def test_kernel_line_carries_the_replayed_launches():
+    """K1-K3's rows carry the capture phase's launches per replayed
+    BERT step (the profiler's count), None without the phase."""
+    flash_main = {"kernel_ms": {k: 1.0 for k in ("K1", "K2", "K3")},
+                  "plain_ms": {k: 2.0 for k in ("K1", "K2", "K3")},
+                  "library_ms": {k: 1.5 for k in ("K1", "K2", "K3")},
+                  "share_of_bound": {k: 0.3 for k in ("K1", "K2", "K3")},
+                  "bounds": chip_smoke.flash_bounds(*SHAPE)}
+    flash = {"main": {"float32": flash_main, "bfloat16": flash_main},
+             "worst": {k: {"float32": (1e-6, 1e-7)}
+                       for k in ("K1", "K2", "K3")}}
+    kern = {"worst": {"float32": 1e-6}, "kernel_ms": 0.02, "event_ms": 0.03,
+            "plain_ms": 0.3, "bound_ms": 0.01, "bound_by": "bytes",
+            "share_of_bound": 0.4, "library_ms": 0.2, "split_pages": 8,
+            "grid": [1, 1, 1]}
+    capture = {"paths": [{"path": "bert", "graph": {"profile": {
+        "launches_per_step": {"K1": 12.0, "K2": 12.0, "K3": 12.0}}}}]}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card", capture=capture)["kernels"]
+    got = {r["id"]: r.get("launches_per_replayed_train_step") for r in rows}
+    assert got == {"K4": None, "K1": 12.0, "K2": 12.0, "K3": 12.0}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card")["kernels"]
+    assert all(r.get("launches_per_replayed_train_step") is None
+               for r in rows)
+
+
+def test_profile_steps_counts_device_work_only(monkeypatch):
+    """The step profile's device busy is the union of the kernels' and
+    copies' spans: the schedule's ProfilerStep annotations and other
+    user annotations on the device timeline, which span each step's
+    gaps too, are left out; kinds and launches follow the kernels'
+    names."""
+    import types
+
+    import torch.profiler
+
+    class Profile:
+        def __init__(self, activities, schedule, on_trace_ready):
+            self.ready, self.steps = on_trace_ready, 0
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def step(self):
+            self.steps += 1
+            if self.steps == 1 + 3:  # the warm-up, then 3 active steps
+                self.ready(self)
+
+        def events(self):
+            evts = [_Evt(0, 10, "flash_fwd_kernel<float>"),
+                    _Evt(20, 30, "sm90_xmma_gemm"),
+                    _Evt(25, 32, "Memcpy DtoD (Device -> Device)"),
+                    _Evt(0, 90, "ProfilerStep#1"),
+                    _Evt(0, 90, "ffop::linear")]
+            evts[-1].is_user_annotation = True
+            for e in evts:
+                e.device_type = "DeviceType.CUDA"
+            return evts
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.profiler, "schedule", lambda **kw: kw)
+    fake = types.SimpleNamespace(
+        cuda=types.SimpleNamespace(synchronize=lambda: None))
+    calls = []
+    rec = chip_smoke.profile_steps(fake, lambda: calls.append(1), 3)
+    assert len(calls) == 4  # the dropped warm-up step and the window's 3
+    assert rec["device_busy_ms"] == pytest.approx(0.022 / 3)
+    assert rec["device_events_per_step"] == pytest.approx(1.0)
+    assert rec["launches_per_step"]["K1"] == pytest.approx(1 / 3)
+    assert rec["device_ms_by_kind"]["gemm"] == pytest.approx(0.01 / 3)
+    assert rec["device_ms_by_kind"]["copies"] == pytest.approx(0.007 / 3)
+    assert rec["attempts"] == 1

@@ -8,7 +8,11 @@ reused early), the MoE ops and a channels_last Concat against the CPU;
 the sequence-model slice's LSTM, the dense decode twin and an ONNX
 import on the card against the CPU; the search slice's profiler (an
 attention timed through K1, a failing launch that propagates) and a
-small search costed on the card.  These need a CUDA device and skip without one; on the GPU machine run
+small search costed on the card; the captured train step against the
+eager one (losses and weights bit for bit, a learning rate changed
+after the capture, a capture again after set_iteration_config, a
+capture after a captured model was dropped in a reference cycle).  These
+need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
 (that machine has no jax, which tests/conftest.py imports).  This file
 imports no jax, so it runs where only torch is installed."""
@@ -845,3 +849,119 @@ def test_small_search_is_costed_on_the_card(cuda, tmp_path):
     keys = list(json.loads(cache.read_text()))
     assert keys and all(k.split("|")[1] == torch.cuda.get_device_name(0)
                         for k in keys)
+
+
+def _small_bert_pair(capture_modes, **cfg):
+    """The same 2-layer BERT (seq 256, the flash branch) once per entry
+    of `capture_modes`, all from the first one's weights."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+
+    out, weights = [], None
+    for capture in capture_modes:
+        ff = FFModel(FFConfig(batch_size=2, device="cuda", flash_min_seq=0,
+                              **cfg))
+        build_bert(ff, batch_size=2, seq_length=256, hidden_size=128,
+                   num_layers=2, num_heads=2, intermediate_size=256)
+        ff.compile(seed=0)
+        if not capture:
+            ff._step_fn = ff.executor.build_step(capture=False)
+        if weights is None:
+            weights = ff.get_weights()
+        ff.set_weights(weights)
+        out.append(ff)
+    return out
+
+
+def test_captured_step_matches_the_eager_step(cuda):
+    """Five train_steps eager and captured (one warm-up, the capture and
+    its replay, three replays) from the same weights and batches make
+    five updates each: the same losses and weights bit for bit (the same
+    kernels in the same order); the capture counted K1-K3 once per layer,
+    which every replay launches again."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    eager, graph = _small_bert_pair((False, True))
+    rng = np.random.RandomState(1)
+    batches = [(rng.randn(2, 256, 128).astype(np.float32),
+                rng.randint(0, 2, (2, 1)).astype(np.int32))
+               for _ in range(5)]
+    before = fa.flash_fwd.launches
+    want = [float(eager.train_step({"input": x}, y)["loss"])
+            for x, y in batches]
+    assert fa.flash_fwd.launches == before + 5 * 2
+    before = fa.flash_fwd.launches
+    got = [float(graph.train_step({"input": x}, y)["loss"])
+           for x, y in batches]
+    assert fa.flash_fwd.launches == before + 2 * 2
+    assert got == want
+    st = graph.executor.capture_status
+    assert st["mode"] == "graph" and st["warmup_steps"] == 1
+    assert st["captures"] == 1 and st["replays"] == 4
+    assert st["launches_at_capture"]["K1"] == 2
+    we, wg = eager.get_weights(), graph.get_weights()
+    for op, entries in we.items():
+        for k, v in entries.items():
+            np.testing.assert_array_equal(wg[op][k], v)
+
+
+def test_captured_step_takes_a_new_learning_rate(cuda):
+    """set_learning_rate after the capture reaches the replays (the
+    update reads the rate from its device tensor): the captured run's
+    losses equal the eager run's with the same change."""
+    eager, graph = _small_bert_pair((False, True))
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 256, 128).astype(np.float32)
+    y = rng.randint(0, 2, (2, 1)).astype(np.int32)
+    losses = []
+    for ff in (eager, graph):
+        run = []
+        for i in range(5):
+            if i == 3:
+                ff.set_learning_rate(0.5)
+            run.append(float(ff.train_step({"input": x}, y)["loss"]))
+        losses.append(run)
+    assert losses[0] == losses[1]
+    assert graph.executor.capture_status["replays"] == 4
+
+
+def test_captured_step_is_captured_again_after_set_iteration_config(cuda):
+    """A new iteration length changes what the step bakes in on the host,
+    so the next calls warm up and capture again."""
+    (ff,) = _small_bert_pair((True,))
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 256, 128).astype(np.float32)
+    y = rng.randint(0, 2, (2, 1)).astype(np.int32)
+    for _ in range(3):
+        ff.train_step({"input": x}, y)
+    ff.set_iteration_config(128)
+    for _ in range(3):
+        ff.train_step({"input": x}, y)
+    st = ff.executor.capture_status
+    assert (st["warmup_steps"], st["captures"], st["replays"]) == (2, 2, 4)
+
+
+def test_capture_survives_a_dead_graph_in_a_cycle(cuda):
+    """A captured model dropped while a reference cycle keeps it alive is
+    destroyed by the cyclic collector; run at every allocation, the
+    collector would destroy its graph (freeing the graph's pool) in the
+    middle of the next model's capture, which invalidates that capture.
+    The capture collects before and keeps the collector off during it."""
+    import gc
+
+    for _ in range(2):
+        (ff,) = _small_bert_pair((True,))
+        ff._self_cycle = ff  # kept alive until the cyclic collector runs
+        rng = np.random.RandomState(4)
+        x = rng.randn(2, 256, 128).astype(np.float32)
+        y = rng.randint(0, 2, (2, 1)).astype(np.int32)
+        threshold = gc.get_threshold()
+        gc.set_threshold(1, 1, 1)
+        try:
+            losses = [float(ff.train_step({"input": x}, y)["loss"])
+                      for _ in range(3)]
+        finally:
+            gc.set_threshold(*threshold)
+        assert np.isfinite(losses).all()
+        assert ff.executor.capture_status["replays"] == 2
+        del ff

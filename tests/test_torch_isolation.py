@@ -43,7 +43,7 @@ def test_no_jax_or_reference_imports():
             "parallel_op.py", "machine.py", "pipeline_plan.py",
             "pipeline.py", "comm.py", "expert_parallel.py",
             "strategy.py", "profiler.py", "logger.py", "hierarchy.py",
-            "network.py"} <= names
+            "network.py", "capture.py", "zero.py"} <= names
     for sub in ("keras", "keras/preprocessing", "onnx_frontend", "sim",
                 "parallel", "topology", "native", "pcg"):
         assert (PORT / sub / "__init__.py").is_file(), sub
@@ -84,7 +84,8 @@ def test_import_leaves_jax_unloaded():
             "flexflow_tpu_torch.topology.hierarchy, "
             "flexflow_tpu_torch.sim.network, "
             "flexflow_tpu_torch.native, flexflow_tpu_torch.profiler, "
-            "flexflow_tpu_torch.strategy; "
+            "flexflow_tpu_torch.strategy, flexflow_tpu_torch.capture, "
+            "flexflow_tpu_torch.parallel.zero; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flexflow_tpu' or "
             "m.startswith('flexflow_tpu.')]; print(bad)")

@@ -516,7 +516,8 @@ def test_search_config_flags_match_the_reference():
             "--nodes", "2", "-ll:fsize", "1024",
             "--substitution-json", "none", "--only-data-parallel",
             "--slices", "2", "--dcn-bandwidth=1e9", "--dcn-latency", "2e-5",
-            "--slice-topology", "2x4", "--dcn-bucket-mb", "8"]
+            "--slice-topology", "2x4", "--dcn-bucket-mb", "8",
+            "--fusion"]
     mine, ref = P.FFConfig.from_args(argv), JaxConfig.from_args(argv)
     fields = ("search_budget", "search_alpha", "search_algo",
               "search_propagate", "search_eval_cache",
@@ -529,7 +530,7 @@ def test_search_config_flags_match_the_reference():
               "import_strategy_file", "num_nodes", "memory_per_device",
               "substitution_json", "only_data_parallel", "memory_lambda",
               "slices", "dcn_bandwidth", "dcn_latency", "slice_topology",
-              "dcn_bucket_mb")
+              "dcn_bucket_mb", "perform_fusion")
     for f in fields:
         assert getattr(mine, f) == getattr(ref, f), f
     assert mine.parameter_sync.value == ref.parameter_sync.value
@@ -547,8 +548,8 @@ def test_search_config_flags_match_the_reference():
     assert P.FFConfig(device="cpu").slices == 1
     assert not P.FFConfig(device="cpu").should_calibrate()
     assert P.FFConfig(device="cpu").resolve_num_devices() == 1
-    for flag in (["--strategy-store", "s"], ["--no-strategy-store"],
-                 ["--fusion"]):
+    assert mine.perform_fusion and not defaults[0].perform_fusion
+    for flag in (["--strategy-store", "s"], ["--no-strategy-store"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             P.FFConfig.from_args(flag)
     # the multi-slice fields parse and validate as the reference's

@@ -20,6 +20,7 @@ import socket
 import tempfile
 import time
 import traceback
+import weakref
 
 
 def _free_port() -> int:
@@ -587,3 +588,156 @@ def compile_error(rank, world, build, strategy):
     except NotImplementedError as e:
         return str(e)
     return None
+
+
+# -- the captured step and the rest of the ZeRO ladder ------------------------
+
+def capture_plan(rank, world, build, strategy, capture=True):
+    """Compile `build(ff)` under `strategy` on the CPU (the step built
+    again with capture off unless `capture`): what capture_blockers
+    finds in the plan, and the executor's capture_status."""
+    from flexflow_tpu_torch.capture import capture_blockers
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+
+    ff = FFModel(FFConfig(device="cpu"))
+    build(ff)
+    ff.compile(strategy=strategy, seed=0)
+    if not capture:
+        ff.executor.build_step(capture=False)
+    return {"blockers": capture_blockers(ff.executor),
+            "status": dict(ff.executor.capture_status)}
+
+
+def _storage_bytes() -> int:
+    """Bytes of the distinct storages of every tensor the collector
+    sees."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    out = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor):
+            st = o.untyped_storage()
+            out[st.data_ptr()] = st.nbytes()
+    return sum(out.values())
+
+
+def zero_grad_bytes(rank, world, build, strategy, weights, x, y, opt,
+                    stage):
+    """One train_step at ZeRO `stage` from `weights`: the executor's
+    grad_bytes (stage 2's ScatterBuckets count) and the model's full
+    grad bytes, the weights left holding a .grad, the loss and the
+    fallback leaves.  `held_bytes`: the bytes of the tensor storages
+    alive at the update's entry (once the backward has ended) less
+    those alive before the step, found by a walk over the collector's
+    objects, not counted from shapes."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+
+    ff = FFModel(FFConfig(device="cpu", zero_stage=stage))
+    build(ff)
+    ff.compile(optimizer=opt(), strategy=strategy, seed=0)
+    ff.set_weights(weights)
+    ex, held = ff.executor, []
+    sync = ex._sync_and_update
+
+    def reading(*a, **k):
+        # gloo's worker thread lets go of a finished collective's tensor
+        # a moment after the caller's wait returns: read until three
+        # readings 20 ms apart agree
+        seen = [_storage_bytes()]
+        while len(seen) < 3 or len(set(seen[-3:])) > 1:
+            time.sleep(0.02)
+            seen.append(_storage_bytes())
+        held.append(seen[-1] - base)
+        return sync(*a, **k)
+
+    ex._sync_and_update = reading
+    base = _storage_bytes()
+    loss = float(ff.train_step({"x": x}, y)["loss"])
+    del ex._sync_and_update
+    return {"grad_bytes": dict(ff.executor.grad_bytes), "loss": loss,
+            "held_bytes": held[0],
+            "full_grad_bytes": ff.executor.full_grad_bytes(ff._weights),
+            "with_grad": [f"{op}.{k}" for op, e in ff._weights.items()
+                          for k, w in e.items() if w.grad is not None],
+            "fallback": ff.executor.zero_fallback_leaves(),
+            "shards": sorted(
+                f"{op}.{k}" for op, e in ff._weights.items() for k in e
+                if ff.executor._sharded_update((op, k)))}
+
+
+def zero3_prefetch(rank, world, build, strategy, weights, batches, opt,
+                   remat=False):
+    """ZeRO stage 3 from `weights` over `batches` (one train_step each),
+    with every issued gather of a scattered weight and every op's run
+    logged in order, and the asynchronous all-gathers counted; with
+    `remat`, under FFConfig.remat (the inline gathers).  Then one
+    eval_step on the first batch: at each op's run, the weights whose
+    issued gather is still alive (its finisher, which holds the
+    gathered tensor, not yet freed)."""
+    from flexflow_tpu_torch import executor as E
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.parallel import collectives as C
+
+    log, calls = [], [0]
+    gather, run, gather_async = (E.GraphExecutor._z3_gather,
+                                 E.GraphExecutor._exec, C.all_gather_async)
+
+    issued, live_at = [], {}
+
+    def logged_gather(self, key, w):
+        log.append(("gather", ".".join(key)))
+        finish = gather(self, key, w)
+        issued.append((".".join(key), weakref.ref(finish)))
+        return finish
+
+    def logged_run(self, op, *a):
+        log.append(("run", op.name))
+        live_at[op.name] = sorted(k for k, r in issued if r() is not None)
+        return run(self, op, *a)
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return gather_async(*a, **k)
+
+    E.GraphExecutor._z3_gather = logged_gather
+    E.GraphExecutor._exec = logged_run
+    C.all_gather_async = counted
+    try:
+        ff = FFModel(FFConfig(device="cpu", zero_stage=3, remat=remat))
+        build(ff)
+        ff.compile(optimizer=opt(), strategy=strategy, seed=0)
+        ff.set_weights(weights)
+        losses, steps = [], []
+        for inputs, labels in batches:
+            del log[:]
+            calls[0] = 0
+            losses.append(float(ff.train_step(inputs, labels)["loss"]))
+            steps.append({"log": list(log), "async_gathers": calls[0]})
+        del issued[:]
+        live_at.clear()
+        ff.eval_step(*batches[0])
+        eval_live = dict(live_at)
+    finally:
+        E.GraphExecutor._z3_gather = gather
+        E.GraphExecutor._exec = run
+        C.all_gather_async = gather_async
+    return {"losses": losses, "steps": steps, "weights": ff.get_weights(),
+            "eval_live": eval_live,
+            "scattered": sorted(".".join(k) for k in ff.executor._z3),
+            "remat_plan": ff.executor._remat_plan is not None}
+
+
+def mlp3_zero(ff):
+    """Three dense layers (64 wide, ReLU) and an 8-way head, every weight
+    divisible by 8: the stage-3 prefetch's order over three ops."""
+    x = ff.create_tensor([16, 32], name="x")
+    t = ff.dense(x, 64, activation=_relu(ff), name="fc1")
+    t = ff.dense(t, 64, activation=_relu(ff), name="fc2")
+    t = ff.dense(t, 8, name="head")
+    ff.softmax(t)
