@@ -191,7 +191,26 @@ Phases, each a failure of which exits non-zero:
    launches of the search, the steps and the calibration go into the
    kernels line.  The searched strategy and the measured op costs are
    left for the multigpu phase.
-26. multigpu: nineteen legs, each over a group of spawned ranks (rank r on
+26. store: the search phase's BERT-base and config with a TASO
+   RuleCollection catalog (store_catalog(): BERT's linears partitioned
+   and combined, its residual adds as a fold of a concat, a
+   relu-concat hoist; written as JSON and as proto2 wire bytes, which
+   must parse equal, every rule verified exact or family) and a strategy
+   store in a temporary root (FFConfig.substitution_json and
+   strategy_store).  A first compile misses (store_hit False, an entry
+   published, ops timed through K1, catalog variants searched); a second
+   compile of a fresh model hits (store_hit True, no cost model built,
+   no kernel launched, the same strategy JSON).  Both train STORE_STEPS
+   captured steps from the same weights and batches (losses and weights
+   0 apart, losses within PARITY_TOL of the unsearched compile's), and a
+   profile of STORE_PROFILE_STEPS replays each counts K1-K3 12 per step.
+   Then the catalog search over SEARCH_DEVICES of hgx_h100_8.json into a
+   fresh cost cache, missed and then hit, beside the same search without
+   the catalog: seconds and the simulator's step for each.  Then two
+   child processes with compilation_cache="auto" under a fresh root: the
+   first builds K1's library into <root>/kernel_cache, the second loads
+   it from there with no nvcc run.
+27. multigpu: nineteen legs, each over a group of spawned ranks (rank r on
    card r % cards; the backend NCCL where every rank has a card of its
    own, else gloo, named, with every collective staged through host
    memory), each taking 2 train steps (the first by train_step, the
@@ -285,6 +304,7 @@ the ResNet path, `--phases vit,vit_parity,vit_profile` for the ViT
 path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
 `--phases nmt,generate,keras,onnx,seq_parity` for the sequence-model
 and frontend slice, `--phases search` for the search and simulator,
+`--phases store` for the TASO catalog and the strategy store,
 `--phases multigpu` for multi-GPU execution, `--phases multigpu
 --legs moe_dp4,ep4,dp2_ep2,moe_searched` for expert parallelism,
 `--phases multigpu --legs
@@ -4078,7 +4098,7 @@ ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
               "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
               "nmt,generate,keras,onnx,seq_parity,capture,fusion,search,"
-              "multigpu")
+              "store,multigpu")
 
 # the search phase: the Unity search's budget, the devices it searches
 # for (one HGX H100 node), the calibration's step windows and batch
@@ -4132,16 +4152,23 @@ def cancelling_strategy():
 
 
 def predicted_step(cfg, ff, machine, strategy) -> float:
-    """The simulator's step seconds for `strategy` over ff's layer graph,
-    with the search's simulator settings and the card's measured op
-    costs (the cost cache the search wrote)."""
+    """The simulator's step seconds for `strategy` over ff's layer graph
+    (its rewrites replayed), with the search's simulator settings and the
+    card's measured op costs (the cost cache the search wrote)."""
     from flexflow_tpu_torch.pcg.evaluator import IncrementalEvaluator
     from flexflow_tpu_torch.pcg.mcmc import make_search_simulator
     from flexflow_tpu_torch.sim.simulator import make_cost_model
 
+    from flexflow_tpu_torch.pcg.rewrite import (apply_rewrites,
+                                                rules_for_replay)
+
+    graph = ff.layers
+    if strategy.rewrites:
+        graph = apply_rewrites(graph, strategy.rewrites,
+                               rules_for_replay(cfg, strategy))
     cm = make_cost_model(cfg, machine)
     res = IncrementalEvaluator(
-        ff.layers, make_search_simulator(cfg, machine, cm)).evaluate(strategy)
+        graph, make_search_simulator(cfg, machine, cm)).evaluate(strategy)
     if res is None:
         raise RuntimeError(f"search: {strategy.to_json()} is illegal")
     return res.total_time
@@ -4321,6 +4348,419 @@ def phase_search(torch, fa, card: str, run_dir: str) -> dict:
         "flash_launches": launches,
     }
     emit(rec)
+    return rec
+
+
+# the store phase: the TASO catalog it searches with (as the reference's
+# converter writes a RuleCollection: dims and axes column-major, PM_ACTI
+# TASO's, 0 = none), the captured steps each trained model takes and the
+# replays profiled after them
+STORE_STEPS, STORE_PROFILE_STEPS = 2, 2
+
+
+def _taso_op(kind, inputs, **params):
+    return {"_t": "Operator", "type": kind,
+            "input": [{"_t": "Tensor", "opId": op, "tsId": ts}
+                      for op, ts in inputs],
+            "para": [{"_t": "Parameter", "key": k, "value": v}
+                     for k, v in params.items()]}
+
+
+def _taso_rule(i, src, dst, mapped):
+    return {"_t": "Rule", "srcOp": src, "dstOp": dst,
+            "mappedOutput": [{"_t": "MapOutput", "srcOpId": a,
+                              "dstOpId": c, "srcTsId": b, "dstTsId": d}
+                             for a, b, c, d in mapped],
+            "name": f"taso_rule_{i}"}
+
+
+def store_catalog() -> dict:
+    """A RuleCollection whose rules match BERT-base's graph: a linear
+    without activation as combine(linear(partition(x))) on the batch dim
+    (degree 2), an elementwise add as the fold of a concat on the hidden
+    dim (degree 2), and the relu-concat hoist, which BERT does not
+    match."""
+    par = dict(PM_PARALLEL_DEGREE=2)
+    return {"_t": "RuleCollection", "rule": [
+        _taso_rule(0, [_taso_op("OP_LINEAR", [(-1, 0), (-2, 0)], PM_ACTI=0)],
+                   [_taso_op("OP_PARTITION", [(-1, 0)], PM_PARALLEL_DIM=2,
+                             **par),
+                    _taso_op("OP_LINEAR", [(0, 0), (-2, 0)], PM_ACTI=0),
+                    _taso_op("OP_COMBINE", [(1, 0)], PM_PARALLEL_DIM=2,
+                             **par)],
+                   [(0, 0, 2, 0)]),
+        _taso_rule(1, [_taso_op("OP_EW_ADD", [(-1, 0), (-2, 0)])],
+                   [_taso_op("OP_CONCAT", [(-1, 0), (-2, 0)],
+                             PM_NUM_INPUTS=2, PM_AXIS=0),
+                    _taso_op("OP_REDUCE", [(0, 0)], PM_PARALLEL_DIM=0,
+                             **par)],
+                   [(0, 0, 1, 0)]),
+        _taso_rule(2, [_taso_op("OP_RELU", [(-1, 0)]),
+                       _taso_op("OP_RELU", [(-2, 0)]),
+                       _taso_op("OP_CONCAT", [(0, 0), (1, 0)],
+                                PM_NUM_INPUTS=2, PM_AXIS=0)],
+                   [_taso_op("OP_CONCAT", [(-1, 0), (-2, 0)],
+                             PM_NUM_INPUTS=2, PM_AXIS=0),
+                    _taso_op("OP_RELU", [(0, 0)])],
+                   [(2, 0, 1, 0)]),
+    ]}
+
+
+def write_store_catalog(directory: str) -> dict:
+    """store_catalog() as JSON and as proto2 wire bytes under `directory`;
+    both forms must parse to the same rules and every rule must verify
+    exact or family.  Returns the paths, the verdicts and the conversion
+    report at the search's degrees."""
+    from flexflow_tpu_torch.pcg.rewrite import CATALOG_DEGREES
+    from flexflow_tpu_torch.pcg.taso import (_verified_verdicts,
+                                             load_taso_rules,
+                                             parse_rule_collection)
+    from flexflow_tpu_torch.pcg.taso_pb import dict_to_pb
+
+    catalog = store_catalog()
+    paths = {"json": str(Path(directory) / "graph_subst.json"),
+             "pb": str(Path(directory) / "graph_subst.pb")}
+    Path(paths["json"]).write_text(json.dumps(catalog))
+    Path(paths["pb"]).write_bytes(dict_to_pb(catalog))
+    parsed = {form: parse_rule_collection(path)
+              for form, path in paths.items()}
+    if parsed["json"] != parsed["pb"] or len(parsed["pb"]) != len(
+            catalog["rule"]):
+        raise RuntimeError("store: the catalog's JSON and wire forms parse "
+                           "to different rules")
+    verdicts = _verified_verdicts(paths["pb"], parsed["pb"])
+    bad = {k: v for k, v in verdicts.items() if v not in ("exact", "family")}
+    if bad:
+        raise RuntimeError(f"store: catalog rules failed verification: {bad}")
+    _, report = load_taso_rules(paths["pb"], degrees=CATALOG_DEGREES)
+    return dict(paths, rules=len(parsed["pb"]), verdicts=verdicts,
+                report=report)
+
+
+def kernel_cache_child(root: str) -> None:
+    """One process's compile with FFConfig(compilation_cache="auto") under
+    the store root `root`: a small BERT (head dim 64) on the flash branch,
+    one forward;
+    prints (as JSON) the nvcc runs it started, the flash library's path
+    and K1's launches."""
+    import torch
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+    from flexflow_tpu_torch.ops.kernels import _build
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    ff = FFModel(FFConfig(batch_size=2, device="cuda", flash_min_seq=0,
+                          strategy_store=root, compilation_cache="auto"))
+    build_bert(ff, batch_size=2, seq_length=128, hidden_size=256,
+               num_layers=1, num_heads=4, intermediate_size=512)
+    ff.compile()
+    x = np.random.RandomState(0).standard_normal((2, 128, 256)).astype(
+        np.float32)
+    ff.forward({"input": x})
+    torch.cuda.synchronize()
+    print(json.dumps({"nvcc_runs": _build.nvcc_runs,
+                      "library": str(_build.library_path(fa.SOURCE)),
+                      "k1_launches": fa.flash_fwd.launches}), flush=True)
+
+
+def _kernel_cache_children(root: str) -> list:
+    """kernel_cache_child twice, one process after the other, on one
+    root: (record, wall seconds) of each."""
+    out = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.kernel_cache_child({root!r})"],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True,
+            text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"store: the kernel-cache child failed "
+                               f"({proc.returncode}): {proc.stderr[-2000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["wall_s"] = time.perf_counter() - t0
+        out.append(rec)
+    return out
+
+
+def kernel_cache_faults(root: str, children: list) -> list:
+    """What the kernel-cache children must show: the first built the
+    flash library under <root>/kernel_cache, the second loaded that
+    library with no nvcc run, and both launched K1."""
+    cache = str(Path(root) / "kernel_cache")
+    first, second = children
+    faults = []
+    if first["nvcc_runs"] < 1 or second["nvcc_runs"] != 0:
+        faults.append(f"nvcc ran {first['nvcc_runs']} and "
+                      f"{second['nvcc_runs']} times in the two children")
+    if not (first["library"] == second["library"]
+            and first["library"].startswith(cache + "/")
+            and Path(first["library"]).is_file()):
+        faults.append(f"the flash library was at {first['library']} and "
+                      f"{second['library']}, not under {cache}")
+    if min(first["k1_launches"], second["k1_launches"]) < 1:
+        faults.append("a child launched no K1")
+    return faults
+
+
+def _store_train(torch, fa, ff, batches, init, expect) -> dict:
+    """STORE_STEPS train steps of `ff` from the weights `init` (the
+    wrappers' launches counted), then a profile of STORE_PROFILE_STEPS
+    replays (`expect`: the launches per step): losses, the weights after
+    the steps, the profile."""
+    ff.set_weights(init)
+    reset_flash_launches(fa)
+    losses = [float(ff.train_step(*b)["loss"]) for b in batches]
+    launches = flash_launches(fa)
+    weights = ff.get_weights()
+    prof = profile_steps(torch, lambda: ff.train_step(*batches[-1]),
+                         STORE_PROFILE_STEPS, expect)
+    prof.pop("_events")
+    return {"losses": losses, "weights": weights, "counted_launches": launches,
+            "profile": prof,
+            "capture_status": dict(ff.executor.capture_status)}
+
+
+def phase_store(torch, fa, card: str, search=None) -> dict:
+    """The catalog and store path: compile with the catalog into a fresh
+    store (a miss), again (a hit), both trained against each other and
+    the unsearched compile; the 8-GPU catalog search missed and hit,
+    beside the search without the catalog (the search phase's, when it
+    ran); the kernel cache in two child processes."""
+    from flexflow_tpu_torch.pcg.search import unity_search
+    from flexflow_tpu_torch.sim import simulator as sim
+    from flexflow_tpu_torch.sim.machine_model import make_machine_model
+    from flexflow_tpu_torch.store import StrategyStore, store_key_for
+    from flexflow_tpu_torch.store.key import strategy_sha256
+    from flexflow_tpu_torch.strategy import Strategy
+
+    tmp = tempfile.mkdtemp(prefix="ff_store_")
+    root = f"{tmp}/store"
+    made = []  # cost models built: a search builds one to time ops
+    build_cost_model = sim.make_cost_model
+
+    def counting(*a, **k):
+        made.append(1)
+        return build_cost_model(*a, **k)
+
+    sim.make_cost_model = counting
+    faults = []
+    try:
+        catalog = write_store_catalog(tmp)
+
+        def cfg(cache, **kw):
+            return search_config(f"{tmp}/{cache}", strategy_store=root,
+                                 substitution_json=catalog["pb"], **kw)
+
+        # the first compile: a miss, its ops timed on the card
+        reset_flash_launches(fa)
+        t0 = time.perf_counter()
+        first = search_bert(cfg("op_costs.json"))
+        first.compile(seed=0)
+        miss_compile_s = time.perf_counter() - t0
+        miss_launches = flash_launches(fa)
+        miss_stats = dict(first.strategy.search_stats)
+        searched_json = first.strategy.to_json()
+        if (miss_stats.get("store_hit") is not False
+                or len(StrategyStore(root).entries()) != 1):
+            faults.append(f"the first compile: store_hit "
+                          f"{miss_stats.get('store_hit')}, "
+                          f"{len(StrategyStore(root).entries())} entries")
+        if miss_stats["measured_ops"] <= 0 or miss_launches["K1"] <= 0:
+            faults.append(f"the first compile timed "
+                          f"{miss_stats['measured_ops']} ops, launched "
+                          f"{miss_launches}")
+        if miss_stats["catalog_variants"] <= 0:
+            faults.append("the search met no catalog match")
+
+        # the second compile, of a fresh model: a hit
+        reset_flash_launches(fa)
+        made.clear()
+        t0 = time.perf_counter()
+        second = search_bert(cfg("op_costs.json"))
+        second.compile(seed=0)
+        hit_compile_s = time.perf_counter() - t0
+        hit_launches = flash_launches(fa)
+        hit_cost_models = len(made)
+        hit_stats = dict(second.strategy.search_stats)
+        restored_json = second.strategy.to_json()
+        if (hit_stats.get("store_hit") is not True or hit_cost_models
+                or any(hit_launches.values())):
+            faults.append(f"the second compile: store_hit "
+                          f"{hit_stats.get('store_hit')}, "
+                          f"{hit_cost_models} cost models built, "
+                          f"launches {hit_launches}")
+        if restored_json != searched_json:
+            faults.append("the restored strategy differs from the "
+                          "searched one")
+        key = store_key_for(second.config, second.layers, 1)
+        t0 = time.perf_counter()
+        StrategyStore(root).lookup(key)
+        lookup_ms = (time.perf_counter() - t0) * 1e3
+
+        # both trained from the same weights and batches, one after the
+        # other, and the unsearched compile beside them
+        x, y = bert_data(TRAIN_BATCH * STORE_STEPS, seed=3)
+        batches = [({"input": torch.from_numpy(
+                        x[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]).cuda()},
+                    torch.from_numpy(
+                        y[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]).cuda())
+                   for i in range(STORE_STEPS)]
+        expect = {k: CAPTURE_KERNELS["bert"].get(k, 0) for k in KERNEL_TAGS}
+        init = first.get_weights()
+        runs = {"searched": _store_train(torch, fa, first, batches, init,
+                                         expect)}
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs["restored"] = _store_train(torch, fa, second, batches, init,
+                                        expect)
+        del second
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = search_bert(search_config(f"{tmp}/op_costs.json", budget=0))
+        plain.compile(seed=0)
+        plain.set_weights(init)
+        plain_losses = [float(plain.train_step(*b)["loss"])
+                        for b in batches]
+        del plain, init
+        gc.collect()
+        torch.cuda.empty_cache()
+        a, b = runs["searched"], runs["restored"]
+        wdiff, worst = _weights_diff(b.pop("weights"), a.pop("weights"))
+        if a["losses"] != b["losses"] or wdiff != 0.0:
+            faults.append(f"searched against restored: losses "
+                          f"{a['losses']} {b['losses']}, weights {wdiff} "
+                          f"({worst})")
+        plain_err = _loss_err(a["losses"], plain_losses)
+        if not (np.isfinite(a["losses"]).all()
+                and plain_err <= PARITY_TOL["loss"]):
+            faults.append(f"searched against unsearched: losses "
+                          f"{a['losses']} {plain_losses}")
+        for name, run in runs.items():
+            if run["profile"]["launches_per_step"] != expect:
+                faults.append(f"{name}: the profiler counted "
+                              f"{run['profile']['launches_per_step']} "
+                              f"launches per replayed step, expected "
+                              f"{expect}")
+            if run["capture_status"].get("mode") != "graph":
+                faults.append(f"{name}: the step was not captured: "
+                              f"{run['capture_status']}")
+
+        # the catalog search over one HGX node: a miss into a fresh cost
+        # cache, then a hit; beside it the search without the catalog
+        reset_flash_launches(fa)
+        ff8 = search_bert(cfg("op_costs8.json"))
+        t0 = time.perf_counter()
+        miss8 = ff8.search_strategy(SEARCH_DEVICES)
+        miss8_s = time.perf_counter() - t0
+        search8_launches = flash_launches(fa)
+        made.clear()
+        t0 = time.perf_counter()
+        hit8 = search_bert(cfg("op_costs8.json")).search_strategy(
+            SEARCH_DEVICES)
+        hit8_s = time.perf_counter() - t0
+        if (miss8.search_stats.get("store_hit") is not False
+                or hit8.search_stats.get("store_hit") is not True
+                or made or hit8.to_json() != miss8.to_json()):
+            faults.append(f"{SEARCH_DEVICES} GPUs: store_hit "
+                          f"{miss8.search_stats.get('store_hit')} then "
+                          f"{hit8.search_stats.get('store_hit')}, "
+                          f"{len(made)} cost models built on the hit")
+        machine8 = make_machine_model(ff8.config, SEARCH_DEVICES)
+        pred8 = predicted_step(ff8.config, ff8, machine8, miss8)
+        if search is not None:
+            best = Strategy.from_json(json.dumps(search["strategy"]))
+            plain8 = {"search_s": search["search_s"],
+                      "predicted_step_ms": search["predicted_step_ms"],
+                      "measured_ops": search["measured_ops"],
+                      "from": "the search phase"}
+        else:
+            ffp = search_bert(search_config(f"{tmp}/op_costs8_plain.json"))
+            t0 = time.perf_counter()
+            best = unity_search(ffp, SEARCH_DEVICES)
+            plain8 = {"search_s": time.perf_counter() - t0,
+                      "predicted_step_ms": predicted_step(
+                          ffp.config, ffp, machine8, best) * 1e3,
+                      "measured_ops": best.search_stats["measured_ops"],
+                      "from": "this phase"}
+            del ffp
+        # both winners priced with the catalog search's measured costs
+        plain8.update(
+            mesh_axes=dict(best.mesh_axes), rewrites=best.rewrites,
+            strategy_sha256=strategy_sha256(best.to_json()),
+            predicted_step_ms_catalog_costs=predicted_step(
+                ff8.config, ff8, machine8, best) * 1e3)
+        del ff8
+
+        # the kernel cache under a fresh store root, in two processes
+        kroot = f"{tmp}/kernel_store"
+        children = _kernel_cache_children(kroot)
+        faults += kernel_cache_faults(kroot, children)
+    finally:
+        sim.make_cost_model = build_cost_model
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: miss_launches[k] + search8_launches[k]
+                + sum(r["counted_launches"][k] for r in runs.values())
+                for k in miss_launches}
+    stats8 = miss8.search_stats
+    rec = {
+        "phase": "store", "card": card,
+        "model": dict(BERT, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      dtype="float32"),
+        "machine": SEARCH_MACHINE, "budget": SEARCH_BUDGET,
+        "catalog": {"rules_parsed": catalog["rules"],
+                    "verdicts": catalog["verdicts"],
+                    "report": catalog["report"]},
+        "one_card": {
+            "miss_compile_s": miss_compile_s,
+            "search_s": miss_stats["search_s"],
+            "measured_ops": miss_stats["measured_ops"],
+            "catalog_variants": miss_stats["catalog_variants"],
+            "rewrites": json.loads(searched_json)["rewrites"],
+            "hit_compile_s": hit_compile_s,
+            "hit_cost_models_built": hit_cost_models,
+            "lookup_ms": lookup_ms,
+            "store_key": miss_stats["store_key"],
+            "strategy_sha256": {"searched": strategy_sha256(searched_json),
+                                "restored": strategy_sha256(restored_json)},
+        },
+        "train": {
+            "steps": STORE_STEPS, "profiled_replays": STORE_PROFILE_STEPS,
+            "losses": {"searched": a["losses"], "restored": b["losses"],
+                       "unsearched": plain_losses},
+            "weights_diff": wdiff, "loss_err_unsearched": plain_err,
+            "tolerance": PARITY_TOL["loss"],
+            "profile": {name: r["profile"] for name, r in runs.items()},
+            "capture_status": {name: r["capture_status"]
+                               for name, r in runs.items()},
+        },
+        "devices8": {
+            "devices": SEARCH_DEVICES,
+            "catalog": {"search_s": miss8_s, "hit_s": hit8_s,
+                        "predicted_step_ms": pred8 * 1e3,
+                        "measured_ops": stats8["measured_ops"],
+                        "catalog_variants": stats8["catalog_variants"],
+                        "evals": stats8.get("evals"),
+                        "eval_seconds": stats8.get("eval_seconds"),
+                        "rewrites": miss8.rewrites,
+                        "mesh_axes": dict(miss8.mesh_axes),
+                        "strategy_sha256": strategy_sha256(miss8.to_json())},
+            "no_catalog": plain8,
+        },
+        "kernel_cache": children,
+        "flash_launches_compiles": {"miss": miss_launches,
+                                    "hit": hit_launches},
+        "flash_launches_search8": search8_launches,
+        "flash_launches_steps": {name: r["counted_launches"]
+                                 for name, r in runs.items()},
+        "flash_launches": launches,
+        "faults": faults,
+    }
+    emit(rec)
+    if faults:
+        raise RuntimeError("store: " + "; ".join(faults))
     return rec
 
 
@@ -5959,7 +6399,8 @@ def _moe_checks(name, ranks, ref, strategy, faults) -> dict:
 
 
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
-                onnx=None, search=None, multigpu=None, capture=None) -> dict:
+                onnx=None, search=None, multigpu=None, capture=None,
+                store=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
     main paths (what the wrappers counted: under a captured step, the
     warm-up and the capturing step; the capture phase's profiler counts
@@ -6052,6 +6493,11 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                 capture, "bert", kid),
             "launches_search": (search["flash_launches"][kid]
                                 if search else None),
+            "launches_store": (store["flash_launches"][kid]
+                               if store else None),
+            "launches_per_replayed_store_step": (
+                store["train"]["profile"]["restored"]["launches_per_step"][
+                    kid] if store else None),
             "launches_multigpu_per_rank_per_step": _multigpu_launches(
                 multigpu, kid),
             "max_abs_err": max(w[0] for w in worst.values()),
@@ -6135,7 +6581,7 @@ def main(argv=None) -> int:
           "note": "one nvcc per source, started together"})
     dev = torch.device("cuda")
     kern = flash = serve = train = bn = resnet = paged = onnx = None
-    search = multigpu = capture = None
+    search = store = multigpu = capture = None
     # what one phase leaves for another: the searched strategy and the
     # op costs the search timed (the multigpu phase trains and prices it)
     run_dir = tempfile.mkdtemp(prefix="ff_smoke_")
@@ -6201,6 +6647,9 @@ def main(argv=None) -> int:
         phase_fusion(torch, fa, card)
     if "search" in phases:
         search = phase_search(torch, fa, card, run_dir)
+    if "store" in phases:
+        store = phase_store(torch, fa, card, search)
+        torch.cuda.empty_cache()
     if "multigpu" in phases:
         multigpu = phase_multigpu(
             torch, fa, card, run_dir,
@@ -6208,7 +6657,7 @@ def main(argv=None) -> int:
     shutil.rmtree(run_dir, ignore_errors=True)
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,
-                         search, multigpu, capture))
+                         search, multigpu, capture, store))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

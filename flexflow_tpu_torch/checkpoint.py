@@ -1,12 +1,17 @@
-"""Plain numpy weight files (the npz half of flexflow_tpu/checkpoint.py).
+"""Plain numpy weight files (the npz half of flexflow_tpu/checkpoint.py)
+and its durable-write helpers.
 
 One flat .npz per model, a key `op/weight` per trainable weight, in the
 reference's layout: a file written by either package loads into the
-other.  The checkpoint managers and the Keras-style callback wait for
-the resilience layer (ROADMAP §1.E).
+other.  `_write_json_fsync` and `_fsync_dir` are the verify-then-publish
+writes the strategy store uses (store/store.py).  The checkpoint
+managers and the Keras-style callback wait for the resilience layer
+(ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict
 
 import numpy as np
@@ -30,3 +35,23 @@ def load_weights_npz(ff, path: str):
             op_name, wname = key.rsplit("/", 1)
             nested.setdefault(op_name, {})[wname] = data[key]
     ff.set_weights(nested)
+
+
+def _write_json_fsync(path: str, obj: Dict) -> None:
+    """`obj` as JSON at `path`, flushed to the disk before returning."""
+    with open(path, "w") as f:
+        json.dump(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _fsync_dir(path: str) -> None:
+    """Flush a directory's entries (a rename into it) to the disk."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:  # a platform without directory descriptors
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)

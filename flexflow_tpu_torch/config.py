@@ -7,15 +7,15 @@ weight init, attention's flash crossover, the paged KV-pool geometry of
 the continuous engine, the strategy search, simulator and strategy-file
 fields, the multi-slice hierarchy (`slices` and the DCN fields of
 topology/hierarchy.py), the fusion pass (`perform_fusion`,
-`--fusion`), and `device`, which the reference does not have.  The
-field and flag names and defaults are the reference's own, except
-`memory_per_device`, which is one H100's 80 GB, and `dcn_bandwidth`
-and `dcn_latency`, the InfiniBand NDR figures of
-sim/machines/hgx_h100_16.json (a datasheet rate, 50e9 B/s per GPU, and
-a model latency, 5 us), where the reference's are a TPU's DCN.  The
-reference's strategy-store fields (ROADMAP §1 item 7) are left out:
-FFConfig does not take them, and `from_args` raises on their flags
-rather than ignore them.
+`--fusion`), the strategy store (`strategy_store`,
+`compilation_cache`, `remote_store`: store/), and `device`, which the
+reference does not have.  The field and flag names and defaults are
+the reference's own, except `memory_per_device`, which is one H100's
+80 GB, and `dcn_bandwidth` and `dcn_latency`, the InfiniBand NDR
+figures of sim/machines/hgx_h100_16.json (a datasheet rate, 50e9 B/s
+per GPU, and a model latency, 5 us), where the reference's are a TPU's
+DCN.  `compilation_cache` caches the built CUDA kernel libraries, where
+the reference's caches XLA executables.
 """
 from __future__ import annotations
 
@@ -33,15 +33,6 @@ DEFAULT_FLASH_MIN_SEQ = 2048
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 SEARCH_ALGOS = ("unity", "mcmc")
-
-# the reference's flags of the strategy store, which the port does not
-# carry yet
-_STORE = "ROADMAP §1 item 7 (store/ cached search)"
-_UNPORTED_FLAGS = {
-    "--strategy-store": _STORE,
-    "--no-strategy-store": _STORE,
-    "--compilation-cache": _STORE,
-}
 
 
 @dataclasses.dataclass
@@ -106,6 +97,17 @@ class FFConfig:
     memory_lambda: float = 1.0
     export_strategy_file: Optional[str] = None
     import_strategy_file: Optional[str] = None
+    # the strategy store (store/): searched strategies keyed by (graph
+    # signature, mesh fingerprint, simulator version) outlive the
+    # process, so that a later compile restores instead of searching.
+    # None = $FLEXFLOW_TPU_TORCH_STORE_DIR; ""/"none" = off.
+    strategy_store: Optional[str] = None
+    # the built CUDA kernel libraries' directory: a path, or "auto" =
+    # <strategy store root>/kernel_cache.  None = the package's _build/.
+    compilation_cache: Optional[str] = None
+    # the store's fleet mirror on an object store: file:///path or a
+    # bare path (gs:// and s3:// need their SDKs).  None/"none" = off.
+    remote_store: Optional[str] = None
 
     # -- simulator / machine model (reference: --machine-model-version,
     #    --machine-model-file, --simulator-segment-size)
@@ -202,7 +204,19 @@ class FFConfig:
         if self.dcn_bucket_mb <= 0:
             raise ValueError(f"dcn_bucket_mb must be > 0 MB, got "
                              f"{self.dcn_bucket_mb}")
+        if self.compilation_cache is not None and not str(
+                self.compilation_cache).strip():
+            raise ValueError(
+                "compilation_cache must be a directory path or 'auto' "
+                "(None disables it)")
         self.parameter_sync = ParameterSyncType(self.parameter_sync)
+
+    def resolve_store_dir(self) -> Optional[str]:
+        """The strategy store's root (None: the store is off), as
+        store.resolve_store_dir resolves it."""
+        from .store import resolve_store_dir
+
+        return resolve_store_dir(self)
 
     def should_calibrate(self) -> bool:
         """search_calibrate's auto mode: measured op costs when the
@@ -303,12 +317,17 @@ class FFConfig:
                        type=str, default=None)
         p.add_argument("--import-strategy", dest="import_strategy",
                        type=str, default=None)
-        args, rest = p.parse_known_args(argv)
-        for arg in rest:
-            flag = arg.split("=", 1)[0]
-            if flag in _UNPORTED_FLAGS:
-                raise NotImplementedError(
-                    f"{flag} is not ported yet: {_UNPORTED_FLAGS[flag]}")
+        p.add_argument("--strategy-store", dest="strategy_store", type=str,
+                       default=None)
+        p.add_argument("--no-strategy-store", dest="strategy_store",
+                       action="store_const", const="none")
+        p.add_argument("--compilation-cache", dest="compilation_cache",
+                       type=str, nargs="?", const="auto", default=None)
+        p.add_argument("--remote-store", dest="remote_store", type=str,
+                       default=None)
+        p.add_argument("--no-remote-store", dest="remote_store",
+                       action="store_const", const="none")
+        args, _ = p.parse_known_args(argv)
         return cls(
             epochs=args.epochs,
             batch_size=args.batch_size,
@@ -343,6 +362,9 @@ class FFConfig:
             memory_search=args.memory_search,
             export_strategy_file=args.export_strategy,
             import_strategy_file=args.import_strategy,
+            strategy_store=args.strategy_store,
+            compilation_cache=args.compilation_cache,
+            remote_store=args.remote_store,
             machine_model_version=args.machine_model_version,
             machine_model_file=args.machine_model_file,
             simulator_segment_size=args.simulator_segment_size,

@@ -58,6 +58,11 @@ class RecursiveLogger:
 
 search_logger = RecursiveLogger("flexflow_tpu_torch.search")
 
+# the strategy store (store/): hit and miss decisions, quarantined
+# corrupt entries, survivable publish failures; all non-fatal, so the
+# log line is their only trace until the port has a metrics registry
+store_logger = RecursiveLogger("flexflow_tpu_torch.store")
+
 
 def emit_counters(logger: RecursiveLogger, label: str, mapping: Dict
                   ) -> None:

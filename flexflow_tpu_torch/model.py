@@ -476,8 +476,11 @@ class FFModel:
         import_strategy_file, else, with search_budget > 0 (and not
         only_data_parallel), the Unity or MCMC search's for
         FFConfig.resolve_num_devices() devices (every card on CUDA, one
-        on the CPU, the group's size on a torch.distributed group); the
-        strategy is written to export_strategy_file when one is named.
+        on the CPU, the group's size on a torch.distributed group),
+        restored from the strategy store instead when one is configured
+        and holds the search's key (store/); the strategy is written to
+        export_strategy_file when one is named.  FFConfig.compilation_cache
+        points the kernel build directory at its cache first.
         A chosen strategy's rewrites are replayed on the layer graph,
         under FFConfig.perform_fusion trailing activations are folded into
         their linear and conv2d producers (not where the strategy names
@@ -516,6 +519,11 @@ class FFModel:
         self.loss = Loss(loss_type, from_logits=not sink_is_softmax)
         self.metrics = Metrics(self.loss.loss_type, metrics)
         cd = cfg.compute_dtype
+        if cfg.compilation_cache:
+            from .store import enable_compilation_cache
+
+            # before any kernel is built: this compile's search times ops
+            enable_compilation_cache(cfg)
         world = distributed.world_size()
         if strategy is None and world > 1 and not cfg.import_strategy_file \
                 and not cfg.search_budget:
@@ -588,6 +596,44 @@ class FFModel:
         if isinstance(self._step_fn, CapturedStep):
             self._step_fn.reset()
 
+    def _stamp_catalog(self, strategy: Strategy) -> None:
+        """Record the identity of the catalog a fresh search's rewrites
+        came from, so that a replay elsewhere cannot resolve other rules
+        (rewrite.rules_for_replay checks its hash).  Only this process's
+        own search results are stamped: stamping an imported or restored
+        trace with the local catalog's hash would fabricate its
+        provenance and defeat the replay check."""
+        if strategy.catalog is not None or not any(
+                str(n).startswith("taso_rule_") for n, _ in strategy.rewrites):
+            return
+        from .pcg.rewrite import catalog_fingerprint, catalog_for_config
+
+        path = catalog_for_config(self.config)
+        if path:
+            strategy.catalog = catalog_fingerprint(path)
+
+    def search_strategy(self, num_devices: int) -> Strategy:
+        """The Unity (or, with search_algo "mcmc", the MCMC) search's
+        strategy for the layer graph over `num_devices` devices, through
+        store.cached_search: with a strategy store configured, the
+        strategy published under the same key is restored and the search
+        skipped (search_stats' store_hit and store_key)."""
+        from .pcg.search import mcmc_search, unity_search
+        from .store import cached_search
+
+        def run_search():
+            t0 = time.perf_counter()
+            s = (mcmc_search(self, num_devices)
+                 if self.config.search_algo == "mcmc"
+                 else unity_search(self, num_devices))
+            s.search_stats["search_s"] = time.perf_counter() - t0
+            # stamped before the publish: a restored entry carries the
+            # provenance its replay check needs
+            self._stamp_catalog(s)
+            return s
+
+        return cached_search(self, num_devices, run_search)
+
     def _pick_strategy(self, strategy: Optional[Strategy]
                        ) -> Optional[Strategy]:
         """The strategy compile applies (None: the layer graph as it
@@ -598,15 +644,7 @@ class FFModel:
             strategy = Strategy.load(cfg.import_strategy_file)
         if (strategy is None and cfg.search_budget > 0
                 and not cfg.only_data_parallel):
-            from .pcg.search import mcmc_search, unity_search
-
-            n = cfg.resolve_num_devices()
-            t0 = time.perf_counter()
-            if cfg.search_algo == "mcmc":
-                strategy = mcmc_search(self, n)
-            else:
-                strategy = unity_search(self, n)
-            strategy.search_stats["search_s"] = time.perf_counter() - t0
+            strategy = self.search_strategy(cfg.resolve_num_devices())
         self.strategy = strategy or data_parallel_strategy(1)
         if cfg.export_strategy_file:
             self.strategy.save(cfg.export_strategy_file)

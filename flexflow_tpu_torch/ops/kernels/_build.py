@@ -2,10 +2,12 @@
 
 Each source under `flexflow_tpu_torch/csrc/` becomes one shared library
 with a plain C interface: nvcc compiles it for sm_90a at first use into
-`flexflow_tpu_torch/_build/`, and ctypes loads it.  A library's name
-carries a hash of its source and of the flags, so an edited source
-builds anew.  `build` starts one nvcc per missing library, all together,
-and waits for them; nothing is built when a module is imported.
+`flexflow_tpu_torch/_build/` (or the directory `set_build_dir` names:
+the strategy store's kernel cache, store/enable_compilation_cache), and
+ctypes loads it.  A library's name carries a hash of its source and of
+the flags, so an edited source builds anew and one directory is safe to
+share.  `build` starts one nvcc per missing library, all together, and
+waits for them; nothing is built when a module is imported.
 """
 from __future__ import annotations
 
@@ -28,6 +30,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# nvcc processes this process has started (a cache hit starts none)
+nvcc_runs = 0
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the libraries under `path` from now on; a library
+    this process has loaded already stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    return BUILD_DIR
 
 
 def find_nvcc() -> str:
@@ -58,6 +70,7 @@ def library_path(source: Path) -> Path:
 def build(*sources: Path) -> List[Path]:
     """Compile the libraries of `sources` that are not built yet, one
     nvcc process each, started together; returns their paths in order."""
+    global nvcc_runs
     outs = [library_path(s) for s in sources]
     todo = [(s, o) for s, o in zip(sources, outs) if not o.exists()]
     if not todo:
@@ -66,6 +79,7 @@ def build(*sources: Path) -> List[Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for src, out in todo:
+        nvcc_runs += 1
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs.append((src, out, tmp, subprocess.Popen(

@@ -19,8 +19,8 @@ by a different subgraph computing the same function.  Built-in rules:
 fixpoint).
 Applied rewrites are recorded on the Strategy as (rule name, match
 index) pairs, so that strategy import and export replay them.  A TASO
-RuleCollection catalog raises NotImplementedError until the TASO engine
-(the reference's pcg/taso.py) is ported, ROADMAP §1.C.
+RuleCollection catalog compiles through pcg/taso.py into pattern rules
+named taso_rule_N@d, the names either package's strategy files replay.
 """
 from __future__ import annotations
 
@@ -366,16 +366,20 @@ def load_rewrite_rules(path: str, degrees=(2,)) -> List[RewriteRule]:
     """JSON-loadable rewrite rules (reference substitution_loader.cc).
 
     Two schemas are accepted:
-      * the reference's TASO RuleCollection format, detected by its
-        "RuleCollection" tag: raises NotImplementedError until the
-        TASO engine is ported (ROADMAP §1.C);
+      * the reference's TASO RuleCollection format (its 640-rule
+        graph_subst_3_v2 catalog, JSON or binary .pb), detected by its
+        "RuleCollection" tag and compiled by pcg/taso.py into pattern
+        rules at the given parallel degrees;
       * this repo's own list format: {"rewrites": [{"type":
         "fuse_activation", "op_type": "linear"}, {"type":
         "merge_parallel", "op_type": "conv2d"},
         {"type": "cancel_inverse_parallel_ops"}]}.
     """
+    from .taso import is_taso_rule_file, load_taso_rules
+
     if is_taso_rule_file(path):
-        raise NotImplementedError(_TASO_MSG.format(path=path))
+        rules, _report = load_taso_rules(path, degrees=degrees)
+        return list(rules)
     with open(path) as f:
         d = json.load(f)
     out = []
@@ -385,49 +389,6 @@ def load_rewrite_rules(path: str, degrees=(2,)) -> List[RewriteRule]:
             raise ValueError(f"unknown rewrite rule type: {r.get('type')}")
         out.append(fac(r))
     return out
-
-
-# What a TASO RuleCollection file raises until the engine is ported.
-_TASO_MSG = ("{path} is a TASO RuleCollection catalog; the TASO engine "
-             "(flexflow_tpu/pcg/taso.py and taso_pb.py) is not ported yet, "
-             "ROADMAP §1.C")
-
-# The TASO engine version a catalog fingerprint records (the reference's
-# taso.ENGINE_VERSION), so that a strategy searched by either package
-# replays in the other.
-ENGINE_VERSION = 2
-
-
-def looks_like_pb(path: str) -> bool:
-    """Binary-vs-JSON sniff on the raw first byte: a RuleCollection wire
-    stream opens with the field-1 length-delimited key 0x0A (which is
-    also a newline, so is_taso_rule_file decides a newline-led file by
-    its content)."""
-    try:
-        with open(path, "rb") as fh:
-            head = fh.read(1)
-    except OSError:
-        return False
-    return head == b"\x0a"
-
-
-def is_taso_rule_file(path: str) -> bool:
-    """True for a TASO RuleCollection catalog, JSON or binary .pb."""
-    if looks_like_pb(path):
-        try:
-            with open(path, "rb") as f:
-                head = f.read(4096)
-        except OSError:
-            return False
-        if head.lstrip()[:1] == b"{":
-            return b'"RuleCollection"' in head
-        return True
-    try:
-        with open(path) as f:
-            head = f.read(4096)
-        return '"RuleCollection"' in head
-    except (OSError, UnicodeDecodeError):
-        return False
 
 
 def rules_by_name(rules: Optional[Sequence[RewriteRule]] = None) -> Dict[str, RewriteRule]:
@@ -487,6 +448,8 @@ def catalog_fingerprint(path: str) -> Dict[str, object]:
     import hashlib
     import os
 
+    from .taso import ENGINE_VERSION
+
     with open(path, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()
     return {"path": os.path.abspath(path), "sha256": digest,
@@ -518,6 +481,8 @@ def rules_for_replay(cfg, strategy) -> List[RewriteRule]:
     version — otherwise match indices would silently select different
     subgraphs, so we fail loudly instead."""
     import os
+
+    from .taso import ENGINE_VERSION
 
     rec = getattr(strategy, "catalog", None)
     needs = any(str(n).startswith("taso_rule_")

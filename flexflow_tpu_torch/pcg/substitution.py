@@ -87,7 +87,7 @@ def load_substitution_rules(path: str) -> List[GraphXfer]:
         with open(path) as f:
             d = json.load(f)
     except (UnicodeDecodeError, json.JSONDecodeError):
-        from .rewrite import looks_like_pb
+        from .taso_pb import looks_like_pb
 
         if looks_like_pb(path):
             return []  # binary TASO catalog

@@ -840,6 +840,11 @@ class UnitySearch:
         agg["term_hits"] = self._sim.term_hits
         agg["term_misses"] = self._sim.term_misses
         agg["op_cost_hits"] = getattr(self.cost_model, "cost_hits", 0)
+        # the rewritten graphs a TASO catalog rule's match produced (the
+        # built-in rules' are not counted)
+        agg["catalog_variants"] = sum(
+            any(str(name).startswith("taso_rule_") for name, _ in trace)
+            for _, trace in (self._variants_memo or ()))
         return agg
 
     def _stage_variants(self, strategy: Strategy, time: float,

@@ -481,7 +481,11 @@ class TaskGraphSimulator:
         if (b.switched or b.net is not None) and axes is not None:
             groups = mesh_groups(self._mesh, axes)
             if len(groups[0]) != k:
-                raise RuntimeError(
+                # a layout this model cannot group (a reshard that moves
+                # a dim between axes, as a catalog rule's partition and
+                # combine can): the caller treats the candidate as one
+                # it cannot lay out
+                raise ValueError(
                     f"a {kind} of {k} devices over mesh axes "
                     f"{sorted(axes)} of {self._mesh}: the views disagree "
                     "with the degrees")

@@ -7,8 +7,10 @@ over two streams, the zoo phases' table, graphs, layout plan, MoE
 routing record and tiny feeds, and the sequence and frontend phases'
 NMT sizing, data and gradient check, the dense twin's cache bytes, the
 generation check's exact equality, the Keras example table and its
-data, and the profiled kernel time's retake of a profile that lost
-records."""
+data, the profiled kernel time's retake of a profile that lost
+records, and the store phase's catalog (both forms parse equal and
+verify, its rules match BERT's graph), its kernel-cache check and its
+launches in the kernels line."""
 import sys
 from pathlib import Path
 
@@ -191,7 +193,8 @@ def test_phase_list_ends_with_the_sequence_and_frontend_path():
 
 def test_search_phase_runs_last_over_the_hgx_node():
     """The search phase comes after every earlier one-card phase (only
-    the multigpu phase, which trains the strategy it writes, follows),
+    the store phase, which searches it again with a catalog, and the
+    multigpu phase, which trains the strategy it writes, follow),
     parses as a --phases entry, and searches BERT-base for the 8 GPUs of
     the committed one-node machine file, timing ops on the card."""
     import os
@@ -199,8 +202,8 @@ def test_search_phase_runs_last_over_the_hgx_node():
     from flexflow_tpu_torch.sim.machine_model import GpuNodeModel
 
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[-2:] == ["search", "multigpu"] and len(phases) == 26
-    assert phases.count("search") == 1
+    assert phases[-3:] == ["search", "store", "multigpu"]
+    assert len(phases) == 27 and phases.count("search") == 1
     assert "`--phases search`" in chip_smoke.__doc__
     cfg = chip_smoke.search_config("/tmp/costs.json")
     assert (cfg.batch_size, cfg.device, cfg.search_budget) == (
@@ -1212,3 +1215,81 @@ def test_profile_steps_counts_device_work_only(monkeypatch):
     assert rec["device_ms_by_kind"]["gemm"] == pytest.approx(0.01 / 3)
     assert rec["device_ms_by_kind"]["copies"] == pytest.approx(0.007 / 3)
     assert rec["attempts"] == 1
+
+
+def test_store_phase_follows_the_search():
+    phases = chip_smoke.ALL_PHASES.split(",")
+    assert phases.index("store") == phases.index("search") + 1
+    assert "`--phases store`" in chip_smoke.__doc__
+    assert (chip_smoke.STORE_STEPS, chip_smoke.STORE_PROFILE_STEPS) == (2, 2)
+
+
+def test_store_catalog_parses_equal_and_verifies(tmp_path, monkeypatch):
+    """The catalog's JSON and wire forms parse to the same rules, every
+    rule verifies exact, and the parallel rules are instantiated at each
+    of the search's degrees; on a small BERT the linear and add rules
+    match (ffn2 and the classifier, both residual adds per layer), the
+    relu-concat hoist does not."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+    from flexflow_tpu_torch.pcg.rewrite import CATALOG_DEGREES
+    from flexflow_tpu_torch.pcg.taso import load_taso_rules
+
+    monkeypatch.setenv("FLEXFLOW_TPU_TORCH_CACHE_DIR", str(tmp_path / "c"))
+    cat = chip_smoke.write_store_catalog(str(tmp_path))
+    assert cat["rules"] == 3
+    assert set(cat["verdicts"].values()) == {"exact"}
+    assert cat["report"] == {"converted": 3,
+                             "instantiated": 2 * len(CATALOG_DEGREES) + 1}
+    assert Path(cat["pb"]).read_bytes()[:1] == b"\x0a"
+    ff = FFModel(FFConfig(batch_size=8, device="cpu"))
+    build_bert(ff, batch_size=8, seq_length=16, hidden_size=32, num_layers=2,
+               num_heads=4, intermediate_size=64)
+    rules = {r.name: r for r in load_taso_rules(cat["pb"], degrees=(2,))[0]}
+    assert len(rules["taso_rule_0@2"].find_matches(ff.layers)) == 3
+    assert len(rules["taso_rule_1@2"].find_matches(ff.layers)) == 4
+    assert rules["taso_rule_2@2"].find_matches(ff.layers) == []
+
+
+def test_kernel_cache_check(tmp_path):
+    lib = tmp_path / "kernel_cache" / "libff_flash_attention_0.so"
+    lib.parent.mkdir()
+    lib.write_bytes(b"")
+    good = [{"nvcc_runs": 1, "library": str(lib), "k1_launches": 1},
+            {"nvcc_runs": 0, "library": str(lib), "k1_launches": 1}]
+    assert chip_smoke.kernel_cache_faults(str(tmp_path), good) == []
+    rebuilt = [good[0], dict(good[1], nvcc_runs=1)]
+    assert "nvcc ran 1 and 1" in chip_smoke.kernel_cache_faults(
+        str(tmp_path), rebuilt)[0]
+    elsewhere = [dict(g, library="/other/lib.so") for g in good]
+    assert "not under" in chip_smoke.kernel_cache_faults(
+        str(tmp_path), elsewhere)[0]
+    idle = [good[0], dict(good[1], k1_launches=0)]
+    assert chip_smoke.kernel_cache_faults(str(tmp_path), idle) == [
+        "a child launched no K1"]
+
+
+def test_kernel_line_carries_the_store_launches():
+    flash_main = {"kernel_ms": {k: 1.0 for k in ("K1", "K2", "K3")},
+                  "plain_ms": {k: 2.0 for k in ("K1", "K2", "K3")},
+                  "library_ms": {k: 1.5 for k in ("K1", "K2", "K3")},
+                  "share_of_bound": {k: 0.3 for k in ("K1", "K2", "K3")},
+                  "bounds": chip_smoke.flash_bounds(*SHAPE)}
+    flash = {"main": {"float32": flash_main, "bfloat16": flash_main},
+             "worst": {k: {"float32": (1e-6, 1e-7)}
+                       for k in ("K1", "K2", "K3")}}
+    kern = {"worst": {"float32": 1e-6}, "kernel_ms": 0.02, "event_ms": 0.03,
+            "plain_ms": 0.3, "bound_ms": 0.01, "bound_by": "bytes",
+            "share_of_bound": 0.4, "library_ms": 0.2, "split_pages": 8,
+            "grid": [1, 1, 1]}
+    per_step = {"K1": 12.0, "K2": 12.0, "K3": 12.0, "K4": 0.0, "P1": 0.0}
+    store = {"flash_launches": {"K1": 70, "K2": 48, "K3": 48},
+             "train": {"profile": {"restored": {
+                 "launches_per_step": per_step}}}}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card", store=store)["kernels"]
+    got = {r["id"]: (r.get("launches_store"),
+                     r.get("launches_per_replayed_store_step"))
+           for r in rows}
+    assert got == {"K4": (None, None), "K1": (70, 12.0), "K2": (48, 12.0),
+                   "K3": (48, 12.0)}

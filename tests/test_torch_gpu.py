@@ -11,7 +11,9 @@ attention timed through K1, a failing launch that propagates) and a
 small search costed on the card; the captured train step against the
 eager one (losses and weights bit for bit, a learning rate changed
 after the capture, a capture again after set_iteration_config, a
-capture after a captured model was dropped in a reference cycle).  These
+capture after a captured model was dropped in a reference cycle); a
+strategy restored from the store, whose first step builds and captures
+K1-K3.  These
 need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
 (that machine has no jax, which tests/conftest.py imports).  This file
@@ -965,3 +967,35 @@ def test_capture_survives_a_dead_graph_in_a_cycle(cuda):
         assert np.isfinite(losses).all()
         assert ff.executor.capture_status["replays"] == 2
         del ff
+
+
+def test_a_restored_strategy_captures_and_runs_the_flash_kernels(cuda,
+                                                                 tmp_path):
+    """A strategy restored from the store skips the search, so no kernel
+    runs before the first step: the captured step's warm-up still builds
+    and launches K1-K3, the capture counts them once per layer, and the
+    restored model trains the searched one's losses bit for bit."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    kw = dict(search_budget=4, strategy_store=str(tmp_path / "store"),
+              op_cost_cache_file=str(tmp_path / "costs.json"))
+    (searched,) = _small_bert_pair((True,), **kw)
+    weights = searched.get_weights()
+    before = fa.flash_fwd.launches
+    (restored,) = _small_bert_pair((True,), **kw)
+    assert fa.flash_fwd.launches == before  # no op timed
+    assert restored.strategy.search_stats["store_hit"] is True
+    assert searched.strategy.search_stats["store_hit"] is False
+    restored.set_weights(weights)
+    rng = np.random.RandomState(2)
+    batches = [(rng.randn(2, 256, 128).astype(np.float32),
+                rng.randint(0, 2, (2, 1)).astype(np.int32))
+               for _ in range(3)]
+    got = [float(restored.train_step({"input": x}, y)["loss"])
+           for x, y in batches]
+    st = restored.executor.capture_status
+    assert st["mode"] == "graph" and st["captures"] == 1
+    assert all(st["launches_at_capture"][k] == 2 for k in ("K1", "K2", "K3"))
+    want = [float(searched.train_step({"input": x}, y)["loss"])
+            for x, y in batches]
+    assert got == want

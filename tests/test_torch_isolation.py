@@ -43,11 +43,15 @@ def test_no_jax_or_reference_imports():
             "parallel_op.py", "machine.py", "pipeline_plan.py",
             "pipeline.py", "comm.py", "expert_parallel.py",
             "strategy.py", "profiler.py", "logger.py", "hierarchy.py",
-            "network.py", "capture.py", "zero.py"} <= names
+            "network.py", "capture.py", "zero.py", "taso.py",
+            "taso_pb.py", "key.py", "store.py", "blobstore.py",
+            "faults.py"} <= names
     for sub in ("keras", "keras/preprocessing", "onnx_frontend", "sim",
-                "parallel", "topology", "native", "pcg"):
+                "parallel", "topology", "native", "pcg", "store",
+                "resilience"):
         assert (PORT / sub / "__init__.py").is_file(), sub
-    for sub in ("sim", "parallel", "topology", "pcg"):
+    for sub in ("sim", "parallel", "topology", "pcg", "store",
+                "resilience"):
         assert any(f.parent == PORT / sub and f.name != "__init__.py"
                    for f in files), sub
     offenders = [(str(f.relative_to(ROOT)), m) for f in files
@@ -85,7 +89,9 @@ def test_import_leaves_jax_unloaded():
             "flexflow_tpu_torch.sim.network, "
             "flexflow_tpu_torch.native, flexflow_tpu_torch.profiler, "
             "flexflow_tpu_torch.strategy, flexflow_tpu_torch.capture, "
-            "flexflow_tpu_torch.parallel.zero; "
+            "flexflow_tpu_torch.parallel.zero, "
+            "flexflow_tpu_torch.pcg.taso, flexflow_tpu_torch.store, "
+            "flexflow_tpu_torch.resilience; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flexflow_tpu' or "
             "m.startswith('flexflow_tpu.')]; print(bad)")

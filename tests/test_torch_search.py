@@ -5,7 +5,7 @@ same graphs; compile with search_budget > 0 trains what the unsearched
 compile trains, runs a strategy over more devices, a ZeRO stage or a
 remat plan in a group of the right size, and a pipeline; the profiler times ops on the CPU and
 returns None only for an op that cannot run on its own; calibration,
-the TASO-catalog guard and the search flags."""
+and the search and store flags."""
 import json
 import os
 import sys
@@ -489,13 +489,7 @@ def test_edge_chain_that_cancels_on_one_card_trains_the_plain_losses():
     assert _losses(ff) == _losses(_tiny_bert().compile())
 
 
-def test_taso_catalog_raises_until_ported(tmp_path):
-    cat = tmp_path / "graph_subst.json"
-    cat.write_text(json.dumps({"_t": "RuleCollection", "rule": []}))
-    cfg = P.FFConfig(device="cpu", substitution_json=str(cat))
-    assert p_rewrite.is_taso_rule_file(str(cat))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.C"):
-        p_rewrite.rules_for_config(cfg)
+def test_no_catalog_by_default_and_six_built_in_rules():
     assert p_rewrite.catalog_for_config(P.FFConfig(device="cpu")) is None
     assert len(p_rewrite.rules_for_config(P.FFConfig(device="cpu"))) == 6
 
@@ -549,9 +543,17 @@ def test_search_config_flags_match_the_reference():
     assert not P.FFConfig(device="cpu").should_calibrate()
     assert P.FFConfig(device="cpu").resolve_num_devices() == 1
     assert mine.perform_fusion and not defaults[0].perform_fusion
-    for flag in (["--strategy-store", "s"], ["--no-strategy-store"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.FFConfig.from_args(flag)
+    # the store flags parse to the reference's fields
+    store = ("strategy_store", "compilation_cache", "remote_store")
+    for argv in (["--strategy-store", "s", "--compilation-cache",
+                  "--remote-store", "file:///r"],
+                 ["--no-strategy-store", "--compilation-cache", "k",
+                  "--no-remote-store"], []):
+        mine, ref = P.FFConfig.from_args(argv), JaxConfig.from_args(argv)
+        for f in store:
+            assert getattr(mine, f) == getattr(ref, f), (argv, f)
+    assert P.FFConfig.from_args(["--compilation-cache"]).compilation_cache \
+        == "auto"
     # the multi-slice fields parse and validate as the reference's
     assert P.FFConfig(slices=2).slices == JaxConfig(slices=2).slices == 2
     for bad in ({"slices": 0}, {"dcn_bandwidth": 0.0},
