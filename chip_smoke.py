@@ -210,7 +210,7 @@ Phases, each a failure of which exits non-zero:
    child processes with compilation_cache="auto" under a fresh root: the
    first builds K1's library into <root>/kernel_cache, the second loads
    it from there with no nvcc run.
-27. multigpu: nineteen legs, each over a group of spawned ranks (rank r on
+27. multigpu: twenty legs, each over a group of spawned ranks (rank r on
    card r % cards; the backend NCCL where every rank has a card of its
    own, else gloo, named, with every collective staged through host
    memory), each taking 2 train steps (the first by train_step, the
@@ -273,6 +273,11 @@ Phases, each a failure of which exits non-zero:
    machine beside the analytic one.  The four cards of one box stand for
    the slices: the legs show the hierarchy's correctness and its cost on
    NVLink, not InfiniBand.  K1-K3 launch 12 each per rank per step.
+   ckpt_reshard is dp_zero2 saving after its first step with both
+   checkpoint managers (every rank gathers, rank 0 writes); the
+   checkpoint is restored onto 2 ranks at ZeRO-1 and onto one card,
+   and each trains the second step against the one-card run
+   (MULTIGPU_TOL).
    `--legs` runs some of the legs (and only the searches they need).
    The kernels are built once, before
    the ranks start; each rank sets its launch counters to 0 and reports
@@ -288,6 +293,26 @@ Phases, each a failure of which exits non-zero:
    steps (MULTIGPU_TOL), a profile of CAPTURE_PROFILE_STEPS more on
    each rank (K1-K3 per replayed step from the profiler), and under
    ZeRO-3 how much of the prefetch's all-gathers ran beside compute.
+28. resilience (run before multigpu): the train phase's BERT-base under
+   Adam, RES_STEPS steps through fit with telemetry off (the
+   uninterrupted run) and on (trace_dir, the RES_WINDOW torch.profiler
+   window, an async LocalCheckpointManager save every RES_EVERY steps
+   by ModelCheckpoint), then RES_MORE more: K1-K3 per replayed step
+   (off, and in the window on: 12 each, equal), every K1-K3 launch of
+   the window's replays marked with an attn_* op by the map its warm-up
+   recorded, the step ms off and on (fits of RES_OVH_STEPS steps, off
+   and on alternated over RES_OVH_ROUNDS rounds: the gap between steps
+   that each wait for the card, and the fit's wall, with their spread),
+   the span and metric counts, the three artifacts parsed, the fidelity
+   record, the snapshot stall, flush time and checkpoint bytes, the
+   train state (weights, Adam's slots and step, the generator) 0 apart
+   from the run without telemetry; a fresh model captured on its own
+   weights restores the newest verified step in place and trains on, 0
+   apart from the uninterrupted run; a CheckpointManager (DCP) round
+   trip; the fallback past a corrupted newest step; a NAN_LOSS fault
+   raising NonFiniteLossError (then the restore reaction) and a
+   HUNG_STEP fault (FaultPlan.hang_device) raising HungStepTimeout at
+   the watchdog's deadline.
 
 Every train step on the card is captured by default after one eager
 warm-up step (capture.py): the kernels' wrappers count the warm-up and
@@ -305,6 +330,8 @@ path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
 `--phases nmt,generate,keras,onnx,seq_parity` for the sequence-model
 and frontend slice, `--phases search` for the search and simulator,
 `--phases store` for the TASO catalog and the strategy store,
+`--phases resilience` for telemetry and checkpoints, `--phases multigpu
+--legs ckpt_reshard` for a checkpoint restored onto other meshes,
 `--phases multigpu` for multi-GPU execution, `--phases multigpu
 --legs moe_dp4,ep4,dp2_ep2,moe_searched` for expert parallelism,
 `--phases multigpu --legs
@@ -4098,7 +4125,7 @@ ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
               "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
               "nmt,generate,keras,onnx,seq_parity,capture,fusion,search,"
-              "store,multigpu")
+              "store,resilience,multigpu")
 
 # the search phase: the Unity search's budget, the devices it searches
 # for (one HGX H100 node), the calibration's step windows and batch
@@ -4764,6 +4791,446 @@ def phase_store(torch, fa, card: str, search=None) -> dict:
     return rec
 
 
+# the resilience phase: BERT-base as in the train phase, under Adam (so a
+# checkpoint holds two slots and a step count per weight), RES_STEPS steps
+# through fit with an async checkpoint every RES_EVERY and the profile
+# window RES_WINDOW, then RES_MORE more; the watchdog's deadline and the
+# hung step's stall (three deadlines)
+RES_STEPS, RES_MORE, RES_EVERY = 4, 4, 2
+RES_WINDOW = "2:2"
+# the telemetry overhead: fits of RES_OVH_STEPS steps, timed alike on
+# both sides, in the order off, on, on, off per round
+RES_OVH_STEPS, RES_OVH_ROUNDS = 12, 2
+RES_STEP_TIMEOUT = 2.0
+RES_HANG_S = 3 * RES_STEP_TIMEOUT
+# how far past the deadline HungStepTimeout may come: the watchdog's
+# event wait and the thread hand-off, on the host
+RES_HANG_SLACK_S = 0.5
+FLASH_IDS = ("K1", "K2", "K3")
+
+
+def _res_bert(torch, seed: int, tmp: str, **cfg):
+    """The train phase's BERT-base under Adam (alpha 1e-3), weights from
+    `seed`, the step captured; the fidelity prediction's op timings in
+    `tmp`."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+
+    ff = FFModel(FFConfig(batch_size=TRAIN_BATCH, device="cuda", seed=seed,
+                          op_cost_cache_file=f"{tmp}/op_costs.json", **cfg))
+    build_bert(ff, batch_size=TRAIN_BATCH, seq_length=TRAIN_SEQ, **BERT)
+    ff.compile(optimizer=AdamOptimizer(alpha=1e-3),
+               metrics=("accuracy", "sparse_categorical_crossentropy"),
+               seed=seed)
+    return ff
+
+
+def host_state(ff) -> dict:
+    """{checkpoint leaf key: array} of the full train state (weights,
+    Adam's slots and step, the generator), copied to the host."""
+    from flexflow_tpu_torch.checkpoint import _Snapshot
+
+    return _Snapshot(ff, own=True).arrays()
+
+
+def state_diff(got: dict, want: dict) -> float:
+    """Largest |got - want| over every leaf (the leaves must match)."""
+    if sorted(got) != sorted(want):
+        raise RuntimeError(f"state leaves differ: {sorted(set(got) ^ set(want))}")
+    return max(float(np.abs(got[k].astype(np.float64)
+                            - want[k].astype(np.float64)).max())
+               for k in want)
+
+
+def _timed_fit(torch, ff, x, y, callbacks=()) -> float:
+    """Seconds of one fit epoch over (x, y) (fit synchronizes at its
+    end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ff.fit(x, y, batch_size=TRAIN_BATCH, epochs=1, verbose=False,
+           callbacks=callbacks)
+    return time.perf_counter() - t0
+
+
+def _span_ms(events, name: str) -> list:
+    """Durations (ms) of the tracer's `name` spans."""
+    open_at, out = {}, []
+    for e in events:
+        if e["name"] != name:
+            continue
+        key = (e["tid"], name)
+        if e["ph"] == "B":
+            open_at[key] = e["ts"]
+        elif e["ph"] == "E":
+            out.append((e["ts"] - open_at.pop(key)) / 1e3)
+    return out
+
+
+def replay_attribution(chrome) -> dict:
+    """Per flash kernel id, of its launches in a torch.profiler window's
+    Chrome trace, how many a graph replay made and how many of those the
+    export marked with an `attn_*` op (obs/attribution.py)."""
+    graphs = {e["args"].get("correlation") for e in chrome
+              if e.get("cat") == "cuda_runtime"
+              and e.get("name") == "cudaGraphLaunch"}
+    out = {k: {"launches": 0, "replayed": 0, "in_attn": 0}
+           for k in FLASH_IDS}
+    for e in chrome:
+        if e.get("cat") != "kernel":
+            continue
+        for k in FLASH_IDS:
+            if KERNEL_TAGS[k] in e.get("name", ""):
+                out[k]["launches"] += 1
+                out[k]["replayed"] += int(
+                    e.get("args", {}).get("correlation") in graphs)
+                out[k]["in_attn"] += int(str(e.get("args", {}).get(
+                    "op", "")).startswith("attn_"))
+    return out
+
+
+class StepClock:
+    """A fit callback that waits for the card after every step and notes
+    the time, so that the gaps between steps time both sides alike."""
+
+    def __init__(self, torch):
+        self.torch, self.at = torch, []
+
+    def on_train_begin(self, ff):
+        pass
+
+    def on_step_end(self, ff, step):
+        self.torch.cuda.synchronize()
+        self.at.append(time.perf_counter())
+
+    def on_epoch_end(self, ff, epoch, pm):
+        pass
+
+    def on_train_end(self, ff):
+        pass
+
+
+def kernel_map_summary(chrome, ops) -> dict:
+    """The warm-up's kernel-to-op map against the window's first replay
+    (Chrome trace events): their lengths, K1-K3 in the map, and where
+    the two sequences of names first part, with a few names from
+    there."""
+    graphs = sorted((e["ts"], e["args"].get("correlation")) for e in chrome
+                    if e.get("cat") == "cuda_runtime"
+                    and e.get("name") == "cudaGraphLaunch")
+    first = graphs[0][1] if graphs else None
+    replay = [e["name"] for e in sorted(
+        (e for e in chrome if e.get("cat") == "kernel"
+         and e.get("args", {}).get("correlation") == first),
+        key=lambda e: e["ts"])]
+    names = [n for n, _ in ops or ()]
+    at = next((i for i, (m, r) in enumerate(zip(names, replay)) if m != r),
+              min(len(names), len(replay)))
+    return {"len": len(names), "replay_len": len(replay),
+            "flash": {k: sum(KERNEL_TAGS[k] in n for n in names)
+                      for k in FLASH_IDS},
+            "first_difference": at,
+            "map_there": [n[:60] for n in names[at:at + 4]],
+            "replay_there": [n[:60] for n in replay[at:at + 4]]}
+
+
+def overhead_fits(torch, models: dict, x, y) -> dict:
+    """The telemetry's cost, off against on, timed alike on both sides
+    over fits of (x, y) alternated off, on, on, off for RES_OVH_ROUNDS
+    rounds: per fit its wall per step and the median gap between its
+    steps (StepClock); per side the medians and their spread (max - min
+    over the median); the overhead per step (the gaps) and per fit (the
+    walls: the flush and the fidelity record come once a fit)."""
+    walls = {k: [] for k in models}
+    gaps = {k: [] for k in models}
+    n = len(y) // TRAIN_BATCH
+    for _ in range(RES_OVH_ROUNDS):
+        for side in ("off", "on", "on", "off"):
+            clock = StepClock(torch)
+            walls[side].append(_timed_fit(torch, models[side], x, y,
+                                          callbacks=[clock]) / n * 1e3)
+            gaps[side].append(float(np.median(np.diff(clock.at))) * 1e3)
+
+    def summary(times):
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        return {"ms": times, "median_ms": med,
+                "spread": {k: (max(v) - min(v)) / med[k]
+                           for k, v in times.items()},
+                "overhead": med["on"] / med["off"] - 1.0}
+
+    return {"steps_per_fit": n, "fits_per_side": len(walls["off"]),
+            "step_gap": summary(gaps), "fit_wall_per_step": summary(walls),
+            "fit_extra_ms": (float(np.median(walls["on"]))
+                             - float(np.median(walls["off"]))) * n}
+
+
+def _corrupt_middle(path: str, nbytes: int = 4096) -> None:
+    """Overwrite `nbytes` in the middle of a file (a torn page)."""
+    size = Path(path).stat().st_size
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        f.write(b"\xa5" * nbytes)
+
+
+def phase_resilience(torch, fa, card: str) -> dict:
+    """Full-width BERT-base under Adam through the slice's path: a fit
+    with telemetry off (the uninterrupted run), the same fit with
+    telemetry on (trace, metrics, the profile window, the fidelity
+    record) and an async LocalCheckpointManager save every RES_EVERY
+    steps (ModelCheckpoint), a fresh model captured on its own weights
+    that restores the newest verified step in place and trains on, a
+    CheckpointManager (DCP) round trip, the fallback past a corrupted
+    newest step, and the NAN_LOSS and HUNG_STEP faults through
+    check_step_health and the watchdog."""
+    from flexflow_tpu_torch.checkpoint import (CheckpointManager,
+                                               LocalCheckpointManager,
+                                               ModelCheckpoint)
+    from flexflow_tpu_torch.executor import (NonFiniteLossError,
+                                             check_step_health)
+    from flexflow_tpu_torch.obs import (parse_profile_steps, report_fidelity,
+                                        span_allocations)
+    from flexflow_tpu_torch.resilience import (FaultKind, FaultPlan,
+                                               HungStepTimeout, StepWatchdog)
+
+    b, n = TRAIN_BATCH, RES_STEPS + RES_MORE
+    x, y = bert_data(b * n, seed=5)
+    first = (x[:RES_STEPS * b], y[:RES_STEPS * b])
+    more = (x[RES_STEPS * b:], y[RES_STEPS * b:])
+    want12 = {k: BERT["num_layers"] for k in FLASH_IDS}
+    tmp = tempfile.mkdtemp(prefix="ff_resilience_")
+    faults = []
+    rec = {"phase": "resilience", "card": card,
+           "model": dict(BERT, batch=b, seq=TRAIN_SEQ, dtype="float32",
+                         optimizer="Adam(alpha=1e-3)"),
+           "steps": RES_STEPS, "more_steps": RES_MORE,
+           "checkpoint_every": RES_EVERY, "profile_steps": RES_WINDOW,
+           "step_timeout_s": RES_STEP_TIMEOUT}
+    try:
+        # -- telemetry off: the uninterrupted run -------------------------
+        off = _res_bert(torch, 0, tmp)
+        allocs = span_allocations()
+        off.fit(*first, batch_size=b, epochs=1, verbose=False)
+        s4 = host_state(off)
+        off.fit(*more, batch_size=b, epochs=1, verbose=False)
+        s8 = host_state(off)
+        if span_allocations() != allocs:
+            faults.append("a fit with telemetry off made spans")
+        prof = profile_steps(torch, lambda: off.train_step(
+            {"input": x[:b]}, y[:b]), 2, want12)
+        prof.pop("_events")
+        rec["off"] = {"launches_per_replayed_step": {
+                          k: prof["launches_per_step"][k] for k in FLASH_IDS},
+                      "profile": prof,
+                      "capture_status": {k: off.executor.capture_status[k]
+                                         for k in ("mode", "replays")}}
+
+        # -- telemetry on, an async checkpoint every RES_EVERY steps --------
+        trace_dir, local = f"{tmp}/trace", f"{tmp}/local"
+        on = _res_bert(torch, 0, tmp, trace_dir=trace_dir,
+                       profile_steps=RES_WINDOW)
+        cb = ModelCheckpoint(local, max_to_keep=2, async_save=True,
+                             every_steps=RES_EVERY, local=True)
+        on.fit(*first, batch_size=b, epochs=1, verbose=False, callbacks=[cb])
+        d4 = state_diff(host_state(on), s4)
+        on.fit(*more, batch_size=b, epochs=1, verbose=False)
+        d8 = state_diff(host_state(on), s8)
+        tel = on.telemetry
+        with open(tel.trace_path) as f:
+            trace = json.load(f)["traceEvents"]
+        with open(tel.telemetry_path) as f:
+            lines = [json.loads(line) for line in f]
+        with open(tel.profile_path) as f:
+            chrome = json.load(f)["traceEvents"]
+        win = parse_profile_steps(RES_WINDOW)
+        win = win[1] - win[0]
+        attn = replay_attribution(chrome)
+        spans = {}
+        for e in trace:
+            if e["ph"] == "B":
+                spans[e["name"]] = spans.get(e["name"], 0) + 1
+        metrics = sorted({(r["kind"], r["name"]) for r in lines
+                          if r["kind"] not in ("event", "fidelity")})
+        fids = [r for r in lines if r["kind"] == "fidelity"]
+        gauges = {r["name"]: r["value"] for r in lines
+                  if r["kind"] == "gauge"}
+        rec["on"] = {
+            "launches_per_window_step": {k: a["replayed"] / win
+                                         for k, a in attn.items()},
+            "window_attribution": tel.attribution,
+            "attn_attribution": attn,
+            "kernel_map": kernel_map_summary(chrome, tel.kernel_ops),
+            "spans": spans, "span_count": sum(spans.values()),
+            "metric_count": len(metrics),
+            "metrics": [f"{k}:{m}" for k, m in metrics],
+            "events": sum(r["kind"] == "event" for r in lines),
+            "profile_events": len(chrome),
+            # one record per fit: the second's epoch is all replays
+            "fidelity": fids[-1] if fids else None,
+            "fidelity_records": len(fids),
+            "state_diff_after_fit": d4, "state_diff_after_more": d8,
+            "capture_status": {k: on.executor.capture_status[k]
+                               for k in ("mode", "replays")},
+        }
+        rec["checkpoint"] = {
+            "bytes": gauges.get("resilience/ckpt_bytes"),
+            "snapshot_ms": _span_ms(trace, "snapshot"),
+            "flush_ms": _span_ms(trace, "flush"),
+            "steps": LocalCheckpointManager(local).all_steps(),
+        }
+
+        # -- the step time off and on, by the same yardstick ----------------
+        xo, yo = bert_data(b * RES_OVH_STEPS, seed=6)
+        ovh = overhead_fits(torch, {"off": off, "on": on}, xo, yo)
+        # what a fit with telemetry on does once, after its loop
+        t0 = time.perf_counter()
+        report_fidelity(on, ovh["step_gap"]["median_ms"]["on"] / 1e3,
+                        steps_measured=RES_OVH_STEPS, source="chip_smoke")
+        ovh["fidelity_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on.telemetry.flush()
+        ovh["flush_s"] = time.perf_counter() - t0
+        rec["telemetry_overhead"] = ovh
+        rec["off"]["step_ms"] = ovh["step_gap"]["median_ms"]["off"]
+        rec["on"]["step_ms"] = ovh["step_gap"]["median_ms"]["on"]
+        del off, on
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- a fresh model, captured on its own weights, restores in place ---
+        fresh = _res_bert(torch, 1, tmp)
+        for i in range(2):  # the warm-up, the capture (and its replay)
+            fresh.train_step({"input": x[i * b:(i + 1) * b]},
+                             y[i * b:(i + 1) * b])
+        st = fresh.executor.capture_status
+        tensors = [id(w) for e in fresh._weights.values() for w in e.values()]
+        mgr = LocalCheckpointManager(local)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = mgr.restore(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        in_place = tensors == [id(w) for e in fresh._weights.values()
+                               for w in e.values()]
+        d_restored = state_diff(host_state(fresh), s4)
+        replays = st["replays"]
+        fresh.fit(*more, batch_size=b, epochs=1, verbose=False)
+        d_resumed = state_diff(host_state(fresh), s8)
+        rec["restore"] = {
+            "step": step, "restore_s": restore_s, "in_place": in_place,
+            "captures_before": st["captures"],
+            "replays_after_restore": st["replays"] - replays,
+            "state_diff_at_restore": d_restored,
+            "state_diff_after_training_on": d_resumed}
+        dcp = CheckpointManager(f"{tmp}/dcp")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dcp.save(fresh, n)
+        dcp_save_s = time.perf_counter() - t0
+        fresh.train_step({"input": x[:b]}, y[:b])  # moves it on
+        t0 = time.perf_counter()
+        dcp_step = dcp.restore(fresh)
+        torch.cuda.synchronize()
+        rec["dcp"] = {"step": dcp_step, "save_s": dcp_save_s,
+                      "restore_s": time.perf_counter() - t0,
+                      "state_diff": state_diff(host_state(fresh), s8)}
+        dcp.close()
+
+        # -- the fallback past a corrupted newest step -----------------------
+        newest = mgr.latest_verified_step()
+        _corrupt_middle(f"{mgr._path(newest)}/state.npz")
+        fell_to = mgr.restore(fresh)
+        with np.load(f"{mgr._path(fell_to)}/state.npz") as data:
+            on_disk = {k: data[k] for k in data.files}
+        rec["fallback"] = {"corrupted": newest, "restored": fell_to,
+                           "latest_after": mgr.latest_verified_step(),
+                           "state_diff": state_diff(host_state(fresh),
+                                                    on_disk)}
+
+        # -- faults through the step-health check ------------------------------
+        plan = FaultPlan.single(0, FaultKind.NAN_LOSS)
+        m = fresh.train_step(plan.corrupt_batch(0, {"input": x[:b]}), y[:b])
+        nan = {"raised": None}
+        try:
+            check_step_health(m, step=0, nan_policy="raise",
+                              watchdog=StepWatchdog(RES_STEP_TIMEOUT))
+        except NonFiniteLossError as e:
+            nan["raised"] = type(e).__name__
+            nan["loss"] = str(e.loss)
+        # the "restore" reaction: the newest verified step, then a step
+        nan["restored"] = mgr.restore(fresh)
+        nan["loss_after"] = float(fresh.train_step({"input": x[:b]},
+                                                   y[:b])["loss"])
+        rec["nan_loss"] = nan
+        plan = FaultPlan.single(1, FaultKind.HUNG_STEP)
+        m = fresh.train_step({"input": x[b:2 * b]}, y[b:2 * b])
+        hung = {"fired": plan.hang_device(1, fresh.device, RES_HANG_S),
+                "raised": None, "stall_s": RES_HANG_S}
+        t0 = time.perf_counter()
+        try:
+            check_step_health(m, step=1, nan_policy="raise",
+                              watchdog=StepWatchdog(RES_STEP_TIMEOUT))
+        except HungStepTimeout as e:
+            hung["raised"] = type(e).__name__
+        hung["after_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()  # the stalled stream finishes
+        hung["loss_after"] = float(m["loss"])
+        rec["hung_step"] = hung
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    off_l = rec["off"]["launches_per_replayed_step"]
+    if off_l != want12 or rec["on"]["launches_per_window_step"] != want12:
+        faults.append(f"K1-K3 per step: off {off_l}, on "
+                      f"{rec['on']['launches_per_window_step']}, want "
+                      f"{want12}")
+    for k, a in rec["on"]["attn_attribution"].items():
+        if (a["replayed"] != want12[k] * win or a["launches"] != a["replayed"]
+                or a["in_attn"] != a["replayed"]):
+            faults.append(f"{k}: of {a['launches']} window launches, "
+                          f"{a['replayed']} replayed and {a['in_attn']} "
+                          "marked with an attn_* op")
+    if (rec["on"]["window_attribution"] or {}).get("replays") != win:
+        faults.append(f"window: {rec['on']['window_attribution']}, want "
+                      f"{win} replays")
+    for key in ("state_diff_after_fit", "state_diff_after_more"):
+        if rec["on"][key] != 0.0:
+            faults.append(f"telemetry on: {key} {rec['on'][key]}")
+    r = rec["restore"]
+    if (r["step"] != RES_STEPS or not r["in_place"]
+            or r["captures_before"] != 1 or r["replays_after_restore"] < 1
+            or r["state_diff_at_restore"] != 0.0
+            or r["state_diff_after_training_on"] != 0.0):
+        faults.append(f"restore: {r}")
+    if rec["dcp"]["step"] != n or rec["dcp"]["state_diff"] != 0.0:
+        faults.append(f"dcp: {rec['dcp']}")
+    fb = rec["fallback"]
+    if (fb["restored"] != RES_STEPS - RES_EVERY or fb["state_diff"] != 0.0
+            or fb["latest_after"] != fb["restored"]):
+        faults.append(f"fallback: {fb}")
+    if rec["checkpoint"]["steps"] != [RES_EVERY, RES_STEPS]:
+        faults.append(f"checkpoints kept: {rec['checkpoint']['steps']}")
+    if rec["on"]["fidelity_records"] != 2:
+        faults.append(f"{rec['on']['fidelity_records']} fidelity records, "
+                      "want one per fit")
+    nan = rec["nan_loss"]
+    if nan["raised"] != "NonFiniteLossError" or not np.isfinite(
+            nan["loss_after"]):
+        faults.append(f"nan_loss: {nan}")
+    hung = rec["hung_step"]
+    if (not hung["fired"] or hung["raised"] != "HungStepTimeout"
+            or not RES_STEP_TIMEOUT <= hung["after_s"]
+            <= RES_STEP_TIMEOUT + RES_HANG_SLACK_S
+            or not np.isfinite(hung["loss_after"])):
+        faults.append(f"hung_step: {hung}")
+    rec["faults"] = faults
+    emit(rec)
+    if faults:
+        raise RuntimeError("resilience: " + "; ".join(faults))
+    return rec
+
+
 # the multigpu phase: BERT-base at the train phase's width, batch and
 # sequence over groups of ranks, each leg held against the same model
 # trained on one card (in this process) from the same weights and batches
@@ -4849,7 +5316,17 @@ MULTIGPU_LEGS = (
      "zero": 1, "optimizer": "adam", "reference": "bert_adam"},
     {"name": "slices2_searched", "ranks": 4, "strategy": ["slices_file"],
      "slices": 2, "optimizer": "sgd", "reference": "bert_sgd"},
+    # dp_zero2 that saves after its first step with both checkpoint
+    # managers; the checkpoint is restored onto 2 ranks at ZeRO-1 and
+    # onto one card, each trained through the second step against the
+    # one-card run (_ckpt_reshard)
+    {"name": "ckpt_reshard", "ranks": 4, "strategy": ["dp"], "zero": 2,
+     "optimizer": "adam", "reference": "bert_adam", "checkpoint": True},
 )
+# where the ckpt_reshard leg's checkpoint is restored: the ranks, the
+# ZeRO stage
+CKPT_RESHARD_TARGETS = ((2, 1), (1, 0))
+CKPT_KINDS = ("local", "dcp")
 # the legs whose step must be captured under NCCL: each is run again in
 # its group eager and captured from the same weights and batches
 # (CAPTURE_STEPS steps, then CAPTURE_PROFILE_STEPS profiled); and the MoE
@@ -5201,6 +5678,8 @@ def _multigpu_leg(torch, dist, leg, job, rank):
 
     npz = np.load(job["data"][leg["reference"]])
     data = {"x": npz["x"], "y": npz["y"]}
+    if leg.get("restore_zero") is not None:
+        return _restored_second_step(torch, leg, job, data, rank)
     if leg["reference"] == "demo":
         return _multigpu_demo_leg(torch, dist, fa, leg, job, rank, data)
     strategy = _multigpu_strategy(leg, job)
@@ -5220,9 +5699,11 @@ def _multigpu_leg(torch, dist, leg, job, rank):
     b = MULTIGPU_CNN["batch"] if leg["reference"] == "cnn" else TRAIN_BATCH
     reset_leg_launches(fa, bk)
     collectives.traffic.clear()
-    losses, step_s = [], []
+    losses, step_s, saved = [], [], None
     for i in range(MULTIGPU_STEPS):
         x, y = data["x"][i * b:(i + 1) * b], data["y"][i * b:(i + 1) * b]
+        if i == 1 and leg.get("checkpoint"):
+            saved = _leg_save(torch, ff, job)
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
@@ -5236,6 +5717,7 @@ def _multigpu_leg(torch, dist, leg, job, rank):
            "compile_s": compile_s,
            "launches_per_step": leg_launches(fa, bk, MULTIGPU_STEPS),
            "peak_memory_gb": peak / 1e9,
+           "checkpoint": saved,
            "opt_state_bytes": ff.executor.opt_state_bytes(ff._opt_state),
            "zero_stage": ff.executor.zero_stage,
            "zero_fallback_leaves": ff.executor.zero_fallback_leaves(),
@@ -5257,7 +5739,7 @@ def _multigpu_leg(torch, dist, leg, job, rank):
         rec["balance_losses"] = routing["aux"].sum(axis=1).tolist()
     weights = ff.get_weights()
     state = ff.get_state() if leg["reference"] == "cnn" else None
-    if leg.get("zero") == 2:
+    if _ladder(leg) == 2:
         rec["grad_memory"] = grad_memory(torch, ff, data["x"][:b],
                                          data["y"][:b])
     if rank == 0:
@@ -5274,10 +5756,10 @@ def _multigpu_leg(torch, dist, leg, job, rank):
             want_s = np.load(job["data"]["cnn_after"],
                              allow_pickle=True)["state"].item()
             rec["running_stats_diff"], _ = _weights_diff(state, want_s)
-        if leg.get("zero") in (2, 3):
+        if _ladder(leg) in (2, 3):
             rec["zero0"] = _multigpu_zero0(torch, dist, leg, job, data,
                                            weights)
-    elif leg.get("zero") in (2, 3):
+    elif _ladder(leg) in (2, 3):
         rec["zero0"] = _multigpu_zero0(torch, dist, leg, job, data, None)
     if job.get("profile"):
         prof = _rank_profile(torch, ff, data["x"][:b], data["y"][:b])
@@ -5298,6 +5780,95 @@ def _multigpu_leg(torch, dist, leg, job, rank):
         rec["flat"] = _multigpu_flat(torch, dist, leg, job, data,
                                      weights if rank == 0 else None, rank)
     return rec
+
+
+def _ladder(leg):
+    """The leg's ZeRO stage for the ladder's own checks (ZeRO-0 beside it
+    in the group, grad memory), None for a checkpoint leg, which the
+    dp_zero2 leg already covers there."""
+    return None if leg.get("checkpoint") else leg.get("zero")
+
+
+def _leg_save(torch, ff, job) -> dict:
+    """ff saved as step 1 into the job's checkpoint directories, with
+    each manager (every rank gathers, rank 0 writes): seconds each."""
+    from flexflow_tpu_torch.checkpoint import (CheckpointManager,
+                                               LocalCheckpointManager)
+
+    out = {}
+    for kind, cls in zip(CKPT_KINDS, (LocalCheckpointManager,
+                                      CheckpointManager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cls(job["ckpt_dirs"][kind]).save(ff, 1)
+        out[f"{kind}_save_s"] = time.perf_counter() - t0
+    return out
+
+
+def _restored_second_step(torch, leg, job, data, rank) -> dict:
+    """On this rank of a group (or one card, rank None): the leg's BERT
+    at ZeRO `restore_zero`, restored from each checkpoint of the
+    ckpt_reshard leg and trained through the second step: per manager
+    the restored step, the restore's seconds, the loss and the largest
+    weight difference from the one-card run's weights after its second
+    step (gathered weights: every rank's)."""
+    from flexflow_tpu_torch.checkpoint import (CheckpointManager,
+                                               LocalCheckpointManager)
+    from flexflow_tpu_torch.strategy import data_parallel_strategy
+
+    want = np.load(job["data"]["bert_adam_after"],
+                   allow_pickle=True)["weights"].item()
+    b, out = TRAIN_BATCH, {}
+    for kind, cls in zip(CKPT_KINDS, (LocalCheckpointManager,
+                                      CheckpointManager)):
+        ff = _multigpu_bert("cuda", leg["optimizer"],
+                            None if rank is None
+                            else data_parallel_strategy(leg["ranks"]),
+                            leg["restore_zero"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = cls(job["ckpt_dirs"][kind]).restore(ff)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        loss = float(ff.train_step({"input": data["x"][b:2 * b]},
+                                   data["y"][b:2 * b])["loss"])
+        w_err, worst = _weights_diff(ff.get_weights(), want)
+        out[kind] = {"step": step, "restore_s": restore_s, "loss": loss,
+                     "weights_diff": w_err, "worst_weight": worst}
+        del ff
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ckpt_reshard(torch, job, ref, cards, tmp) -> dict:
+    """The ckpt_reshard leg's checkpoints (data 4, ZeRO-2, after the
+    first step) restored onto each of CKPT_RESHARD_TARGETS and trained
+    through the second step: the loss against the one-card run's second
+    loss and the weights against its weights after it (MULTIGPU_TOL's
+    loss and adam_weights), per target and manager."""
+    npz = np.load(job["data"]["bert_adam"])
+    data = {"x": npz["x"], "y": npz["y"]}
+    runs, faults = {}, []
+    for ranks, zero in CKPT_RESHARD_TARGETS:
+        leg = {"name": f"ckpt_restore_{ranks}", "ranks": ranks,
+               "optimizer": "adam", "reference": "bert_adam",
+               "restore_zero": zero}
+        if ranks == 1:
+            got, backend = _restored_second_step(torch, leg, job, data,
+                                                 None), "one card"
+        else:
+            backend, _, outs = _run_ranks(ranks, cards, dict(job, legs=[leg]),
+                                          tempfile.mkdtemp(dir=tmp))
+            got = outs[0]["legs"][0]
+        for kind, r in got.items():
+            l_err = _loss_err([r["loss"]], [ref["losses"][1]])
+            r.update(ranks=ranks, zero_stage=zero, backend=backend,
+                     loss_err=l_err)
+            runs[f"{ranks}x{kind}"] = r
+            if (r["step"] != 1 or l_err > MULTIGPU_TOL["loss"]
+                    or r["weights_diff"] > MULTIGPU_TOL["adam_weights"]):
+                faults.append(f"ckpt_reshard onto {ranks} ({kind}): {r}")
+    return {"restored": runs, "faults": faults}
 
 
 def _leg_capture_check(torch, dist, leg, job, data, rank) -> dict:
@@ -5986,6 +6557,8 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
         if "slices_file" in kinds:
             job["slices_search"] = _slices_strategy_file(torch, run_dir)
             job["slices_strategy_file"] = job["slices_search"]["file"]
+        if any(leg.get("checkpoint") for leg in chosen):
+            job["ckpt_dirs"] = {k: f"{tmp}/ckpt_{k}" for k in CKPT_KINDS}
         if kinds & {"pipe", "pipe_file"}:
             job["pipelines"] = _pipeline_candidates(torch, run_dir)
             job["pipeline_file"] = str(Path(run_dir) /
@@ -6012,6 +6585,12 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
                 legs.append(_multigpu_record(leg, [o["legs"][i] for o in outs],
                                              refs[leg["reference"]], backend,
                                              cards, wall, run_dir, job))
+        for rec in legs:
+            if rec["leg"] == "ckpt_reshard":
+                reshard = _ckpt_reshard(torch, job, refs["bert_adam"], cards,
+                                        tmp)
+                rec["restored"] = reshard["restored"]
+                rec["faults"] += reshard["faults"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rec = {"phase": "multigpu", "card": card, "cards": cards,
@@ -6167,10 +6746,12 @@ def _multigpu_record(leg, ranks, ref, backend, cards, wall, run_dir, job):
     }
     if leg.get("remat"):
         rec["remat"] = True
+    if r0.get("checkpoint"):
+        rec["checkpoint"] = r0["checkpoint"]
     if "capture_status" in r0:
         rec["capture_status"] = r0["capture_status"]
         rec["grad_bytes_per_rank"] = [r["grad_bytes"] for r in ranks]
-    if leg.get("zero") == 2:
+    if _ladder(leg) == 2:
         rec["grad_memory_per_rank"] = [
             {"zero0": r["zero0"]["grad_memory"], "zero2": r["grad_memory"]}
             for r in ranks]
@@ -6254,7 +6835,7 @@ def _capture_checks(leg, ranks, want, wtol, faults):
     eager-against-captured run (its rank 0 record, with every rank's
     profile), into `faults`."""
     name, r0 = leg["name"], ranks[0]
-    if leg.get("zero") == 2:
+    if _ladder(leg) == 2:
         # the device's reading once the backward has ended: stage 2
         # holds its shards (and the fallback leaves whole), as
         # ScatterBuckets counts them from their shapes, and little else;
@@ -6400,7 +6981,7 @@ def _moe_checks(name, ranks, ref, strategy, faults) -> dict:
 
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                 onnx=None, search=None, multigpu=None, capture=None,
-                store=None) -> dict:
+                store=None, resilience=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
     main paths (what the wrappers counted: under a captured step, the
     warm-up and the capturing step; the capture phase's profiler counts
@@ -6500,6 +7081,12 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                     kid] if store else None),
             "launches_multigpu_per_rank_per_step": _multigpu_launches(
                 multigpu, kid),
+            # the resilience phase's profiler: a replayed step with
+            # telemetry off, a profile-window step with it on
+            "launches_per_step_resilience": (
+                {"off": resilience["off"]["launches_per_replayed_step"][kid],
+                 "on": resilience["on"]["launches_per_window_step"][kid]}
+                if resilience else None),
             "max_abs_err": max(w[0] for w in worst.values()),
             "max_err_over_scale_by_dtype": {
                 dt: w[1] for dt, w in worst.items()},
@@ -6581,7 +7168,7 @@ def main(argv=None) -> int:
           "note": "one nvcc per source, started together"})
     dev = torch.device("cuda")
     kern = flash = serve = train = bn = resnet = paged = onnx = None
-    search = store = multigpu = capture = None
+    search = store = multigpu = capture = resilience = None
     # what one phase leaves for another: the searched strategy and the
     # op costs the search timed (the multigpu phase trains and prices it)
     run_dir = tempfile.mkdtemp(prefix="ff_smoke_")
@@ -6650,6 +7237,9 @@ def main(argv=None) -> int:
     if "store" in phases:
         store = phase_store(torch, fa, card, search)
         torch.cuda.empty_cache()
+    if "resilience" in phases:
+        resilience = phase_resilience(torch, fa, card)
+        torch.cuda.empty_cache()
     if "multigpu" in phases:
         multigpu = phase_multigpu(
             torch, fa, card, run_dir,
@@ -6657,7 +7247,7 @@ def main(argv=None) -> int:
     shutil.rmtree(run_dir, ignore_errors=True)
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,
-                         search, multigpu, capture, store))
+                         search, multigpu, capture, store, resilience))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

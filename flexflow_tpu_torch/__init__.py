@@ -7,8 +7,9 @@ model on one GPU (compile, train_step, eval_step, fit; attention takes
 the flash kernels of csrc/flash_attention.cu at long sequences) and
 serves a GPT through the continuous paged-KV engine, whose read side
 runs on csrc/paged_attention.cu; both are CUDA C++ written by hand for
-sm_90a.  Entry points run on "cuda" unless the caller passes
-device="cpu".
+sm_90a.  A run records its telemetry (obs/) and checkpoints its full
+train state (checkpoint.py, resilience/).  Entry points run on "cuda"
+unless the caller passes device="cpu".
 """
 from .config import FFConfig
 from .dataloader import SingleDataLoader
@@ -17,11 +18,16 @@ from .fftype import (ActiMode, AggrMode, CompMode, DataType, LossType,
 from .loss import Loss
 from .metrics import Metrics, PerfMetrics
 from .model import FFModel
+from .obs import MetricsRegistry, RunTelemetry
 from .optimizer import AdamOptimizer, SGDOptimizer
+from .resilience import (FaultKind, FaultPlan, HungStepFault, RetryPolicy,
+                         StepWatchdog)
 from .tensor import ParallelDim, ParallelTensor, ParallelTensorShape, Tensor
 
 __all__ = ["FFConfig", "FFModel", "ActiMode", "AggrMode", "AdamOptimizer",
-           "CompMode", "DataType", "Loss", "LossType", "Metrics",
-           "MetricsType", "OperatorType", "ParallelDim", "ParallelTensor",
-           "ParallelTensorShape", "PerfMetrics", "SGDOptimizer",
-           "SingleDataLoader", "Tensor"]
+           "CompMode", "DataType", "FaultKind", "FaultPlan", "HungStepFault",
+           "Loss", "LossType", "Metrics", "MetricsRegistry", "MetricsType",
+           "OperatorType", "ParallelDim", "ParallelTensor",
+           "ParallelTensorShape", "PerfMetrics", "RetryPolicy",
+           "RunTelemetry", "SGDOptimizer", "SingleDataLoader",
+           "StepWatchdog", "Tensor"]

@@ -32,6 +32,17 @@ off during it: a dead graph destroyed mid-capture frees its pool,
 which invalidates the capture.  A capture that fails raises: nothing
 falls back.
 
+A profile window of fit replays the graph like any other step, so it
+profiles the program the run executes.  A replay runs no host code, so
+its kernels sit under no op's `record_function` range: while the
+executor's `map_kernels` is set (fit's profile window, with a
+trace_dir), the warm-up step runs under torch.profiler with the op
+scopes on, and `status["kernel_ops"]` keeps each kernel it launched, in
+order, with its op (obs/attribution.py), which the window's export
+writes onto the replays' kernels.  A warm-up that an open profiler
+already records (a window from step 0) sits in that window in its own
+ranges, and leaves no map.
+
 The kernels' launch counters count in their wrappers, which run at
 capture only; `status["launches_at_capture"]` holds what the capture
 counted, which every replay launches again, and
@@ -61,6 +72,12 @@ from .parallel.spmd import _token_axis
 WARMUP_STEPS = 1
 
 CAPTURE_OFF = "capture turned off (build_step(capture=False))"
+
+#: tiny launches the profiler of a mapped warm-up step sees before it
+#: records: late in a long run on the card, a recording whose warm-up
+#: launched one kernel lost the step's first ~25, while a window warmed
+#: up over a whole step lost none
+MAP_WARMUP_LAUNCHES = 512
 
 
 def capture_blockers(executor) -> List[str]:
@@ -124,6 +141,7 @@ class CapturedStep:
 
     def __init__(self, step, executor):
         self._step = step
+        self._executor = executor
         self.device = executor.device
         self.status = executor.capture_status
         self.status.update(warmup_steps=0, captures=0, replays=0,
@@ -160,9 +178,12 @@ class CapturedStep:
             g.warmups += 1
             self.status["warmup_steps"] += 1
             self._stream.wait_stream(cur)
+            step = (self._mapped_step if self._executor.map_kernels
+                    and not torch.autograd.profiler._is_profiler_enabled
+                    else self._step)
             with torch.cuda.stream(self._stream):
-                out = self._step(weights, opt_state, state, inputs, labels,
-                                 generator)
+                out = step(weights, opt_state, state, inputs, labels,
+                           generator)
             cur.wait_stream(self._stream)
             return out
         if g.graph is None:
@@ -175,6 +196,39 @@ class CapturedStep:
         g.graph.replay()
         self.status["replays"] += 1
         return {k: v.clone() for k, v in g.out.items()}
+
+    def _mapped_step(self, *args):
+        """The eager step under torch.profiler with each op in its range:
+        `status["kernel_ops"]` is the map of its kernels to their ops.
+        The profiler warms up first (its schedule's warmup) over
+        MAP_WARMUP_LAUNCHES launches, and records settled
+        (obs.settle)."""
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        from .obs import settle
+        from .obs.attribution import device_launches, kernel_ops
+
+        ex = self._executor
+        scopes, ex.op_scopes = ex.op_scopes, True
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                x = torch.zeros(1, device=self.device)
+                for _ in range(MAP_WARMUP_LAUNCHES):
+                    x.add_(1)
+                settle()
+                prof.step()  # the warm-up is over: record
+                settle()
+                out = self._step(*args)
+                settle()
+        finally:
+            ex.op_scopes = scopes
+        self.status["kernel_ops"] = kernel_ops(
+            prof.events(), {op.name for op in ex.order},
+            device_launches(prof))
+        return out
 
     def _capture(self, g: _Graph, weights, opt_state, state, inputs,
                  labels, generator) -> None:

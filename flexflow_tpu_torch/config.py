@@ -142,6 +142,24 @@ class FFConfig:
     # into their linear/conv2d producers at compile
     perform_fusion: bool = False
 
+    # -- resilience: the checkpoint cadence and directory
+    #    (checkpoint.ModelCheckpoint reads them).  The reference's
+    #    step_timeout and nan_policy wait for the supervisor that reads
+    #    them (ROADMAP §1 item 7.7): until then the watchdog's deadline
+    #    and the policy are check_step_health's own arguments
+    checkpoint_every: int = 0  # steps between periodic checkpoints; 0 = off
+    checkpoint_dir: Optional[str] = None
+
+    # -- observability (obs/): trace_dir turns the telemetry on and names
+    #    where trace.json and run_telemetry.jsonl land; telemetry=True
+    #    records in memory without files (FFModel.telemetry).  Off (the
+    #    default) makes no span on the step's hot path.
+    trace_dir: Optional[str] = None
+    telemetry: bool = False
+    # torch.profiler over a window of fit's steps, "start:count" (e.g.
+    # "3:2" profiles steps 3 and 4); needs trace_dir
+    profile_steps: Optional[str] = None
+
     def __post_init__(self):
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(
@@ -209,6 +227,17 @@ class FFConfig:
             raise ValueError(
                 "compilation_cache must be a directory path or 'auto' "
                 "(None disables it)")
+        if self.checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0, got "
+                             f"{self.checkpoint_every}")
+        if self.profile_steps is not None:
+            from .obs import parse_profile_steps
+
+            parse_profile_steps(self.profile_steps)  # raises on a bad spec
+            if not self.trace_dir:
+                raise ValueError(
+                    "profile_steps needs trace_dir set (the torch.profiler "
+                    "trace is written under it)")
         self.parameter_sync = ParameterSyncType(self.parameter_sync)
 
     def resolve_store_dir(self) -> Optional[str]:
@@ -327,6 +356,15 @@ class FFConfig:
                        default=None)
         p.add_argument("--no-remote-store", dest="remote_store",
                        action="store_const", const="none")
+        p.add_argument("--checkpoint-every", dest="checkpoint_every",
+                       type=int, default=0)
+        p.add_argument("--checkpoint-dir", dest="checkpoint_dir", type=str,
+                       default=None)
+        p.add_argument("--trace-dir", dest="trace_dir", type=str,
+                       default=None)
+        p.add_argument("--telemetry", dest="telemetry", action="store_true")
+        p.add_argument("--profile-steps", dest="profile_steps", type=str,
+                       default=None)
         args, _ = p.parse_known_args(argv)
         return cls(
             epochs=args.epochs,
@@ -378,6 +416,11 @@ class FFConfig:
             remat=args.remat,
             perform_fusion=args.fusion,
             parameter_sync=ParameterSyncType(args.parameter_sync),
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_dir=args.checkpoint_dir,
+            trace_dir=args.trace_dir,
+            telemetry=args.telemetry,
+            profile_steps=args.profile_steps,
         )
 
 

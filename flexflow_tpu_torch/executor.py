@@ -72,6 +72,17 @@ On a CUDA device `build_step` returns the step captured as one CUDA
 graph (capture.py), unless `capture_blockers` names something in the
 plan that keeps it eager; `capture_status` says which, and why.
 
+While `op_scopes` is set (FFModel.fit sets it for the steps of a
+`profile_steps` window), every op's launches run under
+`torch.profiler.record_function(op.name)`, the counterpart of the
+reference's `jax.named_scope(op.name)`, so that the profiler's trace
+attributes each kernel to its PCG op.  A captured step replays in the
+window too: its kernels get their ops from the map that its warm-up
+recorded under `map_kernels` (capture.py, obs/attribution.py).  Unset,
+no per-op object is made.  `check_step_health` reads a step's loss
+under the `nan_policy` it is given and, given a watchdog, under its
+deadline.
+
 Under a pipeline (`pipeline_plan`, parallel/pipeline_plan.py) the block
 ops leave the per-op schedule: their weights are stacked per template
 weight over the L blocks under "__pipeline__", keyed "<j>.<name>" and
@@ -93,10 +104,11 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .capture import CAPTURE_OFF, CapturedStep, capture_blockers
@@ -116,6 +128,40 @@ Weights = Dict[str, Dict[str, torch.Tensor]]
 
 #: the weight group of the pipeline's stacked block weights
 PIPELINE = "__pipeline__"
+
+
+class NonFiniteLossError(RuntimeError):
+    """A step's loss is NaN or infinite (check_step_health); the
+    reference's supervisor maps it to its nan_policy (the port's waits
+    for ROADMAP §1 item 7.7)."""
+
+    def __init__(self, loss: float, step: Optional[int] = None):
+        self.loss = loss
+        self.step = step
+        where = f" at step {step}" if step is not None else ""
+        super().__init__(f"non-finite loss {loss!r}{where}")
+
+
+def check_step_health(metrics: Dict[str, Any], step: Optional[int] = None,
+                      nan_policy: str = "raise", watchdog=None) -> None:
+    """NonFiniteLossError when the step's loss (metrics["loss"], a tensor
+    on the device or a host number) is NaN or infinite.  Reading it
+    waits for the device, so under nan_policy "off" (or None) nothing is
+    read.  `watchdog` (resilience.watchdog.StepWatchdog) bounds that
+    read: a step whose device work does not finish raises
+    HungStepTimeout here instead of blocking the host."""
+    if nan_policy in (None, "off"):
+        return
+    loss = metrics.get("loss") if isinstance(metrics, dict) else None
+    if loss is None:
+        return
+
+    def read():
+        return float(loss.item() if torch.is_tensor(loss) else loss)
+
+    val = watchdog.sync(read, step=step) if watchdog is not None else read()
+    if not np.isfinite(val):
+        raise NonFiniteLossError(val, step=step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,6 +293,11 @@ class GraphExecutor:
         self._z3_next = self._z3_order()
         # what build_step made of the step: see capture.py
         self.capture_status: Dict[str, object] = {}
+        # each op under record_function(op.name) (a profile window)
+        self.op_scopes = False
+        # a captured step maps its warm-up's kernels to their ops
+        # (capture.py; fit's profile window with a trace_dir)
+        self.map_kernels = False
         # stage 2: bytes of grads the last step's ScatterBuckets held,
         # from their shapes ("peak", "after_backward")
         self.grad_bytes: Dict[str, int] = {}
@@ -664,8 +715,13 @@ class GraphExecutor:
                     continue
                 if op.guid in z3_next:
                     self._z3_prefetch(z3_next[op.guid], weights, z3)
-                self._exec(op, plan, env, lay, weights, state, new_state,
-                           ctx)
+                if self.op_scopes:
+                    with record_function(op.name):
+                        self._exec(op, plan, env, lay, weights, state,
+                                   new_state, ctx)
+                else:
+                    self._exec(op, plan, env, lay, weights, state, new_state,
+                               ctx)
 
         if None in z3_next:
             self._z3_prefetch(z3_next[None], weights, z3)

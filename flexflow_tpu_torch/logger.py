@@ -1,17 +1,18 @@
-"""The search's logger (flexflow_tpu/logger.py) and its counters line
-(flexflow_tpu/obs/metrics.py emit_counters).
+"""The port's loggers (flexflow_tpu/logger.py).
 
 `RecursiveLogger` is indentation-scoped debug tracing over the standard
 logging module: the Unity DP and the MCMC search log nested decisions
-through `search_logger` and their evaluation counters as one `k=v`
-line.  The port has no telemetry registry yet (ROADMAP §1.E), so the
-counters go to the log line only.
+through `search_logger`, and their evaluation counters as one `k=v`
+line (`counters`), which obs/metrics.py `emit_counters` also folds into
+the run's metrics registry.  Every logger sits under
+`flexflow_tpu_torch`, whose records a traced run's
+`obs.TelemetryLogHandler` takes into run_telemetry.jsonl.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
-from typing import Dict, Iterator
+from typing import Iterator
 
 # library convention: never touch the root logger; the application
 # configures handlers
@@ -22,6 +23,10 @@ class RecursiveLogger:
     def __init__(self, name: str = "flexflow_tpu_torch"):
         self._log = logging.getLogger(name)
         self._depth = 0
+
+    @property
+    def depth(self) -> int:
+        return self._depth
 
     def _indent(self, msg: str, args) -> str:
         # pre-format so a literal '%' in msg can't break logging
@@ -55,17 +60,17 @@ class RecursiveLogger:
                  for k, v in mapping.items()]
         self.info("%s: %s", label, " ".join(parts))
 
+    def set_level(self, level):
+        self._log.setLevel(level)
+
 
 search_logger = RecursiveLogger("flexflow_tpu_torch.search")
 
+# on-card calibration (profiler.py, sim/calibrate.py) and the fidelity
+# prediction: failures land here, and so in a traced run's telemetry
+calib_logger = RecursiveLogger("flexflow_tpu_torch.calib")
+
 # the strategy store (store/): hit and miss decisions, quarantined
 # corrupt entries, survivable publish failures; all non-fatal, so the
-# log line is their only trace until the port has a metrics registry
+# log line and the store/* counters are their only trace
 store_logger = RecursiveLogger("flexflow_tpu_torch.store")
-
-
-def emit_counters(logger: RecursiveLogger, label: str, mapping: Dict
-                  ) -> None:
-    """Log `mapping` as the search's counters line (the reference also
-    folds it into its telemetry registry, which the port has not yet)."""
-    logger.counters(label, mapping)

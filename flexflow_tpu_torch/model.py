@@ -31,6 +31,14 @@ the plan holds something that keeps it eager
 (`executor.capture_status`).  With FFConfig.perform_fusion (`--fusion`)
 compile folds trailing activations into their linear and conv2d
 producers (pcg/rewrite.py `fuse_activations`).
+
+`FFModel.telemetry` (obs/) is the run's telemetry, built from
+FFConfig.trace_dir, telemetry and profile_steps: compile's spans
+(compile, search, init_weights, build_step_fns) and gauges, fit's step
+spans and metrics, the epoch's device drain, the fidelity record of the
+best epoch, and the strategy store's and the search's counters.  With
+telemetry off, fit makes no span and its steps launch what they would
+launch without it.
 """
 from __future__ import annotations
 
@@ -50,6 +58,8 @@ from .fftype import (ActiMode, AggrMode, CompMode, DataType, LossType,
 from .initializer import ArrayInitializer, Initializer
 from .loss import Loss
 from .metrics import Metrics, PerfMetrics
+from .obs import RunTelemetry
+from .obs.fidelity import report_fidelity
 from .ops.attention import MultiHeadAttention, MultiHeadAttentionParams
 from .ops.dense import (BatchMatmul, BatchMatmulParams, Conv2D,
                         Conv2DParams, Embedding, EmbeddingParams, Linear,
@@ -82,6 +92,9 @@ class FFModel:
     def __init__(self, config: Optional[FFConfig] = None):
         self.config = config or FFConfig()
         self.device = resolve_device(self.config.device)
+        # the run's telemetry (obs/): the null tracer and an in-memory
+        # registry unless FFConfig.trace_dir or telemetry turns it on
+        self.telemetry = RunTelemetry.from_config(self.config)
         self.layers = Graph()
         self.operators: Optional[Graph] = None
         self.strategy: Optional[Strategy] = None
@@ -468,6 +481,19 @@ class FFModel:
                 comp_mode: CompMode = CompMode.TRAINING,
                 strategy: Optional[Strategy] = None,
                 seed: Optional[int] = None):
+        """`_compile` under the telemetry's "compile" span, its time in
+        the compile/total_ms gauge."""
+        tel = self.telemetry
+        t0 = time.perf_counter()
+        with tel.tracer.span("compile", cat="compile"):
+            result = self._compile(optimizer, loss_type, metrics, comp_mode,
+                                   strategy, seed)
+        tel.metrics.gauge("compile/total_ms").set(
+            (time.perf_counter() - t0) * 1e3)
+        return result
+
+    def _compile(self, optimizer, loss_type, metrics, comp_mode, strategy,
+                 seed):
         """Pick the strategy, build the executor on the config's device,
         stamp FFConfig.flash_min_seq on every op, draw the weights and
         the optimizer's state.
@@ -563,13 +589,19 @@ class FFModel:
             hier_axis=hier_axis)
         for op in self.operators.topo_order():
             op._flash_min_seq = cfg.flash_min_seq
-        fallback = self.executor.zero_fallback_leaves()
-        if fallback and isinstance(getattr(self.strategy, "search_stats",
-                                           None), dict):
-            # the reference's count of the ladder's per-leaf fallback
-            self.strategy.search_stats["zero_fallback_leaves"] = len(fallback)
+        tel = self.telemetry
+        if self.executor.zero_stage >= 1:
+            # the ladder's per-leaf fallback to the replicated update,
+            # counted as the reference counts it
+            fallback = self.executor.zero_fallback_leaves()
+            tel.metrics.counter("parallel/zero_fallback_leaves").inc(
+                len(fallback))
+            if fallback and isinstance(getattr(self.strategy, "search_stats",
+                                               None), dict):
+                self.strategy.search_stats["zero_fallback_leaves"] = len(
+                    fallback)
         seed = seed if seed is not None else cfg.seed
-        with torch.no_grad():
+        with tel.tracer.span("init_weights", cat="compile"), torch.no_grad():
             self._weights, self._state = self.executor.init_weights(seed)
             self._opt_state = self.optimizer.init_state(
                 self.executor.update_views(self._weights))
@@ -577,8 +609,10 @@ class FFModel:
             for entries in self._weights.values():
                 for w in entries.values():
                     w.requires_grad_(True)
-        self._step_fn = self.executor.build_step()
-        self._eval_fn = self.executor.build_eval_step()
+        self.executor.map_kernels = tel.profiles
+        with tel.tracer.span("build_step_fns", cat="compile"):
+            self._step_fn = self.executor.build_step()
+            self._eval_fn = self.executor.build_eval_step()
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(cfg.seed))
         return self
@@ -644,7 +678,14 @@ class FFModel:
             strategy = Strategy.load(cfg.import_strategy_file)
         if (strategy is None and cfg.search_budget > 0
                 and not cfg.only_data_parallel):
-            strategy = self.search_strategy(cfg.resolve_num_devices())
+            tel = self.telemetry
+            num_devices = cfg.resolve_num_devices()
+            t0 = time.perf_counter()
+            with tel.tracer.span("search", cat="search",
+                                 algo=cfg.search_algo, devices=num_devices):
+                strategy = self.search_strategy(num_devices)
+            tel.metrics.gauge("compile/search_ms").set(
+                (time.perf_counter() - t0) * 1e3)
         self.strategy = strategy or data_parallel_strategy(1)
         if cfg.export_strategy_file:
             self.strategy.save(cfg.export_strategy_file)
@@ -717,7 +758,11 @@ class FFModel:
         if self.comp_mode != CompMode.TRAINING:
             raise RuntimeError("train_step() needs compile(comp_mode="
                                f"TRAINING), the model has {self.comp_mode}")
-        feed, lab = self.put_batch(inputs, labels)
+        if self.telemetry.enabled:
+            with self.telemetry.tracer.span("host_transfer", cat="data"):
+                feed, lab = self.put_batch(inputs, labels)
+        else:  # the hot path: no span object when telemetry is off
+            feed, lab = self.put_batch(inputs, labels)
         return self._step_fn(self._weights, self._opt_state, self._state,
                              feed, lab, self._generator)
 
@@ -737,7 +782,20 @@ class FFModel:
         reference's fit loop): one PerfMetrics per epoch, accumulated on
         the device and brought to the host once per epoch.  Callbacks
         get on_train_begin(model), on_epoch_end(model, epoch, metrics)
-        and on_train_end(model); one may set model._stop_training."""
+        and on_train_end(model), and those that have it
+        on_step_end(model, steps done); one may set
+        model._stop_training.
+
+        With telemetry on, each step runs under a "step" span into the
+        fit/step_ms histogram, the profile window's steps under
+        torch.profiler with each op in a record_function range (a
+        captured step replays, its kernels mapped to their ops by its
+        warm-up's, obs/attribution.py), each
+        epoch ends in a "device_drain" span and the fit/epoch_s,
+        fit/throughput_sps and fit/metrics/* metrics, and the best
+        epoch's seconds per step go into the fidelity record.  In every
+        exit the artifacts are flushed and the callbacks' checkpoint
+        managers drained, so a fit that crashed still writes them."""
         if self._step_fn is None:
             raise RuntimeError("call compile() first")
         batch_size = batch_size or self.config.batch_size
@@ -752,22 +810,70 @@ class FFModel:
         loader = SingleDataLoader(self, x_map, y, batch_size=batch_size,
                                   shuffle=shuffle, seed=self.config.seed,
                                   index=self._feed_index(batch_size))
-        history: List[PerfMetrics] = []
+        tel = self.telemetry
         for cb in callbacks:
             cb.on_train_begin(self)
+        try:
+            return self._fit_loop(loader, epochs, callbacks, verbose,
+                                  batch_size, tel)
+        finally:
+            if tel.enabled:
+                self.executor.op_scopes = False
+                tel.flush()
+            # queued background saves land even when the loop died
+            # before on_train_end
+            for cb in callbacks:
+                drain = getattr(getattr(cb, "manager", None), "drain", None)
+                if callable(drain):
+                    drain()
+
+    def _fit_loop(self, loader, epochs, callbacks, verbose, batch_size, tel
+                  ) -> List[PerfMetrics]:
+        # all per-step telemetry sits behind one boolean, so the
+        # disabled path makes no span object
+        tracing = tel.enabled
+        tracer = tel.tracer
+        step_hist = tel.metrics.histogram("fit/step_ms") if tracing else None
+        step_cbs = [cb for cb in callbacks if hasattr(cb, "on_step_end")]
+        ex = self.executor
+        history: List[PerfMetrics] = []
+        epoch_step_s: List[float] = []
+        global_step = 0
         for epoch in range(epochs):
             pm = PerfMetrics()
             t0 = time.perf_counter()
             try:
                 for batch, labels in loader:
-                    pm.accumulate(self.train_step(batch, labels))
+                    if tracing:
+                        tel.on_step(global_step,
+                                    ex.capture_status.get("kernel_ops"))
+                        ex.op_scopes = tel.profiling
+                        ts = time.perf_counter()
+                        with tracer.span("step", cat="train",
+                                         step=global_step, epoch=epoch):
+                            m = self.train_step(batch, labels)
+                        step_hist.observe((time.perf_counter() - ts) * 1e3)
+                    else:
+                        m = self.train_step(batch, labels)
+                    global_step += 1
+                    pm.accumulate(m)
+                    for cb in step_cbs:
+                        cb.on_step_end(self, global_step)
             finally:
                 loader._stop_worker()  # a step that raised leaves it on
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            with tracer.span("device_drain", cat="train", epoch=epoch):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
             pm.finalize()  # the epoch's one metrics transfer
             throughput = loader.num_batches * batch_size / dt
+            if tracing:
+                epoch_step_s.append(dt / max(1, loader.num_batches))
+                tel.metrics.histogram("fit/epoch_s").observe(dt)
+                tel.metrics.gauge("fit/throughput_sps").set(throughput)
+                tel.metrics.fold_counters("fit/metrics", {
+                    f: getattr(pm, f) for f in PerfMetrics._FIELDS})
+                tel.metrics.gauge("fit/metrics/accuracy").set(pm.accuracy)
             if verbose:
                 print(f"epoch {epoch}: {pm.summary()} "
                       f"ELAPSED TIME = {dt:.4f}s, THROUGHPUT = "
@@ -778,8 +884,18 @@ class FFModel:
             if self._stop_training:
                 self._stop_training = False
                 break
+        if tracing:
+            # a window that ends with the last step closes here, before
+            # the fidelity prediction times ops on the card
+            tel.on_step(global_step, ex.capture_status.get("kernel_ops"))
+            ex.op_scopes = tel.profiling
         for cb in callbacks:
             cb.on_train_end(self)
+        if tracing and epoch_step_s:
+            # the best epoch is the steady state (the first pays the
+            # warm-up and the capture)
+            report_fidelity(self, min(epoch_step_s),
+                            steps_measured=global_step, source="fit")
         return history
 
     def _feed_index(self, batch_size: int):

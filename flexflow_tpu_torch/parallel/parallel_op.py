@@ -163,7 +163,7 @@ class StackReplicate(Op):
     (replicate.cc:74-75: dims[replicate_dim].size *= degree).  A compute
     op, not a sharding annotation: when the stacked axis is sharded at
     `degree`, each shard holds one copy, which is physical replication.
-    Used by the TASO substitution catalog (ROADMAP §1.C, still to port)."""
+    Used by the TASO substitution catalog (pcg/taso.py)."""
 
     op_type = OperatorType.REPLICATE_STACK
 

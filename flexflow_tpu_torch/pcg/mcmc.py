@@ -21,7 +21,8 @@ import random
 from typing import Dict, List, Optional, Tuple
 
 from ..fftype import OperatorType
-from ..logger import emit_counters, search_logger as slog
+from ..logger import search_logger as slog
+from ..obs.metrics import emit_counters
 from ..ops.op import ShardConfig
 from ..strategy import Strategy
 from .evaluator import IncrementalEvaluator
@@ -128,7 +129,11 @@ class MCMCSearch:
         use_eval_cache: bool = True,
         zero_stages: Optional[Tuple[int, ...]] = None,
         remat_search: bool = False,
+        registry=None,
     ):
+        # obs.metrics.MetricsRegistry (or None): the final counters also
+        # land in the run's telemetry, not only on the log line
+        self.registry = registry
         self.graph = graph
         self.n = num_devices
         self.simulator_factory = simulator_factory
@@ -393,7 +398,8 @@ class MCMCSearch:
         best.search_stats["term_hits"] = self.simulator.term_hits
         best.search_stats["term_misses"] = self.simulator.term_misses
         best.search_stats["op_cost_hits"] = self.simulator.cost_model.cost_hits
-        emit_counters(slog, "mcmc eval stats", best.search_stats)
+        emit_counters(slog, "mcmc eval stats", best.search_stats,
+                      registry=self.registry, group="search/mcmc")
         return best
 
 
@@ -455,6 +461,7 @@ def mcmc_optimize(model, num_devices: int) -> Strategy:
         use_eval_cache=cfg.search_eval_cache,
         zero_stages=search_stage_candidates(cfg),
         remat_search=search_remat_enabled(cfg),
+        registry=getattr(getattr(model, "telemetry", None), "metrics", None),
     )
     best = search.optimize()
     best.search_stats.update(cost_model.stats())

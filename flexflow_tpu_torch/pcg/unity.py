@@ -117,7 +117,11 @@ class UnitySearch:
         enable_pipeline: bool = True,
         remat_search: bool = False,
         dcn_bucket_bytes: Optional[float] = None,
+        registry=None,
     ):
+        # obs.metrics.MetricsRegistry (or None): the final counters also
+        # land in the run's telemetry, not only on the log line
+        self.registry = registry
         self.event_rerank = event_rerank
         self.event_topk = event_topk
         self.sync_overlap = (
@@ -1187,7 +1191,8 @@ class UnitySearch:
     def _finish(self, strategy: Strategy) -> Strategy:
         """Attach the observability counters to the winning strategy and
         log them."""
-        from ..logger import emit_counters, search_logger as slog
+        from ..logger import search_logger as slog
+        from ..obs.metrics import emit_counters
 
         strategy.search_stats = self.eval_stats()
         from .mcmc import remat_stats
@@ -1200,7 +1205,8 @@ class UnitySearch:
 
         strategy.search_stats.update(placement_stats(
             strategy, self.slices if self._hier else 1))
-        emit_counters(slog, "unity eval stats", strategy.search_stats)
+        emit_counters(slog, "unity eval stats", strategy.search_stats,
+                      registry=self.registry, group="search/unity")
         return strategy
 
     def _objective(self, time: float, mem: int, lam: float) -> float:
@@ -1612,5 +1618,6 @@ def make_unity_search(model, num_devices: int, enable_pipeline: bool = True):
         enable_pipeline=enable_pipeline,
         remat_search=search_remat_enabled(cfg),
         dcn_bucket_bytes=float(cfg.dcn_bucket_mb) * 2**20,
+        registry=getattr(getattr(model, "telemetry", None), "metrics", None),
     )
     return search, cost_model

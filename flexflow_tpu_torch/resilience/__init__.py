@@ -1,8 +1,10 @@
 """The resilience layer (flexflow_tpu/resilience/): deterministic fault
-injection (faults.py).  Retry and backoff, the asynchronous checkpoint
-writer, the hung-step watchdog, the offload tier and the training
-supervisor are still to be ported (ROADMAP §1 item 7).
+injection (faults.py), retry and backoff (retry.py), the asynchronous
+checkpoint writer (async_writer.py) and the hung-step watchdog
+(watchdog.py).  The offload tier and the training supervisor are still
+to be ported (ROADMAP §1 items 7.6 and 7.7).
 """
+from .async_writer import AsyncCheckpointWriter
 from .faults import (
     BLOB_FAULT_KINDS,
     CheckpointWriteFault,
@@ -15,8 +17,11 @@ from .faults import (
     PreemptionFault,
     StepFault,
 )
+from .retry import RetryPolicy
+from .watchdog import HungStepTimeout, StepWatchdog
 
 __all__ = [
+    "AsyncCheckpointWriter",
     "BLOB_FAULT_KINDS",
     "CheckpointWriteFault",
     "DeviceLossFault",
@@ -24,7 +29,10 @@ __all__ = [
     "FaultKind",
     "FaultPlan",
     "HungStepFault",
+    "HungStepTimeout",
     "InjectedFault",
     "PreemptionFault",
+    "RetryPolicy",
     "StepFault",
+    "StepWatchdog",
 ]

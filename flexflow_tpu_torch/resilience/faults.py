@@ -3,8 +3,11 @@
 A `FaultPlan` is a seeded, replayable schedule of failures, so that a
 recovery path is testable on the CPU without real hardware dying.  The
 training supervisor that reacts to the step kinds is still to be ported
-(ROADMAP §1 item 7); today the object-store kinds drive
-store/blobstore.py's FaultyBlobStore.
+(ROADMAP §1 item 7.7); the object-store kinds drive
+store/blobstore.py's FaultyBlobStore, `corrupt_batch` poisons a real
+step's batch (nan_loss), and `hang_device` makes a hung_step a real
+one on a card: the step's device work does not finish within the
+watchdog's deadline (resilience/watchdog.py).
 
 Fault matrix (the reference supervisor's reactions):
 
@@ -55,7 +58,7 @@ class FaultKind(str, enum.Enum):
     HUNG_STEP = "hung_step"
     # transient data corruption: the step's float inputs become NaN for
     # exactly one step, driving the loss non-finite (exercises
-    # FFConfig.nan_policy end to end without faking metrics)
+    # check_step_health's nan_policy end to end without faking metrics)
     NAN_LOSS = "nan_loss"
     # -- object-store faults (consumed by store.blobstore.FaultyBlobStore,
     #    never raised into the training loop; step = blob op index) ------
@@ -130,6 +133,29 @@ class Fault:
     kind: FaultKind
     payload: Dict = dataclasses.field(default_factory=dict)
     fired: bool = False
+
+
+_SPIN_RATE: Dict[str, float] = {}
+
+
+def _spin_cycles_per_s(device) -> float:
+    """torch.cuda._sleep's cycles per second on `device`, timed once with
+    CUDA events."""
+    import torch
+
+    key = str(device)
+    if key not in _SPIN_RATE:
+        cycles = 50_000_000
+        with torch.cuda.device(device):
+            torch.cuda._sleep(cycles)  # the first launch pays its load
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda._sleep(cycles)
+            end.record()
+            end.synchronize()
+        _SPIN_RATE[key] = cycles / (start.elapsed_time(end) / 1e3)
+    return _SPIN_RATE[key]
 
 
 class FaultPlan:
@@ -236,6 +262,28 @@ class FaultPlan:
         store.blobstore.FaultyBlobStore; the supervisor's own injection
         points ignore these kinds)."""
         return [f for f in self.faults if f.kind in BLOB_FAULT_KINDS]
+
+    def hang_device(self, step: int, device, seconds: float) -> bool:
+        """Apply a one-shot hung_step fault on a card: the device's
+        current stream is held busy for `seconds` (a spin kernel queued
+        after the step's work), so a read of the step's loss waits that
+        long, as behind a wedged collective.  Returns whether a fault
+        fired.  On the CPU there is no device queue to stall: ValueError.
+        """
+        import torch
+
+        device = torch.device(device)
+        for f in self.faults:
+            if f.fired or f.step != step or f.kind != FaultKind.HUNG_STEP:
+                continue
+            if device.type != "cuda":
+                raise ValueError("a hung_step fault stalls a CUDA device's "
+                                 f"stream; {device} has none")
+            f.fired = True
+            with torch.cuda.device(device):
+                torch.cuda._sleep(int(seconds * _spin_cycles_per_s(device)))
+            return True
+        return False
 
     # -- introspection / replay -----------------------------------------
     def remaining(self) -> List[Fault]:

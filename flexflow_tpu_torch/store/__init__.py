@@ -67,11 +67,13 @@ def resolve_store_dir(cfg) -> Optional[str]:
     return str(v)
 
 
-def store_from_config(cfg) -> Optional[StrategyStore]:
+def store_from_config(cfg, registry=None) -> Optional[StrategyStore]:
     """The run's StrategyStore, or None when it is off or unusable: an
     unwritable root means store-off, with a log line (the store speeds a
     compile up and never fails it).  FFConfig.remote_store attaches the
-    fleet mirror under the blob root's `strategies/` prefix."""
+    fleet mirror under the blob root's `strategies/` prefix; the store's
+    counters go to `registry` (obs.metrics.MetricsRegistry) when one is
+    given."""
     root = resolve_store_dir(cfg)
     if root is None:
         return None
@@ -85,7 +87,7 @@ def store_from_config(cfg) -> Optional[StrategyStore]:
                 "fleet mirror %r unusable (%s); continuing with the local "
                 "store only", uri, e)
     try:
-        return StrategyStore(root, remote=remote)
+        return StrategyStore(root, registry=registry, remote=remote)
     except OSError as e:
         store_logger.info(
             "strategy store root %s unusable (%s); continuing without the "
@@ -133,7 +135,9 @@ def cached_search(model, num_devices: int,
     publishes the winner under the same key, its search_stats carrying
     store_hit=False and store_key."""
     cfg = model.config
-    store = store_from_config(cfg)
+    store = store_from_config(
+        cfg, registry=getattr(getattr(model, "telemetry", None), "metrics",
+                              None))
     if store is None:
         return run_search()
     key = store_key_for(cfg, model.layers, num_devices)

@@ -22,8 +22,8 @@ except that a publish carrying a strictly better `searched_cost`
 replaces the incumbent (the best-cost upgrade).  Counters (store/hits,
 store/misses, store/publishes, store/lookup_ms, ...) go to an optional
 metrics registry with `counter(name).inc(n)` and
-`histogram(name).observe(v)`; the port has none yet (obs/, ROADMAP §1
-item 7), so compile passes None.
+`histogram(name).observe(v)`: compile passes its model's
+(obs.metrics.MetricsRegistry, `FFModel.telemetry.metrics`).
 """
 from __future__ import annotations
 

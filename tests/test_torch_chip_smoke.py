@@ -193,8 +193,9 @@ def test_phase_list_ends_with_the_sequence_and_frontend_path():
 
 def test_search_phase_runs_last_over_the_hgx_node():
     """The search phase comes after every earlier one-card phase (only
-    the store phase, which searches it again with a catalog, and the
-    multigpu phase, which trains the strategy it writes, follow),
+    the store phase, which searches it again with a catalog, the
+    resilience phase, and the multigpu phase, which trains the strategy
+    it writes, follow),
     parses as a --phases entry, and searches BERT-base for the 8 GPUs of
     the committed one-node machine file, timing ops on the card."""
     import os
@@ -202,8 +203,8 @@ def test_search_phase_runs_last_over_the_hgx_node():
     from flexflow_tpu_torch.sim.machine_model import GpuNodeModel
 
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[-3:] == ["search", "store", "multigpu"]
-    assert len(phases) == 27 and phases.count("search") == 1
+    assert phases[-4:] == ["search", "store", "resilience", "multigpu"]
+    assert len(phases) == 28 and phases.count("search") == 1
     assert "`--phases search`" in chip_smoke.__doc__
     cfg = chip_smoke.search_config("/tmp/costs.json")
     assert (cfg.batch_size, cfg.device, cfg.search_budget) == (
@@ -587,12 +588,13 @@ def test_multigpu_legs_follow_the_issue():
     Adam, the CNN), the searched strategy over 8, five pipeline legs of 4 (data 2
     x pipe 2 with and without remat, pipe 4, the demo under 1F1B, the
     search's cheapest pipeline), four MoE legs of 4 (data 4, expert
-    4, data 2 x expert 2, the search's), and four legs of 4 of factored
-    views and two slices, each with its strategy."""
+    4, data 2 x expert 2, the search's), four legs of 4 of factored
+    views and two slices, and the checkpoint leg of 4, each with its
+    strategy."""
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     assert [leg["ranks"] for leg in chip_smoke.MULTIGPU_LEGS] == \
-        [4, 4, 4, 4, 4, chip_smoke.SEARCH_DEVICES] + [4] * 13
-    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-8:-4] == \
+        [4, 4, 4, 4, 4, chip_smoke.SEARCH_DEVICES] + [4] * 14
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-9:-5] == \
         ["moe_dp4", "ep4", "dp2_ep2", "moe_searched"]
     assert chip_smoke.MOE == dict(hidden_size=768, num_layers=12,
                                   num_heads=12, num_exp=8, num_select=2,
@@ -656,7 +658,7 @@ def test_factored_and_slice_legs_follow_the_issue():
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     names = ["factored_tp4", "slices2_dp4", "slices2_zero1",
              "slices2_searched"]
-    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-4:] == names
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-5:-1] == names
     assert [legs[n].get("slices", 1) for n in names] == [1, 2, 2, 2]
     assert [legs[n]["reference"] for n in names] == [
         "bert_sgd", "bert_sgd", "bert_adam", "bert_sgd"]
@@ -1293,3 +1295,98 @@ def test_kernel_line_carries_the_store_launches():
            for r in rows}
     assert got == {"K4": (None, None), "K1": (70, 12.0), "K2": (48, 12.0),
                    "K3": (48, 12.0)}
+
+
+def test_ckpt_reshard_leg_follows_the_issue():
+    """The last leg: data 4 at ZeRO-2 under Adam (dp_zero2's model and
+    reference) that saves with both managers after its first step and is
+    restored onto 2 ranks at ZeRO-1 and onto one card; it leaves the
+    ladder's own checks (ZeRO-0 beside it, grad memory) to dp_zero2."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    leg = chip_smoke.MULTIGPU_LEGS[-1]
+    assert leg["name"] == "ckpt_reshard" and leg["checkpoint"] is True
+    assert {k: v for k, v in leg.items() if k not in ("name", "checkpoint")} \
+        == {k: v for k, v in legs["dp_zero2"].items() if k != "name"}
+    assert chip_smoke.CKPT_RESHARD_TARGETS == ((2, 1), (1, 0))
+    assert chip_smoke.CKPT_KINDS == ("local", "dcp")
+    assert chip_smoke._ladder(leg) is None
+    assert chip_smoke._ladder(legs["dp_zero2"]) == 2
+    assert chip_smoke._ladder(legs["dp_tp"]) is None
+
+
+def test_resilience_phase_bookkeeping():
+    """The resilience phase's host-side helpers: state_diff over every
+    leaf (a missing leaf raises), the tracer's span durations per
+    thread, and the phase's place before multigpu."""
+    a = {"w": np.zeros((2, 3), np.float32), "t": np.array(3, np.int32)}
+    b = {"w": np.full((2, 3), 0.5, np.float32), "t": np.array(3, np.int32)}
+    assert chip_smoke.state_diff(a, a) == 0.0
+    assert chip_smoke.state_diff(a, b) == 0.5
+    with pytest.raises(RuntimeError, match="leaves differ"):
+        chip_smoke.state_diff(a, {"w": a["w"]})
+    events = [{"name": "flush", "ph": "B", "ts": 0.0, "tid": 1},
+              {"name": "flush", "ph": "B", "ts": 500.0, "tid": 2},
+              {"name": "flush", "ph": "E", "ts": 2000.0, "tid": 1},
+              {"name": "snapshot", "ph": "B", "ts": 0.0, "tid": 1},
+              {"name": "flush", "ph": "E", "ts": 1500.0, "tid": 2}]
+    assert chip_smoke._span_ms(events, "flush") == [2.0, 1.0]
+    phases = chip_smoke.ALL_PHASES.split(",")
+    assert phases.index("resilience") == phases.index("multigpu") - 1
+    assert chip_smoke.RES_HANG_S > chip_smoke.RES_STEP_TIMEOUT
+
+
+def test_resilience_window_and_overhead_bookkeeping(monkeypatch):
+    """replay_attribution counts a flash kernel as replayed only under a
+    cudaGraphLaunch's correlation and as attributed only with an attn_*
+    op; overhead_fits alternates off, on, on, off and times both sides
+    by the same fit wall."""
+    tags = chip_smoke.KERNEL_TAGS
+    chrome = [{"cat": "cuda_runtime", "name": "cudaGraphLaunch",
+               "args": {"correlation": 3}},
+              {"cat": "kernel", "name": tags["K1"],
+               "args": {"correlation": 3, "op": "attn_0"}},
+              {"cat": "kernel", "name": tags["K2"],
+               "args": {"correlation": 3, "op": "dense_1"}},
+              {"cat": "kernel", "name": tags["K3"],
+               "args": {"correlation": 4}}]
+    got = chip_smoke.replay_attribution(chrome)
+    assert got == {"K1": {"launches": 1, "replayed": 1, "in_attn": 1},
+                   "K2": {"launches": 1, "replayed": 1, "in_attn": 0},
+                   "K3": {"launches": 1, "replayed": 0, "in_attn": 0}}
+    ops = [(tags["K1"], "attn_0"), ("gemm", "dense_1"), ("add", None)]
+    chrome[0]["ts"] = 0
+    for i, e in enumerate(chrome[1:]):
+        e["ts"] = i + 1
+    chrome.insert(3, {"cat": "kernel", "name": "gemm", "ts": 1.5,
+                      "args": {"correlation": 3}})
+    summary = chip_smoke.kernel_map_summary(chrome, ops)
+    assert summary == {"len": 3, "replay_len": 3,
+                       "flash": {"K1": 1, "K2": 0, "K3": 0},
+                       "first_difference": 2, "map_there": ["add"],
+                       "replay_there": [tags["K2"]]}
+    order = []
+    walls = {"off": iter([1.0, 1.2, 1.1, 1.3]),
+             "on": iter([1.1, 1.1, 1.2, 1.2])}
+
+    def timed(torch, ff, x, y, callbacks=()):
+        order.append(ff)
+        (clock,) = callbacks
+        clock.at = [0.0, 0.25, 0.5] if ff == "off" else [0.0, 0.3, 0.6]
+        return next(walls[ff])
+
+    monkeypatch.setattr(chip_smoke, "_timed_fit", timed)
+    monkeypatch.setattr(chip_smoke, "RES_OVH_ROUNDS", 2)
+    y = np.zeros(chip_smoke.TRAIN_BATCH * 4)
+    ovh = chip_smoke.overhead_fits(None, {"off": "off", "on": "on"}, None, y)
+    assert order == ["off", "on", "on", "off"] * 2
+    assert ovh["steps_per_fit"] == 4 and ovh["fits_per_side"] == 4
+    walls = ovh["fit_wall_per_step"]
+    assert walls["median_ms"] == pytest.approx({"off": 1.15e3 / 4,
+                                                "on": 1.15e3 / 4})
+    assert walls["overhead"] == pytest.approx(0.0)
+    assert walls["spread"]["off"] == pytest.approx(0.3 / 1.15)
+    assert ovh["fit_extra_ms"] == pytest.approx(0.0)
+    gaps = ovh["step_gap"]
+    assert gaps["median_ms"] == pytest.approx({"off": 250.0, "on": 300.0})
+    assert gaps["overhead"] == pytest.approx(0.2)
+    assert gaps["spread"] == pytest.approx({"off": 0.0, "on": 0.0})

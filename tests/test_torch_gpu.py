@@ -13,7 +13,10 @@ eager one (losses and weights bit for bit, a learning rate changed
 after the capture, a capture again after set_iteration_config, a
 capture after a captured model was dropped in a reference cycle); a
 strategy restored from the store, whose first step builds and captures
-K1-K3.  These
+K1-K3; a checkpoint restored into a captured step's own tensors (with
+its generator, under dropout), replays after it training the restored
+state; an async save's pinned snapshot; a hung_step fault timing out the
+watchdog; a profile window whose kernels sit in their ops' ranges.  These
 need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
 (that machine has no jax, which tests/conftest.py imports).  This file
@@ -999,3 +1002,144 @@ def test_a_restored_strategy_captures_and_runs_the_flash_kernels(cuda,
     want = [float(searched.train_step({"input": x}, y)["loss"])
             for x, y in batches]
     assert got == want
+
+
+# -- checkpoints and telemetry on the card ------------------------------------
+
+def _res_bert(seed, dropout=0.0, **cfg):
+    """A 2-layer BERT under Adam, seq 256: the flash branch, or with
+    attention dropout the dense one (its draws from the generator)."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_bert
+
+    ff = FFModel(FFConfig(batch_size=2, device="cuda", flash_min_seq=0,
+                          seed=seed, **cfg))
+    build_bert(ff, batch_size=2, seq_length=256, hidden_size=128,
+               num_layers=2, num_heads=2, intermediate_size=256,
+               dropout=dropout)
+    ff.compile(optimizer=AdamOptimizer(alpha=1e-3), seed=seed)
+    return ff
+
+
+def _res_batches(n, seed=5):
+    rng = np.random.RandomState(seed)
+    return [({"input": rng.randn(2, 256, 128).astype(np.float32)},
+             rng.randint(0, 2, (2, 1)).astype(np.int32)) for _ in range(n)]
+
+
+def _state(ff):
+    from flexflow_tpu_torch.checkpoint import _Snapshot
+
+    return _Snapshot(ff, own=True).arrays()
+
+
+def _assert_state_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("kind,dropout", [("local", 0.0), ("dcp", 0.0),
+                                          ("local", 0.1)])
+def test_a_replay_after_a_restore_trains_the_restored_state(cuda, tmp_path,
+                                                            kind, dropout):
+    """A model captured on its own weights restores a checkpoint: the
+    weights, Adam's slots and step and the generator are written into
+    the tensors the graph replays on, so the replays after it train the
+    restored state (and, under dropout, draw what the uninterrupted run
+    draws): losses and state bit for bit."""
+    from flexflow_tpu_torch.checkpoint import (CheckpointManager,
+                                               LocalCheckpointManager)
+
+    cls = LocalCheckpointManager if kind == "local" else CheckpointManager
+    batches = _res_batches(6)
+    a = _res_bert(0, dropout)
+    for inputs, labels in batches[:3]:
+        a.train_step(inputs, labels)
+    cls(str(tmp_path)).save(a, 3)
+    want = [float(a.train_step(*b)["loss"]) for b in batches[3:]]
+    b = _res_bert(1, dropout)
+    for inputs, labels in batches[:2]:
+        b.train_step(inputs, labels)  # the warm-up, the capture
+    st = b.executor.capture_status
+    assert st["mode"] == "graph" and st["captures"] == 1
+    assert cls(str(tmp_path)).restore(b) == 3
+    got = [float(b.train_step(*x)["loss"]) for x in batches[3:]]
+    assert st["captures"] == 1 and st["replays"] >= 3
+    assert got == want
+    _assert_state_equal(_state(b), _state(a))
+
+
+def test_an_async_save_on_the_card_owns_its_snapshot(cuda, tmp_path):
+    """save(wait=False) copies to pinned memory behind an event and
+    returns; the steps after it update the weights in place while the
+    writer runs: what lands is the state at the save."""
+    from flexflow_tpu_torch.checkpoint import LocalCheckpointManager
+
+    batches = _res_batches(4)
+    a = _res_bert(0)
+    for x in batches[:2]:
+        a.train_step(*x)
+    want = _state(a)
+    mgr = LocalCheckpointManager(str(tmp_path))
+    mgr.save(a, 2, wait=False)
+    for x in batches[2:]:
+        a.train_step(*x)
+    assert mgr.drain() == []
+    b = _res_bert(1)
+    mgr.restore(b)
+    _assert_state_equal(_state(b), want)
+
+
+def test_a_hung_step_fault_times_out_the_watchdog(cuda):
+    """A HUNG_STEP fault holds the stream past the step: the read of the
+    step's loss outlives the watchdog's deadline, HungStepTimeout comes
+    at the deadline, and the stream finishes after it."""
+    import time
+
+    from flexflow_tpu_torch.executor import check_step_health
+    from flexflow_tpu_torch.resilience import (FaultKind, FaultPlan,
+                                               HungStepTimeout, StepWatchdog)
+
+    ff = _res_bert(0)
+    (x,) = _res_batches(1)
+    plan = FaultPlan.single(0, FaultKind.HUNG_STEP)
+    m = ff.train_step(*x)
+    assert plan.hang_device(0, ff.device, 3.0)
+    t0 = time.perf_counter()
+    with pytest.raises(HungStepTimeout):
+        check_step_health(m, step=0, watchdog=StepWatchdog(1.0))
+    assert 1.0 <= time.perf_counter() - t0 < 1.5
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss"]))
+
+
+def test_the_profile_window_attributes_the_flash_kernels(cuda, tmp_path):
+    """profile_steps "2:2" over a captured fit: the window's steps are
+    replays like the others, the exported trace parses and holds K1-K3
+    once per layer per step, each launched by a cudaGraphLaunch, and
+    the map the warm-up recorded marks each with its attn_* op."""
+    import json
+
+    ff = _res_bert(0, trace_dir=str(tmp_path), profile_steps="2:2")
+    rng = np.random.RandomState(5)
+    x = rng.randn(10, 256, 128).astype(np.float32)
+    y = rng.randint(0, 2, (10, 1)).astype(np.int32)
+    ff.fit(x, y, batch_size=2, epochs=1, verbose=False)
+    st = ff.executor.capture_status
+    assert st["captures"] == 1 and st["replays"] == 4  # steps 1 to 4
+    assert st["kernel_ops"]
+    tel = ff.telemetry
+    assert tel.attribution["replays"] == 2
+    with open(tel.profile_path) as f:
+        events = json.load(f)["traceEvents"]
+    graphs = {e["args"]["correlation"] for e in events
+              if e.get("name") == "cudaGraphLaunch"}
+    for tag in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel"):
+        ks = [e for e in events
+              if e.get("cat") == "kernel" and tag in e.get("name", "")]
+        assert len(ks) == 2 * 2, tag
+        for e in ks:
+            assert e["args"]["correlation"] in graphs, tag
+            assert e["args"]["op"].startswith("attn_"), (tag, e["args"])

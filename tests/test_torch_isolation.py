@@ -45,13 +45,14 @@ def test_no_jax_or_reference_imports():
             "strategy.py", "profiler.py", "logger.py", "hierarchy.py",
             "network.py", "capture.py", "zero.py", "taso.py",
             "taso_pb.py", "key.py", "store.py", "blobstore.py",
-            "faults.py"} <= names
+            "faults.py", "trace.py", "fidelity.py", "async_writer.py",
+            "watchdog.py", "retry.py"} <= names
     for sub in ("keras", "keras/preprocessing", "onnx_frontend", "sim",
                 "parallel", "topology", "native", "pcg", "store",
-                "resilience"):
+                "resilience", "obs"):
         assert (PORT / sub / "__init__.py").is_file(), sub
     for sub in ("sim", "parallel", "topology", "pcg", "store",
-                "resilience"):
+                "resilience", "obs"):
         assert any(f.parent == PORT / sub and f.name != "__init__.py"
                    for f in files), sub
     offenders = [(str(f.relative_to(ROOT)), m) for f in files

@@ -3,6 +3,10 @@
 `run_group(fn, world, *args)` starts `world` processes on the CPU, joins
 them into one `gloo` group through flexflow_tpu_torch.distributed, runs
 `fn(rank, world, *args)` in each and returns what each rank returned.
+The ranks meet through a file store in the group's own temporary
+directory, so two groups started at the same moment (by two test
+workers) cannot take each other's rendezvous, as two TCP stores on one
+free port could.
 The ranks import torch and the port only (the builders below import
 flexflow_tpu only when the test process hands them the reference's
 FFModel), and run one thread each.  Every group has its own time limit: a
@@ -16,20 +20,13 @@ from __future__ import annotations
 
 import os
 import pickle
-import socket
 import tempfile
 import time
 import traceback
 import weakref
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(rank, world, port, fn, args, out_dir):
+def _rank_main(rank, world, store, fn, args, out_dir):
     import torch
 
     torch.set_num_threads(1)
@@ -37,7 +34,7 @@ def _rank_main(rank, world, port, fn, args, out_dir):
 
     result = None
     try:
-        distributed.initialize(f"localhost:{port}", world, rank,
+        distributed.initialize(f"file://{store}", world, rank,
                                device="cpu")
         result = ("ok", fn(rank, world, *args))
     except Exception:  # reported to the parent, which raises
@@ -58,10 +55,10 @@ def run_group(fn, world: int, *args, timeout: float = 150.0):
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    port = _free_port()
     with tempfile.TemporaryDirectory() as out_dir:
+        store = os.path.join(out_dir, "rendezvous")
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, world, port, fn, args, out_dir),
+                             args=(r, world, store, fn, args, out_dir),
                              daemon=True) for r in range(world)]
         for p in procs:
             p.start()
@@ -741,3 +738,65 @@ def mlp3_zero(ff):
     t = ff.dense(t, 64, activation=_relu(ff), name="fc2")
     t = ff.dense(t, 8, name="head")
     ff.softmax(t)
+
+
+# -- checkpoints ----------------------------------------------------------------
+
+def blocks(ff, batch=16, width=8, layers=4, classes=4):
+    """tests/test_durability.py's MLP of identical dense blocks and a
+    head: the repeated-block graph a pipeline stacks."""
+    x = ff.create_tensor([batch, width], name="x")
+    t = x
+    for i in range(layers):
+        t = ff.dense(t, width, activation=_relu(ff), name=f"blk{i}")
+    t = ff.dense(t, classes, name="head")
+    ff.softmax(t)
+
+
+def _global_state(ff):
+    """{leaf key: global array} of the train state (the checkpoint's own
+    snapshot): on rank 0; {} on the others."""
+    from flexflow_tpu_torch.checkpoint import _Snapshot
+
+    return _Snapshot(ff, own=True).arrays()
+
+
+def ckpt_case(rank, world, build, strategy, opt, batches, cfg=None,
+              weights=None, restore=None, save_at=None, dirs=None):
+    """Compile `build` under `strategy` (FFConfig fields `cfg`), then load
+    `weights`, or restore from `restore` = (manager kind, directory)
+    ("local": LocalCheckpointManager, "dcp": CheckpointManager); run one
+    train step per batch, after `save_at` of them saving into every
+    (kind, directory) of `dirs`.  Returns the global train state after
+    the restore, at the save and at the end (rank 0's), the losses and
+    the parallel/zero_fallback_leaves counter."""
+    from flexflow_tpu_torch.checkpoint import (CheckpointManager,
+                                               LocalCheckpointManager)
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+
+    kinds = {"local": LocalCheckpointManager, "dcp": CheckpointManager}
+    ff = FFModel(FFConfig(device="cpu", **(cfg or {})))
+    build(ff)
+    ff.compile(optimizer=opt(), strategy=strategy, seed=0)
+    out = {"rank": rank, "losses": [], "saved": None,
+           "fallback": ff.telemetry.metrics.counter(
+               "parallel/zero_fallback_leaves").value}
+    if weights is not None:
+        ff.set_weights(weights)
+    if restore is not None:
+        kind, path = restore
+        out["restored_step"] = kinds[kind](path).restore(ff)
+    out["restored"] = _global_state(ff)
+    for i, (inputs, labels) in enumerate(batches):
+        if i == save_at:
+            for kind, path in (dirs or {}).items():
+                kinds[kind](path).save(ff, i)
+            out["saved"] = _global_state(ff)
+        out["losses"].append(float(ff.train_step(inputs, labels)["loss"]))
+    if save_at == len(batches):
+        for kind, path in (dirs or {}).items():
+            kinds[kind](path).save(ff, save_at)
+        out["saved"] = _global_state(ff)
+    out["final"] = _global_state(ff)
+    return out
