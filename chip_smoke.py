@@ -210,7 +210,7 @@ Phases, each a failure of which exits non-zero:
    child processes with compilation_cache="auto" under a fresh root: the
    first builds K1's library into <root>/kernel_cache, the second loads
    it from there with no nvcc run.
-27. multigpu: twenty legs, each over a group of spawned ranks (rank r on
+27. multigpu: twenty-two legs, each over a group of spawned ranks (rank r on
    card r % cards; the backend NCCL where every rank has a card of its
    own, else gloo, named, with every collective staged through host
    memory), each taking 2 train steps (the first by train_step, the
@@ -278,6 +278,19 @@ Phases, each a failure of which exits non-zero:
    checkpoint is restored onto 2 ranks at ZeRO-1 and onto one card,
    and each trains the second step against the one-card run
    (MULTIGPU_TOL).
+   elastic trains data 4 under Adam through the resilience supervisor
+   (a checkpoint every ELASTIC_EVERY steps) and loses ranks 2-3 at
+   ELASTIC_LOSS_STEP (DeviceLossFault): ranks 2-3 leave, ranks 0-1
+   re-form a group of 2 (a file store named by the restart epoch), fall
+   back to data 2, restore step 2 resharded and train to
+   ELASTIC_STEPS; their losses and weights are held against a 2-card
+   run restored from the same checkpoint (MULTIGPU_TOL), with the
+   re-form, recompile and restore seconds and K1-K3 per rank per step
+   after the loss.  preempt_barrier (data 4, SGD) raises SIGTERM on
+   ranks 0-2 during step BARRIER_SIGNAL_STEP and on rank 3 a step
+   later: every rank agrees on the largest posted step through
+   distributed.preemption_barrier over a file:// blob store and saves
+   that one step, on disk and in the remote tier.
    `--legs` runs some of the legs (and only the searches they need).
    The kernels are built once, before
    the ranks start; each rank sets its launch counters to 0 and reports
@@ -313,6 +326,27 @@ Phases, each a failure of which exits non-zero:
    raising NonFiniteLossError (then the restore reaction) and a
    HUNG_STEP fault (FaultPlan.hang_device) raising HungStepTimeout at
    the watchdog's deadline.
+29. supervised (run after resilience, before multigpu): the same
+   BERT-base through FFModel.fit_resilient, SUP_STEPS steps with an
+   async checkpoint every SUP_EVERY steps mirrored to a file:// remote
+   tier (every SUP_OFFLOAD_EVERY-th), nan_policy "restore" and a
+   SUP_STEP_TIMEOUT watchdog:
+   uninterrupted, then under supervised_plan()'s seeded faults (a step
+   exception, a NaN loss, a hung step that stalls the stream past the
+   watchdog and is recovered by a recompile, a failed upload), the final
+   state (weights, Adam's slots and step, the generator) 0 apart; the
+   counters, each recovery's restore and total seconds, the uploads'
+   seconds and bytes and the leaves a delta skipped, K1-K3 per replayed
+   step; fit's and fit_resilient's ms per step (the per-step health
+   read).  Then the SIGTERM round trip: a child signalled by this
+   process at SUP_SIGTERM_STEP writes, mirrors and drains its emergency
+   checkpoint and exits 0; the local directory is deleted; a second
+   child resumes from the remote tier and finishes, 0 apart from the
+   uninterrupted run.  Then the zoo's MoE MLP with a Cache op on its
+   input: its step eager (capture_blockers names the op), a
+   RecompileState whose trigger reads the cache's score drops the op and
+   recompiles, the weights and a forward's outputs 0 apart across it,
+   and the step captured afterwards.
 
 Every train step on the card is captured by default after one eager
 warm-up step (capture.py): the kernels' wrappers count the warm-up and
@@ -330,7 +364,9 @@ path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
 `--phases nmt,generate,keras,onnx,seq_parity` for the sequence-model
 and frontend slice, `--phases search` for the search and simulator,
 `--phases store` for the TASO catalog and the strategy store,
-`--phases resilience` for telemetry and checkpoints, `--phases multigpu
+`--phases resilience` for telemetry and checkpoints, `--phases
+supervised` for the resilience supervisor, `--phases multigpu --legs
+elastic,preempt_barrier` for its group legs, `--phases multigpu
 --legs ckpt_reshard` for a checkpoint restored onto other meshes,
 `--phases multigpu` for multi-GPU execution, `--phases multigpu
 --legs moe_dp4,ep4,dp2_ep2,moe_searched` for expert parallelism,
@@ -348,6 +384,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -4125,7 +4162,7 @@ ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
               "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
               "nmt,generate,keras,onnx,seq_parity,capture,fusion,search,"
-              "store,resilience,multigpu")
+              "store,resilience,supervised,multigpu")
 
 # the search phase: the Unity search's budget, the devices it searches
 # for (one HGX H100 node), the calibration's step windows and batch
@@ -4800,7 +4837,7 @@ RES_STEPS, RES_MORE, RES_EVERY = 4, 4, 2
 RES_WINDOW = "2:2"
 # the telemetry overhead: fits of RES_OVH_STEPS steps, timed alike on
 # both sides, in the order off, on, on, off per round
-RES_OVH_STEPS, RES_OVH_ROUNDS = 12, 2
+RES_OVH_STEPS, RES_OVH_ROUNDS = 8, 1
 RES_STEP_TIMEOUT = 2.0
 RES_HANG_S = 3 * RES_STEP_TIMEOUT
 # how far past the deadline HungStepTimeout may come: the watchdog's
@@ -5231,6 +5268,456 @@ def phase_resilience(torch, fa, card: str) -> dict:
     return rec
 
 
+# the supervised phase: the resilience phase's BERT-base through
+# FFModel.fit_resilient, SUP_STEPS steps with a checkpoint every
+# SUP_EVERY, async, mirrored to a file:// remote tier, nan_policy
+# "restore" and a SUP_STEP_TIMEOUT watchdog
+SUP_STEPS, SUP_EVERY = 10, 4
+# the uploads of a 1.02 GB step take 5-7 s each on the uploader's thread,
+# which every run drains before it returns: every second checkpoint is
+# mirrored (the anchor, step 8, an emergency step whatever the cadence)
+SUP_OFFLOAD_EVERY = 2
+SUP_STEP_TIMEOUT = 2.0
+SUP_SEED = 17
+# the SIGTERM round trip: the parent signals the first child at this step
+SUP_SIGTERM_STEP = 5
+# steps of fit and of fit_resilient timed on the warm, captured model
+SUP_TIMING_STEPS = 8
+# the recompile part: the zoo's MoE MLP at its example's widths (batch
+# 64, 784 inputs, 5 experts, top 2, hidden 64, 10 classes) with a Cache
+# op on its input; the RecompileState fires once the cache's score (the
+# default exact-match EMA) passes SUP_CACHE_TRIGGER, which the same
+# SUP_CACHE_BATCHES batches, fit over SUP_CACHE_EPOCHS epochs, reach
+SUP_CACHE = dict(batch_size=64, input_dim=784, num_classes=10, num_exp=5,
+                 num_select=2, hidden_size=64)
+SUP_CACHE_BATCHES, SUP_CACHE_EPOCHS = 4, 3
+SUP_CACHE_TRIGGER = 0.05
+
+
+def supervised_plan():
+    """The supervised phase's faults, seeded (SUP_SEED): a
+    STEP_EXCEPTION, a NAN_LOSS and a HUNG_STEP at three distinct steps of
+    [1, SUP_STEPS) in a seeded order, and a CHECKPOINT_WRITE on the
+    remote tier (the uploader's path) at a step of [1, the last
+    checkpoint], so that an upload follows it."""
+    from flexflow_tpu_torch.resilience import Fault, FaultKind, FaultPlan
+
+    rng = np.random.RandomState(SUP_SEED)
+    steps = sorted(int(s) for s in rng.choice(np.arange(1, SUP_STEPS), 3,
+                                              replace=False))
+    kinds = [FaultKind.STEP_EXCEPTION, FaultKind.NAN_LOSS,
+             FaultKind.HUNG_STEP]
+    order = rng.permutation(len(kinds))
+    faults = [Fault(step=s, kind=kinds[i]) for s, i in zip(steps, order)]
+    last = (SUP_STEPS // SUP_EVERY) * SUP_EVERY
+    faults.append(Fault(step=int(rng.randint(1, last + 1)),
+                        kind=FaultKind.CHECKPOINT_WRITE,
+                        payload={"target": "remote"}))
+    return FaultPlan(faults)
+
+
+def _sup_bert(torch, tmp: str, remote=None):
+    """_res_bert (seed 0) with the supervised phase's FFConfig: the
+    checkpoint cadence, async saves, the remote tier at `remote` (every
+    SUP_OFFLOAD_EVERY-th checkpoint mirrored, an emergency one always),
+    nan_policy "restore" and the watchdog; without `remote`, the
+    uninterrupted run's: no checkpoint but the anchor, no remote tier
+    (what it saves does not change what it computes)."""
+    return _res_bert(torch, 0, tmp,
+                     checkpoint_every=SUP_EVERY if remote else 0,
+                     checkpoint_async=True,
+                     remote_store=f"file://{remote}" if remote else None,
+                     offload_every=SUP_OFFLOAD_EVERY,
+                     nan_policy="restore", step_timeout=SUP_STEP_TIMEOUT)
+
+
+def _sup_report(rep) -> dict:
+    return {"final_step": rep.final_step, "preempted": rep.preempted,
+            "losses": rep.losses, "counters": rep.counters,
+            "recoveries": rep.recoveries, "agreed_step": rep.agreed_step,
+            "left_group": rep.left_group}
+
+
+def _supervised_child(mode: str, tmp: str, out: str) -> None:
+    """A child of the SIGTERM round trip: the supervised fit of the
+    phase, without faults, over `tmp`'s directory and remote tier.  It
+    builds its model, then waits for out/<mode>.go (so that it starts up
+    while the parent's card is busy, and touches the directory only when
+    told).  "first" touches out/at_step when it reaches SUP_SIGTERM_STEP
+    and waits there for the parent's SIGTERM; "resume" resumes with
+    resume=True (the directory is gone: from the remote tier) and saves
+    its final state to out/state.npz.  Its report goes to
+    out/<mode>.json."""
+    import signal
+    import traceback
+
+    import torch
+
+    rec = {"mode": mode}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from flexflow_tpu_torch.resilience import (FaultPlan,
+                                                   TrainingSupervisor)
+
+        x, y = bert_data(TRAIN_BATCH * SUP_STEPS, seed=SUP_SEED)
+        ff = _sup_bert(torch, tmp, f"{tmp}/remote_rt")
+        deadline = time.monotonic() + 900
+        while not Path(f"{out}/{mode}.go").exists() and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        plan = FaultPlan()
+        sup = TrainingSupervisor(ff, f"{tmp}/rt", fault_plan=plan)
+        if mode == "first":
+            check = plan.check_step
+
+            def at(step):
+                if step == SUP_SIGTERM_STEP:
+                    Path(f"{out}/at_step").touch()
+                    deadline = time.monotonic() + 120
+                    while sup._preempt is None and \
+                            time.monotonic() < deadline:
+                        time.sleep(0.01)
+                check(step)
+
+            plan.check_step = at
+        else:
+            restore = sup.manager.restore
+
+            def timed(ff_, step=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = restore(ff_, step)
+                torch.cuda.synchronize()
+                rec["restore_s"] = time.perf_counter() - t0
+                return got
+
+            sup.manager.restore = timed
+        t0 = time.perf_counter()
+        rep = sup.run({"input": x}, y, num_steps=SUP_STEPS,
+                      batch_size=TRAIN_BATCH, resume=mode == "resume")
+        rec["run_s"] = time.perf_counter() - t0
+        rec.update(_sup_report(rep))
+        rec["remote_restores"] = ff.telemetry.metrics.counter(
+            "resilience/offload_remote_restores").value
+        rec["grace_handler_restored"] = (
+            signal.getsignal(signal.SIGTERM) != sup._on_grace_signal)
+        if mode == "resume":
+            np.savez(f"{out}/state.npz", **host_state(ff))
+        rec["ok"] = True
+    except Exception:  # the parent reads it and fails the phase
+        rec["ok"] = False
+        rec["error"] = traceback.format_exc()
+    with open(f"{out}/{mode}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def _start_child(mode: str, tmp: str, out: str):
+    """Spawn one child of the round trip (the kernels are built already):
+    it builds its model and waits for _finish_child's go."""
+    import multiprocessing as mp
+
+    p = mp.get_context("spawn").Process(target=_supervised_child,
+                                        args=(mode, tmp, out))
+    p.start()
+    return p, time.perf_counter()
+
+
+def _finish_child(child, mode: str, out: str, sigterm=False) -> dict:
+    """Let a started child train, SIGTERM it when it touches out/at_step
+    (`sigterm`), and wait for it: its report, exit code, seconds from
+    its start and from the go."""
+    import signal
+
+    p, t0 = child
+    Path(f"{out}/{mode}.go").touch()
+    go = time.perf_counter()
+    sent = None
+    deadline = time.monotonic() + 600
+    while p.is_alive() and time.monotonic() < deadline:
+        if sigterm and sent is None and Path(f"{out}/at_step").exists():
+            os.kill(p.pid, signal.SIGTERM)
+            sent = time.perf_counter() - go
+        p.join(0.05)
+    if p.is_alive():
+        p.kill()
+        p.join()
+    path = Path(f"{out}/{mode}.json")
+    rec = json.loads(path.read_text()) if path.exists() else {
+        "ok": False, "error": "no report"}
+    now = time.perf_counter()
+    rec.update(exit_code=p.exitcode, wall_s=now - t0, from_go_s=now - go,
+               sigterm_sent_after_go_s=sent)
+    return rec
+
+
+def _drop_cache_op(ff) -> str:
+    """The layer graph without its Cache op (its consumers read its
+    input); the op's name."""
+    (op,) = ff._cache_ops
+    src, out = op.inputs[0], op.outputs[0]
+    for other in ff.layers.ops:
+        other.inputs = [src if t is out else t for t in other.inputs]
+    ff.layers.ops.remove(op)
+    return op.name
+
+
+def _cache_recompile(torch) -> dict:
+    """The recompile part of the supervised phase: the MoE MLP with a
+    Cache op (its step eager, the op named by capture_blockers), fit
+    until the RecompileState's trigger (the cache's score) fires; the
+    alter drops the op and recompiles; weights and a forward's outputs
+    across it, and whether the step captures afterwards."""
+    from flexflow_tpu_torch import FFConfig, FFModel, RecompileState
+    from flexflow_tpu_torch.capture import capture_blockers
+    from flexflow_tpu_torch.models.moe import build_moe_mlp
+
+    c = SUP_CACHE
+    ff = FFModel(FFConfig(batch_size=c["batch_size"], device="cuda", seed=0))
+    real_create = ff.create_tensor
+
+    def cached_input(*a, **kw):  # build_moe_mlp's input, through the cache
+        return ff.cache(real_create(*a, **kw), SUP_CACHE_BATCHES,
+                        name="input_cache")
+
+    ff.create_tensor = cached_input
+    build_moe_mlp(ff, **c)
+    del ff.create_tensor
+    ff.compile(metrics=("accuracy", "sparse_categorical_crossentropy"),
+               seed=0)
+    rng = np.random.RandomState(SUP_SEED)
+    n = c["batch_size"] * SUP_CACHE_BATCHES
+    x = rng.standard_normal((n, c["input_dim"])).astype(np.float32)
+    y = rng.randint(0, c["num_classes"], n).astype(np.int32)
+    rec = {"model": dict(c, cache="input_cache"),
+           "before": {"mode": ff.executor.capture_status["mode"],
+                      "blockers": capture_blockers(ff.executor)}}
+    seen = {}
+
+    def alter(model):
+        seen["weights"] = model.get_weights()
+        seen["out"] = model.forward({"input": x[:c["batch_size"]]}).cpu()
+        seen["dropped"] = _drop_cache_op(model)
+        t0 = time.perf_counter()
+        model.recompile()
+        torch.cuda.synchronize()
+        seen["recompile_s"] = time.perf_counter() - t0
+
+    r = RecompileState(lambda m: m._cache_ops[0].trigger > SUP_CACHE_TRIGGER,
+                       alter, ff)
+    scores = []
+    for _ in range(SUP_CACHE_EPOCHS):
+        ff.fit(x, y, batch_size=c["batch_size"], epochs=1, verbose=False)
+        if ff._cache_ops:
+            ff._flush_cache_taps()
+            scores.append(ff._cache_ops[0].trigger)
+        if r.recompilations == 0:
+            ff.recompile_on_condition(r)
+    rec["scores"] = scores
+    rec["recompilations"] = r.recompilations
+    if r.recompilations:
+        w_diff, worst = _weights_diff(ff.get_weights(), seen["weights"])
+        out = ff.forward({"input": x[:c["batch_size"]]}).cpu()
+        rec.update(dropped=seen["dropped"], recompile_s=seen["recompile_s"],
+                   weights_diff=w_diff, worst_weight=worst,
+                   output_diff=float((out - seen["out"]).abs().max()))
+        for i in range(3):  # the warm-up, the capture, a replay
+            b = slice(i * c["batch_size"], (i + 1) * c["batch_size"])
+            ff.train_step({"input": x[b]}, y[b])
+        torch.cuda.synchronize()
+        st = ff.executor.capture_status
+        rec["after"] = {"mode": st["mode"], "blockers": st["blockers"],
+                        "captures": st.get("captures"),
+                        "replays": st.get("replays")}
+    return rec
+
+
+def _sup_timing(torch, ff, x, y, gaps) -> dict:
+    """fit_resilient's ms per step (`gaps`: between its train_step calls
+    in the uninterrupted run, each after the loss read of the step
+    before, the health check's host sync; from its fourth step, the
+    warm-up and the capture behind it) beside fit's on the same warm,
+    captured model over SUP_TIMING_STEPS steps: the gap between steps
+    that each wait for the card (StepClock) and the fit's wall (one read
+    of the card, at the epoch's end)."""
+    n = SUP_TIMING_STEPS
+    xs, ys = x[:n * TRAIN_BATCH], y[:n * TRAIN_BATCH]
+    clock = StepClock(torch)
+    fit_wall = _timed_fit(torch, ff, xs, ys, callbacks=[clock]) / n * 1e3
+    fit_gaps = np.diff(clock.at) * 1e3
+    res = np.asarray(gaps[3:])
+    fit_gap, res_gap = float(np.median(fit_gaps)), float(np.median(res))
+    return {"steps": n, "fit_wall_ms_per_step": fit_wall,
+            "fit_step_gap_median_ms": fit_gap,
+            "fit_step_gap_ms": fit_gaps.tolist(),
+            "fit_resilient_step_gap_median_ms": res_gap,
+            "fit_resilient_step_gap_ms": res.tolist(),
+            "fit_resilient_over_fit_ms_per_step": res_gap - fit_gap}
+
+
+def phase_supervised(torch, fa, card: str) -> dict:
+    """BERT-base under Adam through FFModel.fit_resilient (the resilience
+    supervisor): SUP_STEPS steps with an async checkpoint every
+    SUP_EVERY (every SUP_OFFLOAD_EVERY-th mirrored to a file:// remote
+    tier), uninterrupted, and again
+    under supervised_plan()'s faults (a step exception, a NaN loss under
+    nan_policy "restore", a hung step caught by the watchdog and
+    recovered by a recompile, a failed upload); the final state 0 apart.
+    Then the SIGTERM round trip (a child signalled at SUP_SIGTERM_STEP
+    writes and mirrors its emergency checkpoint and exits; the local
+    directory is deleted; a second child resumes from the remote tier):
+    0 apart from the uninterrupted run.  Then the recompile of the MoE
+    MLP with a Cache op (_cache_recompile)."""
+    from flexflow_tpu_torch.obs.metrics import registry_of
+
+    b = TRAIN_BATCH
+    x, y = bert_data(b * SUP_STEPS, seed=SUP_SEED)
+    want12 = {k: BERT["num_layers"] for k in FLASH_IDS}
+    tmp = tempfile.mkdtemp(prefix="ff_supervised_")
+    plan = supervised_plan()
+    rec = {"phase": "supervised", "card": card,
+           "model": dict(BERT, batch=b, seq=TRAIN_SEQ, dtype="float32",
+                         optimizer="Adam(alpha=1e-3)"),
+           "steps": SUP_STEPS, "checkpoint_every": SUP_EVERY,
+           "step_timeout_s": SUP_STEP_TIMEOUT, "nan_policy": "restore",
+           "checkpoint_async": True, "fault_plan": json.loads(plan.to_json())}
+    faults, children = [], []
+    try:
+        # -- the uninterrupted run, and the step time of fit beside it ----
+        clean = _sup_bert(torch, tmp)
+        at, step = [], clean.train_step
+
+        def stamped(*a, **kw):
+            at.append(time.perf_counter())
+            return step(*a, **kw)
+
+        clean.train_step = stamped
+        t0 = time.perf_counter()
+        rep = clean.fit_resilient({"input": x}, y, num_steps=SUP_STEPS,
+                                  batch_size=b, directory=f"{tmp}/clean")
+        rec["clean"] = dict(_sup_report(rep), wall_s=time.perf_counter() - t0)
+        del clean.train_step
+        s_clean = host_state(clean)
+        rec["timing"] = _sup_timing(torch, clean, x, y,
+                                    (np.diff(at) * 1e3).tolist())
+        del clean
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the same fit under the faults ---------------------------------
+        # the round trip's first child starts up meanwhile (it trains
+        # only when told, once this run is over)
+        out = tempfile.mkdtemp(dir=tmp)
+        first = _start_child("first", tmp, out)
+        children.append(first)
+        reset_flash_launches(fa)
+        ff = _sup_bert(torch, tmp, f"{tmp}/remote_fault")
+        t0 = time.perf_counter()
+        rep = ff.fit_resilient({"input": x}, y, num_steps=SUP_STEPS,
+                               batch_size=b, directory=f"{tmp}/fault",
+                               fault_plan=plan)
+        wall = time.perf_counter() - t0
+        launches = flash_launches(fa)
+        reg = registry_of(ff)
+        upload = reg.histogram("resilience/offload_upload_ms")
+        write = reg.histogram("resilience/ckpt_write_latency_s")
+        rec["faulted"] = dict(
+            _sup_report(rep), wall_s=wall, launches=launches,
+            unfired=[f.kind.value for f in plan.remaining()],
+            state_diff=state_diff(host_state(ff), s_clean),
+            upload_ms={"count": upload.count, "mean": upload.mean,
+                       "max": upload.max if upload.count else None},
+            checkpoint_write_s={"count": write.count, "mean": write.mean,
+                                "max": write.max if write.count else None},
+            capture_status={k: ff.executor.capture_status.get(k)
+                            for k in ("mode", "captures", "replays")})
+        prof = profile_steps(torch, lambda: ff.train_step(
+            {"input": x[:b]}, y[:b]), 2, want12)
+        prof.pop("_events")
+        rec["faulted"]["launches_per_replayed_step"] = {
+            k: prof["launches_per_step"][k] for k in FLASH_IDS}
+        rec["faulted"]["profile"] = prof
+        del ff
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- SIGTERM, a lost host, a resume from the remote tier ------------
+        # (the second child starts up while the first trains)
+        second = _start_child("resume", tmp, out)
+        children.append(second)
+        first = _finish_child(first, "first", out, sigterm=True)
+        local = Path(f"{tmp}/rt")
+        files = sorted(p.name for p in local.iterdir()) if local.exists() \
+            else []
+        shutil.rmtree(local, ignore_errors=True)
+        second = _finish_child(second, "resume", out)
+        rt = {"first": first, "local_files_deleted": files,
+              "second": second}
+        if second.get("ok"):
+            with np.load(f"{out}/state.npz") as data:
+                rt["state_diff"] = state_diff(
+                    {k: data[k] for k in data.files}, s_clean)
+        rec["sigterm_round_trip"] = rt
+        del s_clean
+
+        # -- recompile with the Cache op -----------------------------------
+        rec["recompile"] = _cache_recompile(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for p, _ in children:  # a phase that failed leaves none behind
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    f = rec["faulted"]
+    c = f["counters"]
+    if f["final_step"] != SUP_STEPS or f["state_diff"] != 0.0:
+        faults.append(f"faulted run: final step {f['final_step']}, state "
+                      f"{f['state_diff']} apart from the uninterrupted run")
+    if f["unfired"]:
+        faults.append(f"faults that never fired: {f['unfired']}")
+    kinds = sorted(r["kind"] for r in f["recoveries"])
+    if kinds != sorted(["StepFault", "NonFiniteLossError", "hung_step"]):
+        faults.append(f"recoveries {kinds}")
+    if (c["restarts"] != 3 or c["hung_steps"] != 1
+            or c["checkpoint_failures"] != 0 or c["offload_retries"] < 1
+            or c["offload_failures"] != 0):
+        faults.append(f"counters {c}")
+    if any(launches[k] <= 0 for k in FLASH_IDS):
+        faults.append(f"K1-K3 launched {launches} in the supervised run")
+    if f["launches_per_replayed_step"] != want12:
+        faults.append(f"K1-K3 per replayed step "
+                      f"{f['launches_per_replayed_step']}, want {want12}")
+    first, second = rt["first"], rt["second"]
+    if not (first.get("ok") and first["exit_code"] == 0
+            and first["preempted"] == "SIGTERM"
+            and first["final_step"] == SUP_SIGTERM_STEP + 1
+            and first["counters"]["emergency_saves"] == 1
+            and first["grace_handler_restored"]):
+        faults.append(f"SIGTERM child: {first}")
+    if not (second.get("ok") and second["exit_code"] == 0
+            and second["final_step"] == SUP_STEPS
+            and second["remote_restores"] == 1
+            and rt.get("state_diff") == 0.0):
+        faults.append(f"resumed child: {second}, state "
+                      f"{rt.get('state_diff')} apart")
+    rc = rec["recompile"]
+    before = rc["before"]
+    if before["mode"] != "eager" or not any(
+            "input_cache" in bl for bl in before["blockers"]):
+        faults.append(f"the Cache op's step: {before}")
+    if (rc["recompilations"] != 1 or rc["weights_diff"] != 0.0
+            or rc["output_diff"] != 0.0 or rc["after"]["mode"] != "graph"
+            or rc["after"]["captures"] != 1):
+        faults.append(f"recompile: {rc}")
+    rec["faults"] = faults
+    emit(rec)
+    if faults:
+        raise RuntimeError("supervised: " + "; ".join(faults))
+    return rec
+
 # the multigpu phase: BERT-base at the train phase's width, batch and
 # sequence over groups of ranks, each leg held against the same model
 # trained on one card (in this process) from the same weights and batches
@@ -5322,6 +5809,14 @@ MULTIGPU_LEGS = (
     # one-card run (_ckpt_reshard)
     {"name": "ckpt_reshard", "ranks": 4, "strategy": ["dp"], "zero": 2,
      "optimizer": "adam", "reference": "bert_adam", "checkpoint": True},
+    # the resilience supervisor on a group (_elastic_leg, _barrier_leg):
+    # data 4 under Adam losing ranks 2-3 at ELASTIC_LOSS_STEP, held
+    # against a 2-card run restored from the same checkpoint; and SIGTERM
+    # one step later on rank 3 than on the others, one step saved
+    {"name": "elastic", "ranks": 4, "strategy": ["dp"], "optimizer": "adam",
+     "supervised": "elastic"},
+    {"name": "preempt_barrier", "ranks": 4, "strategy": ["dp"],
+     "optimizer": "sgd", "supervised": "barrier"},
 )
 # where the ckpt_reshard leg's checkpoint is restored: the ranks, the
 # ZeRO stage
@@ -5871,6 +6366,224 @@ def _ckpt_reshard(torch, job, ref, cards, tmp) -> dict:
     return {"restored": runs, "faults": faults}
 
 
+# the supervised legs: `elastic` loses ranks 2-3 (DeviceLossFault with
+# ELASTIC_SURVIVORS survivors) at ELASTIC_LOSS_STEP, checkpointing every
+# ELASTIC_EVERY steps; `preempt_barrier` signals ranks 0-2 during step
+# BARRIER_SIGNAL_STEP and rank 3 during the next one
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_LOSS_STEP = 6, 2, 3
+ELASTIC_SURVIVORS = 2
+BARRIER_STEPS, BARRIER_SIGNAL_STEP = 6, 1
+SUPERVISED_SEED = 23
+
+
+def _leg_profile(torch, ff, x, y) -> dict:
+    """K1-K3 and P1 per step on this rank from the profiler, one step
+    after one dropped: what the kernels line reads of every leg."""
+    prof = profile_steps(torch, lambda: ff.train_step({"input": x}, y), 1)
+    return {k: prof["launches_per_step"].get(k, 0.0)
+            for k in ("K1", "K2", "K3", "P1")}
+
+
+def _save_flat(path: str, weights: dict) -> None:
+    np.savez(path, **{f"{op}/{k}": v for op, e in weights.items()
+                      for k, v in e.items()})
+
+
+def _load_flat(path: str) -> dict:
+    out = {}
+    with np.load(path) as data:
+        for key in data.files:
+            op, k = key.rsplit("/", 1)
+            out.setdefault(op, {})[k] = data[key]
+    return out
+
+
+def _elastic_body(torch, rank, job, out_dir) -> dict:
+    """The elastic leg on this rank: BERT-base data 4 under Adam through
+    the supervisor (a checkpoint every ELASTIC_EVERY steps), the device
+    loss at ELASTIC_LOSS_STEP; on a survivor, the new group's size, its
+    strategy, the report, K1-K3 per step after the loss and (rank 0) the
+    weights in out_dir/elastic_weights.npz; then, on the same group of
+    2, the 2-card run it is held against: data 2 under Adam restored
+    from the leg's step-2 checkpoint and trained through the steps the
+    survivors ran after the loss ((rank 0) out_dir/reference_weights.npz)."""
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.checkpoint import LocalCheckpointManager
+    from flexflow_tpu_torch.resilience import (FaultKind, FaultPlan,
+                                               TrainingSupervisor)
+    from flexflow_tpu_torch.strategy import data_parallel_strategy
+
+    b = TRAIN_BATCH
+    x, y = bert_data(b * ELASTIC_STEPS, seed=SUPERVISED_SEED)
+    ff = _multigpu_bert("cuda", "adam", data_parallel_strategy(4))
+    plan = FaultPlan.single(ELASTIC_LOSS_STEP, FaultKind.DEVICE_LOSS,
+                            survivors=ELASTIC_SURVIVORS)
+    sup = TrainingSupervisor(ff, job["ckpt"], checkpoint_every=ELASTIC_EVERY,
+                             fault_plan=plan, run_id="elastic")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = sup.run({"input": x}, y, num_steps=ELASTIC_STEPS, batch_size=b)
+    torch.cuda.synchronize()
+    out = dict(_sup_report(rep), wall_s=time.perf_counter() - t0)
+    if rep.left_group:
+        return out
+    me = distributed.rank()
+    out.update(world=distributed.world_size(), new_rank=me,
+               mesh=dict(ff.strategy.mesh_axes),
+               capture_mode=ff.executor.capture_status["mode"])
+    weights = ff.get_weights()
+    if me == 0:
+        _save_flat(f"{out_dir}/elastic_weights.npz", weights)
+    out["launches_per_step"] = _leg_profile(torch, ff, x[:b], y[:b])
+    del ff, sup, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref = _multigpu_bert("cuda", "adam", data_parallel_strategy(2))
+    restored = ELASTIC_LOSS_STEP // ELASTIC_EVERY * ELASTIC_EVERY
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = LocalCheckpointManager(job["ckpt"]).restore(ref, step=restored)
+    torch.cuda.synchronize()
+    out["reference"] = {
+        "restored_step": got, "restore_s": time.perf_counter() - t0,
+        "losses": [float(ref.train_step({"input": x[s * b:(s + 1) * b]},
+                                        y[s * b:(s + 1) * b])["loss"])
+                   for s in range(got, ELASTIC_STEPS)]}
+    weights = ref.get_weights()
+    if me == 0:
+        _save_flat(f"{out_dir}/reference_weights.npz", weights)
+    return out
+
+
+def _barrier_body(torch, rank, job, out_dir) -> dict:
+    """The preempt_barrier leg on this rank: BERT-base data 4 under SGD
+    through the supervisor with the remote tier at job["remote"];
+    SIGTERM raised in this process during step BARRIER_SIGNAL_STEP
+    (ranks 0-2) or the step after (rank 3); the report, the step saved
+    on disk and in the remote tier, K1-K3 per step."""
+    import signal
+
+    from flexflow_tpu_torch.resilience import (CheckpointOffloader,
+                                               FaultPlan,
+                                               RemoteCheckpointStore,
+                                               TrainingSupervisor)
+    from flexflow_tpu_torch.store.blobstore import LocalBlobStore
+    from flexflow_tpu_torch.strategy import data_parallel_strategy
+
+    b = TRAIN_BATCH
+    x, y = bert_data(b * BARRIER_STEPS, seed=SUPERVISED_SEED)
+    ff = _multigpu_bert("cuda", "sgd", data_parallel_strategy(4))
+    remote = RemoteCheckpointStore(LocalBlobStore(job["remote"]))
+    plan = FaultPlan()
+    check, at = plan.check_step, BARRIER_SIGNAL_STEP + (rank == 3)
+
+    def signalled(step):
+        if step == at:
+            signal.raise_signal(signal.SIGTERM)
+        check(step)
+
+    plan.check_step = signalled
+    sup = TrainingSupervisor(ff, job["ckpt_barrier"], checkpoint_every=0,
+                             fault_plan=plan, run_id="preempt_barrier",
+                             offloader=CheckpointOffloader(remote))
+    t0 = time.perf_counter()
+    rep = sup.run({"input": x}, y, num_steps=BARRIER_STEPS, batch_size=b)
+    # rank 0 drained its uploads before it left run()
+    torch.distributed.barrier()
+    out = dict(_sup_report(rep), wall_s=time.perf_counter() - t0,
+               signalled_at=at, saved=sup.manager.latest_verified_step(),
+               remote_saved=remote.latest_verified_step())
+    out["launches_per_step"] = _leg_profile(torch, ff, x[:b], y[:b])
+    return out
+
+
+def _elastic_record(ranks, out_dir) -> dict:
+    """The elastic leg's record: ranks 2-3 left at the loss; ranks 0-1
+    re-formed a group of 2 on data 2 and restored step 2; their losses
+    after the loss and their weights against the 2-card run's
+    (MULTIGPU_TOL's loss and adam_weights)."""
+    faults = []
+    left, stayed = ranks[ELASTIC_SURVIVORS:], ranks[:ELASTIC_SURVIVORS]
+    for i, r in enumerate(left, ELASTIC_SURVIVORS):
+        if not r["left_group"] or r["final_step"] != ELASTIC_LOSS_STEP:
+            faults.append(f"elastic: rank {i} did not leave at the loss: "
+                          f"{r}")
+    restored = ELASTIC_LOSS_STEP // ELASTIC_EVERY * ELASTIC_EVERY
+    ref = stayed[0]["reference"]
+    w_err, worst = _weights_diff(
+        _load_flat(f"{out_dir}/elastic_weights.npz"),
+        _load_flat(f"{out_dir}/reference_weights.npz"))
+    losses = {}
+    for i, r in enumerate(stayed):
+        rec = next((e for e in r["recoveries"]
+                    if e["kind"] == "device_loss"), None)
+        after = r["losses"][restored:]
+        losses[i] = (_loss_err(after, ref["losses"])
+                     if len(after) == len(ref["losses"]) else float("inf"))
+        if (r["left_group"] or r["world"] != ELASTIC_SURVIVORS
+                or r["new_rank"] != i
+                or r["mesh"] != {"data": ELASTIC_SURVIVORS}
+                or r["final_step"] != ELASTIC_STEPS or rec is None
+                or rec.get("restored_step") != restored
+                or losses[i] > MULTIGPU_TOL["loss"]):
+            faults.append(f"elastic: survivor {i}: {r}; losses after the "
+                          f"loss {after} against {ref['losses']}")
+        if any(r["launches_per_step"][k] != BERT["num_layers"]
+               for k in FLASH_IDS):
+            faults.append(f"elastic: survivor {i} launched "
+                          f"{r['launches_per_step']} per step")
+    if ref["restored_step"] != restored or w_err > MULTIGPU_TOL[
+            "adam_weights"]:
+        faults.append(f"elastic: weights {w_err} apart ({worst}) from the "
+                      f"2-card run restored from step {ref['restored_step']}")
+    r0 = stayed[0]
+    loss = [next(e for e in r["recoveries"] if e["kind"] == "device_loss")
+            for r in stayed]
+    return {
+        "survivors": ELASTIC_SURVIVORS, "loss_step": ELASTIC_LOSS_STEP,
+        "checkpoint_every": ELASTIC_EVERY, "steps": ELASTIC_STEPS,
+        "optimizer": "adam", "mesh_after": r0["mesh"],
+        "capture_mode_after": r0["capture_mode"],
+        "losses": r0["losses"], "reference_losses": ref["losses"],
+        "max_loss_err_over_scale": max(losses.values()),
+        "restored_step": loss[0].get("restored_step"),
+        "reform_s": [e.get("reform_s") for e in loss],
+        "recompile_s": [e.get("recompile_s") for e in loss],
+        "restore_s": [e.get("restore_s") for e in loss],
+        "recovery_s": [e.get("total_s") for e in loss],
+        "reference_restore_s": ref["restore_s"],
+        "max_weight_diff": w_err, "worst_weight": worst,
+        "weight_tolerance": MULTIGPU_TOL["adam_weights"],
+        "loss_tolerance": MULTIGPU_TOL["loss"],
+        "counters": r0["counters"], "wall_s": [r["wall_s"] for r in ranks],
+        "launches_per_rank_per_step": [r["launches_per_step"]
+                                       for r in stayed],
+        "left": list(range(ELASTIC_SURVIVORS, len(ranks))),
+        "faults": faults}
+
+
+def _barrier_record(ranks, out_dir) -> dict:
+    """The preempt_barrier leg's record: every rank agreed on the largest
+    posted step (ranks 0-2 post BARRIER_SIGNAL_STEP + 1, rank 3 the step
+    after) through the blob-store barrier and saved that one step, on
+    disk and in the remote tier."""
+    want = BARRIER_SIGNAL_STEP + 2
+    faults = [f"preempt_barrier: rank {i}: {r}" for i, r in enumerate(ranks)
+              if r["preempted"] != "SIGTERM" or r["agreed_step"] != want
+              or r["final_step"] != want or r["saved"] != want
+              or r["remote_saved"] != want
+              or r["counters"]["emergency_saves"] != 1]
+    return {"signalled_at": [r["signalled_at"] for r in ranks],
+            "agreed_step": [r["agreed_step"] for r in ranks],
+            "saved_step": [r["saved"] for r in ranks],
+            "remote_saved_step": [r["remote_saved"] for r in ranks],
+            "want_step": want, "wall_s": [r["wall_s"] for r in ranks],
+            "launches_per_rank_per_step": [r["launches_per_step"]
+                                           for r in ranks],
+            "faults": faults}
+
+
 def _leg_capture_check(torch, dist, leg, job, data, rank) -> dict:
     """The leg's BERT in its group eager and captured (NCCL), from the
     same weights and batches: CAPTURE_STEPS train steps (losses; the
@@ -6218,7 +6931,9 @@ def hier_flat_diff(hier: dict, flat: dict) -> dict:
 
 
 def _multigpu_rank(rank, world, cards, backend, port, job, out_dir):
-    """A spawned rank: its card, the group, then every leg of the job."""
+    """A spawned rank: its card, the group, then every leg of the job,
+    and last the supervised legs' bodies of job["supervised"] (the
+    barrier leg's before the elastic one's, which leaves a group of 2)."""
     import traceback
 
     import torch
@@ -6236,13 +6951,18 @@ def _multigpu_rank(rank, world, cards, backend, port, job, out_dir):
                                backend=backend)
         out["legs"] = [_multigpu_leg(torch, dist, leg, job, rank)
                        for leg in job["legs"]]
+        bodies = {"barrier": _barrier_body, "elastic": _elastic_body}
+        for name in job.get("supervised", ()):
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[name] = bodies[name](torch, rank, job, out_dir)
         out["ok"] = True
     except Exception:  # reported to the parent, which fails the phase
         out["ok"] = False
         out["error"] = traceback.format_exc()
     with open(f"{out_dir}/rank{rank}.json", "w") as f:
         json.dump(out, f)
-    if out["ok"]:
+    if out["ok"] and dist.is_initialized():
         dist.destroy_process_group()
 
 
@@ -6544,6 +7264,8 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
     the legs (and the searches only those legs need run)."""
     chosen = [leg for leg in MULTIGPU_LEGS
               if names is None or leg["name"] in names]
+    supervised = [leg for leg in chosen if leg.get("supervised")]
+    chosen = [leg for leg in chosen if not leg.get("supervised")]
     kinds = {leg["strategy"][0] for leg in chosen}
     cards = torch.cuda.device_count()
     tmp = tempfile.mkdtemp(prefix="ff_multigpu_")
@@ -6575,16 +7297,33 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
         for name in sorted({leg["reference"] for leg in chosen}):
             refs[name], job["data"][name], job["data"][name + "_after"] = \
                 _one_card_reference(torch, name, tmp)
+        # the supervised legs run last in the group of 4 (the barrier
+        # leg first: the elastic one leaves a group of 2), and in no
+        # other group the job is handed to
+        bodies = [name for name in ("barrier", "elastic")
+                  if any(leg["supervised"] == name for leg in supervised)]
+        job.update(ckpt=f"{tmp}/elastic_ckpt",
+                   ckpt_barrier=f"{tmp}/barrier_ckpt",
+                   remote=f"{tmp}/barrier_remote")
         legs = []
-        for world in sorted({leg["ranks"] for leg in chosen}):
+        for world in sorted({leg["ranks"] for leg in chosen}
+                            | ({4} if supervised else set())):
             group = [leg for leg in chosen if leg["ranks"] == world]
             out_dir = tempfile.mkdtemp(dir=tmp)
-            backend, wall, outs = _run_ranks(world, cards,
-                                             dict(job, legs=group), out_dir)
+            backend, wall, outs = _run_ranks(
+                world, cards, dict(job, legs=group, supervised=(
+                    bodies if world == 4 else [])), out_dir)
             for i, leg in enumerate(group):
                 legs.append(_multigpu_record(leg, [o["legs"][i] for o in outs],
                                              refs[leg["reference"]], backend,
                                              cards, wall, run_dir, job))
+            for leg in (supervised if world == 4 else ()):
+                record = (_elastic_record if leg["supervised"] == "elastic"
+                          else _barrier_record)
+                rec = record([o[leg["supervised"]] for o in outs], out_dir)
+                rec.update(leg=leg["name"], ranks=4, cards=cards,
+                           backend=backend, group_wall_s=wall)
+                legs.append(rec)
         for rec in legs:
             if rec["leg"] == "ckpt_reshard":
                 reshard = _ckpt_reshard(torch, job, refs["bert_adam"], cards,
@@ -6981,7 +7720,7 @@ def _moe_checks(name, ranks, ref, strategy, faults) -> dict:
 
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                 onnx=None, search=None, multigpu=None, capture=None,
-                store=None, resilience=None) -> dict:
+                store=None, resilience=None, supervised=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
     main paths (what the wrappers counted: under a captured step, the
     warm-up and the capturing step; the capture phase's profiler counts
@@ -7087,6 +7826,15 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                 {"off": resilience["off"]["launches_per_replayed_step"][kid],
                  "on": resilience["on"]["launches_per_window_step"][kid]}
                 if resilience else None),
+            # the supervised phase's faulted fit_resilient: what the
+            # wrappers counted (each warm-up and capture, the recompiled
+            # step's too), and a replayed step's launches (profiler)
+            "launches_supervised": (
+                supervised["faulted"]["launches"][kid]
+                if supervised else None),
+            "launches_per_replayed_step_supervised": (
+                supervised["faulted"]["launches_per_replayed_step"][kid]
+                if supervised else None),
             "max_abs_err": max(w[0] for w in worst.values()),
             "max_err_over_scale_by_dtype": {
                 dt: w[1] for dt, w in worst.items()},
@@ -7168,13 +7916,22 @@ def main(argv=None) -> int:
           "note": "one nvcc per source, started together"})
     dev = torch.device("cuda")
     kern = flash = serve = train = bn = resnet = paged = onnx = None
-    search = store = multigpu = capture = resilience = None
+    search = store = multigpu = capture = resilience = supervised = None
     # what one phase leaves for another: the searched strategy and the
     # op costs the search timed (the multigpu phase trains and prices it)
     run_dir = tempfile.mkdtemp(prefix="ff_smoke_")
+    # seconds per phase group (a group that did not run takes ~0)
+    walls, last = {"build": build_s}, [time.perf_counter()]
+
+    def _lap() -> float:
+        now = time.perf_counter()
+        dt, last[0] = now - last[0], now
+        return dt
+
     if "kernels" in phases:
         kern = phase_kernels(torch, pk, card, dev, paged_lib, build_s)
         flash = phase_flash_kernels(torch, fa, card, dev, flash_lib)
+    walls["kernels"] = _lap()
     if phases & {"serve", "parity", "profile"}:
         ff, weights = build_model("cuda")
         if "serve" in phases:
@@ -7185,39 +7942,48 @@ def main(argv=None) -> int:
         if "profile" in phases:
             paged = phase_profile(torch, card, ff)
         del ff
+    walls["serve"] = _lap()
     if phases & {"train", "train_profile"}:
         ff, xb, yb, train = phase_train(torch, fa, card)
         if "train_profile" in phases:
             phase_train_profile(torch, fa, card, ff, xb, yb)
         del ff
         torch.cuda.empty_cache()
+    walls["train"] = _lap()
     if "train_parity" in phases:
         phase_train_parity(torch, fa, card)
+    walls["train_parity"] = _lap()
     if "bn_kernels" in phases:
         bn = phase_bn_kernels(torch, bk, card, dev)
         torch.cuda.empty_cache()
+    walls["bn_kernels"] = _lap()
     if phases & {"resnet", "resnet_profile"}:
         ff, xb, yb, resnet = phase_resnet(torch, bk, card)
         if "resnet_profile" in phases:
             phase_resnet_profile(torch, card, ff, xb, yb)
         del ff
         torch.cuda.empty_cache()
+    walls["resnet"] = _lap()
     if "resnet_parity" in phases:
         phase_resnet_parity(torch, bk, card)
+    walls["resnet_parity"] = _lap()
     if phases & {"vit", "vit_profile"}:
         ff, xb, yb, _ = phase_vit(torch, pk, fa, bk, card)
         if "vit_profile" in phases:
             phase_vit_profile(torch, card, ff, xb, yb)
         del ff
         torch.cuda.empty_cache()
+    walls["vit"] = _lap()
     if "vit_parity" in phases:
         phase_vit_parity(torch, card)
+    walls["vit_parity"] = _lap()
     if "zoo" in phases:
         phase_zoo(torch, pk, fa, bk, card)
     if "zoo_parity" in phases:
         phase_zoo_parity(torch, card)
     if "zoo_profile" in phases:
         phase_zoo_profile(torch, card)
+    walls["zoo"] = _lap()
     if "nmt" in phases:
         phase_nmt(torch, pk, fa, bk, card)
     if "generate" in phases:
@@ -7228,26 +7994,40 @@ def main(argv=None) -> int:
         onnx = phase_onnx(torch, pk, fa, bk, card)
     if "seq_parity" in phases:
         phase_seq_parity(torch, card)
+    walls["sequence"] = _lap()
     if "capture" in phases:
         capture = phase_capture(torch, pk, fa, bk, card)
+    walls["capture"] = _lap()
     if "fusion" in phases:
         phase_fusion(torch, fa, card)
+    walls["fusion"] = _lap()
     if "search" in phases:
         search = phase_search(torch, fa, card, run_dir)
+    walls["search"] = _lap()
     if "store" in phases:
         store = phase_store(torch, fa, card, search)
         torch.cuda.empty_cache()
+    walls["store"] = _lap()
     if "resilience" in phases:
         resilience = phase_resilience(torch, fa, card)
         torch.cuda.empty_cache()
+    walls["resilience"] = _lap()
+    if "supervised" in phases:
+        supervised = phase_supervised(torch, fa, card)
+        torch.cuda.empty_cache()
+    walls["supervised"] = _lap()
     if "multigpu" in phases:
         multigpu = phase_multigpu(
             torch, fa, card, run_dir,
             None if args.legs is None else set(args.legs.split(",")))
+        walls["multigpu"] = _lap()
     shutil.rmtree(run_dir, ignore_errors=True)
+    emit({"phase_walls_s": {k: v for k, v in walls.items() if v >= 0.05},
+          "total_s": time.perf_counter() - t0})
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,
-                         search, multigpu, capture, store, resilience))
+                         search, multigpu, capture, store, resilience,
+                         supervised))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

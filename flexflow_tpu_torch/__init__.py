@@ -8,7 +8,8 @@ the flash kernels of csrc/flash_attention.cu at long sequences) and
 serves a GPT through the continuous paged-KV engine, whose read side
 runs on csrc/paged_attention.cu; both are CUDA C++ written by hand for
 sm_90a.  A run records its telemetry (obs/) and checkpoints its full
-train state (checkpoint.py, resilience/).  Entry points run on "cuda"
+train state (checkpoint.py, resilience/), and trains under the
+resilience supervisor (FFModel.fit_resilient).  Entry points run on "cuda"
 unless the caller passes device="cpu".
 """
 from .config import FFConfig
@@ -20,14 +21,15 @@ from .metrics import Metrics, PerfMetrics
 from .model import FFModel
 from .obs import MetricsRegistry, RunTelemetry
 from .optimizer import AdamOptimizer, SGDOptimizer
+from .recompile import RecompileState
 from .resilience import (FaultKind, FaultPlan, HungStepFault, RetryPolicy,
-                         StepWatchdog)
+                         StepWatchdog, TrainingSupervisor)
 from .tensor import ParallelDim, ParallelTensor, ParallelTensorShape, Tensor
 
 __all__ = ["FFConfig", "FFModel", "ActiMode", "AggrMode", "AdamOptimizer",
            "CompMode", "DataType", "FaultKind", "FaultPlan", "HungStepFault",
            "Loss", "LossType", "Metrics", "MetricsRegistry", "MetricsType",
            "OperatorType", "ParallelDim", "ParallelTensor",
-           "ParallelTensorShape", "PerfMetrics", "RetryPolicy",
-           "RunTelemetry", "SGDOptimizer", "SingleDataLoader",
-           "StepWatchdog", "Tensor"]
+           "ParallelTensorShape", "PerfMetrics", "RecompileState",
+           "RetryPolicy", "RunTelemetry", "SGDOptimizer", "SingleDataLoader",
+           "StepWatchdog", "Tensor", "TrainingSupervisor"]

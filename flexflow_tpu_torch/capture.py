@@ -102,6 +102,12 @@ def capture_blockers(executor) -> List[str]:
                 out.append(f"expert-parallel exchange ({op.name}): its "
                            "split sizes are read on the host "
                            "(parallel/expert_parallel.py route)")
+    caches = [op.name for op in executor.order
+              if op.op_type == OperatorType.CACHE]
+    if caches:
+        out.append(f"the expert-activation cache ({', '.join(caches)}): "
+                   "each step hands its input batch to the host "
+                   "(FFModel.cache)")
     plan = executor.pipeline_plan
     if plan is not None:
         from .executor import _draws

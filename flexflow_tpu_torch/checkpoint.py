@@ -46,9 +46,18 @@ reference's `_verify_dir` checks a port step directory.  The optimizer
 slots and the generator are the port's own: the slots hold what the
 port's optimizer keeps (optimizer.py), and `['rng']` is the torch
 generator's state (`Generator.get_state()`, uint8), where the
-reference keeps a jax key.  The offload tier and its `offloader` and
-`remote` arguments are not ported yet (ROADMAP §1 item 7.6): they
-raise NotImplementedError.
+reference keeps a jax key.
+
+  * **The remote tier** (resilience/offload.py): with an `offloader`,
+    rank 0 hands every published step to it, which mirrors the step's
+    files to an object store off the step path (a DCP step's leaves as
+    one state.npz); `offload_step` mirrors one step whatever the
+    cadence (the emergency save).  With a `remote` (the offloader's by
+    default) restore walks every step of both tiers newest first: the
+    local step, else the same step's verified mirror, downloaded,
+    checked, written into the directory in the manager's own format and
+    loaded from there, else the next older step; an empty directory on
+    a new host restores from the mirror alone.
 
 `save_weights_npz` and `load_weights_npz` are the weights-only npz
 files, one key `op/weight` per trainable weight in the reference's
@@ -57,6 +66,7 @@ layout: a file written by either package loads into the other.
 from __future__ import annotations
 
 import contextlib
+import io
 import itertools
 import json
 import logging
@@ -80,8 +90,6 @@ _log = logging.getLogger("flexflow_tpu_torch.checkpoint")
 
 MANIFEST_VERSION = 1
 _LATEST_FILE = "LATEST"
-_REMOTE_TIER = ("the remote checkpoint tier (offloader, remote) is not "
-                "ported yet (ROADMAP §1 item 7.6)")
 
 
 class CheckpointVerifyError(RuntimeError):
@@ -501,9 +509,31 @@ def _verify_adapt_load(ff, arrays: Dict[str, np.ndarray],
     _copy_into(ff, arrays)
 
 
-def _refuse_remote(offloader, remote) -> None:
-    if offloader is not None or remote is not None:
-        raise NotImplementedError(_REMOTE_TIER)
+def state_arrays(ff) -> Dict[str, np.ndarray]:
+    """The full train state as global numpy arrays keyed as a
+    checkpoint's leaves, on every rank of a group (each sharded leaf
+    gathered: every rank must call).  FFModel.recompile carries the state
+    across a compile with it."""
+    from .parallel.collectives import gather_global
+
+    mesh = ff.executor.mesh
+    out = {}
+    with torch.no_grad():
+        for key, t, layout, _ in _state_leaves(ff):
+            g = t.detach()
+            if layout is not None:
+                g = gather_global(g, layout, mesh)
+            _np_dtype(g.dtype)  # refuse a dtype numpy cannot hold
+            out[key] = g.to("cpu", copy=True).numpy()
+    out[_key("rng")] = ff._generator.get_state().clone().numpy()
+    return out
+
+
+def load_state_arrays(ff, arrays: Dict[str, np.ndarray]) -> None:
+    """`state_arrays`' output written into a compiled model in place:
+    per-op and `__pipeline__` layouts mapped, each leaf checked against
+    the model's and sliced to this rank's shard."""
+    _verify_adapt_load(ff, arrays, None, None, -1)
 
 
 # -- the managers ----------------------------------------------------------
@@ -539,7 +569,6 @@ class LocalCheckpointManager:
 
     def __init__(self, directory: str, max_to_keep: int = 3,
                  offloader=None, remote=None):
-        _refuse_remote(offloader, remote)
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         self.directory = os.path.abspath(directory)
@@ -555,6 +584,11 @@ class LocalCheckpointManager:
         self._writer = None  # made by the first wait=False save
         self._tmp_ids = itertools.count()
         self._pinned = _PinnedPool()
+        # the second tier (resilience/offload.py): the offloader mirrors
+        # each published step; `remote` alone serves restores
+        self.offloader = offloader
+        self.remote = remote if remote is not None else (
+            offloader.remote if offloader is not None else None)
 
     # -- the leaves' file format ------------------------------------------
     @classmethod
@@ -592,7 +626,9 @@ class LocalCheckpointManager:
         return step
 
     def any_restorable(self) -> bool:
-        return self.latest_step() is not None
+        """Whether either tier holds a step (a new host with an empty
+        directory resumes from the remote mirror)."""
+        return self.latest_step() is not None or bool(self._remote_steps())
 
     # -- save -----------------------------------------------------------
     def _writer_obj(self):
@@ -692,6 +728,46 @@ class LocalCheckpointManager:
         if registry is not None:
             registry.histogram("resilience/ckpt_write_latency_s").observe(
                 time.perf_counter() - t0)
+        self._offload_published(step)
+
+    @classmethod
+    def _mirror_files(cls, step_dir: str) -> Dict[str, bytes]:
+        """A published step's files as the remote tier keeps them:
+        state.npz (a DCP step's leaves written as one), meta.json and
+        manifest.json."""
+        files = {}
+        for name in ("meta.json", "manifest.json"):
+            with open(os.path.join(step_dir, name), "rb") as f:
+                files[name] = f.read()
+        if cls.STATE == "state.npz":
+            with open(os.path.join(step_dir, cls.STATE), "rb") as f:
+                files["state.npz"] = f.read()
+        else:
+            buf = io.BytesIO()
+            with cls._open_leaves(step_dir) as data:
+                np.savez(buf, **data)
+            files["state.npz"] = buf.getvalue()
+        return files
+
+    def _offload_published(self, step: int, force: bool = False) -> bool:
+        """Hand one published step to the offload tier, its files read
+        back from the step directory (what the write's verification
+        passed).  Never raises into the publish: the local tier stays
+        whole when the mirror is broken."""
+        if self.offloader is None or not _is_writer():
+            return False
+        try:
+            files = self._mirror_files(self._path(step))
+        except (OSError, RuntimeError) as e:  # pruned or torn meanwhile
+            _log.warning("offload of step %d skipped: its files are "
+                         "unreadable (%s)", step, e)
+            return False
+        return self.offloader.maybe_submit(step, files, force=force)
+
+    def offload_step(self, step: int) -> bool:
+        """Mirror one published step whatever the cadence (the
+        supervisor's emergency save)."""
+        return self._offload_published(step, force=True)
 
     @classmethod
     def _verify_dir(cls, path: str, manifest: Optional[Dict] = None) -> Dict:
@@ -741,21 +817,110 @@ class LocalCheckpointManager:
                 shutil.rmtree(self._path(s), ignore_errors=True)
 
     # -- restore ---------------------------------------------------------
+    def _remote_steps(self) -> List[int]:
+        """The steps the remote tier lists; none without one, or when it
+        cannot be listed (restore then reads the local tier alone)."""
+        if self.remote is None:
+            return []
+        try:
+            return self.remote.list_steps()
+        except Exception as e:  # noqa: BLE001 - any store failure
+            _log.warning("remote checkpoint tier unlistable (%s); restoring "
+                         "from the local tier only", e)
+            return []
+
+    def _materialize_remote(self, step: int) -> None:
+        """Download one mirrored step, write it into a staging directory
+        in this manager's format, check every leaf against its manifest,
+        and publish it as a local step (a corrupt local copy gives way to
+        it).  A torn or corrupt mirror never lands."""
+        files = self.remote.download_step(step)
+        tmp = os.path.join(self.directory, f".tmp-remote-{step}-"
+                           f"{os.getpid()}-{next(self._tmp_ids)}")
+        os.makedirs(tmp)
+        try:
+            if self.STATE == "state.npz":
+                with open(os.path.join(tmp, self.STATE), "wb") as f:
+                    f.write(files["state.npz"])
+                    f.flush()
+                    os.fsync(f.fileno())
+            else:
+                with np.load(io.BytesIO(files["state.npz"])) as data:
+                    self._write_leaves(tmp, {k: data[k] for k in data.files})
+            for name in ("meta.json", "manifest.json"):
+                json.loads(files[name])  # must parse before it publishes
+                with open(os.path.join(tmp, name), "wb") as f:
+                    f.write(files[name])
+                    f.flush()
+                    os.fsync(f.fileno())
+            self._verify_dir(tmp)
+            final = self._path(step)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            _fsync_dir(self.directory)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        self._latest.advance(step)
+
+    def _restore_remote_step(self, ff, step: int) -> None:
+        """Load a step from its remote mirror: rank 0 materializes it
+        into the directory, every rank then loads it from there."""
+        ok, err = True, None
+        if _is_writer():
+            try:
+                self._materialize_remote(step)
+            except Exception as e:  # noqa: BLE001 - raised below
+                ok, err = False, e
+        if not _agree(ok):
+            raise err or RuntimeError(
+                f"checkpoint step {step}: rank 0 could not fetch its remote "
+                "mirror")
+        self._load_step(ff, step)
+        registry = registry_of(ff)
+        if registry is not None:
+            registry.counter("resilience/offload_remote_restores").inc()
+        _log.info("step %d restored from the remote tier into %s", step,
+                  self.directory)
+
     def restore(self, ff, step: Optional[int] = None) -> int:
         """Load a step into a compiled model, in place (see the module's
-        note); returns it.  With step=None the newest step that restores,
-        falling back past corrupt, partial or incompatible ones (and
-        LATEST is pointed at the step that restored); a step asked for by
-        number is strict."""
+        note); returns it.  With step=None the newest step of either tier
+        that restores: each step from the directory, else from its remote
+        mirror, falling back past corrupt, partial or incompatible ones
+        (and LATEST is pointed at the step that restored); a step asked
+        for by number is strict (its mirror still serves it when the
+        directory cannot)."""
         strict = step is not None
-        candidates = [step] if strict else sorted(self.all_steps(),
-                                                  reverse=True)
+        local_steps = set(self.all_steps())
+        remote_steps = set(self._remote_steps())
+        if self.remote is not None:
+            # every rank has listed before rank 0 materializes a step
+            _agree(True)
+        candidates = ([step] if strict
+                      else sorted(local_steps | remote_steps, reverse=True))
         if not candidates:
-            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+            where = f"no checkpoints in {self.directory}"
+            if self.remote is not None:
+                where += " (remote tier empty too)"
+            raise FileNotFoundError(where)
         last_err: Optional[Exception] = None
         for s in candidates:
             try:
-                self._load_step(ff, s)
+                if s in local_steps or (strict and s not in remote_steps):
+                    try:
+                        self._load_step(ff, s)
+                    except CheckpointCompatibilityError:
+                        raise  # the mirror holds the same leaves
+                    except Exception as e:  # noqa: BLE001 - try the mirror
+                        if s not in remote_steps:
+                            raise
+                        _log.warning("local step %d unrestorable (%s); "
+                                     "trying its remote mirror", s, e)
+                        self._restore_remote_step(ff, s)
+                else:
+                    self._restore_remote_step(ff, s)
             except Exception as e:  # noqa: BLE001 - fall back, see above
                 if strict:
                     raise

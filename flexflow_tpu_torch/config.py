@@ -8,7 +8,11 @@ the continuous engine, the strategy search, simulator and strategy-file
 fields, the multi-slice hierarchy (`slices` and the DCN fields of
 topology/hierarchy.py), the fusion pass (`perform_fusion`,
 `--fusion`), the strategy store (`strategy_store`,
-`compilation_cache`, `remote_store`: store/), and `device`, which the
+`compilation_cache`, `remote_store`: store/, which the checkpoints'
+offload tier shares), the resilience supervisor's fields (checkpoint
+retention, async saves, `step_timeout`, `preempt_grace`, the restart
+budget, `nan_policy`, the offload cadence, `barrier_timeout`), and
+`device`, which the
 reference does not have.  The field and flag names and defaults are
 the reference's own, except `memory_per_device`, which is one H100's
 80 GB, and `dcn_bandwidth` and `dcn_latency`, the InfiniBand NDR
@@ -33,6 +37,11 @@ DEFAULT_FLASH_MIN_SEQ = 2048
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 SEARCH_ALGOS = ("unity", "mcmc")
+
+# FFConfig.nan_policy's values, the reference's: the supervisor's
+# reaction to a non-finite loss (resilience/supervisor.py); "off" reads
+# no loss for the check (check_step_health returns at once)
+NAN_POLICIES = ("raise", "skip_step", "restore", "off")
 
 
 @dataclasses.dataclass
@@ -105,8 +114,9 @@ class FFConfig:
     # the built CUDA kernel libraries' directory: a path, or "auto" =
     # <strategy store root>/kernel_cache.  None = the package's _build/.
     compilation_cache: Optional[str] = None
-    # the store's fleet mirror on an object store: file:///path or a
-    # bare path (gs:// and s3:// need their SDKs).  None/"none" = off.
+    # the object store of the strategy store's fleet mirror and of the
+    # checkpoints' offload tier: file:///path or a bare path (gs:// and
+    # s3:// need their SDKs).  None/"none" = off.
     remote_store: Optional[str] = None
 
     # -- simulator / machine model (reference: --machine-model-version,
@@ -142,13 +152,32 @@ class FFConfig:
     # into their linear/conv2d producers at compile
     perform_fusion: bool = False
 
-    # -- resilience: the checkpoint cadence and directory
-    #    (checkpoint.ModelCheckpoint reads them).  The reference's
-    #    step_timeout and nan_policy wait for the supervisor that reads
-    #    them (ROADMAP §1 item 7.7): until then the watchdog's deadline
-    #    and the policy are check_step_health's own arguments
+    # -- resilience (resilience/supervisor.py, checkpoint.py): the
+    #    checkpoint cadence, directory and retention, async saves, the
+    #    hung-step deadline, the preemption grace, the restart budget
+    #    and its backoff, and the non-finite-loss policy
     checkpoint_every: int = 0  # steps between periodic checkpoints; 0 = off
     checkpoint_dir: Optional[str] = None
+    checkpoint_keep: int = 3   # keep-last-k retention
+    # the step boundary waits only for the copy to the host; the write,
+    # verify and publish run on a background writer
+    checkpoint_async: bool = False
+    # seconds the step's loss read may take (resilience/watchdog.py);
+    # 0 = no watchdog
+    step_timeout: float = 0.0
+    # SIGTERM/SIGINT: an emergency checkpoint at the next step boundary
+    preempt_grace: bool = True
+    max_restarts: int = 3      # restore-and-retry budget per run
+    retry_backoff: float = 0.1  # base backoff seconds (exponential, jittered)
+    nan_policy: str = "raise"  # raise | skip_step | restore | off
+    # the checkpoints' second tier (resilience/offload.py) mirrors every
+    # offload_every-th verified step to remote_store (above), keeping
+    # remote_keep steps there
+    offload_every: int = 1
+    remote_keep: int = 3
+    # how long a preempted rank waits for the others' posts before it
+    # commits the best agreement so far (distributed.preemption_barrier)
+    barrier_timeout: float = 30.0
 
     # -- observability (obs/): trace_dir turns the telemetry on and names
     #    where trace.json and run_telemetry.jsonl land; telemetry=True
@@ -227,9 +256,33 @@ class FFConfig:
             raise ValueError(
                 "compilation_cache must be a directory path or 'auto' "
                 "(None disables it)")
+        if self.nan_policy not in NAN_POLICIES:
+            raise ValueError(f"nan_policy must be one of {NAN_POLICIES}, "
+                             f"got {self.nan_policy!r}")
         if self.checkpoint_every < 0:
             raise ValueError(f"checkpoint_every must be >= 0, got "
                              f"{self.checkpoint_every}")
+        if self.checkpoint_keep < 1:
+            raise ValueError(f"checkpoint_keep must be >= 1, got "
+                             f"{self.checkpoint_keep}")
+        if self.max_restarts < 0:
+            raise ValueError(f"max_restarts must be >= 0, got "
+                             f"{self.max_restarts}")
+        if self.retry_backoff < 0:
+            raise ValueError(f"retry_backoff must be >= 0, got "
+                             f"{self.retry_backoff}")
+        if self.step_timeout < 0:
+            raise ValueError(f"step_timeout must be >= 0 (0 = watchdog "
+                             f"off), got {self.step_timeout}")
+        if self.offload_every < 1:
+            raise ValueError(f"offload_every must be >= 1, got "
+                             f"{self.offload_every}")
+        if self.remote_keep < 1:
+            raise ValueError(f"remote_keep must be >= 1, got "
+                             f"{self.remote_keep}")
+        if self.barrier_timeout <= 0:
+            raise ValueError(f"barrier_timeout must be > 0, got "
+                             f"{self.barrier_timeout}")
         if self.profile_steps is not None:
             from .obs import parse_profile_steps
 
@@ -360,6 +413,26 @@ class FFConfig:
                        type=int, default=0)
         p.add_argument("--checkpoint-dir", dest="checkpoint_dir", type=str,
                        default=None)
+        p.add_argument("--checkpoint-keep", dest="checkpoint_keep", type=int,
+                       default=3)
+        p.add_argument("--checkpoint-async", dest="checkpoint_async",
+                       action="store_true")
+        p.add_argument("--step-timeout", dest="step_timeout", type=float,
+                       default=0.0)
+        p.add_argument("--no-preempt-grace", dest="preempt_grace",
+                       action="store_false", default=True)
+        p.add_argument("--max-restarts", dest="max_restarts", type=int,
+                       default=3)
+        p.add_argument("--retry-backoff", dest="retry_backoff", type=float,
+                       default=0.1)
+        p.add_argument("--nan-policy", dest="nan_policy", type=str,
+                       default="raise", choices=NAN_POLICIES)
+        p.add_argument("--offload-every", dest="offload_every", type=int,
+                       default=1)
+        p.add_argument("--remote-keep", dest="remote_keep", type=int,
+                       default=3)
+        p.add_argument("--barrier-timeout", dest="barrier_timeout",
+                       type=float, default=30.0)
         p.add_argument("--trace-dir", dest="trace_dir", type=str,
                        default=None)
         p.add_argument("--telemetry", dest="telemetry", action="store_true")
@@ -418,6 +491,16 @@ class FFConfig:
             parameter_sync=ParameterSyncType(args.parameter_sync),
             checkpoint_every=args.checkpoint_every,
             checkpoint_dir=args.checkpoint_dir,
+            checkpoint_keep=args.checkpoint_keep,
+            checkpoint_async=args.checkpoint_async,
+            step_timeout=args.step_timeout,
+            preempt_grace=args.preempt_grace,
+            max_restarts=args.max_restarts,
+            retry_backoff=args.retry_backoff,
+            nan_policy=args.nan_policy,
+            offload_every=args.offload_every,
+            remote_keep=args.remote_keep,
+            barrier_timeout=args.barrier_timeout,
             trace_dir=args.trace_dir,
             telemetry=args.telemetry,
             profile_steps=args.profile_steps,

@@ -4,17 +4,23 @@ rows of the global batch.
 
 Every rank runs the same script.  `initialize` resolves the group the
 way the reference does, then calls `torch.distributed.init_process_group`
-and selects this rank's card.  The preemption barrier waits for the
-store layer (ROADMAP §1.E).
+and selects this rank's card.  `reform_group` leaves the group and joins
+the survivors of a device loss into a smaller one (the supervisor's
+elastic path), and `preemption_barrier` agrees on one emergency step
+through the blob store (topology/rendezvous.py).
 """
 from __future__ import annotations
 
+import logging
 import os
-from typing import Dict, Optional, Sequence
+import time
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+_log = logging.getLogger("flexflow_tpu_torch.distributed")
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -97,6 +103,102 @@ def initialize(coordinator_address: Optional[str] = None,
 def world_size() -> int:
     """The group's size, 1 without a group."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    """This process's rank in the group, 0 without a group."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def fresh_init_method() -> str:
+    """A `file://` init method for a new group: rank 0 names a file in
+    the temporary directory that no group used, and every rank of the
+    current group gets it (every rank calls)."""
+    import tempfile
+    import uuid
+
+    box = [None]
+    if rank() == 0:
+        box[0] = os.path.join(tempfile.gettempdir(),
+                              f".flexflow_group_{uuid.uuid4().hex}")
+    if world_size() > 1:
+        dist.broadcast_object_list(box, src=0)
+    return f"file://{box[0]}"
+
+
+def reform_group(survivors: Sequence[int], init_method: str,
+                 device: str = "cuda") -> Optional[int]:
+    """Leave the current group and join `survivors` (ranks of it, in
+    order) into a new one.  Every rank of the old group calls it, after
+    dropping whatever holds the group's communicators (a captured step):
+    the old group and every group made from it are destroyed.  A
+    survivor joins a group of len(survivors) ranks through `init_method`
+    (a store no earlier group used), as rank survivors.index(its old
+    rank), with the old backend and on the same card, and gets that rank
+    back; any other rank returns None, in no group."""
+    if not dist.is_initialized():
+        raise RuntimeError("reform_group needs an initialized group")
+    old, backend = dist.get_rank(), dist.get_backend()
+    survivors = [int(r) for r in survivors]
+    if len(set(survivors)) != len(survivors) or not all(
+            0 <= r < dist.get_world_size() for r in survivors):
+        raise ValueError(f"survivors {survivors} are not distinct ranks of "
+                         f"a group of {dist.get_world_size()}")
+    on_cuda = torch.device(device).type == "cuda"
+    card = torch.cuda.current_device() if on_cuda else None
+    dist.destroy_process_group()
+    if old not in survivors:
+        return None
+    new = survivors.index(old)
+    initialize(init_method, len(survivors), new,
+               local_device_ids=None if card is None else [card],
+               backend=backend, device=device)
+    return new
+
+
+def preemption_barrier(blob, run_id: str, step: int, *,
+                       host_id: Optional[int] = None,
+                       num_hosts: Optional[int] = None,
+                       timeout_s: float = 30.0, poll_s: float = 0.05,
+                       sleep: Callable[[float], None] = time.sleep) -> int:
+    """The step every rank of a preempted run saves at: each posts the
+    step boundary it reached under `barrier/<run_id>/host_<i>` (the
+    reference's legacy layout) and waits for the others' posts; the
+    agreement is the largest, and a rank behind it runs forward to it
+    before its emergency save, so every rank commits the same state.
+    The deadline is hard: a quorum that never completes (a rank died
+    before posting) returns the best agreement so far.  `host_id` and
+    `num_hosts` default to this process's rank and the group's size; one
+    process returns `step` at once.  Posts stay after the agreement, so
+    each run clears the prefix when it starts
+    (`clear_preemption_barrier`), and `run_id` names one run on a shared
+    store."""
+    from .topology.rendezvous import post_and_agree
+
+    host_id = rank() if host_id is None else host_id
+    num_hosts = world_size() if num_hosts is None else num_hosts
+    if num_hosts <= 1:
+        return int(step)
+    return post_and_agree(
+        blob, run_id, "preemption", int(step), host_id=host_id,
+        num_hosts=num_hosts, reduce=max, timeout_s=timeout_s, poll_s=poll_s,
+        sleep=sleep, prefix=f"barrier/{run_id}/", field="step")
+
+
+def clear_preemption_barrier(blob, run_id: str) -> int:
+    """Remove every post under `barrier/<run_id>/` (a run's start, so an
+    earlier incarnation's posts cannot meet a later quorum); returns how
+    many went.  A store failure removes nothing and is logged."""
+    from .store.blobstore import BlobStoreError
+
+    removed = 0
+    try:
+        for k in blob.list(f"barrier/{run_id}/"):
+            if blob.delete(k):
+                removed += 1
+    except BlobStoreError as e:
+        _log.info("preemption-barrier clear failed (%s)", e)
+    return removed
 
 
 def local_batch_slice(global_batch_size: int, sharding=None,

@@ -298,6 +298,9 @@ class GraphExecutor:
         # a captured step maps its warm-up's kernels to their ops
         # (capture.py; fit's profile window with a trace_dir)
         self.map_kernels = False
+        # each Cache op's input batch of the last training step, for the
+        # host's ring (FFModel folds them in; the identity on the device)
+        self.cache_taps: Dict[str, torch.Tensor] = {}
         # stage 2: bytes of grads the last step's ScatterBuckets held,
         # from their shapes ("peak", "after_backward")
         self.grad_bytes: Dict[str, int] = {}
@@ -371,8 +374,8 @@ class GraphExecutor:
                 self.view[pt.guid] = layout_of(pt)
         self.op_plans = {}
         for op in self.order:
-            if (op.op_type == OperatorType.INPUT or op.is_parallel_op()
-                    or op.guid in self._block_guids):
+            if (op.op_type in (OperatorType.INPUT, OperatorType.CACHE)
+                    or op.is_parallel_op() or op.guid in self._block_guids):
                 continue
             self.op_plans[op.guid] = plan_op(
                 op, mesh, [self.view[t.guid] for t in op.inputs])
@@ -566,6 +569,9 @@ class GraphExecutor:
             if layout is not None:
                 lay[op.outputs[0].guid] = layout
             return
+        if op.op_type == OperatorType.CACHE:
+            self._exec_cache(op, env, lay, inputs, training)
+            return
         ins = [self._layout_in(op, t, env[t.guid]) for t in op.inputs]
         nt = op.num_trainable_weights()
         ws = []
@@ -604,6 +610,28 @@ class GraphExecutor:
         else:
             for pt, val in zip(op.outputs, outs):
                 env[pt.guid] = val
+
+    def _exec_cache(self, op, env, lay, inputs, training):
+        """The expert-activation cache: its input passes as it is (in its
+        layout), and a training step keeps a copy of the global batch in
+        `cache_taps` for the host; under use_cached the host's cached
+        batch (`inputs["__cache__<name>"]`, global) stands in for it."""
+        src = op.inputs[0].guid
+        x = env[src]
+        layout = (lay.get(src, self.view[src]) if self.mesh is not None
+                  else None)
+        if getattr(op, "_load_cached", False):
+            x = inputs[f"__cache__{op.name}"].to(x.device, x.dtype)
+            if layout is not None:
+                x = local_slice(x, layout, self.mesh)
+        elif training:
+            tap = x.detach()
+            if layout is not None:
+                tap = gather_global(tap, layout, self.mesh)
+            self.cache_taps[op.name] = tap.clone()
+        env[op.outputs[0].guid] = x
+        if layout is not None:
+            lay[op.outputs[0].guid] = layout
 
     def _exec_sharded(self, op, ins, ws, kw, lay, training, generator, z3):
         """One op on this rank's shards: its inputs and weights brought
@@ -1063,6 +1091,9 @@ class GraphExecutor:
                 m = self._global_metrics(metrics.compute(logits.detach(),
                                                          labels))
                 m["loss"] = self._global_loss(loss_val.detach())
+            if self.cache_taps:
+                m["__cache_taps__"] = self.cache_taps
+                self.cache_taps = {}
             return m
 
         blockers = ([] if capture else [CAPTURE_OFF]) + capture_blockers(self)

@@ -115,6 +115,7 @@ class OperatorType(enum.Enum):
     GROUP_BY = "group_by"
     AGGREGATE = "aggregate"
     AGGREGATE_SPEC = "aggregate_spec"
+    CACHE = "cache"
     LSTM = "lstm"
     # size-changing replication and reduction in the reference's own
     # convention (d stacked copies along a dim; the fold-sum of d

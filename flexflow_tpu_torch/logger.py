@@ -66,6 +66,11 @@ class RecursiveLogger:
 
 search_logger = RecursiveLogger("flexflow_tpu_torch.search")
 
+# the resilience supervisor (resilience/supervisor.py): restarts,
+# retries, lost and skipped steps, checkpoint latency, through
+# `counters`, as the search's evaluation counters are
+resilience_logger = RecursiveLogger("flexflow_tpu_torch.resilience")
+
 # on-card calibration (profiler.py, sim/calibrate.py) and the fidelity
 # prediction: failures land here, and so in a traced run's telemetry
 calib_logger = RecursiveLogger("flexflow_tpu_torch.calib")

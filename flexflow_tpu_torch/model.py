@@ -32,6 +32,12 @@ the plan holds something that keeps it eager
 compile folds trailing activations into their linear and conv2d
 producers (pcg/rewrite.py `fuse_activations`).
 
+`fit_resilient` trains under the resilience supervisor
+(resilience/supervisor.py); `recompile` compiles again with the train
+state carried over (onto fewer ranks of the group: a re-formed group),
+and `recompile_on_condition` runs a RecompileState (recompile.py) whose
+trigger may read a `cache` op's staleness score.
+
 `FFModel.telemetry` (obs/) is the run's telemetry, built from
 FFConfig.trace_dir, telemetry and profile_steps: compile's spans
 (compile, search, init_weights, build_step_fns) and gauges, fit's step
@@ -42,6 +48,7 @@ launch without it.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -68,8 +75,8 @@ from .ops.element import (Cast, CastParams, Dropout, DropoutParams,
                           ElementBinary, ElementBinaryParams, ElementUnary,
                           ElementUnaryParams)
 from .ops.experts import ExpertsDense, ExpertsDenseParams
-from .ops.moe import (Aggregate, AggregateParams, AggregateSpec, GroupBy,
-                      GroupByParams, TopK, TopKParams)
+from .ops.moe import (Aggregate, AggregateParams, AggregateSpec, Cache,
+                      CacheParams, GroupBy, GroupByParams, TopK, TopKParams)
 from .ops.norm import (BatchNorm, BatchNormParams, LayerNorm,
                        LayerNormParams, Softmax, SoftmaxParams)
 from .ops.op import Op, WeightSpec
@@ -115,6 +122,12 @@ class FFModel:
         self._decode_limit = None
         self._used_names: set = set()
         self._name_counts: Dict[str, int] = {}
+        self._compile_args = None  # what compile() was given, for recompile
+        # the Cache ops of the layer graph (the user's handles, which
+        # keep the host rings), and the last step's taps, folded in one
+        # step late
+        self._cache_ops: List[Op] = []
+        self._pending_taps = None
 
     # -- tensor / naming helpers -----------------------------------------
     def _name(self, base: str, name: Optional[str]) -> str:
@@ -443,6 +456,20 @@ class FFModel:
         return self._add(ExpertsDense(
             p, [grouped], name=self._name("experts_dense", name)))
 
+    def cache(self, input, num_batches: int, *, score_fn=None, name=None):
+        """The expert-activation cache (ops/moe.py Cache): the identity,
+        whose input batches the host keeps in a ring of `num_batches`
+        with a staleness score.  `score_fn` is the reference's
+        four-argument scorer, or a `score_fn(ff)` that fit polls after
+        every batch; the op's `trigger` (the latest score) feeds a
+        RecompileState."""
+        if score_fn is not None and not callable(score_fn):
+            raise TypeError(f"score_fn must be callable, got {type(score_fn)}")
+        op = Cache(CacheParams(num_batches), [input],
+                   name=self._name("cache", name))
+        op.score_fn = score_fn
+        return self._add(op)
+
     def moe(self, input: ParallelTensor, num_exp: int, num_select: int,
             expert_hidden_size: int, alpha: float = 2.0,
             lambda_bal: float = 0.0, name=None) -> ParallelTensor:
@@ -484,6 +511,8 @@ class FFModel:
         """`_compile` under the telemetry's "compile" span, its time in
         the compile/total_ms gauge."""
         tel = self.telemetry
+        self._compile_args = dict(loss_type=loss_type, metrics=metrics,
+                                  comp_mode=comp_mode, seed=seed)
         t0 = time.perf_counter()
         with tel.tracer.span("compile", cat="compile"):
             result = self._compile(optimizer, loss_type, metrics, comp_mode,
@@ -589,6 +618,14 @@ class FFModel:
             hier_axis=hier_axis)
         for op in self.operators.topo_order():
             op._flash_min_seq = cfg.flash_min_seq
+        # the Cache ops' rings stay on the layer graph's ops; a strategy's
+        # clones take their use_cached flag
+        self._cache_ops = [op for op in self.layers.topo_order()
+                           if op.op_type == OperatorType.CACHE]
+        flags = {op.name: op._load_cached for op in self._cache_ops}
+        for op in self.operators.ops:
+            if op.name in flags:
+                op.use_cached(flags[op.name])
         tel = self.telemetry
         if self.executor.zero_stage >= 1:
             # the ladder's per-leaf fallback to the replicated update,
@@ -763,8 +800,59 @@ class FFModel:
                 feed, lab = self.put_batch(inputs, labels)
         else:  # the hot path: no span object when telemetry is off
             feed, lab = self.put_batch(inputs, labels)
-        return self._step_fn(self._weights, self._opt_state, self._state,
-                             feed, lab, self._generator)
+        if not self._cache_ops:
+            return self._step_fn(self._weights, self._opt_state, self._state,
+                                 feed, lab, self._generator)
+        for op in self._cache_ops:
+            if op._load_cached:
+                feed[f"__cache__{op.name}"] = torch.as_tensor(
+                    op.cached_value()).to(self.device)
+        m = self._step_fn(self._weights, self._opt_state, self._state, feed,
+                          lab, self._generator)
+        return self._update_caches(m)
+
+    # -- the Cache ops' host side ------------------------------------------
+    def _update_caches(self, m):
+        """Fold the step's cache taps into the Cache ops' rings and
+        scores, one step late: reading this step's tap on the host would
+        wait for the device, so it waits for the next call (or a flush:
+        use_cached, recompile_on_condition)."""
+        taps = m.pop("__cache_taps__", None)
+        pending, self._pending_taps = self._pending_taps, taps
+        self._apply_taps(pending)
+        return m
+
+    def _apply_taps(self, taps):
+        if not taps:
+            return
+        by_name = {op.name: op for op in self._cache_ops}
+        for name, v in taps.items():
+            op = by_name.get(name)
+            if op is not None and not op._is_legacy_score():
+                op.update(v.cpu().numpy())
+
+    def _flush_cache_taps(self):
+        pending, self._pending_taps = self._pending_taps, None
+        self._apply_taps(pending)
+
+    def use_cached(self, load_cached: bool, name: Optional[str] = None):
+        """Switch the Cache ops (or the one named) between the identity
+        and the replay of their cached batch (the reference's
+        Cache::use_cached).  The step reads the flag at run time: a graph
+        with a Cache op is never captured."""
+        self._flush_cache_taps()
+        hit = False
+        for fop in self._cache_ops:
+            if name is not None and fop.name != name:
+                continue
+            hit = True
+            fop.use_cached(load_cached)
+            for op in (self.operators.ops if self.operators is not None
+                       else ()):
+                if op.name == fop.name:
+                    op.use_cached(load_cached)
+        if name is not None and not hit:
+            raise ValueError(f"no Cache op named {name!r}")
 
     def eval_step(self, inputs: Dict[str, np.ndarray],
                   labels: np.ndarray) -> Dict[str, torch.Tensor]:
@@ -857,6 +945,11 @@ class FFModel:
                         m = self.train_step(batch, labels)
                     global_step += 1
                     pm.accumulate(m)
+                    for op in self._cache_ops:
+                        # a model-level score_fn(ff) is polled here; the
+                        # four-argument scorers ran in the step's taps
+                        if op.score_fn is not None and op._is_legacy_score():
+                            op.update_score(float(op.score_fn(self)))
                     for cb in step_cbs:
                         cb.on_step_end(self, global_step)
             finally:
@@ -934,6 +1027,107 @@ class FFModel:
                 out = gather_global(out, ex.view[self.operators.sink_op()
                                                  .outputs[0].guid], ex.mesh)
         return out
+
+    def fit_resilient(self, x, y: np.ndarray, num_steps: Optional[int] = None,
+                      epochs: Optional[int] = None,
+                      batch_size: Optional[int] = None,
+                      directory: Optional[str] = None, fault_plan=None,
+                      retry=None, resume: bool = False):
+        """`fit` under the resilience supervisor
+        (resilience/supervisor.py): periodic checkpoints (async with
+        FFConfig.checkpoint_async, mirrored to FFConfig.remote_store),
+        restore-and-retry on a transient failure, the SIGTERM/SIGINT
+        grace, the hung-step watchdog (step_timeout), nan_policy, and on
+        a device loss the re-formed group of the survivors with a
+        re-searched strategy.  Batch i is rows [i*bs, (i+1)*bs) of the
+        data, unshuffled, so an interrupted run replays bit for bit.
+        `num_steps` defaults to the batches in (x, y) times `epochs`;
+        resume=True continues from the newest checkpoint of either tier.
+        Returns a SupervisorReport."""
+        from .resilience import TrainingSupervisor
+
+        if self._step_fn is None:
+            raise RuntimeError("call compile() first")
+        batch_size = batch_size or self.config.batch_size
+        directory = directory or self.config.checkpoint_dir
+        if directory is None:
+            raise ValueError(
+                "fit_resilient needs a checkpoint directory: pass "
+                "directory= or set FFConfig.checkpoint_dir/--checkpoint-dir")
+        if num_steps is None:
+            num_steps = (len(y) // batch_size) * (epochs or self.config.epochs)
+        supervisor = TrainingSupervisor(self, directory, fault_plan=fault_plan,
+                                        retry=retry)
+        return supervisor.run(x, y, num_steps=num_steps,
+                              batch_size=batch_size, resume=resume)
+
+    # -- recompilation -------------------------------------------------------
+    def _drop_step(self):
+        """Let go of the compiled step and the train state (a captured
+        step's graph and memory pool, whatever holds the group's
+        communicators), so that none of it is alive when the next
+        compile builds its own."""
+        self._step_fn = self._eval_fn = None
+        self.executor = None
+        self._weights = self._opt_state = self._state = None
+        self._pending_taps = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def recompile(self, strategy: Optional[Strategy] = None,
+                  devices: Optional[Sequence[int]] = None,
+                  init_method: Optional[str] = None,
+                  carry: bool = True) -> bool:
+        """Compile again under `strategy` (None: what compile picks) with
+        compile's other arguments as they were, carrying the weights,
+        the optimizer's slots, the op state and the generator's state
+        over (checkpoint.state_arrays, per-op and `__pipeline__` layouts
+        mapped; `carry=False` leaves the fresh ones, for a caller that
+        restores a checkpoint next).  The old step is dropped before the
+        new one is built, and the new one is captured again on a card.
+
+        `devices` are ranks of the current group (None: all of them).
+        Fewer re-form the group: every rank calls, the group is destroyed
+        and `devices` join a new one in that order
+        (distributed.reform_group, through `init_method`; by default a
+        file store rank 0 names); a rank outside it returns False, its
+        model no longer compiled.  True otherwise."""
+        from .checkpoint import load_state_arrays, state_arrays
+
+        if self._compile_args is None:
+            raise RuntimeError("call compile() first")
+        arrays = None
+        if carry:
+            if self.executor is None:
+                raise RuntimeError("recompile(carry=True) needs a compiled "
+                                   "model to carry the state of")
+            self._flush_cache_taps()
+            arrays = state_arrays(self)
+        world = distributed.world_size()
+        ranks = (list(range(world)) if devices is None
+                 else [int(d) for d in devices])
+        reform = ranks != list(range(world))
+        if reform and init_method is None:
+            init_method = distributed.fresh_init_method()
+        self._drop_step()
+        if reform and distributed.reform_group(
+                ranks, init_method, device=str(self.device)) is None:
+            return False
+        self.compile(optimizer=self.optimizer, strategy=strategy,
+                     **self._compile_args)
+        if arrays is not None:
+            load_state_arrays(self, arrays)
+        return True
+
+    def recompile_on_condition(self, r) -> bool:
+        """r.alter() when r.trigger() holds (recompile.py), after the
+        pending cache taps are folded in, so that a trigger reads the
+        current scores."""
+        from .recompile import recompile_on_condition
+
+        self._flush_cache_taps()
+        return recompile_on_condition(self, r)
 
     # -- dense-cache decoding -----------------------------------------------
     def decode_step(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:

@@ -10,14 +10,18 @@ the op as `_last_aux` for the executor to add to the step's loss.  Under
 expert parallelism the plan (parallel/spmd.py) hands Aggregate its
 `combine` (the rows of this rank's pairs) and a `balance_reduce` that
 takes the loss's counts and sums over the global batch.  The
-expert-activation `Cache` waits for recompile.py (ROADMAP §1.E).
+expert-activation `Cache` is the identity on the device; on the host it
+keeps a ring of the batches it saw and their staleness score, which a
+RecompileState's trigger reads (recompile.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -201,3 +205,109 @@ class AggregateSpec(Aggregate):
         self._last_aux = self._balance_loss(assign, gate_full, p.n,
                                             p.lambda_bal, balance_reduce)
         return [preds.to(expert_out.dtype)]
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheParams:
+    num_batches: int
+    seed: int = 0
+
+
+def default_cache_score(cached_score, input_arr, cached_arr, vol):
+    """The reference's default score: an EMA (gamma 0.99) of whether the
+    batch equals the cached one exactly, near 1 while batches repeat and
+    decaying to 0 as they drift."""
+    gamma = 0.99
+    cached_score = cached_score * gamma
+    if np.array_equal(input_arr, cached_arr):
+        cached_score += 1.0 - gamma
+    return cached_score
+
+
+class Cache(Op):
+    """The expert-activation cache (the reference's ops/moe.py Cache).
+
+    On the device the identity.  A training step hands the op's input
+    batch to the host (the executor's cache tap; FFModel folds it in one
+    step late), where `update` scores it against the cached batch of its
+    slot in a ring of `num_batches` and refreshes the slot: the score is
+    ``score_f(cached_score, input, cached, vol)``, the reference's
+    signature, `default_cache_score` unless the op's `score_fn` takes four
+    arguments (a one-argument `score_fn(ff)` is the model-level form fit
+    polls after each batch instead).  `trigger` is the latest score.  With
+    `use_cached(True)` the op's output is the cached batch of the current
+    slot in place of its input.  Reading its batch on the host keeps a
+    step that holds the op from being captured (capture.capture_blockers).
+    """
+
+    op_type = OperatorType.CACHE
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.score_history = []
+        self.cache_score = 0.0
+        self.batch_ctr = 0
+        self._ring = [None] * self.params.num_batches
+        self._load_cached = False
+        self.score_fn = None
+
+    def infer_output_shapes(self, input_shapes):
+        return [input_shapes[0]]
+
+    def forward(self, inputs, weights, *, training=False, generator=None):
+        return [inputs[0]]
+
+    def _score_f(self):
+        fn = self.score_fn
+        if fn is not None and not self._is_legacy_score():
+            return fn
+        return default_cache_score
+
+    def update(self, batch: np.ndarray):
+        """Fold one training batch in: its score against the cached
+        batch of this slot, then the slot refreshed."""
+        batch = np.asarray(batch)
+        slot = self.batch_ctr
+        cached = self._ring[slot]
+        if cached is not None and cached.shape == batch.shape:
+            self.cache_score = float(
+                self._score_f()(self.cache_score, batch, cached, batch.size))
+        self._ring[slot] = batch.copy()
+        self.batch_ctr = (self.batch_ctr + 1) % self.params.num_batches
+        self.update_score(self.cache_score)
+
+    def cached_value(self) -> np.ndarray:
+        """The cached batch a use_cached step reads (zeros before the
+        slot was filled)."""
+        v = self._ring[self.batch_ctr]
+        if v is None:
+            dt = self.outputs[0].dtype.torch_dtype
+            return np.zeros(self.outputs[0].shape.logical_shape,
+                            torch.empty(0, dtype=dt).numpy().dtype)
+        return v
+
+    def use_cached(self, c: bool):
+        self._load_cached = bool(c)
+
+    def _is_legacy_score(self) -> bool:
+        """Whether `score_fn` is the model-level `score_fn(ff)` form (fit
+        polls it), not the reference's four-argument scorer."""
+        fn = self.score_fn
+        if fn is None:
+            return False
+        try:
+            return len(inspect.signature(fn).parameters) < 4
+        except (TypeError, ValueError):
+            return True
+
+    def update_score(self, score: float):
+        self.score_history.append(float(score))
+        if len(self.score_history) > self.params.num_batches:
+            self.score_history.pop(0)
+
+    @property
+    def trigger(self) -> float:
+        """The latest staleness score."""
+        if not self.score_history:
+            return 0.0
+        return self.score_history[-1]

@@ -158,6 +158,16 @@ def _spin_cycles_per_s(device) -> float:
     return _SPIN_RATE[key]
 
 
+def stall_device(device, seconds: float) -> None:
+    """Hold the card's current stream busy for `seconds` (a spin kernel
+    queued after the work already there): a read of that work's results
+    waits as long, as behind a wedged collective."""
+    import torch
+
+    with torch.cuda.device(device):
+        torch.cuda._sleep(int(seconds * _spin_cycles_per_s(device)))
+
+
 class FaultPlan:
     """A deterministic, seeded schedule of injected failures."""
 
@@ -273,17 +283,26 @@ class FaultPlan:
         import torch
 
         device = torch.device(device)
+        if not any(not f.fired and f.step == step
+                   and f.kind == FaultKind.HUNG_STEP for f in self.faults):
+            return False
+        if device.type != "cuda":
+            raise ValueError("a hung_step fault stalls a CUDA device's "
+                             f"stream; {device} has none")
+        self.take(step, FaultKind.HUNG_STEP)
+        stall_device(device, seconds)
+        return True
+
+    def take(self, step: int, kind: FaultKind) -> Optional[Fault]:
+        """Fire the fault of `kind` scheduled for this exact step, once,
+        without raising, and return it (None: there is none): the caller
+        applies it, as the supervisor stalls a card after a hung step's
+        work (stall_device)."""
         for f in self.faults:
-            if f.fired or f.step != step or f.kind != FaultKind.HUNG_STEP:
-                continue
-            if device.type != "cuda":
-                raise ValueError("a hung_step fault stalls a CUDA device's "
-                                 f"stream; {device} has none")
-            f.fired = True
-            with torch.cuda.device(device):
-                torch.cuda._sleep(int(seconds * _spin_cycles_per_s(device)))
-            return True
-        return False
+            if not f.fired and f.step == step and f.kind == kind:
+                f.fired = True
+                return f
+        return None
 
     # -- introspection / replay -----------------------------------------
     def remaining(self) -> List[Fault]:

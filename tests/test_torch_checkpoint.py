@@ -248,11 +248,21 @@ def test_model_checkpoint_every_k_steps_resumes(tmp_path):
 
 @pytest.mark.parametrize("arg", ["offloader", "remote"])
 def test_the_remote_tier_is_refused(tmp_path, arg):
-    with pytest.raises(NotImplementedError, match="§1 item 7.6"):
-        LocalCheckpointManager(str(tmp_path), **{arg: object()})
-    if arg == "remote":
-        with pytest.raises(NotImplementedError, match="§1 item 7.6"):
-            CheckpointManager(str(tmp_path), remote=object())
+    """The remote tier is no longer refused (resilience/offload.py): both
+    managers take `offloader=` and `remote=`, as the reference's do, and
+    an offloader's store serves their restores.  tests/
+    test_torch_offload.py holds the tier against the reference."""
+    from flexflow_tpu_torch.resilience.offload import (CheckpointOffloader,
+                                                       RemoteCheckpointStore)
+    from flexflow_tpu_torch.store.blobstore import LocalBlobStore
+
+    remote = RemoteCheckpointStore(LocalBlobStore(str(tmp_path / "blob")))
+    given = (CheckpointOffloader(remote) if arg == "offloader" else remote)
+    for cls in (LocalCheckpointManager, CheckpointManager):
+        mgr = cls(str(tmp_path / cls.__name__), **{arg: given})
+        assert mgr.remote is remote
+        assert mgr.offloader is (given if arg == "offloader" else None)
+        assert not mgr.any_restorable()
 
 
 # -- against the reference's files -------------------------------------------

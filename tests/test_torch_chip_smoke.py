@@ -8,9 +8,11 @@ routing record and tiny feeds, and the sequence and frontend phases'
 NMT sizing, data and gradient check, the dense twin's cache bytes, the
 generation check's exact equality, the Keras example table and its
 data, the profiled kernel time's retake of a profile that lost
-records, and the store phase's catalog (both forms parse equal and
+records, the store phase's catalog (both forms parse equal and
 verify, its rules match BERT's graph), its kernel-cache check and its
-launches in the kernels line."""
+launches in the kernels line, and the supervised phase and legs: their
+place, fault plan, survivors, tolerances and launches in the kernels
+line, the Cache op dropped from a graph, and the unchanged last line."""
 import sys
 from pathlib import Path
 
@@ -194,8 +196,8 @@ def test_phase_list_ends_with_the_sequence_and_frontend_path():
 def test_search_phase_runs_last_over_the_hgx_node():
     """The search phase comes after every earlier one-card phase (only
     the store phase, which searches it again with a catalog, the
-    resilience phase, and the multigpu phase, which trains the strategy
-    it writes, follow),
+    resilience and supervised phases, and the multigpu phase, which
+    trains the strategy it writes, follow),
     parses as a --phases entry, and searches BERT-base for the 8 GPUs of
     the committed one-node machine file, timing ops on the card."""
     import os
@@ -203,8 +205,9 @@ def test_search_phase_runs_last_over_the_hgx_node():
     from flexflow_tpu_torch.sim.machine_model import GpuNodeModel
 
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[-4:] == ["search", "store", "resilience", "multigpu"]
-    assert len(phases) == 28 and phases.count("search") == 1
+    assert phases[-5:] == ["search", "store", "resilience", "supervised",
+                           "multigpu"]
+    assert len(phases) == 29 and phases.count("search") == 1
     assert "`--phases search`" in chip_smoke.__doc__
     cfg = chip_smoke.search_config("/tmp/costs.json")
     assert (cfg.batch_size, cfg.device, cfg.search_budget) == (
@@ -589,12 +592,13 @@ def test_multigpu_legs_follow_the_issue():
     x pipe 2 with and without remat, pipe 4, the demo under 1F1B, the
     search's cheapest pipeline), four MoE legs of 4 (data 4, expert
     4, data 2 x expert 2, the search's), four legs of 4 of factored
-    views and two slices, and the checkpoint leg of 4, each with its
+    views and two slices, the checkpoint leg of 4 and the supervisor's
+    two legs of 4 (elastic, preempt_barrier), each with its
     strategy."""
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     assert [leg["ranks"] for leg in chip_smoke.MULTIGPU_LEGS] == \
-        [4, 4, 4, 4, 4, chip_smoke.SEARCH_DEVICES] + [4] * 14
-    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-9:-5] == \
+        [4, 4, 4, 4, 4, chip_smoke.SEARCH_DEVICES] + [4] * 16
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-11:-7] == \
         ["moe_dp4", "ep4", "dp2_ep2", "moe_searched"]
     assert chip_smoke.MOE == dict(hidden_size=768, num_layers=12,
                                   num_heads=12, num_exp=8, num_select=2,
@@ -658,7 +662,7 @@ def test_factored_and_slice_legs_follow_the_issue():
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     names = ["factored_tp4", "slices2_dp4", "slices2_zero1",
              "slices2_searched"]
-    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-5:-1] == names
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-7:-3] == names
     assert [legs[n].get("slices", 1) for n in names] == [1, 2, 2, 2]
     assert [legs[n]["reference"] for n in names] == [
         "bert_sgd", "bert_sgd", "bert_adam", "bert_sgd"]
@@ -1298,12 +1302,13 @@ def test_kernel_line_carries_the_store_launches():
 
 
 def test_ckpt_reshard_leg_follows_the_issue():
-    """The last leg: data 4 at ZeRO-2 under Adam (dp_zero2's model and
-    reference) that saves with both managers after its first step and is
-    restored onto 2 ranks at ZeRO-1 and onto one card; it leaves the
-    ladder's own checks (ZeRO-0 beside it, grad memory) to dp_zero2."""
+    """The last leg before the supervisor's two: data 4 at ZeRO-2 under
+    Adam (dp_zero2's model and reference) that saves with both managers
+    after its first step and is restored onto 2 ranks at ZeRO-1 and onto
+    one card; it leaves the ladder's own checks (ZeRO-0 beside it, grad
+    memory) to dp_zero2."""
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
-    leg = chip_smoke.MULTIGPU_LEGS[-1]
+    leg = chip_smoke.MULTIGPU_LEGS[-3]
     assert leg["name"] == "ckpt_reshard" and leg["checkpoint"] is True
     assert {k: v for k, v in leg.items() if k not in ("name", "checkpoint")} \
         == {k: v for k, v in legs["dp_zero2"].items() if k != "name"}
@@ -1317,7 +1322,7 @@ def test_ckpt_reshard_leg_follows_the_issue():
 def test_resilience_phase_bookkeeping():
     """The resilience phase's host-side helpers: state_diff over every
     leaf (a missing leaf raises), the tracer's span durations per
-    thread, and the phase's place before multigpu."""
+    thread, and the phase's place before supervised and multigpu."""
     a = {"w": np.zeros((2, 3), np.float32), "t": np.array(3, np.int32)}
     b = {"w": np.full((2, 3), 0.5, np.float32), "t": np.array(3, np.int32)}
     assert chip_smoke.state_diff(a, a) == 0.0
@@ -1331,7 +1336,7 @@ def test_resilience_phase_bookkeeping():
               {"name": "flush", "ph": "E", "ts": 1500.0, "tid": 2}]
     assert chip_smoke._span_ms(events, "flush") == [2.0, 1.0]
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases.index("resilience") == phases.index("multigpu") - 1
+    assert phases.index("resilience") == phases.index("multigpu") - 2
     assert chip_smoke.RES_HANG_S > chip_smoke.RES_STEP_TIMEOUT
 
 
@@ -1390,3 +1395,160 @@ def test_resilience_window_and_overhead_bookkeeping(monkeypatch):
     assert gaps["median_ms"] == pytest.approx({"off": 250.0, "on": 300.0})
     assert gaps["overhead"] == pytest.approx(0.2)
     assert gaps["spread"] == pytest.approx({"off": 0.0, "on": 0.0})
+
+
+# -- the supervised phase and legs ------------------------------------------
+
+def test_supervised_phase_and_legs_follow_their_plan():
+    """`supervised` runs after resilience and before multigpu: BERT-base
+    through fit_resilient for 10 steps, a checkpoint every 4 (async, a
+    file:// remote tier), nan_policy restore and a 2 s watchdog, under a
+    seeded plan of one STEP_EXCEPTION, one NAN_LOSS and one HUNG_STEP at
+    distinct steps and a remote CHECKPOINT_WRITE before the last save;
+    SIGTERM at step 5.  The elastic leg: 4 ranks, data 4 under Adam, a
+    checkpoint every 2, 2 survivors at step 3, run to step 6, held to
+    MULTIGPU_TOL (3e-4 for Adam's weights); preempt_barrier: 4 ranks,
+    ranks 0-2 signalled during step 1 and rank 3 during step 2, so the
+    agreed and saved step is 3."""
+    from flexflow_tpu_torch.resilience import FaultKind
+
+    phases = chip_smoke.ALL_PHASES.split(",")
+    assert phases.index("supervised") == phases.index("resilience") + 1
+    assert phases.index("supervised") == phases.index("multigpu") - 1
+    assert "`--phases\nsupervised`" in chip_smoke.__doc__
+    assert "elastic,preempt_barrier" in chip_smoke.__doc__
+    assert (chip_smoke.SUP_STEPS, chip_smoke.SUP_EVERY) == (10, 4)
+    assert chip_smoke.SUP_STEP_TIMEOUT == 2.0
+    assert chip_smoke.SUP_SIGTERM_STEP == 5
+    plan = chip_smoke.supervised_plan()
+    assert [(f.step, f.kind, f.payload) for f in plan.faults] == [
+        (3, FaultKind.HUNG_STEP, {}), (4, FaultKind.NAN_LOSS, {}),
+        (5, FaultKind.STEP_EXCEPTION, {}),
+        (plan.faults[3].step, FaultKind.CHECKPOINT_WRITE,
+         {"target": "remote"})]
+    assert 1 <= plan.faults[3].step <= 8
+    assert plan.to_json() == chip_smoke.supervised_plan().to_json()
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-2:] == [
+        "elastic", "preempt_barrier"]
+    assert legs["elastic"] == {"name": "elastic", "ranks": 4,
+                               "strategy": ["dp"], "optimizer": "adam",
+                               "supervised": "elastic"}
+    assert legs["preempt_barrier"]["ranks"] == 4
+    assert (chip_smoke.ELASTIC_STEPS, chip_smoke.ELASTIC_EVERY,
+            chip_smoke.ELASTIC_LOSS_STEP, chip_smoke.ELASTIC_SURVIVORS) == \
+        (6, 2, 3, 2)
+    assert chip_smoke.MULTIGPU_TOL["adam_weights"] == 3e-4
+    assert chip_smoke.BARRIER_SIGNAL_STEP == 1
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--phases", "supervised,nothing"])
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--legs", "elastic,nothing"])
+
+
+def test_kernel_line_carries_the_supervised_launches():
+    flash_main = {"kernel_ms": {k: 1.0 for k in ("K1", "K2", "K3")},
+                  "plain_ms": {k: 2.0 for k in ("K1", "K2", "K3")},
+                  "library_ms": {k: 1.5 for k in ("K1", "K2", "K3")},
+                  "share_of_bound": {k: 0.3 for k in ("K1", "K2", "K3")},
+                  "bounds": chip_smoke.flash_bounds(*SHAPE)}
+    flash = {"main": {"float32": flash_main, "bfloat16": flash_main},
+             "worst": {k: {"float32": (1e-6, 1e-7)}
+                       for k in ("K1", "K2", "K3")}}
+    kern = {"worst": {"float32": 1e-6}, "kernel_ms": 0.02, "event_ms": 0.03,
+            "plain_ms": 0.3, "bound_ms": 0.01, "bound_by": "bytes",
+            "share_of_bound": 0.4, "library_ms": 0.2, "split_pages": 8,
+            "grid": [1, 1, 1]}
+    supervised = {"faulted": {
+        "launches": {"K1": 48, "K2": 48, "K3": 48},
+        "launches_per_replayed_step": {"K1": 12.0, "K2": 12.0, "K3": 12.0}}}
+    legs = {"legs": [{"leg": "elastic", "launches_per_rank_per_step": [
+        {"K1": 12.0, "K2": 12.0, "K3": 12.0, "P1": 0.0}] * 2}]}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card", multigpu=legs,
+                                  supervised=supervised)["kernels"]
+    got = {r["id"]: (r.get("launches_supervised"),
+                     r.get("launches_per_replayed_step_supervised"),
+                     (r.get("launches_multigpu_per_rank_per_step")
+                      or {}).get("elastic"))
+           for r in rows}
+    assert got == {"K4": (None, None, None),
+                   "K1": (48, 12.0, [12.0, 12.0]),
+                   "K2": (48, 12.0, [12.0, 12.0]),
+                   "K3": (48, 12.0, [12.0, 12.0])}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card")["kernels"]
+    assert all(r.get("launches_supervised") is None for r in rows)
+
+
+def test_dropping_the_cache_op_rewires_its_consumers():
+    """The supervised phase's alter hook: the layer graph without its
+    Cache op, the op's consumer reading its input, and the model
+    recompiled from it with no Cache op left."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=8, device="cpu"))
+    x = ff.create_tensor([8, 16], name="input")
+    t = ff.cache(x, 2, name="input_cache")
+    t = ff.dense(t, 4, name="head")
+    ff.softmax(t)
+    ff.compile(seed=0)
+    assert [op.name for op in ff._cache_ops] == ["input_cache"]
+    assert chip_smoke._drop_cache_op(ff) == "input_cache"
+    head = next(op for op in ff.layers.ops if op.name == "head")
+    assert head.inputs[0] is x
+    ff.recompile()
+    assert ff._cache_ops == []
+    assert not any("cache" in b for b in
+                   ff.executor.capture_status["blockers"])
+
+
+def test_the_last_line_is_unchanged():
+    """main ends with the card line, then the unchanged last line."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    tail = src[src.rindex("print(card, flush=True)"):]
+    assert tail.split() == """print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0""".split()
+
+
+def test_only_the_group_of_4_runs_the_supervised_legs(monkeypatch):
+    """The supervised legs' bodies go to the group of 4 the multigpu
+    phase spawns for its legs, and to no other group that phase hands
+    its job to (ckpt_reshard's restore onto 2 ranks among them)."""
+    from types import SimpleNamespace
+
+    jobs = []
+
+    def run_ranks(world, cards, job, out_dir):
+        jobs.append((world, [leg["name"] for leg in job["legs"]],
+                     list(job.get("supervised", ()))))
+        outs = [{"legs": [{} for _ in job["legs"]], "barrier": {},
+                 "elastic": {}} for _ in range(world)]
+        return "gloo", 1.0, outs
+
+    monkeypatch.setattr(chip_smoke, "_run_ranks", run_ranks)
+    monkeypatch.setattr(chip_smoke, "_one_card_reference",
+                        lambda torch, name, tmp: ({"losses": [1.0, 1.0]},
+                                                  "x", "y"))
+    monkeypatch.setattr(chip_smoke, "_multigpu_record",
+                        lambda leg, *a: {"leg": leg["name"], "faults": []})
+    monkeypatch.setattr(chip_smoke, "_restored_second_step",
+                        lambda *a: {})
+    for name in ("_elastic_record", "_barrier_record"):
+        monkeypatch.setattr(chip_smoke, name,
+                            lambda ranks, out_dir: {"faults": []})
+    monkeypatch.setattr(chip_smoke, "np", SimpleNamespace(
+        load=lambda path: {"x": None, "y": None}))
+    torch = SimpleNamespace(cuda=SimpleNamespace(device_count=lambda: 1))
+    rec = chip_smoke.phase_multigpu(
+        torch, None, "card", "/tmp",
+        {"ckpt_reshard", "elastic", "preempt_barrier"})
+    assert jobs == [(4, ["ckpt_reshard"], ["barrier", "elastic"]),
+                    (2, ["ckpt_restore_2"], [])]
+    assert [leg["leg"] for leg in rec["legs"]] == [
+        "ckpt_reshard", "elastic", "preempt_barrier"]

@@ -1143,3 +1143,108 @@ def test_the_profile_window_attributes_the_flash_kernels(cuda, tmp_path):
         for e in ks:
             assert e["args"]["correlation"] in graphs, tag
             assert e["args"]["op"].startswith("attn_"), (tag, e["args"])
+
+
+# -- the supervised path ---------------------------------------------------
+
+def _captured_pair():
+    """Two 2-layer BERTs from the same seed, each captured (a warm-up, the
+    capture, a replay) on the same three batches."""
+    pair = [_res_bert(0), _res_bert(0)]
+    for ff in pair:
+        for inputs, labels in _res_batches(3):
+            ff.train_step(inputs, labels)
+        assert ff.executor.capture_status["replays"] == 2
+    return pair
+
+
+def test_skip_step_rollback_keeps_the_captured_tensors(cuda, tmp_path):
+    """nan_policy skip_step on a captured step: the rollback copies the
+    snapshot into the tensors the graph replays on (their data_ptrs do
+    not move), and the next replay trains the rolled-back state, equal to
+    a twin that never saw the poisoned batch."""
+    from flexflow_tpu_torch.checkpoint import _state_leaves
+    from flexflow_tpu_torch.resilience import TrainingSupervisor
+
+    ff, twin = _captured_pair()
+    sup = TrainingSupervisor(ff, str(tmp_path), nan_policy="skip_step")
+    ptrs = [t.data_ptr() for _, t, _, _ in _state_leaves(ff)]
+    before = _state(ff)
+    snap = sup._snapshot()
+    (inputs, labels), = _res_batches(1, seed=6)
+    poisoned = {k: np.full_like(v, np.nan) for k, v in inputs.items()}
+    assert not np.isfinite(float(ff.train_step(poisoned, labels)["loss"]))
+    sup._rollback(snap)
+    assert [t.data_ptr() for _, t, _, _ in _state_leaves(ff)] == ptrs
+    _assert_state_equal(_state(ff), before)
+    got = float(ff.train_step(inputs, labels)["loss"])
+    want = float(twin.train_step(inputs, labels)["loss"])
+    assert got == want
+    _assert_state_equal(_state(ff), _state(twin))
+    assert ff.executor.capture_status["replays"] == 4
+
+
+def test_recompile_captures_again(cuda):
+    """FFModel.recompile drops the captured step before it builds the new
+    one, carries the state 0 apart, and the new step is captured again
+    and trains as a twin that was never recompiled; twice, with the
+    cyclic collector run at every allocation (a dead graph destroyed
+    during the new capture would invalidate it)."""
+    import gc
+
+    ff, twin = _captured_pair()
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for round_ in range(2):
+            before = _state(ff)
+            ff.recompile()
+            st = ff.executor.capture_status
+            assert st["mode"] == "graph" and st["captures"] == 0
+            _assert_state_equal(_state(ff), before)
+            for inputs, labels in _res_batches(3, seed=7 + round_):
+                got = float(ff.train_step(inputs, labels)["loss"])
+                want = float(twin.train_step(inputs, labels)["loss"])
+                assert got == want
+            assert st["captures"] == 1 and st["replays"] == 2
+            _assert_state_equal(_state(ff), _state(twin))
+    finally:
+        gc.set_threshold(*threshold)
+
+
+def test_a_reformed_group_runs_its_nccl_collectives(cuda, tmp_path):
+    """Four NCCL ranks, one card each: an all-reduce, then
+    distributed.reform_group onto ranks 0-1 (the supervisor's elastic
+    path); the two survivors all-reduce over the new group of 2, the
+    others leave."""
+    import multiprocessing as mp
+    import os
+    import pickle
+    import sys
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices: one NCCL rank per card")
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dist_ranks as G
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=G.nccl_reform_rank,
+                         args=(r, 4, str(tmp_path / "s1"),
+                               str(tmp_path / "s2"), str(tmp_path)))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(180)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    results = []
+    for r in range(4):
+        with open(tmp_path / f"{r}.pkl", "rb") as f:
+            status, value = pickle.load(f)
+        assert status == "ok", value
+        results.append(value)
+    assert [first for first, _, _ in results] == [10.0] * 4
+    assert [new for _, new, _ in results] == [0, 1, None, None]
+    assert [second for _, _, second in results[:2]] == [(2, "nccl", 3.0)] * 2

@@ -577,7 +577,10 @@ def test_cli_knobs_match_the_reference(argv):
 @pytest.mark.parametrize("kw", [
     {"profile_steps": "3:2"}, {"trace_dir": "T", "profile_steps": "nope"},
     {"trace_dir": "T", "profile_steps": "3:0"},
-    {"trace_dir": "T", "profile_steps": "-1:2"}, {"checkpoint_every": -1}])
+    {"trace_dir": "T", "profile_steps": "-1:2"}, {"checkpoint_every": -1},
+    {"nan_policy": "ignore"}, {"checkpoint_keep": 0}, {"max_restarts": -1},
+    {"retry_backoff": -0.1}, {"step_timeout": -1.0}, {"offload_every": 0},
+    {"remote_keep": 0}, {"barrier_timeout": 0.0}])
 def test_config_refusals_match_the_reference(kw):
     with pytest.raises(ValueError):
         R.FFConfig(**kw)
@@ -589,12 +592,13 @@ def test_config_refusals_match_the_reference(kw):
     ("nan_policy", "skip_step", "--nan-policy"),
     ("step_timeout", 2.5, "--step-timeout")])
 def test_supervisor_knobs_wait_for_the_supervisor(field, value, flag):
-    """The reference's step_timeout and nan_policy are read only by its
-    supervisor (ROADMAP §1 item 7.7): the port has no such field yet, so
-    setting one is refused rather than quietly ignored, and its flag
-    changes nothing."""
+    """The reference's step_timeout and nan_policy are read by its
+    supervisor, which the port now has (resilience/supervisor.py): the
+    field and its flag set the same value in both packages, with the
+    same default."""
     assert getattr(R.FFConfig(**{field: value}), field) == value
-    with pytest.raises(TypeError):
-        P.FFConfig(device="cpu", **{field: value})
-    cfg = P.FFConfig.from_args([flag, str(value)])
-    assert not hasattr(cfg, field)
+    assert getattr(P.FFConfig(device="cpu", **{field: value}),
+                   field) == value
+    assert getattr(P.FFConfig.from_args([flag, str(value)]), field) == value
+    assert getattr(P.FFConfig(device="cpu"), field) == \
+        getattr(R.FFConfig(), field)

@@ -800,3 +800,206 @@ def ckpt_case(rank, world, build, strategy, opt, batches, cfg=None,
         out["saved"] = _global_state(ff)
     out["final"] = _global_state(ff)
     return out
+
+
+# -- the supervisor (tests/test_torch_supervisor.py) ------------------------
+
+def sup_mlp(ff, batch=16):
+    """tests/test_resilience.py's MLP: 8 -> 32 (ReLU) -> 4, softmax."""
+    x = ff.create_tensor([batch, 8], name="x")
+    t = ff.dense(x, 32, activation=_relu(ff))
+    t = ff.dense(t, 4)
+    ff.softmax(t)
+
+
+def _sup_model(weights, opt, **cfg):
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+
+    ff = FFModel(FFConfig(device="cpu", batch_size=16, **cfg))
+    sup_mlp(ff)
+    ff.compile(optimizer=opt(), loss_type="sparse_categorical_crossentropy",
+               metrics=["sparse_categorical_crossentropy"], seed=0)
+    ff.set_weights(weights)
+    return ff
+
+
+def _signal_at(plan, step):
+    """SIGTERM raised in this process when the supervisor checks `step`
+    (delivered at once, in the main thread: during that step)."""
+    import signal
+
+    check = plan.check_step
+
+    def at(s):
+        if s == step:
+            signal.raise_signal(signal.SIGTERM)
+        check(s)
+
+    plan.check_step = at
+    return plan
+
+
+def _report(rep):
+    return {"final_step": rep.final_step, "losses": rep.losses,
+            "counters": rep.counters, "preempted": rep.preempted,
+            "left_group": rep.left_group, "recoveries": rep.recoveries,
+            "agreed_step": rep.agreed_step}
+
+
+def supervisor_group(rank, world, root, weights, x, y, sgd, adam,
+                     loss_plan):
+    """The supervisor on a group of 4 ranks, over the directory `root`:
+      1. data 4, ZeRO-1 under Adam, async saves, every rank signalled
+         (SIGTERM) during step 3: the emergency save;
+      2. ranks 0-2 signalled during step 2, rank 3 during step 3, the
+         barrier over the remote tier (root/remote_b);
+      3. the device loss of `loss_plan` (4 -> 2 survivors), the strategies
+         from the store at root/store (which the test seeded), the remote
+         tier at root/remote: ranks 2-3 leave, ranks 0-1 go on as a group
+         of 2;
+      4. on the 2 survivors: case 1's emergency save restored at ZeRO-1.
+    Each case's report, the final weights (gathered) and, for the
+    restores, the full state (rank 0's)."""
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.checkpoint import LocalCheckpointManager
+    from flexflow_tpu_torch.resilience import (FaultPlan,
+                                               TrainingSupervisor)
+
+    out = {"rank": rank}
+    no_sleep = lambda s: None  # noqa: E731
+    ff = _sup_model(weights, adam, zero_stage=1, checkpoint_async=True)
+    rep = TrainingSupervisor(
+        ff, f"{root}/z", checkpoint_every=100,
+        fault_plan=_signal_at(FaultPlan(), 3), sleep=no_sleep).run(x, y, 8)
+    out["zero1"] = dict(_report(rep), weights=ff.get_weights(),
+                        state=_global_state(ff))
+
+    ff = _sup_model(weights, sgd, remote_store=f"file://{root}/remote_b")
+    rep = TrainingSupervisor(
+        ff, f"{root}/b", checkpoint_every=100,
+        fault_plan=_signal_at(FaultPlan(), 2 if rank < 3 else 3),
+        run_id="barrier", sleep=no_sleep).run(x, y, 8)
+    out["barrier"] = dict(_report(rep), latest=LocalCheckpointManager(
+        f"{root}/b").latest_verified_step())
+
+    ff = _sup_model(weights, sgd, strategy_store=f"{root}/store",
+                    search_budget=8, remote_store=f"file://{root}/remote")
+    sup = TrainingSupervisor(ff, f"{root}/loss", checkpoint_every=2,
+                             fault_plan=FaultPlan.from_json(loss_plan),
+                             run_id="loss", sleep=no_sleep)
+    rep = sup.run(x, y, 6)
+    out["loss"] = _report(rep)
+    if rep.left_group:
+        return out
+    out["loss"].update(
+        weights=ff.get_weights(), world=distributed.world_size(),
+        rank_after=distributed.rank(),
+        devices=ff.strategy.total_devices,
+        store_hit=ff.strategy.search_stats.get("store_hit"),
+        strategy=ff.strategy.to_json())
+    assert sup.manager.restore(ff, step=4) == 4
+    out["loss"]["weights_at_4"] = ff.get_weights()
+
+    ff = _sup_model(weights, adam, zero_stage=1)
+    out["zero1_restored"] = {
+        "step": LocalCheckpointManager(f"{root}/z").restore(ff),
+        "zero_stage": ff.executor.zero_stage, "state": _global_state(ff)}
+    return out
+
+
+def bn_net(ff, batch=16):
+    """tests/test_recompile.py's BatchNorm net: [16, 4, 4, 4] -> BN (ReLU)
+    -> flat -> dense 4 -> softmax."""
+    x = ff.create_tensor([batch, 4, 4, 4], name="x")
+    t = ff.batch_norm(x, relu=True)
+    t = ff.flat(t)
+    t = ff.dense(t, 4)
+    ff.softmax(t)
+
+
+def recompile_group(rank, world, mlp_weights, x, y, bn_weights, bn_state,
+                    xb, yb):
+    """FFModel.recompile across re-formed groups (tests/
+    test_torch_recompile.py):
+      1. the MLP on 4 ranks: fit one epoch, a forward, recompile onto
+         data 2 on ranks 0-1 (ranks 2-3 leave), the same forward, two
+         more epochs;
+      2. on those 2 ranks, the BatchNorm net: fit two epochs, then
+         recompile onto rank 0 alone; the op state and the generator's
+         state before and after (rank 0's)."""
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.optimizer import SGDOptimizer
+    from flexflow_tpu_torch.strategy import data_parallel_strategy
+
+    def model(build, weights, lr):
+        ff = FFModel(FFConfig(device="cpu", batch_size=16))
+        build(ff)
+        ff.compile(optimizer=SGDOptimizer(lr=lr),
+                   loss_type="sparse_categorical_crossentropy",
+                   metrics=["sparse_categorical_crossentropy"], seed=0)
+        ff.set_weights(weights)
+        return ff
+
+    out = {"rank": rank}
+    ff = model(sup_mlp, mlp_weights, 0.05)
+    ff.fit(x, y, epochs=1, verbose=False)
+    before = ff.forward({"x": x[:16]}).numpy()
+    stayed = ff.recompile(strategy=data_parallel_strategy(2), devices=[0, 1])
+    out["stayed"] = stayed
+    if not stayed:
+        out["compiled"] = ff.executor is not None
+        return out
+    out["world"] = distributed.world_size()
+    out["forward"] = (before, ff.forward({"x": x[:16]}).numpy())
+    ff.fit(x, y, epochs=2, verbose=False)
+    out["weights"] = ff.get_weights()
+
+    ff = model(bn_net, bn_weights, 0.01)
+    ff.set_state(bn_state)
+    ff.fit(xb, yb, epochs=2, verbose=False)
+    state, rng = ff.get_state(), ff._generator.get_state().clone()
+    stayed = ff.recompile(strategy=data_parallel_strategy(1), devices=[0])
+    if stayed:
+        out["bn"] = {"world": distributed.world_size(), "before": state,
+                     "after": ff.get_state(),
+                     "rng": bool((ff._generator.get_state() == rng).all())}
+    return out
+
+
+def nccl_reform_rank(rank, world, store, new_store, out_dir):
+    """An NCCL rank on card `rank` (tests/test_torch_gpu.py): an
+    all-reduce over the group of `world`, then reform_group onto ranks
+    0-1 through `new_store`, and on those an all-reduce over the new
+    group; what it saw goes to out_dir/<rank>.pkl."""
+    import torch
+
+    from flexflow_tpu_torch import distributed
+
+    result = None
+    try:
+        distributed.initialize(f"file://{store}", world, rank,
+                               local_device_ids=[rank], backend="nccl")
+        import torch.distributed as dist
+
+        t = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        first = float(t[0])
+        new = distributed.reform_group([0, 1], f"file://{new_store}",
+                                       device="cuda")
+        second = None
+        if new is not None:
+            t = torch.full((4,), float(new + 1), device="cuda")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            second = (dist.get_world_size(), dist.get_backend(), float(t[0]))
+            dist.destroy_process_group()
+        result = ("ok", (first, new, second))
+    except Exception:  # reported to the test
+        import traceback
+
+        result = ("error", traceback.format_exc())
+    with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
