@@ -291,6 +291,15 @@ Phases, each a failure of which exits non-zero:
    later: every rank agrees on the largest posted step through
    distributed.preemption_barrier over a file:// blob store and saves
    that one step, on disk and in the remote tier.
+   keras_devices (4 ranks, in a group of their own: the leg leaves a
+   group of 2) compiles keras_models()'s KERAS_DEVICES_MODEL (the MLP,
+   Adam) with Model.compile(devices=KERAS_DEVICES): ranks 2-3 leave the
+   group (no group; their fit raises), ranks 0-1 re-form a group of 2,
+   take the weights from np.random.RandomState(0) by set_weights and
+   fit KERAS_DEVICES_STEPS batches; then the same model compiled on that
+   group of 2 (devices=None) from the same weights on the same batches:
+   losses and weights within MULTIGPU_TOL, the compile and re-form
+   seconds, the step gaps; no kernel launches.
    `--legs` runs some of the legs (and only the searches they need).
    The kernels are built once, before
    the ranks start; each rank sets its launch counters to 0 and reports
@@ -347,6 +356,22 @@ Phases, each a failure of which exits non-zero:
    RecompileState whose trigger reads the cache's score drops the op and
    recompiles, the weights and a forward's outputs 0 apart across it,
    and the step captured afterwards.
+30. tools (after supervised, before multigpu; only with the store,
+   resilience and supervised phases, whose files it reads): the port's
+   operator tools (flexflow_tpu_torch/tools/) on what this run wrote on
+   the card: telemetry_summary of the resilience phase's trace_dir (its
+   Steps rows equal to the phase's own fit/step_ms histogram, Fidelity)
+   and of the supervised phase's faulted run (its Durability row
+   offload_upload_ms equal to the phase's), once more as `python -m`;
+   checkpoint_fsck of the faulted run's directory with its remote tier
+   (exit 0), of a copy of its newest step with one byte of one leaf
+   flipped (exit 1, the step named), of a directory whose LATEST
+   dangles (exit 1) and of a copy of the resilience phase's DCP step
+   (exit 0); strategy_store_import -n 8 into a fresh store, after which
+   FFModel.search_strategy(8) of its bert_encoder job is a store hit
+   returning the shipped strategy; pb_to_json of the store phase's
+   catalog wire bytes, equal to its JSON; check_metric_docs.  Each
+   tool's exit code and wall seconds; no kernel launches.
 
 Every train step on the card is captured by default after one eager
 warm-up step (capture.py): the kernels' wrappers count the warm-up and
@@ -365,8 +390,11 @@ path, `--phases zoo,zoo_parity,zoo_profile` for the model zoo,
 and frontend slice, `--phases search` for the search and simulator,
 `--phases store` for the TASO catalog and the strategy store,
 `--phases resilience` for telemetry and checkpoints, `--phases
-supervised` for the resilience supervisor, `--phases multigpu --legs
-elastic,preempt_barrier` for its group legs, `--phases multigpu
+supervised` for the resilience supervisor, `--phases
+store,resilience,supervised,tools` for the operator tools over their
+files, `--phases multigpu --legs elastic,preempt_barrier` for its group
+legs, `--phases multigpu --legs keras_devices` for Keras
+compile(devices=...), `--phases multigpu
 --legs ckpt_reshard` for a checkpoint restored onto other meshes,
 `--phases multigpu` for multi-GPU execution, `--phases multigpu
 --legs moe_dp4,ep4,dp2_ep2,moe_searched` for expert parallelism,
@@ -383,10 +411,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import io
 import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -4162,7 +4192,7 @@ ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
               "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
               "nmt,generate,keras,onnx,seq_parity,capture,fusion,search,"
-              "store,resilience,supervised,multigpu")
+              "store,resilience,supervised,tools,multigpu")
 
 # the search phase: the Unity search's budget, the devices it searches
 # for (one HGX H100 node), the calibration's step windows and batch
@@ -4586,12 +4616,13 @@ def _store_train(torch, fa, ff, batches, init, expect) -> dict:
             "capture_status": dict(ff.executor.capture_status)}
 
 
-def phase_store(torch, fa, card: str, search=None) -> dict:
+def phase_store(torch, fa, card: str, search=None, keep=None) -> dict:
     """The catalog and store path: compile with the catalog into a fresh
     store (a miss), again (a hit), both trained against each other and
     the unsearched compile; the 8-GPU catalog search missed and hit,
     beside the search without the catalog (the search phase's, when it
-    ran); the kernel cache in two child processes."""
+    ran); the kernel cache in two child processes.  With `keep`, the
+    catalog's two files go there for the tools phase."""
     from flexflow_tpu_torch.pcg.search import unity_search
     from flexflow_tpu_torch.sim import simulator as sim
     from flexflow_tpu_torch.sim.machine_model import make_machine_model
@@ -4764,6 +4795,8 @@ def phase_store(torch, fa, card: str, search=None) -> dict:
         faults += kernel_cache_faults(kroot, children)
     finally:
         sim.make_cost_model = build_cost_model
+        if keep is not None:
+            keep_paths(tmp, keep, ("graph_subst.json", "graph_subst.pb"))
         shutil.rmtree(tmp, ignore_errors=True)
     launches = {k: miss_launches[k] + search8_launches[k]
                 + sum(r["counted_launches"][k] for r in runs.values())
@@ -5008,7 +5041,7 @@ def _corrupt_middle(path: str, nbytes: int = 4096) -> None:
         f.write(b"\xa5" * nbytes)
 
 
-def phase_resilience(torch, fa, card: str) -> dict:
+def phase_resilience(torch, fa, card: str, keep=None) -> dict:
     """Full-width BERT-base under Adam through the slice's path: a fit
     with telemetry off (the uninterrupted run), the same fit with
     telemetry on (trace, metrics, the profile window, the fidelity
@@ -5017,7 +5050,8 @@ def phase_resilience(torch, fa, card: str) -> dict:
     that restores the newest verified step in place and trains on, a
     CheckpointManager (DCP) round trip, the fallback past a corrupted
     newest step, and the NAN_LOSS and HUNG_STEP faults through
-    check_step_health and the watchdog."""
+    check_step_health and the watchdog.  With `keep`, the traced run's
+    trace_dir and the DCP step go there for the tools phase."""
     from flexflow_tpu_torch.checkpoint import (CheckpointManager,
                                                LocalCheckpointManager,
                                                ModelCheckpoint)
@@ -5125,6 +5159,11 @@ def phase_resilience(torch, fa, card: str) -> dict:
         t0 = time.perf_counter()
         on.telemetry.flush()
         ovh["flush_s"] = time.perf_counter() - t0
+        # what run_telemetry.jsonl now holds of the step histogram (the
+        # tools phase reads it back)
+        h = on.telemetry.metrics.histogram("fit/step_ms")
+        rec["on"]["fit_step_ms"] = {"count": h.count, "mean": h.mean,
+                                    "min": h.min, "max": h.max}
         rec["telemetry_overhead"] = ovh
         rec["off"]["step_ms"] = ovh["step_gap"]["median_ms"]["off"]
         rec["on"]["step_ms"] = ovh["step_gap"]["median_ms"]["on"]
@@ -5215,6 +5254,8 @@ def phase_resilience(torch, fa, card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     finally:
+        if keep is not None:
+            keep_paths(tmp, keep, ("trace", "dcp"))
         shutil.rmtree(tmp, ignore_errors=True)
 
     off_l = rec["off"]["launches_per_replayed_step"]
@@ -5316,7 +5357,7 @@ def supervised_plan():
     return FaultPlan(faults)
 
 
-def _sup_bert(torch, tmp: str, remote=None):
+def _sup_bert(torch, tmp: str, remote=None, **cfg):
     """_res_bert (seed 0) with the supervised phase's FFConfig: the
     checkpoint cadence, async saves, the remote tier at `remote` (every
     SUP_OFFLOAD_EVERY-th checkpoint mirrored, an emergency one always),
@@ -5328,7 +5369,8 @@ def _sup_bert(torch, tmp: str, remote=None):
                      checkpoint_async=True,
                      remote_store=f"file://{remote}" if remote else None,
                      offload_every=SUP_OFFLOAD_EVERY,
-                     nan_policy="restore", step_timeout=SUP_STEP_TIMEOUT)
+                     nan_policy="restore", step_timeout=SUP_STEP_TIMEOUT,
+                     **cfg)
 
 
 def _sup_report(rep) -> dict:
@@ -5555,7 +5597,7 @@ def _sup_timing(torch, ff, x, y, gaps) -> dict:
             "fit_resilient_over_fit_ms_per_step": res_gap - fit_gap}
 
 
-def phase_supervised(torch, fa, card: str) -> dict:
+def phase_supervised(torch, fa, card: str, keep=None) -> dict:
     """BERT-base under Adam through FFModel.fit_resilient (the resilience
     supervisor): SUP_STEPS steps with an async checkpoint every
     SUP_EVERY (every SUP_OFFLOAD_EVERY-th mirrored to a file:// remote
@@ -5567,7 +5609,9 @@ def phase_supervised(torch, fa, card: str) -> dict:
     writes and mirrors its emergency checkpoint and exits; the local
     directory is deleted; a second child resumes from the remote tier):
     0 apart from the uninterrupted run.  Then the recompile of the MoE
-    MLP with a Cache op (_cache_recompile)."""
+    MLP with a Cache op (_cache_recompile).  The faulted run records its
+    telemetry (trace_dir); with `keep`, its trace_dir, its checkpoint
+    directory and its remote tier go there for the tools phase."""
     from flexflow_tpu_torch.obs.metrics import registry_of
 
     b = TRAIN_BATCH
@@ -5611,7 +5655,8 @@ def phase_supervised(torch, fa, card: str) -> dict:
         first = _start_child("first", tmp, out)
         children.append(first)
         reset_flash_launches(fa)
-        ff = _sup_bert(torch, tmp, f"{tmp}/remote_fault")
+        ff = _sup_bert(torch, tmp, f"{tmp}/remote_fault",
+                       trace_dir=f"{tmp}/trace_fault")
         t0 = time.perf_counter()
         rep = ff.fit_resilient({"input": x}, y, num_steps=SUP_STEPS,
                                batch_size=b, directory=f"{tmp}/fault",
@@ -5626,6 +5671,7 @@ def phase_supervised(torch, fa, card: str) -> dict:
             unfired=[f.kind.value for f in plan.remaining()],
             state_diff=state_diff(host_state(ff), s_clean),
             upload_ms={"count": upload.count, "mean": upload.mean,
+                       "min": upload.min if upload.count else None,
                        "max": upload.max if upload.count else None},
             checkpoint_write_s={"count": write.count, "mean": write.mean,
                                 "max": write.max if write.count else None},
@@ -5669,6 +5715,8 @@ def phase_supervised(torch, fa, card: str) -> dict:
             if p.is_alive():
                 p.kill()
                 p.join()
+        if keep is not None:
+            keep_paths(tmp, keep, ("trace_fault", "fault", "remote_fault"))
         shutil.rmtree(tmp, ignore_errors=True)
 
     f = rec["faulted"]
@@ -5717,6 +5765,267 @@ def phase_supervised(torch, fa, card: str) -> dict:
     if faults:
         raise RuntimeError("supervised: " + "; ".join(faults))
     return rec
+
+# the tools phase: the operator tools (flexflow_tpu_torch/tools/) over
+# what this run's store, resilience and supervised phases wrote on the
+# card; it needs those three phases in the same run
+TOOLS_INPUTS = ("store", "resilience", "supervised")
+# the shipped strategy the store import promotes and a search then hits
+TOOLS_JOB, TOOLS_DEVICES = "bert_encoder", 8
+
+
+def keep_paths(src: str, dst: str, names) -> None:
+    """Move each of `names` that exists under `src` into `dst`, past the
+    clean-up of the phase that wrote it (the tools phase reads them)."""
+    os.makedirs(dst, exist_ok=True)
+    for name in names:
+        if os.path.exists(os.path.join(src, name)):
+            shutil.move(os.path.join(src, name), os.path.join(dst, name))
+
+
+def run_tool(name: str, argv) -> dict:
+    """flexflow_tpu_torch.tools.<name>.main(argv) in this process: its
+    exit code, wall seconds, stdout and stderr."""
+    import importlib
+
+    mod = importlib.import_module(f"flexflow_tpu_torch.tools.{name}")
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = mod.main(list(argv))
+        except SystemExit as e:  # argparse's usage errors
+            rc = e.code
+    return {"tool": name, "rc": rc, "wall_s": time.perf_counter() - t0,
+            "stdout": out.getvalue(), "stderr": err.getvalue()}
+
+
+def summary_rows(text: str) -> dict:
+    """{section title: {row name: value}} of a telemetry_summary table:
+    a title is a line underlined by as many dashes, a row is its name, two
+    or more spaces, its value."""
+    out, title = {}, None
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        under = lines[i + 1] if i + 1 < len(lines) else ""
+        if line and under == "-" * len(line):
+            title = line
+            out[title] = {}
+            continue
+        m = re.match(r"(\S.*?)\s{2,}(\S.*)$", line)
+        if title is not None and m and set(line) != {"-"}:
+            out[title][m.group(1)] = m.group(2)
+    return out
+
+
+def _fmt4(v) -> str:
+    """A number as telemetry_summary prints it."""
+    return f"{v:.4g}" if isinstance(v, float) else str(v)
+
+
+def hist_row(h: dict) -> str:
+    """A histogram's row in telemetry_summary, from {count, mean, min,
+    max}."""
+    return (f"n={h['count']} mean={_fmt4(h['mean'])} min={_fmt4(h['min'])} "
+            f"max={_fmt4(h['max'])}")
+
+
+def flip_leaf_byte(npz_path: str) -> str:
+    """Flip one byte in the middle of the data of the largest leaf of an
+    .npz (np.savez stores its members uncompressed); returns the leaf's
+    key."""
+    import zipfile
+
+    with zipfile.ZipFile(npz_path) as zf:
+        info = max(zf.infolist(), key=lambda i: i.file_size)
+    with open(npz_path, "r+b") as f:
+        f.seek(info.header_offset)
+        head = f.read(30)  # the local file header
+        name_len, extra_len = struct.unpack("<HH", head[26:30])
+        at = (info.header_offset + 30 + name_len + extra_len
+              + info.file_size // 2)
+        f.seek(at)
+        byte = f.read(1)[0]
+        f.seek(at)
+        f.write(bytes([byte ^ 0xFF]))
+    return info.filename[:-len(".npy")]
+
+
+def tools_faults(res: dict, step_ms: dict, upload_ms: dict, newest: int
+                 ) -> list:
+    """The tools phase's checks over its tools' results `res` (run_tool's,
+    by case): every exit code as expected; each summary's sections, its
+    step count and mean equal to the resilience phase's own fit/step_ms
+    (`step_ms`), its upload row equal to the supervised phase's
+    offload_upload_ms (`upload_ms`); the flipped copy's newest step
+    (`newest`) named corrupt; the dangling pointer named."""
+    want_rc = {"summary_resilience": 0, "summary_supervised": 0,
+               "summary_cli": 0, "fsck_clean": 0, "fsck_flipped": 1,
+               "fsck_dangling": 1, "fsck_dcp": 0, "store_import": 0,
+               "pb_to_json": 0, "metric_docs": 0}
+    faults = [f"{case}: exit {res[case]['rc']}, want {rc}: "
+              f"{res[case]['stderr'][-400:]}"
+              for case, rc in want_rc.items()
+              if case in res and res[case]["rc"] != rc]
+    faults += [f"{case} did not run" for case in want_rc if case not in res]
+    if faults:
+        return faults
+    rows = summary_rows(res["summary_resilience"]["stdout"])
+    for title in ("Steps", "Fidelity", "Resilience"):
+        if title not in rows:
+            faults.append(f"summary of the resilience trace: no {title}")
+    got = rows.get("Steps", {})
+    want = {"steps": str(step_ms["count"]),
+            "dispatch ms mean": _fmt4(step_ms["mean"])}
+    if {k: got.get(k) for k in want} != want:
+        faults.append(f"summary of the resilience trace: Steps {got}, the "
+                      f"phase's fit/step_ms {want}")
+    rows = summary_rows(res["summary_supervised"]["stdout"])
+    for title in ("Durability", "Resilience"):
+        if title not in rows:
+            faults.append(f"summary of the supervised trace: no {title}")
+    got = rows.get("Durability", {}).get("offload_upload_ms")
+    if got != hist_row(upload_ms):
+        faults.append(f"summary of the supervised trace: offload_upload_ms "
+                      f"{got}, the phase's {hist_row(upload_ms)}")
+    if res["summary_cli"]["stdout"] != res["summary_supervised"]["stdout"]:
+        faults.append("python -m telemetry_summary printed another table")
+    out = res["fsck_flipped"]["stdout"]
+    if f"step {newest:>8}  CORRUPT" not in out:
+        faults.append(f"fsck of the flipped copy: step {newest} not named: "
+                      f"{out[-400:]}")
+    if "LATEST pointer dangles" not in res["fsck_dangling"]["stdout"]:
+        faults.append("fsck of the dangling LATEST: "
+                      f"{res['fsck_dangling']['stdout']}")
+    return faults
+
+
+def phase_tools(torch, card: str, kept: str, step_ms: dict, upload_ms: dict,
+                device: str = "cuda") -> dict:
+    """The operator tools over this run's own files (`kept`: the store
+    phase's catalog under store/, the resilience phase's trace and DCP
+    step under resilience/, the supervised phase's faulted run's trace,
+    checkpoint directory and remote tier under supervised/):
+    telemetry_summary of both traces (and once as `python -m`),
+    checkpoint_fsck of the supervised directory with its remote tier, of
+    a copy of its newest step with one byte of one leaf flipped, of a
+    directory whose LATEST dangles and of a copy of the DCP step;
+    strategy_store_import -n 8 into a fresh store, then
+    FFModel.search_strategy(8) of the bert_encoder job a store hit that
+    returns the shipped strategy; pb_to_json of the catalog's wire bytes
+    equal to its JSON; check_metric_docs.  No kernel launches."""
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import paged_attention as pk
+    from flexflow_tpu_torch.strategy import Strategy
+    from flexflow_tpu_torch.tools import strategy_store_import as si
+
+    k = Path(kept)
+    tmp = tempfile.mkdtemp(prefix="ff_tools_")
+    reset_kernel_launches(pk, fa, bk)
+    t_phase = time.perf_counter()
+    res, checks, newest = {}, {}, -1
+
+    def tool(case, name, *argv):
+        res[case] = run_tool(name, argv)
+        emit({"phase": "tools", "case": case, "tool": name,
+              "rc": res[case]["rc"], "wall_s": res[case]["wall_s"]})
+
+    try:
+        sup = k / "supervised"
+        tool("summary_resilience", "telemetry_summary",
+             str(k / "resilience" / "trace"))
+        tool("summary_supervised", "telemetry_summary",
+             str(sup / "trace_fault"))
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "flexflow_tpu_torch.tools."
+             "telemetry_summary", str(sup / "trace_fault")],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=300)
+        res["summary_cli"] = {"tool": "telemetry_summary", "rc": cli.returncode,
+                              "wall_s": time.perf_counter() - t0,
+                              "stdout": cli.stdout, "stderr": cli.stderr}
+        emit({"phase": "tools", "case": "summary_cli",
+              "tool": "python -m flexflow_tpu_torch.tools.telemetry_summary",
+              "rc": cli.returncode, "wall_s": res["summary_cli"]["wall_s"]})
+
+        local, remote = sup / "fault", sup / "remote_fault"
+        tool("fsck_clean", "checkpoint_fsck", str(local), "--remote",
+             f"file://{remote}")
+        newest = int((local / "LATEST").read_text())
+        flipped = Path(tmp) / "flipped"
+        flipped.mkdir()
+        shutil.copytree(local / f"step_{newest:08d}",
+                        flipped / f"step_{newest:08d}")
+        (flipped / "LATEST").write_text(str(newest))
+        checks["flipped_leaf"] = flip_leaf_byte(
+            str(flipped / f"step_{newest:08d}" / "state.npz"))
+        tool("fsck_flipped", "checkpoint_fsck", str(flipped))
+        dangling = Path(tmp) / "dangling"
+        dangling.mkdir()
+        (dangling / "LATEST").write_text("42")
+        tool("fsck_dangling", "checkpoint_fsck", str(dangling))
+        # (hard links: nothing in the copy is written)
+        shutil.copytree(k / "resilience" / "dcp", f"{tmp}/dcp",
+                        copy_function=os.link)
+        tool("fsck_dcp", "checkpoint_fsck", f"{tmp}/dcp")
+
+        root = f"{tmp}/store"
+        tool("store_import", "strategy_store_import", "--store", root,
+             "-n", str(TOOLS_DEVICES), "--device", device)
+        ff = si.job_model(TOOLS_JOB, si.job_config(TOOLS_JOB, device,
+                                                   strategy_store=root))
+        t0 = time.perf_counter()
+        hit = ff.search_strategy(TOOLS_DEVICES)
+        shipped = Strategy.load(str(Path(__file__).resolve().parent
+                                    / "examples" / "strategies"
+                                    / f"{TOOLS_JOB}.json"))
+        checks["store_hit"] = {
+            "job": TOOLS_JOB, "devices": TOOLS_DEVICES,
+            "search_s": time.perf_counter() - t0,
+            "store_hit": hit.search_stats.get("store_hit"),
+            "imported_job": hit.search_stats.get("imported_job"),
+            "shipped": hit.to_json() == shipped.to_json()}
+
+        cat = k / "store"
+        tool("pb_to_json", "pb_to_json", "pb_to_json",
+             str(cat / "graph_subst.pb"), f"{tmp}/catalog.json")
+        checks["pb_to_json_equal"] = (
+            res["pb_to_json"]["rc"] == 0
+            and json.loads(Path(f"{tmp}/catalog.json").read_text())
+            == json.loads((cat / "graph_subst.json").read_text()))
+        tool("metric_docs", "check_metric_docs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = kernel_launches(pk, fa, bk)
+    faults = tools_faults(res, step_ms, upload_ms, newest)
+    hitc = checks.get("store_hit", {})
+    if not (hitc.get("store_hit") is True and hitc.get("shipped")
+            and hitc.get("imported_job") == TOOLS_JOB):
+        faults.append(f"search_strategy({TOOLS_DEVICES}) after the import: "
+                      f"{hitc}")
+    if not checks.get("pb_to_json_equal"):
+        faults.append("pb_to_json of the catalog's wire bytes differs from "
+                      "its JSON")
+    if any(launches.values()):
+        faults.append(f"the tools launched kernels: {launches}")
+    rec = {"phase": "tools", "card": card,
+           "wall_s": time.perf_counter() - t_phase,
+           "tools": {case: {"tool": r["tool"], "rc": r["rc"],
+                            "wall_s": r["wall_s"]}
+                     for case, r in res.items()},
+           "checks": checks, "launches": launches,
+           "resilience_fit_step_ms": step_ms,
+           "supervised_offload_upload_ms": upload_ms,
+           "summary_resilience": summary_rows(
+               res.get("summary_resilience", {}).get("stdout", "")),
+           "faults": faults}
+    emit(rec)
+    if faults:
+        raise RuntimeError("tools: " + "; ".join(faults))
+    return rec
+
 
 # the multigpu phase: BERT-base at the train phase's width, batch and
 # sequence over groups of ranks, each leg held against the same model
@@ -5817,6 +6126,11 @@ MULTIGPU_LEGS = (
      "supervised": "elastic"},
     {"name": "preempt_barrier", "ranks": 4, "strategy": ["dp"],
      "optimizer": "sgd", "supervised": "barrier"},
+    # Keras compile(devices=KERAS_DEVICES) on a group of 4 of its own (the
+    # leg leaves a group of 2): ranks 2-3 leave, ranks 0-1 train the
+    # KERAS_DEVICES_MODEL example from the same weights, held against a
+    # 2-card run of the same model on the same data (_keras_devices_body)
+    {"name": "keras_devices", "ranks": 4, "keras": "devices"},
 )
 # where the ckpt_reshard leg's checkpoint is restored: the ranks, the
 # ZeRO stage
@@ -6373,6 +6687,10 @@ def _ckpt_reshard(torch, job, ref, cards, tmp) -> dict:
 ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_LOSS_STEP = 6, 2, 3
 ELASTIC_SURVIVORS = 2
 BARRIER_STEPS, BARRIER_SIGNAL_STEP = 6, 1
+# the keras_devices leg: the model of keras_models(), the ranks it is
+# compiled onto, the batches it trains
+KERAS_DEVICES_MODEL, KERAS_DEVICES, KERAS_DEVICES_STEPS = (
+    "seq_mnist_mlp", (0, 1), 4)
 SUPERVISED_SEED = 23
 
 
@@ -6582,6 +6900,188 @@ def _barrier_record(ranks, out_dir) -> dict:
             "launches_per_rank_per_step": [r["launches_per_step"]
                                            for r in ranks],
             "faults": faults}
+
+
+def by_position(weights: dict, ff) -> dict:
+    """{i: entries} of weights {op name: entries}, the i-th op with
+    trainable weights of ff's graph first: a Keras layer's default name
+    comes from a per-process count, so two builds of one model name
+    their ops apart."""
+    ops = [op.name for op in ff.layers.topo_order()
+           if op.num_trainable_weights()]
+    return {str(i): weights[name] for i, name in enumerate(ops)}
+
+
+def by_name(weights: dict, ff) -> dict:
+    """by_position's inverse, onto ff's op names."""
+    ops = [op.name for op in ff.layers.topo_order()
+           if op.num_trainable_weights()]
+    return {name: weights[str(i)] for i, name in enumerate(ops)}
+
+
+def _keras_devices_job(torch, tmp) -> dict:
+    """The keras_devices leg's inputs, written where its ranks read them:
+    KERAS_DEVICES_STEPS batches of the KERAS_DEVICES_MODEL example's data
+    (keras_data) and its weights from np.random.RandomState(0)
+    (random_weights of the model lowered on the host), by position."""
+    import flexflow_tpu_torch.keras as K
+    from flexflow_tpu_torch import FFConfig
+
+    build, opt, loss, metrics, kind, b = keras_models(K)[KERAS_DEVICES_MODEL]
+    x, y, synthetic = keras_data(K.datasets, kind, KERAS_DEVICES_STEPS * b)
+    m = build(FFConfig(batch_size=b, device="cpu"))
+    m.compile(optimizer=opt, loss=loss, metrics=metrics)
+    job = {"data": f"{tmp}/keras_devices_data.npz",
+           "weights": f"{tmp}/keras_devices_init.npz",
+           "synthetic": synthetic}
+    np.savez(job["data"], x=x, y=y)
+    _save_flat(job["weights"], by_position(random_weights(m.ffmodel),
+                                           m.ffmodel))
+    return job
+
+
+def _keras_devices_body(torch, rank, job, out_dir) -> dict:
+    """The keras_devices leg on this rank of a group of 4: the
+    KERAS_DEVICES_MODEL example compiled with devices=KERAS_DEVICES (the
+    group re-forms onto those ranks); a rank outside them reports that it
+    left and what its fit raised.  On the others: the job's weights set,
+    fit over its batches (each step's loss and the gap between steps
+    that each wait for the card), then the same model compiled again on
+    the re-formed group (devices=None: the 2-card run it is held
+    against), given the same weights and fitted on the same batches;
+    the weights after each fit (rank 0, out_dir/keras_<run>_weights.npz),
+    the kernels' launches over both fits."""
+    import torch.distributed as dist
+
+    import flexflow_tpu_torch.keras as K
+    from flexflow_tpu_torch import FFConfig, distributed
+    from flexflow_tpu_torch.ops.kernels import bn_apply as bk
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import paged_attention as pk
+
+    spec = job["keras_devices"]
+    build, opt, loss, metrics, _, b = keras_models(K)[KERAS_DEVICES_MODEL]
+    with np.load(spec["data"]) as data:
+        x, y = data["x"], data["y"]
+    weights = _load_flat(spec["weights"])
+    reset_kernel_launches(pk, fa, bk)
+    out = {"left": False}
+    for run, devices in (("devices", list(KERAS_DEVICES)),
+                         ("reference", None)):
+        m = build(FFConfig(batch_size=b, device="cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.compile(optimizer=opt, loss=loss, metrics=metrics, devices=devices)
+        compile_s = time.perf_counter() - t0
+        ff = m.ffmodel
+        if ff._step_fn is None:  # this rank left the group
+            try:
+                m.fit(x, y, epochs=1, verbose=False)
+                err = None
+            except RuntimeError as e:
+                err = str(e)
+            return {"left": True, "fit_error": err, "compile_s": compile_s,
+                    "in_group": dist.is_initialized()}
+        total_s = ff.telemetry.metrics.gauge("compile/total_ms").value / 1e3
+        ff.set_weights(by_name(weights, ff))
+        losses, at, step = [], [], ff.train_step
+
+        def timed(inputs, labels, step=step, losses=losses, at=at):
+            out = step(inputs, labels)
+            losses.append(out["loss"])
+            torch.cuda.synchronize()  # the gap between steps times one
+            at.append(time.perf_counter())
+            return out
+
+        ff.train_step = timed
+        t0 = time.perf_counter()
+        m.fit(x, y, epochs=1, verbose=False)
+        out[run] = {
+            "compile_s": compile_s,
+            # the Keras compile's wall beyond FFModel.compile's own: the
+            # lowering and, with devices, the group's re-form
+            "reform_s": compile_s - total_s if devices else None,
+            "ffmodel_compile_s": total_s,
+            "losses": [float(v) for v in losses],
+            "step_ms": (np.diff([t0] + at) * 1e3).tolist(),
+            "fit_wall_s": time.perf_counter() - t0,
+            "world": distributed.world_size(), "rank": distributed.rank(),
+            "capture_mode": ff.executor.capture_status["mode"]}
+        if distributed.rank() == 0:
+            _save_flat(f"{out_dir}/keras_{run}_weights.npz",
+                       by_position(ff.get_weights(), ff))
+        del ff.train_step, m, ff
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = kernel_launches(pk, fa, bk)
+    out["launches"] = launches
+    out["launches_per_step"] = {
+        k: v / (2 * KERAS_DEVICES_STEPS) for k, v in launches.items()}
+    return out
+
+
+def _keras_devices_record(ranks, out_dir) -> dict:
+    """The keras_devices leg's record: the ranks outside KERAS_DEVICES
+    left (no group; their fit raised saying so); the others re-formed a
+    group of len(KERAS_DEVICES), trained every batch, and their losses
+    and weights are within MULTIGPU_TOL (loss, adam_weights) of the 2-card
+    run on that group; no kernel launched."""
+    n = len(KERAS_DEVICES)
+    stayed, left = ranks[:n], ranks[n:]
+    faults = []
+    for i, r in enumerate(left, n):
+        if (not r["left"] or r["in_group"]
+                or "left the torch.distributed group" not in (
+                    r["fit_error"] or "")):
+            faults.append(f"keras_devices: rank {i} did not leave: {r}")
+    errs = []
+    for i, r in enumerate(stayed):
+        if r["left"]:
+            faults.append(f"keras_devices: rank {i} left: {r}")
+            continue
+        got, ref = r["devices"], r["reference"]
+        ok = len(got["losses"]) == len(ref["losses"]) == KERAS_DEVICES_STEPS
+        errs.append(_loss_err(got["losses"], ref["losses"]) if ok
+                    else float("inf"))
+        if (got["world"] != n or got["rank"] != i
+                or not np.isfinite(got["losses"]).all()
+                or errs[-1] > MULTIGPU_TOL["loss"]):
+            faults.append(f"keras_devices: rank {i}: {got}, the 2-card "
+                          f"run's losses {ref['losses']}")
+        if any(r["launches"].values()):
+            faults.append(f"keras_devices: rank {i} launched "
+                          f"{r['launches']}")
+    if faults:
+        return {"faults": faults, "launches_per_rank_per_step": []}
+    w_err, worst = _weights_diff(
+        _load_flat(f"{out_dir}/keras_devices_weights.npz"),
+        _load_flat(f"{out_dir}/keras_reference_weights.npz"))
+    if w_err > MULTIGPU_TOL["adam_weights"]:
+        faults.append(f"keras_devices: weights {w_err} apart ({worst}) "
+                      "from the 2-card run")
+    r0 = stayed[0]
+    return {
+        "model": KERAS_DEVICES_MODEL, "devices": list(KERAS_DEVICES),
+        "steps": KERAS_DEVICES_STEPS, "optimizer": "adam",
+        "left": list(range(n, len(ranks))),
+        "left_errors": [r["fit_error"] for r in left],
+        "losses": r0["devices"]["losses"],
+        "reference_losses": r0["reference"]["losses"],
+        "max_loss_err_over_scale": max(errs),
+        "loss_tolerance": MULTIGPU_TOL["loss"],
+        "max_weight_diff": w_err, "worst_weight": worst,
+        "weight_tolerance": MULTIGPU_TOL["adam_weights"],
+        "compile_s": [r["devices"]["compile_s"] for r in stayed],
+        "reform_s": [r["devices"]["reform_s"] for r in stayed],
+        "left_compile_s": [r["compile_s"] for r in left],
+        "reference_compile_s": [r["reference"]["compile_s"]
+                                for r in stayed],
+        "step_ms": r0["devices"]["step_ms"],
+        "reference_step_ms": r0["reference"]["step_ms"],
+        "capture_mode": r0["devices"]["capture_mode"],
+        "launches_per_rank_per_step": [r["launches_per_step"]
+                                       for r in stayed],
+        "faults": faults}
 
 
 def _leg_capture_check(torch, dist, leg, job, data, rank) -> dict:
@@ -6956,6 +7456,9 @@ def _multigpu_rank(rank, world, cards, backend, port, job, out_dir):
             gc.collect()
             torch.cuda.empty_cache()
             out[name] = bodies[name](torch, rank, job, out_dir)
+        if job.get("keras_devices"):
+            out["keras_devices"] = _keras_devices_body(torch, rank, job,
+                                                       out_dir)
         out["ok"] = True
     except Exception:  # reported to the parent, which fails the phase
         out["ok"] = False
@@ -7265,7 +7768,9 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
     chosen = [leg for leg in MULTIGPU_LEGS
               if names is None or leg["name"] in names]
     supervised = [leg for leg in chosen if leg.get("supervised")]
-    chosen = [leg for leg in chosen if not leg.get("supervised")]
+    keras = [leg for leg in chosen if leg.get("keras")]
+    chosen = [leg for leg in chosen
+              if not leg.get("supervised") and not leg.get("keras")]
     kinds = {leg["strategy"][0] for leg in chosen}
     cards = torch.cuda.device_count()
     tmp = tempfile.mkdtemp(prefix="ff_multigpu_")
@@ -7324,6 +7829,18 @@ def phase_multigpu(torch, fa, card: str, run_dir: str,
                 rec.update(leg=leg["name"], ranks=4, cards=cards,
                            backend=backend, group_wall_s=wall)
                 legs.append(rec)
+        if keras:
+            # a group of its own: the leg leaves a group of 2
+            out_dir = tempfile.mkdtemp(dir=tmp)
+            backend, wall, outs = _run_ranks(
+                4, cards, dict(job, legs=[], supervised=[],
+                               keras_devices=_keras_devices_job(torch, tmp)),
+                out_dir)
+            rec = _keras_devices_record([o["keras_devices"] for o in outs],
+                                        out_dir)
+            rec.update(leg="keras_devices", ranks=4, cards=cards,
+                       backend=backend, group_wall_s=wall)
+            legs.append(rec)
         for rec in legs:
             if rec["leg"] == "ckpt_reshard":
                 reshard = _ckpt_reshard(torch, job, refs["bert_adam"], cards,
@@ -7720,13 +8237,18 @@ def _moe_checks(name, ranks, ref, strategy, faults) -> dict:
 
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                 onnx=None, search=None, multigpu=None, capture=None,
-                store=None, resilience=None, supervised=None) -> dict:
+                store=None, resilience=None, supervised=None,
+                tools=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
     main paths (what the wrappers counted: under a captured step, the
     warm-up and the capturing step; the capture phase's profiler counts
     a replayed step's), agreement with the plain versions and the times
-    of this run."""
+    of this run.  The tools phase launches none (`launches_tools`)."""
     rows = []
+
+    def tool_launches(kid):
+        return tools["launches"][kid] if tools else None
+
     if bn is not None:
         main = bn["main"]
         rows.append({
@@ -7746,6 +8268,7 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                 multigpu, "P1"),
             "launches_per_counted_train_step_onnx": (
                 onnx["p1_launches_per_counted_step"] if onnx else None),
+            "launches_tools": tool_launches("P1"),
             "max_abs_err": max(c["max_abs_err"] for c in bn["cases"]),
             "max_err_over_scale_by_dtype": bn["worst"],
             "tolerance": BN_TOL,
@@ -7778,6 +8301,7 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
         "launches": serve["paged_attention_launches"] if serve else 0,
         "launches_per_decode_step": (serve["launches_per_forward"]
                                      if serve else None),
+        "launches_tools": tool_launches("K4"),
         "max_abs_err": max(kern["worst"].values()),
         "max_abs_err_by_dtype": kern["worst"],
         "tolerance": TOL,
@@ -7835,6 +8359,7 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
             "launches_per_replayed_step_supervised": (
                 supervised["faulted"]["launches_per_replayed_step"][kid]
                 if supervised else None),
+            "launches_tools": tool_launches(kid),
             "max_abs_err": max(w[0] for w in worst.values()),
             "max_err_over_scale_by_dtype": {
                 dt: w[1] for dt, w in worst.items()},
@@ -7887,6 +8412,9 @@ def main(argv=None) -> int:
     unknown = phases - set(ALL_PHASES.split(","))
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "tools" in phases and not set(TOOLS_INPUTS) <= phases:
+        ap.error(f"the tools phase reads what the {', '.join(TOOLS_INPUTS)} "
+                 "phases write: run it with them")
     legs = {leg["name"] for leg in MULTIGPU_LEGS}
     if args.legs is not None and set(args.legs.split(",")) - legs:
         ap.error(f"unknown legs {sorted(set(args.legs.split(',')) - legs)}")
@@ -7917,9 +8445,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     kern = flash = serve = train = bn = resnet = paged = onnx = None
     search = store = multigpu = capture = resilience = supervised = None
+    tools = None
     # what one phase leaves for another: the searched strategy and the
     # op costs the search timed (the multigpu phase trains and prices it)
     run_dir = tempfile.mkdtemp(prefix="ff_smoke_")
+    # what the tools phase reads, kept past each writing phase
+    kept = f"{run_dir}/tools_inputs" if "tools" in phases else None
+
+    def keep(phase):
+        return None if kept is None else f"{kept}/{phase}"
     # seconds per phase group (a group that did not run takes ~0)
     walls, last = {"build": build_s}, [time.perf_counter()]
 
@@ -8005,17 +8539,25 @@ def main(argv=None) -> int:
         search = phase_search(torch, fa, card, run_dir)
     walls["search"] = _lap()
     if "store" in phases:
-        store = phase_store(torch, fa, card, search)
+        store = phase_store(torch, fa, card, search, keep=keep("store"))
         torch.cuda.empty_cache()
     walls["store"] = _lap()
     if "resilience" in phases:
-        resilience = phase_resilience(torch, fa, card)
+        resilience = phase_resilience(torch, fa, card,
+                                      keep=keep("resilience"))
         torch.cuda.empty_cache()
     walls["resilience"] = _lap()
     if "supervised" in phases:
-        supervised = phase_supervised(torch, fa, card)
+        supervised = phase_supervised(torch, fa, card,
+                                      keep=keep("supervised"))
         torch.cuda.empty_cache()
     walls["supervised"] = _lap()
+    if "tools" in phases:
+        tools = phase_tools(torch, card, kept,
+                            resilience["on"]["fit_step_ms"],
+                            supervised["faulted"]["upload_ms"])
+        shutil.rmtree(kept, ignore_errors=True)
+    walls["tools"] = _lap()
     if "multigpu" in phases:
         multigpu = phase_multigpu(
             torch, fa, card, run_dir,
@@ -8027,7 +8569,7 @@ def main(argv=None) -> int:
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,
                          search, multigpu, capture, store, resilience,
-                         supervised))
+                         supervised, tools))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -56,13 +56,11 @@ class _BaseModel:
                 metrics: Sequence[Union[str, MetricsType]] = ("accuracy",),
                 batch_size: Optional[int] = None,
                 devices: Optional[Sequence] = None):
-        """Lower the layer graph onto a new FFModel and compile it.  The
-        reference's `devices` (a device mesh) comes with the multi-GPU
-        slice; the device here is FFConfig.device."""
-        if devices is not None:
-            raise NotImplementedError(
-                "compile(devices=...): device meshes come with the "
-                "multi-GPU slice of the port; set FFConfig.device")
+        """Lower the layer graph onto a new FFModel and compile it on
+        FFConfig.device.  `devices` are ranks of the torch.distributed
+        group (None: all of them), as FFModel.compile takes them: other
+        ranks than the whole group re-form it, and on a rank outside
+        them the model stays uncompiled (its fit raises)."""
         cfg = self.config or FFConfig()
         if batch_size is not None:
             cfg.batch_size = batch_size
@@ -96,13 +94,16 @@ class _BaseModel:
             loss = _LOSSES[loss.lower()]
         metrics = [_METRICS[m.lower()] if isinstance(m, str) else m
                    for m in metrics]
-        ff.compile(optimizer=optimizer, loss_type=loss, metrics=metrics)
+        ff.compile(optimizer=optimizer, loss_type=loss, metrics=metrics,
+                   devices=devices)
         self.ffmodel = ff
         return self
 
     def _compiled(self) -> FFModel:
         if self.ffmodel is None:
             raise RuntimeError("call compile() first")
+        # a rank that compile(devices=...) left out has no step
+        self.ffmodel._require_step(self.name)
         return self.ffmodel
 
     def fit(self, x, y, batch_size: Optional[int] = None, epochs: int = 1,

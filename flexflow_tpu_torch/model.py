@@ -123,6 +123,9 @@ class FFModel:
         self._used_names: set = set()
         self._name_counts: Dict[str, int] = {}
         self._compile_args = None  # what compile() was given, for recompile
+        # why this rank has no compiled step after compile or recompile
+        # left it out of `devices` (None: it was never left out)
+        self._left_group: Optional[str] = None
         # the Cache ops of the layer graph (the user's handles, which
         # keep the host rings), and the last step's taps, folded in one
         # step late
@@ -507,22 +510,91 @@ class FFModel:
                 (MetricsType.ACCURACY,),
                 comp_mode: CompMode = CompMode.TRAINING,
                 strategy: Optional[Strategy] = None,
+                devices: Optional[Sequence[int]] = None,
                 seed: Optional[int] = None):
         """`_compile` under the telemetry's "compile" span, its time in
-        the compile/total_ms gauge."""
+        the compile/total_ms gauge.
+
+        `devices` are the ranks of the current torch.distributed group
+        to compile onto (None: all of them), and len(devices) is the
+        device count the search and the data-parallel default see (the
+        reference's compile(devices=...)).  A list other than the whole
+        group in order re-forms the group onto those ranks, in that
+        order, as recompile does (`_join_devices`; every rank calls); a
+        rank outside it leaves the group, its model uncompiled, and its
+        train_step and fit raise RuntimeError.  Without a group the one
+        device is rank 0: `devices` may be [0] only."""
         tel = self.telemetry
         self._compile_args = dict(loss_type=loss_type, metrics=metrics,
                                   comp_mode=comp_mode, seed=seed)
+        if not self._join_devices(devices):
+            return self
         t0 = time.perf_counter()
         with tel.tracer.span("compile", cat="compile"):
-            result = self._compile(optimizer, loss_type, metrics, comp_mode,
-                                   strategy, seed)
+            result = self._compile(
+                optimizer, loss_type, metrics, comp_mode, strategy, seed,
+                len(devices) if devices is not None else None)
         tel.metrics.gauge("compile/total_ms").set(
             (time.perf_counter() - t0) * 1e3)
         return result
 
+    def _join_devices(self, devices: Optional[Sequence[int]],
+                      init_method: Optional[str] = None) -> bool:
+        """Make the group the ranks `devices` names (None: the group as
+        it is), and whether this rank is among them.  Ranks other than
+        the whole group in order re-form it (distributed.reform_group,
+        through `init_method`, by default a file store rank 0 names):
+        whatever this model compiled is dropped first, on every rank; a
+        rank outside `devices` leaves, its model uncompiled."""
+        self._left_group = None
+        if devices is None:
+            return True
+        ranks = []
+        for d in devices:
+            if isinstance(d, bool) or not isinstance(d, (int, np.integer)):
+                raise ValueError(
+                    f"devices are ranks of the torch.distributed group "
+                    f"(ints), got {d!r} in {list(devices)}")
+            ranks.append(int(d))
+        world = distributed.world_size()
+        if not torch.distributed.is_initialized():
+            if ranks != [0]:
+                raise ValueError(
+                    f"devices={ranks} names {len(ranks)} rank(s), but no "
+                    "torch.distributed group is initialized: without a "
+                    "group the one device is rank 0 (devices=[0]); join "
+                    f"a group of at least {max(ranks, default=0) + 1} "
+                    "ranks first (distributed.initialize)")
+            return True
+        if ranks == list(range(world)):
+            return True
+        if len(set(ranks)) != len(ranks) or not all(
+                0 <= r < world for r in ranks):
+            raise ValueError(f"devices={ranks} are not distinct ranks of "
+                             f"the torch.distributed group of {world}")
+        if init_method is None:
+            init_method = distributed.fresh_init_method()
+        me = distributed.rank()
+        if self.executor is not None:
+            self._drop_step()
+        if distributed.reform_group(ranks, init_method,
+                                    device=str(self.device)) is None:
+            self._left_group = (
+                f"rank {me} left the torch.distributed group of {world} "
+                f"when it re-formed onto ranks {ranks}: this model is not "
+                "compiled on it")
+            return False
+        return True
+
+    def _require_step(self, what: str) -> None:
+        """RuntimeError unless a compiled step exists, saying why."""
+        if self._step_fn is None:
+            raise RuntimeError(f"{what}: {self._left_group}"
+                               if self._left_group else
+                               "call compile() first")
+
     def _compile(self, optimizer, loss_type, metrics, comp_mode, strategy,
-                 seed):
+                 seed, num_devices=None):
         """Pick the strategy, build the executor on the config's device,
         stamp FFConfig.flash_min_seq on every op, draw the weights and
         the optimizer's state.
@@ -530,6 +602,7 @@ class FFModel:
         The strategy is `strategy`, else the config's
         import_strategy_file, else, with search_budget > 0 (and not
         only_data_parallel), the Unity or MCMC search's for
+        `num_devices` (compile's len(devices)) or else
         FFConfig.resolve_num_devices() devices (every card on CUDA, one
         on the CPU, the group's size on a torch.distributed group),
         restored from the strategy store instead when one is configured
@@ -583,7 +656,7 @@ class FFModel:
         if strategy is None and world > 1 and not cfg.import_strategy_file \
                 and not cfg.search_budget:
             strategy = data_parallel_strategy(world)
-        picked = self._pick_strategy(strategy)
+        picked = self._pick_strategy(strategy, num_devices)
         if self.strategy.total_devices != world:
             raise ValueError(
                 f"the strategy spans {self.strategy.total_devices} devices "
@@ -705,7 +778,8 @@ class FFModel:
 
         return cached_search(self, num_devices, run_search)
 
-    def _pick_strategy(self, strategy: Optional[Strategy]
+    def _pick_strategy(self, strategy: Optional[Strategy],
+                       num_devices: Optional[int] = None
                        ) -> Optional[Strategy]:
         """The strategy compile applies (None: the layer graph as it
         is), set on self.strategy with search_stats as the reference
@@ -716,7 +790,7 @@ class FFModel:
         if (strategy is None and cfg.search_budget > 0
                 and not cfg.only_data_parallel):
             tel = self.telemetry
-            num_devices = cfg.resolve_num_devices()
+            num_devices = num_devices or cfg.resolve_num_devices()
             t0 = time.perf_counter()
             with tel.tracer.span("search", cat="search",
                                  algo=cfg.search_algo, devices=num_devices):
@@ -791,6 +865,7 @@ class FFModel:
         """One iteration: forward, loss, backward, the in-place update
         and the metrics.  Returns the metric sums and "loss" as tensors
         on the model's device (no host sync)."""
+        self._require_step("train_step()")
         self._check_not_decode_graph("train_step()")
         if self.comp_mode != CompMode.TRAINING:
             raise RuntimeError("train_step() needs compile(comp_mode="
@@ -884,8 +959,7 @@ class FFModel:
         epoch's seconds per step go into the fidelity record.  In every
         exit the artifacts are flushed and the callbacks' checkpoint
         managers drained, so a fit that crashed still writes them."""
-        if self._step_fn is None:
-            raise RuntimeError("call compile() first")
+        self._require_step("fit()")
         batch_size = batch_size or self.config.batch_size
         epochs = epochs or self.config.epochs
         input_ops = self.layers.source_ops()
@@ -1046,8 +1120,7 @@ class FFModel:
         Returns a SupervisorReport."""
         from .resilience import TrainingSupervisor
 
-        if self._step_fn is None:
-            raise RuntimeError("call compile() first")
+        self._require_step("fit_resilient()")
         batch_size = batch_size or self.config.batch_size
         directory = directory or self.config.checkpoint_dir
         if directory is None:
@@ -1087,12 +1160,13 @@ class FFModel:
         restores a checkpoint next).  The old step is dropped before the
         new one is built, and the new one is captured again on a card.
 
-        `devices` are ranks of the current group (None: all of them).
-        Fewer re-form the group: every rank calls, the group is destroyed
-        and `devices` join a new one in that order
-        (distributed.reform_group, through `init_method`; by default a
-        file store rank 0 names); a rank outside it returns False, its
-        model no longer compiled.  True otherwise."""
+        `devices` are ranks of the current group, as in compile.  None
+        keeps compile's own: compile left the group equal to its
+        devices, so that is the whole current group (after a device
+        loss, the survivors' re-formed one).  Other ranks re-form the
+        group as compile does (`_join_devices`, through `init_method`):
+        every rank calls, and a rank outside `devices` returns False,
+        its model no longer compiled.  True otherwise."""
         from .checkpoint import load_state_arrays, state_arrays
 
         if self._compile_args is None:
@@ -1104,16 +1178,11 @@ class FFModel:
                                    "model to carry the state of")
             self._flush_cache_taps()
             arrays = state_arrays(self)
-        world = distributed.world_size()
-        ranks = (list(range(world)) if devices is None
-                 else [int(d) for d in devices])
-        reform = ranks != list(range(world))
-        if reform and init_method is None:
-            init_method = distributed.fresh_init_method()
-        self._drop_step()
-        if reform and distributed.reform_group(
-                ranks, init_method, device=str(self.device)) is None:
+        # (a re-form drops the step before the group goes)
+        if not self._join_devices(devices, init_method):
             return False
+        if self.executor is not None:
+            self._drop_step()
         self.compile(optimizer=self.optimizer, strategy=strategy,
                      **self._compile_args)
         if arrays is not None:

@@ -348,9 +348,8 @@ class TrainingSupervisor:
         self._epoch = epoch
         store = os.path.join(self.manager.directory,
                              f".group-{self.run_id}-epoch{epoch:04d}")
-        return distributed.reform_group(
-            range(survivors), f"file://{store}",
-            device=str(self.ff.device)) is not None
+        return self.ff._join_devices(list(range(survivors)),
+                                     f"file://{store}")
 
     def _recover_device_loss(self, fault: DeviceLossFault, step: int,
                              record: Dict) -> int:

@@ -13,6 +13,9 @@ verify, its rules match BERT's graph), its kernel-cache check and its
 launches in the kernels line, and the supervised phase and legs: their
 place, fault plan, survivors, tolerances and launches in the kernels
 line, the Cache op dropped from a graph, and the unchanged last line."""
+import contextlib
+import io
+import json
 import sys
 from pathlib import Path
 
@@ -196,8 +199,9 @@ def test_phase_list_ends_with_the_sequence_and_frontend_path():
 def test_search_phase_runs_last_over_the_hgx_node():
     """The search phase comes after every earlier one-card phase (only
     the store phase, which searches it again with a catalog, the
-    resilience and supervised phases, and the multigpu phase, which
-    trains the strategy it writes, follow),
+    resilience and supervised phases, the tools phase, which reads what
+    those three wrote, and the multigpu phase, which trains the strategy
+    it writes, follow),
     parses as a --phases entry, and searches BERT-base for the 8 GPUs of
     the committed one-node machine file, timing ops on the card."""
     import os
@@ -205,9 +209,9 @@ def test_search_phase_runs_last_over_the_hgx_node():
     from flexflow_tpu_torch.sim.machine_model import GpuNodeModel
 
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[-5:] == ["search", "store", "resilience", "supervised",
-                           "multigpu"]
-    assert len(phases) == 29 and phases.count("search") == 1
+    assert phases[-6:] == ["search", "store", "resilience", "supervised",
+                           "tools", "multigpu"]
+    assert len(phases) == 30 and phases.count("search") == 1
     assert "`--phases search`" in chip_smoke.__doc__
     cfg = chip_smoke.search_config("/tmp/costs.json")
     assert (cfg.batch_size, cfg.device, cfg.search_budget) == (
@@ -592,13 +596,13 @@ def test_multigpu_legs_follow_the_issue():
     x pipe 2 with and without remat, pipe 4, the demo under 1F1B, the
     search's cheapest pipeline), four MoE legs of 4 (data 4, expert
     4, data 2 x expert 2, the search's), four legs of 4 of factored
-    views and two slices, the checkpoint leg of 4 and the supervisor's
-    two legs of 4 (elastic, preempt_barrier), each with its
-    strategy."""
+    views and two slices, the checkpoint leg of 4, the supervisor's
+    two legs of 4 (elastic, preempt_barrier) and Keras compile(devices)
+    on 4 (keras_devices), each with its strategy."""
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     assert [leg["ranks"] for leg in chip_smoke.MULTIGPU_LEGS] == \
-        [4, 4, 4, 4, 4, chip_smoke.SEARCH_DEVICES] + [4] * 16
-    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-11:-7] == \
+        [4, 4, 4, 4, 4, chip_smoke.SEARCH_DEVICES] + [4] * 17
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-12:-8] == \
         ["moe_dp4", "ep4", "dp2_ep2", "moe_searched"]
     assert chip_smoke.MOE == dict(hidden_size=768, num_layers=12,
                                   num_heads=12, num_exp=8, num_select=2,
@@ -616,7 +620,7 @@ def test_multigpu_legs_follow_the_issue():
     assert chip_smoke.expert_split(mixed) == 2
     assert chip_smoke.expert_split(dp4) == 1
     assert all(leg["reference"] == "moe" for leg in chip_smoke.MULTIGPU_LEGS
-               if leg["strategy"][0].startswith("moe"))
+               if leg.get("strategy", [""])[0].startswith("moe"))
     tp = chip_smoke._multigpu_strategy(legs["dp_tp"], {})
     assert tp.mesh_axes == {"data": 2, "model": 2}
     sp = chip_smoke._multigpu_strategy(legs["dp_sp"], {})
@@ -662,7 +666,7 @@ def test_factored_and_slice_legs_follow_the_issue():
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
     names = ["factored_tp4", "slices2_dp4", "slices2_zero1",
              "slices2_searched"]
-    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-7:-3] == names
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-8:-4] == names
     assert [legs[n].get("slices", 1) for n in names] == [1, 2, 2, 2]
     assert [legs[n]["reference"] for n in names] == [
         "bert_sgd", "bert_sgd", "bert_adam", "bert_sgd"]
@@ -1308,7 +1312,7 @@ def test_ckpt_reshard_leg_follows_the_issue():
     one card; it leaves the ladder's own checks (ZeRO-0 beside it, grad
     memory) to dp_zero2."""
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
-    leg = chip_smoke.MULTIGPU_LEGS[-3]
+    leg = chip_smoke.MULTIGPU_LEGS[-4]
     assert leg["name"] == "ckpt_reshard" and leg["checkpoint"] is True
     assert {k: v for k, v in leg.items() if k not in ("name", "checkpoint")} \
         == {k: v for k, v in legs["dp_zero2"].items() if k != "name"}
@@ -1336,7 +1340,7 @@ def test_resilience_phase_bookkeeping():
               {"name": "flush", "ph": "E", "ts": 1500.0, "tid": 2}]
     assert chip_smoke._span_ms(events, "flush") == [2.0, 1.0]
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases.index("resilience") == phases.index("multigpu") - 2
+    assert phases.index("resilience") == phases.index("multigpu") - 3
     assert chip_smoke.RES_HANG_S > chip_smoke.RES_STEP_TIMEOUT
 
 
@@ -1414,7 +1418,8 @@ def test_supervised_phase_and_legs_follow_their_plan():
 
     phases = chip_smoke.ALL_PHASES.split(",")
     assert phases.index("supervised") == phases.index("resilience") + 1
-    assert phases.index("supervised") == phases.index("multigpu") - 1
+    # (the tools phase reads what it wrote, before multigpu)
+    assert phases.index("supervised") == phases.index("multigpu") - 2
     assert "`--phases\nsupervised`" in chip_smoke.__doc__
     assert "elastic,preempt_barrier" in chip_smoke.__doc__
     assert (chip_smoke.SUP_STEPS, chip_smoke.SUP_EVERY) == (10, 4)
@@ -1429,7 +1434,7 @@ def test_supervised_phase_and_legs_follow_their_plan():
     assert 1 <= plan.faults[3].step <= 8
     assert plan.to_json() == chip_smoke.supervised_plan().to_json()
     legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
-    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-2:] == [
+    assert [leg["name"] for leg in chip_smoke.MULTIGPU_LEGS][-3:-1] == [
         "elastic", "preempt_barrier"]
     assert legs["elastic"] == {"name": "elastic", "ranks": 4,
                                "strategy": ["dp"], "optimizer": "adam",
@@ -1552,3 +1557,246 @@ def test_only_the_group_of_4_runs_the_supervised_legs(monkeypatch):
                     (2, ["ckpt_restore_2"], [])]
     assert [leg["leg"] for leg in rec["legs"]] == [
         "ckpt_reshard", "elastic", "preempt_barrier"]
+
+
+# -- the tools phase and the keras_devices leg ------------------------------------
+
+def test_tools_phase_reads_what_the_phases_before_it_wrote():
+    """`tools` runs after supervised and before multigpu, and only with
+    the three phases whose files it reads."""
+    phases = chip_smoke.ALL_PHASES.split(",")
+    assert phases.index("tools") == phases.index("supervised") + 1
+    assert phases.index("tools") == phases.index("multigpu") - 1
+    assert chip_smoke.TOOLS_INPUTS == ("store", "resilience", "supervised")
+    assert (chip_smoke.TOOLS_JOB, chip_smoke.TOOLS_DEVICES) == (
+        "bert_encoder", 8)
+    assert "--phases store,resilience,supervised,tools" in \
+        chip_smoke.__doc__.replace("\n", " ")
+    for argv in (["--phases", "tools"], ["--phases", "store,tools"]):
+        with pytest.raises(SystemExit):
+            chip_smoke.main(argv)
+
+
+def test_tools_phase_parses_the_summary_and_flips_a_leaf(tmp_path):
+    """summary_rows reads telemetry_summary's table (titles underlined,
+    rows `name  value`); hist_row is its histogram row; flip_leaf_byte
+    flips one byte of the largest leaf's data, which np.load and the
+    fsck then refuse."""
+    from flexflow_tpu_torch.obs.metrics import MetricsRegistry
+    from flexflow_tpu_torch.tools import checkpoint_fsck, telemetry_summary
+
+    reg = MetricsRegistry()
+    for v in (10.0, 12.5, 11.0):
+        reg.histogram("fit/step_ms").observe(v)
+    reg.histogram("resilience/offload_upload_ms").observe(4321.123)
+    reg.counter("resilience/restarts").inc(3)
+    text = telemetry_summary.summarize(reg.drain())
+    rows = chip_smoke.summary_rows(text)
+    assert rows["Steps"] == {"steps": "3", "dispatch ms mean": "11.17",
+                             "dispatch ms min/max": "10 / 12.5"}
+    assert rows["Resilience"] == {"restarts": "3"}
+    h = reg.histogram("resilience/offload_upload_ms")
+    assert rows["Durability"]["offload_upload_ms"] == chip_smoke.hist_row(
+        {"count": h.count, "mean": h.mean, "min": h.min, "max": h.max}) == \
+        "n=1 mean=4321 min=4321 max=4321"
+
+    step = tmp_path / "ckpt" / "step_00000003"
+    step.mkdir(parents=True)
+    leaves = {"['weights']['a']['kernel']": np.arange(4096, dtype=np.float32),
+              "['rng']": np.zeros(16, np.uint8)}
+    np.savez(step / "state.npz", **leaves)
+    from flexflow_tpu_torch.checkpoint import _build_manifest
+
+    (step / "manifest.json").write_text(json.dumps(_build_manifest(
+        3, leaves)))
+    (step / "meta.json").write_text(json.dumps({"step": 3}))
+    (tmp_path / "ckpt" / "LATEST").write_text("3")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert checkpoint_fsck.main([str(tmp_path / "ckpt")]) == 0
+    assert chip_smoke.flip_leaf_byte(str(step / "state.npz")) == \
+        "['weights']['a']['kernel']"
+    with contextlib.redirect_stdout(out):
+        assert checkpoint_fsck.main([str(tmp_path / "ckpt")]) == 1
+    assert "step        3  CORRUPT" in out.getvalue()
+
+
+def _tools_inputs(root):
+    """What the store, resilience and supervised phases keep for the
+    tools phase, made on the host at a small size: the catalog, a traced
+    fit's trace_dir and a DCP step, and a supervised run's trace_dir,
+    checkpoint directory and remote tier; the two histograms the phase
+    records."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.checkpoint import (CheckpointManager,
+                                               LocalCheckpointManager)
+    from flexflow_tpu_torch.fftype import ActiMode
+    from flexflow_tpu_torch.obs.metrics import registry_of
+    from flexflow_tpu_torch.resilience import offload, supervisor
+    from flexflow_tpu_torch.store.blobstore import LocalBlobStore
+
+    (root / "store").mkdir(parents=True)
+    chip_smoke.write_store_catalog(str(root / "store"))
+
+    def model(trace):
+        ff = FFModel(FFConfig(batch_size=16, device="cpu",
+                              trace_dir=str(trace)))
+        x = ff.create_tensor([16, 8], name="x")
+        ff.softmax(ff.dense(ff.dense(x, 16, activation=ActiMode.RELU), 4))
+        ff.compile(optimizer=SGDOptimizer(lr=0.05), seed=0)
+        return ff
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 8).astype(np.float32)
+    y = rng.randint(0, 4, 64).astype(np.int32)
+    ff = model(root / "resilience" / "trace")
+    ff.fit(x, y, epochs=1, verbose=False,
+           callbacks=[chip_smoke_checkpoint(root / "resilience" / "local")])
+    ff.telemetry.flush()
+    h = ff.telemetry.metrics.histogram("fit/step_ms")
+    step_ms = {"count": h.count, "mean": h.mean, "min": h.min, "max": h.max}
+    CheckpointManager(str(root / "resilience" / "dcp")).save(ff, 4)
+    sup = root / "supervised"
+    ff = model(sup / "trace_fault")
+    off = offload.CheckpointOffloader(
+        offload.RemoteCheckpointStore(LocalBlobStore(
+            str(sup / "remote_fault"))), registry=registry_of(ff),
+        sleep=lambda s: None)
+    supervisor.TrainingSupervisor(ff, str(sup / "fault"), checkpoint_every=2,
+                                  offloader=off, sleep=lambda s: None).run(
+                                      x, y, num_steps=4)
+    h = registry_of(ff).histogram("resilience/offload_upload_ms")
+    upload_ms = {"count": h.count, "mean": h.mean, "min": h.min,
+                 "max": h.max}
+    assert LocalCheckpointManager(str(sup / "fault")).all_steps()
+    return step_ms, upload_ms
+
+
+def chip_smoke_checkpoint(directory):
+    from flexflow_tpu_torch.checkpoint import ModelCheckpoint
+
+    return ModelCheckpoint(str(directory), every_steps=2, local=True)
+
+
+def test_tools_phase_on_the_host(tmp_path, monkeypatch, capsys):
+    """phase_tools end to end over small host-made inputs (device
+    "cpu"): every tool's exit code, the summaries' Steps and Durability
+    rows equal to the runs' own histograms, the flipped copy's step
+    named, the store hit returning the shipped strategy, no launch; a
+    summary whose mean differs is a fault."""
+    monkeypatch.setenv("FLEXFLOW_TPU_TORCH_CACHE_DIR", str(tmp_path / "c"))
+    step_ms, upload_ms = _tools_inputs(tmp_path / "kept")
+    assert upload_ms["count"] >= 1
+    rec = chip_smoke.phase_tools(None, "card", str(tmp_path / "kept"),
+                                 step_ms, upload_ms, device="cpu")
+    assert rec["faults"] == []
+    assert {c: t["rc"] for c, t in rec["tools"].items()} == {
+        "summary_resilience": 0, "summary_supervised": 0, "summary_cli": 0,
+        "fsck_clean": 0, "fsck_flipped": 1, "fsck_dangling": 1,
+        "fsck_dcp": 0, "store_import": 0, "pb_to_json": 0,
+        "metric_docs": 0}
+    assert rec["checks"]["store_hit"]["store_hit"] is True
+    assert rec["checks"]["store_hit"]["shipped"] is True
+    assert rec["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "P1": 0}
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln["case"] for ln in lines if "case" in ln] == list(rec["tools"])
+    bad = dict(step_ms, mean=step_ms["mean"] + 1.0)
+    with pytest.raises(RuntimeError, match="fit/step_ms"):
+        chip_smoke.phase_tools(None, "card", str(tmp_path / "kept"), bad,
+                               upload_ms, device="cpu")
+
+
+def test_keras_devices_leg_follows_its_plan(tmp_path):
+    """The leg: 4 ranks in a group of their own, the Keras MLP example
+    (seq_mnist_mlp, Adam) compiled with devices=[0, 1] over 4 batches;
+    its job's batches and weights; its record holds ranks 2-3 to leaving
+    and ranks 0-1 to the 2-card run within MULTIGPU_TOL."""
+    legs = {leg["name"]: leg for leg in chip_smoke.MULTIGPU_LEGS}
+    assert legs["keras_devices"] == {"name": "keras_devices", "ranks": 4,
+                                     "keras": "devices"}
+    assert chip_smoke.MULTIGPU_LEGS[-1]["name"] == "keras_devices"
+    assert (chip_smoke.KERAS_DEVICES_MODEL, chip_smoke.KERAS_DEVICES,
+            chip_smoke.KERAS_DEVICES_STEPS) == ("seq_mnist_mlp", (0, 1), 4)
+    assert "keras_devices" in chip_smoke.__doc__
+    job = chip_smoke._keras_devices_job(None, str(tmp_path))
+    with np.load(job["data"]) as data:
+        assert data["x"].shape == (256, 784) and data["y"].shape == (256,)
+    w = chip_smoke._load_flat(job["weights"])
+    assert sorted(w) == ["0", "1", "2"]  # by position
+
+    def stayed(i, loss_shift=0.0):
+        run = {"losses": [2.3, 2.2, 2.1, 2.0], "world": 2, "rank": i,
+               "compile_s": 1.0, "reform_s": 0.5, "step_ms": [1.0] * 4,
+               "capture_mode": "graph"}
+        ref = dict(run, losses=[v + loss_shift for v in run["losses"]],
+                   reform_s=None)
+        zeros = {k: 0 for k in ("K1", "K2", "K3", "K4", "P1")}
+        return {"left": False, "devices": run, "reference": ref,
+                "launches": zeros, "launches_per_step": zeros}
+
+    left = {"left": True, "in_group": False, "compile_s": 0.4,
+            "fit_error": "model: rank 2 left the torch.distributed group "
+                         "of 4 when it re-formed onto ranks [0, 1]"}
+    chip_smoke._save_flat(f"{tmp_path}/keras_devices_weights.npz", w)
+    chip_smoke._save_flat(f"{tmp_path}/keras_reference_weights.npz", w)
+    rec = chip_smoke._keras_devices_record(
+        [stayed(0), stayed(1), left, dict(left)], str(tmp_path))
+    assert rec["faults"] == [] and rec["left"] == [2, 3]
+    assert rec["max_weight_diff"] == 0.0
+    assert len(rec["launches_per_rank_per_step"]) == 2
+    rec = chip_smoke._keras_devices_record(
+        [stayed(0, 1.0), stayed(1), dict(left, in_group=True), left],
+        str(tmp_path))
+    assert len(rec["faults"]) == 2
+
+
+def test_keras_devices_runs_in_a_group_of_its_own(monkeypatch, tmp_path):
+    """The leg's bodies go to a group of 4 of their own, after every
+    other group (they leave a group of 2), with the job's inputs."""
+    from types import SimpleNamespace
+
+    jobs = []
+
+    def run_ranks(world, cards, job, out_dir):
+        jobs.append((world, [leg["name"] for leg in job["legs"]],
+                     list(job.get("supervised", ())),
+                     sorted(job.get("keras_devices") or {})))
+        outs = [{"legs": [{} for _ in job["legs"]], "elastic": {},
+                 "keras_devices": {}} for _ in range(world)]
+        return "gloo", 1.0, outs
+
+    monkeypatch.setattr(chip_smoke, "_run_ranks", run_ranks)
+    monkeypatch.setattr(chip_smoke, "_elastic_record",
+                        lambda ranks, out_dir: {"faults": []})
+    monkeypatch.setattr(chip_smoke, "_keras_devices_record",
+                        lambda ranks, out_dir: {"faults": []})
+    torch = SimpleNamespace(cuda=SimpleNamespace(device_count=lambda: 1))
+    rec = chip_smoke.phase_multigpu(torch, None, "card", str(tmp_path),
+                                    {"elastic", "keras_devices"})
+    assert jobs == [(4, [], ["elastic"], []),
+                    (4, [], [], ["data", "synthetic", "weights"])]
+    assert [leg["leg"] for leg in rec["legs"]] == ["elastic",
+                                                   "keras_devices"]
+
+
+def test_kernel_line_carries_the_tools_launches():
+    flash_main = {"kernel_ms": {k: 1.0 for k in ("K1", "K2", "K3")},
+                  "plain_ms": {k: 2.0 for k in ("K1", "K2", "K3")},
+                  "library_ms": {k: 1.5 for k in ("K1", "K2", "K3")},
+                  "share_of_bound": {k: 0.3 for k in ("K1", "K2", "K3")},
+                  "bounds": chip_smoke.flash_bounds(*SHAPE)}
+    flash = {"main": {"float32": flash_main, "bfloat16": flash_main},
+             "worst": {k: {"float32": (1e-6, 1e-7)}
+                       for k in ("K1", "K2", "K3")}}
+    kern = {"worst": {"float32": 1e-6}, "kernel_ms": 0.02, "event_ms": 0.03,
+            "plain_ms": 0.3, "bound_ms": 0.01, "bound_by": "bytes",
+            "share_of_bound": 0.4, "library_ms": 0.2, "split_pages": 8,
+            "grid": [1, 1, 1]}
+    tools = {"launches": {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "P1": 0}}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card", tools=tools)["kernels"]
+    assert {r["id"]: r["launches_tools"] for r in rows} == {
+        "K4": 0, "K1": 0, "K2": 0, "K3": 0}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card")["kernels"]
+    assert all(r["launches_tools"] is None for r in rows)

@@ -16,7 +16,9 @@ strategy restored from the store, whose first step builds and captures
 K1-K3; a checkpoint restored into a captured step's own tensors (with
 its generator, under dropout), replays after it training the restored
 state; an async save's pinned snapshot; a hung_step fault timing out the
-watchdog; a profile window whose kernels sit in their ops' ranges.  These
+watchdog; a profile window whose kernels sit in their ops' ranges; Keras
+compile(devices=[0, 1]) on 4 ranks (chip_smoke's keras_devices leg, over
+gloo and, with 4 cards, NCCL).  These
 need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
 (that machine has no jax, which tests/conftest.py imports).  This file
@@ -1248,3 +1250,49 @@ def test_a_reformed_group_runs_its_nccl_collectives(cuda, tmp_path):
     assert [first for first, _, _ in results] == [10.0] * 4
     assert [new for _, new, _ in results] == [0, 1, None, None]
     assert [second for _, _, second in results[:2]] == [(2, "nccl", 3.0)] * 2
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_keras_compile_on_devices_leaves_and_trains(cuda, tmp_path, backend):
+    """chip_smoke's keras_devices leg on 4 ranks: Keras compile(devices=
+    [0, 1]) over gloo (the ranks share the cards) or NCCL (a card each):
+    ranks 2-3 leave the group and their fit raises; ranks 0-1 train the
+    MLP example as the 2-card run on the re-formed group
+    (chip_smoke._keras_devices_record: losses and weights within
+    MULTIGPU_TOL, no kernel launch)."""
+    import multiprocessing as mp
+    import os
+    import pickle
+    import sys
+
+    if backend == "nccl" and torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices: one NCCL rank per card")
+    here = os.path.dirname(__file__)
+    sys.path.insert(0, here)
+    sys.path.insert(0, os.path.dirname(here))
+    import chip_smoke
+    import torch_dist_ranks as G
+
+    job = chip_smoke._keras_devices_job(torch, str(tmp_path))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=G.keras_devices_rank,
+                         args=(r, 4, str(tmp_path / "store"), backend, job,
+                               str(tmp_path)))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    ranks = []
+    for r in range(4):
+        with open(tmp_path / f"{r}.pkl", "rb") as f:
+            status, value = pickle.load(f)
+        assert status == "ok", value
+        ranks.append(value)
+    rec = chip_smoke._keras_devices_record(ranks, str(tmp_path))
+    assert rec["faults"] == []
+    assert rec["left"] == [2, 3]
+    assert all(s >= 0 for s in rec["reform_s"])

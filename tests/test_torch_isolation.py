@@ -46,13 +46,16 @@ def test_no_jax_or_reference_imports():
             "network.py", "capture.py", "zero.py", "taso.py",
             "taso_pb.py", "key.py", "store.py", "blobstore.py",
             "faults.py", "trace.py", "fidelity.py", "async_writer.py",
-            "watchdog.py", "retry.py"} <= names
+            "watchdog.py", "retry.py", "pb_to_json.py",
+            "substitutions_to_dot.py", "telemetry_summary.py",
+            "checkpoint_fsck.py", "strategy_store_import.py",
+            "check_metric_docs.py"} <= names
     for sub in ("keras", "keras/preprocessing", "onnx_frontend", "sim",
                 "parallel", "topology", "native", "pcg", "store",
-                "resilience", "obs"):
+                "resilience", "obs", "tools"):
         assert (PORT / sub / "__init__.py").is_file(), sub
     for sub in ("sim", "parallel", "topology", "pcg", "store",
-                "resilience", "obs"):
+                "resilience", "obs", "tools"):
         assert any(f.parent == PORT / sub and f.name != "__init__.py"
                    for f in files), sub
     offenders = [(str(f.relative_to(ROOT)), m) for f in files
@@ -92,7 +95,13 @@ def test_import_leaves_jax_unloaded():
             "flexflow_tpu_torch.strategy, flexflow_tpu_torch.capture, "
             "flexflow_tpu_torch.parallel.zero, "
             "flexflow_tpu_torch.pcg.taso, flexflow_tpu_torch.store, "
-            "flexflow_tpu_torch.resilience; "
+            "flexflow_tpu_torch.resilience, "
+            "flexflow_tpu_torch.tools.pb_to_json, "
+            "flexflow_tpu_torch.tools.substitutions_to_dot, "
+            "flexflow_tpu_torch.tools.telemetry_summary, "
+            "flexflow_tpu_torch.tools.checkpoint_fsck, "
+            "flexflow_tpu_torch.tools.strategy_store_import, "
+            "flexflow_tpu_torch.tools.check_metric_docs; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'flexflow_tpu' or "
             "m.startswith('flexflow_tpu.')]; print(bad)")

@@ -285,7 +285,10 @@ def test_evaluate_and_the_refusals():
     m = _mlp(TK, T.FFConfig(batch_size=8, device="cpu"))
     with pytest.raises(RuntimeError, match="compile"):
         m.predict(np.zeros((8, 16), np.float32))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # devices are ranks of a torch.distributed group: none here
+    with pytest.raises(ValueError, match="no torch.distributed group"):
+        m.compile(devices=[0, 1])
+    with pytest.raises(ValueError, match="ranks of the torch.distributed"):
         m.compile(devices=["cuda:0"])
     m.compile(metrics=["accuracy", "sparse_categorical_crossentropy"])
     rng = np.random.RandomState(3)

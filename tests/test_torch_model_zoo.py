@@ -1,18 +1,15 @@
 """The port's native model zoo against flexflow_tpu's on the CPU.
 
-Every builder of `models/` (ResNet-50, ResNeXt-50, Inception-v3, DLRM,
+The builders of `models/` (ResNet-50, ResNeXt-50, Inception-v3, DLRM,
 XDL, CANDLE-Uno, MLP_Unify, the MoE MLP and encoder, AlexNet, the
-Transformer) at tests/test_model_zoo.py's tiny sizes (AlexNet at the
-64 px its example uses, the Transformer at 2 layers, hidden 16) through
-both packages with the same weights: the forward, then the metrics of
-2 SGD steps and every weight after them.  The full-width graphs (built,
-not compiled) have the reference's op names, types, output shapes and
-weight shapes.  The tiny Inception-v3 converts between NCHW and NHWC
-exactly where the reference's layout pass does: once at the input and
-once before the head, every branch join staying channels_last.  Also:
-the npz weight files load across the packages both ways,
-get_parameter, set_learning_rate in the middle of training, and the
-reference's manual step surface.
+Transformer) at tests/test_model_zoo.py's tiny sizes (TINY, AlexNet at
+the 64 px its example uses, the Transformer at 2 layers, hidden 16),
+each trained through both packages in tests/test_torch_model_zoo_tiny.py.
+Here: the full-width graphs (built, not compiled) have the reference's
+op names, types, output shapes and weight shapes; a Split between
+channels_last edges runs NHWC; the npz weight files load across the
+packages both ways, get_parameter, set_learning_rate in the middle of
+training, and the reference's manual step surface.
 
 Tolerances, float32 on the CPU (the same formulas in other summation
 orders, XLA's against oneDNN's and ATen's): forward outputs 1e-5 of
@@ -30,10 +27,7 @@ import flexflow_tpu.models as JM  # noqa: E402
 import flexflow_tpu_torch as T  # noqa: E402
 import flexflow_tpu_torch.models as TM  # noqa: E402
 from flexflow_tpu import checkpoint as JC  # noqa: E402
-from flexflow_tpu.pcg.layout import \
-    assign_layouts as jax_layouts  # noqa: E402
 from flexflow_tpu_torch import checkpoint as TC  # noqa: E402
-from flexflow_tpu_torch.pcg.layout import assign_layouts  # noqa: E402
 
 OUT_TOL, LOSS_TOL, WEIGHT_TOL = 1e-5, 1e-5, 2e-5
 BATCH = 8
@@ -153,22 +147,6 @@ def _scaled(got, ref):
     return float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
-def test_tiny_builder_trains_like_reference(name):
-    kwargs, (loss, metrics), inputs, labels = TINY[name]
-    jf, tf = _pair(name, kwargs, loss, metrics)
-    rng = np.random.RandomState(1)
-    feed = inputs(rng)
-    got = tf.forward(feed).numpy()
-    want = np.asarray(jf.forward(feed))
-    assert got.shape == want.shape
-    assert _scaled(got, want) <= OUT_TOL
-    for _ in range(2):
-        feed, y = inputs(rng), labels(rng)
-        _assert_metrics(tf.train_step(feed, y), jf.train_step(feed, y))
-    _assert_weights(tf, jf)
-
-
 def _graph(P, M, name, kwargs):
     ff = P.FFModel(P.FFConfig(batch_size=64, num_devices=1)
                    if P is J else P.FFConfig(batch_size=64, device="cpu"))
@@ -186,58 +164,6 @@ def test_full_width_graph_matches_reference(name):
     want = _graph(J, JM, name, FULL[name])
     assert got == want
     assert len(got) > 5
-
-
-def _conversions(graph, t_layout, op_layout, nhwc):
-    """{(op name, input index): "to_nhwc" | "to_nchw"} of the layout
-    copies an executor makes: a 4-D input of an NHWC op that is stored
-    logical, and an NHWC-stored input of a logical op."""
-    out = {}
-    for op in graph.topo_order():
-        want = op_layout.get(op.guid)
-        for i, t in enumerate(op.inputs):
-            if t.shape.logical_rank != 4:
-                continue
-            stored = t_layout.get(t.guid)
-            if want == nhwc and stored != nhwc:
-                out[(op.name, i)] = "to_nhwc"
-            elif want is None and stored == nhwc:
-                out[(op.name, i)] = "to_nchw"
-    return out
-
-
-def test_tiny_inception_converts_layouts_where_the_reference_does():
-    from flexflow_tpu.pcg.layout import NHWC as JNHWC
-    from flexflow_tpu_torch.pcg.layout import NHWC
-
-    kwargs = TINY["build_inception_v3"][0]
-    jf, tf = _pair("build_inception_v3", kwargs, *SCE)
-    got = _conversions(tf.layers, *assign_layouts(tf.layers), NHWC)
-    want = _conversions(jf.layers, *jax_layouts(jf.layers), JNHWC)
-    assert got == want
-    assert sorted(got.values()) == ["to_nchw", "to_nhwc"]
-    first = tf.layers.topo_order()[1]
-    assert got[(first.name, 0)] == "to_nhwc"
-    concats = [op for op in tf.layers.ops
-               if op.op_type == T.OperatorType.CONCAT]
-    assert len(concats) == 11
-    assert all(tf.executor.op_layout[op.guid] == NHWC for op in concats)
-    # the run: every join emits a channels_last tensor
-    seen = []
-    for op in concats:
-        fwd = op.forward
-
-        def watched(ins, ws, _fwd=fwd, **kw):
-            outs = _fwd(ins, ws, **kw)
-            seen.append(outs[0].is_contiguous(
-                memory_format=torch.channels_last))
-            return outs
-
-        op.forward = watched
-    x = np.random.RandomState(2).randn(BATCH, 3, 75, 75).astype(np.float32)
-    out = tf.forward({"input": x}).numpy()
-    assert seen == [True] * 11
-    assert _scaled(out, np.asarray(jf.forward({"input": x}))) <= OUT_TOL
 
 
 def test_split_between_channels_last_edges_runs_nhwc():

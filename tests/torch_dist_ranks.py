@@ -969,6 +969,161 @@ def recompile_group(rank, world, mlp_weights, x, y, bn_weights, bn_state,
     return out
 
 
+# -- compile(devices=...) (tests/test_torch_compile_devices.py) -----------------
+
+def keras_mlp(K, cfg):
+    """tests/test_keras_frontend.py's Sequential MLP: 16 -> 32 (ReLU) -> 4."""
+    return K.Sequential([K.Dense(32, activation="relu", name="d0"),
+                         K.Dense(4, name="d1")], input_shape=(16,),
+                        config=cfg)
+
+
+def keras_branches(K, cfg):
+    """tests/test_keras_frontend.py's functional two-branch model."""
+    a = K.Input((8,), name="a")
+    b = K.Input((8,), name="b")
+    ha = K.Dense(16, activation="relu", name="ha")(a)
+    hb = K.Dense(16, activation="relu", name="hb")(b)
+    merged = K.Concatenate(name="cat0")([ha, hb])
+    res = K.Add(name="add")([ha, hb])
+    out = K.Dense(4, name="out")(K.Concatenate(name="cat1")([merged, res]))
+    return K.Model(inputs=[a, b], outputs=out, config=cfg)
+
+
+def keras_small(K, cfg):
+    """tests/test_keras_frontend.py's scheduler and early-stopping MLP."""
+    return K.Sequential([K.Dense(8, activation="relu", name="s0"),
+                         K.Dense(2, name="s1")], input_shape=(4,),
+                        config=cfg)
+
+
+def keras_lstm(K, cfg):
+    """tests/test_keras_frontend.py's Embedding -> LSTM -> Dense."""
+    return K.Sequential([K.Embedding(200, 16, input_length=16, name="emb"),
+                         K.LSTM(16, return_sequences=False, name="lstm"),
+                         K.Dense(46, activation="softmax", name="head")],
+                        config=cfg)
+
+
+#: name -> (builder, batch, compile kwargs, epochs) of the Keras cases
+KERAS_CASES = {
+    "mlp": (keras_mlp, 16, dict(optimizer="sgd", metrics=["accuracy"]), 5),
+    "branches": (keras_branches, 16, {}, 3),
+    "lstm": (keras_lstm, 16, dict(optimizer="sgd", metrics=["accuracy"]),
+             2),
+}
+
+PERF_FIELDS = ("train_all", "train_correct", "cce_loss", "sparse_cce_loss",
+               "mse_loss", "mae_loss")
+
+
+def history(hist):
+    """Each epoch's PerfMetrics fields, as plain numbers."""
+    return [{f: float(getattr(pm, f)) for f in PERF_FIELDS} for pm in hist]
+
+
+def keras_case(K, name, cfg, weights, x, y, devices):
+    """One KERAS_CASES model compiled with `devices`, given `weights`:
+    predict's output on the first batch, then fit's epochs and the
+    weights after them (None on a rank outside `devices`, with the
+    errors its fit and train_step raise)."""
+    build, batch, kw, epochs = KERAS_CASES[name]
+    m = build(K, cfg(batch))
+    m.compile(devices=devices, **kw)
+    if m.ffmodel._step_fn is None:
+        errors = []
+        for call in (lambda: m.fit(x, y, epochs=1, verbose=False),
+                     lambda: m.ffmodel.train_step({}, y[:batch])):
+            try:
+                call()
+                errors.append(None)
+            except RuntimeError as e:
+                errors.append(str(e))
+        return {"left": True, "errors": errors}
+    m.ffmodel.set_weights(weights)
+    first = ({k: v[:batch] for k, v in x.items()} if isinstance(x, dict)
+             else x[:batch])
+    pred = m.predict(first)
+    hist = m.fit(x, y, epochs=epochs, verbose=False)
+    return {"left": False, "predict": pred, "history": history(hist),
+            "weights": m.ffmodel.get_weights(), "summary": m.summary()}
+
+
+def compile_devices_group(rank, world, cases, small, recompile):
+    """compile(devices=...) on a group of 2 (tests/
+    test_torch_compile_devices.py), in this order:
+      1. each Keras case of `cases` ({name: (weights, x, y)}) compiled
+         with devices=[0, 1] (the whole group: nothing re-forms);
+      2. the scheduler and early-stopping model on [0, 1] (`small`:
+         weights, x, y): the rates the schedule saw, the epochs each fit
+         ran;
+      3. FFModel with devices=[0, 1] (`recompile`: weights, x, y): the
+         trigger counter, a forward before and after recompile(data 2)
+         with devices=None (compile's own), two more epochs;
+      4. the Keras MLP compiled with devices=[0]: rank 1 leaves (its fit
+         and train_step raise), rank 0 trains it on a group of 1 (the
+         MLP's weights and data of `cases`)."""
+    import flexflow_tpu_torch.keras as K
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.optimizer import SGDOptimizer
+    from flexflow_tpu_torch.recompile import RecompileState
+    from flexflow_tpu_torch.strategy import data_parallel_strategy
+
+    def cfg(batch):
+        return FFConfig(batch_size=batch, device="cpu")
+
+    out = {"keras": {name: keras_case(K, name, cfg, w, x, y, [0, 1])
+                     for name, (w, x, y) in cases.items()}}
+
+    weights, x, y = small
+    m = keras_small(K, cfg(8))
+    m.compile(devices=[0, 1])
+    m.ffmodel.set_weights(weights)
+    lrs = []
+
+    def sched(epoch, lr):
+        lrs.append(lr)
+        return lr * 0.5
+
+    m.fit(x, y, epochs=3, verbose=False,
+          callbacks=[K.LearningRateScheduler(sched)])
+    stop = m.fit(x, y, epochs=50, verbose=False,
+                 callbacks=[K.EarlyStopping(monitor="accuracy", patience=1)])
+    out["small"] = {"lrs": lrs, "early_stop_epochs": len(stop),
+                    "weights": m.ffmodel.get_weights()}
+
+    weights, x, y = recompile
+    ff = FFModel(FFConfig(batch_size=16, device="cpu"))
+    sup_mlp(ff)
+    ff.compile(optimizer=SGDOptimizer(lr=0.05),
+               loss_type="sparse_categorical_crossentropy",
+               metrics=["sparse_categorical_crossentropy"], devices=[0, 1])
+    ff.set_weights(weights)
+    fired = []
+    r = RecompileState(trigger_func=lambda m: len(fired) < 2,
+                       alter_func=lambda m: fired.append(1), ff=ff)
+    triggers = [ff.recompile_on_condition(r) for _ in range(3)]
+    ff.fit(x, y, epochs=1, verbose=False)
+    before = ff.forward({"x": x[:16]}).numpy()
+    stayed = ff.recompile(strategy=data_parallel_strategy(2))
+    out["recompile"] = {
+        "triggers": triggers, "recompilations": r.recompilations,
+        "stayed": stayed, "world": distributed.world_size(),
+        "forward": (before, ff.forward({"x": x[:16]}).numpy()),
+        "history": history(ff.fit(x, y, epochs=2, verbose=False)),
+        "weights": ff.get_weights()}
+
+    w, x, y = cases["mlp"]
+    out["leave"] = keras_case(K, "mlp", cfg, w, x, y, [0])
+    import torch.distributed as dist
+
+    out["leave"]["in_group"] = dist.is_initialized()
+    out["leave"]["world"] = distributed.world_size()
+    return out
+
+
 def nccl_reform_rank(rank, world, store, new_store, out_dir):
     """An NCCL rank on card `rank` (tests/test_torch_gpu.py): an
     all-reduce over the group of `world`, then reform_group onto ranks
@@ -1003,3 +1158,36 @@ def nccl_reform_rank(rank, world, store, new_store, out_dir):
         result = ("error", traceback.format_exc())
     with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
+
+
+def keras_devices_rank(rank, world, store, backend, job, out_dir):
+    """A rank on card rank % cards (tests/test_torch_gpu.py): chip_smoke's
+    keras_devices leg body (Keras compile(devices=[0, 1]) on a group of
+    `world`, then the 2-card run); its report goes to out_dir/<rank>.pkl."""
+    import sys
+
+    import torch
+
+    from flexflow_tpu_torch import distributed
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    result = None
+    try:
+        card = rank % torch.cuda.device_count()
+        torch.cuda.set_device(card)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        distributed.initialize(f"file://{store}", world, rank,
+                               local_device_ids=[card], backend=backend)
+        result = ("ok", chip_smoke._keras_devices_body(
+            torch, rank, {"keras_devices": job}, out_dir))
+    except Exception:  # reported to the test
+        result = ("error", traceback.format_exc())
+    with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
