@@ -373,6 +373,32 @@ Phases, each a failure of which exits non-zero:
    catalog wire bytes, equal to its JSON; check_metric_docs.  Each
    tool's exit code and wall seconds; no kernel launches.
 
+31. spec (in the serve group, after profile): speculative decoding on
+   the serve phase's GPT-2-small and weights (no second copy of the
+   model): its first SPEC_REQUESTS prompts, greedy, MAX_NEW new tokens,
+   through ContinuousScheduler with 8 slots, page 16, chunked prefill
+   8, spec_k SPEC_K, under each of SPEC_MODES: off; ngram; draft_distil,
+   a drafter at DistilGPT-2's widths (DISTIL_WIDTH: 6 layers, otherwise
+   GPT-2-small's; weights from np.random.RandomState(1)) on its own
+   paged engine; draft_self, the target as its own drafter.  The
+   completions must be token-identical across the modes; no speculative
+   mode may show a verify fault, a degrade to plain decode, a draft
+   fault or a dead drafter (spec_faults), and draft_self must accept
+   more than 1.5 tokens per round; K4's launch counter, set to 0 just
+   before each mode and read just after, must equal spec_launches of
+   that run's own stats (12 per plain step, 12 x CHUNK per prefill
+   dispatch, 12 x (SPEC_K + 1) per verify round, the drafter's layers
+   per draft step).  Each mode's line: tokens/s, host ms per verify,
+   decode and prefill dispatch, rounds, accepted per round, fallback
+   rounds, launches.  Then the chunk twin (make_gpt_decoder(
+   step_tokens=SPEC_CHUNK)): one chunk step on a seq-1 twin's pools
+   launches K4 12 times at s = SPEC_CHUNK and is held against
+   SPEC_CHUNK decode steps from the same pools (SPEC_CHUNK_TOL), both
+   timed as the median of 5 calls.  Last, torch.profiler over 5 verify
+   rounds (8 rows, SPEC_K + 1 live positions each): the host's wall ms
+   per round against the device's busy ms and its idle share.
+   `--phases serve,spec` runs it with the serve phase's prompts.
+
 Every train step on the card is captured by default after one eager
 warm-up step (capture.py): the kernels' wrappers count the warm-up and
 the capturing step, not a replay, so each phase holds its counters to
@@ -432,6 +458,19 @@ WIDTH = dict(hidden_size=768, num_layers=12, num_heads=12,
              intermediate_size=3072, vocab_size=50257, seq_length=1024)
 SLOTS, PAGE, CHUNK = 8, 16, 8
 N_REQUESTS, MAX_NEW = 16, 32
+# the spec phase: the reference's default draft length, the serve
+# phase's first SPEC_REQUESTS prompts, the drafter at DistilGPT-2's
+# published widths (the distilgpt2 config on the Hugging Face hub:
+# GPT-2-small's at 6 layers; weights from RandomState(1)), and the chunk
+# twin's step_tokens
+SPEC_K, SPEC_REQUESTS = 4, 8
+SPEC_MODES = ("off", "ngram", "draft_distil", "draft_self")
+DISTIL_WIDTH = dict(WIDTH, num_layers=6)
+SPEC_CHUNK = 8
+# the chunk step against seq-1 stepping, error over the logits' scale
+# max(1, max|seq-1|): float32 GEMMs at [64, e] and [8, e] (TF32 off) sum
+# in other orders, ~1e-6 relative, over 12 layers
+SPEC_CHUNK_TOL = 1e-4
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12       # tensor cores, dense
@@ -781,10 +820,10 @@ def phase_kernels(torch, pk, card: str, dev, lib_path, build_s) -> dict:
     return rec
 
 
-def random_weights(ff) -> dict:
-    """Weights from np.random.RandomState(0): normal(0, 0.02) for every
-    entry, LayerNorm gamma 1 and beta 0, in graph order."""
-    rng = np.random.RandomState(0)
+def random_weights(ff, seed: int = 0) -> dict:
+    """Weights from np.random.RandomState(seed): normal(0, 0.02) for
+    every entry, LayerNorm gamma 1 and beta 0, in graph order."""
+    rng = np.random.RandomState(seed)
     out = {}
     for op in ff.layers.topo_order():
         for spec in op.weight_specs[:op.num_trainable_weights()]:
@@ -799,14 +838,15 @@ def random_weights(ff) -> dict:
     return out
 
 
-def build_model(device: str, weights=None):
+def build_model(device: str, weights=None, width=None, seed: int = 0):
     from flexflow_tpu_torch import CompMode, FFConfig, FFModel
     from flexflow_tpu_torch.models.transformer import build_gpt
 
     ff = FFModel(FFConfig(batch_size=SLOTS, device=device))
-    build_gpt(ff, batch_size=SLOTS, **WIDTH)
+    build_gpt(ff, batch_size=SLOTS, **(width or WIDTH))
     ff.compile(comp_mode=CompMode.INFERENCE)
-    weights = weights if weights is not None else random_weights(ff)
+    weights = (weights if weights is not None
+               else random_weights(ff, seed))
     ff.set_weights(weights)
     return ff, weights
 
@@ -989,6 +1029,19 @@ def phase_parity(torch, card: str, ff_cuda, weights, prompts) -> dict:
     return rec
 
 
+def device_time(prof) -> tuple:
+    """(device us by kernel name, events by name) of a torch.profiler
+    run's CUDA events."""
+    by_name, count = {}, {}
+    for evt in prof.events():
+        if "cuda" not in str(evt.device_type).lower():
+            continue
+        us = evt.time_range.elapsed_us()
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + us
+        count[evt.name] = count.get(evt.name, 0) + 1
+    return by_name, count
+
+
 def phase_profile(torch, card: str, ff, steps: int = 20) -> dict:
     """Where a full-width decode step's time goes: torch.profiler over
     `steps` decode steps of 8 rows at mixed positions up to 1024, with
@@ -1014,13 +1067,7 @@ def phase_profile(torch, card: str, ff, steps: int = 20) -> dict:
         for k in range(steps):
             model.step(tokens, (pos + 5 + k).astype(np.int32), btab)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, count = {}, {}
-    for evt in prof.events():
-        if "cuda" not in str(evt.device_type).lower():
-            continue
-        us = evt.time_range.elapsed_us()
-        by_name[evt.name] = by_name.get(evt.name, 0.0) + us
-        count[evt.name] = count.get(evt.name, 0) + 1
+    by_name, count = device_time(prof)
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     rec = {
@@ -1035,6 +1082,312 @@ def phase_profile(torch, card: str, ff, steps: int = 20) -> dict:
     }
     emit(rec)
     return rec
+
+def spec_launches(stats: dict, layers: int, draft_layers: int = 0,
+                  draft_steps: int = 0, chunk: int = CHUNK) -> int:
+    """K4 launches one engine run must make: one per attention layer per
+    forward, a plain decode step one forward, a prefill dispatch `chunk`
+    (seq-1 forwards), a verify round spec_k + 1 whatever its rows'
+    counts, and a draft step one forward of the drafter."""
+    spec = stats["speculative"]
+    rounds = spec["rounds"]
+    plain = stats["steps"] - rounds
+    verify_chunk = spec["k_max"] + 1 if spec["mode"] != "off" else 0
+    return (layers * (plain + chunk * stats["prefill_steps"]
+                      + verify_chunk * rounds)
+            + draft_layers * draft_steps)
+
+
+def spec_faults(mode: str, stats: dict) -> list:
+    """What a speculative mode's stats show that must not be: a verify
+    fault or a degrade (the engine's silent fallback to plain decode), a
+    draft fault or a dead drafter (the proposer's silent fallback to no
+    proposals), and for the self-drafter 1.5 accepted tokens per round
+    or fewer."""
+    spec = stats["speculative"]
+    faults = []
+    if mode == "off":
+        return faults
+    if spec["verify_faults"] or spec["degraded"]:
+        faults.append(f"{mode}: verify_faults {spec['verify_faults']}, "
+                      f"degraded {spec['degraded']}")
+    if mode.startswith("draft"):
+        prop = spec["proposer"]
+        if prop.get("draft_faults") or prop.get("dead"):
+            faults.append(f"{mode}: draft_faults {prop.get('draft_faults')}"
+                          f", dead {prop.get('dead')}")
+    if mode == "draft_self" and not spec["accepted_per_round"] > 1.5:
+        faults.append(f"{mode}: {spec['accepted_per_round']} accepted per "
+                      "round, not above 1.5")
+    return faults
+
+
+def spec_run(torch, pk, ff, mode: str, prompts, draft_ff=None,
+             max_new: int = MAX_NEW) -> dict:
+    """One spec-phase mode: the prompts through ContinuousScheduler
+    (greedy, all submitted at once) on ff's device, K4's launch counter
+    set to 0 just before and read just after; completions, stats,
+    host ms per verify / decode / prefill dispatch, tokens/s."""
+    from flexflow_tpu_torch.decoding import _gpt_dims
+    from flexflow_tpu_torch.serving import ContinuousScheduler
+
+    spec = {"off": "off", "ngram": "ngram"}.get(mode, "draft")
+    drafter = ff if mode == "draft_self" else draft_ff
+    sched = ContinuousScheduler.from_trained(
+        ff, batch_slots=SLOTS, page_size=PAGE, prefill_chunk=CHUNK,
+        spec_decode=spec, spec_k=SPEC_K,
+        draft_ff=drafter if spec == "draft" else None)
+    verify_s, step_s, prefill_s = [], [], []
+    model = sched.model
+    model.step = timed(model.step, step_s)
+    model.prefill_step = timed(model.prefill_step, prefill_s)
+    if spec != "off":
+        model.verify_step = timed(model.verify_step, verify_s)
+    cuda = ff.device.type == "cuda"
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        pk.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        handles = [sched.generate_async(p, max_new) for p in prompts]
+        outs = [h.wait(900) for h in handles]
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pk.paged_attention.launches
+        stats = sched.stats()
+    finally:
+        sched.close()
+    generated = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+    prop = stats["speculative"]["proposer"]
+    draft_layers = (_gpt_dims(model.draft_model.ffd)["num_layers"]
+                    if spec == "draft" else 0)
+    return {
+        "mode": mode, "outs": outs, "stats": stats,
+        "generated_tokens": generated, "wall_s": wall,
+        "tokens_per_s": generated / wall,
+        "mean_verify_ms": (1e3 * float(np.mean(verify_s))
+                           if verify_s else None),
+        "mean_decode_step_ms": (1e3 * float(np.mean(step_s))
+                                if step_s else None),
+        "mean_prefill_step_ms": (1e3 * float(np.mean(prefill_s))
+                                 if prefill_s else None),
+        "paged_attention_launches": launches,
+        "draft_layers": draft_layers,
+        "draft_steps": prop.get("draft_steps", 0),
+    }
+
+
+def spec_record(run: dict, layers: int) -> dict:
+    """The JSON line of one spec-phase mode."""
+    spec = run["stats"]["speculative"]
+    return {
+        "phase": "spec", "mode": run["mode"],
+        "requests": len(run["outs"]),
+        "generated_tokens": run["generated_tokens"],
+        "wall_s": run["wall_s"], "tokens_per_s": run["tokens_per_s"],
+        "mean_verify_ms": run["mean_verify_ms"],
+        "mean_decode_step_ms": run["mean_decode_step_ms"],
+        "mean_prefill_step_ms": run["mean_prefill_step_ms"],
+        "decode_steps": run["stats"]["steps"] - spec["rounds"],
+        "prefill_steps": run["stats"]["prefill_steps"],
+        "rounds": spec["rounds"], "fallback_rounds": spec["fallback_rounds"],
+        "proposed": spec["proposed"], "accepted": spec["accepted"],
+        "accepted_per_round": spec["accepted_per_round"],
+        "k_current": spec["k_current"],
+        "verify_faults": spec["verify_faults"],
+        "degraded": spec["degraded"],
+        "draft_steps": run["draft_steps"],
+        "draft_faults": spec["proposer"].get("draft_faults"),
+        "draft_dead": spec["proposer"].get("dead"),
+        "paged_attention_launches": run["paged_attention_launches"],
+        "expected_launches": spec_launches(
+            run["stats"], layers, run["draft_layers"], run["draft_steps"]),
+    }
+
+
+def spec_chunk_check(torch, pk, ff, width=None, history: int = 64,
+                     reps: int = 5) -> dict:
+    """The chunk twin (make_gpt_decoder(step_tokens=SPEC_CHUNK)) on a
+    seq-1 twin's state: SLOTS rows with `history` tokens written by
+    decode steps, then SPEC_CHUNK more tokens per row by one chunk step
+    (K4 at s = SPEC_CHUNK, launches counted over the first timed call)
+    and, from the same pools, by SPEC_CHUNK decode steps; the logits'
+    error over their scale.  Both are timed after a warm-up call, as
+    the median of `reps` calls, the pools restored before each."""
+    from flexflow_tpu_torch.decoding import (build_paged_chunk_step,
+                                             make_gpt_decoder)
+    from flexflow_tpu_torch.serving import PagedKVDecodeModel
+
+    width = width or WIDTH
+    layers = width["num_layers"]
+    table = width["seq_length"] // PAGE
+    nb = 1 + SLOTS * table
+    model = PagedKVDecodeModel(ff, batch_slots=SLOTS, page_size=PAGE,
+                               num_blocks=nb)
+    twin = make_gpt_decoder(ff, batch_size=SLOTS, kv_page_size=PAGE,
+                            kv_num_blocks=2, step_tokens=SPEC_CHUNK)
+    chunk_step = build_paged_chunk_step(twin)
+    rng = np.random.RandomState(3)
+    btab = rng.permutation(np.arange(1, nb)).reshape(
+        SLOTS, table).astype(np.int32)
+    toks = rng.randint(0, width["vocab_size"],
+                       (SLOTS, history + SPEC_CHUNK)).astype(np.int32)
+    for t in range(history):
+        model.step(toks[:, t], np.full(SLOTS, t, np.int32), btab)
+    saved = {op: {k: v.clone() for k, v in e.items()}
+             for op, e in model._state.items()}
+
+    def restore():
+        with torch.no_grad():
+            for op, e in model._state.items():
+                for k, v in e.items():
+                    v.copy_(saved[op][k])
+
+    dev = model.device
+    args = [torch.as_tensor(a, device=dev) for a in
+            (toks[:, history:], np.full(SLOTS, history, np.int32), btab)]
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    chunk_step(twin._weights, model._state, *args)  # first call: warm-up
+    chunk_ms, steps_ms, launches = [], [], None
+    for _ in range(reps):
+        restore()
+        sync()
+        pk.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        logits, _ = chunk_step(twin._weights, model._state, *args)
+        got = logits.float().cpu().numpy()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        if launches is None:
+            launches = pk.paged_attention.launches
+    for _ in range(reps):
+        restore()
+        sync()
+        t0 = time.perf_counter()
+        want = np.stack([model.step(toks[:, history + j],
+                                    np.full(SLOTS, history + j, np.int32),
+                                    btab)
+                         for j in range(SPEC_CHUNK)], axis=1)
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    err = float(np.abs(got - want).max())
+    scale = max(1.0, float(np.abs(want).max()))
+    return {"chunk": SPEC_CHUNK, "rows": SLOTS, "history": history,
+            "launches": launches, "expected_launches": layers,
+            "max_abs_err": err, "err_over_scale": err / scale,
+            "tolerance": SPEC_CHUNK_TOL, "finite": bool(
+                np.isfinite(got).all()),
+            "timed_calls": reps,
+            "chunk_step_ms": float(np.median(chunk_ms)),
+            "chunk_step_ms_range": [min(chunk_ms), max(chunk_ms)],
+            "seq1_steps_ms": float(np.median(steps_ms)),
+            "seq1_steps_ms_range": [min(steps_ms), max(steps_ms)]}
+
+
+def spec_verify_profile(torch, ff, width=None, rounds: int = 5) -> dict:
+    """Where a verify round's time goes: torch.profiler over `rounds`
+    verify steps of SLOTS rows, SPEC_K + 1 tokens each (every position
+    live) at mixed positions, after two warm-up rounds; the host's wall
+    ms per round, the device's busy ms per round and its idle share of
+    that wall time (None on the host, which has no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.serving import PagedKVDecodeModel
+
+    width = width or WIDTH
+    table = width["seq_length"] // PAGE
+    model = PagedKVDecodeModel(ff, batch_slots=SLOTS, page_size=PAGE,
+                               num_blocks=1 + SLOTS * table,
+                               spec_decode="ngram", spec_k=SPEC_K)
+    c = model.verify_chunk
+    rng = np.random.RandomState(4)
+    btab = rng.permutation(np.arange(1, model.num_blocks)).reshape(
+        SLOTS, table).astype(np.int32)
+    pos = rng.randint(1, width["seq_length"] - c * (rounds + 2),
+                      SLOTS).astype(np.int32)
+    toks = rng.randint(0, width["vocab_size"], (SLOTS, c)).astype(np.int32)
+    counts = np.full(SLOTS, c, np.int32)
+    for k in range(2):
+        model.verify_step(toks, pos + c * k, counts, btab)
+    acts = [ProfilerActivity.CPU]
+    if model.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for k in range(rounds):
+            model.verify_step(toks, pos + c * (2 + k), counts, btab)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, count = device_time(prof)
+    busy_ms = sum(by_name.values()) / 1e3 if by_name else None
+    return {"rounds": rounds, "verify_chunk": c,
+            "wall_ms_per_round": wall_ms / rounds,
+            "device_busy_ms_per_round": (busy_ms / rounds
+                                         if by_name else None),
+            "device_idle_share": (1.0 - busy_ms / wall_ms
+                                  if by_name else None),
+            "device_events_per_round": sum(count.values()) / rounds}
+
+
+def phase_spec(torch, pk, card: str, ff, prompts, device: str = "cuda",
+               width=None, draft_width=None, history: int = 64) -> dict:
+    """Speculative decoding on the serve phase's GPT-2-small: the first
+    SPEC_REQUESTS prompts, greedy, MAX_NEW new tokens each, under
+    SPEC_MODES at spec_k SPEC_K; completions identical across the modes,
+    no degrade and no draft fault (spec_faults), K4's launches equal to
+    spec_launches of each run's own stats; then the chunk twin
+    (spec_chunk_check) and a profiled verify round
+    (spec_verify_profile).  `device`, `width` and `draft_width` rehearse
+    it on the host at a small size (the tests)."""
+    width = width or WIDTH
+    prompts = list(prompts[:SPEC_REQUESTS])
+    layers = width["num_layers"]
+    draft_ff, _ = build_model(device, width=draft_width or DISTIL_WIDTH,
+                              seed=1)
+    runs, faults = [], []
+    for mode in SPEC_MODES:
+        run = spec_run(torch, pk, ff, mode, prompts,
+                       draft_ff=draft_ff if mode == "draft_distil"
+                       else None)
+        rec = spec_record(run, layers)
+        rec["card"] = card
+        emit(rec)
+        runs.append((run, rec))
+        faults += spec_faults(mode, run["stats"])
+        if rec["paged_attention_launches"] != rec["expected_launches"]:
+            faults.append(f"{mode}: paged_attention launched "
+                          f"{rec['paged_attention_launches']} times, "
+                          f"expected {rec['expected_launches']}")
+        if run["outs"] != runs[0][0]["outs"]:
+            faults.append(f"{mode}: completions differ from off's")
+    del draft_ff
+    chunk = spec_chunk_check(torch, pk, ff, width, history)
+    if chunk["launches"] != chunk["expected_launches"]:
+        faults.append(f"chunk step: {chunk['launches']} launches, "
+                      f"expected {chunk['expected_launches']}")
+    if not (chunk["finite"] and chunk["err_over_scale"] <= SPEC_CHUNK_TOL):
+        faults.append(f"chunk step: error {chunk['err_over_scale']} over "
+                      f"the scale > {SPEC_CHUNK_TOL}")
+    for run, _ in runs:
+        for p, o in zip(prompts, run["outs"]):
+            if len(o) != len(p) + MAX_NEW or o[:len(p)] != p or not all(
+                    0 <= t < width["vocab_size"] for t in o):
+                faults.append(f"{run['mode']}: a malformed completion")
+                break
+    rec = {"phase": "spec", "card": card, "spec_k": SPEC_K,
+           "modes": {r["mode"]: {k: r[k] for k in (
+               "tokens_per_s", "mean_verify_ms", "rounds",
+               "accepted_per_round", "fallback_rounds",
+               "paged_attention_launches")} for _, r in runs},
+           "identical": all(run["outs"] == runs[0][0]["outs"]
+                            for run, _ in runs),
+           "chunk_step": chunk,
+           "verify_profile": spec_verify_profile(torch, ff, width),
+           "faults": faults}
+    emit(rec)
+    if faults:
+        raise RuntimeError("spec: " + "; ".join(faults))
+    return rec
+
 
 def _scaled_err(got, ref) -> tuple:
     """(max |got - ref|, that over the output's scale max(1, max|ref|))"""
@@ -4188,7 +4541,7 @@ def phase_fusion(torch, fa, card: str) -> dict:
     return rec
 
 
-ALL_PHASES = ("kernels,serve,parity,profile,train,train_parity,"
+ALL_PHASES = ("kernels,serve,parity,profile,spec,train,train_parity,"
               "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
               "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
               "nmt,generate,keras,onnx,seq_parity,capture,fusion,search,"
@@ -8238,12 +8591,13 @@ def _moe_checks(name, ranks, ref, strategy, faults) -> dict:
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                 onnx=None, search=None, multigpu=None, capture=None,
                 store=None, resilience=None, supervised=None,
-                tools=None) -> dict:
+                tools=None, spec=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
     main paths (what the wrappers counted: under a captured step, the
     warm-up and the capturing step; the capture phase's profiler counts
     a replayed step's), agreement with the plain versions and the times
-    of this run.  The tools phase launches none (`launches_tools`)."""
+    of this run.  The tools phase launches none (`launches_tools`); the
+    spec phase's K4 launches are per mode and of one chunk step."""
     rows = []
 
     def tool_launches(kid):
@@ -8302,6 +8656,11 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
         "launches_per_decode_step": (serve["launches_per_forward"]
                                      if serve else None),
         "launches_tools": tool_launches("K4"),
+        "launches_spec": ({m: r["paged_attention_launches"]
+                           for m, r in spec["modes"].items()}
+                          if spec else None),
+        "launches_spec_chunk_step": (spec["chunk_step"]["launches"]
+                                     if spec else None),
         "max_abs_err": max(kern["worst"].values()),
         "max_abs_err_by_dtype": kern["worst"],
         "tolerance": TOL,
@@ -8445,7 +8804,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     kern = flash = serve = train = bn = resnet = paged = onnx = None
     search = store = multigpu = capture = resilience = supervised = None
-    tools = None
+    tools = spec = None
     # what one phase leaves for another: the searched strategy and the
     # op costs the search timed (the multigpu phase trains and prices it)
     run_dir = tempfile.mkdtemp(prefix="ff_smoke_")
@@ -8466,7 +8825,7 @@ def main(argv=None) -> int:
         kern = phase_kernels(torch, pk, card, dev, paged_lib, build_s)
         flash = phase_flash_kernels(torch, fa, card, dev, flash_lib)
     walls["kernels"] = _lap()
-    if phases & {"serve", "parity", "profile"}:
+    if phases & {"serve", "parity", "profile", "spec"}:
         ff, weights = build_model("cuda")
         if "serve" in phases:
             serve = phase_serve(torch, pk, card, ff)
@@ -8475,6 +8834,9 @@ def main(argv=None) -> int:
             phase_parity(torch, card, ff, weights, prompts)
         if "profile" in phases:
             paged = phase_profile(torch, card, ff)
+        if "spec" in phases:
+            spec = phase_spec(torch, pk, card, ff,
+                              serve["prompts"] if serve else make_prompts())
         del ff
     walls["serve"] = _lap()
     if phases & {"train", "train_profile"}:
@@ -8569,7 +8931,7 @@ def main(argv=None) -> int:
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,
                          search, multigpu, capture, store, resilience,
-                         supervised, tools))
+                         supervised, tools, spec))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,45 @@ SEARCH_ALGOS = ("unity", "mcmc")
 # no loss for the check (check_step_health returns at once)
 NAN_POLICIES = ("raise", "skip_step", "restore", "off")
 
+# The speculative-decoding modes, the reference's: "off" = one dispatch
+# per generated token; "ngram" = prompt-lookup drafts mined from the
+# request's own tokens; "draft" = a smaller GPT drafting through its own
+# paged decode engine.  Both verify through the verify step and accept
+# greedily, so output stays token-identical to "off".  The reference's
+# FFConfig.spec_decode/spec_k fields and flags are read only by its
+# serving front, so they come with that front's port.
+SPEC_DECODE_MODES = ("off", "ngram", "draft")
+
+
+class ConfigError(ValueError):
+    """A configuration that can never run, raised when the engine is
+    built, with the fix spelled out."""
+
+
+def resolve_spec_decode(spec_decode: str, spec_k: int,
+                        beam_size: int = 1) -> str:
+    """Validate a speculative-decoding configuration and return the
+    mode.  Verification accepts the longest greedy-matching draft
+    prefix, which means nothing across beam hypotheses, so a beam
+    consumer passes its beam_size and gets a ConfigError."""
+    if spec_decode not in SPEC_DECODE_MODES:
+        raise ConfigError(
+            f"--spec-decode must be one of {SPEC_DECODE_MODES}, "
+            f"got {spec_decode!r}")
+    if spec_decode != "off":
+        if int(spec_k) < 1:
+            raise ConfigError(
+                f"--spec-k must be >= 1 when --spec-decode is "
+                f"{spec_decode!r}, got {spec_k}")
+        if int(beam_size) > 1:
+            raise ConfigError(
+                f"--spec-decode {spec_decode!r} cannot be combined "
+                f"with beam search (beam_size={beam_size}): "
+                f"verification accepts the longest greedy-matching "
+                f"draft prefix, which has no analogue across beam "
+                f"hypotheses — use --spec-decode off for beam decoding")
+    return spec_decode
+
 
 @dataclasses.dataclass
 class FFConfig:

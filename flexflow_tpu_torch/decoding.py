@@ -26,7 +26,11 @@ block pool with a host-owned block table and per-slot seq_lens.  The
 build_paged_* functions return plain functions over the twin's weight
 and state dictionaries.  Where the reference jit-compiled them with the
 state donated, here they update the KV pools IN PLACE and return the
-same state dictionary.
+same state dictionary.  The prefill and speculative verify steps are
+loops of seq-1 forwards, as the reference's lax.scan is, so every op
+keeps the decode step's shapes; the chunk step is one true seq-C
+forward of a twin built with step_tokens=C, whose state has the seq-1
+twin's structure, so both steps can run on one state.
 """
 from __future__ import annotations
 
@@ -63,15 +67,25 @@ def _gpt_dims(ff: FFModel) -> Dict[str, int]:
 
 def make_gpt_decoder(ff_train: FFModel, batch_size: Optional[int] = None,
                      kv_page_size: int = 0, kv_num_blocks: int = 0,
-                     tp: int = 1) -> FFModel:
-    """Build + compile the seq-1 decode twin of a GPT on the train
-    model's device, with decode_max_seq = its position-table size, and
-    point its weights at the train model's tensors.  kv_page_size 0
-    builds the dense-cache twin, > 0 the paged one.  Head tensor
-    parallelism (tp > 1) comes with the multi-GPU slice."""
+                     step_tokens: int = 1, tp: int = 1) -> FFModel:
+    """Build + compile the decode twin of a GPT on the train model's
+    device, with decode_max_seq = its position-table size, and point its
+    weights at the train model's tensors.  kv_page_size 0 builds the
+    dense-cache twin, > 0 the paged one.  The graph is seq-`step_tokens`:
+    step_tokens > 1 (paged only) builds the [b, C] chunk twin, whose
+    pools, tables and seq_lens have the seq-1 twin's shapes
+    (build_paged_chunk_step).  Head tensor parallelism (tp > 1) comes
+    with the multi-GPU slice."""
     from .config import FFConfig
     from .models.transformer import build_gpt
 
+    if step_tokens < 1:
+        raise ValueError(f"step_tokens must be >= 1, got {step_tokens}")
+    if step_tokens > 1 and not kv_page_size:
+        raise ValueError(
+            "step_tokens > 1 needs the paged twin (kv_page_size > 0): "
+            "the dense cache's scalar position counter cannot express "
+            "per-row chunk positions")
     if tp != 1:
         raise NotImplementedError(
             f"make_gpt_decoder(tp={tp}): tensor-parallel decode replicas "
@@ -82,7 +96,7 @@ def make_gpt_decoder(ff_train: FFModel, batch_size: Optional[int] = None,
                    device=str(ff_train.device))
     ffd = FFModel(cfg)
     build_gpt(
-        ffd, batch_size=b, seq_length=1,
+        ffd, batch_size=b, seq_length=step_tokens,
         hidden_size=dims["hidden_size"], num_layers=dims["num_layers"],
         num_heads=dims["num_heads"],
         intermediate_size=dims["intermediate_size"],
@@ -355,38 +369,110 @@ def build_paged_decode_step(ffd: FFModel):
     return step
 
 
+def _seq1_loop(ffd: FFModel, chunk: int, keep_logits: bool, pad_pos: int):
+    """The loop that prefill and verify share: C seq-1 forwards,
+
+        run(weights, state, tokens[b, C], positions[b], counts[b],
+            block_table) -> (logits [b, C, vocab] or None, state)
+
+    Like the reference's lax.scan, every op keeps the decode step's
+    shapes, so the logits and the pool bytes equal one-token stepping
+    bit for bit.  Step j of row i is live when j < counts[i] and
+    positions[i] + j < max_seq; every other step goes to the scratch
+    block (a zeroed table row) at position pad_pos and never reaches
+    the row's own blocks (a torch index past the table faults on
+    CUDA)."""
+    if chunk < 2:
+        raise ValueError(f"chunk must be >= 2, got {chunk}")
+    ex = ffd.executor
+    max_seq = _gpt_dims(ffd)["max_seq"]
+    pad_pos = pad_pos % max_seq
+
+    def run(weights, state, tokens, positions, counts, block_table):
+        positions = positions.to(torch.int32)
+        scratch_tab = torch.zeros_like(block_table)
+        rows = []
+        with torch.no_grad():
+            for j in range(chunk):
+                pos_j = positions + j
+                live = (j < counts) & (pos_j < max_seq)
+                bt_j = torch.where(live[:, None], block_table, scratch_tab)
+                pos_j = torch.where(live, pos_j, pad_pos).to(torch.int32)
+                logits, _ = ex.run_forward(
+                    weights, _with_tables(state, bt_j, pos_j),
+                    {"input": tokens[:, j:j + 1],
+                     "positions": pos_j[:, None]})
+                if keep_logits:
+                    rows.append(logits[:, 0])
+        return (torch.stack(rows, dim=1) if keep_logits else None), state
+
+    return run
+
+
 def build_paged_prefill_step(ffd: FFModel, chunk: int):
     """The [slots, C] chunked-prefill step:
 
         prefill(weights, state, tokens[b, C], positions[b], block_table)
             -> state
 
-    Row i's token j lands at positions[i] + j.  Like the reference's
-    lax.scan, this is a loop of C seq-1 forwards, so every op keeps the
-    decode step's shapes and the pool bytes match one-token prefill.
-    A row's trailing pad positions past the position table are routed
-    to the scratch block (zeroed table row) and clamped in range."""
-    if chunk < 2:
-        raise ValueError(f"chunk must be >= 2, got {chunk}")
+    Row i's token j lands at positions[i] + j: the shared seq-1 loop
+    with every step counted.  A row's trailing pad positions past the
+    position table go to the scratch block at max_seq - 1, as in the
+    reference."""
+    run = _seq1_loop(ffd, chunk, keep_logits=False, pad_pos=-1)
+
+    def prefill(weights, state, tokens, positions, block_table):
+        counts = torch.full(positions.shape, chunk, dtype=torch.int32,
+                            device=positions.device)
+        return run(weights, state, tokens, positions, counts,
+                   block_table)[1]
+
+    return prefill
+
+
+def build_paged_verify_step(ffd: FFModel, chunk: int):
+    """The [slots, C] speculative verify step:
+
+        verify(weights, state, tokens[b, C], positions[b], counts[b],
+               block_table) -> (logits [b, C, vocab], state)
+
+    Row i feeds tokens[i, :counts[i]] at positions[i] ..
+    positions[i] + counts[i] - 1 (its pending token, then its drafts)
+    and gets the logits of every fed position back: the shared seq-1
+    loop, with pad steps at position 0 as in the reference."""
+    return _seq1_loop(ffd, chunk, keep_logits=True, pad_pos=0)
+
+
+def build_paged_chunk_step(ffd: FFModel):
+    """The step of a chunk twin built with make_gpt_decoder(
+    step_tokens=C): one true seq-C forward,
+
+        step(weights, state, tokens[b, C], positions[b], block_table)
+            -> (logits [b, C, vocab], state)
+
+    The attention scatters each row's C tokens at its own positions and
+    attends causally within the chunk, one paged-attention launch per
+    layer at s = C.  Its GEMMs run at [b*C, e], so its logits are not
+    bitwise equal to the seq-1 program's (the engine's prefill uses
+    build_paged_prefill_step).  Chunk positions past the position table
+    are pads: the attention routes their writes to scratch, and their
+    embedding lookup is clamped in range (a torch index past the table
+    faults on CUDA)."""
     ex = ffd.executor
     max_seq = _gpt_dims(ffd)["max_seq"]
 
-    def prefill(weights, state, tokens, positions, block_table):
+    def step(weights, state, tokens, positions, block_table):
         positions = positions.to(torch.int32)
+        offsets = torch.arange(tokens.shape[1], dtype=torch.int32,
+                               device=positions.device)
+        pos_grid = (positions[:, None] + offsets).clamp(max=max_seq - 1)
         with torch.no_grad():
-            for j in range(chunk):
-                pos_j = positions + j
-                live = (pos_j < max_seq)[:, None]
-                bt_j = torch.where(live, block_table,
-                                   torch.zeros_like(block_table))
-                pos_j = pos_j.clamp(max=max_seq - 1)
-                ex.run_forward(
-                    weights, _with_tables(state, bt_j, pos_j),
-                    {"input": tokens[:, j:j + 1],
-                     "positions": pos_j[:, None]})
-        return state
+            logits, _ = ex.run_forward(
+                weights, _with_tables(state, block_table, positions),
+                {"input": tokens, "positions": pos_grid})
+        return logits, state
 
-    return prefill
+    return step
 
 
 def build_paged_copy_block(ffd: FFModel):

@@ -15,9 +15,25 @@ The device half, `PagedKVDecodeModel`, runs on the trained model's
 device.  Which read formulation runs is not a choice here: on a CUDA
 device every attention layer reads the pool through the hand-written
 paged-attention kernel, on the CPU through its plain gather version,
-and `stats()["paged_kernel"]["formulation"]` says which ran.  Left out
-of this slice: speculative decoding, mid-decode handoff, drain and
-request tracing.
+and `stats()["paged_kernel"]["formulation"]` says which ran.
+
+Speculative decoding (serving/speculative.py): with spec_decode "ngram"
+or "draft" the model also holds the [slots, spec_k + 1] verify step,
+and the loop asks a proposer for up to k drafts per greedy decode-phase
+slot each round.  One verify dispatch then advances every live row; a
+row accepts the longest prefix of its drafts that matches the target's
+own greedy chain plus the first corrected token, and the pool rolls the
+rejected positions back.  A round with no proposals takes the plain
+decode step.  A transient verify fault degrades the engine to plain
+decode (`stats()["speculative"]["degraded"]`, `verify_faults`); a fault
+marked `fatal_to_engine` ends the worker and fails what is in flight.
+
+With a `registry` (obs.metrics.MetricsRegistry) the engine records the
+reference's `serving/*` metrics: steps, TTFT, request and per-token
+latency, the KV and prefix gauges and counters, the paged kernel's
+reads and the speculative counters.  Left out of this slice: mid-decode
+handoff and KV migration, drain, tensor-parallel replicas and request
+tracing.
 """
 from __future__ import annotations
 
@@ -47,16 +63,25 @@ class PagedKVDecodeModel:
     logits [b, vocab].  prefill_chunk = C > 1 adds the [b, C]
     chunked-prefill step (a loop of C seq-1 forwards, so the K/V bytes
     match one-token prefill).  copy_block(src, dst) is the prefix
-    cache's copy-on-write.  The KV pools are updated in place; only the
+    cache's copy-on-write.  spec_decode "ngram" or "draft" adds the
+    [b, spec_k + 1] verify_step, and "draft" keeps the draft engine
+    (`draft_model`, a PagedKVDecodeModel over a smaller GPT) for the
+    scheduler's proposer.  The KV pools are updated in place; only the
     scheduler's worker thread calls these methods."""
 
     def __init__(self, ff_train, batch_slots: int = 8,
                  page_size: int = 16, num_blocks: Optional[int] = None,
-                 prefill_chunk: int = 0, prefix_cache: bool = True):
+                 prefill_chunk: int = 0, prefix_cache: bool = True,
+                 spec_decode: str = "off", spec_k: int = 4,
+                 draft_model=None):
+        from ..config import ConfigError, resolve_spec_decode
         from ..decoding import (_gpt_dims, build_paged_copy_block,
                                 build_paged_decode_step,
-                                build_paged_prefill_step, make_gpt_decoder)
+                                build_paged_prefill_step,
+                                build_paged_verify_step, make_gpt_decoder)
 
+        self.spec_decode = resolve_spec_decode(spec_decode, spec_k)
+        self.spec_k = int(spec_k)
         dims = _gpt_dims(ff_train)
         max_seq = dims["max_seq"]
         if page_size < 1 or max_seq % page_size:
@@ -89,6 +114,39 @@ class PagedKVDecodeModel:
             build_paged_prefill_step(self.ffd, self.prefill_chunk)
             if self.prefill_chunk else None)
         self._copy_fn = build_paged_copy_block(self.ffd)
+        # the speculative verify step: ONE [slots, spec_k + 1] step scores
+        # a pending token plus up to spec_k drafts per row; counts is
+        # data, so adaptive-k rounds reuse it
+        self.verify_chunk = (self.spec_k + 1 if self.spec_decode != "off"
+                             else 0)
+        self._verify_fn = (
+            build_paged_verify_step(self.ffd, self.verify_chunk)
+            if self.spec_decode != "off" else None)
+        self.draft_model = draft_model
+        if self.spec_decode == "draft":
+            dm = draft_model
+            if dm is None:
+                raise ConfigError(
+                    "--spec-decode draft needs a draft model — pass "
+                    "draft_model= (or from_trained(..., draft_ff=)) "
+                    "or use --spec-decode ngram")
+            if int(getattr(dm, "vocab", -1)) != self.vocab:
+                raise ConfigError(
+                    f"draft model vocab {getattr(dm, 'vocab', None)} "
+                    f"!= target vocab {self.vocab} — draft token ids "
+                    f"are proposed verbatim, so the vocabularies must "
+                    f"match")
+            if int(getattr(dm, "max_seq", 0)) < max_seq:
+                raise ConfigError(
+                    f"draft model position table "
+                    f"({getattr(dm, 'max_seq', 0)}) is shorter than "
+                    f"the target's ({max_seq}) — the drafter must be "
+                    f"able to reach every target position")
+            if int(getattr(dm, "batch_slots", 0)) < batch_slots:
+                raise ConfigError(
+                    f"draft model has {getattr(dm, 'batch_slots', 0)} "
+                    f"slots < the target's {batch_slots} — draft rows "
+                    f"mirror engine slots 1:1")
         self._state = self.ffd._state
         # bytes of ONE physical block summed across every layer's k/v
         # pool: the unit of the kernel-read counters
@@ -123,6 +181,20 @@ class PagedKVDecodeModel:
             self.ffd._weights, self._state, self._ints(tokens),
             self._ints(positions), self._ints(block_tables))
 
+    def verify_step(self, tokens: np.ndarray, seq_lens: np.ndarray,
+                    counts: np.ndarray,
+                    block_tables: np.ndarray) -> np.ndarray:
+        """Speculative verify: feed tokens[b, :counts[b]] at
+        seq_lens[b].. and return host logits [b, verify_chunk, vocab];
+        row i's logits[j] equal, bit for bit, what the decode step gives
+        feeding tokens[i, j] at seq_lens[i] + j.  Built only when
+        spec_decode != "off"."""
+        logits, self._state = self._verify_fn(
+            self.ffd._weights, self._state, self._ints(tokens),
+            self._ints(seq_lens), self._ints(counts),
+            self._ints(block_tables))
+        return logits.float().cpu().numpy()
+
     def copy_block(self, src: int, dst: int) -> None:
         """Copy-on-write: clone physical block src -> dst in every
         layer's k/v pool, ordered with the steps on the device's
@@ -137,7 +209,8 @@ class _PendingSeq:
     __slots__ = ("prompt", "max_new_tokens", "temperature", "seed",
                  "event", "result", "error", "t_submit", "t_first_token",
                  "t_done", "n_generated", "prefix_hit_tokens",
-                 "_settle_lock", "_settled")
+                 "spec_proposed", "spec_accepted", "_settle_lock",
+                 "_settled")
 
     def __init__(self, prompt, max_new_tokens, temperature, seed):
         self.prompt = [int(t) for t in prompt]
@@ -152,6 +225,8 @@ class _PendingSeq:
         self.t_done: Optional[float] = None
         self.n_generated = 0
         self.prefix_hit_tokens = 0  # prompt tokens served from cache
+        self.spec_proposed = 0   # draft tokens verified for this request
+        self.spec_accepted = 0   # ... of which the target agreed with
         self._settle_lock = threading.Lock()
         self._settled = False
 
@@ -194,29 +269,57 @@ class _Live:
 
 class ContinuousScheduler:
     """Persistent decode loop with iteration-level admission/retirement.
-    `batches_run` counts decode steps (the unit of batching is the
-    step); generate / generate_async / latency_stats / stats / close
-    are the client API serve_http drives."""
+    `batches_run` counts decode steps and verify rounds (the unit of
+    batching is the dispatch); generate / generate_async /
+    latency_stats / stats / close are the client API serve_http drives.
+    `model` may be any object with PagedKVDecodeModel's step contract
+    (the tests' fakes): a model without `verify_step` runs with
+    speculation off."""
 
-    def __init__(self, model: PagedKVDecodeModel,
-                 pool: Optional[KVPool] = None, eos_id: int = -1,
-                 seed: int = 0, check_invariants: bool = False):
+    def __init__(self, model, pool: Optional[KVPool] = None,
+                 eos_id: int = -1, registry=None, seed: int = 0,
+                 check_invariants: bool = False):
         self.model = model
         self.pool = pool or KVPool(
             model.num_blocks, model.page_size, model.max_blocks_per_seq,
-            prefix_cache=model.prefix_cache)
-        self._chunk = model.prefill_chunk
+            prefix_cache=bool(getattr(model, "prefix_cache", True)))
+        self._chunk = int(getattr(model, "prefill_chunk", 0) or 0)
+        if self._chunk and getattr(model, "prefill_step", None) is None:
+            self._chunk = 0
         # kernel-read counters: physical blocks the paged-attention
         # kernel read vs what the dense gather formulation would have
         # materialized for the same dispatches (counted when the kernel
         # runs, i.e. on a CUDA device)
-        self._paged_kernel = model.paged_kernel
-        self._kv_block_bytes = model.kv_block_bytes
+        self._paged_kernel = str(getattr(model, "paged_kernel", "plain"))
+        self._kv_block_bytes = int(getattr(model, "kv_block_bytes", 0))
         self.kernel_blocks_read = 0
         self.kernel_dense_blocks = 0
         self._check_invariants = bool(check_invariants)
+        self._evictions_seen = 0  # delta base for the evictions counter
         self.prefill_steps = 0
+        # speculative decoding: the model carries the mode, the verify
+        # step and (for "draft") the draft engine; the scheduler owns
+        # the proposer, the adaptive-k controller and accept/rollback
+        spec = str(getattr(model, "spec_decode", "off") or "off")
+        self._spec_k = int(getattr(model, "spec_k", 0) or 0)
+        self._proposer = None
+        if (spec != "off" and self._spec_k >= 1
+                and getattr(model, "verify_step", None) is not None):
+            from .speculative import AdaptiveK, build_proposer
+
+            self._proposer = build_proposer(
+                spec, getattr(model, "draft_model", None))
+            self._adaptive = AdaptiveK(self._spec_k)
+        self._spec = spec if self._proposer is not None else "off"
+        self._spec_broken = False  # verify/proposer fault: plain decode
+        self._spec_t0: Optional[float] = None
+        self.spec_rounds = 0           # verify dispatches run
+        self.spec_fallback_rounds = 0  # spec on, but no proposals
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_verify_faults = 0
         self.eos_id = int(eos_id)
+        self.registry = registry
         self._queue: "queue.Queue[_PendingSeq]" = queue.Queue()
         self._waiting: deque = deque()  # worker-local FIFO admit order
         self.step_ms_ewma = 0.0
@@ -244,16 +347,30 @@ class ContinuousScheduler:
     def from_trained(cls, ff_train, batch_slots: int = 8,
                      page_size: int = 16,
                      num_blocks: Optional[int] = None, eos_id: int = -1,
-                     seed: int = 0, prefill_chunk: int = 0,
+                     registry=None, seed: int = 0, prefill_chunk: int = 0,
                      prefix_cache: bool = True,
                      check_invariants: bool = False,
+                     spec_decode: str = "off", spec_k: int = 4,
+                     draft_ff=None,
+                     draft_num_blocks: Optional[int] = None,
                      ) -> "ContinuousScheduler":
+        # the draft twin (spec_decode "draft") is its own paged engine
+        # over the smaller trained GPT, on its device: the target's slot
+        # count and page size (draft rows mirror engine slots 1:1), no
+        # chunked prefill (catch-up is its prefill)
+        draft_model = None
+        if spec_decode == "draft" and draft_ff is not None:
+            draft_model = PagedKVDecodeModel(
+                draft_ff, batch_slots=batch_slots, page_size=page_size,
+                num_blocks=draft_num_blocks)
         model = PagedKVDecodeModel(ff_train, batch_slots=batch_slots,
                                    page_size=page_size,
                                    num_blocks=num_blocks,
                                    prefill_chunk=prefill_chunk,
-                                   prefix_cache=prefix_cache)
-        return cls(model, eos_id=eos_id, seed=seed,
+                                   prefix_cache=prefix_cache,
+                                   spec_decode=spec_decode, spec_k=spec_k,
+                                   draft_model=draft_model)
+        return cls(model, eos_id=eos_id, registry=registry, seed=seed,
                    check_invariants=check_invariants)
 
     # -- client API -----------------------------------------------------
@@ -319,6 +436,26 @@ class ContinuousScheduler:
                 "fragmentation": round(self.pool.fragmentation(), 4),
             },
             "prefix_cache": self.pool.prefix_stats(),
+            "speculative": {
+                "mode": self._spec,
+                "k_max": self._spec_k if self._spec != "off" else 0,
+                "k_current": (self._adaptive.k
+                              if self._proposer is not None else 0),
+                "rounds": self.spec_rounds,
+                "fallback_rounds": self.spec_fallback_rounds,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "accept_rate": round(
+                    self.spec_accepted / self.spec_proposed, 4)
+                if self.spec_proposed else 0.0,
+                "accepted_per_round": round(
+                    self.spec_accepted / self.spec_rounds, 4)
+                if self.spec_rounds else 0.0,
+                "verify_faults": self.spec_verify_faults,
+                "degraded": self._spec_broken,
+                "proposer": (self._proposer.stats()
+                             if self._proposer is not None else {}),
+            },
             "paged_kernel": {
                 "formulation": self._paged_kernel,
                 "blocks_read": self.kernel_blocks_read,
@@ -421,22 +558,34 @@ class ContinuousScheduler:
                         f"but the pool only has {self.pool.usable_blocks}")
                     req._settle()
                     continue
+                if self.registry is not None:
+                    self.registry.counter(
+                        "serving/admissions_deferred").inc()
                 break
             self._waiting.popleft()
             self._next_seq_id += 1
             hit = self.pool.admit_hit_tokens(sid)
             start = min(hit, plen - 1)
             req.prefix_hit_tokens = hit
+            if hit and self.registry is not None:
+                self.registry.counter("serving/prefix_hits").inc()
+                self.registry.counter(
+                    "serving/prefix_hit_tokens").inc(hit)
             cow = self.pool.ensure_writable(sid, start)
             if cow is not None:
                 try:
                     self.model.copy_block(*cow)
                 except Exception as e:
-                    # fail the admitting request alone
+                    # fail the admitting request alone; a fatal fault
+                    # ends the engine through _loop
                     self.pool.retire(sid)
                     req.error = e
                     req._settle()
+                    if getattr(e, "fatal_to_engine", False):
+                        raise
                     continue
+                if self.registry is not None:
+                    self.registry.counter("serving/kv_cow_copies").inc()
             live = _Live(req, sid, max_new, start=start)
             slot = free.pop(0)
             self._slots[slot] = live
@@ -462,6 +611,8 @@ class ContinuousScheduler:
         """Step fault: fail in-flight only; queued requests survive on
         the same engine."""
         self.step_failures += 1
+        if self.registry is not None:
+            self.registry.counter("serving/step_failures").inc()
         for i, live in enumerate(self._slots):
             if live is None:
                 continue
@@ -473,8 +624,14 @@ class ContinuousScheduler:
         # a step that died mid-execution may have left the pools half
         # written: zero them, and drop the prefix index whose bytes
         # were zeroed with them
-        self.model.reset()
-        self.pool.invalidate_prefix_cache()
+        reset = getattr(self.model, "reset", None)
+        if reset is not None:
+            reset()
+            self.pool.invalidate_prefix_cache()
+        # the drafter's state describes sequences that no longer exist:
+        # speculation resumes from scratch with the fresh engine
+        if self._proposer is not None:
+            self._proposer.reset()
 
     def _note_step_time(self, dt_s: float) -> None:
         ms = dt_s * 1e3
@@ -484,6 +641,15 @@ class ContinuousScheduler:
     def _note_kernel_reads(self, blocks: int, dense_blocks: int):
         self.kernel_blocks_read += blocks
         self.kernel_dense_blocks += dense_blocks
+        if self.registry is None:
+            return
+        reg = self.registry
+        reg.counter("serving/paged_kernel_blocks_read").inc(blocks)
+        if self._kv_block_bytes:
+            reg.counter("serving/paged_kernel_bytes_read").inc(
+                blocks * self._kv_block_bytes)
+            reg.counter("serving/paged_dense_bytes_avoided").inc(
+                max(0, dense_blocks - blocks) * self._kv_block_bytes)
 
     def _prefill_chunk_step(self, pre) -> bool:
         """One [slots, C] chunked-prefill dispatch advancing every
@@ -511,6 +677,8 @@ class ContinuousScheduler:
         try:
             self.model.prefill_step(tok, slen, btab)
         except Exception as e:
+            if getattr(e, "fatal_to_engine", False):
+                raise
             self._fail_inflight(e)
             return False
         self._note_step_time(time.monotonic() - t0)
@@ -536,6 +704,202 @@ class ContinuousScheduler:
         if self._check_invariants:
             self.pool.check_invariants()
         return True
+
+    def _spec_proposals(self):
+        """Ask the proposer for this round's drafts.  Eligible rows are
+        GREEDY decode-phase slots with >= 2 tokens of budget left;
+        mid-prefill and sampled rows ride the verify round with count
+        1.  A row's draft length is capped by the adaptive k and its
+        remaining budget, so fed positions never pass prompt + max_new
+        (<= max_seq by admission)."""
+        k = min(self._adaptive.k, self._spec_k)
+        contexts: Dict[int, List[int]] = {}
+        limits: Dict[int, int] = {}
+        caps: Dict[int, int] = {}
+        for i, live in enumerate(self._slots):
+            if live is None or live.req.temperature > 0.0:
+                continue
+            plen = len(live.req.prompt)
+            if live.pos < plen - 1:
+                continue  # still prefilling
+            rem = live.max_new - len(live.generated)
+            if rem < 2:
+                continue
+            contexts[i] = live.req.prompt + live.generated
+            limits[i] = min(plen + live.max_new + self._spec_k,
+                            self.model.max_seq)
+            caps[i] = min(k, rem - 1)
+        if not contexts:
+            return None
+        try:
+            props = self._proposer.propose(contexts, k, limits)
+        except Exception:  # noqa: BLE001 - a proposer bug degrades to
+            self._spec_broken = True   # plain decode, never kills the
+            return None                # engine
+        out = {}
+        for i, d in (props or {}).items():
+            if i in caps and d:
+                d = [int(t) for t in d[:caps[i]]]
+                if d:
+                    out[i] = d
+        return out or None
+
+    def _spec_round(self, props) -> bool:
+        """ONE verify dispatch advancing EVERY live row: row i feeds its
+        pending next_token and then its drafts (counts[i] in all; 1 for
+        rows without proposals) and gets the logits of each fed
+        position.  A greedy row accepts the longest prefix of drafts
+        that matches the model's own argmax chain plus the first
+        corrected token; the pool rolls back past the accept point
+        (un-registering prefix-index entries over rejected positions
+        and copy-on-writing a kept shared tail).
+
+        Returns True when the round ran; False after a transient verify
+        fault, after which speculation stays off for this engine and
+        the rows go on through the plain decode step.  A fault marked
+        `fatal_to_engine` propagates."""
+        C = self.model.verify_chunk
+        bs = self.model.batch_slots
+        tok = np.zeros((bs, C), np.int32)
+        counts = np.zeros(bs, np.int32)
+        for i, live in enumerate(self._slots):
+            if live is None:
+                continue
+            tok[i, 0] = live.next_token
+            counts[i] = 1
+            d = props.get(i)
+            if d:
+                m = 1 + len(d)
+                tok[i, 1:m] = d
+                counts[i] = m
+                # the drafts' blocks must exist BEFORE dispatch; the
+                # admission reservation covers them
+                self.pool.extend(live.seq_id, live.pos + m,
+                                 written=live.pos)
+                self._btab[i] = self.pool.table_row(live.seq_id)
+        t0 = time.monotonic()
+        try:
+            logits = self.model.verify_step(
+                tok, self._slens, counts, self._btab)
+        except Exception as e:
+            if getattr(e, "fatal_to_engine", False):
+                raise
+            # transient verify fault: DEGRADE, don't fail in-flight; a
+            # state the fault consumed surfaces on the next plain step
+            # and takes the _fail_inflight recovery
+            self.spec_verify_faults += 1
+            self._spec_broken = True
+            if self._proposer is not None:
+                self._proposer.reset()
+            if self.registry is not None:
+                self.registry.counter("serving/spec_verify_faults").inc()
+            return False
+        self._note_step_time(time.monotonic() - t0)
+        self.batches_run += 1
+        self.spec_rounds += 1
+        if self._spec_t0 is None:
+            self._spec_t0 = time.monotonic()
+        if self._paged_kernel == "cuda":
+            # C seq-1 forwards: each step j one kernel launch over the
+            # rows still feeding
+            tw = self.pool.max_blocks_per_seq
+            blocks = 0
+            for j in range(C):
+                mask = counts > j
+                if not mask.any():
+                    break
+                blocks += blocks_read(self._slens + j, mask, 1,
+                                      self.pool.page_size, tw)
+            self._note_kernel_reads(blocks, bs * tw * C)
+        now = time.monotonic()
+        for i, live in enumerate(self._slots):
+            if live is None:
+                continue
+            m = int(counts[i])
+            if live.pos < len(live.req.prompt) - 1:
+                # a mid-prefill row rode with its prompt token (m == 1),
+                # as on the plain decode path
+                live.pos += 1
+                self.pool.note_written(live.seq_id, live.pos)
+                live.next_token = live.req.prompt[live.pos]
+                self._tokens[i] = live.next_token
+                self._slens[i] = live.pos
+                continue
+            # decode phase: walk the model's own token chain across the
+            # fed positions; position j's output is valid iff every fed
+            # token before it matched the chain
+            out: List[int] = []
+            for j in range(m):
+                t = int(self._sample(logits[i, j], live))
+                out.append(t)
+                if self.eos_id >= 0 and t == self.eos_id:
+                    break
+                if j + 1 >= m or t != int(tok[i, j + 1]):
+                    break
+            emitted = len(out)
+            proposed, accepted = m - 1, emitted - 1
+            # watermark first (the dispatch wrote all m positions), then
+            # roll the rejected positions back out
+            self.pool.note_written(live.seq_id, live.pos + m)
+            new_pos = live.pos + emitted
+            if m > emitted:
+                cow = self.pool.rollback(live.seq_id, new_pos)
+                # the table shrank (and its kept tail block may have
+                # been swapped by the COW): refresh the row BEFORE the
+                # next dispatch can write through a stale block id
+                self._btab[i] = self.pool.table_row(live.seq_id)
+                if cow is not None:
+                    try:
+                        self.model.copy_block(*cow)
+                    except Exception as e:
+                        if getattr(e, "fatal_to_engine", False):
+                            raise
+                        # this row's KV is unsynced: fail it alone
+                        self.pool.retire(live.seq_id)
+                        if self._proposer is not None:
+                            self._proposer.release(i)
+                        live.req.error = e
+                        live.req._settle()
+                        self._slots[i] = None
+                        self._free_slot_buffers(i)
+                        continue
+            live.pos = new_pos
+            if proposed:
+                self.spec_proposed += proposed
+                self.spec_accepted += accepted
+                live.req.spec_proposed += proposed
+                live.req.spec_accepted += accepted
+                self._adaptive.update(proposed, accepted)
+                if self.registry is not None:
+                    reg = self.registry
+                    reg.counter("serving/spec_proposed").inc(proposed)
+                    reg.counter("serving/spec_accepted").inc(accepted)
+                    reg.histogram(
+                        "serving/spec_accepted_per_round").observe(
+                        accepted)
+            if not live.generated:
+                self._first_token(live, now)
+            live.generated.extend(out)
+            self.tokens_generated += emitted
+            done = (len(live.generated) >= live.max_new
+                    or (self.eos_id >= 0 and out[-1] == self.eos_id))
+            if done:
+                self._finish(i, live)
+            else:
+                live.next_token = out[-1]
+                self._tokens[i] = out[-1]
+                self._slens[i] = live.pos
+        if self.registry is not None:
+            self.registry.counter("serving/spec_rounds").inc()
+        return True
+
+    def _first_token(self, live: _Live, now: float) -> None:
+        live.req.t_first_token = now
+        with self._lat_lock:
+            self._ttfts.append(now - live.req.t_submit)
+        if self.registry is not None:
+            self.registry.histogram("serving/ttft_ms").observe(
+                (now - live.req.t_submit) * 1e3)
 
     def _decode_loop(self):
         page = self.pool.page_size
@@ -564,11 +928,24 @@ class ContinuousScheduler:
                 if live.pos and live.pos % page == 0:
                     self.pool.extend(live.seq_id, live.pos + 1)
                     self._btab[i] = self.pool.table_row(live.seq_id)
+            if self._spec != "off" and not self._spec_broken:
+                props = self._spec_proposals()
+                if props:
+                    # speculative round: every live row rides ONE verify
+                    # dispatch (drafted rows multi-token, the rest
+                    # count 1)
+                    if self._spec_round(props):
+                        self._observe_step()
+                    continue
+                # no proposals anywhere: the plain decode step below
+                self.spec_fallback_rounds += 1
             t0 = time.monotonic()
             try:
                 logits = self.model.step(
                     self._tokens, self._slens, self._btab)
             except Exception as e:
+                if getattr(e, "fatal_to_engine", False):
+                    raise  # the engine is gone: _loop drains it
                 self._fail_inflight(e)
                 continue
             self._note_step_time(time.monotonic() - t0)
@@ -595,9 +972,7 @@ class ContinuousScheduler:
                     continue
                 tok = int(self._sample(logits[i], live))
                 if not live.generated:
-                    live.req.t_first_token = now
-                    with self._lat_lock:
-                        self._ttfts.append(now - live.req.t_submit)
+                    self._first_token(live, now)
                 live.generated.append(tok)
                 self.tokens_generated += 1
                 done = (len(live.generated) >= live.max_new
@@ -608,8 +983,7 @@ class ContinuousScheduler:
                     live.next_token = tok
                     self._tokens[i] = tok
                     self._slens[i] = live.pos
-            if self._check_invariants:
-                self.pool.check_invariants()
+            self._observe_step()
 
     def _sample(self, row_logits: np.ndarray, live: _Live) -> int:
         if live.req.temperature <= 0.0:  # greedy hot path: one argmax
@@ -620,6 +994,8 @@ class ContinuousScheduler:
                            live.rng)[0]
 
     def _finish(self, slot: int, live: _Live):
+        if self._proposer is not None:
+            self._proposer.release(slot)
         # the written token prefix (everything fed; excludes the final
         # sampled token, whose k/v never landed) keys the retired blocks
         # into the prefix cache
@@ -635,4 +1011,41 @@ class ContinuousScheduler:
         with self._lat_lock:
             self._latencies.append(req.t_done - req.t_submit)
         self.requests_done += 1
+        if self.registry is not None:
+            reg = self.registry
+            reg.counter("serving/requests_done").inc()
+            reg.histogram("serving/request_latency_ms").observe(
+                (req.t_done - req.t_submit) * 1e3)
+            if req.n_generated > 1 and req.t_first_token is not None:
+                reg.histogram("serving/per_token_ms").observe(
+                    (req.t_done - req.t_first_token) * 1e3
+                    / (req.n_generated - 1))
         req._settle()
+
+    def _observe_step(self):
+        if self._check_invariants:
+            self.pool.check_invariants()
+        if self.registry is None:
+            return
+        reg = self.registry
+        live = [s for s in self._slots if s is not None]
+        reg.counter("serving/steps").inc()
+        reg.gauge("serving/queue_depth").set(
+            self._queue.qsize() + len(self._waiting))
+        reg.gauge("serving/live_sequences").set(len(live))
+        reg.gauge("serving/kv_used_blocks").set(self.pool.used_blocks)
+        reg.gauge("serving/kv_shared_blocks").set(self.pool.shared_blocks)
+        reg.gauge("serving/kv_cached_blocks").set(self.pool.cached_blocks)
+        ev = self.pool.prefix_evictions
+        if ev > self._evictions_seen:
+            reg.counter("serving/prefix_evictions").inc(
+                ev - self._evictions_seen)
+            self._evictions_seen = ev
+        reg.histogram("serving/kv_occupancy").observe(self.pool.occupancy())
+        reg.histogram("serving/kv_fragmentation").observe(
+            self.pool.fragmentation())
+        if self.spec_rounds and self._spec_t0 is not None:
+            dt = time.monotonic() - self._spec_t0
+            if dt > 0:
+                reg.gauge("serving/spec_rounds_per_s").set(
+                    round(self.spec_rounds / dt, 4))

@@ -11,7 +11,10 @@ GET  /v2/health    -> {"status": "ok"|"degraded", "requests": N};
                    has died
 GET  /v2/stats     -> step/request counters, latency percentiles and the
                    engine's "continuous" block (KV pool, prefix cache,
-                   paged-kernel reads, TTFT)
+                   speculative decoding, paged-kernel reads, TTFT)
+GET  /metrics      -> Prometheus text exposition (version 0.0.4) of the
+                   registry passed as serve_http(registry=...); 404 when
+                   none is attached
 """
 from __future__ import annotations
 
@@ -22,10 +25,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 
 def serve_http(generator, host: str = "127.0.0.1", port: int = 8000,
-               block: bool = True):
+               block: bool = True, registry=None):
     """Serve a ContinuousScheduler over HTTP.  Returns the server; with
     block=False it runs on a daemon thread (server.shutdown() stops
-    it, server.server_close() frees the socket)."""
+    it, server.server_close() frees the socket).  With `registry`
+    (obs.metrics.MetricsRegistry), GET /metrics renders it as
+    Prometheus text."""
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
@@ -39,8 +44,26 @@ def serve_http(generator, host: str = "127.0.0.1", port: int = 8000,
             self.end_headers()
             self.wfile.write(body)
 
+        def _send_text(self, code: int, body: str, content_type: str):
+            raw = body.encode("utf-8")
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(raw)))
+            self.end_headers()
+            self.wfile.write(raw)
+
         def do_GET(self):
-            if self.path == "/v2/health":
+            if self.path == "/metrics":
+                if registry is None:
+                    self._send(404, {"error": "no metrics registry "
+                                     "attached (serve_http registry=)"})
+                    return
+                from ..obs.metrics import to_prometheus
+
+                # the content type Prometheus's scraper negotiates for
+                self._send_text(200, to_prometheus(registry),
+                                "text/plain; version=0.0.4; charset=utf-8")
+            elif self.path == "/v2/health":
                 dead = not generator.worker_alive
                 self._send(503 if dead else 200,
                            {"status": "degraded" if dead else "ok",

@@ -12,7 +12,9 @@ records, the store phase's catalog (both forms parse equal and
 verify, its rules match BERT's graph), its kernel-cache check and its
 launches in the kernels line, and the supervised phase and legs: their
 place, fault plan, survivors, tolerances and launches in the kernels
-line, the Cache op dropped from a graph, and the unchanged last line."""
+line, the Cache op dropped from a graph, the unchanged last line, and
+the spec phase: its launch identity, the faults it names, a host run at
+a small GPT and its launches in the kernels line."""
 import contextlib
 import io
 import json
@@ -143,10 +145,11 @@ def test_paged_bound_counts_live_bytes():
 
 def test_phase_list_runs_the_vit_path_after_the_earlier_ones():
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[:11] == ["kernels", "serve", "parity", "profile", "train",
-                           "train_parity", "train_profile", "bn_kernels",
-                           "resnet", "resnet_parity", "resnet_profile"]
-    assert phases[11:14] == ["vit", "vit_parity", "vit_profile"]
+    assert phases[:12] == ["kernels", "serve", "parity", "profile", "spec",
+                           "train", "train_parity", "train_profile",
+                           "bn_kernels", "resnet", "resnet_parity",
+                           "resnet_profile"]
+    assert phases[12:15] == ["vit", "vit_parity", "vit_profile"]
 
 
 def test_vit_op_table_adds_up_per_block():
@@ -187,12 +190,12 @@ def test_vit_profile_kernel_kinds(name, kind):
 
 
 def test_phase_list_ends_with_the_zoo_path():
-    assert chip_smoke.ALL_PHASES.split(",")[14:17] == ["zoo", "zoo_parity",
+    assert chip_smoke.ALL_PHASES.split(",")[15:18] == ["zoo", "zoo_parity",
                                                        "zoo_profile"]
 
 
 def test_phase_list_ends_with_the_sequence_and_frontend_path():
-    assert chip_smoke.ALL_PHASES.split(",")[17:22] == [
+    assert chip_smoke.ALL_PHASES.split(",")[18:23] == [
         "nmt", "generate", "keras", "onnx", "seq_parity"]
 
 
@@ -211,7 +214,7 @@ def test_search_phase_runs_last_over_the_hgx_node():
     phases = chip_smoke.ALL_PHASES.split(",")
     assert phases[-6:] == ["search", "store", "resilience", "supervised",
                            "tools", "multigpu"]
-    assert len(phases) == 30 and phases.count("search") == 1
+    assert len(phases) == 31 and phases.count("search") == 1
     assert "`--phases search`" in chip_smoke.__doc__
     cfg = chip_smoke.search_config("/tmp/costs.json")
     assert (cfg.batch_size, cfg.device, cfg.search_budget) == (
@@ -1029,7 +1032,7 @@ def test_capture_and_fusion_phases_run_before_the_search():
     paths and the kernels each must launch per step are the train,
     resnet and vit phases'."""
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[22:24] == ["capture", "fusion"]
+    assert phases[23:25] == ["capture", "fusion"]
     assert "`--phases capture`" in chip_smoke.__doc__
     assert chip_smoke.CAPTURE_KERNELS == {
         "bert": {"K1": 12, "K2": 12, "K3": 12}, "resnet50": {"P1": 53},
@@ -1800,3 +1803,134 @@ def test_kernel_line_carries_the_tools_launches():
     rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
                                   "card")["kernels"]
     assert all(r["launches_tools"] is None for r in rows)
+
+
+# -- the spec phase -------------------------------------------------------
+
+def _spec_stats(mode="ngram", steps=30, prefill=4, rounds=10, k=4,
+                faults=0, degraded=False, proposer=None, apr=2.0):
+    return {"steps": steps, "prefill_steps": prefill,
+            "speculative": {"mode": mode, "k_max": k if mode != "off" else 0,
+                            "rounds": rounds, "verify_faults": faults,
+                            "degraded": degraded,
+                            "accepted_per_round": apr,
+                            "proposer": proposer or {}}}
+
+
+def test_spec_launch_identity():
+    """12 per plain step (steps less verify rounds), 12 x CHUNK per
+    prefill dispatch, 12 x (spec_k + 1) per verify round, the drafter's
+    layers per draft step."""
+    assert chip_smoke.spec_launches(_spec_stats("off", rounds=0), 12) == \
+        12 * (30 + 8 * 4)
+    assert chip_smoke.spec_launches(_spec_stats(), 12) == \
+        12 * (20 + 8 * 4 + 5 * 10)
+    assert chip_smoke.spec_launches(_spec_stats("draft", k=2), 12, 6,
+                                    100) == 12 * (20 + 32 + 3 * 10) + 600
+    assert chip_smoke.SPEC_MODES == ("off", "ngram", "draft_distil",
+                                     "draft_self")
+    assert chip_smoke.SPEC_K == 4 and chip_smoke.SPEC_REQUESTS == 8
+    assert chip_smoke.DISTIL_WIDTH == dict(chip_smoke.WIDTH, num_layers=6)
+
+
+def test_spec_faults_name_every_silent_fallback():
+    ok = {"draft_faults": 0, "dead": False}
+    assert chip_smoke.spec_faults("draft_self", _spec_stats(
+        "draft", proposer=ok)) == []
+    assert chip_smoke.spec_faults("off", _spec_stats("off",
+                                                     degraded=True)) == []
+    cases = [("ngram", _spec_stats(faults=1, degraded=True), "degraded"),
+             ("ngram", _spec_stats(degraded=True), "degraded True"),
+             ("draft_distil", _spec_stats("draft", proposer={
+                 "draft_faults": 1, "dead": True}), "draft_faults 1"),
+             ("draft_distil", _spec_stats("draft", proposer={
+                 "draft_faults": 0, "dead": True}), "dead True"),
+             ("draft_self", _spec_stats("draft", proposer=ok, apr=1.5),
+              "not above 1.5")]
+    for mode, stats, match in cases:
+        faults = chip_smoke.spec_faults(mode, stats)
+        assert len(faults) == 1 and match in faults[0], (mode, faults)
+
+
+def test_spec_phase_on_the_host(monkeypatch, capsys):
+    """phase_spec end to end on the CPU at a small GPT (1-layer drafter),
+    K4's wrapper stood in by a counter around the plain version: every
+    mode's launches equal spec_launches of its stats, completions equal,
+    no fault, one line per mode, and the chunk step's one launch per
+    layer within SPEC_CHUNK_TOL of seq-1 stepping."""
+    import types
+
+    import torch
+
+    from flexflow_tpu_torch.ops import attention
+
+    real = attention.paged_attention
+
+    def counting(*a, **kw):
+        counting.launches += 1
+        return real(*a, **kw)
+
+    counting.launches = 0
+    monkeypatch.setattr(attention, "paged_attention", counting)
+    pk = types.SimpleNamespace(paged_attention=counting)
+    width = dict(hidden_size=32, num_layers=2, num_heads=4,
+                 intermediate_size=64, vocab_size=48, seq_length=64)
+    ff, _ = chip_smoke.build_model("cpu", width=width)
+    rng = np.random.RandomState(6)
+    prompts = [(rng.randint(0, 48, 3).tolist() * 5)[:int(n)]
+               for n in rng.randint(4, 16, chip_smoke.SPEC_REQUESTS)]
+    rec = chip_smoke.phase_spec(torch, pk, "card", ff, prompts, device="cpu",
+                                width=width,
+                                draft_width=dict(width, num_layers=1),
+                                history=8)
+    assert rec["faults"] == [] and rec["identical"]
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    modes = [ln for ln in lines if ln.get("mode")]
+    assert [m["mode"] for m in modes] == list(chip_smoke.SPEC_MODES)
+    for m in modes:
+        assert m["paged_attention_launches"] == m["expected_launches"] > 0
+    assert modes[0]["rounds"] == 0 and modes[0]["mean_verify_ms"] is None
+    assert modes[3]["rounds"] > 0 and modes[3]["accepted_per_round"] > 1.5
+    assert modes[2]["draft_steps"] > 0
+    assert modes[3]["expected_launches"] > 0
+    chunk = rec["chunk_step"]
+    assert chunk["launches"] == chunk["expected_launches"] == 2
+    assert chunk["err_over_scale"] <= chip_smoke.SPEC_CHUNK_TOL
+    assert chunk["timed_calls"] == 5
+    lo, hi = chunk["chunk_step_ms_range"]
+    assert 0 < lo <= chunk["chunk_step_ms"] <= hi
+    prof = rec["verify_profile"]
+    assert prof["rounds"] == 5 and prof["verify_chunk"] == 5
+    assert prof["wall_ms_per_round"] > 0
+    # the host has no device events, so no busy time and no idle share
+    assert prof["device_busy_ms_per_round"] is None
+    assert prof["device_idle_share"] is None
+
+
+def test_kernel_line_carries_the_spec_launches():
+    flash_main = {"kernel_ms": {k: 1.0 for k in ("K1", "K2", "K3")},
+                  "plain_ms": {k: 2.0 for k in ("K1", "K2", "K3")},
+                  "library_ms": {k: 1.5 for k in ("K1", "K2", "K3")},
+                  "share_of_bound": {k: 0.3 for k in ("K1", "K2", "K3")},
+                  "bounds": chip_smoke.flash_bounds(*SHAPE)}
+    flash = {"main": {"float32": flash_main, "bfloat16": flash_main},
+             "worst": {k: {"float32": (1e-6, 1e-7)}
+                       for k in ("K1", "K2", "K3")}}
+    kern = {"worst": {"float32": 1e-6}, "kernel_ms": 0.02, "event_ms": 0.03,
+            "plain_ms": 0.3, "bound_ms": 0.01, "bound_by": "bytes",
+            "share_of_bound": 0.4, "library_ms": 0.2, "split_pages": 8,
+            "grid": [1, 1, 1]}
+    spec = {"modes": {m: {"paged_attention_launches": 100 + i}
+                      for i, m in enumerate(chip_smoke.SPEC_MODES)},
+            "chunk_step": {"launches": 12}}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card", spec=spec)["kernels"]
+    k4 = next(r for r in rows if r["id"] == "K4")
+    assert k4["launches_spec"] == {"off": 100, "ngram": 101,
+                                   "draft_distil": 102, "draft_self": 103}
+    assert k4["launches_spec_chunk_step"] == 12
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card")["kernels"]
+    k4 = next(r for r in rows if r["id"] == "K4")
+    assert k4["launches_spec"] is None
+    assert "`--phases serve,spec`" in chip_smoke.__doc__

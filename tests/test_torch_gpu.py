@@ -6,7 +6,9 @@ ViT against the CPU; the zoo slice's prefetching loader (the card's
 batches against the CPU's, a long shuffled epoch with no staging buffer
 reused early), the MoE ops and a channels_last Concat against the CPU;
 the sequence-model slice's LSTM, the dense decode twin and an ONNX
-import on the card against the CPU; the search slice's profiler (an
+import on the card against the CPU; the speculative verify step on the
+card against seq-1 stepping (bit for bit, row by row) and greedy tokens
+under off, ngram and a self-drafter; the search slice's profiler (an
 attention timed through K1, a failing launch that propagates) and a
 small search costed on the card; the captured train step against the
 eager one (losses and weights bit for bit, a learning rate changed
@@ -313,6 +315,84 @@ def test_paged_decode_step_runs_the_kernel(cuda):
         forwards = stats["steps"] + 4 * stats["prefill_steps"]
         assert launched == (2 * forwards if dev == "cuda" else 0)
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_verify_step_on_card_equals_seq1_stepping(cuda):
+    """The speculative verify step through K4: each live position's
+    logits equal the decode step's on the same pools bit for bit, a
+    row's logits do not depend on the other rows (the same row alone
+    gives the same bits), and one verify call launches K4 once per layer
+    per fed position, spec_k + 1 in all; then off, ngram and the target
+    as its own drafter give the same greedy tokens through the
+    scheduler, with no degrade and no draft fault."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_gpt
+    from flexflow_tpu_torch.ops.kernels import paged_attention as pk
+    from flexflow_tpu_torch.serving import (ContinuousScheduler,
+                                            PagedKVDecodeModel)
+
+    gpt = dict(batch_size=4, seq_length=64, hidden_size=128, num_layers=2,
+               num_heads=2, intermediate_size=256, vocab_size=96)
+    ff = FFModel(FFConfig(batch_size=4, device="cuda"))
+    build_gpt(ff, **gpt)
+    ff.compile(seed=5)
+    k = 4
+    model = PagedKVDecodeModel(ff, batch_slots=4, page_size=8,
+                               num_blocks=33, spec_decode="ngram",
+                               spec_k=k)
+    rng = np.random.RandomState(0)
+    btab = rng.permutation(np.arange(1, model.num_blocks))[:32].reshape(
+        4, 8).astype(np.int32)
+    lens = np.array([5, 17, 60, 30], np.int32)
+    for t in range(int(lens.max())):
+        live = t < lens
+        model.step(rng.randint(0, 96, 4).astype(np.int32),
+                   np.where(live, t, 0).astype(np.int32),
+                   np.where(live[:, None], btab, 0).astype(np.int32))
+    saved = {op: {n: v.clone() for n, v in e.items()}
+             for op, e in model._state.items()}
+
+    def restore():
+        with torch.no_grad():
+            for op, e in model._state.items():
+                for n, v in e.items():
+                    v.copy_(saved[op][n])
+
+    tokens = rng.randint(0, 96, (4, k + 1)).astype(np.int32)
+    counts = np.array([k + 1, 2, k + 1, k + 1], np.int32)
+    before = pk.paged_attention.launches
+    got = model.verify_step(tokens, lens, counts, btab)
+    assert pk.paged_attention.launches - before == 2 * (k + 1)
+    alone_counts = np.array([0, 0, 0, k + 1], np.int32)
+    restore()
+    alone = model.verify_step(tokens, lens, alone_counts,
+                              np.where(alone_counts[:, None] > 0, btab, 0))
+    assert np.array_equal(alone[3], got[3])
+    restore()
+    for j in range(k + 1):
+        live = (j < counts) & (lens + j < 64)
+        step = model.step(tokens[:, j], np.where(live, lens + j, 0),
+                          np.where(live[:, None], btab, 0))
+        for i in np.flatnonzero(live):
+            assert np.array_equal(step[i], got[i, j]), (i, j)
+    prompts = [[3, 9, 3, 9, 3, 9, 3], list(range(10, 40)), [7] * 5]
+    outs = {}
+    for mode, spec, draft in (("off", "off", None), ("ngram", "ngram", None),
+                              ("draft_self", "draft", ff)):
+        sched = ContinuousScheduler.from_trained(
+            ff, batch_slots=4, page_size=8, prefill_chunk=4,
+            spec_decode=spec, spec_k=k, draft_ff=draft,
+            check_invariants=True)
+        try:
+            hs = [sched.generate_async(p, 16) for p in prompts]
+            outs[mode] = [h.wait(300) for h in hs]
+            st = sched.stats()["speculative"]
+        finally:
+            sched.close()
+        assert st["verify_faults"] == 0 and not st["degraded"]
+        assert not st["proposer"].get("dead", False)
+        assert not st["proposer"].get("draft_faults", 0)
+    assert outs["ngram"] == outs["off"] == outs["draft_self"]
 
 
 BN_TOL = {"float32": 1e-6, "bfloat16": 8e-3}

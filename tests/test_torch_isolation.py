@@ -49,7 +49,8 @@ def test_no_jax_or_reference_imports():
             "watchdog.py", "retry.py", "pb_to_json.py",
             "substitutions_to_dot.py", "telemetry_summary.py",
             "checkpoint_fsck.py", "strategy_store_import.py",
-            "check_metric_docs.py"} <= names
+            "check_metric_docs.py", "speculative.py", "scheduler.py",
+            "kv_pool.py", "server.py", "decoding.py"} <= names
     for sub in ("keras", "keras/preprocessing", "onnx_frontend", "sim",
                 "parallel", "topology", "native", "pcg", "store",
                 "resilience", "obs", "tools"):
@@ -66,6 +67,7 @@ def test_no_jax_or_reference_imports():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.serving, "
+            "flexflow_tpu_torch.serving.speculative, "
             "flexflow_tpu_torch.decoding, flexflow_tpu_torch.convert, "
             "flexflow_tpu_torch.models, flexflow_tpu_torch.checkpoint, "
             "flexflow_tpu_torch.ops.moe, flexflow_tpu_torch.ops.experts, "
