@@ -35,8 +35,8 @@ Phases, each a failure of which exits non-zero:
    kernel of the path must have launched, the paged-attention kernel
    once per layer per forward.
 3. parity: two of those requests through the port on device="cpu"
-   with the same weights; per-step logits and greedy tokens against the
-   card's.
+   with the same weights, an engine of one slot (the card's has
+   SLOTS); per-step slot-0 logits and greedy tokens against the card's.
 4. profile: torch.profiler over 20 full-width decode steps; device time
    by kernel and the device's idle share.
 5. train: full-width BERT-base (hidden 768, 12 layers, 12 heads, FFN
@@ -375,7 +375,7 @@ Phases, each a failure of which exits non-zero:
 
 31. spec (in the serve group, after profile): speculative decoding on
    the serve phase's GPT-2-small and weights (no second copy of the
-   model): its first SPEC_REQUESTS prompts, greedy, MAX_NEW new tokens,
+   model): its first SPEC_REQUESTS prompts, greedy, SPEC_NEW new tokens,
    through ContinuousScheduler with 8 slots, page 16, chunked prefill
    8, spec_k SPEC_K, under each of SPEC_MODES: off; ngram; draft_distil,
    a drafter at DistilGPT-2's widths (DISTIL_WIDTH: 6 layers, otherwise
@@ -398,6 +398,41 @@ Phases, each a failure of which exits non-zero:
    rounds (8 rows, SPEC_K + 1 live positions each): the host's wall ms
    per round against the device's busy ms and its idle share.
    `--phases serve,spec` runs it with the serve phase's prompts.
+32. handoff (in the serve group, after spec): the replicated front
+   (ServingFront.from_trained) of 2 replicas on the card, each engine on
+   a CUDA stream of its own, over the serve phase's GPT-2-small and
+   weights: its first HANDOFF_REQUESTS prompts greedy and the next
+   HANDOFF_SAMPLED at HANDOFF_TEMP, HANDOFF_NEW new tokens each, the
+   front's per-request seeds fixed by HANDOFF_FRONT_SEED, the pool's
+   invariants checked after every step.  One uninterrupted run is the
+   oracle of four legs, driven two to a front (HANDOFF_RUNS), each
+   drain aimed at the live replica with the most rows in flight once
+   it has generated HANDOFF_AFTER tokens more.  First front: (d) death:
+   a HUNG_STEP at replica 0's dispatch HANDOFF_HANG_STEP stalls its
+   stream past a HANDOFF_STEP_TIMEOUT watchdog, replica 0 dies and
+   restarts once and its rows resume by replay; then (a) live: a drain
+   with handoff on pauses the holder's generations, exports their KV
+   blocks, streams them in-process to the other replica, which adopts
+   them and imports the partial tail blocks (handoff_ok == requested,
+   no replay).  Second front: (c) blob: the same drain with the stream
+   through BlobStoreFabric over a LocalBlobStore in the run directory,
+   whose frames flexflow_tpu_torch/tools/kvframe_fsck.py passes (exit 0)
+   and fails with one payload byte flipped (exit 1); then, once every
+   paused generation has resumed, (b) replay: a replica added, the
+   stream refused and the holder drained (every pause replays).  Each
+   leg's counters are what changed between its marks (the run's start,
+   and just before each later leg's drain).  Every run's completions
+   equal the oracle's token for token, and K4's launches (counter set to
+   0 just before the run's requests) equal handoff_launches of the
+   stats of every engine the run ran (12 per decode step, 12 x CHUNK per
+   prefill dispatch, 12 per dispatch the watchdog abandoned).  Each
+   leg's line: pause ms and exported bytes per paused row, migrate s,
+   export and import bytes/s (the engine's own stream synchronized
+   around each block) beside the PCIe Gen5 rate the cost model prices,
+   import ms per block, the cost model's decisions, restart s; the
+   phase's line adds the rate a block's bare copy reaches each way, from
+   and to pageable memory, on the idle card.
+   `--phases serve,handoff` runs it with the serve phase's prompts.
 
 Every train step on the card is captured by default after one eager
 warm-up step (capture.py): the kernels' wrappers count the warm-up and
@@ -464,6 +499,9 @@ N_REQUESTS, MAX_NEW = 16, 32
 # GPT-2-small's at 6 layers; weights from RandomState(1)), and the chunk
 # twin's step_tokens
 SPEC_K, SPEC_REQUESTS = 4, 8
+# new tokens per spec request: half the serve phase's, a cut of depth
+# that keeps the whole script inside its time limit
+SPEC_NEW = MAX_NEW // 2
 SPEC_MODES = ("off", "ngram", "draft_distil", "draft_self")
 DISTIL_WIDTH = dict(WIDTH, num_layers=6)
 SPEC_CHUNK = 8
@@ -471,6 +509,19 @@ SPEC_CHUNK = 8
 # max(1, max|seq-1|): float32 GEMMs at [64, e] and [8, e] (TF32 off) sum
 # in other orders, ~1e-6 relative, over 12 layers
 SPEC_CHUNK_TOL = 1e-4
+# the handoff phase (see its entry in the docstring)
+HANDOFF_REQUESTS, HANDOFF_SAMPLED, HANDOFF_NEW = 8, 2, 64
+HANDOFF_TEMP = 0.8
+HANDOFF_FRONT_SEED = 21
+HANDOFF_AFTER = 48          # tokens a replica generates before its drain
+HANDOFF_STEP_TIMEOUT = 2.0  # the death leg's watchdog, s
+HANDOFF_HANG_STEP = 24      # replica 0's dispatch that hangs
+HANDOFF_LEGS = ("live", "replay", "blob", "death")
+# the legs two at a time on one front each, in order: replica 0 dies and
+# restarts, then is drained live in-process; replica 0 is drained over
+# the blob store, then replica 1 with the stream refused
+HANDOFF_RUNS = (("death", "live"), ("blob", "replay"))
+HANDOFF_WAIT_S = 300.0
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12       # tensor cores, dense
@@ -968,14 +1019,14 @@ def phase_serve(torch, pk, card: str, ff) -> dict:
     return rec
 
 
-def run_recorded(ff, prompt):
-    """One request alone through a fresh engine on ff's device; returns
-    the completion and {position: slot-0 logits} of every step that
-    sampled a token."""
+def run_recorded(ff, prompt, slots: int = SLOTS):
+    """One request alone through a fresh engine of `slots` slots on ff's
+    device; returns the completion and {position: slot-0 logits} of
+    every step that sampled a token."""
     from flexflow_tpu_torch.serving import ContinuousScheduler
 
     sched = ContinuousScheduler.from_trained(
-        ff, batch_slots=SLOTS, page_size=PAGE, prefill_chunk=CHUNK,
+        ff, batch_slots=slots, page_size=PAGE, prefill_chunk=CHUNK,
         prefix_cache=True)
     rows = {}
     step = sched.model.step
@@ -1002,7 +1053,9 @@ def phase_parity(torch, card: str, ff_cuda, weights, prompts) -> dict:
     worst, checked, steps = 0.0, 0, 0
     for prompt in short:
         out_g, rows_g = run_recorded(ff_cuda, prompt)
-        out_c, rows_c = run_recorded(ff_cpu, prompt)
+        # one slot on the host: the rows are independent, and the card's
+        # slot 0 is what is compared
+        out_c, rows_c = run_recorded(ff_cpu, prompt, slots=1)
         for pos in sorted(rows_g):
             g, c = rows_g[pos], rows_c[pos]
             if not (np.isfinite(g).all() and np.isfinite(c).all()):
@@ -1123,7 +1176,7 @@ def spec_faults(mode: str, stats: dict) -> list:
 
 
 def spec_run(torch, pk, ff, mode: str, prompts, draft_ff=None,
-             max_new: int = MAX_NEW) -> dict:
+             max_new: int = SPEC_NEW) -> dict:
     """One spec-phase mode: the prompts through ContinuousScheduler
     (greedy, all submitted at once) on ff's device, K4's launch counter
     set to 0 just before and read just after; completions, stats,
@@ -1331,7 +1384,7 @@ def spec_verify_profile(torch, ff, width=None, rounds: int = 5) -> dict:
 def phase_spec(torch, pk, card: str, ff, prompts, device: str = "cuda",
                width=None, draft_width=None, history: int = 64) -> dict:
     """Speculative decoding on the serve phase's GPT-2-small: the first
-    SPEC_REQUESTS prompts, greedy, MAX_NEW new tokens each, under
+    SPEC_REQUESTS prompts, greedy, SPEC_NEW new tokens each, under
     SPEC_MODES at spec_k SPEC_K; completions identical across the modes,
     no degrade and no draft fault (spec_faults), K4's launches equal to
     spec_launches of each run's own stats; then the chunk twin
@@ -1369,7 +1422,7 @@ def phase_spec(torch, pk, card: str, ff, prompts, device: str = "cuda",
                       f"the scale > {SPEC_CHUNK_TOL}")
     for run, _ in runs:
         for p, o in zip(prompts, run["outs"]):
-            if len(o) != len(p) + MAX_NEW or o[:len(p)] != p or not all(
+            if len(o) != len(p) + SPEC_NEW or o[:len(p)] != p or not all(
                     0 <= t < width["vocab_size"] for t in o):
                 faults.append(f"{run['mode']}: a malformed completion")
                 break
@@ -1386,6 +1439,474 @@ def phase_spec(torch, pk, card: str, ff, prompts, device: str = "cuda",
     emit(rec)
     if faults:
         raise RuntimeError("spec: " + "; ".join(faults))
+    return rec
+
+
+def handoff_launches(replicas, layers: int, chunk: int = CHUNK,
+                     verify_chunk: int = 0) -> int:
+    """K4 launches the engines of one front made: one per attention
+    layer per forward, summed over every replica's stats (counters
+    carried across restarts and retirement): a plain decode step one
+    forward, a prefill dispatch `chunk`, a verify round `verify_chunk`
+    (spec_k + 1), and a dispatch the watchdog abandoned as many as its
+    kind, since it runs to its end after its stall."""
+    total = 0
+    for st in replicas:
+        rounds = st["spec_rounds"]
+        hung = st["hung_dispatches"]
+        total += (st["batches_run"] - rounds + chunk * st["prefill_steps"]
+                  + verify_chunk * rounds + hung.get("step", 0)
+                  + chunk * hung.get("prefill", 0)
+                  + verify_chunk * hung.get("verify", 0))
+    return layers * total
+
+
+def handoff_requests(prompts):
+    """(prompt, max_new, temperature) of the phase, in submission order
+    (the front mints each request's seed at admission)."""
+    n, m = HANDOFF_REQUESTS, HANDOFF_SAMPLED
+    return ([(p, HANDOFF_NEW, 0.0) for p in prompts[:n]]
+            + [(p, HANDOFF_NEW, HANDOFF_TEMP) for p in prompts[n:n + m]])
+
+
+def _frame_keeping_store(inner, frames: str):
+    """A blob store that keeps a copy of every object put through it as
+    <frames>/<n>.ffkv, for kvframe_fsck after the fabric deleted it;
+    with `refuse` set, every put is refused (the replay leg's stream)."""
+    from flexflow_tpu_torch.store.blobstore import BlobStore
+
+    class FrameKeeping(BlobStore):
+        def __init__(self):
+            self.n = 0
+            self.refuse = False
+
+        def put(self, key, data, **kw):
+            if self.refuse:
+                raise ConnectionRefusedError(
+                    "the replay leg refuses the stream")
+            Path(frames, f"{self.n:03d}.ffkv").write_bytes(data)
+            self.n += 1
+            return inner.put(key, data, **kw)
+
+        def get(self, key):
+            return inner.get(key)
+
+        def stat(self, key):
+            return inner.stat(key)
+
+        def list(self, prefix=""):
+            return inner.list(prefix)
+
+        def delete(self, key):
+            return inner.delete(key)
+
+    os.makedirs(frames, exist_ok=True)
+    return FrameKeeping()
+
+
+def _instrument_replica(replica, rec) -> None:
+    """Time the replica's current engine's export_block and import_block
+    (the engine's own stream synchronized around each block, so that
+    neither the other replica's work nor its stream is waited for) and
+    its scheduler's pauses.  Called again after a restart or a
+    scale-up: each new engine is wrapped once."""
+    sched = replica.scheduler
+    model = sched.model._model
+    if getattr(model, "_handoff_timed", False):
+        return
+    model._handoff_timed = True
+    stream = getattr(model, "stream", None)
+
+    def sync():
+        if stream is not None:
+            stream.synchronize()
+
+    def timed_io(name):
+        real = getattr(model, name)
+
+        def call(block, *a):
+            sync()
+            t0 = time.perf_counter()
+            out = real(block, *a)
+            sync()
+            dt = time.perf_counter() - t0
+            arrays = out if name == "export_block" else a[0]
+            rec[name].append((dt, sum(int(np.asarray(x).nbytes)
+                                      for x in arrays.values())))
+            return out
+
+        setattr(model, name, call)
+
+    timed_io("export_block")
+    timed_io("import_block")
+    pause = sched._pause_slot
+
+    def timed_pause(slot, live, export_kv=True):
+        t0 = time.perf_counter()
+        pause(slot, live, export_kv)
+        rec["pause_s"].append(time.perf_counter() - t0)
+
+    sched._pause_slot = timed_pause
+
+
+def bare_copy_rates(torch, nbytes: int, reps: int = 21) -> dict:
+    """One block's bytes copied alone on the idle card, device->host and
+    host->device, from and to pageable host memory as export_block and
+    import_block copy them: the median rate of `reps` copies."""
+    dev = torch.empty(nbytes // 4, device="cuda")
+    host = np.ones(nbytes // 4, np.float32)
+    d2h, h2d = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev.cpu()
+        d2h.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        torch.from_numpy(host).to("cuda")
+        torch.cuda.synchronize()
+        h2d.append(time.perf_counter() - t0)
+    return {"block_bytes": nbytes,
+            "d2h_bytes_per_s": nbytes / float(np.median(d2h)),
+            "h2d_bytes_per_s": nbytes / float(np.median(h2d))}
+
+
+def _instrument_front(front, rec) -> None:
+    """Keep each paused row's exported bytes, the cost model's decision
+    and the time from its pause to its settle (migrate s)."""
+    t_pause = {}
+    paused, settle = front._on_handoff_paused, front._settle_handoff
+
+    def on_paused(req, replica, handle, err):
+        t_pause[id(req)] = time.perf_counter()
+        rec["paused_rows"].append({
+            "written": err.record.written,
+            "generated": len(err.record.generated),
+            "bytes": sum(int(a.nbytes) for blk in (err.arrays or [])
+                         for a in blk.values())})
+        paused(req, replica, handle, err)
+        if req.migration is not None:
+            rec["decisions"].append(dict(req.migration))
+
+    def on_settled(req, ok, detail):
+        t0 = t_pause.pop(id(req), None)
+        if t0 is not None:
+            rec["migrate_s"].append(time.perf_counter() - t0)
+        settle(req, ok, detail)
+
+    front._on_handoff_paused = on_paused
+    front._settle_handoff = on_settled
+
+
+def _join_abandoned_watchdogs(front, before, timeout_s: float) -> None:
+    """Wait for the dispatches a watchdog of `front` abandoned (their
+    threads still named step-watchdog, started since `before` was taken
+    and no longer any replica's worker) to run to their ends, so that
+    their kernel launches are counted."""
+    current = set(before)
+    for r in list(front.replicas) + list(front.retired):
+        w = r.watchdog._worker
+        if w is not None:
+            current.add(w)
+    for t in threading.enumerate():
+        if t.name == "step-watchdog" and t not in current:
+            t.join(timeout_s)
+
+
+def _wait_until(cond, wait_s: float, what: str) -> None:
+    deadline = time.monotonic() + wait_s
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"handoff: no {what} within {wait_s} s")
+        time.sleep(0.005)
+
+
+def _replica(front, rid: int):
+    return next(r for r in list(front.replicas) + list(front.retired)
+                if r.replica_id == rid)
+
+
+def _handoff_mark(front, registry, rec) -> dict:
+    """The front's handoff counters and the timing records' lengths at
+    a leg's boundary."""
+    return {"requested": front.handoff_requested, "ok": front.handoff_ok,
+            "replays": front.handoff_replays,
+            "faults": dict(front.handoff_faults),
+            "tail_imports": registry.counter(
+                "serving/handoff_tail_imports").value,
+            "resumed": registry.counter("serving/handoff_resumed").value,
+            **{k: len(v) for k, v in rec.items()}}
+
+
+def _drain_holder(front, registry, holder, mark, wait_s: float) -> None:
+    """Drain `holder` and wait until it retired and every generation it
+    paused has settled (adopted or replayed) and resumed elsewhere."""
+    if not front.drain_replica(holder):
+        raise RuntimeError(f"handoff: replica {holder.replica_id} would "
+                           "not drain")
+    resumed = registry.counter("serving/handoff_resumed")
+    _wait_until(lambda: holder.state == "retired"
+                and (front.handoff_ok - mark["ok"]
+                     + front.handoff_replays - mark["replays"]
+                     >= front.handoff_requested - mark["requested"])
+                and (resumed.value - mark["resumed"]
+                     >= front.handoff_requested - mark["requested"]),
+                wait_s, f"retirement of replica {holder.replica_id} and "
+                "the resumption of its generations")
+
+
+def _holder(front):
+    """The live replica with the most requests in flight (the lowest id
+    on a tie): the one a leg drains."""
+    live = [r for r in front.replicas if r.alive]
+    return max(live, key=lambda r: (r.outstanding, -r.replica_id))
+
+
+def _drive_legs(front, registry, rec, legs, store, wait_s: float) -> list:
+    """Drive one run's legs in order on its live front; the marks at the
+    start and just before each later leg's drain."""
+    marks = [_handoff_mark(front, registry, rec)]
+    for i, leg in enumerate(legs):
+        if leg == "death":
+            # replica 0's planned HUNG_STEP outlives the watchdog: wait
+            # for its restart and time the new engine
+            r0 = _replica(front, 0)
+            _wait_until(lambda: r0.restarts >= 1 and r0.alive, wait_s,
+                        "restart of replica 0")
+            _instrument_replica(r0, rec)
+            continue
+        if leg == "replay":
+            # the stream is refused from here on, and a replica added for
+            # the drained one's rows to resume on
+            store.refuse = True
+            _instrument_replica(front.add_replica(), rec)
+        holder = _holder(front)
+        base = holder.scheduler.tokens_generated
+        _wait_until(lambda: holder.scheduler is not None
+                    and holder.scheduler.tokens_generated
+                    >= base + HANDOFF_AFTER, wait_s,
+                    f"{HANDOFF_AFTER} tokens on replica "
+                    f"{holder.replica_id}")
+        if i:
+            marks.append(_handoff_mark(front, registry, rec))
+        _drain_holder(front, registry, holder, marks[-1], wait_s)
+    return marks
+
+
+def _leg_record(leg, a, b, rec) -> dict:
+    """One leg's handoff counters and timings: what changed between its
+    marks."""
+    faults = {k: v - a["faults"].get(k, 0) for k, v in b["faults"].items()
+              if v - a["faults"].get(k, 0)}
+    exp = rec["export_block"][a["export_block"]:b["export_block"]]
+    imp = rec["import_block"][a["import_block"]:b["import_block"]]
+    rows = rec["paused_rows"][a["paused_rows"]:b["paused_rows"]]
+    pause = rec["pause_s"][a["pause_s"]:b["pause_s"]]
+    return {
+        "leg": leg,
+        "handoff": {k: b[k] - a[k] for k in ("requested", "ok", "replays")}
+        | {"faults": faults},
+        "tail_imports": b["tail_imports"] - a["tail_imports"],
+        "resumed": b["resumed"] - a["resumed"],
+        "paused_rows": rows,
+        "pause_ms_per_row": 1e3 * float(np.mean(pause)) if pause else None,
+        "exported_bytes_per_row": (float(np.mean([r["bytes"] for r in rows]))
+                                   if rows else None),
+        "migrate_s": rec["migrate_s"][a["migrate_s"]:b["migrate_s"]],
+        "export_blocks": len(exp),
+        "export_bytes_per_s": (sum(n for _, n in exp)
+                               / sum(t for t, _ in exp) if exp else None),
+        "import_blocks": len(imp),
+        "import_ms_per_block": (1e3 * float(np.mean([t for t, _ in imp]))
+                                if imp else None),
+        "import_bytes_per_s": (sum(n for _, n in imp)
+                               / sum(t for t, _ in imp) if imp else None),
+        "decisions": rec["decisions"][a["decisions"]:b["decisions"]],
+    }
+
+
+def handoff_run(torch, pk, ff, legs, reqs, layers: int, run_dir: str,
+                oracle=None, wait_s: float = HANDOFF_WAIT_S) -> dict:
+    """One run of the handoff phase through a fresh 2-replica front: the
+    oracle (legs ()) or one of HANDOFF_RUNS, its legs driven in order.
+    Its completions, K4's launches against handoff_launches of every
+    engine it ran, and each leg's record (counters and timings between
+    its marks)."""
+    from flexflow_tpu_torch.obs.metrics import MetricsRegistry
+
+    from flexflow_tpu_torch.resilience.faults import FaultKind, FaultPlan
+    from flexflow_tpu_torch.serving import (BlobStoreFabric,
+                                            ServingFront)
+    from flexflow_tpu_torch.store.blobstore import LocalBlobStore
+
+    kw = {}
+    store = frames = None
+    if set(legs) & {"live", "replay", "blob"}:
+        kw["handoff"] = True
+    if "blob" in legs:
+        frames = os.path.join(run_dir, "handoff_frames")
+        store = _frame_keeping_store(
+            LocalBlobStore(os.path.join(run_dir, "handoff_blob")), frames)
+        kw["kv_transfer"] = BlobStoreFabric(store)
+    if "death" in legs:
+        kw.update(step_timeout=HANDOFF_STEP_TIMEOUT, fault_plans={
+            0: FaultPlan.single(HANDOFF_HANG_STEP, FaultKind.HUNG_STEP)})
+    cuda = ff.device.type == "cuda"
+    registry = MetricsRegistry()
+    # an earlier run's watchdog workers stay parked after its close
+    before = set(threading.enumerate())
+    front = ServingFront.from_trained(
+        ff, num_replicas=2, seed=HANDOFF_FRONT_SEED, check_invariants=True,
+        registry=registry, **kw)
+    rec = {"export_block": [], "import_block": [], "pause_s": [],
+           "paused_rows": [], "decisions": [], "migrate_s": []}
+    try:
+        for r in front.replicas:
+            _instrument_replica(r, rec)
+        _instrument_front(front, rec)
+        if cuda:
+            torch.cuda.synchronize()
+        pk.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        handles = [front.generate_async(p, m, t) for p, m, t in reqs]
+        marks = _drive_legs(front, registry, rec, legs, store, wait_s)
+        outs = [h.wait(wait_s) for h in handles]
+        wall = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.synchronize()  # a stalled stream's end
+        _join_abandoned_watchdogs(front, before, wait_s)
+        launches = pk.paged_attention.launches
+        marks.append(_handoff_mark(front, registry, rec))
+        replicas = [r.stats() for r in list(front.replicas)
+                    + list(front.retired)]
+        r0 = _replica(front, 0)
+        restart = {"deaths": r0.deaths, "restarts": r0.restarts,
+                   "restart_s": r0.last_recovery_s}
+    finally:
+        front.close()
+    run = {"run": "+".join(legs) or "oracle", "outs": outs, "wall_s": wall,
+           "launches": launches,
+           "expected_launches": handoff_launches(replicas, layers),
+           "replicas": [{k: st[k] for k in (
+               "id", "state", "deaths", "restarts", "batches_run",
+               "prefill_steps", "spec_rounds", "requests_done",
+               "hung_dispatches")} for st in replicas]}
+    if oracle is not None:
+        run["identical"] = outs == oracle
+    run["legs"] = []
+    for i, leg in enumerate(legs):
+        line = _leg_record(leg, marks[i], marks[i + 1], rec)
+        if leg == "death":
+            line.update(restart)
+        if leg == "blob":
+            line["fsck"] = handoff_fsck(frames, run_dir)
+        run["legs"].append(line)
+    return run
+
+
+def handoff_fsck(frames: str, run_dir: str) -> dict:
+    """kvframe_fsck over the blob leg's frames (exit 0), then over a copy
+    of one with its last payload byte flipped (exit 1)."""
+    from flexflow_tpu_torch.tools import kvframe_fsck
+
+    names = sorted(os.listdir(frames))
+    sink = io.StringIO()
+    with contextlib.redirect_stdout(sink), \
+            contextlib.redirect_stderr(sink):
+        clean = kvframe_fsck.main([frames])
+        bad_dir = os.path.join(run_dir, "handoff_frames_flipped")
+        os.makedirs(bad_dir, exist_ok=True)
+        data = bytearray(Path(frames, names[0]).read_bytes())
+        data[-1] ^= 0xFF
+        Path(bad_dir, names[0]).write_bytes(bytes(data))
+        flipped = kvframe_fsck.main([bad_dir])
+    return {"frames": len(names), "clean_rc": clean, "flipped_rc": flipped,
+            "frame_bytes": [os.path.getsize(os.path.join(frames, n))
+                            for n in names]}
+
+
+def handoff_faults(leg: dict) -> list:
+    """What a handoff leg's record (with its run's identity and
+    launches) shows that must not be."""
+    name, ho = leg["leg"], leg["handoff"]
+    faults = []
+    if not leg.get("identical"):
+        faults.append(f"{name}: completions differ from the oracle's")
+    if leg["launches"] != leg["expected_launches"] or not leg["launches"]:
+        faults.append(f"{name}: paged_attention launched "
+                      f"{leg['launches']} times, expected "
+                      f"{leg['expected_launches']}")
+    if name in ("live", "blob"):
+        if not (ho.get("requested", 0) >= 1
+                and ho.get("ok") == ho.get("requested")
+                and ho.get("replays") == 0):
+            faults.append(f"{name}: handoff {ho}")
+        if not leg["tail_imports"] >= 1:
+            faults.append(f"{name}: no partial tail block imported")
+    if name == "replay" and not (
+            ho.get("requested", 0) >= 1
+            and ho.get("replays") == ho.get("requested")
+            and ho.get("ok") == 0):
+        faults.append(f"replay: handoff {ho}")
+    if name == "blob" and (leg["fsck"]["clean_rc"], leg["fsck"][
+            "flipped_rc"]) != (0, 1):
+        faults.append(f"blob: kvframe_fsck gave {leg['fsck']}")
+    if name == "death" and not (leg["deaths"] == leg["restarts"] == 1
+                                and ho.get("replays", 0) >= 1
+                                and ho.get("requested", 0) == 0):
+        faults.append(f"death: deaths {leg['deaths']}, restarts "
+                      f"{leg['restarts']}, handoff {ho}")
+    return faults
+
+
+def phase_handoff(torch, pk, card: str, ff, prompts, run_dir: str,
+                  width=None, wait_s: float = HANDOFF_WAIT_S) -> dict:
+    """The replicated front's handoff legs (see the docstring's entry)
+    on ff's device; `width` and `wait_s` rehearse it on the host (the
+    tests)."""
+    from flexflow_tpu_torch.sim.machine_model import PCIE_GEN5_BW
+
+    width = width or WIDTH
+    layers = width["num_layers"]
+    reqs = handoff_requests(prompts)
+    oracle = handoff_run(torch, pk, ff, (), reqs, layers, run_dir,
+                         wait_s=wait_s)
+    runs, faults = [], []
+    if oracle["launches"] != oracle["expected_launches"]:
+        faults.append(f"oracle: {oracle['launches']} launches, expected "
+                      f"{oracle['expected_launches']}")
+    for legs in HANDOFF_RUNS:
+        run = handoff_run(torch, pk, ff, legs, reqs, layers, run_dir,
+                          oracle["outs"], wait_s)
+        for leg in run["legs"]:
+            leg.update({k: run[k] for k in (
+                "run", "identical", "wall_s", "launches",
+                "expected_launches", "replicas")})
+            leg_faults = handoff_faults(leg)
+            faults += leg_faults
+            emit({**leg, "phase": "handoff", "card": card,
+                  "pcie_gen5_bytes_per_s": PCIE_GEN5_BW,
+                  "faults": leg_faults})
+        runs.append(run)
+    for run in [oracle] + runs:
+        for (p, m, _), o in zip(reqs, run["outs"]):
+            if len(o) != len(p) + m or o[:len(p)] != p or not all(
+                    0 <= t < width["vocab_size"] for t in o):
+                faults.append(f"{run['run']}: a malformed completion")
+                break
+    rec = {"phase": "handoff", "card": card, "requests": len(reqs),
+           "new_tokens": HANDOFF_NEW, "oracle_wall_s": oracle["wall_s"],
+           # the rate a block's copy reaches with nothing else running
+           "bare_copy": (bare_copy_rates(torch, PAGE * layers * 2
+                                         * width["hidden_size"] * 4)
+                         if ff.device.type == "cuda" else None),
+           "wall_s": {run["run"]: run["wall_s"] for run in [oracle] + runs},
+           "launches": {run["run"]: run["launches"]
+                        for run in [oracle] + runs},
+           "identical": all(run["identical"] for run in runs),
+           "faults": faults}
+    emit(rec)
+    if faults:
+        raise RuntimeError("handoff: " + "; ".join(faults))
     return rec
 
 
@@ -4541,8 +5062,9 @@ def phase_fusion(torch, fa, card: str) -> dict:
     return rec
 
 
-ALL_PHASES = ("kernels,serve,parity,profile,spec,train,train_parity,"
-              "train_profile,bn_kernels,resnet,resnet_parity,resnet_profile,"
+ALL_PHASES = ("kernels,serve,parity,profile,spec,handoff,train,"
+              "train_parity,train_profile,bn_kernels,resnet,resnet_parity,"
+              "resnet_profile,"
               "vit,vit_parity,vit_profile,zoo,zoo_parity,zoo_profile,"
               "nmt,generate,keras,onnx,seq_parity,capture,fusion,search,"
               "store,resilience,supervised,tools,multigpu")
@@ -8591,13 +9113,14 @@ def _moe_checks(name, ranks, ref, strategy, faults) -> dict:
 def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                 onnx=None, search=None, multigpu=None, capture=None,
                 store=None, resilience=None, supervised=None,
-                tools=None, spec=None) -> dict:
+                tools=None, spec=None, handoff=None) -> dict:
     """The JSON line of every kernel whose phase ran: launches on the
     main paths (what the wrappers counted: under a captured step, the
     warm-up and the capturing step; the capture phase's profiler counts
     a replayed step's), agreement with the plain versions and the times
     of this run.  The tools phase launches none (`launches_tools`); the
-    spec phase's K4 launches are per mode and of one chunk step."""
+    spec phase's K4 launches are per mode and of one chunk step, the
+    handoff phase's per leg (and its oracle run)."""
     rows = []
 
     def tool_launches(kid):
@@ -8661,6 +9184,7 @@ def kernel_line(kern, flash, bn, serve, train, resnet, card: str,
                           if spec else None),
         "launches_spec_chunk_step": (spec["chunk_step"]["launches"]
                                      if spec else None),
+        "launches_handoff": handoff["launches"] if handoff else None,
         "max_abs_err": max(kern["worst"].values()),
         "max_abs_err_by_dtype": kern["worst"],
         "tolerance": TOL,
@@ -8804,7 +9328,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     kern = flash = serve = train = bn = resnet = paged = onnx = None
     search = store = multigpu = capture = resilience = supervised = None
-    tools = spec = None
+    tools = spec = handoff = None
     # what one phase leaves for another: the searched strategy and the
     # op costs the search timed (the multigpu phase trains and prices it)
     run_dir = tempfile.mkdtemp(prefix="ff_smoke_")
@@ -8825,20 +9349,30 @@ def main(argv=None) -> int:
         kern = phase_kernels(torch, pk, card, dev, paged_lib, build_s)
         flash = phase_flash_kernels(torch, fa, card, dev, flash_lib)
     walls["kernels"] = _lap()
-    if phases & {"serve", "parity", "profile", "spec"}:
+    # the serve group's phases share its GPT-2-small, each timed alone
+    if phases & {"serve", "parity", "profile", "spec", "handoff"}:
         ff, weights = build_model("cuda")
+        walls["serve_model"] = _lap()
         if "serve" in phases:
             serve = phase_serve(torch, pk, card, ff)
+        walls["serve"] = _lap()
         if "parity" in phases:
             prompts = serve["prompts"] if serve else make_prompts()
             phase_parity(torch, card, ff, weights, prompts)
+        walls["parity"] = _lap()
         if "profile" in phases:
             paged = phase_profile(torch, card, ff)
+        walls["profile"] = _lap()
         if "spec" in phases:
             spec = phase_spec(torch, pk, card, ff,
                               serve["prompts"] if serve else make_prompts())
+        walls["spec"] = _lap()
+        if "handoff" in phases:
+            handoff = phase_handoff(
+                torch, pk, card, ff,
+                serve["prompts"] if serve else make_prompts(), run_dir)
+        walls["handoff"] = _lap()
         del ff
-    walls["serve"] = _lap()
     if phases & {"train", "train_profile"}:
         ff, xb, yb, train = phase_train(torch, fa, card)
         if "train_profile" in phases:
@@ -8931,7 +9465,7 @@ def main(argv=None) -> int:
     if kern is not None or bn is not None:
         emit(kernel_line(kern, flash, bn, serve, train, resnet, card, onnx,
                          search, multigpu, capture, store, resilience,
-                         supervised, tools, spec))
+                         supervised, tools, spec, handoff))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

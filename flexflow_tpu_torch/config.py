@@ -4,7 +4,10 @@ Counterpart of flexflow_tpu/config.py, cut to the FFConfig fields and
 `from_args` flags the ported slices read: the batch size, epochs,
 learning rate and weight decay, the compute dtype, the seed of the
 weight init, attention's flash crossover, the paged KV-pool geometry of
-the continuous engine, the strategy search, simulator and strategy-file
+the continuous engine, the replicated serving front's fields
+(`serving_replicas`, the step watchdog and restart budget, retries,
+`serving_handoff`, `admission_deadline_s`, `serving_chip_budget`,
+`kv_transfer`, `spec_decode` and `spec_k`), the strategy search, simulator and strategy-file
 fields, the multi-slice hierarchy (`slices` and the DCN fields of
 topology/hierarchy.py), the fusion pass (`perform_fusion`,
 `--fusion`), the strategy store (`strategy_store`,
@@ -47,10 +50,14 @@ NAN_POLICIES = ("raise", "skip_step", "restore", "off")
 # per generated token; "ngram" = prompt-lookup drafts mined from the
 # request's own tokens; "draft" = a smaller GPT drafting through its own
 # paged decode engine.  Both verify through the verify step and accept
-# greedily, so output stays token-identical to "off".  The reference's
-# FFConfig.spec_decode/spec_k fields and flags are read only by its
-# serving front, so they come with that front's port.
+# greedily, so output stays token-identical to "off".  The serving
+# front reads FFConfig.spec_decode / spec_k (ServingFront.from_trained).
 SPEC_DECODE_MODES = ("off", "ngram", "draft")
+
+# FFConfig.kv_transfer's values, the reference's: the fabric the front's
+# handoffs stream KV blocks over, "inproc" (replicas of one process) or
+# "blob" (a hop through the blob store, store/blobstore.py)
+KV_TRANSFER_FABRICS = ("inproc", "blob")
 
 
 class ConfigError(ValueError):
@@ -108,6 +115,30 @@ class FFConfig:
     serving_slots: int = 8     # continuous decode batch slots
     prefill_chunk: int = 8     # prompt tokens per prefill dispatch
     prefix_cache: bool = True  # copy-on-write prompt-prefix sharing
+    # -- serving: the replicated front (serving/front.py), N supervised
+    #    replicas behind one admission queue; the step watchdog is off
+    #    at 0
+    serving_replicas: int = 1
+    serving_step_timeout: float = 0.0  # decode-step watchdog deadline, s
+    serving_max_restarts: int = 3      # per-replica restart budget
+    request_retry_limit: int = 2       # requeues before a 503 retriable
+    # shed at admission when the predicted TTFT (backlog / measured
+    # service rate) passes this many seconds (0 = off; a request's own
+    # deadline_s overrides)
+    admission_deadline_s: float = 0.0
+    # chips the fleet may hold (0 = unbounded): add_replica past it is
+    # refused
+    serving_chip_budget: int = 0
+    # the fabric a live handoff streams KV blocks over
+    kv_transfer: str = "inproc"
+    # speculative decoding on every replica (serving/speculative.py)
+    spec_decode: str = "off"
+    spec_k: int = 4
+    # mid-decode handoff (serving/handoff.py): a draining, terminating
+    # or rebalanced replica pauses its generations and the front resumes
+    # them on another, token for token; off keeps the plain drain (every
+    # slot runs to completion)
+    serving_handoff: bool = False
 
     # -- machine resources (reference: --nodes, -ll:fsize)
     num_nodes: int = 1
@@ -259,6 +290,39 @@ class FFConfig:
             raise ValueError(
                 f"prefill_chunk must be >= 0 (0 = one-token prefill), "
                 f"got {self.prefill_chunk}")
+        if self.serving_replicas < 1:
+            raise ValueError(
+                f"serving_replicas must be >= 1, got {self.serving_replicas}")
+        if self.serving_step_timeout < 0:
+            raise ValueError(
+                f"serving_step_timeout must be >= 0 (0 = watchdog off), "
+                f"got {self.serving_step_timeout}")
+        if self.serving_max_restarts < 0:
+            raise ValueError(
+                f"serving_max_restarts must be >= 0, "
+                f"got {self.serving_max_restarts}")
+        if self.request_retry_limit < 0:
+            raise ValueError(
+                f"request_retry_limit must be >= 0, "
+                f"got {self.request_retry_limit}")
+        if self.admission_deadline_s < 0:
+            raise ValueError(
+                f"admission_deadline_s must be >= 0 (0 = off), "
+                f"got {self.admission_deadline_s}")
+        if self.serving_chip_budget < 0:
+            raise ValueError(
+                f"serving_chip_budget must be >= 0 (0 = unbounded), "
+                f"got {self.serving_chip_budget}")
+        if self.kv_transfer not in KV_TRANSFER_FABRICS:
+            raise ValueError(
+                f"kv_transfer must be one of {KV_TRANSFER_FABRICS}, "
+                f"got {self.kv_transfer!r}")
+        if self.spec_decode not in SPEC_DECODE_MODES:
+            raise ValueError(
+                f"spec_decode must be one of {SPEC_DECODE_MODES}, "
+                f"got {self.spec_decode!r}")
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
         if self.search_algo not in SEARCH_ALGOS:
             raise ValueError(f"search_algo must be one of {SEARCH_ALGOS}, "
                              f"got {self.search_algo!r}")
@@ -383,6 +447,27 @@ class FFConfig:
                        type=int, default=8)
         p.add_argument("--no-prefix-cache", dest="prefix_cache",
                        action="store_false")
+        p.add_argument("--serving-replicas", dest="serving_replicas",
+                       type=int, default=1)
+        p.add_argument("--serving-step-timeout",
+                       dest="serving_step_timeout", type=float,
+                       default=0.0)
+        p.add_argument("--serving-max-restarts",
+                       dest="serving_max_restarts", type=int, default=3)
+        p.add_argument("--request-retry-limit",
+                       dest="request_retry_limit", type=int, default=2)
+        p.add_argument("--admission-deadline",
+                       dest="admission_deadline_s", type=float,
+                       default=0.0)
+        p.add_argument("--serving-chip-budget",
+                       dest="serving_chip_budget", type=int, default=0)
+        p.add_argument("--kv-transfer", dest="kv_transfer", type=str,
+                       default="inproc", choices=KV_TRANSFER_FABRICS)
+        p.add_argument("--spec-decode", dest="spec_decode", type=str,
+                       default="off", choices=SPEC_DECODE_MODES)
+        p.add_argument("--spec-k", dest="spec_k", type=int, default=4)
+        p.add_argument("--serving-handoff", dest="serving_handoff",
+                       action="store_true")
         p.add_argument("--nodes", type=int, default=1)
         p.add_argument("-ll:fsize", dest="fsize_mb", type=int,
                        default=None)
@@ -491,6 +576,16 @@ class FFConfig:
             serving_slots=args.serving_slots,
             prefill_chunk=args.prefill_chunk,
             prefix_cache=args.prefix_cache,
+            serving_replicas=args.serving_replicas,
+            serving_step_timeout=args.serving_step_timeout,
+            serving_max_restarts=args.serving_max_restarts,
+            request_retry_limit=args.request_retry_limit,
+            admission_deadline_s=args.admission_deadline_s,
+            serving_chip_budget=args.serving_chip_budget,
+            kv_transfer=args.kv_transfer,
+            spec_decode=args.spec_decode,
+            spec_k=args.spec_k,
+            serving_handoff=args.serving_handoff,
             num_nodes=args.nodes,
             memory_per_device=(args.fsize_mb * 2**20 if args.fsize_mb
                                else cls.memory_per_device),

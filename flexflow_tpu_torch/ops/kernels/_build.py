@@ -28,6 +28,13 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+class KernelLaunchError(RuntimeError):
+    """A kernel did not launch: its library did not build or load, or
+    its C entry point returned a CUDA error.  The serving replicas treat
+    it as the death of their engine (serving/replica.py), never as a
+    step to retry."""
+
+
 _libs: Dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
 # nvcc processes this process has started (a cache hit starts none)
@@ -110,7 +117,11 @@ def load(source: Path, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)[0]))
+            try:
+                lib = ctypes.CDLL(str(build(source)[0]))
+            except (RuntimeError, OSError) as e:
+                raise KernelLaunchError(
+                    f"{Path(source).name}: {e}") from e
             lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
             lib.ff_cuda_error_string.restype = ctypes.c_char_p
             bind(lib)
@@ -119,8 +130,9 @@ def load(source: Path, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+    """Raise KernelLaunchError if a C entry point returned a CUDA
+    error."""
     if rc != 0:
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"{what} kernel launch failed: CUDA error {rc} "
             f"({lib.ff_cuda_error_string(rc).decode()})")

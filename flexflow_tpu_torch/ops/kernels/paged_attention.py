@@ -15,8 +15,9 @@ of a (row, head) merges the partials in split order (see the source's
 note).  Blocks past a row's live pages exit at once, so per-step reads
 follow live tokens instead of `decode_max_seq`.  The workspace comes from
 the caching allocator at each call; the merge's counters are one int32
-per (row, head), kept per device and left at 0 by every launch, so calls
-that share a device run on one stream at a time.
+per (row, head), kept per stream and left at 0 by every launch, so
+engines stepping on streams of their own (serving replicas on one card)
+never share them.
 
 `paged_attention` keeps the reference's signature and layout.  A CPU
 tensor runs `paged_attention_plain`, the gather formulation of
@@ -44,7 +45,7 @@ HEAD_DIMS = (64, 128)
 # within a few percent of each other and 4 gives short rows more blocks
 SPLIT_PAGES = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_counters: dict = {}  # device -> int32 merge counters, all 0 between calls
+_counters: dict = {}  # stream -> int32 merge counters, all 0 between calls
 
 
 def split_grid(batch: int, heads: int, table_width: int,
@@ -65,11 +66,14 @@ def live_splits(seq_lens: np.ndarray, chunk: int, page: int,
     return -(-n_tok // (split_pages * page))
 
 
-def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
-    c = _counters.get(device)
+def _merge_counters(stream, n: int) -> torch.Tensor:
+    """The merge counters of launches on `stream` (allocated on it)."""
+    key = (stream.device, stream.cuda_stream)
+    c = _counters.get(key)
     if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[device] = c
+        c = torch.zeros(max(n, 1024), dtype=torch.int32,
+                        device=stream.device)
+        _counters[key] = c
     return c
 
 
@@ -200,9 +204,10 @@ def paged_attention(qh, k_pool, v_pool, block_table, seq_lens,
     n_splits = split_grid(b, h, width, split_pages)[2]
     part = torch.empty(b * h * n_splits * s * (dk + 2), dtype=torch.float32,
                        device=qh.device)
-    counters = _merge_counters(qh.device, b * h)
     with torch.cuda.device(qh.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        current = torch.cuda.current_stream()
+        counters = _merge_counters(current, b * h)
+        stream = current.cuda_stream
         rc = lib.ff_paged_attention(
             qh.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),

@@ -4,8 +4,8 @@ block sharing (the RadixAttention idea, SGLang arXiv:2312.07104).
 
 The port's own copy of flexflow_tpu/serving/kv_pool.py: host numpy,
 the same accounting step for step, so both packages give identical
-tables over the same request sequence.  The KV export / adopt half
-(cross-replica migration) comes with the disaggregated-serving slice.
+tables over the same request sequence, the KV export / adopt half
+(cross-replica migration and mid-decode handoff) included.
 
 The device holds per-layer block pools ([num_blocks, page, heads, d]
 state tensors built by `make_gpt_decoder(kv_page_size=...)`); this
@@ -180,6 +180,8 @@ class KVPool:
         self.prefix_evictions = 0     # cached blocks reclaimed (LRU)
         self.prefix_invalidations = 0  # blocks dropped by a state reset
         self.cow_copies = 0           # tail blocks copy-on-written
+        self.prefix_imports = 0           # adopt_prefix calls that landed
+        self.prefix_imported_blocks = 0   # blocks adopted from migrations
         # the scheduler worker mutates the pool while /v2/stats reads
         # it from HTTP threads — iteration over _tables must not race
         # a retire()'s pop
@@ -638,6 +640,122 @@ class KVPool:
         with self._lock:
             return list(self._tables)
 
+    # -- KV block export / import (cross-replica migration) ---------------
+    def export_prefix(self, prompt: Sequence[int]
+                      ) -> Tuple[List[int], List[List[int]]]:
+        """(blocks, pages) for the longest indexed block-aligned prefix
+        of `prompt`: the physical block ids whose device bytes a
+        migration should stream, plus the token page each one holds.
+        Verified through the entry chain exactly like admission — a
+        hash collision can never export foreign bytes.  Caller must be
+        on the scheduler worker thread (the only mutator), so the ids
+        stay valid until the device read completes."""
+        if not self.prefix_cache:
+            return [], []
+        page = self.page_size
+        with self._lock:
+            blocks, _ = self._match_prefix(prompt)
+            pages = [list(int(t) for t in prompt[j * page:(j + 1) * page])
+                     for j in range(len(blocks))]
+            return blocks, pages
+
+    def export_live(self, seq_id: int, tokens: Sequence[int]
+                    ) -> Tuple[List[int], List[List[int]]]:
+        """(blocks, pages) for a LIVE sequence's written KV state —
+        prompt *and* generated blocks, including the partial tail page
+        (a mid-decode handoff ships the whole generation, not just the
+        indexed prefix).  `tokens` is the written token prefix the
+        caller is snapshotting; it must not exceed the sequence's
+        written watermark (exporting unwritten device bytes would
+        stream garbage).  The last page may be sub-page; the adopter
+        lands full pages through adopt_prefix and the tail directly
+        into the resumed sequence's private block.  Caller must be on
+        the scheduler worker thread (the only mutator), so the ids
+        stay valid until the device read completes."""
+        page = self.page_size
+        with self._lock:
+            table = self._tables.get(seq_id)
+            if table is None:
+                raise KeyError(f"sequence {seq_id} is not live")
+            n = len(tokens)
+            written = self._tokens_of.get(seq_id, 0)
+            if n > written:
+                raise ValueError(
+                    f"cannot export {n} tokens of sequence {seq_id}: "
+                    f"only {written} are written")
+            nb = -(-n // page)  # ceil: the tail page may be partial
+            blocks = list(table[:nb])
+            pages = [list(int(t) for t in tokens[j * page:(j + 1) * page])
+                     for j in range(nb)]
+            return blocks, pages
+
+    def adopt_prefix(self, prompt: Sequence[int], n_blocks: int
+                     ) -> List[Tuple[int, int]]:
+        """Admit a migrated prefix into THIS pool as shared cached
+        blocks: walk the first `n_blocks` block-aligned pages of
+        `prompt`, reusing any boundary already indexed (identical
+        bytes — the device content is a pure function of the token
+        prefix) and allocating a fresh refcount-0 cached block for each
+        missing one.  Returns the (boundary, block) pairs whose device
+        bytes the caller must write BEFORE the next admission runs —
+        both happen on the scheduler worker thread, so no request can
+        map a block whose bytes have not landed.  Stops early (partial
+        adoption is still a prefix, so still valid) on a foreign hash
+        hit or when the pool has no reclaimable block left."""
+        if not self.prefix_cache:
+            return []
+        page = self.page_size
+        pairs: List[Tuple[int, int]] = []
+        with self._lock:
+            h = _HASH_EMPTY
+            parent: Optional[_PrefixEntry] = None
+            chain_blocks: set = set()  # this adoption's own blocks
+            for j in range(min(int(n_blocks), len(prompt) // page)):
+                seg = prompt[j * page:(j + 1) * page]
+                h = _hash_block(h, seg)
+                e = self._index.get(h)
+                if e is not None:
+                    if e.parent is not parent \
+                            or e.page_bytes != _page_bytes(seg):
+                        break  # foreign collision: never share unverified
+                    if e.block in self._cached:
+                        self._cached.move_to_end(e.block)  # keep chain hot
+                    chain_blocks.add(e.block)
+                    parent = e
+                    continue
+                if not self._free and all(
+                        b in chain_blocks for b in self._cached):
+                    # the only evictable blocks are this chain's own
+                    # (LRU would cannibalize a boundary we just
+                    # adopted): partial adoption, still a valid prefix
+                    break
+                blk = self._pop_free()
+                chain_blocks.add(blk)
+                e = _PrefixEntry(h, blk, parent, _page_bytes(seg))
+                self._index[h] = e
+                self._block_key[blk] = h
+                self._cached[blk] = None
+                self._cached.move_to_end(blk)
+                pairs.append((j, blk))
+                parent = e
+            self.prefix_imported_blocks += len(pairs)
+            if pairs:
+                self.prefix_imports += 1
+        return pairs
+
+    def drop_adopted(self, blocks: Sequence[int]) -> None:
+        """Unwind adopt_prefix after a failed device write: unregister
+        the entries and free the blocks, so no admission can ever map a
+        block whose bytes never landed."""
+        with self._lock:
+            for blk in blocks:
+                if blk in self._cached:
+                    del self._cached[blk]
+                    key = self._block_key.pop(blk, None)
+                    if key is not None:
+                        self._index.pop(key, None)
+                    self._free.append(blk)
+
     def table_of(self, seq_id: int) -> List[int]:
         with self._lock:
             return list(self._tables[seq_id])
@@ -690,6 +808,8 @@ class KVPool:
                 "evictions": self.prefix_evictions,
                 "invalidations": self.prefix_invalidations,
                 "cow_copies": self.cow_copies,
+                "imports": self.prefix_imports,
+                "imported_blocks": self.prefix_imported_blocks,
                 "peak_shared_blocks": self.peak_shared,
             }
 
@@ -724,6 +844,12 @@ class KVPool:
             assert self.used_blocks == len(refcount)
             for blk in cached:
                 assert blk in self._block_key, "cached block unindexed"
+                # a cached block, adopted ones (adopt_prefix) included,
+                # is reachable through its own index entry: an unwound
+                # adoption (drop_adopted) leaves neither half behind
+                entry = self._index.get(self._block_key[blk])
+                assert entry is not None and entry.block == blk, \
+                    "cached block not reachable through the index"
             for key, entry in self._index.items():
                 assert entry.key == key, "entry keyed under wrong hash"
                 assert self._block_key.get(entry.block) == key, \

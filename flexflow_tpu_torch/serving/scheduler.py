@@ -28,15 +28,29 @@ decode step.  A transient verify fault degrades the engine to plain
 decode (`stats()["speculative"]["degraded"]`, `verify_faults`); a fault
 marked `fatal_to_engine` ends the worker and fails what is in flight.
 
+Mid-decode handoff (serving/handoff.py): `request_handoff` pauses live
+rows at the next step boundary and settles their handles with
+HandoffPaused, carrying a ResumeRecord (prompt, generated tokens, the
+sampling RNG's state) and, with `export_kv`, the row's written KV blocks
+read by `PagedKVDecodeModel.export_block`.  A request submitted with
+`resume=` replays prompt + generated as its feed (or hits the blocks a
+migration adopted into this pool, its partial tail block written by
+`import_block`) and goes on token for token.  `run_on_worker` queues
+work (a migration's block writes, a pause) for the worker to run
+between steps, the only thread that touches the pools; `drain` stops
+taking requests and runs the accepted ones to completion; `on_death`
+fires when a fault marked `fatal_to_engine` ends the worker, whose
+drain stamps a resume record on every row that had generated tokens.
+
 With a `registry` (obs.metrics.MetricsRegistry) the engine records the
 reference's `serving/*` metrics: steps, TTFT, request and per-token
 latency, the KV and prefix gauges and counters, the paged kernel's
-reads and the speculative counters.  Left out of this slice: mid-decode
-handoff and KV migration, drain, tensor-parallel replicas and request
-tracing.
+reads, the speculative counters and `serving/handoff_*`.  Left out of
+this slice: tensor-parallel replicas and request tracing.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import queue
 import threading
@@ -67,21 +81,42 @@ class PagedKVDecodeModel:
     [b, spec_k + 1] verify_step, and "draft" keeps the draft engine
     (`draft_model`, a PagedKVDecodeModel over a smaller GPT) for the
     scheduler's proposer.  The KV pools are updated in place; only the
-    scheduler's worker thread calls these methods."""
+    scheduler's worker thread calls these methods.
+
+    On a card every engine works on a CUDA stream of its own (`stream`),
+    its state allocated there too: two replicas on one card do not wait
+    on each other's work, a stalled engine stalls only itself, and an
+    engine's memory is never handed to another stream while its work is
+    pending.  Each call first orders the engine's stream after the
+    caller's, so work the caller queued (a restore of the pools) lands
+    before it; a caller that reads the pools after a call that returns
+    nothing (prefill_step, copy_block, import_block, reset) synchronizes
+    first."""
 
     def __init__(self, ff_train, batch_slots: int = 8,
                  page_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 0, prefix_cache: bool = True,
                  spec_decode: str = "off", spec_k: int = 4,
                  draft_model=None):
-        from ..config import ConfigError, resolve_spec_decode
+        from ..config import resolve_spec_decode
+
+        self.spec_decode = resolve_spec_decode(spec_decode, spec_k)
+        self.spec_k = int(spec_k)
+        self.device = torch.device(ff_train.device)
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        with self._on_stream():
+            self._build(ff_train, batch_slots, page_size, num_blocks,
+                        prefill_chunk, prefix_cache, draft_model)
+
+    def _build(self, ff_train, batch_slots, page_size, num_blocks,
+               prefill_chunk, prefix_cache, draft_model):
+        from ..config import ConfigError
         from ..decoding import (_gpt_dims, build_paged_copy_block,
                                 build_paged_decode_step,
                                 build_paged_prefill_step,
                                 build_paged_verify_step, make_gpt_decoder)
 
-        self.spec_decode = resolve_spec_decode(spec_decode, spec_k)
-        self.spec_k = int(spec_k)
         dims = _gpt_dims(ff_train)
         max_seq = dims["max_seq"]
         if page_size < 1 or max_seq % page_size:
@@ -96,7 +131,6 @@ class PagedKVDecodeModel:
         self.ffd = make_gpt_decoder(ff_train, batch_size=batch_slots,
                                     kv_page_size=page_size,
                                     kv_num_blocks=num_blocks)
-        self.device = self.ffd.device
         # the device decides the read formulation
         self.paged_kernel = "cuda" if self.device.type == "cuda" else "plain"
         self.batch_slots = batch_slots
@@ -155,31 +189,44 @@ class PagedKVDecodeModel:
             for entries in self._state.values()
             for k, v in entries.items() if k in ("k_cache", "v_cache"))
 
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Run the block on the engine's stream, ordered after the
+        caller's current stream (nothing to do on the CPU)."""
+        if self.stream is None:
+            yield
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            yield
+
     def _ints(self, x) -> torch.Tensor:
         return torch.tensor(np.asarray(x, np.int32), device=self.device)
 
     def reset(self):
         """Zero the decode state in place (fault recovery).  The
         scheduler invalidates the pool's prefix index right after."""
-        with torch.no_grad():
+        with self._on_stream(), torch.no_grad():
             for entries in self._state.values():
                 for v in entries.values():
                     v.zero_()
 
     def step(self, tokens: np.ndarray, seq_lens: np.ndarray,
              block_tables: np.ndarray) -> np.ndarray:
-        logits, self._state = self._step_fn(
-            self.ffd._weights, self._state, self._ints(tokens),
-            self._ints(seq_lens), self._ints(block_tables))
-        return logits.float().cpu().numpy()
+        with self._on_stream():
+            logits, self._state = self._step_fn(
+                self.ffd._weights, self._state, self._ints(tokens),
+                self._ints(seq_lens), self._ints(block_tables))
+            return logits.float().cpu().numpy()
 
     def prefill_step(self, tokens: np.ndarray, positions: np.ndarray,
                      block_tables: np.ndarray) -> None:
         """Chunked prefill: scatter tokens[b, C] at positions[b]..+C-1
         into the pool.  No logits come back."""
-        self._state = self._prefill_fn(
-            self.ffd._weights, self._state, self._ints(tokens),
-            self._ints(positions), self._ints(block_tables))
+        with self._on_stream():
+            self._state = self._prefill_fn(
+                self.ffd._weights, self._state, self._ints(tokens),
+                self._ints(positions), self._ints(block_tables))
 
     def verify_step(self, tokens: np.ndarray, seq_lens: np.ndarray,
                     counts: np.ndarray,
@@ -189,34 +236,100 @@ class PagedKVDecodeModel:
         row i's logits[j] equal, bit for bit, what the decode step gives
         feeding tokens[i, j] at seq_lens[i] + j.  Built only when
         spec_decode != "off"."""
-        logits, self._state = self._verify_fn(
-            self.ffd._weights, self._state, self._ints(tokens),
-            self._ints(seq_lens), self._ints(counts),
-            self._ints(block_tables))
-        return logits.float().cpu().numpy()
+        with self._on_stream():
+            logits, self._state = self._verify_fn(
+                self.ffd._weights, self._state, self._ints(tokens),
+                self._ints(seq_lens), self._ints(counts),
+                self._ints(block_tables))
+            return logits.float().cpu().numpy()
 
     def copy_block(self, src: int, dst: int) -> None:
         """Copy-on-write: clone physical block src -> dst in every
-        layer's k/v pool, ordered with the steps on the device's
+        layer's k/v pool, ordered with the steps on the engine's
         stream."""
-        self._state = self._copy_fn(self._state, int(src), int(dst))
+        with self._on_stream():
+            self._state = self._copy_fn(self._state, int(src), int(dst))
+
+    def _kv_pages(self):
+        """(key, pool) of every layer's k/v pool, keyed
+        "<op>/<k_cache|v_cache>" as the reference's."""
+        return [(f"{name}/{k}", entries[k])
+                for name, entries in self._state.items()
+                for k in ("k_cache", "v_cache") if k in entries]
+
+    def export_block(self, block: int) -> Dict[str, np.ndarray]:
+        """Read ONE physical block of every layer's k/v pool to host
+        numpy (the migration export path, serving/kv_transfer.py), keyed
+        "<op>/<k_cache|v_cache>", so that an import lands each page in
+        the matching layer.  The pages are gathered into one buffer on
+        the card and read in ONE copy (a copy per page would wait on the
+        host once per page); the arrays are views of that fresh host
+        buffer, and a bfloat16 pool's pages travel widened to float32,
+        which is exact.  Worker thread only, between steps."""
+        pools = self._kv_pages()
+        with self._on_stream():
+            flat = torch.cat([p[block].reshape(-1) for _, p in pools])
+            if flat.dtype == torch.bfloat16:
+                flat = flat.float()
+            host = flat.cpu().numpy()
+        out: Dict[str, np.ndarray] = {}
+        off = 0
+        for key, pool in pools:
+            shape = tuple(pool.shape[1:])
+            n = int(np.prod(shape))
+            out[key] = host[off:off + n].reshape(shape)
+            off += n
+        return out
+
+    def import_block(self, block: int,
+                     arrays: Dict[str, np.ndarray]) -> None:
+        """Write one migrated block into every layer's pool IN PLACE
+        (`pool[block].copy_`): the pools the steps read keep their
+        storage and addresses, so a step captured over them stays
+        valid.  The pages cross to the card in ONE copy and are
+        scattered there.  Worker thread only, between steps."""
+        pools = self._kv_pages()
+        host = np.concatenate([
+            np.asarray(arrays[key], np.float32).reshape(-1)
+            for key, _ in pools])
+        with self._on_stream(), torch.no_grad():
+            flat = torch.from_numpy(host).to(self.device)
+            off = 0
+            for _, pool in pools:
+                page = pool[block]
+                n = page.numel()
+                page.copy_(flat[off:off + n].view(page.shape))
+                off += n
 
 
 class _PendingSeq:
     """Future-style handle for one request, with the SLO timestamps:
-    submit, first generated token (TTFT), done."""
+    submit, first generated token (TTFT), done.
+
+    `on_done` (set at submission, never after) fires exactly once when
+    the request settles (success, fault, pause or drain) on whichever
+    thread settled it; the replicated front (serving/front.py) routes
+    completions and requeues by it."""
 
     __slots__ = ("prompt", "max_new_tokens", "temperature", "seed",
                  "event", "result", "error", "t_submit", "t_first_token",
                  "t_done", "n_generated", "prefix_hit_tokens",
-                 "spec_proposed", "spec_accepted", "_settle_lock",
-                 "_settled")
+                 "spec_proposed", "spec_accepted", "on_done", "resume",
+                 "resume_out", "_settle_lock", "_settled")
 
-    def __init__(self, prompt, max_new_tokens, temperature, seed):
+    def __init__(self, prompt, max_new_tokens, temperature, seed,
+                 on_done=None, resume=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.seed = int(seed)
+        # resume: a handoff.ResumeRecord continuing a mid-decode
+        # generation.  resume_out: stamped when the scheduler settles
+        # this handle unfinished with recoverable state (death, a failed
+        # step), so that the front's requeue resumes instead of
+        # generating again from the prompt.
+        self.resume = resume
+        self.resume_out = None
         self.event = threading.Event()
         self.result: Optional[List[int]] = None
         self.error: Optional[Exception] = None
@@ -227,17 +340,23 @@ class _PendingSeq:
         self.prefix_hit_tokens = 0  # prompt tokens served from cache
         self.spec_proposed = 0   # draft tokens verified for this request
         self.spec_accepted = 0   # ... of which the target agreed with
+        self.on_done = on_done
         self._settle_lock = threading.Lock()
         self._settled = False
 
     def _settle(self) -> None:
-        """Wake the waiter exactly once, even when close() races the
-        worker's own drain."""
+        """Wake the waiter and fire the completion hook exactly once,
+        even when close() races the worker's own drain."""
         with self._settle_lock:
             if self._settled:
                 return
             self._settled = True
         self.event.set()
+        if self.on_done is not None:
+            try:
+                self.on_done(self)
+            except Exception:  # noqa: BLE001 - a hook never kills the
+                pass           # decode loop or a drain
 
     def wait(self, timeout: Optional[float] = None) -> List[int]:
         if not self.event.wait(timeout):
@@ -250,21 +369,34 @@ class _PendingSeq:
 class _Live:
     """Slot-resident decoding state for one admitted sequence.  `start`
     > 0 means a prefix-cache hit: positions [0, start) are already in
-    shared KV blocks and never prefill."""
+    shared KV blocks and never prefill.
+
+    `feed` is the token stream the positions consume before sampling
+    begins: the prompt or, for a resumed generation, the prompt and
+    every token generated before the pause (fed as prompt, so the KV
+    state is built again bit for bit).  `generated` then starts with
+    those tokens, so that the completion and the budget count them as
+    the uninterrupted run does."""
 
     __slots__ = ("req", "seq_id", "pos", "next_token", "generated",
-                 "max_new", "rng")
+                 "max_new", "rng", "feed")
 
     def __init__(self, req: _PendingSeq, seq_id: int, max_new: int,
-                 start: int = 0):
+                 start: int = 0, feed=None, generated=None,
+                 rng_state=None):
         self.req = req
         self.seq_id = seq_id
+        self.feed = req.prompt if feed is None else list(feed)
         self.pos = start                      # tokens already in the cache
-        self.next_token = req.prompt[start]   # token fed at position pos
-        self.generated: List[int] = []
+        self.next_token = self.feed[start]    # token fed at position pos
+        self.generated: List[int] = list(generated or [])
         self.max_new = max_new                # clamped to the position table
         self.rng = (np.random.RandomState(req.seed)
                     if req.temperature > 0.0 else None)
+        if self.rng is not None and rng_state is not None:
+            # a resume goes on with the sampled stream where the pause
+            # left it: the replayed tokens draw nothing
+            self.rng.set_state(rng_state)
 
 
 class ContinuousScheduler:
@@ -274,11 +406,14 @@ class ContinuousScheduler:
     latency_stats / stats / close are the client API serve_http drives.
     `model` may be any object with PagedKVDecodeModel's step contract
     (the tests' fakes): a model without `verify_step` runs with
-    speculation off."""
+    speculation off, one without `copy_block` never shares a tail block
+    it would have to copy, one without `export_block` pauses with a
+    replay-only resume record."""
 
     def __init__(self, model, pool: Optional[KVPool] = None,
                  eos_id: int = -1, registry=None, seed: int = 0,
-                 check_invariants: bool = False):
+                 close_timeout_s: float = _CLOSE_TIMEOUT_S,
+                 on_death=None, check_invariants: bool = False):
         self.model = model
         self.pool = pool or KVPool(
             model.num_blocks, model.page_size, model.max_blocks_per_seq,
@@ -286,6 +421,7 @@ class ContinuousScheduler:
         self._chunk = int(getattr(model, "prefill_chunk", 0) or 0)
         if self._chunk and getattr(model, "prefill_step", None) is None:
             self._chunk = 0
+        self._can_cow = getattr(model, "copy_block", None) is not None
         # kernel-read counters: physical blocks the paged-attention
         # kernel read vs what the dense gather formulation would have
         # materialized for the same dispatches (counted when the kernel
@@ -322,6 +458,13 @@ class ContinuousScheduler:
         self.registry = registry
         self._queue: "queue.Queue[_PendingSeq]" = queue.Queue()
         self._waiting: deque = deque()  # worker-local FIFO admit order
+        # work other threads marshal onto the worker (a migration's block
+        # writes, a pause): only the worker touches the pools, between
+        # steps
+        self._service: "queue.Queue" = queue.Queue()
+        # per-dispatch wall time (EWMA over decode, prefill and verify
+        # dispatches): the unit the front prices a handoff and a
+        # terminate deadline in
         self.step_ms_ewma = 0.0
         self._stop = threading.Event()
         self._latencies = deque(maxlen=_LATENCY_WINDOW)
@@ -336,6 +479,14 @@ class ContinuousScheduler:
             (model.batch_slots, self.pool.max_blocks_per_seq), np.int32)
         self._next_seq_id = 0
         self._seed = itertools.count(int(seed) + 1)
+        self._close_timeout_s = float(close_timeout_s)
+        # fired with the exception when a fault ends the worker (not on
+        # a clean close): the replica supervisor's death signal
+        self._on_death = on_death
+        # drain(): refuse new submissions, run the accepted ones to
+        # completion, then exit cleanly and fire _on_drained once
+        self._draining = False
+        self._on_drained = None
         self.batches_run = 0       # decode steps executed
         self.requests_done = 0
         self.tokens_generated = 0
@@ -381,27 +532,143 @@ class ContinuousScheduler:
             prompt, max_new_tokens, temperature).wait(timeout)
 
     def generate_async(self, prompt, max_new_tokens: int = 16,
-                       temperature: float = 0.0,
-                       seed=None) -> _PendingSeq:
+                       temperature: float = 0.0, on_done=None,
+                       seed=None, resume=None) -> _PendingSeq:
+        """Queue one request.  `on_done(handle)` rides the handle from
+        its birth, so a completion never races the caller attaching it;
+        `seed` pins the sampling RNG (the front mints one per request,
+        so a resubmission samples alike on any replica; None takes the
+        engine's counter); `resume` (handoff.ResumeRecord) continues a
+        paused or recovered generation, its generated tokens fed again
+        as prompt."""
         if self._stop.is_set():
             raise RuntimeError("ContinuousScheduler is closed")
+        if self._draining:
+            # everything accepted before drain() runs to completion;
+            # nothing new boards a leaving engine
+            raise RuntimeError("ContinuousScheduler is draining")
         p = _PendingSeq(prompt, max_new_tokens, temperature,
-                        next(self._seed) if seed is None else int(seed))
+                        next(self._seed) if seed is None else int(seed),
+                        on_done=on_done, resume=resume)
         if not 1 <= len(p.prompt) < self.model.max_seq:
             raise ValueError(
                 f"prompt length {len(p.prompt)} outside [1, "
                 f"{self.model.max_seq})")
         if p.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if resume is not None and not 1 <= len(
+                resume.replay_tokens()) < self.model.max_seq:
+            raise ValueError(
+                f"resume replay length {len(resume.replay_tokens())} "
+                f"outside [1, {self.model.max_seq})")
         self._queue.put(p)
         if self._stop.is_set():  # close() raced the put
             p.error = RuntimeError("ContinuousScheduler is closed")
             p._settle()
         return p
 
+    def run_on_worker(self, fn, on_dropped=None) -> None:
+        """Queue `fn` for the worker to run between steps (it alone
+        touches the model's pools: a migration's block writes land
+        here).  `fn` handles its own errors; one it lets escape is
+        treated as a step fault (`fatal_to_engine` ends the worker,
+        anything else goes to `on_dropped`).  If the engine closes,
+        drains or dies before `fn` runs, `on_dropped` fires with the
+        terminal error instead, so no caller waits on work that will
+        not run."""
+        if self._stop.is_set():
+            raise RuntimeError("ContinuousScheduler is closed")
+        self._service.put((fn, on_dropped))
+        if self._stop.is_set():  # close() raced the put
+            self._drop_services(RuntimeError(
+                "ContinuousScheduler is closed"))
+
+    def _drop_services(self, err: Exception) -> None:
+        while True:
+            try:
+                fn, on_dropped = self._service.get_nowait()
+            except queue.Empty:
+                return
+            if on_dropped is not None:
+                try:
+                    on_dropped(err)
+                except Exception:  # noqa: BLE001 - a drain is never
+                    pass           # masked by a hook
+
+    def _run_services(self) -> None:
+        while True:
+            try:
+                fn, on_dropped = self._service.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                fn()
+            except Exception as e:
+                if getattr(e, "fatal_to_engine", False):
+                    raise
+                if on_dropped is not None:
+                    try:
+                        on_dropped(e)
+                    except Exception:  # noqa: BLE001
+                        pass
+
     @property
     def worker_alive(self) -> bool:
         return self._worker.is_alive()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def drain(self, on_drained=None) -> None:
+        """Stop ACCEPTING and run everything already accepted to
+        completion (decode goes on undisturbed, so completions equal an
+        engine's that was never drained).  When the last live sequence
+        retires and nothing is queued, the worker exits cleanly and
+        fires `on_drained` once; the engine then refuses submissions as
+        a closed one does.  close() bounds a wedged drain."""
+        if self._stop.is_set() or self._draining:
+            return
+        self._on_drained = on_drained
+        self._draining = True
+
+    def request_handoff(self, *, remaining_over: int = 0,
+                        max_sequences: int = 0, export_kv: bool = True,
+                        on_paused=None) -> None:
+        """Pause live generations at the next step boundary and settle
+        their handles with handoff.HandoffPaused.  Eligible rows have
+        MORE than `remaining_over` tokens still to generate (a draining
+        replica passes 0; a terminating front the count that still fits
+        its deadline); `max_sequences` > 0 caps how many pause, the
+        largest remaining budget first.  With `export_kv` each paused
+        row's written KV blocks, the partial tail included, ride the
+        settle for the front to stream to another replica; the resume
+        record rides regardless, so every later fault degrades to
+        replay.  `on_paused(count)` fires on the worker after the sweep
+        (0 if the engine ended first).  Works on a draining engine:
+        services still run between its last steps."""
+        def service():
+            rows = [(live.max_new - len(live.generated), i, live)
+                    for i, live in enumerate(self._slots)
+                    if live is not None]
+            rows = [r for r in rows if r[0] > int(remaining_over)]
+            rows.sort(key=lambda r: (-r[0], r[1]))
+            if max_sequences and int(max_sequences) > 0:
+                rows = rows[:int(max_sequences)]
+            for _, i, live in rows:
+                self._pause_slot(i, live, export_kv)
+            if on_paused is not None:
+                on_paused(len(rows))
+
+        self.run_on_worker(
+            service,
+            on_dropped=((lambda e: on_paused(0))
+                        if on_paused is not None else None))
+
+    def cached_prefix_tokens(self, prompt) -> int:
+        """Read-only probe: prompt tokens the prefix cache would serve
+        now.  The front routes by it and discounts them at admission."""
+        return self.pool.cached_prefix_tokens([int(t) for t in prompt])
 
     def latency_stats(self) -> Dict[str, float]:
         from .batcher import latency_percentiles
@@ -417,6 +684,7 @@ class ContinuousScheduler:
         live = [s for s in self._slots if s is not None]
         return {
             "mode": "continuous",
+            "draining": self._draining,
             "steps": self.batches_run,
             "prefill_steps": self.prefill_steps,
             "prefill_chunk": self._chunk,
@@ -477,7 +745,7 @@ class ContinuousScheduler:
         drain runs even if the worker outlived it."""
         self._stop.set()
         if timeout_s is None:
-            timeout_s = _CLOSE_TIMEOUT_S
+            timeout_s = self._close_timeout_s
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline and self._worker.is_alive():
             self._worker.join(timeout=min(0.2, max(0.0, timeout_s)))
@@ -498,14 +766,72 @@ class ContinuousScheduler:
         self._tokens[slot] = 0
         self._slens[slot] = 0
 
+    def _resume_record_of(self, live: _Live):
+        """Host-side resume record of a live row, built on the failure
+        paths too: the tokens live on the host, so a dead device cannot
+        tear them, and the front's requeue replays prompt + generated
+        instead of generating again from the prompt."""
+        from .handoff import ResumeRecord
+
+        try:
+            return ResumeRecord(
+                live.req.prompt, live.generated, live.pos,
+                live.req.seed, live.req.temperature,
+                rng_state=(live.rng.get_state()
+                           if live.rng is not None else None),
+                page_size=self.pool.page_size)
+        except Exception:  # noqa: BLE001 - recovery metadata never
+            return None    # masks the original failure
+
+    def _pause_slot(self, slot: int, live: _Live,
+                    export_kv: bool = True) -> None:
+        """Worker-side pause: snapshot the row (and, with export_kv, its
+        written KV blocks, the partial tail included), retire it and
+        settle its handle with HandoffPaused.  It runs between steps
+        only, so the exported bytes are a consistent prefix of the
+        generation."""
+        from .handoff import HandoffPaused
+
+        req = live.req
+        written = (req.prompt + live.generated)[:live.pos]
+        rec = self._resume_record_of(live)
+        pages = arrays = None
+        exporter = getattr(self.model, "export_block", None)
+        if export_kv and exporter is not None:
+            try:
+                blocks, pages = self.pool.export_live(live.seq_id, written)
+                arrays = [exporter(b) for b in blocks]
+            except Exception as e:
+                if getattr(e, "fatal_to_engine", False):
+                    raise
+                pages = arrays = None  # a replay-only resume
+        if self._proposer is not None:
+            self._proposer.release(slot)
+        # the written prefix keys the retired blocks into the prefix
+        # cache: a re-admission on THIS engine is a hit too
+        self.pool.retire(live.seq_id, tokens=written)
+        self._slots[slot] = None
+        self._free_slot_buffers(slot)
+        if self.registry is not None:
+            self.registry.counter("serving/handoff_paused").inc()
+        req.error = HandoffPaused(rec, pages=pages, arrays=arrays,
+                                  page_size=self.pool.page_size)
+        req._settle()
+
     def _drain(self, err: Exception):
-        """Fail every queued/waiting/live request (close or fault)."""
+        """Fail every queued/waiting/live request (close or fault).  It
+        runs on the worker's way out of _loop and from close(), which
+        overlap only when close() gave up on a wedged worker."""
         for i, s in enumerate(self._slots):
             if s is not None:
                 try:
                     self.pool.retire(s.seq_id)
                 except KeyError:
                     pass  # the racing drain already freed it
+                if s.generated:
+                    # death recovery: the front's requeue resumes from
+                    # this instead of generating again from the prompt
+                    s.req.resume_out = self._resume_record_of(s)
                 s.req.error = err
                 s.req._settle()
                 self._free_slot_buffers(i)
@@ -521,6 +847,7 @@ class ContinuousScheduler:
                 break
             p.error = err
             p._settle()
+        self._drop_services(err)
 
     def _admit(self):
         """Pull arrivals, then admit FIFO into free slots while the pool
@@ -528,7 +855,10 @@ class ContinuousScheduler:
         fit blocks later ones).  Admission maps the longest indexed
         block-aligned prefix of the prompt onto shared blocks; a
         FULL-prompt hit still re-runs the last prompt token for its
-        logits, so the pool copy-on-writes its tail block first."""
+        logits, so the pool copy-on-writes its tail block first.  A
+        resumed request feeds prompt + generated through the same
+        machinery (cache hit, chunked prefill, budget clamp), so it goes
+        on as the uninterrupted generation would."""
         while True:
             try:
                 self._waiting.append(self._queue.get_nowait())
@@ -538,11 +868,24 @@ class ContinuousScheduler:
         while free and self._waiting:
             req = self._waiting[0]
             plen = len(req.prompt)
+            rs = req.resume
+            feed = req.prompt if rs is None else rs.replay_tokens()
+            flen = len(feed)
             max_new = min(req.max_new_tokens, self.model.max_seq - plen)
+            if rs is not None and len(rs.generated) >= max_new:
+                # the pause raced the budget's edge: nothing is left to
+                # decode, so settle the finished completion here
+                self._waiting.popleft()
+                req.result = req.prompt + list(rs.generated)
+                req.n_generated = len(rs.generated)
+                req.t_done = time.monotonic()
+                req._settle()
+                continue
             sid = self._next_seq_id
             try:
                 admitted = self.pool.try_admit(
-                    sid, plen + max_new, prompt=req.prompt)
+                    sid, plen + max_new, prompt=feed,
+                    cow_ok=self._can_cow)
             except ValueError as e:
                 # can never fit the table width: fail it alone
                 self._waiting.popleft()
@@ -565,7 +908,12 @@ class ContinuousScheduler:
             self._waiting.popleft()
             self._next_seq_id += 1
             hit = self.pool.admit_hit_tokens(sid)
-            start = min(hit, plen - 1)
+            if rs is not None:
+                # a live handoff may have shipped the partial tail
+                # block: land it when the hit covers every full page,
+                # so that the tail never replays either
+                hit = self._import_resume_tail(sid, rs, hit)
+            start = min(hit, flen - 1)
             req.prefix_hit_tokens = hit
             if hit and self.registry is not None:
                 self.registry.counter("serving/prefix_hits").inc()
@@ -586,7 +934,13 @@ class ContinuousScheduler:
                     continue
                 if self.registry is not None:
                     self.registry.counter("serving/kv_cow_copies").inc()
-            live = _Live(req, sid, max_new, start=start)
+            live = _Live(
+                req, sid, max_new, start=start,
+                feed=feed if rs is not None else None,
+                generated=rs.generated if rs is not None else None,
+                rng_state=rs.rng_state if rs is not None else None)
+            if rs is not None and self.registry is not None:
+                self.registry.counter("serving/handoff_resumed").inc()
             slot = free.pop(0)
             self._slots[slot] = live
             # first private block (or a no-op after a full hit)
@@ -595,17 +949,67 @@ class ContinuousScheduler:
             self._tokens[slot] = live.next_token
             self._slens[slot] = start
 
+    def _import_resume_tail(self, sid: int, rs, hit: int) -> int:
+        """Land a resumed sequence's migrated partial tail block: only
+        when the adopted full pages cover the hit exactly (the tail
+        chains through them) and the written watermark ends inside a
+        page.  Returns the new hit; on any failure the table rolls back
+        to the page-aligned hit and the tail replays through prefill."""
+        page = self.pool.page_size
+        tail_len = rs.written % page
+        if (rs.kv_tail is None or not tail_len
+                or rs.page_size != page
+                or hit != (rs.written // page) * page
+                or getattr(self.model, "import_block", None) is None):
+            return hit
+        try:
+            self.pool.extend(sid, rs.written, written=rs.written)
+            blk = self.pool.table_of(sid)[-1]
+            self.model.import_block(blk, rs.kv_tail)
+            if self.registry is not None:
+                self.registry.counter(
+                    "serving/handoff_tail_imports").inc()
+            return rs.written
+        except Exception as e:
+            if getattr(e, "fatal_to_engine", False):
+                raise
+            try:
+                self.pool.rollback(sid, (rs.written // page) * page)
+            except Exception:  # noqa: BLE001 - fall back to replay
+                pass
+            return hit
+
     def _loop(self):
         """Thread body: run the decode loop, then drain no matter how it
         exited, so a crash fails pending requests at once (and leaves
-        worker_alive False for the /v2/health degraded check)."""
+        worker_alive False for the /v2/health degraded check).  A fatal
+        exit fires on_death first, so a front's requeues already see
+        this engine as down; a finished drain fires on_drained last."""
         err: Exception = RuntimeError("ContinuousScheduler closed")
+        fatal: Optional[Exception] = None
         try:
             self._decode_loop()
-        except Exception as e:  # scheduler bug / pool invariant breach
-            err = e
+        except Exception as e:  # a fault, a scheduler bug, a pool breach
+            err = fatal = e
+        drained = (fatal is None and self._draining
+                   and not self._stop.is_set())
+        if drained:
+            # refuse late submissions; notify after the drain below has
+            # settled any that slipped into the queue
             self._stop.set()
+        if fatal is not None:
+            self._stop.set()
+            if self._on_death is not None:
+                try:
+                    self._on_death(fatal)
+                except Exception:  # noqa: BLE001 - the worker is
+                    pass           # exiting; never mask the drain
         self._drain(err)
+        if drained and self._on_drained is not None:
+            try:
+                self._on_drained()
+            except Exception:  # noqa: BLE001
+                pass
 
     def _fail_inflight(self, e: Exception):
         """Step fault: fail in-flight only; queued requests survive on
@@ -617,6 +1021,10 @@ class ContinuousScheduler:
             if live is None:
                 continue
             self.pool.retire(live.seq_id)
+            if live.generated:
+                # the tokens survive on the host: a front's retry
+                # replays them
+                live.req.resume_out = self._resume_record_of(live)
             live.req.error = e
             live.req._settle()
             self._slots[i] = None
@@ -665,11 +1073,10 @@ class ContinuousScheduler:
         btab = np.zeros_like(self._btab)
         plan = []
         for i, live in pre:
-            plen = len(live.req.prompt)
-            upto = min(live.pos + C, plen - 1)
+            upto = min(live.pos + C, len(live.feed) - 1)
             self.pool.extend(live.seq_id, upto, written=live.pos)
             self._btab[i] = self.pool.table_row(live.seq_id)
-            tok[i, :upto - live.pos] = live.req.prompt[live.pos:upto]
+            tok[i, :upto - live.pos] = live.feed[live.pos:upto]
             slen[i] = live.pos
             btab[i] = self._btab[i]
             plan.append((i, live, upto))
@@ -698,7 +1105,7 @@ class ContinuousScheduler:
             live.pos = upto
             # freshly written prompt blocks join the prefix index now
             self.pool.note_written(live.seq_id, upto)
-            live.next_token = live.req.prompt[live.pos]
+            live.next_token = live.feed[live.pos]
             self._tokens[i] = live.next_token
             self._slens[i] = live.pos
         if self._check_invariants:
@@ -720,8 +1127,8 @@ class ContinuousScheduler:
             if live is None or live.req.temperature > 0.0:
                 continue
             plen = len(live.req.prompt)
-            if live.pos < plen - 1:
-                continue  # still prefilling
+            if live.pos < len(live.feed) - 1:
+                continue  # still prefilling (or replaying a resume)
             rem = live.max_new - len(live.generated)
             if rem < 2:
                 continue
@@ -816,12 +1223,12 @@ class ContinuousScheduler:
             if live is None:
                 continue
             m = int(counts[i])
-            if live.pos < len(live.req.prompt) - 1:
+            if live.pos < len(live.feed) - 1:
                 # a mid-prefill row rode with its prompt token (m == 1),
                 # as on the plain decode path
                 live.pos += 1
                 self.pool.note_written(live.seq_id, live.pos)
-                live.next_token = live.req.prompt[live.pos]
+                live.next_token = live.feed[live.pos]
                 self._tokens[i] = live.next_token
                 self._slens[i] = live.pos
                 continue
@@ -904,8 +1311,15 @@ class ContinuousScheduler:
     def _decode_loop(self):
         page = self.pool.page_size
         while not self._stop.is_set():
+            self._run_services()
             self._admit()
             if all(s is None for s in self._slots):
+                if (self._draining and not self._waiting
+                        and self._queue.empty()):
+                    # drain complete: nothing live, nothing queued (a
+                    # submit that raced the cutoff sits in _queue and
+                    # was admitted above)
+                    return
                 # idle: park on the arrival queue instead of spinning
                 try:
                     self._waiting.append(self._queue.get(timeout=0.05))
@@ -917,7 +1331,7 @@ class ContinuousScheduler:
                 # positions, then everyone takes the decode step below
                 pre = [(i, live) for i, live in enumerate(self._slots)
                        if live is not None
-                       and live.pos < len(live.req.prompt) - 1]
+                       and live.pos < len(live.feed) - 1]
                 if pre and not self._prefill_chunk_step(pre):
                     continue
             for i, live in enumerate(self._slots):
@@ -964,9 +1378,9 @@ class ContinuousScheduler:
                 live.pos += 1
                 # keep the pool's written-token watermark current
                 self.pool.note_written(live.seq_id, live.pos)
-                if live.pos < len(live.req.prompt):
+                if live.pos < len(live.feed):
                     # prefill: the next token is given, logits ignored
-                    live.next_token = live.req.prompt[live.pos]
+                    live.next_token = live.feed[live.pos]
                     self._tokens[i] = live.next_token
                     self._slens[i] = live.pos
                     continue

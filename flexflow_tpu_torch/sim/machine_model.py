@@ -165,6 +165,15 @@ IB_NDR_BW = 50e9
 # posting of the order of five.
 NVLINK_LAT = 1e-6
 IB_LAT = 5e-6
+# The card's host link: PCIe Gen5 x16 on an H100 SXM5, 128 GB/s in both
+# directions together (NVIDIA H100 datasheet), so 64e9 B/s each way.  A
+# KV block handed between two replicas on one card crosses it twice, a
+# device->host read and a host->device write (serving/disagg.py).
+PCIE_GEN5_BW = 64e9
+# Per-copy latency of a host<->device transfer: a model constant of the
+# order of ten microseconds (a launch and a synchronisation), not a
+# measurement.
+PCIE_LAT = 10e-6
 
 
 class GpuNodeModel(MachineModel):

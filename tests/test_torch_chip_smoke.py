@@ -12,9 +12,12 @@ records, the store phase's catalog (both forms parse equal and
 verify, its rules match BERT's graph), its kernel-cache check and its
 launches in the kernels line, and the supervised phase and legs: their
 place, fault plan, survivors, tolerances and launches in the kernels
-line, the Cache op dropped from a graph, the unchanged last line, and
-the spec phase: its launch identity, the faults it names, a host run at
-a small GPT and its launches in the kernels line."""
+line, the Cache op dropped from a graph, the unchanged last line, the
+spec phase: its launch identity, the faults it names, a host run at
+a small GPT and its launches in the kernels line, and the handoff
+phase: its launch identity over replicas, the faults it names, a host
+run of its four legs at a small GPT and its launches in the kernels
+line."""
 import contextlib
 import io
 import json
@@ -145,11 +148,11 @@ def test_paged_bound_counts_live_bytes():
 
 def test_phase_list_runs_the_vit_path_after_the_earlier_ones():
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[:12] == ["kernels", "serve", "parity", "profile", "spec",
-                           "train", "train_parity", "train_profile",
-                           "bn_kernels", "resnet", "resnet_parity",
-                           "resnet_profile"]
-    assert phases[12:15] == ["vit", "vit_parity", "vit_profile"]
+    assert phases[:13] == ["kernels", "serve", "parity", "profile", "spec",
+                           "handoff", "train", "train_parity",
+                           "train_profile", "bn_kernels", "resnet",
+                           "resnet_parity", "resnet_profile"]
+    assert phases[13:16] == ["vit", "vit_parity", "vit_profile"]
 
 
 def test_vit_op_table_adds_up_per_block():
@@ -190,12 +193,12 @@ def test_vit_profile_kernel_kinds(name, kind):
 
 
 def test_phase_list_ends_with_the_zoo_path():
-    assert chip_smoke.ALL_PHASES.split(",")[15:18] == ["zoo", "zoo_parity",
+    assert chip_smoke.ALL_PHASES.split(",")[16:19] == ["zoo", "zoo_parity",
                                                        "zoo_profile"]
 
 
 def test_phase_list_ends_with_the_sequence_and_frontend_path():
-    assert chip_smoke.ALL_PHASES.split(",")[18:23] == [
+    assert chip_smoke.ALL_PHASES.split(",")[19:24] == [
         "nmt", "generate", "keras", "onnx", "seq_parity"]
 
 
@@ -214,7 +217,7 @@ def test_search_phase_runs_last_over_the_hgx_node():
     phases = chip_smoke.ALL_PHASES.split(",")
     assert phases[-6:] == ["search", "store", "resilience", "supervised",
                            "tools", "multigpu"]
-    assert len(phases) == 31 and phases.count("search") == 1
+    assert len(phases) == 32 and phases.count("search") == 1
     assert "`--phases search`" in chip_smoke.__doc__
     cfg = chip_smoke.search_config("/tmp/costs.json")
     assert (cfg.batch_size, cfg.device, cfg.search_budget) == (
@@ -1032,7 +1035,7 @@ def test_capture_and_fusion_phases_run_before_the_search():
     paths and the kernels each must launch per step are the train,
     resnet and vit phases'."""
     phases = chip_smoke.ALL_PHASES.split(",")
-    assert phases[23:25] == ["capture", "fusion"]
+    assert phases[24:26] == ["capture", "fusion"]
     assert "`--phases capture`" in chip_smoke.__doc__
     assert chip_smoke.CAPTURE_KERNELS == {
         "bert": {"K1": 12, "K2": 12, "K3": 12}, "resnet50": {"P1": 53},
@@ -1934,3 +1937,159 @@ def test_kernel_line_carries_the_spec_launches():
     k4 = next(r for r in rows if r["id"] == "K4")
     assert k4["launches_spec"] is None
     assert "`--phases serve,spec`" in chip_smoke.__doc__
+
+
+# -- the handoff phase -------------------------------------------------------
+
+def _replica_stats(steps, prefill, rounds=0, hung=None):
+    return {"batches_run": steps, "prefill_steps": prefill,
+            "spec_rounds": rounds, "hung_dispatches": hung or {}}
+
+
+def test_handoff_launch_identity_sums_every_engine():
+    """12 per decode step, 12 x CHUNK per prefill dispatch, 12 x
+    (spec_k + 1) per verify round, over every replica (a retired one and
+    a restarted one's carried counters included), and an abandoned
+    dispatch's launches as its kind's."""
+    reps = [_replica_stats(100, 10), _replica_stats(50, 4, hung={"step": 1})]
+    assert chip_smoke.handoff_launches(reps, 12) == \
+        12 * (100 + 8 * 10 + 50 + 8 * 4 + 1)
+    reps = [_replica_stats(30, 2, rounds=10, hung={"prefill": 1,
+                                                  "verify": 1})]
+    assert chip_smoke.handoff_launches(reps, 12, verify_chunk=5) == \
+        12 * (20 + 8 * 2 + 5 * 10 + 8 + 5)
+
+
+def _leg(name, **kw):
+    leg = {"leg": name, "identical": True, "launches": 120,
+           "expected_launches": 120, "tail_imports": 2, "deaths": 0,
+           "restarts": 0,
+           "handoff": {"requested": 3, "ok": 3, "replays": 0},
+           "fsck": {"clean_rc": 0, "flipped_rc": 1}}
+    leg.update(kw)
+    return leg
+
+
+def test_handoff_faults_name_what_each_leg_must_show():
+    for name in ("live", "blob"):
+        assert chip_smoke.handoff_faults(_leg(name)) == []
+    replay = {"requested": 3, "ok": 0, "replays": 3}
+    assert chip_smoke.handoff_faults(_leg("replay", handoff=replay)) == []
+    died = {"requested": 0, "ok": 0, "replays": 2}
+    assert chip_smoke.handoff_faults(_leg(
+        "death", deaths=1, restarts=1, handoff=died)) == []
+    cases = [
+        (_leg("live", identical=False), "differ"),
+        (_leg("live", launches=119), "launched 119"),
+        (_leg("live", launches=0, expected_launches=0), "launched 0"),
+        (_leg("live", handoff={"requested": 3, "ok": 2, "replays": 1}),
+         "handoff"),
+        (_leg("live", handoff={"requested": 0, "ok": 0, "replays": 0}),
+         "handoff"),
+        (_leg("live", tail_imports=0), "tail"),
+        (_leg("replay"), "replay: handoff"),
+        (_leg("blob", fsck={"clean_rc": 0, "flipped_rc": 0}),
+         "kvframe_fsck"),
+        (_leg("death", deaths=2, restarts=2, handoff=died), "deaths 2"),
+        (_leg("death", deaths=1, restarts=1,
+              handoff={"requested": 0, "ok": 0, "replays": 0}),
+         "'replays': 0"),
+        (_leg("death", deaths=1, restarts=1), "'requested': 3"),
+    ]
+    for leg, word in cases:
+        faults = chip_smoke.handoff_faults(leg)
+        assert faults and word in " ".join(faults), (leg, faults)
+
+
+def test_handoff_phase_on_the_host(monkeypatch, capsys, tmp_path):
+    """phase_handoff end to end on the CPU at a small GPT, K4's wrapper
+    stood in by a counter around the plain version: every run's
+    completions equal the oracle's, its launches equal handoff_launches
+    of its engines' stats, the live and blob legs adopt and import a
+    partial tail, the replay leg replays every pause, the blob leg's
+    frames pass kvframe_fsck and fail it flipped, and the death leg's
+    replica 0 dies and restarts once, its rows replayed."""
+    import types
+
+    import torch
+
+    from flexflow_tpu_torch.ops import attention
+
+    real = attention.paged_attention
+
+    def counting(*a, **kw):
+        counting.launches += 1
+        return real(*a, **kw)
+
+    counting.launches = 0
+    monkeypatch.setattr(attention, "paged_attention", counting)
+    pk = types.SimpleNamespace(paged_attention=counting)
+    width = dict(hidden_size=32, num_layers=2, num_heads=4,
+                 intermediate_size=64, vocab_size=48, seq_length=128)
+    ff, _ = chip_smoke.build_model("cpu", width=width)
+    rng = np.random.RandomState(6)
+    n = chip_smoke.HANDOFF_REQUESTS + chip_smoke.HANDOFF_SAMPLED
+    prompts = [rng.randint(0, 48, int(k)).tolist()
+               for k in rng.randint(4, 40, n)]
+    rec = chip_smoke.phase_handoff(torch, pk, "card", ff, prompts,
+                                   str(tmp_path), width=width, wait_s=30.0)
+    assert rec["faults"] == [] and rec["identical"]
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    legs = {ln["leg"]: ln for ln in lines if ln.get("leg")}
+    assert list(legs) == [leg for run in chip_smoke.HANDOFF_RUNS
+                          for leg in run]
+    assert set(legs) == set(chip_smoke.HANDOFF_LEGS)
+    for leg in legs.values():
+        assert leg["launches"] == leg["expected_launches"] > 0
+        assert leg["card"] == "card" and leg["faults"] == []
+    live = legs["live"]
+    assert live["handoff"]["ok"] == live["handoff"]["requested"] >= 1
+    assert live["tail_imports"] >= 1 and live["export_blocks"] > 0
+    assert live["pause_ms_per_row"] > 0
+    assert live["exported_bytes_per_row"] > 0
+    assert live["export_bytes_per_s"] > 0 and live["import_bytes_per_s"] > 0
+    assert {d["decision"] for d in live["decisions"]} == {"handoff"}
+    assert len(live["migrate_s"]) == live["handoff"]["requested"]
+    replay = legs["replay"]["handoff"]
+    assert replay["replays"] == replay["requested"] >= 1
+    assert replay["faults"] == {"fabric": replay["requested"]}
+    assert legs["replay"]["export_blocks"] > 0
+    assert legs["replay"]["import_blocks"] == 0
+    assert legs["blob"]["fsck"]["clean_rc"] == 0
+    assert legs["blob"]["fsck"]["flipped_rc"] == 1
+    death = legs["death"]
+    assert death["deaths"] == death["restarts"] == 1
+    assert death["handoff"]["replays"] >= 1
+    assert death["handoff"]["requested"] == 0
+    assert death["restart_s"] is not None
+    assert set(rec["launches"]) == {"oracle", "death+live", "blob+replay"}
+    assert rec["bare_copy"] is None  # measured on the card only
+
+
+def test_kernel_line_carries_the_handoff_launches():
+    flash_main = {"kernel_ms": {k: 1.0 for k in ("K1", "K2", "K3")},
+                  "plain_ms": {k: 2.0 for k in ("K1", "K2", "K3")},
+                  "library_ms": {k: 1.5 for k in ("K1", "K2", "K3")},
+                  "share_of_bound": {k: 0.3 for k in ("K1", "K2", "K3")},
+                  "bounds": chip_smoke.flash_bounds(*SHAPE)}
+    flash = {"main": {"float32": flash_main, "bfloat16": flash_main},
+             "worst": {k: {"float32": (1e-6, 1e-7)}
+                       for k in ("K1", "K2", "K3")}}
+    kern = {"worst": {"float32": 1e-6}, "kernel_ms": 0.02, "event_ms": 0.03,
+            "plain_ms": 0.3, "bound_ms": 0.01, "bound_by": "bytes",
+            "share_of_bound": 0.4, "library_ms": 0.2, "split_pages": 8,
+            "grid": [1, 1, 1]}
+    handoff = {"launches": {"oracle": 900, "death+live": 970,
+                            "blob+replay": 950}}
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card", handoff=handoff)["kernels"]
+    k4 = next(r for r in rows if r["id"] == "K4")
+    assert k4["launches_handoff"] == handoff["launches"]
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    assert all(keys <= set(r) for r in rows)
+    rows = chip_smoke.kernel_line(kern, flash, None, None, None, None,
+                                  "card")["kernels"]
+    assert next(r for r in rows if r["id"] == "K4")[
+        "launches_handoff"] is None

@@ -1376,3 +1376,103 @@ def test_keras_compile_on_devices_leaves_and_trains(cuda, tmp_path, backend):
     assert rec["faults"] == []
     assert rec["left"] == [2, 3]
     assert all(s >= 0 for s in rec["reform_s"])
+
+
+def _serving_gpt(cuda):
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import build_gpt
+
+    ff = FFModel(FFConfig(batch_size=4, device="cuda"))
+    build_gpt(ff, batch_size=4, seq_length=64, hidden_size=128,
+              num_layers=2, num_heads=2, intermediate_size=256,
+              vocab_size=96)
+    ff.compile(seed=5)
+    cfg = ff.config
+    cfg.serving_slots, cfg.kv_page_size, cfg.prefill_chunk = 4, 8, 4
+    return ff
+
+
+def test_a_handoff_between_engines_on_the_card_equals_seq1(cuda):
+    """Two replicas of one front on the card, each engine on a stream of
+    its own: import_block writes in place (every pool keeps its
+    data_ptr), and a generation paused after 21 written tokens (two
+    pages of 8 and a 5-token tail), its blocks migrated and its tail
+    imported, completes as seq-1 stepping does on one engine alone."""
+    from flexflow_tpu_torch.serving import (ContinuousScheduler,
+                                            PagedKVDecodeModel,
+                                            ServingFront)
+
+    ff = _serving_gpt(cuda)
+    prompt = [3, 9, 4, 1, 7, 7, 2, 30, 11, 5, 61, 8, 40]
+    alone = ContinuousScheduler(PagedKVDecodeModel(
+        ff, batch_slots=4, page_size=8, prefill_chunk=0))
+    try:
+        want = alone.generate(prompt, 24, timeout=60)
+    finally:
+        alone.close()
+    front = ServingFront.from_trained(ff, num_replicas=2, handoff=True,
+                                      check_invariants=True)
+    try:
+        models = [r.scheduler.model._model for r in front.replicas]
+        assert models[0].stream is not models[1].stream
+        ptrs = [{(op, k): v.data_ptr() for op, e in m._state.items()
+                 for k, v in e.items()} for m in models]
+        armed = [True]
+        for r, m in zip(front.replicas, models):
+            real = m.step
+
+            def step(tokens, slens, btab, _real=real, _r=r):
+                out = _real(tokens, slens, btab)
+                if armed[0] and 20 in [int(x) for x in slens]:
+                    armed[0] = False
+                    _r.request_handoff(remaining_over=0, export_kv=True)
+                return out
+
+            m.step = step
+        got = front.generate(prompt, 24, timeout=60)
+        ho = front.stats()["handoff"]
+        for m, before in zip(models, ptrs):
+            assert {(op, k): v.data_ptr() for op, e in m._state.items()
+                    for k, v in e.items()} == before
+    finally:
+        front.close()
+    assert got == want
+    assert ho["requested"] == ho["ok"] == 1 and ho["replays"] == 0
+
+
+def test_a_stalled_replica_dies_alone(cuda):
+    """A HUNG_STEP stalls replica 0's stream past the watchdog: replica
+    0 dies and restarts once, replica 1 (its own stream) never waits on
+    the stall, and every completion equals the uninterrupted run's."""
+    import time
+
+    from flexflow_tpu_torch.resilience.faults import FaultKind, FaultPlan
+    from flexflow_tpu_torch.serving import ServingFront
+
+    ff = _serving_gpt(cuda)
+    prompts = [[5 + i, 9, 2, 7 * i % 96] for i in range(6)]
+    oracle = ServingFront.from_trained(ff, num_replicas=2)
+    try:
+        want = [h.wait(60) for h in [oracle.generate_async(p, 20)
+                                     for p in prompts]]
+    finally:
+        oracle.close()
+    front = ServingFront.from_trained(
+        ff, num_replicas=2, step_timeout=1.0, retry_backoff=0.0,
+        fault_plans={0: FaultPlan.single(8, FaultKind.HUNG_STEP)})
+    try:
+        got = [h.wait(60) for h in [front.generate_async(p, 20)
+                                    for p in prompts]]
+        r0, r1 = front.replicas
+        for _ in range(300):
+            if r0.restarts:
+                break
+            time.sleep(0.05)
+        assert r0.deaths == r0.restarts == 1
+        assert r0.stats()["hung_dispatches"] in ({"step": 1},
+                                                 {"prefill": 1})
+        assert r1.deaths == 0
+    finally:
+        front.close()
+        torch.cuda.synchronize()
+    assert got == want
